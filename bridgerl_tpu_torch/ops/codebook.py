@@ -1,0 +1,50 @@
+"""Nearest-codebook search and its assignment statistics.
+
+``nearest_codes`` is K2: for a CUDA tensor it launches the hand-written
+kernel (``ops/vq_kernel.py``), for a CPU tensor it takes the plain version
+:func:`nearest_codes_plain`, the counterpart of the JAX package's
+``nearest_codes_xla``. Both return (indices (N,) int32, counts (K,),
+dw (K, D)), so callers never build the (N, K) one-hot matrix themselves.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .vq_kernel import nearest_codes_cuda
+
+Codes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def nearest_codes_plain(flat: torch.Tensor, codebook: torch.Tensor) -> Codes:
+    """Plain version of K2: argmin_k ||e_k||^2 - 2 x.e_k in f32 (the constant
+    ||x||^2 is dropped), first index on ties, then the statistics."""
+    dist = torch.sum(codebook * codebook, dim=1)[None, :] - 2.0 * (flat @ codebook.t())
+    indices = torch.argmin(dist, dim=1).to(torch.int32)
+    counts, dw = assignment_stats(flat, indices, codebook.shape[0])
+    return indices, counts, dw
+
+
+def assignment_stats(flat: torch.Tensor, indices: torch.Tensor,
+                     num_codes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-code usage counts (K,) and per-code sums of assigned rows (K, D)."""
+    idx = indices.long()
+    counts = torch.zeros(num_codes, dtype=torch.float32, device=flat.device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    dw = torch.zeros(num_codes, flat.shape[1], dtype=torch.float32, device=flat.device)
+    dw.index_add_(0, idx, flat)
+    return counts, dw
+
+
+def quantize_lookup(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Row gather: codebook[indices]."""
+    return codebook[indices.long()]
+
+
+def nearest_codes(flat: torch.Tensor, codebook: torch.Tensor) -> Codes:
+    """The K2 kernel for CUDA tensors, the plain version for CPU tensors."""
+    if flat.is_cuda:
+        return nearest_codes_cuda(flat.contiguous(), codebook.contiguous())
+    return nearest_codes_plain(flat, codebook)

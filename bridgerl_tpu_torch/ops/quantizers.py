@@ -1,0 +1,216 @@
+"""Quantizers of the flagship model, eval path: EMA VQ, residual VQ, FSQ and
+the hybrid FSQ + residual VQ.
+
+Counterparts of ``bridgerl_tpu/ops/quantizers.py``. Layout is channel-last
+``(B, T, D)``. Every quantizer's ``forward(z)`` returns
+``(loss, z_q, metrics, codes)``: the first three as in the JAX package, and
+``codes`` the discrete code streams that the JAX package sows into its
+``intermediates`` collection, as a dict from stream path ("" for the
+module itself, "vq_0", "rvq/vq_0", ...) to an int32 (B, T) tensor.
+
+Training (the EMA fold) is the training slice's work: ``train=True`` raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from .codebook import nearest_codes, quantize_lookup
+
+Metrics = Dict[str, torch.Tensor]
+Codes = Dict[str, torch.Tensor]
+QuantOut = Tuple[torch.Tensor, torch.Tensor, Metrics, Codes]
+
+_TRAIN_NOT_PORTED = ("train=True (the EMA fold) belongs to the training slice "
+                     "(ROADMAP.md)")
+
+
+def ste(z: torch.Tensor, z_q: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator. The value is z + (z_q - z), not z_q: the
+    two differ in the last ulp, and residual VQ layers see the difference."""
+    return z + (z_q - z).detach()
+
+
+def unique_count(indices: torch.Tensor) -> torch.Tensor:
+    """Number of distinct values, as an f32 scalar (sort + adjacent diff)."""
+    s = torch.sort(indices.reshape(-1)).values
+    return 1.0 + torch.sum((s[1:] != s[:-1]).float())
+
+
+def perplexity_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """exp(-sum p log p) over the batch's code-usage histogram."""
+    probs = counts / torch.clamp(torch.sum(counts), min=1.0)
+    return torch.exp(-torch.sum(probs * torch.log(probs + 1e-10)))
+
+
+def dcr_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Dead-code ratio: fraction of codes unused in this batch."""
+    return 1.0 - torch.sum((counts > 0).float()) / counts.shape[0]
+
+
+def prefix_codes(prefix: str, codes: Codes) -> Codes:
+    """Code streams of a submodule, named by their path under ``prefix``."""
+    return {"/".join(p for p in (prefix, k) if p): v for k, v in codes.items()}
+
+
+class Codebook(nn.Module):
+    """Holder of one codebook buffer, so its state_dict key is
+    ``embedding.weight`` as in the reference's ``nn.Embedding``."""
+
+    def __init__(self, weight: torch.Tensor):
+        super().__init__()
+        self.register_buffer("weight", weight)
+
+
+class VectorQuantizer(nn.Module):
+    """EMA vector quantizer. ``embedding``, ``ema_w`` and
+    ``ema_cluster_size`` are buffers. With ``warm_start`` the EMA state starts
+    self-consistent (ema_w = embedding, cluster sizes 1); without it, as the
+    reference does (normal ema_w, zero cluster sizes)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 commitment_cost: float = 0.25, warm_start: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        K, D = num_embeddings, embedding_dim
+        self.embedding_dim = D
+        self.commitment_cost = commitment_cost
+        emb = (torch.rand(K, D, generator=generator) * 2.0 - 1.0) / K  # U(-1/K, 1/K)
+        self.embedding = Codebook(emb)
+        if warm_start:
+            self.register_buffer("ema_cluster_size", torch.ones(K))
+            self.register_buffer("ema_w", emb.clone())
+        else:
+            self.register_buffer("ema_cluster_size", torch.zeros(K))
+            self.register_buffer("ema_w", torch.randn(K, D, generator=generator))
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
+        if train:
+            raise NotImplementedError(_TRAIN_NOT_PORTED)
+        in_dtype = z.dtype
+        z = z.float()
+        embedding = self.embedding.weight
+        flat = z.reshape(-1, self.embedding_dim)
+        indices, counts, _ = nearest_codes(flat.detach(), embedding)
+        z_q = quantize_lookup(indices, embedding).reshape(z.shape)
+        loss = self.commitment_cost * torch.mean((z_q.detach() - z) ** 2)
+        metrics = {"perplexity": perplexity_from_counts(counts),
+                   "dcr": dcr_from_counts(counts)}
+        codes = {"": indices.reshape(z.shape[:-1])}
+        return loss, ste(z, z_q).to(in_dtype), metrics, codes
+
+
+class ResidualVQ(nn.Module):
+    """Stack of EMA VQs, each quantizing the previous residual. Outputs and
+    losses are summed; perplexity and dead-code ratio are layer means."""
+
+    def __init__(self, num_quantizers: int, num_embeddings: int,
+                 embedding_dim: int, commitment_cost: float = 0.25,
+                 warm_start: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            VectorQuantizer(num_embeddings, embedding_dim, commitment_cost,
+                            warm_start, generator)
+            for _ in range(num_quantizers))
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
+        residual = z
+        quantized_out = torch.zeros_like(z)
+        total_loss = torch.zeros((), device=z.device)
+        ppls, dcrs, codes = [], [], {}
+        for i, layer in enumerate(self.layers):
+            loss, q, m, c = layer(residual, train=train)
+            residual = residual - q
+            quantized_out = quantized_out + q
+            total_loss = total_loss + loss
+            ppls.append(m["perplexity"])
+            dcrs.append(m["dcr"])
+            codes.update(prefix_codes(f"vq_{i}", c))
+        metrics = {"perplexity": torch.mean(torch.stack(ppls)),
+                   "dcr": torch.mean(torch.stack(dcrs))}
+        return total_loss, quantized_out, metrics, codes
+
+
+class FSQ(nn.Module):
+    """Finite scalar quantization: project to len(levels) dims, round with a
+    straight-through estimator, project back. ``bounded`` tanh-squashes each
+    dim to exactly L integer values first (Mentzer et al. 2023); unbounded
+    rounds the raw projection, as the reference does."""
+
+    def __init__(self, levels: Sequence[int], input_dim: int, bounded: bool = False):
+        super().__init__()
+        self.levels = tuple(int(l) for l in levels)
+        self.bounded = bounded
+        n = len(self.levels)
+        self.project_in = nn.Linear(input_dim, n)
+        self.project_out = nn.Linear(n, input_dim)
+        lv = torch.tensor(self.levels, dtype=torch.float32)
+        half = (lv - 1.0) * (1.0 - 1e-3) / 2.0
+        offset = torch.where(lv % 2 == 0, 0.5, 0.0)
+        basis = torch.tensor([math.prod(self.levels[:i]) for i in range(n)],
+                             dtype=torch.float32)
+        self.register_buffer("_half", half, persistent=False)
+        self.register_buffer("_offset", offset, persistent=False)
+        self.register_buffer("_shift", torch.tan(offset / half), persistent=False)
+        self.register_buffer("_basis", basis, persistent=False)
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
+        in_dtype = z.dtype
+        zp = self.project_in(z.float())
+        if self.bounded:
+            zp = torch.tanh(zp + self._shift) * self._half - self._offset
+        hard_vals = torch.round(zp)
+        z_hard = zp + (hard_vals - zp).detach()
+        out = self.project_out(z_hard).to(in_dtype)
+        # indices from the exact round(): z_hard is integral only to ~ulp
+        indices = torch.sum(hard_vals.detach() * self._basis, dim=-1).to(torch.int32)
+        uniq = unique_count(indices)
+        metrics = {"perplexity": uniq,
+                   "dcr": 1.0 - uniq / float(math.prod(self.levels))}
+        return torch.zeros((), device=z.device), out, metrics, {"": indices}
+
+
+class HybridVQ(nn.Module):
+    """FSQ base plus a residual EMA VQ on the FSQ residual. Output is
+    fsq + rvq, the loss is the RVQ loss; perplexity and dead-code ratio come
+    from the FSQ, the RVQ perplexity is reported as ``rvq_ppl``.
+
+    Submodules are ``fsq`` and ``vq`` (the reference's state-dict names);
+    the residual VQ's code streams are named ``rvq/vq_i`` as in the JAX
+    package."""
+
+    def __init__(self, hidden_dim: int, fsq_levels: Sequence[int] = (8, 5, 5, 5),
+                 vq_codebook_size: int = 1024, num_quantizers: int = 4,
+                 warm_start: bool = True, fsq_bounded: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fsq = FSQ(fsq_levels, hidden_dim, bounded=fsq_bounded)
+        self.vq = ResidualVQ(num_quantizers, vq_codebook_size, hidden_dim,
+                             commitment_cost=0.25, warm_start=warm_start,
+                             generator=generator)
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
+        _, z_fsq, m_fsq, c_fsq = self.fsq(z, train=train)
+        loss_vq, z_vq, m_vq, c_vq = self.vq(z - z_fsq, train=train)
+        metrics = {"perplexity": m_fsq["perplexity"], "dcr": m_fsq["dcr"],
+                   "rvq_ppl": m_vq["perplexity"]}
+        codes = {**prefix_codes("fsq", c_fsq), **prefix_codes("rvq", c_vq)}
+        return loss_vq, z_fsq + z_vq, metrics, codes
+
+
+def make_quantizer(cfg, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Method dispatch; this slice ports ``hybrid`` only. As in the JAX
+    package, the hybrid's residual VQ has K=512 codes whatever
+    ``codebook_size`` says."""
+    if cfg.method != "hybrid":
+        raise NotImplementedError(
+            f"quantizer {cfg.method!r} is not ported yet (ROADMAP.md); "
+            "this slice runs 'hybrid'")
+    return HybridVQ(cfg.hidden_dim, tuple(cfg.fsq_levels), vq_codebook_size=512,
+                    warm_start=cfg.ema_warm_start, fsq_bounded=cfg.fsq_bounded,
+                    generator=generator)

@@ -1,0 +1,115 @@
+"""The port stands alone: it and ``chip_smoke.py`` import no JAX and nothing
+of ``bridgerl_tpu``; it asks for the card by default and never falls back to
+the CPU on its own; ``chip_smoke.py`` fails, printing nothing, where there is
+no card or no repository beside it."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from bridgerl_tpu_torch.device import resolve_device
+from bridgerl_tpu_torch.ops import kernels
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_MODULES = [
+    "bridgerl_tpu_torch", "bridgerl_tpu_torch.config", "bridgerl_tpu_torch.device",
+    "bridgerl_tpu_torch.convert", "bridgerl_tpu_torch.ops", "bridgerl_tpu_torch.models",
+    "bridgerl_tpu_torch.export.serving", "bridgerl_tpu_torch.export.server",
+    "bridgerl_tpu_torch.export.client", "bridgerl_tpu_torch.export.reconstruct",
+]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bridgerl_tpu")
+
+_PROBE = """
+import importlib, json, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in {forbidden})))
+"""
+
+
+def _run(args, cwd=REPO, **kw):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("JAX_PLATFORMS", None)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=120, **kw)
+
+
+@pytest.mark.parametrize("modules", [PORT_MODULES, ["chip_smoke"]], ids=["package", "chip_smoke"])
+def test_no_jax_or_reference_package_is_loaded(modules):
+    probe = _PROBE.replace("{forbidden}", repr(set(FORBIDDEN)))
+    r = _run(["-c", probe, *modules])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_source_mentions_no_jax_import():
+    for path in [*sorted((REPO / "bridgerl_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in FORBIDDEN, f"{path}: {line}"
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+
+
+def test_init_model_without_cuda_raises(monkeypatch):
+    from bridgerl_tpu_torch.config import make_experiment
+    from bridgerl_tpu_torch.models import init_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_experiment("transformer", "hybrid", window=10, d_model=32, ff_dim=64,
+                          n_tf_layers=1, hidden_dim=16).model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(cfg, 0)
+
+
+def test_chip_smoke_without_cuda_fails_and_prints_nothing():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs in full there")
+    r = _run(["chip_smoke.py"])
+    assert r.returncode != 0
+    assert r.stdout == ""
+    assert "CUDA is not available" in r.stderr
+
+
+def test_chip_smoke_alone_fails_and_prints_nothing(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert r.stdout == ""
+
+
+def test_kernel_sources_and_signatures_agree():
+    """Every C entry point the wrappers bind is defined in its csrc source."""
+    for fn, (lib, argtypes) in kernels.SIGNATURES.items():
+        src = (kernels.CSRC / f"{lib}.cu").read_text()
+        assert f'extern "C" int {fn}(' in src
+        assert "cudaGetLastError()" in src
+        assert "Replaces:" in src
+
+
+def test_counters_reset():
+    for c in kernels.COUNTERS.values():
+        c.add()
+    kernels.reset_counters()
+    assert {c.count for c in kernels.COUNTERS.values()} == {0}
+    assert sorted(kernels.COUNTERS) == ["packed_attention_fwd", "vq_assign"]
