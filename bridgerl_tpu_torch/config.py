@@ -197,3 +197,22 @@ def make_experiment(
         model=model,
         train=train,
     )
+
+
+# Full metric schema the evaluators expect (reference export_latex_table.py:19-27,
+# plot_results.py:11-25); the history JSON carries every key.
+HISTORY_KEYS: Tuple[str, ...] = (
+    "train_loss",
+    "train_recon_loss",
+    "train_vq_loss",
+    "val_loss",
+    "val_recon",
+    "val_cross_recon",
+    "val_align",
+    "val_vel",
+    "val_jerk",
+    "perplexity",
+    "dcr",
+    "dead_code_ratio",
+    "rvq_ppl",
+)

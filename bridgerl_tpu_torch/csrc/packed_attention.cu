@@ -1,12 +1,18 @@
-// K1 forward: packed-window attention, out = softmax(q k^T * scale + bias) v.
+// K1 forward: packed-window attention,
+// out = dropout(softmax(q k^T * scale + bias)) v.
 //
 // Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_fwd
-// (pallas_call at :149, kernel body _attn_kernel at :51), with dropout 0.
-// The backward (_attn_bwd_kernel) and dropout belong to the training slice.
+// (pallas_call at :149, kernel body _attn_kernel at :51). The backward is
+// csrc/packed_attention_bwd.cu.
 //
 // Shapes: q, k, v, out are (BH, S, Dh) float32, contiguous; bias is (S, S)
 // float32 and is added to every row's logits (0 / -1e9 for the block-diagonal
 // window mask, or zeros). Dh is one of 16, 32, 64, 128 (a template argument).
+// With dropout on, element (i, j) of row r is kept when Philox word
+// attn_keep_bits(seed, r, i * S + j) < thresh (philox.cuh) and is then scaled
+// by inv_keep; the softmax's normaliser sums the probabilities before the
+// mask, as the TPU kernel does. seed is read from device memory, so drawing
+// it never waits for the card.
 //
 // What bounds it on an H100: at the flagship shape (2048, 80, 64) the
 // function moves 168 MB (q, k, v read once, out written once: ~50 us at
@@ -28,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -38,7 +46,9 @@ packed_attention_fwd_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
                             const float* __restrict__ bias,
-                            float* __restrict__ out, int S, float scale) {
+                            float* __restrict__ out, int S, float scale,
+                            const int* __restrict__ seed_ptr, unsigned thresh,
+                            float inv_keep, int dropout) {
   extern __shared__ float smem[];
   constexpr int KS = DH + 1;                  // padded K row stride
   constexpr int DPL = (DH + 31) / 32;         // output dims per lane
@@ -47,6 +57,8 @@ packed_attention_fwd_kernel(const float* __restrict__ q,
   float* ps = vs + S * DH;                    // kWarps * S
 
   const size_t base = (size_t)blockIdx.x * S * DH;
+  const unsigned row = blockIdx.x;
+  const unsigned seed = dropout ? (unsigned)seed_ptr[0] : 0u;
   const float* qr = q + base;
   const float* kr = k + base;
   const float* vr = v + base;
@@ -83,8 +95,10 @@ packed_attention_fwd_kernel(const float* __restrict__ q,
     float l = 0.f;
     for (int j = lane; j < S; j += 32) {
       const float e = expf(p[j] - m);
-      p[j] = e;
       l += e;
+      p[j] = !dropout ? e
+             : attn_keep_bits(seed, row, (unsigned)(i * S + j)) < thresh ? e * inv_keep
+                                                                         : 0.f;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -114,7 +128,8 @@ packed_attention_fwd_kernel(const float* __restrict__ q,
 
 template <int DH>
 int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* out, int BH, int S, float scale, cudaStream_t stream) {
+           float* out, int BH, int S, float scale, const int* seed,
+           unsigned thresh, float inv_keep, int dropout, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)S * (2 * DH + 1) + kWarps * S);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -123,7 +138,7 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
     if (e != cudaSuccess) return (int)e;
   }
   packed_attention_fwd_kernel<DH><<<BH, kWarps * 32, smem, stream>>>(
-      q, k, v, bias, out, S, scale);
+      q, k, v, bias, out, S, scale, seed, thresh, inv_keep, dropout);
   return (int)cudaGetLastError();
 }
 
@@ -132,13 +147,16 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
 extern "C" int packed_attention_fwd(const float* q, const float* k,
                                     const float* v, const float* bias,
                                     float* out, int BH, int S, int Dh,
-                                    float scale, void* stream) {
+                                    float scale, const int* seed,
+                                    unsigned thresh, float inv_keep,
+                                    int dropout, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   switch (Dh) {
-    case 16: return launch<16>(q, k, v, bias, out, BH, S, scale, st);
-    case 32: return launch<32>(q, k, v, bias, out, BH, S, scale, st);
-    case 64: return launch<64>(q, k, v, bias, out, BH, S, scale, st);
-    case 128: return launch<128>(q, k, v, bias, out, BH, S, scale, st);
+    case 16: return launch<16>(q, k, v, bias, out, BH, S, scale, seed, thresh, inv_keep, dropout, st);
+    case 32: return launch<32>(q, k, v, bias, out, BH, S, scale, seed, thresh, inv_keep, dropout, st);
+    case 64: return launch<64>(q, k, v, bias, out, BH, S, scale, seed, thresh, inv_keep, dropout, st);
+    case 128: return launch<128>(q, k, v, bias, out, BH, S, scale, seed, thresh, inv_keep, dropout, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,15 @@
 """DualMotionVQVAE: two encoders, one shared quantizer, one robot decoder.
 
 Counterpart of ``bridgerl_tpu/models/dual_vqvae.py`` for the transformer
-towers and the hybrid quantizer, eval mode, f32 compute:
+towers and the hybrid quantizer, f32 compute:
 
 - robot branch: robot_encoder -> quantizer -> robot_decoder -> reconstruction
 - human branch: human_encoder -> quantizer -> robot_decoder -> retargeted motion
+
+With ``train=True`` the towers drop out (random numbers from ``generator``)
+and the quantizer folds its EMA codebooks. The branches run in that order
+and share the quantizer, so the human branch sees the codebook the robot
+branch has just folded, as in the JAX package.
 
 ``forward`` returns the JAX package's output dict; each branch also carries
 ``codes``, the quantizer's code streams named as the JAX package names them
@@ -46,7 +51,8 @@ class DualMotionVQVAE(nn.Module):
         self.cfg = cfg
         tower = dict(d_model=cfg.d_model, n_heads=cfg.n_heads,
                      num_layers=cfg.n_tf_layers, ff_dim=cfg.ff_dim,
-                     attn_packing=cfg.attn_packing, tokens=cfg.tf_tokens)
+                     attn_packing=cfg.attn_packing, tokens=cfg.tf_tokens,
+                     dropout=cfg.dropout)
         self.human_encoder = TransformerMotionEncoder(
             cfg.human_input_dim, cfg.hidden_dim, cfg.window_size, **tower)
         self.robot_encoder = TransformerMotionEncoder(
@@ -62,22 +68,24 @@ class DualMotionVQVAE(nn.Module):
         return z_e
 
     def _branch(self, encoder: nn.Module, x: torch.Tensor, out_key: str,
-                train: bool) -> Dict[str, Any]:
-        z_e = self._pre_quant(encoder(x, train=train))
+                train: bool, generator: Optional[torch.Generator]) -> Dict[str, Any]:
+        z_e = self._pre_quant(encoder(x, train=train, generator=generator))
         loss_vq, z_q, metrics, codes = self.quantizer(z_e, train=train)
-        return {out_key: self.robot_decoder(z_q, train=train), "loss_vq": loss_vq,
-                "metrics": metrics, "z_e": z_e,
+        return {out_key: self.robot_decoder(z_q, train=train, generator=generator),
+                "loss_vq": loss_vq, "metrics": metrics, "z_e": z_e,
                 "codes": prefix_codes("quantizer", codes)}
 
     def forward(self, x_robot: Optional[torch.Tensor] = None,
                 x_human: Optional[torch.Tensor] = None,
-                train: bool = False) -> Dict[str, Dict[str, Any]]:
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Dict[str, Any]]:
         outputs: Dict[str, Dict[str, Any]] = {}
         if x_robot is not None:
-            outputs["robot"] = self._branch(self.robot_encoder, x_robot, "recon", train)
+            outputs["robot"] = self._branch(self.robot_encoder, x_robot, "recon", train,
+                                            generator)
         if x_human is not None:
             outputs["human"] = self._branch(self.human_encoder, x_human,
-                                            "retargeted", train)
+                                            "retargeted", train, generator)
         return outputs
 
     def encode_robot(self, x_robot: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""Transformer towers of the flagship model, eval path.
+"""Transformer towers of the flagship model.
 
 Counterparts of the transformer half of ``bridgerl_tpu/models/layers.py``.
 Layout is channel-last ``(B, T, C)``. Submodules carry the reference's
 state-dict names (``input_proj``, ``transformer.layers.{i}.self_attn``,
 ``linear1``, ``norm1``, ...). Attention goes through
-``ops/attention.py::packed_attention`` (the K1 kernel on CUDA tensors).
+``ops/attention.py::packed_attention`` (the K1 kernels on CUDA tensors).
+
+``train=True`` turns on the four dropouts of each block at the config's
+rate: on the attention probabilities (inside K1), on the attention output
+before ``norm1``, after the ReLU, and on the feed-forward output before
+``norm2``. Their random numbers come from the explicit ``generator``.
 
 With ``attn_packing`` P > 1 and a batch divisible by P, P windows of T
 frames run as one (P*T)-token attention under the block-diagonal mask,
@@ -14,6 +19,8 @@ which is the same math as P separate T-token attentions.
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -23,8 +30,18 @@ from ..ops.attention import packed_attention
 LN_EPS = 1e-6     # flax LayerNorm's default (torch's is 1e-5)
 MASK_BIAS = -1e9  # additive logit bias across windows
 
-_TRAIN_NOT_PORTED = ("train=True (dropout) belongs to the training slice "
-                     "(ROADMAP.md)")
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+            ) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate and
+    scale kept values by 1 / (1 - rate). ``F.dropout`` takes no generator."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> torch.Tensor:
@@ -66,34 +83,39 @@ class SelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, d = x.shape
         H = self.n_heads
         Dh = d // H
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2).reshape(B * H, S, Dh)
                    .contiguous() for t in qkv.chunk(3, dim=-1))
-        o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh))
+        o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh), dropout_rate, generator)
         o = o.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, d)
         return self.out_proj(o)
 
 
 class TransformerBlock(nn.Module):
-    """Post-LN encoder layer: x = norm1(x + attn(x)); x = norm2(x + ff(x)),
-    with a ReLU feed-forward and LayerNorm eps 1e-6."""
+    """Post-LN encoder layer: x = norm1(x + drop(attn(x)));
+    x = norm2(x + drop(ff(x))), with a ReLU feed-forward (dropout after the
+    ReLU) and LayerNorm eps 1e-6."""
 
-    def __init__(self, d_model: int, n_heads: int, ff_dim: int):
+    def __init__(self, d_model: int, n_heads: int, ff_dim: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = SelfAttention(d_model, n_heads)
         self.linear1 = nn.Linear(d_model, ff_dim)
         self.linear2 = nn.Linear(ff_dim, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, bias))
-        h = self.linear2(F.relu(self.linear1(x)))
-        return self.norm2(x + h)
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout if train else 0.0
+        x = self.norm1(x + dropout(self.self_attn(x, bias, rate, generator), rate, generator))
+        h = dropout(F.relu(self.linear1(x)), rate, generator)
+        return self.norm2(x + dropout(self.linear2(h), rate, generator))
 
 
 class TransformerStack(nn.Module):
@@ -103,17 +125,18 @@ class TransformerStack(nn.Module):
     are non-persistent buffers, so they follow the model's device."""
 
     def __init__(self, num_layers: int, d_model: int, n_heads: int, ff_dim: int,
-                 seq_len: int, packing: int = 1):
+                 seq_len: int, packing: int = 1, dropout: float = 0.1):
         super().__init__()
         self.seq_len, self.packing = seq_len, packing
-        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads, ff_dim)
+        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads, ff_dim, dropout)
                                     for _ in range(num_layers))
         self.register_buffer("pe", sinusoidal_pe(seq_len, d_model), persistent=False)
         self.register_buffer("bias_single", attention_bias(1, seq_len), persistent=False)
         self.register_buffer("bias_packed", attention_bias(packing, seq_len),
                              persistent=False)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, d = h.shape
         if T != self.seq_len:
             raise ValueError(f"windows of {T} frames; this model takes {self.seq_len}")
@@ -123,7 +146,7 @@ class TransformerStack(nn.Module):
         bias = self.bias_packed if packed else self.bias_single
         h = h.reshape(B // P, P * T, d)
         for layer in self.layers:
-            h = layer(h, bias)
+            h = layer(h, bias, train, generator)
         return h.reshape(B, T, d)
 
 
@@ -134,18 +157,18 @@ class TransformerMotionEncoder(nn.Module):
 
     def __init__(self, input_dim: int, hidden_dim: int, seq_len: int,
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
-                 ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1):
+                 ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
+                 dropout: float = 0.1):
         super().__init__()
         self.tokens = tokens
         self.input_proj = nn.Linear(input_dim, d_model)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
-                                            seq_len, attn_packing)
+                                            seq_len, attn_packing, dropout)
         self.output_proj = nn.Linear(d_model, hidden_dim)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
-        h = self.transformer(self.input_proj(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.transformer(self.input_proj(x), train, generator)
         B, T, d = h.shape
         h = h.reshape(B, self.tokens, T // self.tokens, d).mean(dim=2)
         return self.output_proj(h)
@@ -157,17 +180,17 @@ class TransformerMotionDecoder(nn.Module):
 
     def __init__(self, output_dim: int, hidden_dim: int, seq_len: int,
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
-                 ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1):
+                 ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
+                 dropout: float = 0.1):
         super().__init__()
         self.seq_len, self.tokens = seq_len, tokens
         self.input_proj = nn.Linear(hidden_dim, d_model)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
-                                            seq_len, attn_packing)
+                                            seq_len, attn_packing, dropout)
         self.output_proj = nn.Linear(d_model, output_dim)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.input_proj(x)                                                # (B, k, d)
         h = torch.repeat_interleave(h, self.seq_len // self.tokens, dim=1)    # (B, T, d)
-        return self.output_proj(self.transformer(h))
+        return self.output_proj(self.transformer(h, train, generator))

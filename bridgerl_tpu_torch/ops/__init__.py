@@ -1,4 +1,10 @@
-from .attention import packed_attention, packed_attention_reference
+from .attention import (
+    PackedAttention,
+    attention_dropout_mask,
+    packed_attention,
+    packed_attention_bwd_reference,
+    packed_attention_reference,
+)
 from .codebook import assignment_stats, nearest_codes, nearest_codes_plain, quantize_lookup
 from .kernels import COUNTERS, build_all, reset_counters
 from .quantizers import (

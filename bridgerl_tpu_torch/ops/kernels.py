@@ -31,9 +31,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # C signatures: name -> (library, argtypes); every entry returns int
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
-    "packed_attention_fwd": ("packed_attention", [P, P, P, P, P, I, I, I, F, P]),
+    "packed_attention_fwd": ("packed_attention",
+                             [P, P, P, P, P, I, I, I, F, P, U, F, I, P]),
+    "packed_attention_bwd": ("packed_attention_bwd",
+                             [P, P, P, P, P, P, P, P, I, I, I, F, P, U, F, I, P]),
     "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, P]),
 }
 
@@ -71,7 +74,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's file name hashes its source, the headers of ``csrc/``
+    it may include, and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,5 +1,5 @@
-"""Quantizers of the flagship model, eval path: EMA VQ, residual VQ, FSQ and
-the hybrid FSQ + residual VQ.
+"""Quantizers of the flagship model: EMA VQ, residual VQ, FSQ and the hybrid
+FSQ + residual VQ.
 
 Counterparts of ``bridgerl_tpu/ops/quantizers.py``. Layout is channel-last
 ``(B, T, D)``. Every quantizer's ``forward(z)`` returns
@@ -8,7 +8,9 @@ Counterparts of ``bridgerl_tpu/ops/quantizers.py``. Layout is channel-last
 ``intermediates`` collection, as a dict from stream path ("" for the
 module itself, "vq_0", "rvq/vq_0", ...) to an int32 (B, T) tensor.
 
-Training (the EMA fold) is the training slice's work: ``train=True`` raises.
+With ``train=True`` each EMA VQ folds the batch's assignment statistics
+(K2's counts and dw) into its buffers, as the JAX package updates its
+``qstats`` collection, and quantizes with the folded codebook.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ Metrics = Dict[str, torch.Tensor]
 Codes = Dict[str, torch.Tensor]
 QuantOut = Tuple[torch.Tensor, torch.Tensor, Metrics, Codes]
 
-_TRAIN_NOT_PORTED = ("train=True (the EMA fold) belongs to the training slice "
-                     "(ROADMAP.md)")
+LAPLACE_EPS = 1e-5
+# The hybrid's residual VQ folds at 0.99 whatever ``ema_decay`` says: the JAX
+# package builds it without passing a decay.
+EMA_DECAY = 0.99
 
 
 def ste(z: torch.Tensor, z_q: torch.Tensor) -> torch.Tensor:
@@ -88,14 +92,32 @@ class VectorQuantizer(nn.Module):
             self.register_buffer("ema_cluster_size", torch.zeros(K))
             self.register_buffer("ema_w", torch.randn(K, D, generator=generator))
 
+    @torch.no_grad()
+    def _fold(self, counts: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+        """EMA update of the buffers from one batch's statistics, then the
+        Laplace-smoothed codebook. The buffers are replaced, not written in
+        place, so no tensor that an autograd graph saved changes under it."""
+        d = EMA_DECAY
+        new_cs = self.ema_cluster_size * d + counts * (1.0 - d)
+        new_w = self.ema_w * d + dw * (1.0 - d)
+        n = torch.sum(new_cs)
+        K = new_cs.shape[0]
+        cluster_size = (new_cs + LAPLACE_EPS) / (n + K * LAPLACE_EPS) * n
+        new_embedding = new_w / cluster_size[:, None]
+        self.ema_cluster_size = new_cs
+        self.ema_w = new_w
+        self.embedding.weight = new_embedding
+        return new_embedding
+
     def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
-        if train:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
         in_dtype = z.dtype
         z = z.float()
         embedding = self.embedding.weight
         flat = z.reshape(-1, self.embedding_dim)
-        indices, counts, _ = nearest_codes(flat.detach(), embedding)
+        indices, counts, dw = nearest_codes(flat.detach(), embedding)
+        if train:
+            # the lookup (and so the commitment loss) uses the folded codebook
+            embedding = self._fold(counts, dw)
         z_q = quantize_lookup(indices, embedding).reshape(z.shape)
         loss = self.commitment_cost * torch.mean((z_q.detach() - z) ** 2)
         metrics = {"perplexity": perplexity_from_counts(counts),

@@ -1,0 +1,325 @@
+"""Training: the accumulated optimizer step, epochs, and the teacher/student
+host loop with early stopping, resume and the full-schema history.
+
+Counterpart of ``bridgerl_tpu/train/trainer.py``, run eagerly:
+
+- an optimizer batch is ``accum_chunks`` microbatches (clamped to a divisor
+  of the batch as the JAX package clamps it); each microbatch runs the model
+  in train mode, so the EMA codebooks fold once per microbatch and carry to
+  the next; gradients are summed over the microbatches, divided by their
+  number, and AdamW steps once;
+- the teacher trains every parameter on the teacher loss (robot branch
+  only); the student loads the teacher minus its human encoder and trains
+  only the human encoder on the alignment loss, while both branches run in
+  train mode (the frozen robot encoder still drops out, both branches fold
+  the shared codebooks), as the JAX package's student step does;
+- AdamW (lr 2e-4, weight decay 1e-4, betas 0.9/0.999, eps 1e-8) decays
+  every parameter it updates, biases and LayerNorm included, as
+  ``optax.adamw`` does; frozen parameters get neither update nor decay.
+
+All random numbers of an epoch (its shuffle and every dropout) come from one
+``torch.Generator`` on the device, seeded from (seed, epoch), so a resumed
+run repeats the epochs it had not finished.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import HISTORY_KEYS, ExperimentConfig
+from ..data.dataset import PairedDataset, epoch_batch_indices, train_val_split
+from ..device import resolve_device
+from ..models.dual_vqvae import init_model
+from ..utils.logging import TermColor, epoch_log
+from .checkpoint import (
+    load_checkpoint,
+    merge_teacher_into_student,
+    resolve_teacher_ckpt,
+    save_checkpoint,
+    save_state_dict,
+    trainable_mask,
+)
+from .losses import eval_metrics, student_loss, teacher_loss
+
+Logs = Dict[str, torch.Tensor]
+
+
+def _check_ported(exp: ExperimentConfig) -> None:
+    t = exp.train
+    for name, off in (("lambda_fk", t.lambda_fk == 0.0),
+                      ("codebook_data_init", not t.codebook_data_init),
+                      ("init_from", not t.init_from),
+                      ("reuse_dropout_mask", not t.reuse_dropout_mask),
+                      ("cheap_dropout", not exp.model.cheap_dropout)):
+        if not off:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md)")
+
+
+def make_optimizer(model: nn.Module, exp: ExperimentConfig) -> torch.optim.AdamW:
+    """AdamW over the parameters the mode trains. The others are frozen
+    (``requires_grad=False``) and stay out of the optimizer."""
+    mask = trainable_mask(model, exp.train.mode)
+    params = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            params.append(p)
+    return torch.optim.AdamW(params, lr=exp.train.learning_rate, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=exp.train.weight_decay)
+
+
+def microbatch_loss(model: nn.Module, exp: ExperimentConfig, x_r: torch.Tensor,
+                    x_h: Optional[torch.Tensor], generator: Optional[torch.Generator]
+                    ) -> Tuple[torch.Tensor, Logs]:
+    """The mode's loss on one microbatch, the model in train mode."""
+    tcfg = exp.train
+    out = model(x_robot=x_r, x_human=x_h, train=True, generator=generator)
+    if tcfg.mode == "teacher":
+        parts = teacher_loss(out["robot"]["recon"], x_r, out["robot"]["loss_vq"],
+                             tcfg.lambda_recon, tcfg.lambda_vq, tcfg.lambda_vel,
+                             ref_exact_vel=tcfg.ref_exact_vel)
+        logs = {"train_loss": parts["loss"], "train_recon_loss": parts["recon_loss"],
+                "train_vq_loss": parts["vq_loss"]}
+    else:
+        parts = student_loss(out["human"]["z_e"], out["robot"]["z_e"], tcfg.lambda_align)
+        logs = {"train_loss": parts["loss"], "train_align": parts["align_loss"]}
+    return parts["loss"], logs
+
+
+def _mean_logs(logs: List[Logs]) -> Logs:
+    return {k: torch.stack([l[k] for l in logs]).mean() for k in logs[0]}
+
+
+def accumulate_grads(model: nn.Module, exp: ExperimentConfig, robot: torch.Tensor,
+                     human: torch.Tensor, idx: torch.Tensor,
+                     generator: Optional[torch.Generator]) -> Logs:
+    """Leave in ``.grad`` the gradient of one optimizer batch ``idx``: the sum
+    over its microbatches divided by their number. Returns the logs
+    averaged over the microbatches (device tensors)."""
+    accum = max(exp.train.accum_chunks, 1)
+    n = idx.shape[0]
+    acc = accum if n % accum == 0 else math.gcd(accum, n)
+    student = exp.train.mode == "student"
+    logs = []
+    for mb in idx.reshape(acc, n // acc):
+        loss, mb_logs = microbatch_loss(model, exp, robot[mb],
+                                        human[mb] if student else None, generator)
+        loss.backward()
+        logs.append({k: v.detach() for k, v in mb_logs.items()})
+    if acc > 1:
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(acc)
+    return _mean_logs(logs)
+
+
+def make_train_epoch(exp: ExperimentConfig) -> Callable:
+    """``train_epoch(model, opt, robot, human, idx_mat, generator)``: one
+    optimizer step per row of the (steps, batch) index matrix; returns the
+    logs averaged over the steps, as floats."""
+
+    def train_epoch(model, opt, robot, human, idx_mat, generator) -> Dict[str, float]:
+        logs = []
+        for idx in idx_mat:
+            opt.zero_grad(set_to_none=False)
+            logs.append(accumulate_grads(model, exp, robot, human, idx, generator))
+            # optax.adamw sees a zero gradient for a parameter outside the
+            # loss (the teacher's human encoder) and still decays it
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            opt.step()
+        return {k: float(v) for k, v in _mean_logs(logs).items()}
+
+    return train_epoch
+
+
+@torch.no_grad()
+def eval_epoch(model: nn.Module, robot: torch.Tensor, human: torch.Tensor,
+               idx_mat: torch.Tensor, mode: str = "student") -> Dict[str, float]:
+    """Validation in eval mode, averaged over the batches. The teacher
+    evaluates the robot branch only (its human branch is untrained); the
+    student evaluates both, for the cross and alignment metrics."""
+    metrics = []
+    for idx in idx_mat:
+        x_r = robot[idx]
+        x_h = None if mode == "teacher" else human[idx]
+        metrics.append(eval_metrics(model(x_robot=x_r, x_human=x_h), x_r))
+    return {k: float(v) for k, v in _mean_logs(metrics).items()}
+
+
+def val_index_matrix(n_val: int, batch_size: int) -> np.ndarray:
+    """Deterministic chunking of the val set (drop remainder; at least 1 batch)."""
+    vb = min(batch_size, n_val)
+    nb = max(n_val // vb, 1)
+    return np.arange(nb * vb).reshape(nb, vb)
+
+
+def empty_history() -> Dict[str, list]:
+    return {k: [] for k in HISTORY_KEYS}
+
+
+def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The generator of one epoch's shuffle and dropout, from (seed, epoch)."""
+    state = np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+class Trainer:
+    """Host-level orchestration of one experiment across its seeds.
+
+    ``train_seconds`` records, for every epoch run, (epoch, windows trained,
+    seconds of ``train_epoch``); the epoch ends by reading its losses on the
+    host, which waits for the device."""
+
+    def __init__(self, exp: ExperimentConfig, device=None, verbose: bool = True):
+        _check_ported(exp)
+        self.exp = exp
+        self.device = resolve_device(device)
+        self.verbose = verbose
+        self.train_seconds: List[Tuple[int, int, float]] = []
+        os.makedirs(exp.log_dir, exist_ok=True)
+        os.makedirs(exp.checkpoint_dir, exist_ok=True)
+
+    # ---- paths (reference naming, train_ablation.py:124-126, 142, 289, 363) ----
+    def _log_path(self, seed: int) -> str:
+        return os.path.join(self.exp.log_dir, self.exp.log_name(seed))
+
+    def _mode_log_path(self, seed: int) -> str:
+        return os.path.join(
+            self.exp.log_dir, f"log_{self.exp.name}_{self.exp.train.mode}_seed_{seed}.json")
+
+    def ckpt_path(self, seed: int, kind: str) -> str:
+        return os.path.join(self.exp.checkpoint_dir, self.exp.ckpt_name(seed, kind) + ".pth")
+
+    def train_seed(self, ds: PairedDataset, seed: int) -> Dict[str, list]:
+        exp, tcfg = self.exp, self.exp.train
+        mode = tcfg.mode
+        if self.verbose:
+            print(f"{TermColor.HEADER}Start: {exp.run_name(seed)} | Mode: {mode.upper()} | "
+                  f"Device: {self.device}{TermColor.ENDC}")
+        model = init_model(exp.model, seed, device=self.device)
+
+        # ---- resume / student transfer (train_ablation.py:152-180) ----
+        start_epoch = 0
+        best_val = float("inf")
+        patience_counter = 0
+        history = empty_history()
+        resumed_opt_state = None
+        last_path = self.ckpt_path(seed, "last")
+        if tcfg.resume and os.path.exists(last_path):
+            ck = load_checkpoint(last_path)
+            model.load_state_dict(ck["model_state_dict"])
+            resumed_opt_state = ck["optimizer_state_dict"] or None
+            try:
+                with open(self._log_path(seed)) as f:
+                    loaded = json.load(f)
+                history.update({k: v for k, v in loaded.items() if k in history})
+            except (OSError, ValueError):
+                pass
+            if ck["config"] is not None and ck["config"].train.mode == mode:
+                start_epoch = ck["epoch"] + 1
+                best_val = ck["best_loss"]
+                patience_counter = ck["patience_counter"]
+            # the history JSON may run ahead of `_last` (save_every > 1)
+            history = {k: v[:start_epoch] for k, v in history.items()}
+            if self.verbose:
+                print(f"{TermColor.CYAN}    [Resume] {last_path} @ epoch {start_epoch}"
+                      f"{TermColor.ENDC}")
+        elif mode == "student":
+            tpath = resolve_teacher_ckpt(tcfg.teacher_ckpt or "", seed)
+            if not tpath or not os.path.exists(tpath):
+                raise ValueError(f"Student mode requires a valid teacher_ckpt "
+                                 f"(resolved: {tpath!r})")
+            teacher = load_checkpoint(tpath)["model_state_dict"]
+            model.load_state_dict(merge_teacher_into_student(model.state_dict(), teacher))
+            if self.verbose:
+                print(f"{TermColor.BLUE}    [Student] Loaded teacher: {tpath}{TermColor.ENDC}")
+
+        train_ds, val_ds = train_val_split(ds, tcfg.val_fraction, seed)
+        if len(train_ds) == 0 or len(val_ds) == 0:
+            raise ValueError(
+                f"val_fraction={tcfg.val_fraction} splits {len(ds)} windows "
+                f"into train={len(train_ds)}/val={len(val_ds)}; both must be non-empty")
+
+        opt = make_optimizer(model, exp)
+        if resumed_opt_state is not None:
+            # the AdamW moments, where the parameter groups still match
+            try:
+                opt.load_state_dict(resumed_opt_state)
+            except (ValueError, KeyError):
+                pass
+
+        n_train = len(train_ds)
+        batch = min(tcfg.batch_size, n_train)
+        idx_val = torch.as_tensor(val_index_matrix(len(val_ds), tcfg.batch_size),
+                                  device=self.device)
+        train_epoch = make_train_epoch(exp)
+        patience = tcfg.patience
+        t0 = time.time()
+
+        # a resume past tcfg.epochs runs no epoch; the final save still needs one
+        epoch = max(start_epoch - 1, 0)
+        for epoch in range(start_epoch, tcfg.epochs):
+            g = epoch_generator(seed, epoch, self.device)
+            idx_mat = epoch_batch_indices(g, n_train, batch)
+            t_epoch = time.perf_counter()
+            logs = train_epoch(model, opt, train_ds.robot, train_ds.human, idx_mat, g)
+            self.train_seconds.append((epoch, idx_mat.numel(), time.perf_counter() - t_epoch))
+            val = eval_epoch(model, val_ds.robot, val_ds.human, idx_val, mode)
+            cur = val["val_recon"] if mode == "teacher" else val["val_align"]
+
+            history["train_loss"].append(logs["train_loss"])
+            history["train_recon_loss"].append(logs.get("train_recon_loss", 0.0))
+            history["train_vq_loss"].append(logs.get("train_vq_loss", 0.0))
+            history["val_loss"].append(cur)
+            for k in ("val_recon", "val_cross_recon", "val_align", "val_vel", "val_jerk",
+                      "perplexity", "dcr", "rvq_ppl"):
+                if k in val:
+                    history[k].append(val[k])
+            history["dead_code_ratio"].append(val.get("dcr", 0.0))
+
+            if self.verbose and (epoch % 5 == 0 or epoch == tcfg.epochs - 1):
+                done = epoch - start_epoch + 1
+                eta = (tcfg.epochs - epoch - 1) * ((time.time() - t0) / done)
+                epoch_log(epoch, logs["train_loss"], cur,
+                          "Recon" if mode == "teacher" else "Align", eta)
+
+            # best first, so that `_last` records the post-epoch best
+            improved = cur < best_val
+            if improved:
+                best_val = cur
+                patience_counter = 0
+                save_checkpoint(self.ckpt_path(seed, "best"), epoch=epoch, model=model,
+                                optimizer=opt, best_loss=best_val, config=exp)
+            else:
+                patience_counter += 1
+            if epoch % max(tcfg.save_every, 1) == 0 or epoch == tcfg.epochs - 1:
+                save_checkpoint(last_path, epoch=epoch, model=model, optimizer=opt,
+                                best_loss=best_val, config=exp,
+                                patience_counter=patience_counter)
+            with open(self._log_path(seed), "w") as f:
+                json.dump(history, f, indent=4)
+
+            if not improved and patience > 0 and patience_counter >= patience:
+                if self.verbose:
+                    print(f"{TermColor.RED}!!! Early stopping at epoch {epoch} "
+                          f"(no improvement for {patience}) !!!{TermColor.ENDC}")
+                break
+
+        save_state_dict(self.ckpt_path(seed, "final"), model)
+        with open(self._mode_log_path(seed), "w") as f:
+            json.dump(history, f, indent=4)
+        return history
+
+    def run(self, ds: PairedDataset) -> Dict[int, Dict[str, list]]:
+        return {seed: self.train_seed(ds, seed) for seed in self.exp.train.seeds}

@@ -7,10 +7,12 @@ machine with one (which needs no JAX), run
 
 ``--noconftest`` skips tests/conftest.py, which configures JAX for the rest
 of the suite. Shapes go beyond chip_smoke.py's: every head dim K1 takes, odd
-sequence lengths and general biases; K2 at odd N, D and K, D up to 512,
-exact ties, and the shapes it refuses.
+sequence lengths and general biases, forward and backward, with dropout 0
+and 0.1; K2 at odd N, D and K, D up to 512, exact ties, and the shapes it
+refuses; one small-model train step against the CPU.
 
-Tolerances: K1 1e-4 absolute (f32, other summation order and expf). K2
+Tolerances: K1 1e-4 absolute (f32, other summation order and expf), with
+the dropout mask equal bit for bit (the same Philox words). K2
 indices equal except rows whose two best plain distances lie within
 1e-5 * (1 + |d|); counts exact against the kernel's own indices; dw 1e-4
 relative (atomics add in an order that changes from run to run).
@@ -24,6 +26,7 @@ from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.models import init_model
 from bridgerl_tpu_torch.models.layers import attention_bias
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
+from bridgerl_tpu_torch.train.trainer import accumulate_grads, make_optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +89,129 @@ def test_k1_refuses_what_it_does_not_take(gen, bad):
         args["bias"] = torch.zeros(S, S, device="cuda")
     with pytest.raises(ValueError):
         attention.packed_attention(args["q"], args["k"], args["v"], args["bias"], 0.1)
+
+
+def _seed(gen):
+    return attention.draw_seed(gen, "cuda")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [10, 80, 120])
+@pytest.mark.parametrize("Dh", attention.SUPPORTED_HEAD_DIMS)
+def test_k1_bwd_matches_plain(gen, Dh, S, rate):
+    BH = 48
+    q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen) for _ in range(4))
+    bias = attention_bias(S // 10, 10, "cuda")
+    seed, scale = _seed(gen), Dh ** -0.5
+    before = attention.bwd_launch_counter.count
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate)
+    torch.cuda.synchronize()
+    assert attention.bwd_launch_counter.count == before + 1
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("S,Dh", [(80, 64), (10, 16), (120, 128)])
+def test_k1_fwd_with_dropout_matches_plain(gen, S, Dh):
+    q, k, v = (torch.randn(32, S, Dh, device="cuda", generator=gen) for _ in range(3))
+    bias = attention_bias(S // 10, 10, "cuda")
+    seed = _seed(gen)
+    out = attention.attention_fwd(q, k, v, bias, Dh ** -0.5, seed, 0.1)
+    ref = attention.packed_attention_reference(q, k, v, bias, Dh ** -0.5, seed, 0.1)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_k1_masks_equal_plain_philox(gen):
+    """v = I makes the forward return p_drop and dout = I makes dv p_drop^T:
+    the kernels' keep bits equal attention_dropout_mask exactly."""
+    BH, S = 40, 20
+    q, k = (torch.randn(BH, S, 32, device="cuda", generator=gen) for _ in range(2))
+    eye = torch.eye(S, 32, device="cuda").expand(BH, S, 32).contiguous()
+    bias = torch.zeros(S, S, device="cuda")
+    seed = _seed(gen)
+    fwd = attention.attention_fwd(q, k, eye, bias, 0.2, seed, 0.3)[:, :, :S] > 0
+    dv = attention.attention_bwd(q, k, eye, bias, eye, 0.2, seed, 0.3)[2]
+    want = attention.attention_dropout_mask(seed, BH, S, 0.3, "cuda")
+    assert torch.equal(fwd, want) and torch.equal(dv[:, :S, :S].transpose(1, 2) > 0, want)
+
+
+def test_k1_autograd_goes_through_both_kernels(gen):
+    q, k, v = (torch.randn(16, 80, 64, device="cuda", generator=gen, requires_grad=True)
+               for _ in range(3))
+    bias = attention_bias(8, 10, "cuda")
+    kernels.reset_counters()
+    out = attention.packed_attention(q, k, v, bias, 0.125, 0.1,
+                                     torch.Generator(device="cuda").manual_seed(3))
+    out.sum().backward()
+    assert attention.launch_counter.count == 1 and attention.bwd_launch_counter.count == 1
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_k1_bwd_empty_batch_launches_nothing(gen):
+    q = torch.empty(0, 10, 64, device="cuda")
+    before = attention.bwd_launch_counter.count
+    dq, dk, dv = attention.attention_bwd(q, q, q, torch.zeros(10, 10, device="cuda"), q,
+                                         0.125, None, 0.0)
+    assert dq.shape == (0, 10, 64) and attention.bwd_launch_counter.count == before
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "dout_shape", "seed",
+                                 "no_seed", "too_long"])
+def test_k1_bwd_refuses_what_it_does_not_take(gen, bad):
+    S, Dh = 10, 64
+    t = lambda *shape: torch.randn(*shape, device="cuda")
+    args = {"q": t(4, S, Dh), "k": t(4, S, Dh), "v": t(4, S, Dh), "do": t(4, S, Dh),
+            "bias": torch.zeros(S, S, device="cuda"), "seed": _seed(gen), "rate": 0.1}
+    if bad == "head_dim":
+        args.update({n: t(4, S, 48) for n in ("q", "k", "v", "do")})
+    elif bad == "dtype":
+        args["k"] = args["k"].double()
+    elif bad == "strided":
+        args["do"] = t(4, Dh, S).transpose(1, 2)
+    elif bad == "dout_shape":
+        args["do"] = t(4, S + 1, Dh)
+    elif bad == "seed":
+        args["seed"] = args["seed"].long()
+    elif bad == "no_seed":
+        args["seed"] = None
+    elif bad == "too_long":
+        args.update({n: t(1, 240, 128) for n in ("q", "k", "v", "do")})
+        args["bias"] = torch.zeros(240, 240, device="cuda")
+    with pytest.raises(ValueError):
+        attention.attention_bwd(args["q"], args["k"], args["v"], args["bias"], args["do"],
+                                0.1, args["seed"], args["rate"])
+
+
+@pytest.mark.parametrize("mode", ["teacher", "student"])
+def test_small_model_train_step_on_the_card_matches_the_cpu(gen, mode):
+    """One accumulated step at dropout 0: loss 1e-5 relative, every
+    gradient 1e-4 in relative norm, and the exact launches per microbatch."""
+    exp = make_experiment("transformer", "hybrid", window=10, hidden_dim=16, d_model=64,
+                          n_tf_layers=2, ff_dim=64, attn_packing=4, dropout=0.0,
+                          batch_size=64, accum_chunks=2, mode=mode)
+    x = torch.randn(64, 10, 29, generator=torch.Generator().manual_seed(1))
+    h = torch.randn(64, 10, 126, generator=torch.Generator().manual_seed(2))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = init_model(exp.model, 3, device=dev)
+        make_optimizer(model, exp)
+        kernels.reset_counters()
+        logs = accumulate_grads(model, exp, x.to(dev), h.to(dev),
+                                torch.arange(64, device=dev), None)
+        res[dev] = (float(logs["train_loss"]), {n: p.grad.cpu() for n, p in
+                                                model.named_parameters()
+                                                if p.grad is not None})
+        if dev == "cuda":
+            per_mb = {"teacher": (4, 4, 4), "student": (8, 2, 8)}[mode]
+            got = tuple(kernels.COUNTERS[n].count for n in
+                        ("packed_attention_fwd", "packed_attention_bwd", "vq_assign"))
+            assert got == tuple(2 * c for c in per_mb)
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert sorted(gg) == sorted(gc)
+    for n in gc:
+        assert (gg[n] - gc[n]).norm() <= 1e-4 * gc[n].norm(), n
 
 
 def _k2_case(x, cb):

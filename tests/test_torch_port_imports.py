@@ -99,12 +99,27 @@ def test_chip_smoke_alone_fails_and_prints_nothing(tmp_path):
 
 
 def test_kernel_sources_and_signatures_agree():
-    """Every C entry point the wrappers bind is defined in its csrc source."""
+    """Every C entry point the wrappers bind is defined in its csrc source,
+    with as many parameters as its ctypes signature; every source is bound."""
+    assert sorted(lib for lib, _ in kernels.SIGNATURES.values()) == sorted(
+        p.stem for p in kernels.CSRC.glob("*.cu"))
     for fn, (lib, argtypes) in kernels.SIGNATURES.items():
         src = (kernels.CSRC / f"{lib}.cu").read_text()
         assert f'extern "C" int {fn}(' in src
+        params = src.split(f'extern "C" int {fn}(')[1].split(")")[0]
+        assert len(params.split(",")) == len(argtypes), fn
         assert "cudaGetLastError()" in src
         assert "Replaces:" in src
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """An edited header rebuilds the kernels that include it."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    first = kernels._lib_path(tmp_path / "a.cu")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert kernels._lib_path(tmp_path / "a.cu") != first
 
 
 def test_counters_reset():
@@ -112,4 +127,5 @@ def test_counters_reset():
         c.add()
     kernels.reset_counters()
     assert {c.count for c in kernels.COUNTERS.values()} == {0}
-    assert sorted(kernels.COUNTERS) == ["packed_attention_fwd", "vq_assign"]
+    assert sorted(kernels.COUNTERS) == ["packed_attention_bwd", "packed_attention_fwd",
+                                        "vq_assign"]

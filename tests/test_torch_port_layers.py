@@ -69,12 +69,6 @@ def test_packed_rows_equal_separate_windows():
         np.testing.assert_allclose(packed[:, sl], alone, atol=ATTN_ATOL)
 
 
-def test_attention_dropout_raises():
-    t = torch.zeros(2, 10, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attention.packed_attention(t, t, t, torch.zeros(10, 10), 0.5, dropout_rate=0.1)
-
-
 def test_cpu_tensors_take_the_plain_version_without_counting():
     t = torch.randn(4, 10, 16, generator=torch.Generator().manual_seed(0))
     attention.launch_counter.reset()

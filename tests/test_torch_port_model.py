@@ -223,13 +223,6 @@ def test_unported_models_raise(arch, method):
         DualMotionVQVAE(make_experiment(arch, method, window=10).model)
 
 
-def test_train_mode_raises():
-    model = init_model(make_experiment("transformer", "hybrid", **SMALL).model, 0,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(x_robot=torch.zeros(2, 10, 29), train=True)
-
-
 @pytest.mark.parametrize("kw", [
     dict(arch="transformer", method="hybrid", window=10),
     dict(arch="transformer", method="hybrid", window=64, tf_tokens=4),

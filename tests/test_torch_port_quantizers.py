@@ -177,12 +177,6 @@ def test_rvq_residual_chain_is_exact():
     assert 1.0 <= metrics["perplexity"].item() <= 512
 
 
-def test_vector_quantizer_train_mode_raises():
-    vq = quantizers.VectorQuantizer(8, 4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        vq(torch.zeros(2, 1, 4), train=True)
-
-
 def test_vector_quantizer_cold_start_buffers():
     g = torch.Generator().manual_seed(0)
     vq = quantizers.VectorQuantizer(16, 4, warm_start=False, generator=g)
