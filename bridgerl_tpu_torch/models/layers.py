@@ -84,14 +84,16 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                window: Optional[int] = None) -> torch.Tensor:
         B, S, d = x.shape
         H = self.n_heads
         Dh = d // H
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2).reshape(B * H, S, Dh)
                    .contiguous() for t in qkv.chunk(3, dim=-1))
-        o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh), dropout_rate, generator)
+        o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh), dropout_rate, generator,
+                             window=window)
         o = o.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, d)
         return self.out_proj(o)
 
@@ -111,9 +113,11 @@ class TransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                window: Optional[int] = None) -> torch.Tensor:
         rate = self.dropout if train else 0.0
-        x = self.norm1(x + dropout(self.self_attn(x, bias, rate, generator), rate, generator))
+        x = self.norm1(x + dropout(self.self_attn(x, bias, rate, generator, window), rate,
+                                   generator))
         h = dropout(F.relu(self.linear1(x)), rate, generator)
         return self.norm2(x + dropout(self.linear2(h), rate, generator))
 
@@ -121,7 +125,9 @@ class TransformerBlock(nn.Module):
 class TransformerStack(nn.Module):
     """Positional table, then the blocks, over windows of ``seq_len`` frames.
     With ``packing`` P > 1 and a batch divisible by P, P windows share one
-    attention row under the block-diagonal bias. The table and both biases
+    attention row under the block-diagonal bias. Attention always runs with
+    ``window=seq_len``, packed or not, so K1 computes only the windows'
+    diagonal blocks. The table and both biases
     are non-persistent buffers, so they follow the model's device."""
 
     def __init__(self, num_layers: int, d_model: int, n_heads: int, ff_dim: int,
@@ -146,7 +152,7 @@ class TransformerStack(nn.Module):
         bias = self.bias_packed if packed else self.bias_single
         h = h.reshape(B // P, P * T, d)
         for layer in self.layers:
-            h = layer(h, bias, train, generator)
+            h = layer(h, bias, train, generator, window=self.seq_len)
         return h.reshape(B, T, d)
 
 

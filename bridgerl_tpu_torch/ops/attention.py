@@ -6,6 +6,14 @@ The counterpart of ``bridgerl_tpu/ops/pallas/attention.py``
 ``bias`` is one (S, S) additive term shared by every row: the block-diagonal
 window mask as 0 / -1e9, or zeros.
 
+``window`` W (default S; it must divide S) restricts the function to the
+diagonal (W, W) blocks of each row: query i attends only to the keys j with
+i // W == j // W, with ``bias[i, j]`` added, and no gradient crosses a
+window. Entries of ``bias`` outside those blocks are never read. With the
+block-diagonal bias of P windows of W frames and ``window=W`` this equals the
+full-row function up to summation order, because ``expf(-1e9 + ...)`` is
+exactly 0 in f32; the model's towers always pass their window.
+
 A CUDA tensor goes to the hand-written kernels ``csrc/packed_attention.cu``
 (forward) and ``csrc/packed_attention_bwd.cu`` (backward); a CPU tensor goes
 to the plain versions :func:`packed_attention_reference` and
@@ -16,11 +24,11 @@ the dropout mask, as the TPU kernel's custom VJP does.
 Dropout is counter-based, so the backward regenerates the forward's mask
 from the seed alone. The generator is Philox4x32-10 (Salmon et al., SC'11),
 written once in CUDA and once here: key (seed, 0), counter
-(i*S + j, row, 0, 0), first output word. An element is kept when its word is
-below ``uint32(keep * 2**32)`` and is then scaled by ``1 / keep``. Each
-(batch*head) row draws its own mask; the TPU kernel does the same (one PRNG
-stream per grid program), while flax's default attention shares one mask
-across the batch.
+(i*S + j, row, 0, 0) with i and j positions in the packed row, first output
+word. An element is kept when its word is below ``uint32(keep * 2**32)`` and
+is then scaled by ``1 / keep``. Each (batch*head) row draws its own mask; the
+TPU kernel does the same (one PRNG stream per grid program), while flax's
+default attention shares one mask across the batch.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 from . import kernels
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-_WARPS = 8                    # kWarps in both csrc/packed_attention*.cu
+_ROW_WARPS = 8                # kRowWarps in both csrc/packed_attention*.cu
 _SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
 SEED_HIGH = 2 ** 31 - 1       # seeds are drawn from [0, SEED_HIGH), as in JAX
 
@@ -79,14 +87,34 @@ def keep_threshold(dropout_rate: float) -> int:
     return int((1.0 - dropout_rate) * 4294967296.0)
 
 
+def resolve_window(S: int, window: Optional[int]) -> int:
+    """The window length: S when ``window`` is None; it must divide S."""
+    if window is None:
+        return S
+    W = int(window)
+    if W < 1 or S % W:
+        raise ValueError(f"window {window} does not divide the row length {S}")
+    return W
+
+
+def window_dropout_mask(seed: Seed, BH: int, S: int, W: int, dropout_rate: float = 0.1,
+                        device=None) -> torch.Tensor:
+    """The diagonal (W, W) blocks of the kernels' keep mask:
+    bool (BH, S // W, W, W). Element (i, j) of window w is position
+    (w*W + i, w*W + j) of the packed row."""
+    seed = int(seed)
+    start = torch.arange(0, S, W, dtype=torch.int64, device=device)[:, None, None]
+    a = torch.arange(W, dtype=torch.int64, device=device)
+    ij = (start + a[:, None]) * S + (start + a[None, :])           # (S // W, W, W)
+    row = torch.arange(BH, dtype=torch.int64, device=device)[:, None]
+    bits = philox4x32((ij.reshape(1, -1), row, 0, 0), (seed & _U32, 0))[0]
+    return (bits < keep_threshold(dropout_rate)).reshape(BH, S // W, W, W)
+
+
 def attention_dropout_mask(seed: Seed, BH: int, S: int, dropout_rate: float = 0.1,
                            device=None) -> torch.Tensor:
-    """Plain version of the kernels' keep mask: bool (BH, S, S)."""
-    seed = int(seed)
-    ij = torch.arange(S * S, dtype=torch.int64, device=device)
-    row = torch.arange(BH, dtype=torch.int64, device=device)[:, None]
-    bits = philox4x32((ij[None, :], row, 0, 0), (seed & _U32, 0))[0]
-    return (bits < keep_threshold(dropout_rate)).reshape(BH, S, S)
+    """Plain version of the kernels' keep mask over whole rows: bool (BH, S, S)."""
+    return window_dropout_mask(seed, BH, S, S, dropout_rate, device).reshape(BH, S, S)
 
 
 def _inv_keep(dropout_rate: float) -> float:
@@ -95,6 +123,17 @@ def _inv_keep(dropout_rate: float) -> float:
 
 # ---------------------------------------------------------------- plain versions
 
+def _windows(t: torch.Tensor, W: int) -> torch.Tensor:
+    BH, S, Dh = t.shape
+    return t.reshape(BH, S // W, W, Dh)
+
+
+def _window_bias(bias: torch.Tensor, W: int) -> torch.Tensor:
+    """The diagonal (W, W) blocks of the (S, S) bias: (S // W, W, W)."""
+    n = bias.shape[0] // W
+    return bias.reshape(n, W, n, W).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+
+
 def _probs(q, k, bias, scale):
     s = torch.matmul(q, k.transpose(-1, -2)) * scale + bias
     return torch.softmax(s, dim=-1)
@@ -102,24 +141,31 @@ def _probs(q, k, bias, scale):
 
 def packed_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                bias: torch.Tensor, scale: float, seed: Seed = 0,
-                               dropout_rate: float = 0.0) -> torch.Tensor:
-    """Plain PyTorch version of K1's forward."""
-    p = _probs(q, k, bias, scale)
+                               dropout_rate: float = 0.0,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1's forward, window by window."""
+    BH, S, Dh = q.shape
+    W = resolve_window(S, window)
+    p = _probs(_windows(q, W), _windows(k, W), _window_bias(bias, W), scale)
     if dropout_rate > 0.0:
-        keep = attention_dropout_mask(seed, q.shape[0], q.shape[1], dropout_rate, q.device)
+        keep = window_dropout_mask(seed, BH, S, W, dropout_rate, q.device)
         p = torch.where(keep, p * _inv_keep(dropout_rate), 0.0)
-    return torch.matmul(p, v)
+    return torch.matmul(p, _windows(v, W)).reshape(BH, S, Dh)
 
 
 def packed_attention_bwd_reference(q, k, v, bias, dout, scale: float, seed: Seed = 0,
-                                   dropout_rate: float = 0.0):
-    """Plain PyTorch version of K1's backward, written out as the TPU
-    kernel's ``_attn_bwd_kernel`` is: recompute p and the mask, then
-    dv = p_drop^T do, dp = keep * (do v^T) / keep_prob,
+                                   dropout_rate: float = 0.0,
+                                   window: Optional[int] = None):
+    """Plain PyTorch version of K1's backward, window by window, written out
+    as the TPU kernel's ``_attn_bwd_kernel`` is: recompute p and the mask,
+    then dv = p_drop^T do, dp = keep * (do v^T) / keep_prob,
     ds = p * (dp - sum(dp * p)) * scale, dq = ds k, dk = ds^T q."""
-    p = _probs(q, k, bias, scale)
+    BH, S, Dh = q.shape
+    W = resolve_window(S, window)
+    q, k, v, dout = (_windows(t, W) for t in (q, k, v, dout))
+    p = _probs(q, k, _window_bias(bias, W), scale)
     if dropout_rate > 0.0:
-        keep = attention_dropout_mask(seed, q.shape[0], q.shape[1], dropout_rate, q.device)
+        keep = window_dropout_mask(seed, BH, S, W, dropout_rate, q.device)
         inv = _inv_keep(dropout_rate)
         p_drop = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, torch.matmul(dout, v.transpose(-1, -2)) * inv, 0.0)
@@ -128,20 +174,35 @@ def packed_attention_bwd_reference(q, k, v, bias, dout, scale: float, seed: Seed
         dp = torch.matmul(dout, v.transpose(-1, -2))
     dv = torch.matmul(p_drop.transpose(-1, -2), dout)
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True)) * scale
-    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+    dq, dk = torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q)
+    return tuple(t.reshape(BH, S, Dh) for t in (dq, dk, dv))
 
 
 # ---------------------------------------------------------------- kernels
+#
+# Each kernel source has two code paths, and the C launcher picks the first
+# whose shared memory fits one block (the formulas below mirror it):
+#   window tiles: whole windows staged in shared memory, padded rows of
+#     Dh + 4 floats, and the (W, W + 1) probability tiles;
+#   rows: for windows too large to tile, one block per window that stages
+#     K and V (forward) or two of q, k, v, dout per pass (backward) with
+#     rows of Dh + 1, one warp per query row.
 
-def _fwd_smem_bytes(S: int, Dh: int) -> int:
-    return 4 * (S * (2 * Dh + 1) + _WARPS * S)
+def _fwd_smem_bytes(W: int, Dh: int) -> int:
+    """Least shared memory a forward block needs for one window."""
+    tile = 3 * W * (Dh + 4) + 2 * W * (W + 1) + W
+    rows = W * (2 * Dh + 1) + _ROW_WARPS * W
+    return 4 * min(tile, rows)
 
 
-def _bwd_smem_bytes(S: int, Dh: int) -> int:
-    return 4 * (2 * S * (Dh + 1) + 2 * _WARPS * S + 3 * S)
+def _bwd_smem_bytes(W: int, Dh: int) -> int:
+    """Least shared memory a backward block needs for one window."""
+    tile = 4 * W * (Dh + 4) + 3 * W * (W + 1)
+    rows = 2 * W * (Dh + 1) + 2 * _ROW_WARPS * W + 3 * W
+    return 4 * min(tile, rows)
 
 
-def _check(q, k, v, bias, seed, smem_bytes, extra=()):
+def _check(q, k, v, bias, seed, W, smem_bytes, extra=()):
     BH, S, Dh = q.shape
     for name, t in (("k", k), ("v", v), *extra):
         if t.shape != q.shape:
@@ -151,13 +212,16 @@ def _check(q, k, v, bias, seed, smem_bytes, extra=()):
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), *extra):
         if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if seed is not None and (seed.device != q.device or seed.dtype != torch.int32
                              or seed.numel() != 1):
         raise ValueError(f"seed must be one int32 on {q.device}")
     if Dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {Dh} not in {SUPPORTED_HEAD_DIMS}")
-    if smem_bytes(S, Dh) > _SMEM_LIMIT:
-        raise ValueError(f"S={S}, Dh={Dh} needs more shared memory than a block has")
+    if smem_bytes(W, Dh) > _SMEM_LIMIT:
+        raise ValueError(f"window {W}, Dh={Dh} needs more shared memory than a block has")
 
 
 def _seed_ptr(seed, dropout_rate: float) -> int:
@@ -166,15 +230,16 @@ def _seed_ptr(seed, dropout_rate: float) -> int:
     return seed.data_ptr() if dropout_rate > 0.0 else 0
 
 
-def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate):
-    _check(q, k, v, bias, seed, _fwd_smem_bytes)
+def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window):
     BH, S, Dh = q.shape
+    W = resolve_window(S, window)
+    _check(q, k, v, bias, seed, W, _fwd_smem_bytes)
     out = torch.empty_like(q)
     if BH == 0:
         return out
     fn = kernels.entry("packed_attention_fwd")
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), BH, S, Dh, float(scale), _seed_ptr(seed, dropout_rate),
+                out.data_ptr(), BH, S, W, Dh, float(scale), _seed_ptr(seed, dropout_rate),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), kernels.stream_ptr(q))
     kernels.check("packed_attention_fwd", status)
@@ -182,16 +247,17 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate):
     return out
 
 
-def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate):
-    _check(q, k, v, bias, seed, _bwd_smem_bytes, extra=(("dout", dout),))
+def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window):
     BH, S, Dh = q.shape
+    W = resolve_window(S, window)
+    _check(q, k, v, bias, seed, W, _bwd_smem_bytes, extra=(("dout", dout),))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if BH == 0:
         return dq, dk, dv
     fn = kernels.entry("packed_attention_bwd")
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                BH, S, Dh, float(scale), _seed_ptr(seed, dropout_rate),
+                BH, S, W, Dh, float(scale), _seed_ptr(seed, dropout_rate),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), kernels.stream_ptr(q))
     kernels.check("packed_attention_bwd", status)
@@ -200,40 +266,42 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate):
 
 
 def attention_fwd(q, k, v, bias, scale: float, seed: Optional[torch.Tensor],
-                  dropout_rate: float = 0.0) -> torch.Tensor:
+                  dropout_rate: float = 0.0, window: Optional[int] = None) -> torch.Tensor:
     """K1's forward: the kernel for CUDA tensors, the plain version for CPU
     tensors. ``seed`` is a one-element int32 tensor on q's device, read only
     when ``dropout_rate`` > 0."""
     if q.is_cuda:
-        return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate)
-    return packed_attention_reference(q, k, v, bias, scale, seed, dropout_rate)
+        return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window)
+    return packed_attention_reference(q, k, v, bias, scale, seed, dropout_rate, window)
 
 
 def attention_bwd(q, k, v, bias, dout, scale: float, seed: Optional[torch.Tensor],
-                  dropout_rate: float = 0.0):
+                  dropout_rate: float = 0.0, window: Optional[int] = None):
     """K1's backward (dq, dk, dv): the kernel for CUDA tensors, the plain
     version for CPU tensors."""
     if q.is_cuda:
-        return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate)
-    return packed_attention_bwd_reference(q, k, v, bias, dout, scale, seed, dropout_rate)
+        return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window)
+    return packed_attention_bwd_reference(q, k, v, bias, dout, scale, seed, dropout_rate,
+                                          window)
 
 
 class PackedAttention(torch.autograd.Function):
-    """K1 forward and backward. bias, seed, scale and rate get no gradient
-    (the TPU kernel gives bias a zero cotangent: it is the constant mask)."""
+    """K1 forward and backward. bias, seed, scale, rate and window get no
+    gradient (the TPU kernel gives bias a zero cotangent: it is the constant
+    mask)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, scale, dropout_rate):
+    def forward(ctx, q, k, v, bias, seed, scale, dropout_rate, window=None):
         ctx.save_for_backward(q, k, v, bias, seed)
-        ctx.scale, ctx.dropout_rate = scale, dropout_rate
-        return attention_fwd(q, k, v, bias, scale, seed, dropout_rate)
+        ctx.scale, ctx.dropout_rate, ctx.window = scale, dropout_rate, window
+        return attention_fwd(q, k, v, bias, scale, seed, dropout_rate, window)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, seed = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, bias, dout.contiguous(), ctx.scale, seed,
-                                   ctx.dropout_rate)
-        return dq, dk, dv, None, None, None, None
+                                   ctx.dropout_rate, ctx.window)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -247,13 +315,15 @@ def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
     """dropout(softmax(q k^T * scale + bias)) v for (B*H, S, Dh) q, k, v and
-    (S, S) bias, differentiable in q, k and v.
+    (S, S) bias, within windows of ``window`` positions (default S),
+    differentiable in q, k and v.
 
     With ``dropout_rate`` > 0 the seed is drawn once from ``generator``.
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     versions. There is no fallback from one to the other.
     """
     seed = draw_seed(generator, q.device) if dropout_rate > 0.0 else None
-    return PackedAttention.apply(q, k, v, bias, seed, scale, float(dropout_rate))
+    return PackedAttention.apply(q, k, v, bias, seed, scale, float(dropout_rate), window)

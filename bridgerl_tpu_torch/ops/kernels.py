@@ -34,9 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     "packed_attention_fwd": ("packed_attention",
-                             [P, P, P, P, P, I, I, I, F, P, U, F, I, P]),
+                             [P, P, P, P, P, I, I, I, I, F, P, U, F, I, P]),
     "packed_attention_bwd": ("packed_attention_bwd",
-                             [P, P, P, P, P, P, P, P, I, I, I, F, P, U, F, I, P]),
+                             [P, P, P, P, P, P, P, P, I, I, I, I, F, P, U, F, I, P]),
     "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, P]),
 }
 

@@ -1,0 +1,1 @@
+"""Diagnostics of the port that run on the card."""

@@ -12,11 +12,19 @@ script exits non-zero:
    to build the CUDA kernels from ``bridgerl_tpu_torch/csrc/``.
 2. ``kernel`` lines: each kernel against its plain PyTorch version on the
    card, at the shapes the serving and training paths give it, with its
-   time (median of CUDA-event timings after warm-up), the least time the
-   card could take for the same work (``bound_ms``), the plain version's
-   time and, where one PyTorch call computes the same function, its time as
-   a yardstick the port never calls (``scaled_dot_product_attention``
-   forward, and its backward through autograd). K1 runs with dropout 0 and
+   time (median of CUDA-event timings after warm-up: ``ms`` with the inputs
+   warm in L2, ``ms_cold`` after writing a 128 MB buffer, outside the timed
+   events, before every launch), the least time the card could take for the
+   work these inputs need (``bound_ms``), the plain version's time and,
+   where one PyTorch call computes the same function, its time as a
+   yardstick the port never calls. K1 runs with ``window`` = S / packing,
+   so its bound counts the diagonal window blocks only (bytes 4 * 4 *
+   BH * S * Dh forward and 7 * 4 * BH * S * Dh backward; FLOPs
+   4 * BH * S * W * Dh and 10 * BH * S * W * Dh); its yardsticks are
+   ``scaled_dot_product_attention`` over the full rows with the float bias
+   (``library_full_ms``) and over the (BH * S / W, W, Dh) windows with no
+   mask (``library_window_ms``), forward, and backward through autograd;
+   ``library_ms`` is the faster of the two. K1 runs with dropout 0 and
    0.1; with dropout its keep mask must equal the plain Philox mask bit for
    bit in both directions, and its kept share lie within 4 sigma of 0.9.
 3. The serving path: the flagship retargeting model (full width, weights
@@ -78,6 +86,8 @@ from bridgerl_tpu_torch.train.trainer import (
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+L2_FLUSH_BYTES = 128 << 20     # written before each cold launch: over twice the 50 MB L2
+HOST_LEAD_CYCLES = 10_000_000  # a ~5 ms spin queued before each timed call
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # (B*H, S, Dh, packing, dropout): serving at b=4096 and b=64 unpacked, and the
 # training microbatch of 512 windows packed 8 to a row
@@ -111,13 +121,21 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, warmup: int = 5, iters: int = 30) -> float:
-    """Median device time of one call, from CUDA events."""
+def time_ms(fn, warmup: int = 5, iters: int = 30, cold: bool = False) -> float:
+    """Median device time of one call, from CUDA events. A spin kernel
+    queued before the start event keeps the card busy while the host
+    enqueues the call, so the events bracket the call's device work and not
+    the host's time to launch it. ``cold`` writes a buffer larger than L2
+    before each call, outside the timed events."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if cold:
+            flush.fill_(1.0)
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -137,6 +155,15 @@ def launches() -> dict:
     return {name: c.count for name, c in kernels.COUNTERS.items()}
 
 
+PORT_KERNELS = ("k1_fwd_", "k1_bwd_", "vq_assign")   # device names of the port's kernels
+
+
+def _top(rows, n: int):
+    """The n largest rows by device time, and every row of the port's own
+    kernels below them."""
+    return rows[:n] + [r for r in rows[n:] if any(k in r[0] for k in PORT_KERNELS)]
+
+
 # ---------------------------------------------------------------- phase 2
 
 def _k1_inputs(g, BH, S, Dh, P):
@@ -145,26 +172,43 @@ def _k1_inputs(g, BH, S, Dh, P):
     return q, k, v, attention_bias(P, S // P, "cuda"), 1.0 / Dh ** 0.5, seed
 
 
-def check_k1(g: torch.Generator) -> dict:
+def _sdpa_forms(q, k, v, bias, scale, rate, W):
+    """The two single-call yardsticks: SDPA over the full rows with the
+    float bias, and over the (BH * S / W, W, Dh) windows with no mask (the
+    same function, since the bias is 0 inside the windows)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    Dh = q.shape[-1]
+    qw, kw, vw = (t.view(-1, W, Dh) for t in (q, k, v))
+    return (lambda: sdpa(q, k, v, attn_mask=bias, scale=scale, dropout_p=rate),
+            lambda: sdpa(qw, kw, vw, scale=scale, dropout_p=rate))
+
+
+def _timings(kernel, plain, library_full, library_window) -> dict:
+    full, window = time_ms(library_full), time_ms(library_window)
+    return {"ms": time_ms(kernel), "ms_cold": time_ms(kernel, cold=True),
+            "plain_ms": time_ms(plain), "library_ms": min(full, window),
+            "library_full_ms": full, "library_window_ms": window}
+
+
+def check_k1(g: torch.Generator) -> dict:
     cases = []
     for BH, S, Dh, P, rate in K1_SHAPES:
+        W = S // P
         q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P)
-        out = attention.attention_fwd(q, k, v, bias, scale, seed, rate)
+        out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, W)
         torch.cuda.synchronize()
-        ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate)
+        ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W)
         err = (out - ref).abs().max().item()
         require(torch.isfinite(out).all().item() and err <= K1_ATOL,
                 f"K1 {BH, S, Dh} dropout {rate}: max abs error {err} > {K1_ATOL}")
-        b_ms, b_by = bound(4 * (4 * BH * S * Dh + S * S), 4 * BH * S * S * Dh)
+        b_ms, b_by = bound(4 * 4 * BH * S * Dh, 4 * BH * S * W * Dh)
         case = {
-            "shape": [BH, S, Dh], "packing": P, "dropout": rate, "max_abs_err": err,
-            "ms": time_ms(lambda: attention.attention_fwd(q, k, v, bias, scale, seed, rate)),
-            "plain_ms": time_ms(lambda: attention.packed_attention_reference(
-                q, k, v, bias, scale, seed, rate)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale,
-                                               dropout_p=rate)),
+            "shape": [BH, S, Dh], "packing": P, "window": W, "dropout": rate,
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            **_timings(lambda: attention.attention_fwd(q, k, v, bias, scale, seed, rate, W),
+                       lambda: attention.packed_attention_reference(
+                           q, k, v, bias, scale, seed, rate, W),
+                       *_sdpa_forms(q, k, v, bias, scale, rate, W)),
         }
         emit({"phase": "kernel", "name": "packed_attention_fwd", **case})
         cases.append(case)
@@ -184,8 +228,8 @@ def check_k1_mask(g: torch.Generator) -> dict:
     BH, S, Dh, P = 256, 80, 128, 8
     q, k, _, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P)
     eye = torch.eye(S, Dh, device="cuda").expand(BH, S, Dh).contiguous()
-    fwd = attention.attention_fwd(q, k, eye, bias, scale, seed, DROPOUT)[:, :, :S] > 0
-    _, _, dv = attention.attention_bwd(q, k, eye, bias, eye, scale, seed, DROPOUT)
+    fwd = attention.attention_fwd(q, k, eye, bias, scale, seed, DROPOUT, S // P)[:, :, :S] > 0
+    _, _, dv = attention.attention_bwd(q, k, eye, bias, eye, scale, seed, DROPOUT, S // P)
     bwd = dv[:, :S, :S].transpose(1, 2) > 0
     torch.cuda.synchronize()
     inside = attention_bias(P, S // P, "cuda") == 0
@@ -205,30 +249,32 @@ def check_k1_mask(g: torch.Generator) -> dict:
 
 
 def check_k1_bwd(g: torch.Generator) -> dict:
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
     for BH, S, Dh, P, rate in K1_BWD_SHAPES:
+        W = S // P
         q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P)
         do = torch.randn(BH, S, Dh, device="cuda", generator=g)
-        got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate)
+        got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W)
         torch.cuda.synchronize()
-        want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate)
+        want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
+                                                        W)
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         require(all(torch.isfinite(a).all().item() for a in got) and err <= K1_ATOL,
                 f"K1 bwd {BH, S, Dh} dropout {rate}: max abs error {err} > {K1_ATOL}")
-        # the JAX cost model of the backward (attention.py:179)
-        b_ms, b_by = bound(7 * BH * S * Dh * 4, 10 * BH * S * S * Dh)
+        b_ms, b_by = bound(7 * 4 * BH * S * Dh, 10 * BH * S * W * Dh)
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        lib_out = sdpa(qg, kg, vg, attn_mask=bias, scale=scale, dropout_p=rate)
+        lib_outs = [f() for f in _sdpa_forms(qg, kg, vg, bias, scale, rate, W)]
+        lib_do = (do, do.view(-1, W, Dh))
         case = {
-            "shape": [BH, S, Dh], "packing": P, "dropout": rate, "max_abs_err": err,
-            "ms": time_ms(lambda: attention.attention_bwd(q, k, v, bias, do, scale, seed,
-                                                          rate)),
-            "plain_ms": time_ms(lambda: attention.packed_attention_bwd_reference(
-                q, k, v, bias, do, scale, seed, rate)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: torch.autograd.grad(
-                lib_out, (qg, kg, vg), do, retain_graph=True)),
+            "shape": [BH, S, Dh], "packing": P, "window": W, "dropout": rate,
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            **_timings(lambda: attention.attention_bwd(q, k, v, bias, do, scale, seed, rate,
+                                                       W),
+                       lambda: attention.packed_attention_bwd_reference(
+                           q, k, v, bias, do, scale, seed, rate, W),
+                       *(lambda o=o, d=d: torch.autograd.grad(o, (qg, kg, vg), d,
+                                                              retain_graph=True)
+                         for o, d in zip(lib_outs, lib_do))),
         }
         emit({"phase": "kernel", "name": "packed_attention_bwd", **case})
         cases.append(case)
@@ -420,7 +466,7 @@ def device_breakdown(app: ServingApp, x: np.ndarray, reps: int = 3) -> dict:
             "device_ms_per_request": busy_ms / reps, "idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"kernel": name[:90], "ms_per_request": ms / reps,
                      "launches_per_request": n / reps, "share": ms / busy_ms}
-                    for name, ms, n in rows[:15]]}
+                    for name, ms, n in _top(rows, 15)]}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -564,7 +610,7 @@ def train_breakdown(reps: int = 1) -> dict:
             "device_launches_per_step": sum(r[2] for r in rows) / reps,
             "top": [{"kernel": name[:90], "ms_per_step": ms / reps,
                      "launches_per_step": n / reps, "share": ms / busy_ms}
-                    for name, ms, n in rows[:20]]}
+                    for name, ms, n in _top(rows, 20)]}
 
 
 def main(argv) -> int:

@@ -11,7 +11,8 @@ sequence lengths and general biases, forward and backward, with dropout 0
 and 0.1; K2 at odd N, D and K, D up to 512, exact ties, and the shapes it
 refuses; one small-model train step against the CPU.
 
-Tolerances: K1 1e-4 absolute (f32, other summation order and expf), with
+K1 runs with ``window`` (the diagonal blocks of each packed row only) and
+without it (W = S, any bias). Tolerances: K1 1e-4 absolute (f32, other summation order and expf), with
 the dropout mask equal bit for bit (the same Philox words). K2
 indices equal except rows whose two best plain distances lie within
 1e-5 * (1 + |d|); counts exact against the kernel's own indices; dw 1e-4
@@ -60,6 +61,58 @@ def test_k1_matches_plain_with_general_bias(gen, Dh, BH, S):
 @pytest.mark.parametrize("packing,window", [(8, 10), (2, 10), (16, 10), (4, 7)])
 def test_k1_matches_plain_with_window_mask(gen, packing, window):
     _k1_case(gen, 96, packing * window, 64, attention_bias(packing, window, "cuda"))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh", attention.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("packing,window", [(8, 10), (16, 10), (4, 7), (1, 10)])
+def test_k1_windowed_fwd_and_bwd_match_plain(gen, packing, window, Dh, rate):
+    """window=W computes the diagonal blocks only: forward and backward
+    against the windowed plain versions, 1e-4."""
+    BH, S = 40, packing * window
+    q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen) for _ in range(4))
+    bias = attention_bias(packing, window, "cuda")
+    seed, scale = _seed(gen), Dh ** -0.5
+    kernels.reset_counters()
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, window)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, window)
+    torch.cuda.synchronize()
+    assert attention.launch_counter.count == 1 and attention.bwd_launch_counter.count == 1
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, window)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
+                                                    window)
+    assert (out - ref).abs().max().item() <= 1e-4
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_k1_windows_with_a_general_bias_and_the_philox_mask(gen):
+    """A random bias inside the windows, and v = I / dout = I to read both
+    kernels' keep bits: equal to the plain mask's diagonal blocks."""
+    BH, S, W = 24, 40, 10
+    q, k = (torch.randn(BH, S, 64, device="cuda", generator=gen) for _ in range(2))
+    bias = torch.randn(S, S, device="cuda", generator=gen) * 3.0
+    eye = torch.eye(W, 64, device="cuda").repeat(S // W, 1).expand(BH, S, 64).contiguous()
+    seed = _seed(gen)
+    fwd = attention.attention_fwd(q, k, eye, bias, 0.2, seed, 0.3, W)
+    dv = attention.attention_bwd(q, k, eye, bias, eye, 0.2, seed, 0.3, W)[2]
+    ref = attention.packed_attention_reference(q, k, eye, bias, 0.2, seed, 0.3, W)
+    assert (fwd - ref).abs().max().item() <= 1e-4
+    want = attention.window_dropout_mask(seed, BH, S, W, 0.3, "cuda")
+    got_fwd = fwd[:, :, :W].reshape(BH, S // W, W, W) > 0
+    got_bwd = dv[:, :, :W].reshape(BH, S // W, W, W).transpose(2, 3) > 0
+    assert torch.equal(got_fwd, want) and torch.equal(got_bwd, want)
+
+
+def test_k1_refuses_a_window_that_does_not_divide_the_row(gen):
+    q = torch.randn(4, 20, 64, device="cuda", generator=gen)
+    bias = torch.zeros(20, 20, device="cuda")
+    with pytest.raises(ValueError, match="window"):
+        attention.attention_fwd(q, q, q, bias, 0.125, None, 0.0, 7)
+    with pytest.raises(ValueError, match="window"):
+        attention.attention_bwd(q, q, q, bias, q, 0.125, None, 0.0, 7)
+    with pytest.raises(ValueError, match="window"):
+        attention.packed_attention(q, q, q, bias, 0.125, window=0)
 
 
 def test_k1_empty_batch_launches_nothing(gen):
