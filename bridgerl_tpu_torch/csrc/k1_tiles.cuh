@@ -1,6 +1,7 @@
 // Shared pieces of K1's window-tile path (packed_attention.cu and
 // packed_attention_bwd.cu): the block shape, the shared-memory budget, and
-// 16-byte asynchronous copies from device memory into shared memory.
+// 16-byte asynchronous copies from device memory into shared memory. K2
+// (vq_assign.cu) uses the budget, the copies and dot4 too.
 //
 // A window of W positions is W * Dh contiguous floats of a (BH, S, Dh)
 // tensor, and window n = row * (S / W) + w starts at float n * W * Dh, so a

@@ -37,7 +37,9 @@ SIGNATURES = {
                              [P, P, P, P, P, I, I, I, I, F, P, U, F, I, P]),
     "packed_attention_bwd": ("packed_attention_bwd",
                              [P, P, P, P, P, P, P, P, I, I, I, I, F, P, U, F, I, P]),
-    "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, P]),
+    # x, codebook, idx, counts, dw, N, D, K, then ops/vq_kernel.py's K2Plan:
+    # tile_rows, cluster, slices_per_block, tiles_per_cluster, smem_bytes, pass_rows
+    "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -27,6 +27,12 @@ script exits non-zero:
    ``library_ms`` is the faster of the two. K1 runs with dropout 0 and
    0.1; with dropout its keep mask must equal the plain Philox mask bit for
    bit in both directions, and its kept share lie within 4 sigma of 0.9.
+   K2 runs at N = 4096 (serving), 512 (training) and 6554 (validation):
+   its counts and dw must equal ``assignment_stats`` on the CPU for its own
+   indices bit for bit, a second call must repeat the first bit for bit,
+   and the profiler must see two device operations a call; each K2 line
+   carries the device time of each of its two kernels and the time of one
+   and of two empty kernels (``launch_floor_ms``), timed the same way.
 3. The serving path: the flagship retargeting model (full width, weights
    from a fixed seed) served through the port's ``ServingApp``: ``retarget``
    at b = 1, 5, 64, 512, 4096, ``robot_recon`` and ``motion_codes`` at b = 64,
@@ -95,11 +101,12 @@ K1_SHAPES = ((2048, 80, 64, 8, 0.0), (256, 10, 64, 1, 0.0), (256, 80, 64, 8, 0.0
              (256, 80, 64, 8, 0.1))
 K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8, 0.0),
                  (2048, 80, 64, 8, 0.1))
-K2_SHAPES = ((4096, 64, 512), (512, 64, 512))        # (N, D, K): serving, training
+K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512))  # (N, D, K): serving,
+                                                                 # training, validation
+K2_DEVICE_OPS = 2              # K2's two kernels; its outputs need no zero-fill
 DROPOUT = 0.1
 K1_ATOL = 1e-4
 K2_TIE = 1e-5
-K2_DW_RTOL = 1e-4
 SERVE_ATOL = 1e-3
 CODES_AGREE = 0.999
 RETARGET_BATCHES = (1, 5, 64, 512, 4096)
@@ -155,7 +162,8 @@ def launches() -> dict:
     return {name: c.count for name, c in kernels.COUNTERS.items()}
 
 
-PORT_KERNELS = ("k1_fwd_", "k1_bwd_", "vq_assign")   # device names of the port's kernels
+# device names of the port's kernels
+PORT_KERNELS = ("k1_fwd_", "k1_bwd_", "vq_assign_nearest", "vq_assign_stats")
 
 
 def _top(rows, n: int):
@@ -287,7 +295,34 @@ def check_k1_bwd(g: torch.Generator) -> dict:
     }
 
 
+def _device_ops(fn, reps: int = 10) -> dict:
+    """Device operations and device time by kernel for one call of fn, from
+    torch.profiler over ``reps`` calls after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.count / reps, ev.self_device_time_total / 1e3 / reps)
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    require(sum(r[2] for r in rows) > 0, "the profiler saw no device time")
+    return {"device_ops_per_call": sum(r[1] for r in rows),
+            "device_ms_by_kernel": {name[:80]: ms for name, _, ms in rows}}
+
+
 def check_k2(g: torch.Generator) -> dict:
+    """K2 at the training, serving and validation shapes: indices against
+    the plain version outside near ties; counts and dw bit for bit against
+    ``assignment_stats`` on the CPU for the kernel's own indices (both add
+    each code's rows in row order), and a second call bit for bit equal to
+    the first; two device operations a call (the two kernels, no fills)."""
+    floor = {"launch_floor_ms": time_ms(lambda: torch.cuda._sleep(0)),
+             "launch_floor_two_ms": time_ms(lambda: (torch.cuda._sleep(0),
+                                                     torch.cuda._sleep(0)))}
     cases = []
     for N, D, K in K2_SHAPES:
         x = torch.randn(N, D, device="cuda", generator=g)
@@ -303,20 +338,30 @@ def check_k2(g: torch.Generator) -> dict:
         mismatch = (idx != idx0) & ~near_tie
         require(not mismatch.any().item(), f"K2: {int(mismatch.sum())} rows disagree")
         require(counts.sum().item() == N, f"K2: counts sum {counts.sum().item()} != {N}")
-        own_counts, own_dw = codebook.assignment_stats(x, idx, K)
-        require(torch.equal(counts, own_counts), "K2: counts differ from its own indices")
-        err = (dw - own_dw).abs().max().item()
-        rel = err / own_dw.abs().max().item()
-        require(rel <= K2_DW_RTOL, f"K2: dw relative error {rel} > {K2_DW_RTOL}")
+        own_counts, own_dw = codebook.assignment_stats(x.cpu(), idx.cpu(), K)
+        require(torch.equal(counts.cpu(), own_counts), "K2: counts differ from its own indices")
+        err = (dw.cpu() - own_dw).abs().max().item()
+        require(torch.equal(dw.cpu(), own_dw),
+                f"K2 {N, D, K}: dw differs from the CPU's row-order sums by up to {err}")
+        again = vq_kernel.nearest_codes_cuda(x, cb)
+        require(all(torch.equal(a, b) for a, b in zip((idx, counts, dw), again)),
+                f"K2 {N, D, K}: a second call differs from the first")
         b_ms, b_by = bound(4 * (N * D + K * D + N + K + K * D),
                            2 * N * K * D + 2 * K * D + N * D)
+        plan = vq_kernel.k2_plan(N, D, K)
         case = {
-            "shape": [N, D, K], "max_abs_err": err, "dw_rel_err": rel,
-            "idx_mismatch_near_ties": int((idx != idx0).sum()),
+            "shape": [N, D, K], "max_abs_err": err, "dw_equal_cpu_row_order": True,
+            "repeat_equal": True, "idx_mismatch_near_ties": int((idx != idx0).sum()),
+            "plan": plan._asdict(),
             "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb)),
+            "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
             "plain_ms": time_ms(lambda: codebook.nearest_codes_plain(x, cb)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            **_device_ops(lambda: vq_kernel.nearest_codes_cuda(x, cb)), **floor,
         }
+        require(case["device_ops_per_call"] == K2_DEVICE_OPS,
+                f"K2: {case['device_ops_per_call']} device operations a call, "
+                f"want {K2_DEVICE_OPS}")
         emit({"phase": "kernel", "name": "vq_assign", **case})
         cases.append(case)
     main, rest = cases[0], cases[1:]

@@ -8,15 +8,18 @@ machine with one (which needs no JAX), run
 ``--noconftest`` skips tests/conftest.py, which configures JAX for the rest
 of the suite. Shapes go beyond chip_smoke.py's: every head dim K1 takes, odd
 sequence lengths and general biases, forward and backward, with dropout 0
-and 0.1; K2 at odd N, D and K, D up to 512, exact ties, and the shapes it
-refuses; one small-model train step against the CPU.
+and 0.1; K2 at odd N, D and K, D up to 512, K over several slices of a
+cluster rank and ragged last slices, N off the row tile, exact ties (also
+across the slices of one cluster), repeat calls, and the shapes and launch
+plans it refuses; one small-model train step against the CPU.
 
 K1 runs with ``window`` (the diagonal blocks of each packed row only) and
 without it (W = S, any bias). Tolerances: K1 1e-4 absolute (f32, other summation order and expf), with
 the dropout mask equal bit for bit (the same Philox words). K2
 indices equal except rows whose two best plain distances lie within
-1e-5 * (1 + |d|); counts exact against the kernel's own indices; dw 1e-4
-relative (atomics add in an order that changes from run to run).
+1e-5 * (1 + |d|); counts and dw equal bit for bit to ``assignment_stats`` on
+the CPU for the kernel's own indices (both add each code's rows in
+increasing row order), and equal on every run.
 """
 
 import pytest
@@ -281,26 +284,95 @@ def _k2_case(x, cb):
         assert not ((idx != idx0) & ~near_tie).any()
     else:
         assert torch.equal(idx, idx0)
-    own_counts, own_dw = codebook.assignment_stats(x, idx, cb.shape[0])
-    assert torch.equal(counts, own_counts) and counts.sum().item() == x.shape[0]
-    assert (dw - own_dw).abs().max().item() <= 1e-4 * max(1.0, own_dw.abs().max().item())
+    own_counts, own_dw = codebook.assignment_stats(x.cpu(), idx.cpu(), cb.shape[0])
+    assert torch.equal(counts.cpu(), own_counts) and counts.sum().item() == x.shape[0]
+    assert torch.equal(dw.cpu(), own_dw)
+    return idx, counts, dw
 
 
 @pytest.mark.parametrize("N,D,K", [(1, 64, 512), (33, 7, 5), (4096, 64, 512),
                                    (1000, 512, 100), (5000, 128, 1024), (31, 64, 1),
-                                   (257, 33, 65)])
+                                   (257, 33, 65), (20000, 33, 64), (40000, 7, 5),
+                                   (20000, 128, 256)])
 def test_k2_matches_plain(gen, N, D, K):
+    """Up to (257, 33, 65) one row tile per cluster; the last three take
+    several tiles per cluster (plain loads at D = 33 and 7, the runtime-D
+    path at 128)."""
     x = torch.randn(N, D, device="cuda", generator=gen)
     cb = torch.randn(K, D, device="cuda", generator=gen)
     _k2_case(x, cb)
 
 
 def test_k2_skewed_assignments(gen):
-    """Most rows on one code: heavy atomic contention stays exact."""
+    """Most rows on one code: its long chain of row-order adds stays exact."""
     x = torch.randn(4096, 64, device="cuda", generator=gen) * 0.01
     cb = torch.randn(512, 64, device="cuda", generator=gen)
     cb[17] = 0.0
     _k2_case(x, cb)
+
+
+def test_k2_repeats_bit_for_bit(gen):
+    x = torch.randn(512, 64, device="cuda", generator=gen)
+    cb = torch.randn(512, 64, device="cuda", generator=gen)
+    first = _k2_case(x, cb)
+    for _ in range(3):
+        again = codebook.nearest_codes(x, cb)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("N,D,K", [(1000, 64, 65), (1000, 64, 513), (1000, 64, 1024),
+                                   (1000, 64, 4096), (300, 512, 4096)])
+def test_k2_cluster_loop_and_ragged_slices(gen, N, D, K):
+    """K beyond one slice per cluster rank (up to 8 per rank at K = 4096),
+    and last slices holding 1 code (K = 65, 513)."""
+    x = torch.randn(N, D, device="cuda", generator=gen)
+    cb = torch.randn(K, D, device="cuda", generator=gen)
+    _k2_case(x, cb)
+
+
+@pytest.mark.parametrize("N", [4097, 1000, 6554, 511, 40001])
+def test_k2_rows_off_the_tile(gen, N):
+    """N not a multiple of the row tile (64 rows at 4097, 6554 and 40001,
+    32 at 1000 and 511); at 40001 the statistics take two passes of idx."""
+    x = torch.randn(N, 64, device="cuda", generator=gen)
+    cb = torch.randn(512, 64, device="cuda", generator=gen)
+    _k2_case(x, cb)
+
+
+@pytest.mark.parametrize("K,low,high", [(512, 3, 200), (4096, 3, 515), (4096, 70, 4000),
+                                        (513, 100, 512)])
+def test_k2_ties_across_slices_go_to_the_lowest_index(gen, K, low, high):
+    """Two equal codes in different slices: other cluster ranks (3 and 200,
+    70 and 4000), or slices 0 and 8 of one rank (3 and 515). Every row
+    near them takes the lower one."""
+    cb = torch.randn(K, 64, device="cuda", generator=gen) * 3.0
+    cb[high] = cb[low]
+    x = cb[low].repeat(200, 1) + 1e-3 * torch.randn(200, 64, device="cuda", generator=gen)
+    idx, counts, dw = _k2_case(x, cb)
+    assert (idx == low).all() and counts[high].item() == 0 and counts[low].item() == 200
+
+
+def test_k2_refuses_a_plan_that_does_not_cover_the_codes(gen):
+    x = torch.randn(64, 64, device="cuda", generator=gen)
+    cb = torch.randn(512, 64, device="cuda", generator=gen)
+    out = [torch.empty(64, dtype=torch.int32, device="cuda"),
+           torch.empty(512, device="cuda"), torch.empty(512, 64, device="cuda")]
+    p = vq_kernel.k2_plan(64, 64, 512)
+    fn = kernels.entry("vq_assign")
+    ptrs = [t.data_ptr() for t in (x, cb, *out)]
+    stream = kernels.stream_ptr(x)
+    good = (p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster, p.smem_bytes,
+            p.pass_rows)
+    assert fn(*ptrs, 64, 64, 512, *good, stream) == 0
+    for bad in [(p.tile_rows, 4, 1, 1, p.smem_bytes, p.pass_rows),      # 4 of 8 slices
+                (p.tile_rows, 9, 1, 1, p.smem_bytes, p.pass_rows),      # cluster > 8
+                (48, p.cluster, 1, 1, p.smem_bytes, p.pass_rows),       # no such tile
+                (p.tile_rows, p.cluster, 1, 0, p.smem_bytes, p.pass_rows),  # no tiles
+                (p.tile_rows, p.cluster, 1, 2, p.smem_bytes, p.pass_rows),  # too little memory
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes - 4, p.pass_rows),
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, 0)]:
+        assert fn(*ptrs, 64, 64, 512, *bad, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_k2_ties_go_to_the_lowest_index(gen):
