@@ -12,6 +12,8 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import torch
+
 ARCHS = ("simple", "resnet", "resnet_no_down", "transformer")
 METHODS = ("standard", "ema", "rvq", "fsq", "lfq", "hybrid", "ae")
 MODES = ("teacher", "student")
@@ -70,6 +72,19 @@ class ModelConfig:
             raise ValueError(
                 f"tf_tokens={self.tf_tokens} must be >=1 and divide "
                 f"window_size={self.window_size}")
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype the towers compute in. Parameters, the quantizers'
+    codebook math, the losses and the serving functions' inputs and outputs
+    stay float32 whatever it is."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 @dataclass(frozen=True)

@@ -6,8 +6,12 @@
 // (attention.py:143, pallas_call at :149, kernel body _attn_kernel at :51).
 // The backward is csrc/packed_attention_bwd.cu.
 //
-// Shapes: q, k, v, out are (BH, S, Dh) float32, contiguous, 16-byte aligned;
-// bias is (S, S) float32. W divides S; query i attends to the keys j of its
+// Shapes: q, k, v, out are (BH, S, Dh), contiguous, 16-byte aligned, all
+// float32 (entry point packed_attention_fwd) or all bfloat16
+// (packed_attention_fwd_bf16); bias is (S, S) float32 in both. Under
+// bfloat16, as in the TPU kernel, q, k and v are widened to float32 as they
+// are read, the logits, softmax, dropout and p v are float32, and out is
+// rounded to bfloat16 once, as it is stored (k1_tiles.cuh). W divides S; query i attends to the keys j of its
 // own window (i / W == j / W) with bias[i * S + j] added, and nothing else
 // of bias is read. Dh is one of 16, 32, 64, 128 (a template argument). With
 // dropout on, element (i, j) of row r (positions in the packed row) is kept
@@ -28,7 +32,8 @@
 // v read once, out written once: 6.3 us at 3.35 TB/s). That is 2.5 FLOP a
 // byte where the float32 cores need about 20 before they, and not memory,
 // set the pace: it is bound by bytes. At serving's (2048, 80, 64) the same
-// ratio holds at 8x the size.
+// ratio holds at 8x the size. In bfloat16 the bytes halve (3.1 us at the
+// training shape) and it stays bound by them.
 //
 // Design (window tiles): a block of 128 threads takes G = 20 / W
 // consecutive windows (2 at W = 10), which are one contiguous span of
@@ -38,7 +43,9 @@
 // load of the function is in flight at once and no block waits on another.
 // While the copies are in flight, one thread per element fetches bias_ij
 // and computes the keep factor (0 or 1 / keep) from Philox into shared
-// memory, off the logits' chain. Then the block computes:
+// memory, off the logits' chain. (bfloat16 rows are loaded 8 bytes a
+// thread, every tensor's loads issued before any is widened into the same
+// float32 rows; those loads end before the bias and keep factors start.) Then the block computes:
 //   1. the logits in 2 x 2 tiles, one thread per tile: each float4 of q_i
 //      and k_j read from shared memory feeds two logits;
 //   2. per query row, the f32 softmax with expf(s - m), normalising before
@@ -68,11 +75,11 @@ namespace {
 using k1::kRowWarps;
 using k1::TileDims;
 
-template <int DH>
+template <typename Elem, int DH>
 __global__ void __launch_bounds__(k1::kTileThreads)
-k1_fwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ bias,
-             float* __restrict__ out, int S, int W, int G, int nwin, float scale,
+k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
+             const Elem* __restrict__ v, const float* __restrict__ bias,
+             Elem* __restrict__ out, int S, int W, int G, int nwin, float scale,
              const int* __restrict__ seed_ptr, unsigned thresh, float inv_keep,
              int dropout) {
   extern __shared__ float4 smem4[];
@@ -89,9 +96,11 @@ k1_fwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
   float* il = kf + G * W * PS;                   // G * W: 1 / softmax normaliser
 
   const size_t gbase = (size_t)n0 * W * DH;
-  k1::stage_rows<DH>(qs, q + gbase, rows);
-  k1::stage_rows<DH>(ks, k + gbase, rows);
-  k1::stage_rows<DH>(vs, v + gbase, rows);
+  {
+    float* const dst[3] = {qs, ks, vs};
+    const Elem* const src[3] = {q + gbase, k + gbase, v + gbase};
+    k1::stage_tiles<DH>(dst, src, rows);
+  }
 
   // While the copies are in flight: every element's bias and keep factor,
   // one thread per element, so that neither sits in the logits' chain.
@@ -173,12 +182,12 @@ k1_fwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
       a0 = k1::axpy4(p0[j], vj, a0);
       a1 = k1::axpy4(p1[j], vj, a1);
     }
-    float4* o = reinterpret_cast<float4*>(out + gbase + (size_t)r0 * DH) + c;
+    Elem* o = out + gbase + (size_t)r0 * DH + 4 * c;
     const float s0 = il[r0];
-    o[0] = make_float4(a0.x * s0, a0.y * s0, a0.z * s0, a0.w * s0);
+    k1::store4(o, make_float4(a0.x * s0, a0.y * s0, a0.z * s0, a0.w * s0));
     if (i0 + 1 < W) {
       const float s1 = il[r1];
-      o[D4] = make_float4(a1.x * s1, a1.y * s1, a1.z * s1, a1.w * s1);
+      k1::store4(o + DH, make_float4(a1.x * s1, a1.y * s1, a1.z * s1, a1.w * s1));
     }
   }
 }
@@ -189,11 +198,11 @@ k1_fwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
 // rows i = warp, warp + 8, ..., holds q_i in registers, computes its W logits
 // lane-per-key, takes the f32 softmax with expf of s - max through warp
 // shuffles, and accumulates p v lane-per-output-dim.
-template <int DH>
+template <typename Elem, int DH>
 __global__ void __launch_bounds__(kRowWarps * 32)
-k1_fwd_rows(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ bias,
-            float* __restrict__ out, int S, int W, float scale,
+k1_fwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
+            const Elem* __restrict__ v, const float* __restrict__ bias,
+            Elem* __restrict__ out, int S, int W, float scale,
             const int* __restrict__ seed_ptr, unsigned thresh, float inv_keep,
             int dropout) {
   extern __shared__ float smem[];
@@ -208,15 +217,15 @@ k1_fwd_rows(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned row = n / nwr;
   const size_t base = (size_t)n * W * DH;
   const unsigned seed = dropout ? (unsigned)seed_ptr[0] : 0u;
-  const float* qr = q + base;
-  const float* kr = k + base;
-  const float* vr = v + base;
-  float* orow = out + base;
+  const Elem* qr = q + base;
+  const Elem* kr = k + base;
+  const Elem* vr = v + base;
+  Elem* orow = out + base;
 
   for (int i = threadIdx.x; i < W * DH; i += blockDim.x) {
     const int j = i / DH, d = i % DH;
-    ks[j * KS + d] = kr[i];
-    vs[i] = vr[i];
+    ks[j * KS + d] = k1::to_float(kr[i]);
+    vs[i] = k1::to_float(vr[i]);
   }
   __syncthreads();
 
@@ -225,7 +234,7 @@ k1_fwd_rows(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = warp; i < W; i += kRowWarps) {
     float qv[DH];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qv[d] = qr[i * DH + d];
+    for (int d = 0; d < DH; ++d) qv[d] = k1::to_float(qr[i * DH + d]);
 
     float m = -INFINITY;
     for (int j = lane; j < W; j += 32) {
@@ -268,15 +277,15 @@ k1_fwd_rows(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
-      if (d < DH) orow[i * DH + d] = acc[c] * inv;
+      if (d < DH) orow[i * DH + d] = k1::from_float<Elem>(acc[c] * inv);
     }
     __syncwarp();  // p is rewritten by this warp's next query row
   }
 }
 
-template <int DH>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* out, int BH, int S, int W, float scale, const int* seed,
+template <typename Elem, int DH>
+int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+           Elem* out, int BH, int S, int W, float scale, const int* seed,
            unsigned thresh, float inv_keep, int dropout, cudaStream_t stream) {
   const int nwin = BH * (S / W);
   constexpr int QS = TileDims<DH>::QS;
@@ -285,19 +294,38 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   const int G = k1::windows_per_block(per_window, W, nwin);
   if (G > 0) {
     const size_t smem = G * per_window;
-    const cudaError_t e = k1::allow_smem(k1_fwd_tiles<DH>, smem);
+    const cudaError_t e = k1::allow_smem(k1_fwd_tiles<Elem, DH>, smem);
     if (e != cudaSuccess) return (int)e;
-    k1_fwd_tiles<DH><<<(nwin + G - 1) / G, k1::kTileThreads, smem, stream>>>(
+    k1_fwd_tiles<Elem, DH><<<(nwin + G - 1) / G, k1::kTileThreads, smem, stream>>>(
         q, k, v, bias, out, S, W, G, nwin, scale, seed, thresh, inv_keep, dropout);
     return (int)cudaGetLastError();
   }
   const size_t smem = sizeof(float) * ((size_t)W * (2 * DH + 1) + kRowWarps * W);
   if (smem > (size_t)k1::kSmemLimit) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = k1::allow_smem(k1_fwd_rows<DH>, smem);
+  const cudaError_t e = k1::allow_smem(k1_fwd_rows<Elem, DH>, smem);
   if (e != cudaSuccess) return (int)e;
-  k1_fwd_rows<DH><<<nwin, kRowWarps * 32, smem, stream>>>(
+  k1_fwd_rows<Elem, DH><<<nwin, kRowWarps * 32, smem, stream>>>(
       q, k, v, bias, out, S, W, scale, seed, thresh, inv_keep, dropout);
   return (int)cudaGetLastError();
+}
+
+template <typename Elem>
+int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out, int BH, int S,
+             int W, int Dh, float scale, const int* seed, unsigned thresh, float inv_keep,
+             int dropout, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
+  if (W < 1 || S % W != 0) return (int)cudaErrorInvalidValue;
+#define K1_FWD(DH_) \
+  launch<Elem, DH_>(q, k, v, bias, out, BH, S, W, scale, seed, thresh, inv_keep, dropout, st)
+  switch (Dh) {
+    case 16: return K1_FWD(16);
+    case 32: return K1_FWD(32);
+    case 64: return K1_FWD(64);
+    case 128: return K1_FWD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K1_FWD
 }
 
 }  // namespace
@@ -308,17 +336,16 @@ extern "C" int packed_attention_fwd(const float* q, const float* k,
                                     float scale, const int* seed,
                                     unsigned thresh, float inv_keep,
                                     int dropout, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
-  if (W < 1 || S % W != 0) return (int)cudaErrorInvalidValue;
-#define K1_FWD(DH_) \
-  launch<DH_>(q, k, v, bias, out, BH, S, W, scale, seed, thresh, inv_keep, dropout, st)
-  switch (Dh) {
-    case 16: return K1_FWD(16);
-    case 32: return K1_FWD(32);
-    case 64: return K1_FWD(64);
-    case 128: return K1_FWD(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef K1_FWD
+  return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, thresh, inv_keep, dropout,
+                  stream);
+}
+
+extern "C" int packed_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v, const float* bias,
+                                         __nv_bfloat16* out, int BH, int S, int W, int Dh,
+                                         float scale, const int* seed,
+                                         unsigned thresh, float inv_keep,
+                                         int dropout, void* stream) {
+  return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, thresh, inv_keep, dropout,
+                  stream);
 }

@@ -13,9 +13,13 @@
 //   dv = p_drop^T do,  dp = keep * (do v^T) / keep_prob,
 //   ds = p * (dp - rowsum(dp * p)) * scale,  dq = ds k,  dk = ds^T q.
 //
-// Shapes: q, k, v, dout, dq, dk, dv are (BH, S, Dh) float32, contiguous,
-// 16-byte aligned; bias is (S, S) float32, read only inside the diagonal
-// (W, W) blocks. W divides S. Dh is one of 16, 32, 64, 128. Element (i, j)
+// Shapes: q, k, v, dout, dq, dk, dv are (BH, S, Dh), contiguous, 16-byte
+// aligned, all float32 (entry point packed_attention_bwd) or all bfloat16
+// (packed_attention_bwd_bf16); bias is (S, S) float32 in both, read only
+// inside the diagonal (W, W) blocks. Under bfloat16, as in the TPU kernel,
+// the inputs are widened to float32 as they are read, everything inside is
+// float32, and dq, dk and dv are rounded to bfloat16 once, as they are
+// stored (k1_tiles.cuh). W divides S. Dh is one of 16, 32, 64, 128. Element (i, j)
 // of row r keeps the forward's Philox counter i * S + j, i and j positions
 // in the packed row.
 //
@@ -30,15 +34,17 @@
 // dq, dk, dv written once: 11 us at 3.35 TB/s) and needs about
 // 10 * BH * S * W * Dh = 131 MFLOP (2 us at the 67 TFLOP/s of the float32
 // cores). That is 3.6 FLOP a byte against the ~20 the float32 cores need
-// before they set the pace: it is bound by bytes.
+// before they set the pace: it is bound by bytes. In bfloat16 the bytes
+// halve (5.5 us at the training shape) and it stays bound by them.
 //
 // Design (window tiles), one pass per window: a block of 128 threads takes
 // G = 20 / W consecutive windows (one contiguous span of device memory) and
 // copies q, k, v and dout with 16-byte cp.async into padded shared rows
-// (k1_tiles.cuh); the grid covers the windows (1,024 blocks at the training
-// shape). While the copies are in flight, one thread per element fetches
-// bias_ij and computes the keep factor (0 or 1 / keep) from the same Philox
-// counter as the forward. Then, in shared memory:
+// (k1_tiles.cuh; bfloat16 rows are loaded 8 bytes a thread and widened
+// before the next step); the grid covers the windows (1,024 blocks at the
+// training shape). While the copies are in flight, one thread per element
+// fetches bias_ij and computes the keep factor (0 or 1 / keep) from the
+// same Philox counter as the forward. Then, in shared memory:
 //   1. one thread per 2 x 2 tile of (i, j) computes the logits s_ij =
 //      q_i . k_j * scale + bias and do_i . v_j (each float4 read feeds two
 //      products), and dp_ij = keep factor * do_i . v_j;
@@ -70,12 +76,12 @@ namespace {
 using k1::kRowWarps;
 using k1::TileDims;
 
-template <int DH>
+template <typename Elem, int DH>
 __global__ void __launch_bounds__(k1::kTileThreads)
-k1_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ bias,
-             const float* __restrict__ dout, float* __restrict__ dq,
-             float* __restrict__ dk, float* __restrict__ dv, int S, int W, int G,
+k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
+             const Elem* __restrict__ v, const float* __restrict__ bias,
+             const Elem* __restrict__ dout, Elem* __restrict__ dq,
+             Elem* __restrict__ dk, Elem* __restrict__ dv, int S, int W, int G,
              int nwin, float scale, const int* __restrict__ seed_ptr,
              unsigned thresh, float inv_keep, int dropout) {
   extern __shared__ float4 smem4[];
@@ -93,10 +99,11 @@ k1_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
   float* kf = gs + G * W * PS;                   // G * W * PS: keep factors
 
   const size_t gbase = (size_t)n0 * W * DH;
-  k1::stage_rows<DH>(qs, q + gbase, rows);
-  k1::stage_rows<DH>(ks, k + gbase, rows);
-  k1::stage_rows<DH>(vs, v + gbase, rows);
-  k1::stage_rows<DH>(os, dout + gbase, rows);
+  {
+    float* const dst[4] = {qs, ks, vs, os};
+    const Elem* const src[4] = {q + gbase, k + gbase, v + gbase, dout + gbase};
+    k1::stage_tiles<DH>(dst, src, rows);
+  }
 
   // While the copies are in flight: every element's bias and keep factor,
   // one thread per element, so that neither sits in the logits' chain.
@@ -200,9 +207,9 @@ k1_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
       x0 = k1::axpy4(g0[j], kj, x0);
       x1 = k1::axpy4(g1[j], kj, x1);
     }
-    float4* out = reinterpret_cast<float4*>(dq + gbase) + (size_t)r0 * D4 + c;
-    out[0] = x0;
-    if (a0 + 1 < W) out[D4] = x1;
+    Elem* out = dq + gbase + (size_t)r0 * DH + 4 * c;
+    k1::store4(out, x0);
+    if (a0 + 1 < W) k1::store4(out + DH, x1);
   }
   for (int e = threadIdx.x; e < g * T * D4; e += blockDim.x) {
     const int pair = e / D4, c = e - pair * D4;
@@ -222,12 +229,12 @@ k1_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
       v0 = k1::axpy4(pc[i * PS + b0], oi, v0);
       v1 = k1::axpy4(pc[i * PS + b1], oi, v1);
     }
-    const size_t at = (size_t)(top + a0) * D4 + c;
-    reinterpret_cast<float4*>(dk + gbase)[at] = k0;
-    reinterpret_cast<float4*>(dv + gbase)[at] = v0;
+    const size_t at = gbase + (size_t)(top + a0) * DH + 4 * c;
+    k1::store4(dk + at, k0);
+    k1::store4(dv + at, v0);
     if (a0 + 1 < W) {
-      reinterpret_cast<float4*>(dk + gbase)[at + D4] = k1v;
-      reinterpret_cast<float4*>(dv + gbase)[at + D4] = v1;
+      k1::store4(dk + at + DH, k1v);
+      k1::store4(dv + at + DH, v1);
     }
   }
 }
@@ -258,12 +265,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 //   with the same fmaf order as pass 1 (bit-identical logits), applies the
 //   mask, and accumulates dv_j = sum_i p_drop_ij do_i and
 //   dk_j = sum_i ds_ij q_i lane-per-dim.
-template <int DH>
+template <typename Elem, int DH>
 __global__ void __launch_bounds__(kRowWarps * 32)
-k1_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ bias,
-            const float* __restrict__ dout, float* __restrict__ dq,
-            float* __restrict__ dk, float* __restrict__ dv, int S, int W, float scale,
+k1_bwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
+            const Elem* __restrict__ v, const float* __restrict__ bias,
+            const Elem* __restrict__ dout, Elem* __restrict__ dq,
+            Elem* __restrict__ dk, Elem* __restrict__ dv, int S, int W, float scale,
             const int* __restrict__ seed_ptr, unsigned thresh, float inv_keep,
             int dropout) {
   extern __shared__ float smem[];
@@ -290,15 +297,15 @@ k1_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
   // ---- pass 1: dq, and the row statistics
   for (int t = threadIdx.x; t < W * DH; t += blockDim.x) {
     const int j = t / DH, d = t % DH;
-    ta[j * RS + d] = k[base + t];
-    tb[j * RS + d] = v[base + t];
+    ta[j * RS + d] = k1::to_float(k[base + t]);
+    tb[j * RS + d] = k1::to_float(v[base + t]);
   }
   __syncthreads();
 
   for (int i = warp; i < W; i += kRowWarps) {
     float r[DH];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) r[d] = q[base + i * DH + d];
+    for (int d = 0; d < DH; ++d) r[d] = k1::to_float(q[base + i * DH + d]);
     float m = -INFINITY;
     for (int j = lane; j < W; j += 32) {
       const float* kj = ta + j * RS;
@@ -319,7 +326,7 @@ k1_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
     const float il = 1.f / warp_sum(l);
 
 #pragma unroll
-    for (int d = 0; d < DH; ++d) r[d] = dout[base + i * DH + d];
+    for (int d = 0; d < DH; ++d) r[d] = k1::to_float(dout[base + i * DH + d]);
     float dsum = 0.f;
     for (int j = lane; j < W; j += 32) {
       const float* vj = tb + j * RS;
@@ -352,7 +359,7 @@ k1_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
-      if (d < DH) dq[base + i * DH + d] = acc[c];
+      if (d < DH) dq[base + i * DH + d] = k1::from_float<Elem>(acc[c]);
     }
     if (lane == 0) {
       row_m[i] = m;
@@ -366,15 +373,15 @@ k1_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
   // ---- pass 2: dk and dv, one key column per warp
   for (int t = threadIdx.x; t < W * DH; t += blockDim.x) {
     const int i = t / DH, d = t % DH;
-    ta[i * RS + d] = q[base + t];
-    tb[i * RS + d] = dout[base + t];
+    ta[i * RS + d] = k1::to_float(q[base + t]);
+    tb[i * RS + d] = k1::to_float(dout[base + t]);
   }
   __syncthreads();
 
   for (int j = warp; j < W; j += kRowWarps) {
     float r[DH];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) r[d] = k[base + j * DH + d];
+    for (int d = 0; d < DH; ++d) r[d] = k1::to_float(k[base + j * DH + d]);
     for (int i = lane; i < W; i += 32) {
       const float* qi = ta + i * RS;
       float acc = 0.f;
@@ -384,7 +391,7 @@ k1_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
       pw[i] = expf(s - row_m[i]) * row_il[i];
     }
 #pragma unroll
-    for (int d = 0; d < DH; ++d) r[d] = v[base + j * DH + d];
+    for (int d = 0; d < DH; ++d) r[d] = k1::to_float(v[base + j * DH + d]);
     for (int i = lane; i < W; i += 32) {
       const float* doi = tb + i * RS;
       float acc = 0.f;
@@ -420,17 +427,17 @@ k1_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
       if (d < DH) {
-        dv[base + j * DH + d] = adv[c];
-        dk[base + j * DH + d] = adk[c];
+        dv[base + j * DH + d] = k1::from_float<Elem>(adv[c]);
+        dk[base + j * DH + d] = k1::from_float<Elem>(adk[c]);
       }
     }
     __syncwarp();
   }
 }
 
-template <int DH>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           const float* dout, float* dq, float* dk, float* dv, int BH, int S, int W,
+template <typename Elem, int DH>
+int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+           const Elem* dout, Elem* dq, Elem* dk, Elem* dv, int BH, int S, int W,
            float scale, const int* seed, unsigned thresh, float inv_keep,
            int dropout, cudaStream_t stream) {
   const int nwin = BH * (S / W);
@@ -440,9 +447,9 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   const int G = k1::windows_per_block(per_window, W, nwin);
   if (G > 0) {
     const size_t smem = G * per_window;
-    const cudaError_t e = k1::allow_smem(k1_bwd_tiles<DH>, smem);
+    const cudaError_t e = k1::allow_smem(k1_bwd_tiles<Elem, DH>, smem);
     if (e != cudaSuccess) return (int)e;
-    k1_bwd_tiles<DH><<<(nwin + G - 1) / G, k1::kTileThreads, smem, stream>>>(
+    k1_bwd_tiles<Elem, DH><<<(nwin + G - 1) / G, k1::kTileThreads, smem, stream>>>(
         q, k, v, bias, dout, dq, dk, dv, S, W, G, nwin, scale, seed, thresh, inv_keep,
         dropout);
     return (int)cudaGetLastError();
@@ -450,11 +457,30 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   const size_t smem =
       sizeof(float) * (2 * (size_t)W * (DH + 1) + 2 * kRowWarps * W + 3 * (size_t)W);
   if (smem > (size_t)k1::kSmemLimit) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = k1::allow_smem(k1_bwd_rows<DH>, smem);
+  const cudaError_t e = k1::allow_smem(k1_bwd_rows<Elem, DH>, smem);
   if (e != cudaSuccess) return (int)e;
-  k1_bwd_rows<DH><<<nwin, kRowWarps * 32, smem, stream>>>(
+  k1_bwd_rows<Elem, DH><<<nwin, kRowWarps * 32, smem, stream>>>(
       q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed, thresh, inv_keep, dropout);
   return (int)cudaGetLastError();
+}
+
+template <typename Elem>
+int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout, Elem* dq,
+             Elem* dk, Elem* dv, int BH, int S, int W, int Dh, float scale, const int* seed,
+             unsigned thresh, float inv_keep, int dropout, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
+  if (W < 1 || S % W != 0) return (int)cudaErrorInvalidValue;
+#define K1_BWD(DH_) \
+  launch<Elem, DH_>(q, k, v, bias, dout, dq, dk, dv, BH, S, W, scale, seed, thresh, inv_keep, dropout, st)
+  switch (Dh) {
+    case 16: return K1_BWD(16);
+    case 32: return K1_BWD(32);
+    case 64: return K1_BWD(64);
+    case 128: return K1_BWD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K1_BWD
 }
 
 }  // namespace
@@ -466,17 +492,17 @@ extern "C" int packed_attention_bwd(const float* q, const float* k,
                                     float scale, const int* seed,
                                     unsigned thresh, float inv_keep,
                                     int dropout, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
-  if (W < 1 || S % W != 0) return (int)cudaErrorInvalidValue;
-#define K1_BWD(DH_) \
-  launch<DH_>(q, k, v, bias, dout, dq, dk, dv, BH, S, W, scale, seed, thresh, inv_keep, dropout, st)
-  switch (Dh) {
-    case 16: return K1_BWD(16);
-    case 32: return K1_BWD(32);
-    case 64: return K1_BWD(64);
-    case 128: return K1_BWD(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef K1_BWD
+  return dispatch(q, k, v, bias, dout, dq, dk, dv, BH, S, W, Dh, scale, seed, thresh,
+                  inv_keep, dropout, stream);
+}
+
+extern "C" int packed_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v, const float* bias,
+                                         const __nv_bfloat16* dout, __nv_bfloat16* dq,
+                                         __nv_bfloat16* dk, __nv_bfloat16* dv, int BH,
+                                         int S, int W, int Dh, float scale, const int* seed,
+                                         unsigned thresh, float inv_keep,
+                                         int dropout, void* stream) {
+  return dispatch(q, k, v, bias, dout, dq, dk, dv, BH, S, W, Dh, scale, seed, thresh,
+                  inv_keep, dropout, stream);
 }

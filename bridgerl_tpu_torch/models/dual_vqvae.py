@@ -1,7 +1,9 @@
 """DualMotionVQVAE: two encoders, one shared quantizer, one robot decoder.
 
 Counterpart of ``bridgerl_tpu/models/dual_vqvae.py`` for the transformer
-towers and the hybrid quantizer, f32 compute:
+towers and the hybrid quantizer, computing in ``cfg.compute_dtype`` (float32
+or bfloat16) with float32 parameters, as the JAX package's mixed precision
+does:
 
 - robot branch: robot_encoder -> quantizer -> robot_decoder -> reconstruction
 - human branch: human_encoder -> quantizer -> robot_decoder -> retargeted motion
@@ -10,6 +12,10 @@ With ``train=True`` the towers drop out (random numbers from ``generator``)
 and the quantizer folds its EMA codebooks. The branches run in that order
 and share the quantizer, so the human branch sees the codebook the robot
 branch has just folded, as in the JAX package.
+
+Under bfloat16 the towers and their outputs (``recon``, ``retargeted``,
+``z_e``) are bfloat16; the quantizers search and fold in float32 and return
+the input's dtype; ``loss_vq`` and the metrics are float32.
 
 ``forward`` returns the JAX package's output dict; each branch also carries
 ``codes``, the quantizer's code streams named as the JAX package names them
@@ -25,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import ModelConfig, compute_dtype
 from ..device import resolve_device
 from ..ops.quantizers import make_quantizer, prefix_codes
 from .layers import LN_EPS, SelfAttention, TransformerMotionDecoder, TransformerMotionEncoder
@@ -36,10 +42,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (ROADMAP.md); this slice runs "
             "'transformer'")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r} is not ported yet (ROADMAP.md); "
-            "this slice computes in float32")
     if cfg.int8_ff:
         raise NotImplementedError("int8_ff is not ported yet (ROADMAP.md)")
 
@@ -52,7 +54,7 @@ class DualMotionVQVAE(nn.Module):
         tower = dict(d_model=cfg.d_model, n_heads=cfg.n_heads,
                      num_layers=cfg.n_tf_layers, ff_dim=cfg.ff_dim,
                      attn_packing=cfg.attn_packing, tokens=cfg.tf_tokens,
-                     dropout=cfg.dropout)
+                     dropout=cfg.dropout, dtype=compute_dtype(cfg))
         self.human_encoder = TransformerMotionEncoder(
             cfg.human_input_dim, cfg.hidden_dim, cfg.window_size, **tower)
         self.robot_encoder = TransformerMotionEncoder(

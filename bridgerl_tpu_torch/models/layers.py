@@ -14,10 +14,20 @@ before ``norm1``, after the ReLU, and on the feed-forward output before
 With ``attn_packing`` P > 1 and a batch divisible by P, P windows of T
 frames run as one (P*T)-token attention under the block-diagonal mask,
 which is the same math as P separate T-token attentions.
+
+``dtype`` is the compute dtype (float32 or bfloat16), with flax's mixed
+precision: the parameters stay float32 and each layer casts at its own
+boundary. A :class:`Dense` casts its input, weight and bias to the dtype and
+returns it; a :class:`LayerNorm` takes its statistics and normalises in
+float32 and returns the input's dtype; the positional table is built in the
+dtype, as the JAX package builds it; the mean-pool sums in float32; K1 takes
+and returns the dtype with a float32 softmax inside. The residual stream is
+therefore in the dtype from the input projection to the output projection.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -31,25 +41,36 @@ LN_EPS = 1e-6     # flax LayerNorm's default (torch's is 1e-5)
 MASK_BIAS = -1e9  # additive logit bias across windows
 
 
+@functools.lru_cache(maxsize=None)
+def _in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The constant ``c`` rounded to ``dtype``: JAX converts a Python scalar to
+    the array's dtype before an operation, torch computes with it unrounded."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
             ) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate and
-    scale kept values by 1 / (1 - rate). ``F.dropout`` takes no generator."""
+    scale kept values by 1 / (1 - rate), in x's dtype. ``F.dropout`` takes no
+    generator."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator")
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
+    return torch.where(mask, x / _in_dtype(keep, x.dtype), 0.0)
 
 
-def sinusoidal_pe(max_len: int, d_model: int) -> torch.Tensor:
-    """(max_len, d_model) sinusoidal positional table."""
-    position = torch.arange(max_len, dtype=torch.float32)[:, None]
-    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
-                         * (-math.log(10000.0) / d_model))
-    pe = torch.zeros(max_len, d_model)
+def sinusoidal_pe(max_len: int, d_model: int, dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
+    """(max_len, d_model) sinusoidal positional table, computed in ``dtype``
+    step by step as the JAX package computes it (in bfloat16 that differs
+    from the float32 table rounded once, by up to 0.3 at 80 positions)."""
+    position = torch.arange(max_len, dtype=dtype)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=dtype)
+                         * _in_dtype(-math.log(10000.0) / d_model, dtype))
+    pe = torch.zeros(max_len, d_model, dtype=dtype)
     pe[:, 0::2] = torch.sin(position * div_term)
     pe[:, 1::2] = torch.cos(position * div_term)
     return pe
@@ -68,20 +89,45 @@ def attention_bias(packing: int, seq_len: int, device=None) -> torch.Tensor:
     return bias.to(device=device, dtype=torch.float32)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype``, as flax's ``nn.Dense(dtype=...)``:
+    input, weight and bias are cast to it, and so is the output. The
+    parameters stay float32, so their gradients arrive float32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=...)``: statistics and normalisation in
+    float32, the result in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with torch's packed parameters:
     ``in_proj_weight`` (3d, d) and ``in_proj_bias`` (3d,) hold q, k, v in that
     order, heads major within each; ``out_proj`` maps the concatenated heads
-    back to d."""
+    back to d. Both projections compute in ``dtype``."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model={d_model} is not divisible by n_heads={n_heads}")
         self.n_heads = n_heads
+        self.compute_dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Dense(d_model, d_model, dtype)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
@@ -89,7 +135,8 @@ class SelfAttention(nn.Module):
         B, S, d = x.shape
         H = self.n_heads
         Dh = d // H
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        dt = self.compute_dtype
+        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
         q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2).reshape(B * H, S, Dh)
                    .contiguous() for t in qkv.chunk(3, dim=-1))
         o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh), dropout_rate, generator,
@@ -103,14 +150,15 @@ class TransformerBlock(nn.Module):
     x = norm2(x + drop(ff(x))), with a ReLU feed-forward (dropout after the
     ReLU) and LayerNorm eps 1e-6."""
 
-    def __init__(self, d_model: int, n_heads: int, ff_dim: int, dropout: float = 0.1):
+    def __init__(self, d_model: int, n_heads: int, ff_dim: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = SelfAttention(d_model, n_heads)
-        self.linear1 = nn.Linear(d_model, ff_dim)
-        self.linear2 = nn.Linear(ff_dim, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.self_attn = SelfAttention(d_model, n_heads, dtype)
+        self.linear1 = Dense(d_model, ff_dim, dtype)
+        self.linear2 = Dense(ff_dim, d_model, dtype)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -127,16 +175,17 @@ class TransformerStack(nn.Module):
     With ``packing`` P > 1 and a batch divisible by P, P windows share one
     attention row under the block-diagonal bias. Attention always runs with
     ``window=seq_len``, packed or not, so K1 computes only the windows'
-    diagonal blocks. The table and both biases
-    are non-persistent buffers, so they follow the model's device."""
+    diagonal blocks. The table (in the compute dtype) and both biases
+    (float32) are non-persistent buffers, so they follow the model's device."""
 
     def __init__(self, num_layers: int, d_model: int, n_heads: int, ff_dim: int,
-                 seq_len: int, packing: int = 1, dropout: float = 0.1):
+                 seq_len: int, packing: int = 1, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.seq_len, self.packing = seq_len, packing
-        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads, ff_dim, dropout)
+        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads, ff_dim, dropout, dtype)
                                     for _ in range(num_layers))
-        self.register_buffer("pe", sinusoidal_pe(seq_len, d_model), persistent=False)
+        self.register_buffer("pe", sinusoidal_pe(seq_len, d_model, dtype), persistent=False)
         self.register_buffer("bias_single", attention_bias(1, seq_len), persistent=False)
         self.register_buffer("bias_packed", attention_bias(packing, seq_len),
                              persistent=False)
@@ -159,41 +208,43 @@ class TransformerStack(nn.Module):
 class TransformerMotionEncoder(nn.Module):
     """Linear -> PE -> transformer blocks -> mean-pool each window to
     ``tokens`` latent tokens -> Linear. Input (B, seq_len, input_dim),
-    output (B, tokens, hidden_dim)."""
+    output (B, tokens, hidden_dim) in the compute dtype."""
 
     def __init__(self, input_dim: int, hidden_dim: int, seq_len: int,
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
                  ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.tokens = tokens
-        self.input_proj = nn.Linear(input_dim, d_model)
+        self.input_proj = Dense(input_dim, d_model, dtype)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
-                                            seq_len, attn_packing, dropout)
-        self.output_proj = nn.Linear(d_model, hidden_dim)
+                                            seq_len, attn_packing, dropout, dtype)
+        self.output_proj = Dense(d_model, hidden_dim, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.transformer(self.input_proj(x), train, generator)
         B, T, d = h.shape
-        h = h.reshape(B, self.tokens, T // self.tokens, d).mean(dim=2)
+        # jnp.mean of bfloat16 sums in float32 and rounds the mean
+        h = h.reshape(B, self.tokens, T // self.tokens, d).float().mean(dim=2).to(h.dtype)
         return self.output_proj(h)
 
 
 class TransformerMotionDecoder(nn.Module):
     """Linear -> repeat each latent token over its T/tokens frames -> PE ->
-    transformer blocks -> Linear. Output (B, seq_len, output_dim)."""
+    transformer blocks -> Linear. Output (B, seq_len, output_dim) in the
+    compute dtype."""
 
     def __init__(self, output_dim: int, hidden_dim: int, seq_len: int,
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
                  ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.seq_len, self.tokens = seq_len, tokens
-        self.input_proj = nn.Linear(hidden_dim, d_model)
+        self.input_proj = Dense(hidden_dim, d_model, dtype)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
-                                            seq_len, attn_packing, dropout)
-        self.output_proj = nn.Linear(d_model, output_dim)
+                                            seq_len, attn_packing, dropout, dtype)
+        self.output_proj = Dense(d_model, output_dim, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -17,9 +17,18 @@ exactly 0 in f32; the model's towers always pass their window.
 A CUDA tensor goes to the hand-written kernels ``csrc/packed_attention.cu``
 (forward) and ``csrc/packed_attention_bwd.cu`` (backward); a CPU tensor goes
 to the plain versions :func:`packed_attention_reference` and
-:func:`packed_attention_bwd_reference`. :class:`PackedAttention` ties them
-into one autograd function whose backward recomputes the probabilities and
-the dropout mask, as the TPU kernel's custom VJP does.
+:func:`packed_attention_bwd_reference`.
+
+q, k, v and dout are float32 or bfloat16, all four alike; the bias is always
+float32. As in the TPU kernel, bfloat16 inputs are widened to float32 as they
+are read, everything inside (logits, softmax, dropout, both products) is
+float32, and out, dq, dk and dv are rounded to q's dtype once, at the end
+(round to nearest even). Each kernel has a float32 and a bfloat16 entry
+point, and each counts its launches on its own counter.
+
+:class:`PackedAttention` ties them into one autograd function whose
+backward recomputes the probabilities and the dropout mask, as the TPU
+kernel's custom VJP does.
 
 Dropout is counter-based, so the backward regenerates the forward's mask
 from the seed alone. The generator is Philox4x32-10 (Salmon et al., SC'11),
@@ -43,9 +52,15 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _ROW_WARPS = 8                # kRowWarps in both csrc/packed_attention*.cu
 _SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
 SEED_HIGH = 2 ** 31 - 1       # seeds are drawn from [0, SEED_HIGH), as in JAX
+DTYPES = (torch.float32, torch.bfloat16)
 
-launch_counter = kernels.LaunchCounter("packed_attention_fwd")
-bwd_launch_counter = kernels.LaunchCounter("packed_attention_bwd")
+# the C entry point of each kernel and input dtype; a wrapper counts each
+# entry point's launches on the counter of the same name
+ENTRY = {("fwd", torch.float32): "packed_attention_fwd",
+         ("fwd", torch.bfloat16): "packed_attention_fwd_bf16",
+         ("bwd", torch.float32): "packed_attention_bwd",
+         ("bwd", torch.bfloat16): "packed_attention_bwd_bf16"}
+COUNTER = {key: kernels.LaunchCounter(name) for key, name in ENTRY.items()}
 
 Seed = Union[int, torch.Tensor]
 
@@ -143,14 +158,16 @@ def packed_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                bias: torch.Tensor, scale: float, seed: Seed = 0,
                                dropout_rate: float = 0.0,
                                window: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of K1's forward, window by window."""
+    """Plain PyTorch version of K1's forward, window by window, in float32;
+    the result is rounded to q's dtype."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
-    p = _probs(_windows(q, W), _windows(k, W), _window_bias(bias, W), scale)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    p = _probs(_windows(q32, W), _windows(k32, W), _window_bias(bias, W), scale)
     if dropout_rate > 0.0:
         keep = window_dropout_mask(seed, BH, S, W, dropout_rate, q.device)
         p = torch.where(keep, p * _inv_keep(dropout_rate), 0.0)
-    return torch.matmul(p, _windows(v, W)).reshape(BH, S, Dh)
+    return torch.matmul(p, _windows(v32, W)).reshape(BH, S, Dh).to(q.dtype)
 
 
 def packed_attention_bwd_reference(q, k, v, bias, dout, scale: float, seed: Seed = 0,
@@ -159,10 +176,12 @@ def packed_attention_bwd_reference(q, k, v, bias, dout, scale: float, seed: Seed
     """Plain PyTorch version of K1's backward, window by window, written out
     as the TPU kernel's ``_attn_bwd_kernel`` is: recompute p and the mask,
     then dv = p_drop^T do, dp = keep * (do v^T) / keep_prob,
-    ds = p * (dp - sum(dp * p)) * scale, dq = ds k, dk = ds^T q."""
+    ds = p * (dp - sum(dp * p)) * scale, dq = ds k, dk = ds^T q. It computes
+    in float32 and rounds dq, dk and dv to q's dtype."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
-    q, k, v, dout = (_windows(t, W) for t in (q, k, v, dout))
+    dtype = q.dtype
+    q, k, v, dout = (_windows(t.float(), W) for t in (q, k, v, dout))
     p = _probs(q, k, _window_bias(bias, W), scale)
     if dropout_rate > 0.0:
         keep = window_dropout_mask(seed, BH, S, W, dropout_rate, q.device)
@@ -175,7 +194,7 @@ def packed_attention_bwd_reference(q, k, v, bias, dout, scale: float, seed: Seed
     dv = torch.matmul(p_drop.transpose(-1, -2), dout)
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True)) * scale
     dq, dk = torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q)
-    return tuple(t.reshape(BH, S, Dh) for t in (dq, dk, dv))
+    return tuple(t.reshape(BH, S, Dh).to(dtype) for t in (dq, dk, dv))
 
 
 # ---------------------------------------------------------------- kernels
@@ -209,9 +228,13 @@ def _check(q, k, v, bias, seed, W, smem_bytes, extra=()):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, q {tuple(q.shape)}")
     if bias.shape != (S, S):
         raise ValueError(f"bias must be ({S}, {S}), got {tuple(bias.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), *extra):
-        if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {q.device}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q is {q.dtype}; the kernels take {DTYPES}")
+    for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
+                           ("bias", bias, torch.float32),
+                           *((n, t, q.dtype) for n, t in extra)):
+        if t.device != q.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -237,13 +260,14 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window):
     out = torch.empty_like(q)
     if BH == 0:
         return out
-    fn = kernels.entry("packed_attention_fwd")
+    name = ENTRY["fwd", q.dtype]
+    fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), BH, S, W, Dh, float(scale), _seed_ptr(seed, dropout_rate),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), kernels.stream_ptr(q))
-    kernels.check("packed_attention_fwd", status)
-    launch_counter.add()
+    kernels.check(name, status)
+    COUNTER["fwd", q.dtype].add()
     return out
 
 
@@ -254,14 +278,15 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if BH == 0:
         return dq, dk, dv
-    fn = kernels.entry("packed_attention_bwd")
+    name = ENTRY["bwd", q.dtype]
+    fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 BH, S, W, Dh, float(scale), _seed_ptr(seed, dropout_rate),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), kernels.stream_ptr(q))
-    kernels.check("packed_attention_bwd", status)
-    bwd_launch_counter.add()
+    kernels.check(name, status)
+    COUNTER["bwd", q.dtype].add()
     return dq, dk, dv
 
 
@@ -317,9 +342,9 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
                      generator: Optional[torch.Generator] = None,
                      window: Optional[int] = None) -> torch.Tensor:
-    """dropout(softmax(q k^T * scale + bias)) v for (B*H, S, Dh) q, k, v and
-    (S, S) bias, within windows of ``window`` positions (default S),
-    differentiable in q, k and v.
+    """dropout(softmax(q k^T * scale + bias)) v for (B*H, S, Dh) q, k, v
+    (float32 or bfloat16, out in their dtype) and (S, S) float32 bias, within
+    windows of ``window`` positions (default S), differentiable in q, k and v.
 
     With ``dropout_rate`` > 0 the seed is drawn once from ``generator``.
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain

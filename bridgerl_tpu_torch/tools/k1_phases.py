@@ -1,6 +1,7 @@
 """Where a K1 window-tile block spends its time, on the card.
 
-    python -m bridgerl_tpu_torch.tools.k1_phases      # from the repository root, one H100
+    python -m bridgerl_tpu_torch.tools.k1_phases                     # float32, one H100
+    python -m bridgerl_tpu_torch.tools.k1_phases --dtype bfloat16    # the bf16 kernels
 
 Builds a copy of ``csrc/packed_attention.cu`` and ``csrc/packed_attention_bwd.cu``
 into a temporary directory with a timestamp (``%globaltimer``) taken by
@@ -10,11 +11,14 @@ thread 0 of every window-tile block at its start and after each
 launch: the span from the first block's start to the last block's end, the
 spread of block starts, and the median time of each phase of a block
 (stage = copies in flight plus the bias / Philox prologue, logits, softmax
-rows, products and stores). The port's own build is not touched.
+rows, products and stores). ``--dtype bfloat16`` launches the bf16 entry
+points on bf16 tensors (whose stage is a plain load and widening, not a
+cp.async). The port's own build is not touched.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -31,8 +35,9 @@ from ..ops import attention, kernels
 SHAPES = ((256, 80, 64, 8, 0.1), (2048, 80, 64, 8, 0.0))   # (B*H, S, Dh, packing, dropout)
 MAX_BLOCKS = 1 << 16
 PHASES = ("stage", "logits", "softmax", "products")
-KERNELS = (("packed_attention", "k1_fwd_tiles", "packed_attention_fwd"),
-           ("packed_attention_bwd", "k1_bwd_tiles", "packed_attention_bwd"))
+KERNELS = (("packed_attention", "k1_fwd_tiles", "fwd"),
+           ("packed_attention_bwd", "k1_bwd_tiles", "bwd"))
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _MARKS = r"""
 __device__ unsigned long long g_k1_marks[5 * 65536];
 #define K1_MARK(p)                                                              \
@@ -64,7 +69,7 @@ def instrument(src: str, kernel: str) -> str:
     return src[:head] + _MARKS + src[head:body_at] + body + src[end:] + _DUMP
 
 
-def build(workdir: str):
+def build(workdir: str, dtype=torch.float32):
     for f in kernels.CSRC.iterdir():
         shutil.copy(f, workdir)
     procs = []
@@ -82,7 +87,8 @@ def build(workdir: str):
         if p.returncode:
             raise RuntimeError(log)
     out = {}
-    for lib, _, fn in KERNELS:
+    for lib, _, direction in KERNELS:
+        fn = attention.ENTRY[direction, dtype]
         so = ctypes.CDLL(f"{workdir}/lib{lib}.so")
         entry = getattr(so, fn)
         entry.argtypes, entry.restype = kernels.SIGNATURES[fn][1], ctypes.c_int
@@ -96,22 +102,26 @@ def tile_rows() -> int:
     return int(re.search(r"kTileRows = (\d+)", text).group(1))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    dtype = DTYPES[ap.parse_args(argv).dtype]
     if not torch.cuda.is_available():
         raise SystemExit("k1_phases: needs a card")
-    libs = build(tempfile.mkdtemp(prefix="k1_phases_"))
+    libs = build(tempfile.mkdtemp(prefix="k1_phases_"), dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(32 << 20, device="cuda")
     for BH, S, Dh, P, rate in SHAPES:
         W = S // P
-        q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=g) for _ in range(4))
+        q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
+                       for _ in range(4))
         bias, seed = attention_bias(P, W, "cuda"), attention.draw_seed(g, "cuda")
         out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
         tail = (attention.keep_threshold(rate), attention._inv_keep(rate), int(rate > 0),
                 kernels.stream_ptr(q))
         head = (Dh ** -0.5, seed.data_ptr() if rate > 0 else 0)
-        args = {"packed_attention_fwd": (q, k, v, bias, out),
-                "packed_attention_bwd": (q, k, v, bias, do, dq, dk, dv)}
+        args = {attention.ENTRY["fwd", dtype]: (q, k, v, bias, out),
+                attention.ENTRY["bwd", dtype]: (q, k, v, bias, do, dq, dk, dv)}
         G = max(1, tile_rows() // W)
         blocks = -(-(BH * P) // G)
         for fn, (entry, so) in libs.items():
@@ -130,7 +140,8 @@ def main() -> int:
                 t = marks.reshape(5, MAX_BLOCKS)[:, :blocks].astype(np.int64)
                 t0 = t[0].min()
                 print(json.dumps({
-                    "kernel": fn, "shape": [BH, S, Dh], "window": W, "dropout": rate,
+                    "kernel": fn, "dtype": str(dtype).replace("torch.", ""),
+                    "shape": [BH, S, Dh], "window": W, "dropout": rate,
                     "l2": "cold" if cold else "warm", "blocks": blocks,
                     "span_us": (t[4].max() - t0) / 1e3,
                     "block_start_us_p50_max": [float(np.median(t[0] - t0)) / 1e3,

@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py             # from the repository root, on a machine with a card
     python3 chip_smoke.py --profile   # adds device-time breakdowns of retarget at b=4096
-                                      # and of one teacher optimizer step
+                                      # and of one teacher optimizer step, in each dtype,
+                                      # after every timed phase
 
 Phases, each printed as one JSON line; any failed check raises and the
-script exits non-zero:
+script exits non-zero. Each runs in float32 and then in bfloat16
+(``compute_dtype="bfloat16"``: K1's bf16 entry points, float32 parameters):
 
 1. ``device``: the card's name and power limit (``nvidia-smi``), and the time
    to build the CUDA kernels from ``bridgerl_tpu_torch/csrc/``.
@@ -27,19 +29,31 @@ script exits non-zero:
    ``library_ms`` is the faster of the two. K1 runs with dropout 0 and
    0.1; with dropout its keep mask must equal the plain Philox mask bit for
    bit in both directions, and its kept share lie within 4 sigma of 0.9.
+   K1 in bf16 must lie within one bf16 ulp of the plain version (both
+   round the same float32 quantity); its bound counts 2 bytes an element
+   and the FLOPs at the bf16 tensor cores' 989 TFLOP/s.
    K2 runs at N = 4096 (serving), 512 (training) and 6554 (validation):
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
    indices bit for bit, a second call must repeat the first bit for bit,
-   and the profiler must see two device operations a call; each K2 line
-   carries the device time of each of its two kernels and the time of one
-   and of two empty kernels (``launch_floor_ms``), timed the same way.
+   and the profiler must see no device operation but its two kernels and
+   one record of each a call (a profile that lost records is taken again,
+   up to three); each K2 line carries the device time of each of its two
+   kernels and the time of one and of two empty kernels
+   (``launch_floor_ms``), timed the same way.
 3. The serving path: the flagship retargeting model (full width, weights
    from a fixed seed) served through the port's ``ServingApp``: ``retarget``
    at b = 1, 5, 64, 512, 4096, ``robot_recon`` and ``motion_codes`` at b = 64,
    one ``retarget`` over HTTP with the port's client, and a 3,000-frame
    overlap-add. Every answer is checked for shape, dtype and finiteness, for
    8 attention and 4 nearest-code launches per model call, and against the
-   same weights run on the CPU through the plain versions.
+   same weights run on the CPU through the plain versions. In bf16 the
+   codes may leave float32's on at most twice the CPU bf16 share of rows,
+   and one row; on the windows (the frames, for the overlap-add) whose
+   codes the card, the CPU bf16 and the CPU float32 runs all share, the
+   answer lies within 4 bf16 ulps of its scale of the CPU's bf16 answer
+   and no farther from the CPU's float32 answer than twice the CPU's bf16
+   answer is. Windows/s at b = 4096 and the b = 1 median latency in each
+   dtype (``serve_summary``).
 4. The training path: the flagship's teacher trains through the port's
    ``Trainer`` (batch 16384 in 32 microbatches of 512, dropout 0.1, seeded
    normal windows as the JAX package's bench makes them), then the student
@@ -50,9 +64,12 @@ script exits non-zero:
    only. Windows/s after a warm-up epoch.
 5. ``train_agree``: one optimizer batch of 512 at dropout 0 from one seed,
    on the card and on the CPU: loss within 1e-4 relative, every parameter's
-   gradient within 1e-3 in relative norm.
-6. The ``kernels`` line (every kernel with its launches on each path), then,
-   last, ``{"ok": true, "device": {...}}``.
+   gradient within 1e-3 in relative norm. ``train_agree_bf16``: the same
+   batch in bf16 on the card and on the CPU, each held to the CPU float32
+   step: the card's loss and every gradient no farther than twice the CPU
+   bf16 step's (the loss may always be one bf16 rounding, 2**-8, off).
+6. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+   launches on each path), then, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
 """
@@ -74,10 +91,10 @@ import time
 import numpy as np
 import torch
 
-from bridgerl_tpu_torch.config import HISTORY_KEYS, make_experiment
+from bridgerl_tpu_torch.config import HISTORY_KEYS, compute_dtype, make_experiment
 from bridgerl_tpu_torch.data.dataset import PairedDataset
 from bridgerl_tpu_torch.export.client import ServingClient
-from bridgerl_tpu_torch.export.reconstruct import reconstruct_long_sequence
+from bridgerl_tpu_torch.export.reconstruct import reconstruct_long_sequence, window_starts
 from bridgerl_tpu_torch.export.server import ServingApp, make_server
 from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.models import init_model
@@ -95,6 +112,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 L2_FLUSH_BYTES = 128 << 20     # written before each cold launch: over twice the 50 MB L2
 HOST_LEAD_CYCLES = 10_000_000  # a ~5 ms spin queued before each timed call
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bfloat16 on the tensor cores (dense)
+BF16 = torch.bfloat16
+DTYPES = (torch.float32, BF16)
+DTYPE_NAME = {torch.float32: "float32", BF16: "bfloat16"}
 # (B*H, S, Dh, packing, dropout): serving at b=4096 and b=64 unpacked, and the
 # training microbatch of 512 windows packed 8 to a row
 K1_SHAPES = ((2048, 80, 64, 8, 0.0), (256, 10, 64, 1, 0.0), (256, 80, 64, 8, 0.0),
@@ -103,9 +124,12 @@ K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8,
                  (2048, 80, 64, 8, 0.1))
 K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512))  # (N, D, K): serving,
                                                                  # training, validation
-K2_DEVICE_OPS = 2              # K2's two kernels; its outputs need no zero-fill
+K2_KERNELS = ("vq_assign_nearest", "vq_assign_stats")   # device names of K2's kernels
+K2_DEVICE_OPS = len(K2_KERNELS)   # its outputs need no zero-fill
 DROPOUT = 0.1
 K1_ATOL = 1e-4
+K1_BF16_ULPS, K1_BF16_ATOL = 1.0, 1e-6   # one bf16 ulp of the plain value, beyond the
+                                         # float32 summation noise where a sum cancels
 K2_TIE = 1e-5
 SERVE_ATOL = 1e-3
 CODES_AGREE = 0.999
@@ -117,6 +141,13 @@ TEACHER_EPOCHS, STUDENT_EPOCHS = 3, 2
 PER_MICROBATCH = {"teacher": (8, 8, 4), "student": (16, 4, 8)}
 PER_VAL_BATCH = {"teacher": (8, 0, 4), "student": (16, 0, 8)}
 AGREE_BATCH, AGREE_LOSS_RTOL, AGREE_GRAD_RTOL = 512, 1e-4, 1e-3
+# bf16 answers against the CPU's float32 ones: no farther than BF16_FACTOR times
+# the CPU's own bf16 answer; a scalar loss may always be one bf16 rounding off
+BF16_FACTOR, BF16_LOSS_FLOOR = 2.0, 2.0 ** -8
+# a served bf16 answer against the CPU's bf16 one, on the windows whose codes
+# agree: GEMMs rounded in another order, 1 ulp a block through 8 blocks' residual
+# stream, in bf16 ulps of the answer's largest magnitude
+BF16_SERVE_ULPS = 4.0
 
 
 def emit(obj) -> None:
@@ -153,9 +184,33 @@ def time_ms(fn, warmup: int = 5, iters: int = 30, cold: bool = False) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_ulp(x) -> float:
+    """The bfloat16 spacing at |x|: 2**-7 of the power of two at or below it."""
+    return 2.0 ** (math.floor(math.log2(max(abs(float(x)), 2.0 ** -126))) - 7)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0) -> float:
+    """The largest ``|got - want| - atol`` in units of the bfloat16 spacing
+    at each ``want``. Two bfloat16 results that round the same float32
+    quantity, summed in another order, are at most 1 apart; ``atol`` allows
+    for the float32 sums themselves, which differ by ~1e-7 of their terms
+    and show where a sum cancels to near 0."""
+    g, w = got.double(), want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return ((g - w).abs() - atol).clamp_min(0.0).div(ulp).max().item()
+
+
+def k1_bound(dtype, elements: int, flops: int):
+    """K1's bound for its dtype: bytes at the element's size, FLOPs at the
+    float32 cores' rate (float32) or the bf16 tensor cores' (bfloat16)."""
+    if dtype == BF16:
+        return bound(2 * elements, flops, BF16_FLOPS_PER_S)
+    return bound(4 * elements, flops)
 
 
 def launches() -> dict:
@@ -174,21 +229,45 @@ def _top(rows, n: int):
 
 # ---------------------------------------------------------------- phase 2
 
-def _k1_inputs(g, BH, S, Dh, P):
-    q, k, v = (torch.randn(BH, S, Dh, device="cuda", generator=g) for _ in range(3))
+def _k1_inputs(g, BH, S, Dh, P, dtype=torch.float32):
+    q, k, v = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
+               for _ in range(3))
     seed = attention.draw_seed(g, "cuda")
     return q, k, v, attention_bias(P, S // P, "cuda"), 1.0 / Dh ** 0.5, seed
 
 
 def _sdpa_forms(q, k, v, bias, scale, rate, W):
     """The two single-call yardsticks: SDPA over the full rows with the
-    float bias, and over the (BH * S / W, W, Dh) windows with no mask (the
-    same function, since the bias is 0 inside the windows)."""
+    float bias (in q's dtype, as SDPA takes it), and over the
+    (BH * S / W, W, Dh) windows with no mask (the same function, since the
+    bias is 0 inside the windows)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     Dh = q.shape[-1]
     qw, kw, vw = (t.view(-1, W, Dh) for t in (q, k, v))
-    return (lambda: sdpa(q, k, v, attn_mask=bias, scale=scale, dropout_p=rate),
+    mask = bias.to(q.dtype)
+    return (lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, dropout_p=rate),
             lambda: sdpa(qw, kw, vw, scale=scale, dropout_p=rate))
+
+
+def _agreement(name: str, got, want, dtype) -> dict:
+    """The kernel's outputs against the plain version's: 1e-4 absolute in
+    float32, one bf16 ulp of the plain value in bfloat16."""
+    got, want = list(got), list(want)
+    require(all(torch.isfinite(a).all().item() and a.dtype == dtype for a in got),
+            f"{name}: non-finite values or not {dtype}")
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    if dtype == BF16:
+        ulps = max(bf16_ulps(a, b, K1_BF16_ATOL) for a, b in zip(got, want))
+        require(ulps <= K1_BF16_ULPS, f"{name}: {ulps} bf16 ulps from the plain version")
+        return {"max_abs_err": err, "max_ulp_err": ulps}
+    require(err <= K1_ATOL, f"{name}: max abs error {err} > {K1_ATOL}")
+    return {"max_abs_err": err}
+
+
+def _kernel_row(name: str, source: str, replaces: str, cases: list) -> dict:
+    main, rest = cases[0], cases[1:]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            **main, "kernel_ms": main["ms"], "cases": rest}
 
 
 def _timings(kernel, plain, library_full, library_window) -> dict:
@@ -198,44 +277,41 @@ def _timings(kernel, plain, library_full, library_window) -> dict:
             "library_full_ms": full, "library_window_ms": window}
 
 
-def check_k1(g: torch.Generator) -> dict:
+def check_k1(g: torch.Generator, dtype=torch.float32) -> dict:
+    """K1's forward for q, k, v of ``dtype`` against the plain version on the
+    same inputs, at the serving and training shapes."""
+    name = attention.ENTRY["fwd", dtype]
     cases = []
     for BH, S, Dh, P, rate in K1_SHAPES:
         W = S // P
-        q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P)
+        q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P, dtype)
         out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, W)
         torch.cuda.synchronize()
         ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W)
-        err = (out - ref).abs().max().item()
-        require(torch.isfinite(out).all().item() and err <= K1_ATOL,
-                f"K1 {BH, S, Dh} dropout {rate}: max abs error {err} > {K1_ATOL}")
-        b_ms, b_by = bound(4 * 4 * BH * S * Dh, 4 * BH * S * W * Dh)
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * S * W * Dh)
         case = {
-            "shape": [BH, S, Dh], "packing": P, "window": W, "dropout": rate,
-            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
+            "dropout": rate, **_agreement(f"{name} {BH, S, Dh} dropout {rate}", [out], [ref],
+                                          dtype),
+            "bound_ms": b_ms, "bound_by": b_by,
             **_timings(lambda: attention.attention_fwd(q, k, v, bias, scale, seed, rate, W),
                        lambda: attention.packed_attention_reference(
                            q, k, v, bias, scale, seed, rate, W),
                        *_sdpa_forms(q, k, v, bias, scale, rate, W)),
         }
-        emit({"phase": "kernel", "name": "packed_attention_fwd", **case})
+        emit({"phase": "kernel", "name": name, **case})
         cases.append(case)
-    main, rest = cases[0], cases[1:]
-    return {
-        "name": "packed_attention_fwd", "route": "cuda",
-        "source": "bridgerl_tpu_torch/csrc/packed_attention.cu",
-        "replaces": "bridgerl_tpu/ops/pallas/attention.py:143",
-        **main, "kernel_ms": main["ms"], "cases": rest,
-    }
+    return _kernel_row(name, "bridgerl_tpu_torch/csrc/packed_attention.cu",
+                       "bridgerl_tpu/ops/pallas/attention.py:143", cases)
 
 
-def check_k1_mask(g: torch.Generator) -> dict:
+def check_k1_mask(g: torch.Generator, dtype=torch.float32) -> dict:
     """With v = I (Dh >= S) the forward returns p_drop, and with dout = I the
     backward's dv is p_drop^T: both kernels' keep bits, read inside each
     window (where p > 0), must equal the plain Philox mask exactly."""
     BH, S, Dh, P = 256, 80, 128, 8
-    q, k, _, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P)
-    eye = torch.eye(S, Dh, device="cuda").expand(BH, S, Dh).contiguous()
+    q, k, _, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P, dtype)
+    eye = torch.eye(S, Dh, device="cuda", dtype=dtype).expand(BH, S, Dh).contiguous()
     fwd = attention.attention_fwd(q, k, eye, bias, scale, seed, DROPOUT, S // P)[:, :, :S] > 0
     _, _, dv = attention.attention_bwd(q, k, eye, bias, eye, scale, seed, DROPOUT, S // P)
     bwd = dv[:, :S, :S].transpose(1, 2) > 0
@@ -249,33 +325,36 @@ def check_k1_mask(g: torch.Generator) -> dict:
     sigma = math.sqrt(DROPOUT * (1 - DROPOUT) / n)
     require(abs(share - (1 - DROPOUT)) <= 4 * sigma,
             f"K1 kept share {share} is not within 4 sigma ({sigma}) of {1 - DROPOUT}")
-    out = {"phase": "kernel_mask", "shape": [BH, S, Dh], "packing": P,
+    out = {"phase": "kernel_mask", "dtype": DTYPE_NAME[dtype], "shape": [BH, S, Dh],
+           "packing": P,
            "dropout": DROPOUT, "kept_share": share, "sigma": sigma, "elements": n,
            "mask_equal_fwd": True, "mask_equal_bwd": True}
     emit(out)
     return out
 
 
-def check_k1_bwd(g: torch.Generator) -> dict:
+def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
+    """K1's backward for q, k, v, dout of ``dtype`` against the plain
+    version on the same inputs."""
+    name = attention.ENTRY["bwd", dtype]
     cases = []
     for BH, S, Dh, P, rate in K1_BWD_SHAPES:
         W = S // P
-        q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P)
-        do = torch.randn(BH, S, Dh, device="cuda", generator=g)
+        q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P, dtype)
+        do = torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
         got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W)
         torch.cuda.synchronize()
         want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
                                                         W)
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        require(all(torch.isfinite(a).all().item() for a in got) and err <= K1_ATOL,
-                f"K1 bwd {BH, S, Dh} dropout {rate}: max abs error {err} > {K1_ATOL}")
-        b_ms, b_by = bound(7 * 4 * BH * S * Dh, 10 * BH * S * W * Dh)
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh)
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
         lib_outs = [f() for f in _sdpa_forms(qg, kg, vg, bias, scale, rate, W)]
         lib_do = (do, do.view(-1, W, Dh))
         case = {
-            "shape": [BH, S, Dh], "packing": P, "window": W, "dropout": rate,
-            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
+            "dropout": rate, **_agreement(f"{name} {BH, S, Dh} dropout {rate}", got, want,
+                                          dtype),
+            "bound_ms": b_ms, "bound_by": b_by,
             **_timings(lambda: attention.attention_bwd(q, k, v, bias, do, scale, seed, rate,
                                                        W),
                        lambda: attention.packed_attention_bwd_reference(
@@ -284,15 +363,10 @@ def check_k1_bwd(g: torch.Generator) -> dict:
                                                               retain_graph=True)
                          for o, d in zip(lib_outs, lib_do))),
         }
-        emit({"phase": "kernel", "name": "packed_attention_bwd", **case})
+        emit({"phase": "kernel", "name": name, **case})
         cases.append(case)
-    main, rest = cases[0], cases[1:]
-    return {
-        "name": "packed_attention_bwd", "route": "cuda",
-        "source": "bridgerl_tpu_torch/csrc/packed_attention_bwd.cu",
-        "replaces": "bridgerl_tpu/ops/pallas/attention.py:164",
-        **main, "kernel_ms": main["ms"], "cases": rest,
-    }
+    return _kernel_row(name, "bridgerl_tpu_torch/csrc/packed_attention_bwd.cu",
+                       "bridgerl_tpu/ops/pallas/attention.py:164", cases)
 
 
 def _device_ops(fn, reps: int = 10) -> dict:
@@ -307,11 +381,36 @@ def _device_ops(fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(ev.key, ev.count / reps, ev.self_device_time_total / 1e3 / reps)
+    rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3 / reps)
             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-    require(sum(r[2] for r in rows) > 0, "the profiler saw no device time")
-    return {"device_ops_per_call": sum(r[1] for r in rows),
+    return {"device_ops_per_call": sum(r[1] for r in rows) / reps, "calls": reps,
+            "device_records_by_kernel": {name[:80]: n for name, n, _ in rows},
             "device_ms_by_kernel": {name[:80]: ms for name, _, ms in rows}}
+
+
+def _k2_device_ops(x, cb, attempts: int = 3) -> dict:
+    """K2's device operations, counted by kernel name over the profiled
+    calls. In every profile each record is one of its two kernels (no fill,
+    no copy) and neither kernel has more records than calls. torch.profiler
+    loses activity records now and then (19 of 20 records in one profile,
+    all 20 in another; PERF.md §6), so a profile short of one record of each
+    kernel a call is taken again, up to ``attempts`` profiles, each listed
+    in ``profiles``; the check fails when none is whole."""
+    profiles = []
+    for _ in range(attempts):
+        ops = _device_ops(lambda: vq_kernel.nearest_codes_cuda(x, cb))
+        calls, records = ops["calls"], ops["device_records_by_kernel"]
+        profiles.append(records)
+        per_kernel = {k: sum(n for name, n in records.items() if k in name)
+                      for k in K2_KERNELS}
+        require(sum(per_kernel.values()) == sum(records.values())
+                and all(n <= calls for n in per_kernel.values()),
+                f"K2: device records {records} in {calls} calls, want one of each of "
+                f"{K2_KERNELS} a call")
+        if all(n == calls for n in per_kernel.values()):
+            return {**ops, "profiles": profiles}
+    raise AssertionError(f"K2: no profile of {attempts} holds {K2_DEVICE_OPS} records a "
+                         f"call: {profiles}")
 
 
 def check_k2(g: torch.Generator) -> dict:
@@ -357,20 +456,12 @@ def check_k2(g: torch.Generator) -> dict:
             "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
             "plain_ms": time_ms(lambda: codebook.nearest_codes_plain(x, cb)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            **_device_ops(lambda: vq_kernel.nearest_codes_cuda(x, cb)), **floor,
+            **_k2_device_ops(x, cb), **floor,
         }
-        require(case["device_ops_per_call"] == K2_DEVICE_OPS,
-                f"K2: {case['device_ops_per_call']} device operations a call, "
-                f"want {K2_DEVICE_OPS}")
         emit({"phase": "kernel", "name": "vq_assign", **case})
         cases.append(case)
-    main, rest = cases[0], cases[1:]
-    return {
-        "name": "vq_assign", "route": "cuda",
-        "source": "bridgerl_tpu_torch/csrc/vq_assign.cu",
-        "replaces": "bridgerl_tpu/ops/pallas/vq_kernel.py:106",
-        **main, "kernel_ms": main["ms"], "cases": rest,
-    }
+    return _kernel_row("vq_assign", "bridgerl_tpu_torch/csrc/vq_assign.cu",
+                       "bridgerl_tpu/ops/pallas/vq_kernel.py:106", cases)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -400,20 +491,94 @@ def _check_answer(name: str, got, want) -> dict:
     return {"max_abs_err_vs_cpu": err}
 
 
-def _expect_launches(name: str, before: dict, calls: int) -> dict:
+def _rows_agree(a: dict, b: dict) -> np.ndarray:
+    """(rows,) bool: every code stream equal."""
+    return np.all([np.asarray(a[k]).reshape(len(a[k]), -1) == np.asarray(b[k]).reshape(
+        len(b[k]), -1) for k in b], axis=(0, 2))
+
+
+def _codes_rule(name: str, card: dict, cpu16: dict, cpu32: dict):
+    """cuBLAS and the CPU round bf16 GEMMs differently, so a window near a
+    code boundary may quantize to other codes on either side: the card's
+    codes may disagree with float32's on at most BF16_FACTOR times the rows
+    the CPU's bf16 codes do, and one row. Returns the shares and the rows
+    on which all three runs' codes agree."""
+    for k in cpu32:
+        require(card[k].shape == cpu32[k].shape and card[k].dtype == np.int32,
+                f"{name}/{k}: {card[k].shape} {card[k].dtype}")
+    same16, same32 = _rows_agree(card, cpu16), _rows_agree(card, cpu32)
+    card32, own32 = float(same32.mean()), float(_rows_agree(cpu16, cpu32).mean())
+    require(1 - card32 <= BF16_FACTOR * (1 - own32) + 1 / len(same32),
+            f"{name}: codes agree with float32 on {card32} of rows, the CPU's bf16 on {own32}")
+    return {"codes_agree_f32": card32, "codes_agree_cpu_bf16": float(same16.mean()),
+            "cpu_bf16_codes_agree_f32": own32}, same16 & same32
+
+
+def _check_bf16_values(name: str, got, cpu16, cpu32, rows) -> dict:
+    """A bf16 answer from the card against the CPU's bf16 and float32
+    answers on the same weights, on ``rows``: those whose codes all three
+    runs share, so that the distances measure bf16 rounding and not a code
+    that flipped. The card lies within BF16_SERVE_ULPS bf16 ulps of the
+    output's scale of the CPU's bf16 answer (the two differ only in how
+    their GEMMs round), and no farther from the float32 answer than
+    BF16_FACTOR times the CPU's bf16 answer is."""
+    require(got.shape == cpu32.shape and got.dtype == np.float32,
+            f"{name}: {got.shape} {got.dtype}, want {cpu32.shape}")
+    require(bool(np.isfinite(got).all()), f"{name}: non-finite values")
+    out = {"max_abs_err_vs_cpu_f32": float(np.abs(got - cpu32).max()),
+           "cpu_bf16_max_abs_err_vs_cpu_f32": float(np.abs(cpu16 - cpu32).max()),
+           "max_abs_err_vs_cpu_bf16": float(np.abs(got - cpu16).max()),
+           "rows_compared": int(rows.sum()), "rows": len(rows)}
+    if not rows.any():
+        return out
+    g, c16, c32 = got[rows], cpu16[rows], cpu32[rows]
+    card, own, to16 = (float(np.abs(a - b).max()) for a, b in ((g, c32), (c16, c32), (g, c16)))
+    scale = float(np.abs(c16).max())
+    ulps = to16 / bf16_ulp(scale)
+    require(ulps <= BF16_SERVE_ULPS, f"{name}: {to16} from the CPU's bf16 answer, "
+            f"{ulps} bf16 ulps of its scale {scale}")
+    require(card <= BF16_FACTOR * own, f"{name}: {card} from the CPU's float32 answer, "
+            f"over {BF16_FACTOR} x the CPU bf16 answer's {own}")
+    return {**out, "compared_max_abs_err_vs_cpu_f32": card,
+            "compared_cpu_bf16_max_abs_err_vs_cpu_f32": own,
+            "compared_max_abs_err_vs_cpu_bf16": to16, "compared_scale": scale,
+            "compared_ulps_vs_cpu_bf16": ulps}
+
+
+def _window_codes(model, branch: str, x: np.ndarray) -> dict:
+    """The code streams of each window of x through ``model``'s branch."""
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        codes = model(**{f"x_{branch}": torch.as_tensor(x, device=dev)})[branch]["codes"]
+    return _numpy(codes)
+
+
+def _expect_launches(name: str, before: dict, calls: int, dtype=torch.float32) -> dict:
     now = launches()
     delta = {k: now[k] - before[k] for k in now}
-    want = {"packed_attention_fwd": K1_PER_CALL * calls, "packed_attention_bwd": 0,
-            "vq_assign": K2_PER_CALL * calls}
+    want = {k: 0 for k in now}
+    want[attention.ENTRY["fwd", dtype]] = K1_PER_CALL * calls
+    want["vq_assign"] = K2_PER_CALL * calls
     require(delta == want, f"{name}: launches {delta}, want {want}")
     return delta
 
 
-def main_path(exp, profile: bool = False) -> dict:
+def main_path(exp) -> tuple:
+    """Serve the flagship at ``exp.model.compute_dtype`` through ServingApp
+    and HTTP; every answer checked against the same weights on the CPU (in
+    bf16, against the CPU's bf16 and float32 runs). Returns the line's
+    fields, and the app with a b=4096 request for a later profile."""
     cfg = exp.model
     W = cfg.window_size
-    module = build_serving_module(init_model(cfg, SEED, device="cuda"), exp)
-    cpu = build_serving_module(init_model(cfg, SEED, device="cpu"), exp)
+    dtype = compute_dtype(cfg)
+    model = init_model(cfg, SEED, device="cuda")
+    module = build_serving_module(model, exp)
+    cpu_model = init_model(cfg, SEED, device="cpu")
+    cpu = build_serving_module(cpu_model, exp)
+    if dtype == BF16:
+        cpu32_model = init_model(dataclasses.replace(cfg, compute_dtype="float32"), SEED,
+                                 device="cpu")
+        cpu32 = build_serving_module(cpu32_model, exp)
     app = ServingApp(module)
     rng = np.random.default_rng(SEED)
     dims = {"retarget": cfg.human_input_dim, "robot_recon": cfg.robot_input_dim,
@@ -421,14 +586,26 @@ def main_path(exp, profile: bool = False) -> dict:
     requests = [("retarget", b) for b in RETARGET_BATCHES]
     requests += [("robot_recon", 64), ("motion_codes", 64)]
 
+    def verify(name, fn, x, got):
+        if dtype != BF16:
+            return _check_answer(name, got, _numpy(cpu.fns[fn](x)))
+        cpu16_out, cpu32_out = _numpy(cpu.fns[fn](x)), _numpy(cpu32.fns[fn](x))
+        if fn == "motion_codes":
+            require(sorted(got) == sorted(cpu32_out), f"{name}: streams {sorted(got)}")
+            return _codes_rule(name, got, cpu16_out, cpu32_out)[0]
+        branch = "robot" if fn == "robot_recon" else "human"
+        shares, rows = _codes_rule(name, *(_window_codes(m, branch, x)
+                                           for m in (model, cpu_model, cpu32_model)))
+        return {**shares, **_check_bf16_values(name, got, cpu16_out, cpu32_out, rows)}
+
     kernels.reset_counters()
     for fn, b in requests:
         x = rng.normal(size=(b, W, dims[fn])).astype(np.float32)
         before = launches()
         got = app.call(fn, x)
-        delta = _expect_launches(f"{fn} b={b}", before, 1)
-        emit({"phase": "request", "fn": fn, "b": b, "launches": delta,
-              **_check_answer(f"{fn} b={b}", got, _numpy(cpu.fns[fn](x)))})
+        delta = _expect_launches(f"{fn} b={b}", before, 1, dtype)
+        emit({"phase": "request", "dtype": cfg.compute_dtype, "fn": fn, "b": b,
+              "launches": delta, **verify(f"{fn} b={b}", fn, x, got)})
 
     srv = make_server(module, port=0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -441,29 +618,43 @@ def main_path(exp, profile: bool = False) -> dict:
         x = rng.normal(size=(64, W, cfg.human_input_dim)).astype(np.float32)
         before = launches()
         got = client.retarget(x)
-        delta = _expect_launches("HTTP retarget", before, 1)
+        delta = _expect_launches("HTTP retarget", before, 1, dtype)
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join()
-    emit({"phase": "request", "fn": "retarget", "b": 64, "via": "http",
-          "healthz": health, "launches": delta,
-          **_check_answer("HTTP retarget", got, _numpy(cpu.fns["retarget"](x)))})
+    emit({"phase": "request", "dtype": cfg.compute_dtype, "fn": "retarget", "b": 64,
+          "via": "http", "healthz": health, "launches": delta,
+          **verify("HTTP retarget", "retarget", x, got)})
 
     seq = rng.normal(size=(3000, cfg.robot_input_dim)).astype(np.float32)
     mean = np.zeros(cfg.robot_input_dim, np.float32)
     std = np.ones(cfg.robot_input_dim, np.float32)
+    step = 5
     before = launches()
-    got = reconstruct_long_sequence(module.fns["robot_recon"], seq, W, 5, mean, std,
+    got = reconstruct_long_sequence(module.fns["robot_recon"], seq, W, step, mean, std,
                                     device="cuda")
-    delta = _expect_launches("overlap-add", before, 1)
-    want = reconstruct_long_sequence(cpu.fns["robot_recon"], seq, W, 5, mean, std,
-                                     device="cpu")
-    emit({"phase": "request", "fn": "reconstruct_long_sequence", "frames": 3000,
-          "step": 5, "launches": delta,
-          **_check_answer("overlap-add", got, want)})
+    delta = _expect_launches("overlap-add", before, 1, dtype)
+    overlap = lambda fns: reconstruct_long_sequence(fns["robot_recon"], seq, W, step, mean,
+                                                    std, device="cpu")
+    if dtype == BF16:
+        # a frame is compared when every window covering it has the same
+        # codes in all three runs
+        starts = window_starts(len(seq), W, step)
+        windows = np.stack([seq[s:s + W] for s in starts])
+        shares, agree = _codes_rule("overlap-add", *(_window_codes(m, "robot", windows)
+                                                     for m in (model, cpu_model, cpu32_model)))
+        frames = np.ones(len(seq), bool)
+        for s in starts[~agree]:
+            frames[s:s + W] = False
+        checked = {**shares, **_check_bf16_values("overlap-add", got, overlap(cpu.fns),
+                                                  overlap(cpu32.fns), frames)}
+    else:
+        checked = _check_answer("overlap-add", got, overlap(cpu.fns))
+    emit({"phase": "request", "dtype": cfg.compute_dtype, "fn": "reconstruct_long_sequence",
+          "frames": len(seq), "step": step, "launches": delta, **checked})
     counts = launches()
-    require(counts["packed_attention_fwd"] > 0 and counts["vq_assign"] > 0,
+    require(counts[attention.ENTRY["fwd", dtype]] > 0 and counts["vq_assign"] > 0,
             f"a serving kernel never ran: {counts}")
 
     # serving speed, through the same ServingApp
@@ -483,11 +674,9 @@ def main_path(exp, profile: bool = False) -> dict:
         t0 = time.perf_counter()
         app.call("retarget", x1)
         lat.append((time.perf_counter() - t0) * 1e3)
-    out = {"launches": counts, "retarget_windows_per_s_b4096": wps,
-           "retarget_p50_ms_b1": statistics.median(lat)}
-    if profile:
-        out["profile"] = device_breakdown(app, x4096)
-    return out
+    out = {"dtype": cfg.compute_dtype, "launches": counts,
+           "retarget_windows_per_s_b4096": wps, "retarget_p50_ms_b1": statistics.median(lat)}
+    return out, (app, x4096)
 
 
 def device_breakdown(app: ServingApp, x: np.ndarray, reps: int = 3) -> dict:
@@ -509,6 +698,7 @@ def device_breakdown(app: ServingApp, x: np.ndarray, reps: int = 3) -> dict:
     rows.sort(key=lambda r: -r[1])
     return {"b": x.shape[0], "requests": reps, "wall_ms_per_request": wall_ms / reps,
             "device_ms_per_request": busy_ms / reps, "idle_share": 1.0 - busy_ms / wall_ms,
+            "device_launches_per_request": sum(r[2] for r in rows) / reps,
             "top": [{"kernel": name[:90], "ms_per_request": ms / reps,
                      "launches_per_request": n / reps, "share": ms / busy_ms}
                     for name, ms, n in _top(rows, 15)]}
@@ -530,9 +720,12 @@ def _expected_train_launches(trainer: Trainer, n: int, epochs: int) -> dict:
     n_train = int((1.0 - exp.train.val_fraction) * n)
     micro = (n_train // TRAIN_BATCH) * TRAIN_ACCUM
     val_batches = max((n - n_train) // min(TRAIN_BATCH, n - n_train), 1)
-    names = ("packed_attention_fwd", "packed_attention_bwd", "vq_assign")
-    return {name: epochs * (micro * m + val_batches * v)
-            for name, m, v in zip(names, PER_MICROBATCH[mode], PER_VAL_BATCH[mode])}
+    dtype = compute_dtype(exp.model)
+    names = (attention.ENTRY["fwd", dtype], attention.ENTRY["bwd", dtype], "vq_assign")
+    want = {name: 0 for name in kernels.COUNTERS}
+    want.update({name: epochs * (micro * m + val_batches * v)
+                 for name, m, v in zip(names, PER_MICROBATCH[mode], PER_VAL_BATCH[mode])})
+    return want
 
 
 def _run_stage(exp, ds: PairedDataset, epochs: int) -> dict:
@@ -557,7 +750,8 @@ def _run_stage(exp, ds: PairedDataset, epochs: int) -> dict:
     timed = trainer.train_seconds[1:]          # the first epoch is the warm-up
     windows = sum(w for _, w, _ in timed)
     seconds = sum(t for _, _, t in timed)
-    return {"mode": mode, "epochs": epochs, "launches": counts,
+    return {"mode": mode, "dtype": exp.model.compute_dtype, "epochs": epochs,
+            "launches": counts,
             "microbatch": TRAIN_BATCH // TRAIN_ACCUM,
             "windows_per_s": windows / seconds, "timed_windows": windows,
             "timed_seconds": seconds, "epoch_seconds": [t for _, _, t in trainer.train_seconds],
@@ -565,49 +759,60 @@ def _run_stage(exp, ds: PairedDataset, epochs: int) -> dict:
             "ckpt_best": trainer.ckpt_path(SEED, "best")}
 
 
-def train_path(smi: str) -> dict:
+def train_path(smi: str, dtype=torch.float32) -> dict:
     """Teacher, then student from the teacher's best checkpoint, through
-    the port's Trainer at full width; files go to a temporary directory."""
+    the port's Trainer at full width in ``dtype``; files go to a temporary
+    directory."""
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    over = {"compute_dtype": DTYPE_NAME[dtype]}
     try:
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
         W = 10
         ds = PairedDataset(torch.randn(TRAIN_WINDOWS, W, 29, device="cuda", generator=g),
                            torch.randn(TRAIN_WINDOWS, W, 126, device="cuda", generator=g))
-        teacher = _run_stage(_train_exp(workdir, epochs=TEACHER_EPOCHS), ds, TEACHER_EPOCHS)
+        teacher = _run_stage(_train_exp(workdir, epochs=TEACHER_EPOCHS, **over), ds,
+                             TEACHER_EPOCHS)
         emit({"phase": "train", "card": smi, **teacher})
         student = _run_stage(_train_exp(workdir, mode="student", epochs=STUDENT_EPOCHS,
-                                        teacher_ckpt=teacher["ckpt_best"]),
+                                        teacher_ckpt=teacher["ckpt_best"], **over),
                              ds, STUDENT_EPOCHS)
         emit({"phase": "train", "card": smi, **student})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     total = {k: teacher["launches"][k] + student["launches"][k] for k in teacher["launches"]}
-    require(all(v > 0 for v in total.values()), f"a kernel never ran in training: {total}")
-    return {"launches": total, "teacher_windows_per_s": teacher["windows_per_s"],
+    ran = (attention.ENTRY["fwd", dtype], attention.ENTRY["bwd", dtype], "vq_assign")
+    require(all(total[k] > 0 for k in ran), f"a kernel never ran in training: {total}")
+    return {"dtype": DTYPE_NAME[dtype], "launches": total,
+            "teacher_windows_per_s": teacher["windows_per_s"],
             "student_windows_per_s": student["windows_per_s"]}
 
 
-def train_agree() -> dict:
-    """One optimizer batch at dropout 0, from one seed, on the card and on
-    the CPU (plain versions): the loss and every parameter's gradient."""
+def _agree_step(dev: str, dtype) -> tuple:
+    """The loss and every parameter's gradient of one optimizer batch of
+    AGREE_BATCH at dropout 0 from one seed, on ``dev`` in ``dtype``."""
     exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8, dropout=0.0,
-                          batch_size=AGREE_BATCH, accum_chunks=1)
+                          batch_size=AGREE_BATCH, accum_chunks=1,
+                          compute_dtype=DTYPE_NAME[dtype])
     rng = np.random.default_rng(SEED + 2)
-    robot = rng.normal(size=(AGREE_BATCH, 10, 29)).astype(np.float32)
-    human = rng.normal(size=(AGREE_BATCH, 10, 126)).astype(np.float32)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = init_model(exp.model, SEED, device=dev)
-        opt = make_optimizer(model, exp)
-        opt.zero_grad(set_to_none=True)
-        logs = accumulate_grads(model, exp, torch.from_numpy(robot).to(dev),
-                                torch.from_numpy(human).to(dev),
-                                torch.arange(AGREE_BATCH, device=dev), None)
-        out[dev] = (float(logs["train_loss"]),
-                    {n: p.grad.detach().cpu() for n, p in model.named_parameters()
-                     if p.grad is not None})
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    robot, human = (torch.from_numpy(rng.normal(size=(AGREE_BATCH, 10, d)).astype(np.float32))
+                    for d in (29, 126))
+    model = init_model(exp.model, SEED, device=dev)
+    opt = make_optimizer(model, exp)
+    opt.zero_grad(set_to_none=True)
+    logs = accumulate_grads(model, exp, robot.to(dev), human.to(dev),
+                            torch.arange(AGREE_BATCH, device=dev), None)
+    return (float(logs["train_loss"]),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def train_agree() -> tuple:
+    """One optimizer batch at dropout 0, from one seed, on the card and on
+    the CPU (plain versions): the loss and every parameter's gradient.
+    Returns the line and the CPU's step, which train_agree_bf16 reuses."""
+    (l_gpu, g_gpu), cpu32 = _agree_step("cuda", torch.float32), _agree_step("cpu",
+                                                                          torch.float32)
+    l_cpu, g_cpu = cpu32
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     require(loss_rel <= AGREE_LOSS_RTOL, f"train_agree: loss {l_gpu} vs {l_cpu}")
     require(sorted(g_gpu) == sorted(g_cpu) and g_cpu, "train_agree: gradient sets differ")
@@ -621,16 +826,50 @@ def train_agree() -> dict:
            "loss_cpu": l_cpu, "loss_rel_err": loss_rel, "params_compared": len(g_cpu),
            "worst_grad_rel_norm_err": worst, "worst_param": worst_name}
     emit(res)
+    return res, cpu32
+
+
+def train_agree_bf16(cpu32: tuple) -> dict:
+    """The same batch in bf16 on the card and on the CPU, held to the CPU's
+    float32 step: the card's loss and each gradient no farther from float32
+    (in relative norm) than BF16_FACTOR times the CPU's bf16 ones; the loss
+    may always be one bf16 rounding of itself off."""
+    (l32, g32), (l_gpu, g_gpu), (l_cpu, g_cpu) = (cpu32, _agree_step("cuda", BF16),
+                                                  _agree_step("cpu", BF16))
+    card, own = abs(l_gpu - l32), abs(l_cpu - l32)
+    require(card <= max(BF16_FACTOR * own, BF16_LOSS_FLOOR * abs(l32)),
+            f"train_agree_bf16: loss {l_gpu}, CPU bf16 {l_cpu}, CPU float32 {l32}")
+    require(sorted(g_gpu) == sorted(g_cpu) == sorted(g32) and g32,
+            "train_agree_bf16: gradient sets differ")
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    worst, worst_name, ratios = 0.0, "", []
+    for name, gc in g32.items():
+        r_card, r_own = rel(g_gpu[name], gc), rel(g_cpu[name], gc)
+        require(r_card <= BF16_FACTOR * r_own,
+                f"train_agree_bf16: {name} gradient {r_card} from float32, the CPU "
+                f"bf16's {r_own}")
+        ratios.append(r_card / max(r_own, 1e-30))
+        if r_card > worst:
+            worst, worst_name = r_card, name
+    res = {"phase": "train_agree_bf16", "batch": AGREE_BATCH, "loss_cuda_bf16": l_gpu,
+           "loss_cpu_bf16": l_cpu, "loss_cpu_f32": l32, "loss_rel_err_vs_f32": card / abs(l32),
+           "cpu_bf16_loss_rel_err_vs_f32": own / abs(l32), "params_compared": len(g32),
+           "worst_grad_rel_norm_err_vs_f32": worst, "worst_param": worst_name,
+           "cpu_bf16_grad_rel_norm_err_vs_f32_for_it": rel(g_cpu[worst_name], g32[worst_name]),
+           "max_ratio_to_cpu_bf16": max(ratios), "median_ratio_to_cpu_bf16":
+           statistics.median(ratios)}
+    emit(res)
     return res
 
 
-def train_breakdown(reps: int = 1) -> dict:
+def train_breakdown(dtype=torch.float32, reps: int = 1) -> dict:
     """Device time by kernel over one teacher optimizer step (32
-    microbatches of 512) from torch.profiler, after one warm-up step."""
+    microbatches of 512) in ``dtype`` from torch.profiler, after one
+    warm-up step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    exp = _train_exp(tempfile.gettempdir())
+    exp = _train_exp(tempfile.gettempdir(), compute_dtype=DTYPE_NAME[dtype])
     model = init_model(exp.model, SEED, device="cuda")
     opt = make_optimizer(model, exp)
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -649,7 +888,7 @@ def train_breakdown(reps: int = 1) -> dict:
     busy_ms = sum(r[1] for r in rows)
     require(busy_ms > 0, "the profiler saw no device time")
     rows.sort(key=lambda r: -r[1])
-    return {"what": "teacher optimizer step", "batch": TRAIN_BATCH,
+    return {"what": "teacher optimizer step", "dtype": DTYPE_NAME[dtype], "batch": TRAIN_BATCH,
             "microbatches": TRAIN_ACCUM, "steps": reps, "wall_ms_per_step": wall_ms / reps,
             "device_ms_per_step": busy_ms / reps, "idle_share": 1.0 - busy_ms / wall_ms,
             "device_launches_per_step": sum(r[2] for r in rows) / reps,
@@ -676,32 +915,47 @@ def main(argv) -> int:
     print(smi, flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    table = [check_k1(g), check_k1_bwd(g), check_k2(g)]
-    check_k1_mask(g)
+    table = [check_k1(g), check_k1_bwd(g), check_k2(g), check_k1(g, BF16),
+             check_k1_bwd(g, BF16)]
+    for dtype in DTYPES:
+        check_k1_mask(g, dtype)
 
-    profile = "--profile" in argv
-    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8)
-    t0 = time.perf_counter()
-    serve = main_path(exp, profile=profile)
-    breakdown = serve.pop("profile", None)
-    emit({"phase": "serve", "card": smi, **serve,
-          "main_path_s": time.perf_counter() - t0})
-    if breakdown is not None:
-        emit({"phase": "profile", "card": smi, **breakdown})
+    serve, requests = {}, {}
+    for dtype in DTYPES:
+        exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8,
+                              compute_dtype=DTYPE_NAME[dtype])
+        t0 = time.perf_counter()
+        serve[dtype], requests[dtype] = main_path(exp)
+        emit({"phase": "serve", "card": smi, **serve[dtype],
+              "main_path_s": time.perf_counter() - t0})
+    emit({"phase": "serve_summary", "card": smi, **{
+        f"{DTYPE_NAME[dt]}_{k}": serve[dt][k] for dt in DTYPES
+        for k in ("retarget_windows_per_s_b4096", "retarget_p50_ms_b1")}})
 
-    t0 = time.perf_counter()
-    train = train_path(smi)
-    emit({"phase": "train_summary", "card": smi, **train,
-          "train_path_s": time.perf_counter() - t0})
-    train_agree()
-    if profile:
-        emit({"phase": "profile", "card": smi, **train_breakdown()})
+    train = {}
+    for dtype in DTYPES:
+        t0 = time.perf_counter()
+        train[dtype] = train_path(smi, dtype)
+        emit({"phase": "train_summary", "card": smi, **train[dtype],
+              "train_path_s": time.perf_counter() - t0})
+    _, cpu32 = train_agree()
+    train_agree_bf16(cpu32)
+    # the breakdowns come last, so that no timed phase runs after their
+    # profiler sessions (PERF.md §6: bf16 serving timed after one read slower)
+    if "--profile" in argv:
+        for dtype in DTYPES:
+            emit({"phase": "profile", "card": smi, "dtype": DTYPE_NAME[dtype],
+                  **device_breakdown(*requests[dtype])})
+        for dtype in DTYPES:
+            emit({"phase": "profile", "card": smi, **train_breakdown(dtype)})
 
+    paths = {"serve": serve[torch.float32], "serve_bf16": serve[BF16],
+             "train": train[torch.float32], "train_bf16": train[BF16]}
     for row in table:
-        by_path = {"serve": serve["launches"][row["name"]],
-                   "train": train["launches"][row["name"]]}
+        by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        require(row["launches"] > 0, f"{row['name']} was never launched on the main paths")
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,11 +11,15 @@ sequence lengths and general biases, forward and backward, with dropout 0
 and 0.1; K2 at odd N, D and K, D up to 512, K over several slices of a
 cluster rank and ragged last slices, N off the row tile, exact ties (also
 across the slices of one cluster), repeat calls, and the shapes and launch
-plans it refuses; one small-model train step against the CPU.
+plans it refuses; one small-model train step against the CPU. K1's bfloat16
+instantiations run at every head dim, on windows, whole rows and the row
+kernels, with the dropout mask, what they refuse, and a small bf16 train
+step.
 
 K1 runs with ``window`` (the diagonal blocks of each packed row only) and
 without it (W = S, any bias). Tolerances: K1 1e-4 absolute (f32, other summation order and expf), with
-the dropout mask equal bit for bit (the same Philox words). K2
+the dropout mask equal bit for bit (the same Philox words); in bf16 one
+bf16 ulp of the plain value (both round the same float32 quantity). K2
 indices equal except rows whose two best plain distances lie within
 1e-5 * (1 + |d|); counts and dw equal bit for bit to ``assignment_stats`` on
 the CPU for the kernel's own indices (both add each code's rows in
@@ -31,8 +35,10 @@ from bridgerl_tpu_torch.models import init_model
 from bridgerl_tpu_torch.models.layers import attention_bias
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
 from bridgerl_tpu_torch.train.trainer import accumulate_grads, make_optimizer
+from chip_smoke import bf16_ulps
 
 pytestmark = pytest.mark.cuda
+FWD_F32, BWD_F32 = attention.COUNTER["fwd", torch.float32], attention.COUNTER["bwd", torch.float32]
 
 
 @pytest.fixture()
@@ -46,10 +52,10 @@ def gen():
 def _k1_case(gen, BH, S, Dh, bias):
     q, k, v = (torch.randn(BH, S, Dh, device="cuda", generator=gen) for _ in range(3))
     scale = Dh ** -0.5
-    before = attention.launch_counter.count
+    before = FWD_F32.count
     out = attention.packed_attention(q, k, v, bias, scale)
     torch.cuda.synchronize()
-    assert attention.launch_counter.count == before + 1
+    assert FWD_F32.count == before + 1
     ref = attention.packed_attention_reference(q, k, v, bias, scale)
     assert (out - ref).abs().max().item() <= 1e-4
 
@@ -80,7 +86,7 @@ def test_k1_windowed_fwd_and_bwd_match_plain(gen, packing, window, Dh, rate):
     out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, window)
     got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, window)
     torch.cuda.synchronize()
-    assert attention.launch_counter.count == 1 and attention.bwd_launch_counter.count == 1
+    assert FWD_F32.count == 1 and BWD_F32.count == 1
     ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, window)
     want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
                                                     window)
@@ -120,9 +126,9 @@ def test_k1_refuses_a_window_that_does_not_divide_the_row(gen):
 
 def test_k1_empty_batch_launches_nothing(gen):
     q = torch.empty(0, 10, 64, device="cuda")
-    before = attention.launch_counter.count
+    before = FWD_F32.count
     out = attention.packed_attention(q, q, q, torch.zeros(10, 10, device="cuda"), 0.125)
-    assert out.shape == (0, 10, 64) and attention.launch_counter.count == before
+    assert out.shape == (0, 10, 64) and FWD_F32.count == before
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "bias_shape", "too_long"])
@@ -159,10 +165,10 @@ def test_k1_bwd_matches_plain(gen, Dh, S, rate):
     q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen) for _ in range(4))
     bias = attention_bias(S // 10, 10, "cuda")
     seed, scale = _seed(gen), Dh ** -0.5
-    before = attention.bwd_launch_counter.count
+    before = BWD_F32.count
     got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate)
     torch.cuda.synchronize()
-    assert attention.bwd_launch_counter.count == before + 1
+    assert BWD_F32.count == before + 1
     want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate)
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-4
@@ -200,16 +206,16 @@ def test_k1_autograd_goes_through_both_kernels(gen):
     out = attention.packed_attention(q, k, v, bias, 0.125, 0.1,
                                      torch.Generator(device="cuda").manual_seed(3))
     out.sum().backward()
-    assert attention.launch_counter.count == 1 and attention.bwd_launch_counter.count == 1
+    assert FWD_F32.count == 1 and BWD_F32.count == 1
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
 def test_k1_bwd_empty_batch_launches_nothing(gen):
     q = torch.empty(0, 10, 64, device="cuda")
-    before = attention.bwd_launch_counter.count
+    before = BWD_F32.count
     dq, dk, dv = attention.attention_bwd(q, q, q, torch.zeros(10, 10, device="cuda"), q,
                                          0.125, None, 0.0)
-    assert dq.shape == (0, 10, 64) and attention.bwd_launch_counter.count == before
+    assert dq.shape == (0, 10, 64) and BWD_F32.count == before
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "dout_shape", "seed",
@@ -414,3 +420,132 @@ def test_small_model_on_the_card_matches_the_cpu(gen, packing):
     assert (got - cpu.retarget(x)).abs().max().item() <= 1e-4
     codes_gpu, codes_cpu = gpu.motion_codes(x), cpu.motion_codes(x)
     assert all(torch.equal(codes_gpu[k].cpu(), codes_cpu[k]) for k in codes_cpu)
+
+
+# ---------------------------------------------------------------- K1 in bfloat16
+
+BF16 = torch.bfloat16
+BF16_ATOL = 1e-6   # float32 summation noise, seen only where a sum cancels to near 0
+
+
+def _bf16(gen, *shape):
+    return torch.randn(*shape, device="cuda", generator=gen).to(BF16)
+
+
+def _bf16_pair(gen, BH, S, Dh, bias, window, rate):
+    """Both bf16 kernels against the bf16 plain versions on the same inputs:
+    at most one bf16 ulp apart (both round the same float32 quantity), each
+    launched once on its own bf16 counter and the float32 ones untouched."""
+    q, k, v, do = (_bf16(gen, BH, S, Dh) for _ in range(4))
+    seed, scale = _seed(gen), Dh ** -0.5
+    kernels.reset_counters()
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, window)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, window)
+    torch.cuda.synchronize()
+    assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
+        "packed_attention_fwd_bf16": 1, "packed_attention_bwd_bf16": 1}
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, window)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
+                                                    window)
+    assert out.dtype == BF16 and bf16_ulps(out, ref, BF16_ATOL) <= 1.0
+    for a, b in zip(got, want):
+        assert a.dtype == BF16 and bf16_ulps(a, b, BF16_ATOL) <= 1.0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh", attention.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("packing,window", [(8, 10), (1, 10), (4, 7)])
+def test_k1_bf16_windowed_fwd_and_bwd_match_plain(gen, packing, window, Dh, rate):
+    _bf16_pair(gen, 40, packing * window, Dh, attention_bias(packing, window, "cuda"),
+               window, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh,S", [(16, 33), (64, 80), (128, 120), (128, 200)])
+def test_k1_bf16_whole_rows_and_the_row_kernels(gen, Dh, S, rate):
+    """window=None with a general bias; at Dh 128 and S 120 or 200 the
+    windows are too large to tile and both kernels take their row path."""
+    bias = torch.randn(S, S, device="cuda", generator=gen) * 3.0
+    _bf16_pair(gen, 12, S, Dh, bias, None, rate)
+
+
+def test_k1_bf16_row_paths_are_exercised():
+    """The shapes above that must take the row kernels do (the launcher's
+    rule: a window's tile does not fit one block's shared memory)."""
+    tile_fwd = lambda W, Dh: 4 * (3 * W * (Dh + 4) + 2 * W * (W + 1) + W)
+    tile_bwd = lambda W, Dh: 4 * (4 * W * (Dh + 4) + 3 * W * (W + 1))
+    assert tile_fwd(200, 128) > attention._SMEM_LIMIT
+    assert tile_bwd(120, 128) > attention._SMEM_LIMIT
+
+
+def test_k1_bf16_masks_equal_plain_philox(gen):
+    """v = I and dout = I (exact in bf16) read both bf16 kernels' keep bits:
+    equal to the plain Philox mask bit for bit."""
+    BH, S = 40, 20
+    q, k = (_bf16(gen, BH, S, 32) for _ in range(2))
+    eye = torch.eye(S, 32, device="cuda", dtype=BF16).expand(BH, S, 32).contiguous()
+    bias = torch.zeros(S, S, device="cuda")
+    seed = _seed(gen)
+    fwd = attention.attention_fwd(q, k, eye, bias, 0.2, seed, 0.3)[:, :, :S] > 0
+    dv = attention.attention_bwd(q, k, eye, bias, eye, 0.2, seed, 0.3)[2]
+    want = attention.attention_dropout_mask(seed, BH, S, 0.3, "cuda")
+    assert torch.equal(fwd, want) and torch.equal(dv[:, :S, :S].transpose(1, 2) > 0, want)
+
+
+@pytest.mark.parametrize("bad", ["mixed", "bias_bf16", "strided", "misaligned", "dout_f32"])
+def test_k1_bf16_refuses_what_it_does_not_take(gen, bad):
+    S, Dh = 10, 64
+    args = {n: _bf16(gen, 4, S, Dh) for n in ("q", "k", "v", "do")}
+    args["bias"] = torch.zeros(S, S, device="cuda")
+    if bad == "mixed":
+        args["k"] = args["k"].float()
+    elif bad == "bias_bf16":
+        args["bias"] = args["bias"].to(BF16)
+    elif bad == "strided":
+        args["v"] = _bf16(gen, 4, Dh, S).transpose(1, 2)
+    elif bad == "misaligned":
+        args["q"] = _bf16(gen, 4 * S * Dh + 1)[1:].view(4, S, Dh)   # 2 bytes off
+    elif bad == "dout_f32":
+        args["do"] = args["do"].float()
+    with pytest.raises(ValueError):
+        if bad == "dout_f32":
+            attention.attention_bwd(args["q"], args["k"], args["v"], args["bias"], args["do"],
+                                    0.1, None, 0.0)
+        else:
+            attention.attention_fwd(args["q"], args["k"], args["v"], args["bias"], 0.1, None,
+                                    0.0)
+
+
+def test_small_bf16_train_step_on_the_card_matches_the_cpu(gen):
+    """One accumulated teacher step in bf16 at dropout 0, on the card and on
+    the CPU, against the CPU's float32 step: the card's loss and each
+    gradient no farther from float32 than twice the CPU's bf16 ones (the
+    loss with a floor of 1e-3 relative: a mean of many bf16-rounded terms can
+    land near the float32 value by chance); launches on the bf16 counters."""
+    kw = dict(window=10, hidden_dim=16, d_model=64, n_tf_layers=2, ff_dim=64,
+              attn_packing=4, dropout=0.0, batch_size=64, accum_chunks=2)
+    x = torch.randn(64, 10, 29, generator=torch.Generator().manual_seed(1))
+    h = torch.randn(64, 10, 126, generator=torch.Generator().manual_seed(2))
+    res = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"), ("cpu", "float32")):
+        exp = make_experiment("transformer", "hybrid", compute_dtype=dtype, **kw)
+        model = init_model(exp.model, 3, device=dev)
+        make_optimizer(model, exp)
+        kernels.reset_counters()
+        logs = accumulate_grads(model, exp, x.to(dev), h.to(dev),
+                                torch.arange(64, device=dev), None)
+        res[dev, dtype] = (float(logs["train_loss"]),
+                           {n: p.grad.cpu() for n, p in model.named_parameters()
+                            if p.grad is not None})
+        if dev == "cuda":
+            assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
+                "packed_attention_fwd_bf16": 8, "packed_attention_bwd_bf16": 8,
+                "vq_assign": 8}
+            assert all(g.dtype == torch.float32 for g in res[dev, dtype][1].values())
+    (lg, gg), (lc, gc), (l32, g32) = (res["cuda", "bfloat16"], res["cpu", "bfloat16"],
+                                      res["cpu", "float32"])
+    assert abs(lg - l32) <= max(2 * abs(lc - l32), 1e-3 * abs(l32))
+    assert sorted(gg) == sorted(gc) == sorted(g32)
+    for n in g32:
+        own = (gc[n] - g32[n]).norm()
+        assert (gg[n] - g32[n]).norm() <= 2 * own + 1e-6 * g32[n].norm(), n

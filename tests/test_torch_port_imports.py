@@ -101,7 +101,7 @@ def test_chip_smoke_alone_fails_and_prints_nothing(tmp_path):
 def test_kernel_sources_and_signatures_agree():
     """Every C entry point the wrappers bind is defined in its csrc source,
     with as many parameters as its ctypes signature; every source is bound."""
-    assert sorted(lib for lib, _ in kernels.SIGNATURES.values()) == sorted(
+    assert sorted({lib for lib, _ in kernels.SIGNATURES.values()}) == sorted(
         p.stem for p in kernels.CSRC.glob("*.cu"))
     for fn, (lib, argtypes) in kernels.SIGNATURES.items():
         src = (kernels.CSRC / f"{lib}.cu").read_text()
@@ -127,5 +127,6 @@ def test_counters_reset():
         c.add()
     kernels.reset_counters()
     assert {c.count for c in kernels.COUNTERS.values()} == {0}
-    assert sorted(kernels.COUNTERS) == ["packed_attention_bwd", "packed_attention_fwd",
+    assert sorted(kernels.COUNTERS) == ["packed_attention_bwd", "packed_attention_bwd_bf16",
+                                        "packed_attention_fwd", "packed_attention_fwd_bf16",
                                         "vq_assign"]

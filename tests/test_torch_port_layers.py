@@ -71,11 +71,12 @@ def test_packed_rows_equal_separate_windows():
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
     t = torch.randn(4, 10, 16, generator=torch.Generator().manual_seed(0))
-    attention.launch_counter.reset()
+    counter = attention.COUNTER["fwd", torch.float32]
+    counter.reset()
     out = attention.packed_attention(t, t, t, torch.zeros(10, 10), 0.25)
     ref = attention.packed_attention_reference(t, t, t, torch.zeros(10, 10), 0.25)
     assert torch.equal(out, ref)
-    assert attention.launch_counter.count == 0
+    assert counter.count == 0
 
 
 @pytest.mark.parametrize("max_len,d_model", [(10, 32), (80, 256), (64, 8)])

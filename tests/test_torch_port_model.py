@@ -191,7 +191,7 @@ def test_init_model_full_width_parameter_count_matches_jax():
     assert n_port == n_jax
 
 
-@pytest.mark.parametrize("over", [dict(compute_dtype="bfloat16"), dict(int8_ff=True)])
+@pytest.mark.parametrize("over", [dict(int8_ff=True)])
 def test_unported_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DualMotionVQVAE(make_experiment("transformer", "hybrid", **SMALL, **over).model)
