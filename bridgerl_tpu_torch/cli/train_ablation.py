@@ -1,0 +1,206 @@
+"""Train one ablation experiment, teacher or student, on the card.
+
+    python -m bridgerl_tpu_torch.cli.train_ablation --arch resnet_no_down --method hybrid \
+        --window 10 --epochs 3
+    python -m bridgerl_tpu_torch.cli.train_ablation --arch resnet_no_down --method hybrid \
+        --window 10 --mode student --epochs 2 \
+        --teacher_ckpt checkpoints/Exp_resnet_no_down_W10_hybrid_teacher_seed_42_best.pth
+
+The flags, defaults and artifact names of ``scripts/train_ablation.py``;
+checkpoints are the reference's ``.pth`` files where the JAX CLI writes
+``.ckpt``, and ``--teacher_ckpt`` takes the port's ``.pth``. Several seeds
+train one after another. ``--device`` (default ``cuda``) picks the device:
+without a card the run stops unless ``--device cpu`` asks for the CPU.
+``--profile DIR`` writes a ``torch.profiler`` trace of the run to
+``DIR/trace.json``. ``--fused_attention`` is accepted: the port's attention
+always follows the fused kernel. ``--data_parallel`` does nothing on one
+card and stops the run where more are visible (data parallelism is not
+ported). The flags this port does not have yet stop the run with a message
+that names ``ROADMAP.md``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+from typing import Optional, Sequence
+
+DEFAULT_PRNG = "threefry2x32"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--method", type=str, default="hybrid")
+    p.add_argument("--arch", type=str, default="transformer")
+    p.add_argument("--epochs", type=int, default=400)
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--seed", type=int, nargs="+", default=[42])
+    p.add_argument("--window", type=int, default=64)
+    p.add_argument("--patience", type=int, default=-1)
+    p.add_argument("--mode", type=str, default="teacher", choices=["teacher", "student"])
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--teacher_ckpt", type=str, default=None)
+    p.add_argument("--data_dir", type=str, default="data/processed")
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--hidden_dim", type=int, default=64)
+    p.add_argument("--tf_tokens", type=int, default=1,
+                   help="Transformer latent tokens per window; must divide --window")
+    p.add_argument("--multiseed", action="store_true",
+                   help="Train all seeds at once (not ported: one seed at a time)")
+    p.add_argument("--data_parallel", "--force_multi_gpu", action="store_true",
+                   dest="data_parallel", help="A no-op on one card")
+    p.add_argument("--lambda_fk", type=float, default=0.0,
+                   help="World-space FK loss weight (not ported: 0 only)")
+    p.add_argument("--profile", type=str, default=None,
+                   help="Write a torch.profiler trace of the run to DIR/trace.json")
+    p.add_argument("--accum_chunks", type=int, default=1,
+                   help="Microbatches per optimizer batch (summed gradients, one step)")
+    p.add_argument("--attn_packing", type=int, default=1,
+                   help="Pack P windows per attention call under a block-diagonal mask")
+    p.add_argument("--fused_attention", action="store_true",
+                   help="Accepted; the port's attention always follows the fused kernel")
+    p.add_argument("--prng", type=str, default=DEFAULT_PRNG,
+                   choices=["threefry2x32", "rbg", "unsafe_rbg"],
+                   help="JAX's PRNG (the port draws from Philox and torch generators)")
+    p.add_argument("--ref_exact", action="store_true",
+                   help="Reference semantics: channel-axis velocity, torch inits, cold EMA")
+    p.add_argument("--torch_init", action=argparse.BooleanOptionalAction, default=None,
+                   help="torch kaiming/xavier-uniform kernel inits; --no-torch_init: "
+                        "lecun-normal")
+    p.add_argument("--cold_ema", action="store_true",
+                   help="The reference's cold EMA-state init only")
+    p.add_argument("--ref_exact_vel", action=argparse.BooleanOptionalAction, default=None,
+                   help="Channel-axis velocity difference (the default); "
+                        "--no-ref_exact_vel: time axis")
+    p.add_argument("--log_dir", type=str, default="results")
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (float32 weights and codebook math)")
+    p.add_argument("--fsq_bounded", action=argparse.BooleanOptionalAction, default=None,
+                   help="tanh-bounded FSQ (the default); --no-fsq_bounded: unbounded round")
+    p.add_argument("--save_every", type=int, default=1,
+                   help="Epochs between `_last` checkpoint writes")
+    p.add_argument("--cheap_dropout", action="store_true", help="Not ported")
+    p.add_argument("--int8_ff", action="store_true", help="Not ported")
+    p.add_argument("--reuse_dropout_mask", action="store_true", help="Not ported")
+    p.add_argument("--lfq_norm", action=argparse.BooleanOptionalAction, default=None,
+                   help="LFQ pre-sign LayerNorm (the default); --no-lfq_norm: reference")
+    p.add_argument("--entropy_weight", type=float, default=0.1,
+                   help="LFQ entropy regularization weight")
+    p.add_argument("--init_from", type=str, default=None, help="Not ported")
+    p.add_argument("--vq_norm", action=argparse.BooleanOptionalAction, default=None,
+                   help="Parameter-free LayerNorm before the quantizer")
+    p.add_argument("--codebook_data_init", action=argparse.BooleanOptionalAction,
+                   default=None, help="Not ported")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default) or cpu; nothing falls back to the CPU")
+    return p
+
+
+def unported(args) -> Optional[str]:
+    """The first flag the port cannot run yet, or None."""
+    for flag, on in (("--multiseed with several seeds", args.multiseed and len(args.seed) > 1),
+                     ("--lambda_fk", args.lambda_fk != 0.0),
+                     ("--cheap_dropout", args.cheap_dropout),
+                     ("--reuse_dropout_mask", args.reuse_dropout_mask),
+                     ("--int8_ff", args.int8_ff),
+                     ("--init_from", bool(args.init_from)),
+                     ("--codebook_data_init", bool(args.codebook_data_init)),
+                     (f"--prng {args.prng}", args.prng != DEFAULT_PRNG)):
+        if on:
+            return flag
+    return None
+
+
+def make_exp(args, robot_dim: int, human_dim: int):
+    """The ExperimentConfig the flags ask for, assembled as the JAX CLI does."""
+    from ..config import make_experiment, ref_exact
+
+    opt = {k: v for k, v in (("fsq_bounded", args.fsq_bounded), ("lfq_norm", args.lfq_norm),
+                             ("vq_norm", args.vq_norm)) if v is not None}
+    exp = make_experiment(
+        args.arch, args.method, window=args.window, mode=args.mode, seeds=tuple(args.seed),
+        epochs=args.epochs, batch_size=args.batch_size, patience=args.patience,
+        resume=args.resume, teacher_ckpt=args.teacher_ckpt, save_every=args.save_every,
+        learning_rate=args.lr, hidden_dim=args.hidden_dim, tf_tokens=args.tf_tokens,
+        attn_packing=args.attn_packing, accum_chunks=args.accum_chunks,
+        fused_attention=args.fused_attention, entropy_loss_weight=args.entropy_weight,
+        human_input_dim=human_dim, robot_input_dim=robot_dim,
+        compute_dtype="bfloat16" if args.bf16 else "float32", **opt)
+    exp = dataclasses.replace(exp, log_dir=args.log_dir, checkpoint_dir=args.checkpoint_dir)
+    if args.ref_exact:
+        print("!!! ref-exact mode: channel-axis velocity diff, torch inits, cold EMA init !!!")
+        return ref_exact(exp)
+    model_over, train_over = {}, {}
+    if args.torch_init is not None and args.torch_init != exp.model.torch_init:
+        model_over["torch_init"] = args.torch_init
+    if args.cold_ema:
+        model_over["ema_warm_start"] = False
+    if args.ref_exact_vel is not None and args.ref_exact_vel != exp.train.ref_exact_vel:
+        train_over["ref_exact_vel"] = args.ref_exact_vel
+    if model_over or train_over:
+        print(f"!!! single-flag arm(s): {sorted({**model_over, **train_over})} !!!")
+        exp = dataclasses.replace(exp, model=dataclasses.replace(exp.model, **model_over),
+                                  train=dataclasses.replace(exp.train, **train_over))
+    return exp
+
+
+def _run(exp, ds, device, profile_dir: Optional[str]) -> None:
+    from ..train.trainer import Trainer
+
+    if profile_dir is None:
+        Trainer(exp, device=device).run(ds)
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        Trainer(exp, device=device).run(ds)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    print(f"Profile: {os.path.join(profile_dir, 'trace.json')}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    flag = unported(args)
+    if flag is not None:
+        print(f"{flag} is not ported to bridgerl_tpu_torch yet (ROADMAP.md)", file=sys.stderr)
+        return 2
+
+    import torch
+
+    from ..data.dataset import PairedDataset
+    from ..data.pipeline import load_artifacts
+    from ..device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"train_ablation: {e}", file=sys.stderr)
+        return 1
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        print(f"--data_parallel over {torch.cuda.device_count()} cards is not ported "
+              "(ROADMAP.md); make one card visible", file=sys.stderr)
+        return 2
+    if device.type == "cuda":   # float32 means float32: no TF32 in GEMMs or convolutions
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    arrays = load_artifacts(args.data_dir)
+    ds = PairedDataset.from_numpy(arrays["g1_train.npy"], arrays["human_train.npy"],
+                                  device=device)
+    print(f"Dataset loaded. Dim: R={ds.robot_dim}/H={ds.human_dim}, "
+          f"N={len(ds)}, Batch={args.batch_size}")
+    exp = make_exp(args, ds.robot_dim, ds.human_dim)
+    _run(exp, ds, device, args.profile)
+    for seed in args.seed:
+        print(f"Success: {exp.name} | Mode: {args.mode} | Seed: {seed}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

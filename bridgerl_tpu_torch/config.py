@@ -214,6 +214,17 @@ def make_experiment(
     )
 
 
+def ref_exact(exp: ExperimentConfig) -> ExperimentConfig:
+    """Every documented deviation back to the reference's semantics, for A/B
+    runs: the channel-axis velocity difference, torch kernel inits, and the
+    reference's cold EMA-state init (normal ema_w, zero cluster sizes)."""
+    return dataclasses.replace(
+        exp,
+        model=dataclasses.replace(exp.model, ema_warm_start=False, torch_init=True),
+        train=dataclasses.replace(exp.train, ref_exact_vel=True),
+    )
+
+
 # Full metric schema the evaluators expect (reference export_latex_table.py:19-27,
 # plot_results.py:11-25); the history JSON carries every key.
 HISTORY_KEYS: Tuple[str, ...] = (

@@ -1,1 +1,2 @@
-"""On-device paired dataset."""
+"""Data: the on-device paired dataset, the preprocessing pipeline, the
+synthetic generator and the rotation conversion they use."""

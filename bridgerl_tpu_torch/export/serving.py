@@ -8,7 +8,9 @@ Functions (float32 in, channel-last, any batch size):
     retarget     (b, W, 126) raw human windows -> (b, W, 29) raw robot joints
     robot_recon  (b, W, 29) raw robot windows  -> (b, W, 29) reconstruction
     motion_codes (b, W, 126) raw human windows -> dict of int32 (b, tokens)
-                 code streams, ``quantizer/fsq`` and ``quantizer/rvq/vq_0..3``
+                 code streams named as the JAX package names them
+                 (:func:`code_stream_names`); absent for ``ae``, which has
+                 no codes, as in the JAX package
 
 Normalisation stats default to identity (raw in, raw out), the JAX
 package's default (``ref_normalize=False``).
@@ -62,24 +64,43 @@ def make_serving_fns(model, robot_stats: Optional[Stats] = None,
         out = model(x_human=(_in(x_human) - h_mean) / h_std)
         return {k: v.to(torch.int32) for k, v in sorted(out["human"]["codes"].items())}
 
-    return {"retarget": retarget, "robot_recon": robot_recon,
-            "motion_codes": motion_codes}
+    fns = {"retarget": retarget, "robot_recon": robot_recon}
+    if cfg.method != "ae":
+        fns["motion_codes"] = motion_codes
+    return fns
 
 
 def code_stream_names(cfg) -> Tuple[str, ...]:
-    """The hybrid quantizer's streams, in the JAX package's names."""
-    return ("quantizer/fsq",) + tuple(f"quantizer/rvq/vq_{i}" for i in range(4))
+    """The method's code streams, in the JAX package's names."""
+    if cfg.method == "ae":
+        return ()
+    if cfg.method == "rvq":
+        return tuple(f"quantizer/vq_{i}" for i in range(cfg.n_layers))
+    if cfg.method == "hybrid":
+        return ("quantizer/fsq",) + tuple(f"quantizer/rvq/vq_{i}" for i in range(4))
+    return ("quantizer",)
+
+
+def tokens_per_window(cfg) -> int:
+    """Latent tokens of one window: the transformer's pooled tokens, a
+    quarter of the window for the strided conv towers, every frame for
+    ``resnet_no_down``."""
+    if cfg.arch == "transformer":
+        return cfg.tf_tokens
+    return cfg.window_size if cfg.arch == "resnet_no_down" else cfg.window_size // 4
 
 
 def function_signatures(cfg) -> Dict[str, Dict[str, Any]]:
     """``meta["functions"]`` as the JAX serving artifact writes it."""
     W, h, r = cfg.window_size, cfg.human_input_dim, cfg.robot_input_dim
-    codes = {name: ["b", cfg.tf_tokens] for name in code_stream_names(cfg)}
-    return {
+    sigs = {
         "retarget": {"input": ["b", W, h], "output": ["b", W, r], "dtype": "float32"},
         "robot_recon": {"input": ["b", W, r], "output": ["b", W, r], "dtype": "float32"},
-        "motion_codes": {"input": ["b", W, h], "output": codes, "dtype": "float32"},
     }
+    if cfg.method != "ae":
+        codes = {name: ["b", tokens_per_window(cfg)] for name in code_stream_names(cfg)}
+        sigs["motion_codes"] = {"input": ["b", W, h], "output": codes, "dtype": "float32"}
+    return sigs
 
 
 @dataclass

@@ -1,10 +1,22 @@
-"""Transformer towers of the flagship model.
+"""Encoder and decoder towers of the model zoo.
 
-Counterparts of the transformer half of ``bridgerl_tpu/models/layers.py``.
-Layout is channel-last ``(B, T, C)``. Submodules carry the reference's
-state-dict names (``input_proj``, ``transformer.layers.{i}.self_attn``,
-``linear1``, ``norm1``, ...). Attention goes through
-``ops/attention.py::packed_attention`` (the K1 kernels on CUDA tensors).
+Counterparts of ``bridgerl_tpu/models/layers.py``: the transformer towers and
+the convolutional ones (``ResBlock1D``, ``simple`` / ``resnet``
+``ConvEncoder`` and ``ConvDecoder``, the full-resolution ``NoDownsample*``
+pair). Every tower takes and returns channel-last ``(B, T, C)``; the
+convolutional ones run in torch's ``(B, C, T)`` inside and transpose once at
+entry and once at exit. Submodules carry the reference's state-dict names
+(``input_proj``, ``transformer.layers.{i}.self_attn``, ``linear1``,
+``norm1``; ``model.{i}``, ``model.res_{i}``, ``net.{j}``, ...), and
+convolution weights are stored in torch's layouts, so a reference ``.pth``
+loads as it is. Attention goes through
+``ops/attention.py::packed_attention`` (the K1 kernels on CUDA tensors); the
+convolutions are plain ``F.conv1d`` / ``F.conv_transpose1d``, as the JAX
+package leaves them to XLA.
+
+BatchNorm is flax's (:class:`BatchNorm`), not torch's: the batch variance is
+the biased one, ``E[x^2] - E[x]^2``, and the running variance folds it in as
+it is (torch's ``BatchNorm1d`` stores the unbiased one).
 
 ``train=True`` turns on the four dropouts of each block at the config's
 rate: on the attention probabilities (inside K1), on the attention output
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import functools
 import math
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -251,3 +264,181 @@ class TransformerMotionDecoder(nn.Module):
         h = self.input_proj(x)                                                # (B, k, d)
         h = torch.repeat_interleave(h, self.seq_len // self.tokens, dim=1)    # (B, T, d)
         return self.output_proj(self.transformer(h, train, generator))
+
+
+# ---------------------------------------------------------------- conv towers
+
+LEAKY_SLOPE = 0.2
+BN_EPS = 1e-5       # flax BatchNorm's epsilon as the JAX package sets it
+BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch
+
+
+class LeakyReLU(nn.Module):
+    """``where(x >= 0, x, 0.2 * x)`` with the slope rounded to x's dtype,
+    as flax's ``nn.leaky_relu`` computes it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, x * _in_dtype(LEAKY_SLOPE, x.dtype))
+
+
+class Upsample(nn.Module):
+    """Nearest upsampling x2 along time of (B, C, T) (``jnp.repeat``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.repeat_interleave(x, 2, dim=2)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` over (B, C, T) computing in ``dtype``, as flax's
+    ``nn.Conv(dtype=...)``: input, weight and bias are cast to it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
+                        self.padding)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` over (B, C, T) computing in ``dtype``. With
+    k=4, s=2, p=1 it doubles the length, as flax's ``nn.ConvTranspose`` with
+    lax padding (2, 2) does on the flipped kernel."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                                  self.stride, self.padding)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels of
+    (B, C, T), with torch's ``BatchNorm1d`` state-dict names.
+
+    In train mode the statistics are float32 whatever x's dtype: the mean and
+    the biased variance ``max(E[x^2] - E[x]^2, 0)`` over batch and time,
+    folded into the buffers as ``0.9 * running + 0.1 * batch`` (once a call,
+    so once a microbatch, and once a branch where both branches run).
+    Normalising is float32 too, ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``, and the result is cast to x's dtype. In eval mode the running
+    statistics take the batch's place. ``num_batches_tracked`` counts the
+    train calls, as torch's does; the JAX package has no such counter."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x32 = x.float()
+        if train:
+            mean = x32.mean(dim=(0, 2))
+            var = torch.clamp_min((x32 * x32).mean(dim=(0, 2)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x32 - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        return y.to(x.dtype)
+
+
+def _run(layers: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """Apply ``layers`` in order, passing ``train`` to those that take it."""
+    for layer in layers:
+        x = layer(x, train) if isinstance(layer, (BatchNorm, ResBlock1D)) else layer(x)
+    return x
+
+
+class ResBlock1D(nn.Module):
+    """x + (Conv(3) -> BN -> LeakyReLU) x 2, stride 1, over (B, C, T); the
+    reference's ``net.{0 conv, 1 bn, 3 conv, 4 bn}``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.net = nn.Sequential(
+            Conv1d(channels, channels, 3, padding=1, dtype=dtype), BatchNorm(channels),
+            LeakyReLU(),
+            Conv1d(channels, channels, 3, padding=1, dtype=dtype), BatchNorm(channels),
+            LeakyReLU())
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return x + _run(self.net, x, train)
+
+
+class ConvTower(nn.Module):
+    """A convolutional tower: ``model`` applied to (B, C, T), taking and
+    returning channel-last (B, T, C). ``generator`` is accepted for the
+    towers' common signature; nothing here drops out."""
+
+    def __init__(self, layers: "OrderedDict[str, nn.Module]"):
+        super().__init__()
+        self.model = nn.Sequential(layers)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _run(self.model, x.transpose(1, 2), train).transpose(1, 2)
+
+
+def _numbered(layers) -> "OrderedDict[str, nn.Module]":
+    return OrderedDict((str(i), m) for i, m in enumerate(layers))
+
+
+def conv_encoder(input_dim: int, hidden_dim: int, arch: str = "simple",
+                 num_res_layers: int = 4, dtype: torch.dtype = torch.float32) -> ConvTower:
+    """'simple' / 'resnet' strided encoder, T -> T/4. simple: two stride-2
+    Conv(k=4, p=1) + LeakyReLU; resnet: stride-2 conv, N ResBlocks, stride-2
+    conv, a final ResBlock (the reference's ``model.{i}`` indices)."""
+    down = lambda cin: Conv1d(cin, hidden_dim, 4, stride=2, padding=1, dtype=dtype)
+    res = [ResBlock1D(hidden_dim, dtype) for _ in range(num_res_layers)] if arch == "resnet" else []
+    tail = [ResBlock1D(hidden_dim, dtype)] if arch == "resnet" else []
+    return ConvTower(_numbered([down(input_dim), LeakyReLU(), *res, down(hidden_dim),
+                                LeakyReLU(), *tail]))
+
+
+def conv_decoder(output_dim: int, hidden_dim: int, arch: str = "simple",
+                 num_res_layers: int = 4, dtype: torch.dtype = torch.float32) -> ConvTower:
+    """'simple' / 'resnet' decoder, T/4 -> T. simple: two ConvTranspose(k=4,
+    s=2, p=1); resnet: N ResBlocks, then two (nearest upsample x2 + Conv(3))
+    stages with a ResBlock between them."""
+    if arch == "resnet":
+        conv = lambda cout: Conv1d(hidden_dim, cout, 3, padding=1, dtype=dtype)
+        return ConvTower(_numbered([
+            *(ResBlock1D(hidden_dim, dtype) for _ in range(num_res_layers)),
+            Upsample(), conv(hidden_dim), LeakyReLU(), ResBlock1D(hidden_dim, dtype),
+            Upsample(), conv(output_dim)]))
+    up = lambda cout: ConvTranspose1d(hidden_dim, cout, 4, stride=2, padding=1, dtype=dtype)
+    return ConvTower(_numbered([up(hidden_dim), LeakyReLU(), up(output_dim)]))
+
+
+def no_downsample_encoder(input_dim: int, hidden_dim: int, num_res_layers: int = 4,
+                          dtype: torch.dtype = torch.float32) -> ConvTower:
+    """Full-resolution encoder, stride 1: Conv(3) + LeakyReLU, N ResBlocks,
+    ``final_conv`` + LeakyReLU."""
+    return ConvTower(OrderedDict([
+        ("0", Conv1d(input_dim, hidden_dim, 3, padding=1, dtype=dtype)), ("1", LeakyReLU()),
+        *((f"res_{i}", ResBlock1D(hidden_dim, dtype)) for i in range(num_res_layers)),
+        ("final_conv", Conv1d(hidden_dim, hidden_dim, 3, padding=1, dtype=dtype)),
+        ("final_act", LeakyReLU())]))
+
+
+def no_downsample_decoder(output_dim: int, hidden_dim: int, num_res_layers: int = 4,
+                          dtype: torch.dtype = torch.float32) -> ConvTower:
+    """Full-resolution decoder, stride 1: N ResBlocks, then ``out_conv``."""
+    return ConvTower(OrderedDict([
+        *((f"res_{i}", ResBlock1D(hidden_dim, dtype)) for i in range(num_res_layers)),
+        ("out_conv", Conv1d(hidden_dim, output_dim, 3, padding=1, dtype=dtype))]))

@@ -9,7 +9,9 @@ from .codebook import assignment_stats, nearest_codes, nearest_codes_plain, quan
 from .kernels import COUNTERS, build_all, reset_counters
 from .quantizers import (
     FSQ,
+    LFQ,
     HybridVQ,
+    IdentityVQ,
     ResidualVQ,
     VectorQuantizer,
     dcr_from_counts,

@@ -1,5 +1,5 @@
-"""Quantizers of the flagship model: EMA VQ, residual VQ, FSQ and the hybrid
-FSQ + residual VQ.
+"""The quantizer zoo: standard and EMA VQ, residual VQ, FSQ, LFQ, the hybrid
+FSQ + residual VQ, and the identity of the ``ae`` method.
 
 Counterparts of ``bridgerl_tpu/ops/quantizers.py``. Layout is channel-last
 ``(B, T, D)``. Every quantizer's ``forward(z)`` returns
@@ -10,7 +10,10 @@ module itself, "vq_0", "rvq/vq_0", ...) to an int32 (B, T) tensor.
 
 With ``train=True`` each EMA VQ folds the batch's assignment statistics
 (K2's counts and dw) into its buffers, as the JAX package updates its
-``qstats`` collection, and quantizes with the folded codebook.
+``qstats`` collection, and quantizes with the folded codebook. A standard VQ
+(``use_ema=False``) keeps its codebook as a parameter that the optimizer
+updates through the lookup. Every VQ layer searches through
+``ops/codebook.py``, so K2 runs on every VQ method on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .codebook import nearest_codes, quantize_lookup
@@ -28,9 +32,12 @@ Codes = Dict[str, torch.Tensor]
 QuantOut = Tuple[torch.Tensor, torch.Tensor, Metrics, Codes]
 
 LAPLACE_EPS = 1e-5
-# The hybrid's residual VQ folds at 0.99 whatever ``ema_decay`` says: the JAX
-# package builds it without passing a decay.
-EMA_DECAY = 0.99
+LFQ_NORM_EPS = 1e-6   # flax LayerNorm's default
+# The hybrid's residual VQ folds at 0.99 with commitment 0.25 whatever
+# ``ema_decay`` and ``commitment_cost`` say: the JAX package builds it
+# without passing either. So does ``rvq`` for its commitment.
+HYBRID_DECAY = 0.99
+FIXED_COMMITMENT = 0.25
 
 
 def ste(z: torch.Tensor, z_q: torch.Tensor) -> torch.Tensor:
@@ -62,29 +69,42 @@ def prefix_codes(prefix: str, codes: Codes) -> Codes:
 
 
 class Codebook(nn.Module):
-    """Holder of one codebook buffer, so its state_dict key is
-    ``embedding.weight`` as in the reference's ``nn.Embedding``."""
+    """Holder of one codebook, so its state_dict key is ``embedding.weight``
+    as in the reference's ``nn.Embedding``: a buffer for an EMA codebook, a
+    parameter for a learned one."""
 
-    def __init__(self, weight: torch.Tensor):
+    def __init__(self, weight: torch.Tensor, learned: bool = False):
         super().__init__()
-        self.register_buffer("weight", weight)
+        if learned:
+            self.weight = nn.Parameter(weight)
+        else:
+            self.register_buffer("weight", weight)
 
 
 class VectorQuantizer(nn.Module):
-    """EMA vector quantizer. ``embedding``, ``ema_w`` and
-    ``ema_cluster_size`` are buffers. With ``warm_start`` the EMA state starts
-    self-consistent (ema_w = embedding, cluster sizes 1); without it, as the
-    reference does (normal ema_w, zero cluster sizes)."""
+    """Standard or EMA vector quantizer, codebook U(-1/K, 1/K).
+
+    Standard (``use_ema=False``): the codebook is a parameter; the loss is
+    ``||z_q - sg(z)||^2 + commitment * ||sg(z_q) - z||^2``, and its first term
+    reaches the codebook through the lookup. EMA: ``embedding``, ``ema_w``
+    and ``ema_cluster_size`` are buffers folded at ``decay``; the loss is the
+    commitment term. With ``warm_start`` the EMA state starts self-consistent
+    (ema_w = embedding, cluster sizes 1); without it, as the reference does
+    (normal ema_w, zero cluster sizes)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  commitment_cost: float = 0.25, warm_start: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_ema: bool = True,
+                 decay: float = 0.99):
         super().__init__()
         K, D = num_embeddings, embedding_dim
         self.embedding_dim = D
         self.commitment_cost = commitment_cost
+        self.use_ema, self.decay = use_ema, decay
         emb = (torch.rand(K, D, generator=generator) * 2.0 - 1.0) / K  # U(-1/K, 1/K)
-        self.embedding = Codebook(emb)
+        self.embedding = Codebook(emb, learned=not use_ema)
+        if not use_ema:
+            return
         if warm_start:
             self.register_buffer("ema_cluster_size", torch.ones(K))
             self.register_buffer("ema_w", emb.clone())
@@ -97,7 +117,7 @@ class VectorQuantizer(nn.Module):
         """EMA update of the buffers from one batch's statistics, then the
         Laplace-smoothed codebook. The buffers are replaced, not written in
         place, so no tensor that an autograd graph saved changes under it."""
-        d = EMA_DECAY
+        d = self.decay
         new_cs = self.ema_cluster_size * d + counts * (1.0 - d)
         new_w = self.ema_w * d + dw * (1.0 - d)
         n = torch.sum(new_cs)
@@ -114,12 +134,14 @@ class VectorQuantizer(nn.Module):
         z = z.float()
         embedding = self.embedding.weight
         flat = z.reshape(-1, self.embedding_dim)
-        indices, counts, dw = nearest_codes(flat.detach(), embedding)
-        if train:
+        indices, counts, dw = nearest_codes(flat.detach(), embedding.detach())
+        if train and self.use_ema:
             # the lookup (and so the commitment loss) uses the folded codebook
             embedding = self._fold(counts, dw)
         z_q = quantize_lookup(indices, embedding).reshape(z.shape)
         loss = self.commitment_cost * torch.mean((z_q.detach() - z) ** 2)
+        if not self.use_ema:
+            loss = torch.mean((z_q - z.detach()) ** 2) + loss
         metrics = {"perplexity": perplexity_from_counts(counts),
                    "dcr": dcr_from_counts(counts)}
         codes = {"": indices.reshape(z.shape[:-1])}
@@ -133,11 +155,11 @@ class ResidualVQ(nn.Module):
     def __init__(self, num_quantizers: int, num_embeddings: int,
                  embedding_dim: int, commitment_cost: float = 0.25,
                  warm_start: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, decay: float = 0.99):
         super().__init__()
         self.layers = nn.ModuleList(
             VectorQuantizer(num_embeddings, embedding_dim, commitment_cost,
-                            warm_start, generator)
+                            warm_start, generator, decay=decay)
             for _ in range(num_quantizers))
 
     def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
@@ -213,8 +235,8 @@ class HybridVQ(nn.Module):
         super().__init__()
         self.fsq = FSQ(fsq_levels, hidden_dim, bounded=fsq_bounded)
         self.vq = ResidualVQ(num_quantizers, vq_codebook_size, hidden_dim,
-                             commitment_cost=0.25, warm_start=warm_start,
-                             generator=generator)
+                             commitment_cost=FIXED_COMMITMENT, warm_start=warm_start,
+                             generator=generator, decay=HYBRID_DECAY)
 
     def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
         _, z_fsq, m_fsq, c_fsq = self.fsq(z, train=train)
@@ -225,14 +247,69 @@ class HybridVQ(nn.Module):
         return loss_vq, z_fsq + z_vq, metrics, codes
 
 
+class LFQ(nn.Module):
+    """Lookup-free quantization: project to ``codebook_dim`` bits, take signs
+    with a straight-through estimator, and reward per-bit entropy (loss
+    ``-mean(H) * weight``). ``norm`` puts a parameter-free LayerNorm (eps
+    1e-6, float32) on the projection before the sign."""
+
+    def __init__(self, input_dim: int, codebook_dim: int = 10,
+                 entropy_loss_weight: float = 0.1, norm: bool = False):
+        super().__init__()
+        self.codebook_dim = codebook_dim
+        self.entropy_loss_weight = entropy_loss_weight
+        self.norm = norm
+        self.project_in = nn.Linear(input_dim, codebook_dim)
+        self.project_out = nn.Linear(codebook_dim, input_dim)
+        self.register_buffer("_basis", 2 ** torch.arange(codebook_dim, dtype=torch.int32),
+                             persistent=False)
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
+        in_dtype = z.dtype
+        z_e = self.project_in(z.float())
+        if self.norm:
+            z_e = F.layer_norm(z_e, z_e.shape[-1:], eps=LFQ_NORM_EPS)
+        z_q = ste(z_e, torch.where(z_e > 0, 1.0, -1.0))
+        prob = torch.sigmoid(z_e)
+        entropy = -(prob * torch.log(prob + 1e-6) + (1 - prob) * torch.log(1 - prob + 1e-6))
+        loss = -torch.mean(entropy) * self.entropy_loss_weight
+        out = self.project_out(z_q).to(in_dtype)
+        indices = torch.sum((z_q > 0).to(torch.int32) * self._basis, dim=-1, dtype=torch.int32)
+        uniq = unique_count(indices)
+        metrics = {"perplexity": uniq, "dcr": 1.0 - uniq / float(2 ** self.codebook_dim)}
+        return loss, out, metrics, {"": indices}
+
+
+class IdentityVQ(nn.Module):
+    """The ``ae`` method: the latent passes through; loss 0, perplexity 1,
+    dead-code ratio 0, no code streams."""
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
+        one = torch.ones((), device=z.device)
+        metrics = {"perplexity": one, "dcr": torch.zeros_like(one)}
+        return torch.zeros((), dtype=z.dtype, device=z.device), z, metrics, {}
+
+
 def make_quantizer(cfg, generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Method dispatch; this slice ports ``hybrid`` only. As in the JAX
-    package, the hybrid's residual VQ has K=512 codes whatever
-    ``codebook_size`` says."""
-    if cfg.method != "hybrid":
-        raise NotImplementedError(
-            f"quantizer {cfg.method!r} is not ported yet (ROADMAP.md); "
-            "this slice runs 'hybrid'")
-    return HybridVQ(cfg.hidden_dim, tuple(cfg.fsq_levels), vq_codebook_size=512,
-                    warm_start=cfg.ema_warm_start, fsq_bounded=cfg.fsq_bounded,
-                    generator=generator)
+    """Method dispatch, case for case as the JAX package's. ``rvq`` keeps
+    commitment 0.25; the hybrid's residual VQ has 4 layers of K=512 codes at
+    decay 0.99 whatever ``codebook_size`` and ``ema_decay`` say."""
+    m, K, D = cfg.method, cfg.codebook_size, cfg.hidden_dim
+    ws = cfg.ema_warm_start
+    if m == "standard":
+        return VectorQuantizer(K, D, cfg.commitment_cost, generator=generator, use_ema=False)
+    if m == "ema":
+        return VectorQuantizer(K, D, cfg.commitment_cost, ws, generator, decay=cfg.ema_decay)
+    if m == "rvq":
+        return ResidualVQ(cfg.n_layers, K, D, FIXED_COMMITMENT, ws, generator,
+                          decay=cfg.ema_decay)
+    if m == "fsq":
+        return FSQ(tuple(cfg.fsq_levels), D, bounded=cfg.fsq_bounded)
+    if m == "lfq":
+        return LFQ(D, cfg.lfq_dim, cfg.entropy_loss_weight, norm=cfg.lfq_norm)
+    if m == "hybrid":
+        return HybridVQ(D, tuple(cfg.fsq_levels), vq_codebook_size=512, warm_start=ws,
+                        fsq_bounded=cfg.fsq_bounded, generator=generator)
+    if m == "ae":
+        return IdentityVQ()
+    raise ValueError(f"Unknown quantization method: {m}")

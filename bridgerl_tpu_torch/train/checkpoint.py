@@ -12,10 +12,11 @@ msgpack:
   JSON under ``config_json``;
 - ``{run_name}_final.pth``: the bare ``state_dict``.
 
-This is the layout ``bridgerl_tpu/export/torch_import.py`` reads. The
-state-dict keys are the reference model's; its FSQ projections are k=1
-convolutions, so their weights gain a trailing axis on save and lose it on
-load. Files are written atomically (temporary file, then rename) and read
+This is the layout ``bridgerl_tpu/export/torch_import.py`` reads, for every
+arch and method: the state-dict keys are the reference model's, BatchNorm
+layers included (``running_mean``, ``running_var``, ``num_batches_tracked``).
+Its FSQ and LFQ projections are k=1 convolutions, so their weights gain a
+trailing axis on save and lose it on load. Files are written atomically (temporary file, then rename) and read
 with ``torch.load(weights_only=True)``.
 """
 
@@ -29,13 +30,16 @@ from torch import nn
 
 from ..config import ExperimentConfig
 
-FSQ_WEIGHTS = ("quantizer.fsq.project_in.weight", "quantizer.fsq.project_out.weight")
+# the projections of the hybrid's FSQ and of the fsq and lfq methods
+PROJECTION_WEIGHTS = tuple(f"quantizer.{sub}{proj}.weight" for sub in ("fsq.", "")
+                           for proj in ("project_in", "project_out"))
 
 
 def to_reference_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The port's state_dict on the CPU, FSQ projections as (out, in, 1)."""
+    """The port's state_dict on the CPU, FSQ and LFQ projections as
+    (out, in, 1)."""
     out = {k: v.detach().cpu() for k, v in sd.items()}
-    for k in FSQ_WEIGHTS:
+    for k in PROJECTION_WEIGHTS:
         if k in out:
             out[k] = out[k][..., None]
     return out
@@ -43,7 +47,7 @@ def to_reference_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.T
 
 def from_reference_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     out = dict(sd)
-    for k in FSQ_WEIGHTS:
+    for k in PROJECTION_WEIGHTS:
         if k in out and out[k].ndim == 3:
             out[k] = out[k][..., 0]
     return out

@@ -5,14 +5,17 @@ Counterpart of ``bridgerl_tpu/train/trainer.py``, run eagerly:
 
 - an optimizer batch is ``accum_chunks`` microbatches (clamped to a divisor
   of the batch as the JAX package clamps it); each microbatch runs the model
-  in train mode, so the EMA codebooks fold once per microbatch and carry to
-  the next; gradients are summed over the microbatches, divided by their
-  number, and AdamW steps once;
+  in train mode, so the EMA codebooks and the BatchNorm statistics fold once
+  per microbatch and carry to the next; gradients are summed over the
+  microbatches, divided by their number, and AdamW steps once;
 - the teacher trains every parameter on the teacher loss (robot branch
-  only); the student loads the teacher minus its human encoder and trains
-  only the human encoder on the alignment loss, while both branches run in
-  train mode (the frozen robot encoder still drops out, both branches fold
-  the shared codebooks), as the JAX package's student step does;
+  only), a ``standard`` VQ's codebook included; the student loads the
+  teacher minus its human encoder and trains only the human encoder on the
+  alignment loss, while both branches run in train mode (the frozen robot
+  encoder still drops out, both branches fold the shared codebooks, and the
+  frozen towers' BatchNorm statistics still move: the robot decoder's fold
+  twice a microbatch, robot branch first), as the JAX package's student
+  step does;
 - AdamW (lr 2e-4, weight decay 1e-4, betas 0.9/0.999, eps 1e-8) decays
   every parameter it updates, biases and LayerNorm included, as
   ``optax.adamw`` does; frozen parameters get neither update nor decay.

@@ -32,7 +32,10 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    K1 in bf16 must lie within one bf16 ulp of the plain version (both
    round the same float32 quantity); its bound counts 2 bytes an element
    and the FLOPs at the bf16 tensor cores' 989 TFLOP/s.
-   K2 runs at N = 4096 (serving), 512 (training) and 6554 (validation):
+   K1 also runs at (1024, 64, 64) with window 64, the CLI's default
+   transformer (the zoo path). K2 runs at N = 4096 (serving), 512
+   (training) and 6554 (validation) with K = 512, and at K = 1024 with
+   N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch):
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
    indices bit for bit, a second call must repeat the first bit for bit,
    and the profiler must see no device operation but its two kernels and
@@ -52,8 +55,10 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    codes the card, the CPU bf16 and the CPU float32 runs all share, the
    answer lies within 4 bf16 ulps of its scale of the CPU's bf16 answer
    and no farther from the CPU's float32 answer than twice the CPU's bf16
-   answer is. Windows/s at b = 4096 and the b = 1 median latency in each
-   dtype (``serve_summary``).
+   answer is; a bf16 b = 1 request whose window flips code compares no
+   values, so successive windows are tried until one keeps its codes, and
+   the check fails after 16. Windows/s at b = 4096 and the b = 1 median
+   latency in each dtype (``serve_summary``).
 4. The training path: the flagship's teacher trains through the port's
    ``Trainer`` (batch 16384 in 32 microbatches of 512, dropout 0.1, seeded
    normal windows as the JAX package's bench makes them), then the student
@@ -68,8 +73,27 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    batch in bf16 on the card and on the CPU, each held to the CPU float32
    step: the card's loss and every gradient no farther than twice the CPU
    bf16 step's (the loss may always be one bf16 rounding, 2**-8, off).
-6. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
-   launches on each path), then, last, ``{"ok": true, "device": {...}}``.
+6. The model zoo: every arch x method at full width (the JAX package's
+   defaults; window 64, the CLI's) served through ServingApp on 64 windows
+   (``retarget``, ``robot_recon``, and ``motion_codes`` where the method
+   has codes) and held to the CPU plain path under the float32 rule, then
+   one teacher step at the CLI's batch of 256, whose loss must be finite
+   and whose launches must be what the method implies (K2 once for
+   standard and ema, n_layers for rvq, 4 for the hybrid, none for fsq, lfq
+   and ae; K1 8 forward and 8 backward for the transformer); the three conv
+   archs with the hybrid in bf16 under the bf16 rule; ``zoo_agree``: one
+   step at batch 256, dropout 0, card against CPU, for resnet + standard,
+   simple + lfq and resnet_no_down + rvq.
+7. The port's CLI, each stage a child process on the card:
+   ``cli.process_data --synthetic``, a teacher (resnet_no_down + hybrid,
+   window 10) for 3 epochs and its student for 2; the checkpoints and
+   histories must carry the reference's names, and the teacher's train
+   loss must fall. ``serve_trained``: that teacher's checkpoint served on
+   its own windows, in float32 under the float32 rule and in bf16 under the
+   bf16 rules, with the share of windows whose codes flip in bf16.
+8. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+   launches on each path: serve, train, zoo and cli in each dtype that runs
+   them), then, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
 """
@@ -91,7 +115,13 @@ import time
 import numpy as np
 import torch
 
-from bridgerl_tpu_torch.config import HISTORY_KEYS, compute_dtype, make_experiment
+from bridgerl_tpu_torch.config import (
+    ARCHS,
+    HISTORY_KEYS,
+    METHODS,
+    compute_dtype,
+    make_experiment,
+)
 from bridgerl_tpu_torch.data.dataset import PairedDataset
 from bridgerl_tpu_torch.export.client import ServingClient
 from bridgerl_tpu_torch.export.reconstruct import reconstruct_long_sequence, window_starts
@@ -100,6 +130,7 @@ from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.models import init_model
 from bridgerl_tpu_torch.models.layers import attention_bias
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
+from bridgerl_tpu_torch.train.checkpoint import load_checkpoint
 from bridgerl_tpu_torch.train.trainer import (
     Trainer,
     accumulate_grads,
@@ -118,12 +149,16 @@ DTYPES = (torch.float32, BF16)
 DTYPE_NAME = {torch.float32: "float32", BF16: "bfloat16"}
 # (B*H, S, Dh, packing, dropout): serving at b=4096 and b=64 unpacked, and the
 # training microbatch of 512 windows packed 8 to a row
+# training microbatch of 512 windows packed 8 to a row, and the zoo's transformer at the
+# CLI's defaults (window 64, batch 256, no packing)
 K1_SHAPES = ((2048, 80, 64, 8, 0.0), (256, 10, 64, 1, 0.0), (256, 80, 64, 8, 0.0),
-             (256, 80, 64, 8, 0.1))
+             (256, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.0), (1024, 64, 64, 1, 0.1))
 K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8, 0.0),
-                 (2048, 80, 64, 8, 0.1))
-K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512))  # (N, D, K): serving,
-                                                                 # training, validation
+                 (2048, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.1), (1024, 64, 64, 1, 0.0))
+# (N, D, K): serving, training, validation; the zoo's standard, ema and rvq at K = 1024,
+# simple / resnet (N = 256 windows x 16 tokens) and resnet_no_down (x 64 frames)
+K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),
+             (16384, 64, 1024))
 K2_KERNELS = ("vq_assign_nearest", "vq_assign_stats")   # device names of K2's kernels
 K2_DEVICE_OPS = len(K2_KERNELS)   # its outputs need no zero-fill
 DROPOUT = 0.1
@@ -134,7 +169,6 @@ K2_TIE = 1e-5
 SERVE_ATOL = 1e-3
 CODES_AGREE = 0.999
 RETARGET_BATCHES = (1, 5, 64, 512, 4096)
-K1_PER_CALL, K2_PER_CALL = 8, 4
 TRAIN_WINDOWS, TRAIN_BATCH, TRAIN_ACCUM = 65536, 16384, 32
 TEACHER_EPOCHS, STUDENT_EPOCHS = 3, 2
 # launches per microbatch (train) and per validation batch: K1 fwd, K1 bwd, K2
@@ -148,6 +182,30 @@ BF16_FACTOR, BF16_LOSS_FLOOR = 2.0, 2.0 ** -8
 # agree: GEMMs rounded in another order, 1 ulp a block through 8 blocks' residual
 # stream, in bf16 ulps of the answer's largest magnitude
 BF16_SERVE_ULPS = 4.0
+B1_TRIES = 16   # bf16 b = 1 windows tried until one keeps its codes
+# the model zoo: every arch x method at full width (the JAX package's defaults) and
+# the CLI's window; eval forwards of ZOO_FWD windows, teacher steps and the card-vs-
+# CPU steps at the CLI's batch
+ZOO_W, ZOO_FWD, ZOO_BATCH = 64, 64, 256
+ZOO_BF16_ARCHS = ("simple", "resnet", "resnet_no_down")
+ZOO_AGREE = (("resnet", "standard"), ("simple", "lfq"), ("resnet_no_down", "rvq"))
+ZOO_ORDER_FACTOR = 2.0   # x the CPU's own row-order spread of a gradient (zoo_agree)
+# the verify drive on the port's CLI, and the teacher checkpoint it serves
+CLI_DATA = ("--synthetic", "--window", "10", "--step", "2", "--n_sequences", "8")
+CLI_RUN = ("--arch", "resnet_no_down", "--method", "hybrid", "--window", "10",
+           "--batch_size", "256", "--seed", "42")
+CLI_EPOCHS = {"teacher": 3, "student": 2}
+CLI_TEACHER = "checkpoints/Exp_resnet_no_down_W10_hybrid_teacher_seed_42_best.pth"
+CLI_TIMEOUT_S = 300
+# runs the CLI's main in a child process and prints its kernel launches last
+CLI_WRAPPER = ("import json, sys\n"
+               "from bridgerl_tpu_torch.cli import train_ablation\n"
+               "from bridgerl_tpu_torch.ops import kernels\n"
+               "rc = train_ablation.main(sys.argv[1:])\n"
+               "print('LAUNCHES ' + json.dumps({n: c.count for n, c in "
+               "kernels.COUNTERS.items()}))\n"
+               "sys.exit(rc)\n")
+SERVE_TRAINED_WINDOWS = 512
 
 
 def emit(obj) -> None:
@@ -553,14 +611,97 @@ def _window_codes(model, branch: str, x: np.ndarray) -> dict:
     return _numpy(codes)
 
 
-def _expect_launches(name: str, before: dict, calls: int, dtype=torch.float32) -> dict:
+def per_call(cfg) -> tuple:
+    """K1 forwards and K2 launches of one model call on one branch: a
+    transformer's encoder and decoder blocks; one nearest-code search per VQ
+    layer (standard and ema 1, rvq n_layers, the hybrid's residual VQ 4)."""
+    k1 = 2 * cfg.n_tf_layers if cfg.arch == "transformer" else 0
+    return k1, {"standard": 1, "ema": 1, "rvq": cfg.n_layers, "hybrid": 4}.get(cfg.method, 0)
+
+
+def _expect_launches(name: str, before: dict, calls: int, dtype, cfg) -> dict:
+    """The launches since ``before``: ``calls`` model calls of ``cfg``, one
+    branch each, nothing else."""
+    k1, k2 = per_call(cfg)
     now = launches()
     delta = {k: now[k] - before[k] for k in now}
     want = {k: 0 for k in now}
-    want[attention.ENTRY["fwd", dtype]] = K1_PER_CALL * calls
-    want["vq_assign"] = K2_PER_CALL * calls
+    want[attention.ENTRY["fwd", dtype]] = k1 * calls
+    want["vq_assign"] = k2 * calls
     require(delta == want, f"{name}: launches {delta}, want {want}")
     return delta
+
+
+def seeded(cfg, device):
+    """The model of ``cfg`` with weights from SEED on ``device``."""
+    return init_model(cfg, SEED, device=device)
+
+
+def serving_check(exp, build=seeded):
+    """The model ``build`` gives for ``exp`` served on the card, and
+    ``verify(name, fn, x, got)``, which holds a card answer to the same
+    weights on the CPU: the f32 rule, or in bf16 the codes and values rules
+    against the CPU's bf16 and float32 runs. Returns (model, module,
+    verify, the CPU runs' (modules, models))."""
+    cfg = exp.model
+    dtype = compute_dtype(cfg)
+    model = build(cfg, "cuda")
+    module = build_serving_module(model, exp)
+    cpu_model = build(cfg, "cpu")
+    cpu = build_serving_module(cpu_model, exp)
+    cpu32, cpu32_model = cpu, cpu_model
+    if dtype == BF16:
+        exp32 = dataclasses.replace(exp, model=dataclasses.replace(cfg, compute_dtype="float32"))
+        cpu32_model = build(exp32.model, "cpu")
+        cpu32 = build_serving_module(cpu32_model, exp32)
+
+    def verify(name, fn, x, got):
+        if dtype != BF16:
+            return _check_answer(name, got, _numpy(cpu.fns[fn](x)))
+        cpu16_out, cpu32_out = _numpy(cpu.fns[fn](x)), _numpy(cpu32.fns[fn](x))
+        if fn == "motion_codes":
+            require(sorted(got) == sorted(cpu32_out), f"{name}: streams {sorted(got)}")
+            return _codes_rule(name, got, cpu16_out, cpu32_out)[0]
+        branch = "robot" if fn == "robot_recon" else "human"
+        if cfg.method == "ae":   # no codes to flip: every window is compared
+            rows = np.ones(len(x), bool)
+            return _check_bf16_values(name, got, cpu16_out, cpu32_out, rows)
+        shares, rows = _codes_rule(name, *(_window_codes(m, branch, x)
+                                           for m in (model, cpu_model, cpu32_model)))
+        return {**shares, **_check_bf16_values(name, got, cpu16_out, cpu32_out, rows)}
+
+    return model, module, verify, ((cpu, cpu_model), (cpu32, cpu32_model))
+
+
+def serve_requests(exp, app, verify, requests, rng, x_for=None) -> list:
+    """Each (fn, b) request through ``app``, its launches and its answer
+    checked. A bf16 b = 1 request whose one window flips code compares no
+    values, so successive windows are tried, up to B1_TRIES, until one keeps
+    its codes. ``x_for(fn, b)`` gives the inputs (seeded normals when None)."""
+    cfg = exp.model
+    dtype = compute_dtype(cfg)
+    dims = {"retarget": cfg.human_input_dim, "robot_recon": cfg.robot_input_dim,
+            "motion_codes": cfg.human_input_dim}
+    lines = []
+    for fn, b in requests:
+        tries = B1_TRIES if dtype == BF16 and b == 1 and fn != "motion_codes" else 1
+        for tried in range(1, tries + 1):
+            x = (x_for(fn, b) if x_for is not None
+                 else rng.normal(size=(b, cfg.window_size, dims[fn])).astype(np.float32))
+            before = launches()
+            got = app.call(fn, x)
+            delta = _expect_launches(f"{fn} b={b}", before, 1, dtype, cfg)
+            checked = verify(f"{fn} b={b}", fn, x, got)
+            if checked.get("rows_compared", 1) > 0:
+                break
+        require(tries == 1 or checked["rows_compared"] > 0,
+                f"{fn} b={b}: no window of {tries} kept its codes in bf16")
+        line = {"phase": "request", "dtype": cfg.compute_dtype, "fn": fn, "b": b,
+                "launches": delta, **checked}
+        if tries > 1:
+            line["windows_tried"] = tried
+        lines.append(line)
+    return lines
 
 
 def main_path(exp) -> tuple:
@@ -571,41 +712,15 @@ def main_path(exp) -> tuple:
     cfg = exp.model
     W = cfg.window_size
     dtype = compute_dtype(cfg)
-    model = init_model(cfg, SEED, device="cuda")
-    module = build_serving_module(model, exp)
-    cpu_model = init_model(cfg, SEED, device="cpu")
-    cpu = build_serving_module(cpu_model, exp)
-    if dtype == BF16:
-        cpu32_model = init_model(dataclasses.replace(cfg, compute_dtype="float32"), SEED,
-                                 device="cpu")
-        cpu32 = build_serving_module(cpu32_model, exp)
+    model, module, verify, ((cpu, cpu_model), (cpu32, cpu32_model)) = serving_check(exp)
     app = ServingApp(module)
     rng = np.random.default_rng(SEED)
-    dims = {"retarget": cfg.human_input_dim, "robot_recon": cfg.robot_input_dim,
-            "motion_codes": cfg.human_input_dim}
     requests = [("retarget", b) for b in RETARGET_BATCHES]
     requests += [("robot_recon", 64), ("motion_codes", 64)]
 
-    def verify(name, fn, x, got):
-        if dtype != BF16:
-            return _check_answer(name, got, _numpy(cpu.fns[fn](x)))
-        cpu16_out, cpu32_out = _numpy(cpu.fns[fn](x)), _numpy(cpu32.fns[fn](x))
-        if fn == "motion_codes":
-            require(sorted(got) == sorted(cpu32_out), f"{name}: streams {sorted(got)}")
-            return _codes_rule(name, got, cpu16_out, cpu32_out)[0]
-        branch = "robot" if fn == "robot_recon" else "human"
-        shares, rows = _codes_rule(name, *(_window_codes(m, branch, x)
-                                           for m in (model, cpu_model, cpu32_model)))
-        return {**shares, **_check_bf16_values(name, got, cpu16_out, cpu32_out, rows)}
-
     kernels.reset_counters()
-    for fn, b in requests:
-        x = rng.normal(size=(b, W, dims[fn])).astype(np.float32)
-        before = launches()
-        got = app.call(fn, x)
-        delta = _expect_launches(f"{fn} b={b}", before, 1, dtype)
-        emit({"phase": "request", "dtype": cfg.compute_dtype, "fn": fn, "b": b,
-              "launches": delta, **verify(f"{fn} b={b}", fn, x, got)})
+    for line in serve_requests(exp, app, verify, requests, rng):
+        emit(line)
 
     srv = make_server(module, port=0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -618,7 +733,7 @@ def main_path(exp) -> tuple:
         x = rng.normal(size=(64, W, cfg.human_input_dim)).astype(np.float32)
         before = launches()
         got = client.retarget(x)
-        delta = _expect_launches("HTTP retarget", before, 1, dtype)
+        delta = _expect_launches("HTTP retarget", before, 1, dtype, cfg)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -634,7 +749,7 @@ def main_path(exp) -> tuple:
     before = launches()
     got = reconstruct_long_sequence(module.fns["robot_recon"], seq, W, step, mean, std,
                                     device="cuda")
-    delta = _expect_launches("overlap-add", before, 1, dtype)
+    delta = _expect_launches("overlap-add", before, 1, dtype, cfg)
     overlap = lambda fns: reconstruct_long_sequence(fns["robot_recon"], seq, W, step, mean,
                                                     std, device="cpu")
     if dtype == BF16:
@@ -787,6 +902,21 @@ def train_path(smi: str, dtype=torch.float32) -> dict:
             "student_windows_per_s": student["windows_per_s"]}
 
 
+def _step_grads(exp, dev: str, robot: torch.Tensor, human: torch.Tensor,
+                rows=None) -> tuple:
+    """The loss and every parameter's gradient of one optimizer batch (all
+    of ``robot`` / ``human``, in the order ``rows`` gives, their own when
+    None) from the seeded model of ``exp`` on ``dev``."""
+    model = init_model(exp.model, SEED, device=dev)
+    opt = make_optimizer(model, exp)
+    opt.zero_grad(set_to_none=True)
+    rows = torch.arange(len(robot)) if rows is None else rows
+    logs = accumulate_grads(model, exp, robot.to(dev), human.to(dev), rows.to(dev), None)
+    return (float(logs["train_loss"]),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
 def _agree_step(dev: str, dtype) -> tuple:
     """The loss and every parameter's gradient of one optimizer batch of
     AGREE_BATCH at dropout 0 from one seed, on ``dev`` in ``dtype``."""
@@ -796,14 +926,7 @@ def _agree_step(dev: str, dtype) -> tuple:
     rng = np.random.default_rng(SEED + 2)
     robot, human = (torch.from_numpy(rng.normal(size=(AGREE_BATCH, 10, d)).astype(np.float32))
                     for d in (29, 126))
-    model = init_model(exp.model, SEED, device=dev)
-    opt = make_optimizer(model, exp)
-    opt.zero_grad(set_to_none=True)
-    logs = accumulate_grads(model, exp, robot.to(dev), human.to(dev),
-                            torch.arange(AGREE_BATCH, device=dev), None)
-    return (float(logs["train_loss"]),
-            {n: p.grad.detach().cpu() for n, p in model.named_parameters()
-             if p.grad is not None})
+    return _step_grads(exp, dev, robot, human)
 
 
 def train_agree() -> tuple:
@@ -897,6 +1020,217 @@ def train_breakdown(dtype=torch.float32, reps: int = 1) -> dict:
                     for name, ms, n in _top(rows, 20)]}
 
 
+# ---------------------------------------------------------------- phase 6
+
+def zoo_exp(arch: str, method: str, **over):
+    """An arch x method at full width (the JAX package's defaults: hidden 64,
+    K 1024 (hybrid 512), 4 residual blocks, 256-wide transformer towers,
+    FSQ (8, 5, 5, 5), 10 LFQ bits) at the CLI's window and batch."""
+    return make_experiment(arch, method, window=ZOO_W, batch_size=ZOO_BATCH, **over)
+
+
+def zoo_step(exp, g: torch.Generator) -> dict:
+    """One teacher optimizer step on the card at the CLI's batch (dropout
+    0.1 where the arch drops out): a finite loss, and the launches the
+    model implies for one robot-branch microbatch, forward and backward."""
+    cfg = exp.model
+    model = init_model(cfg, SEED, device="cuda")
+    opt = make_optimizer(model, exp)
+    robot = torch.randn(ZOO_BATCH, ZOO_W, cfg.robot_input_dim, device="cuda", generator=g)
+    human = torch.randn(ZOO_BATCH, ZOO_W, cfg.human_input_dim, device="cuda", generator=g)
+    before = launches()
+    logs = make_train_epoch(exp)(model, opt, robot, human,
+                                 torch.arange(ZOO_BATCH, device="cuda")[None], g)
+    now = launches()
+    delta = {k: now[k] - before[k] for k in now}
+    k1, k2 = per_call(cfg)
+    want = {k: 0 for k in now}
+    want.update({attention.ENTRY["fwd", torch.float32]: k1,
+                 attention.ENTRY["bwd", torch.float32]: k1, "vq_assign": k2})
+    require(delta == want, f"{exp.id} step: launches {delta}, want {want}")
+    require(all(math.isfinite(v) for v in logs.values()), f"{exp.id} step: logs {logs}")
+    return {"train_loss": logs["train_loss"], "step_launches": delta}
+
+
+def zoo_path() -> dict:
+    """Every arch x method in float32: ``retarget``, ``robot_recon`` and
+    (where the method has codes) ``motion_codes`` on ZOO_FWD windows through
+    ServingApp, each against the CPU plain path under the f32 serving rule,
+    then one teacher step on the card. Then the three conv archs with the
+    hybrid in bf16, under the bf16 rule. Returns the path's launches."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    runs = [(arch, method, torch.float32) for arch in ARCHS for method in METHODS]
+    runs += [(arch, "hybrid", BF16) for arch in ZOO_BF16_ARCHS]
+    for arch, method, dtype in runs:
+        t1 = time.perf_counter()
+        exp = zoo_exp(arch, method, compute_dtype=DTYPE_NAME[dtype])
+        model, module, verify, _ = serving_check(exp)
+        fns = [fn for fn in ("retarget", "robot_recon", "motion_codes") if fn in module.fns]
+        lines = serve_requests(exp, ServingApp(module), verify, [(fn, ZOO_FWD) for fn in fns],
+                               rng)
+        line = {"phase": "zoo", "arch": arch, "method": method, "dtype": DTYPE_NAME[dtype],
+                "requests": {l["fn"]: {k: v for k, v in l.items()
+                                       if k not in ("phase", "fn", "dtype", "launches")}
+                             for l in lines}}
+        if dtype == torch.float32:
+            line.update(zoo_step(exp, g))
+        emit({**line, "seconds": time.perf_counter() - t1})
+    counts = launches()
+    for name in (attention.ENTRY["fwd", torch.float32], attention.ENTRY["bwd", torch.float32],
+                 "vq_assign"):
+        require(counts[name] > 0, f"zoo: {name} never ran: {counts}")
+    return {"launches": counts, "models": len(runs), "zoo_path_s": time.perf_counter() - t0}
+
+
+def zoo_agree() -> list:
+    """One teacher step at ZOO_BATCH and dropout 0 on the card and on the
+    CPU for three arch x method pairs: the loss within 1e-4 relative; each
+    gradient within 1e-3 in relative norm of the CPU's, or, where float32
+    itself holds less, no farther than ZOO_ORDER_FACTOR times what taking
+    the same batch in another row order moves the CPU's own gradient. (The
+    BatchNorm towers' backward cancels: reordering the rows moved resnet +
+    standard's encoder gradients by 5.6e-3 on the CPU, and the card's were
+    2.7e-3 from the CPU's.) A convolution bias that feeds a BatchNorm has a
+    true gradient of exactly 0 (the batch mean cancels a shift), so both
+    devices hold rounding residue there: held at 1e-4 of the largest
+    gradient norm instead."""
+    out = []
+    for arch, method in ZOO_AGREE:
+        exp = zoo_exp(arch, method, dropout=0.0)
+        rng = np.random.default_rng(SEED + 5)
+        robot, human = (torch.from_numpy(rng.normal(size=(ZOO_BATCH, ZOO_W, d)).astype(
+            np.float32)) for d in (29, 126))
+        order = torch.from_numpy(rng.permutation(ZOO_BATCH))
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = (_step_grads(exp, dev, robot, human)
+                                          for dev in ("cuda", "cpu"))
+        _, g_order = _step_grads(exp, "cpu", robot, human, order)
+        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        require(sorted(g_gpu) == sorted(g_cpu) and g_cpu, f"zoo_agree {arch}: gradient sets")
+        largest = max(gc.norm().item() for gc in g_cpu.values())
+        rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        over, residue = {}, {}
+        for name, gc in g_cpu.items():
+            if ".net.0.bias" in name or ".net.3.bias" in name:
+                residue[name] = max(g_gpu[name].norm().item(), gc.norm().item()) / largest
+                continue
+            card, own = rel(g_gpu[name], gc), rel(g_order[name], gc)
+            over[name] = (card / max(AGREE_GRAD_RTOL, ZOO_ORDER_FACTOR * own), card, own)
+        worst = sorted(over.items(), key=lambda kv: -kv[1][0])[:3]
+        res = {"phase": "zoo_agree", "arch": arch, "method": method, "batch": ZOO_BATCH,
+               "window": ZOO_W, "loss_cuda": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
+               "params_compared": len(g_cpu),
+               "worst_grad_rel_norm_err": max(v[1] for v in over.values()),
+               "worst_cpu_reorder_rel_norm_err": max(v[2] for v in over.values()),
+               "worst_share_of_limit": [[n, *v] for n, v in worst],
+               "bn_bias_residue_of_largest": max(residue.values(), default=0.0)}
+        emit(res)
+        require(loss_rel <= AGREE_LOSS_RTOL, f"zoo_agree {arch} {method}: loss {l_gpu} vs {l_cpu}")
+        require(res["bn_bias_residue_of_largest"] <= AGREE_GRAD_RTOL * 0.1,
+                f"zoo_agree {arch} {method}: BatchNorm-fed bias residue {residue}")
+        require(worst[0][1][0] <= 1.0, f"zoo_agree {arch} {method}: {worst[0]}")
+        out.append(res)
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
+
+def _run_cli(args, cwd: str, env: dict) -> str:
+    r = subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                       text=True, timeout=CLI_TIMEOUT_S)
+    require(r.returncode == 0, f"{' '.join(args[:3])}: rc {r.returncode}\n{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def cli_path(smi: str) -> tuple:
+    """The verify drive on the port's own CLI, each stage a child process on
+    the card: ``cli.process_data --synthetic``, a teacher (``resnet_no_down``,
+    ``hybrid``, window 10) for 3 epochs, then its student for 2. The
+    checkpoints and histories must carry the reference's names and the
+    teacher's train loss must fall. Returns the line (with the stages'
+    launches, which the children print) and the work directory."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    _run_cli(["-m", "bridgerl_tpu_torch.cli.process_data", *CLI_DATA], workdir, env)
+    total = {name: 0 for name in kernels.COUNTERS}
+    stages = {}
+    for mode in ("teacher", "student"):
+        args = ["-c", CLI_WRAPPER, *CLI_RUN, "--epochs", str(CLI_EPOCHS[mode]), "--mode", mode]
+        if mode == "student":
+            args += ["--teacher_ckpt", CLI_TEACHER]
+        t1 = time.perf_counter()
+        stdout = _run_cli(args, workdir, env)
+        counts = json.loads(stdout.strip().splitlines()[-1].split("LAUNCHES ", 1)[1])
+        require(f"Success: Exp_resnet_no_down_W10 | Mode: {mode} | Seed: 42" in stdout,
+                f"cli {mode}: {stdout[-2000:]}")
+        for kind in ("best", "last", "final"):
+            path = os.path.join(workdir, "checkpoints",
+                                f"Exp_resnet_no_down_W10_hybrid_{mode}_seed_42_{kind}.pth")
+            require(os.path.exists(path), f"cli {mode}: no {path}")
+        logs = ["log_resnet_no_down_hybrid_seed_42.json" if mode == "teacher"
+                else "log_resnet_no_down_hybrid_student_seed_42.json",
+                f"log_Exp_resnet_no_down_W10_{mode}_seed_42.json"]
+        for name in logs:
+            with open(os.path.join(workdir, "results", name)) as f:
+                hist = json.load(f)
+            require(sorted(hist) == sorted(HISTORY_KEYS)
+                    and len(hist["train_loss"]) == CLI_EPOCHS[mode]
+                    and all(math.isfinite(v) for v in hist["train_loss"]), f"cli {mode}: {name}")
+        if mode == "teacher":
+            require(hist["train_loss"][-1] < hist["train_loss"][0],
+                    f"cli teacher: train loss {hist['train_loss']} does not fall")
+        require(counts["vq_assign"] > 0, f"cli {mode}: K2 never ran: {counts}")
+        stages[mode] = {"launches": counts, "train_loss": hist["train_loss"],
+                        "val_loss": hist["val_loss"], "seconds": time.perf_counter() - t1}
+        for k in total:
+            total[k] += counts.get(k, 0)
+    line = {"phase": "cli", "card": smi, **stages, "launches": total,
+            "cli_path_s": time.perf_counter() - t0}
+    emit(line)
+    return line, workdir
+
+
+def serve_trained(workdir: str, smi: str) -> dict:
+    """The CLI-trained teacher served through ServingApp on the card, on
+    SERVE_TRAINED_WINDOWS of its own training windows: in float32 under the
+    f32 rule; in bf16 (the same weights) under the bf16 rules, with the
+    share of windows whose codes leave float32's on trained weights."""
+    ck = load_checkpoint(os.path.join(workdir, CLI_TEACHER))
+    weights = ck["model_state_dict"]
+
+    def trained(cfg, device):
+        model = init_model(cfg, SEED, device="cpu")
+        model.load_state_dict(weights, strict=True)
+        return model.to(device)
+
+    data = os.path.join(workdir, "data", "processed")
+    windows = {"retarget": np.load(os.path.join(data, "human_train.npy")),
+               "robot_recon": np.load(os.path.join(data, "g1_train.npy"))}
+    windows["motion_codes"] = windows["retarget"]
+    pick = np.random.default_rng(SEED + 6).permutation(len(windows["retarget"]))
+    out = {"phase": "serve_trained", "card": smi, "checkpoint": CLI_TEACHER}
+    for dtype in DTYPES:
+        exp = dataclasses.replace(ck["config"], model=dataclasses.replace(
+            ck["config"].model, compute_dtype=DTYPE_NAME[dtype]))
+        _, module, verify, _ = serving_check(exp, trained)
+        singles = iter(pick)   # b = 1 tries successive windows
+
+        def x_for(fn, b, singles=singles):
+            return windows[fn][pick[:b] if b > 1 else [next(singles)]].astype(np.float32)
+
+        requests = [("retarget", SERVE_TRAINED_WINDOWS), ("robot_recon", SERVE_TRAINED_WINDOWS),
+                    ("motion_codes", SERVE_TRAINED_WINDOWS), ("retarget", 1)]
+        lines = serve_requests(exp, ServingApp(module), verify, requests, None, x_for)
+        out[DTYPE_NAME[dtype]] = [{k: v for k, v in l.items() if k != "phase"} for l in lines]
+    flips = [1.0 - l["codes_agree_f32"] for l in out["bfloat16"] if "codes_agree_f32" in l]
+    out["bf16_code_flip_share"] = max(flips)
+    emit(out)
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -940,6 +1274,15 @@ def main(argv) -> int:
               "train_path_s": time.perf_counter() - t0})
     _, cpu32 = train_agree()
     train_agree_bf16(cpu32)
+
+    zoo = zoo_path()
+    emit({"phase": "zoo_summary", "card": smi, **zoo})
+    zoo_agree()
+    cli, workdir = cli_path(smi)
+    try:
+        serve_trained(workdir, smi)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     # the breakdowns come last, so that no timed phase runs after their
     # profiler sessions (PERF.md §6: bf16 serving timed after one read slower)
     if "--profile" in argv:
@@ -950,7 +1293,7 @@ def main(argv) -> int:
             emit({"phase": "profile", "card": smi, **train_breakdown(dtype)})
 
     paths = {"serve": serve[torch.float32], "serve_bf16": serve[BF16],
-             "train": train[torch.float32], "train_bf16": train[BF16]}
+             "train": train[torch.float32], "train_bf16": train[BF16], "zoo": zoo, "cli": cli}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())

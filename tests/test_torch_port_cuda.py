@@ -11,7 +11,9 @@ sequence lengths and general biases, forward and backward, with dropout 0
 and 0.1; K2 at odd N, D and K, D up to 512, K over several slices of a
 cluster rank and ragged last slices, N off the row tile, exact ties (also
 across the slices of one cluster), repeat calls, and the shapes and launch
-plans it refuses; one small-model train step against the CPU. K1's bfloat16
+plans it refuses; the model zoo's shapes (K2 at K 1024 and N 4,096 and
+16,384, also from the crowding untrained codebook; K1 at S = W = 64 in both
+dtypes); one small-model train step against the CPU. K1's bfloat16
 instantiations run at every head dim, on windows, whole rows and the row
 kernels, with the dropout mask, what they refuse, and a small bf16 train
 step.
@@ -549,3 +551,38 @@ def test_small_bf16_train_step_on_the_card_matches_the_cpu(gen):
     for n in g32:
         own = (gc[n] - g32[n]).norm()
         assert (gg[n] - g32[n]).norm() <= 2 * own + 1e-6 * g32[n].norm(), n
+
+
+# ---------------------------------------------------------------- the zoo's shapes
+
+@pytest.mark.parametrize("N", [4096, 16384])
+@pytest.mark.parametrize("init", ["normal", "untrained"])
+def test_k2_at_the_zoo_shapes(gen, N, init):
+    """K = 1024 (the standard, ema and rvq default) at the rows of a batch of
+    256 windows of 64 frames: 16 tokens each (simple, resnet) and 64
+    (resnet_no_down). "untrained" is the U(-1/K, 1/K) codebook a model
+    starts from, which crowds rows onto few codes and into long row-order
+    chains in the statistics kernel."""
+    x = torch.randn(N, 64, device="cuda", generator=gen)
+    cb = torch.randn(1024, 64, device="cuda", generator=gen)
+    if init == "untrained":
+        cb = (torch.rand(1024, 64, device="cuda", generator=gen) * 2 - 1) / 1024
+    _k2_case(x, cb)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_k1_at_window_64(gen, rate):
+    """The CLI's default transformer: windows of 64 frames, unpacked, at
+    (B*H 1024, S 64, Dh 64); one window a block in both dtypes."""
+    bias = attention_bias(1, 64, "cuda")
+    q, k, v, do = (torch.randn(1024, 64, 64, device="cuda", generator=gen) for _ in range(4))
+    seed, scale = _seed(gen), 64 ** -0.5
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, 64)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, 64)
+    torch.cuda.synchronize()
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, 64)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate, 64)
+    assert (out - ref).abs().max().item() <= 1e-4
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4
+    _bf16_pair(gen, 1024, 64, 64, bias, 64, rate)

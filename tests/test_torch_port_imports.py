@@ -21,6 +21,9 @@ PORT_MODULES = [
     "bridgerl_tpu_torch.convert", "bridgerl_tpu_torch.ops", "bridgerl_tpu_torch.models",
     "bridgerl_tpu_torch.export.serving", "bridgerl_tpu_torch.export.server",
     "bridgerl_tpu_torch.export.client", "bridgerl_tpu_torch.export.reconstruct",
+    "bridgerl_tpu_torch.data.rotations", "bridgerl_tpu_torch.data.pipeline",
+    "bridgerl_tpu_torch.data.synthetic", "bridgerl_tpu_torch.cli.process_data",
+    "bridgerl_tpu_torch.cli.train_ablation", "bridgerl_tpu_torch.train.trainer",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bridgerl_tpu")
 

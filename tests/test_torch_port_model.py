@@ -153,10 +153,13 @@ def test_strict_load_rejects_missing_key():
 
 @pytest.mark.parametrize("over", [dict(arch="resnet"), dict(scan_layers=True)])
 def test_state_dict_from_jax_rejects_other_trees(over):
+    """A tree of another model than the config's (the flagship's unstacked
+    transformer tree) raises, naming the path it lacks."""
+    _, _, variables, _, _ = jax_and_port()
     over = dict(over)
-    cfg = make_experiment(over.pop("arch", "transformer"), "hybrid", window=10, **over).model
-    with pytest.raises(NotImplementedError):
-        state_dict_from_jax({"params": {}, "qstats": {}}, cfg)
+    cfg = make_experiment(over.pop("arch", "transformer"), "hybrid", **SMALL, **over).model
+    with pytest.raises(KeyError, match="stack|Conv_0"):
+        state_dict_from_jax(variables, cfg)
 
 
 def test_init_model_is_seeded_and_torch_style():
@@ -198,9 +201,19 @@ def test_unported_options_raise(over):
 
 
 def test_torch_init_off_raises():
+    """torch_init=False no longer raises: kernels are flax's lecun-normal,
+    a normal truncated to 2 standard units at variance 1 / fan_in (the
+    attention blocks' fan-in d), biases 0."""
     cfg = make_experiment("transformer", "hybrid", **SMALL, torch_init=False).model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg, 0, device="cpu")
+    sd = init_model(cfg, 0, device="cpu").state_dict()
+    for key, fan_in in (("human_encoder.input_proj.weight", 126),
+                        ("robot_decoder.transformer.layers.1.linear2.weight", 64),
+                        ("human_encoder.transformer.layers.0.self_attn.in_proj_weight", 32)):
+        w = sd[key].numpy()
+        std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+        assert np.abs(w).max() <= 2 * std + 1e-7, key
+        assert abs(w.std() - np.sqrt(1.0 / fan_in)) < 0.1 * np.sqrt(1.0 / fan_in), key
+    assert all(torch.count_nonzero(v) == 0 for k, v in sd.items() if k.endswith("bias"))
 
 
 @pytest.mark.parametrize("over", [dict(cheap_dropout=True), dict(fused_attention=True)])
@@ -219,8 +232,12 @@ def test_eval_neutral_options_give_the_same_model(over):
 
 @pytest.mark.parametrize("arch,method", [("resnet", "hybrid"), ("transformer", "ema")])
 def test_unported_models_raise(arch, method):
+    """Every arch and method builds now; int8_ff is the option that still
+    raises, whatever the arch."""
+    DualMotionVQVAE(make_experiment(arch, method, window=16, **{
+        k: v for k, v in SMALL.items() if k != "window"}).model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DualMotionVQVAE(make_experiment(arch, method, window=10).model)
+        DualMotionVQVAE(make_experiment(arch, method, window=16, int8_ff=True).model)
 
 
 @pytest.mark.parametrize("kw", [

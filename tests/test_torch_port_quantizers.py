@@ -188,8 +188,26 @@ def test_vector_quantizer_cold_start_buffers():
 
 @pytest.mark.parametrize("method", ["ema", "rvq", "fsq", "lfq", "standard", "ae"])
 def test_make_quantizer_ports_hybrid_only(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantizers.make_quantizer(make_experiment("transformer", method, window=10).model)
+    """Every method is ported now: each builds its JAX counterpart's module
+    with the config's codebook size, decay, depth and commitment (rvq keeps
+    0.25, as the JAX package does)."""
+    cfg = make_experiment("transformer", method, window=10, codebook_size=64, n_layers=3,
+                          ema_decay=0.9, commitment_cost=0.5, lfq_dim=6).model
+    q = quantizers.make_quantizer(cfg, torch.Generator().manual_seed(0))
+    if method in ("ema", "standard"):
+        assert isinstance(q, quantizers.VectorQuantizer) and q.commitment_cost == 0.5
+        assert q.use_ema == (method == "ema") and q.embedding.weight.shape == (64, 64)
+        assert (len(list(q.parameters())) == 1) == (method == "standard")
+        assert method == "standard" or q.decay == 0.9
+    elif method == "rvq":
+        assert len(q.layers) == 3 and all(l.decay == 0.9 and l.commitment_cost == 0.25
+                                          for l in q.layers)
+    elif method == "fsq":
+        assert isinstance(q, quantizers.FSQ) and q.bounded
+    elif method == "lfq":
+        assert isinstance(q, quantizers.LFQ) and q.codebook_dim == 6 and q.norm
+    else:
+        assert isinstance(q, quantizers.IdentityVQ)
 
 
 def test_make_quantizer_hybrid_has_512_codes():
