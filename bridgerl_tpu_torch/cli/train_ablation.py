@@ -15,8 +15,16 @@ without a card the run stops unless ``--device cpu`` asks for the CPU.
 ``DIR/trace.json``. ``--fused_attention`` is accepted: the port's attention
 always follows the fused kernel. ``--data_parallel`` does nothing on one
 card and stops the run where more are visible (data parallelism is not
-ported). The flags this port does not have yet stop the run with a message
-that names ``ROADMAP.md``.
+ported). The flags this port does not have yet (``--int8_ff``,
+``--lambda_fk``, ``--multiseed`` with several seeds, ``--prng``) stop the
+run with a message that names ``ROADMAP.md``.
+
+The W64-transformer recipe: pretrain ``ae``, then train ``hybrid`` from it:
+
+    python -m bridgerl_tpu_torch.cli.train_ablation --arch transformer --method ae
+    python -m bridgerl_tpu_torch.cli.train_ablation --arch transformer --method hybrid \
+        --init_from checkpoints/Exp_transformer_W64_ae_teacher_seed_42_best.pth \
+        --codebook_data_init --cheap_dropout --reuse_dropout_mask --accum_chunks 4
 """
 
 from __future__ import annotations
@@ -82,18 +90,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tanh-bounded FSQ (the default); --no-fsq_bounded: unbounded round")
     p.add_argument("--save_every", type=int, default=1,
                    help="Epochs between `_last` checkpoint writes")
-    p.add_argument("--cheap_dropout", action="store_true", help="Not ported")
+    p.add_argument("--cheap_dropout", action="store_true",
+                   help="8-bit dropout masks in the transformer blocks (K1 keeps its own)")
     p.add_argument("--int8_ff", action="store_true", help="Not ported")
-    p.add_argument("--reuse_dropout_mask", action="store_true", help="Not ported")
+    p.add_argument("--reuse_dropout_mask", action="store_true",
+                   help="One dropout draw for all microbatches of an optimizer step")
     p.add_argument("--lfq_norm", action=argparse.BooleanOptionalAction, default=None,
                    help="LFQ pre-sign LayerNorm (the default); --no-lfq_norm: reference")
     p.add_argument("--entropy_weight", type=float, default=0.1,
                    help="LFQ entropy regularization weight")
-    p.add_argument("--init_from", type=str, default=None, help="Not ported")
+    p.add_argument("--init_from", type=str, default=None,
+                   help="Teacher init from a .pth's matching weights (path or {seed} pattern)")
     p.add_argument("--vq_norm", action=argparse.BooleanOptionalAction, default=None,
                    help="Parameter-free LayerNorm before the quantizer")
     p.add_argument("--codebook_data_init", action=argparse.BooleanOptionalAction,
-                   default=None, help="Not ported")
+                   default=None, help="Seed first-stage EMA codebooks from encoder outputs")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default) or cpu; nothing falls back to the CPU")
     return p
@@ -103,11 +114,7 @@ def unported(args) -> Optional[str]:
     """The first flag the port cannot run yet, or None."""
     for flag, on in (("--multiseed with several seeds", args.multiseed and len(args.seed) > 1),
                      ("--lambda_fk", args.lambda_fk != 0.0),
-                     ("--cheap_dropout", args.cheap_dropout),
-                     ("--reuse_dropout_mask", args.reuse_dropout_mask),
                      ("--int8_ff", args.int8_ff),
-                     ("--init_from", bool(args.init_from)),
-                     ("--codebook_data_init", bool(args.codebook_data_init)),
                      (f"--prng {args.prng}", args.prng != DEFAULT_PRNG)):
         if on:
             return flag
@@ -119,14 +126,17 @@ def make_exp(args, robot_dim: int, human_dim: int):
     from ..config import make_experiment, ref_exact
 
     opt = {k: v for k, v in (("fsq_bounded", args.fsq_bounded), ("lfq_norm", args.lfq_norm),
+                             ("codebook_data_init", args.codebook_data_init),
                              ("vq_norm", args.vq_norm)) if v is not None}
     exp = make_experiment(
         args.arch, args.method, window=args.window, mode=args.mode, seeds=tuple(args.seed),
         epochs=args.epochs, batch_size=args.batch_size, patience=args.patience,
-        resume=args.resume, teacher_ckpt=args.teacher_ckpt, save_every=args.save_every,
+        resume=args.resume, teacher_ckpt=args.teacher_ckpt, init_from=args.init_from,
+        save_every=args.save_every,
         learning_rate=args.lr, hidden_dim=args.hidden_dim, tf_tokens=args.tf_tokens,
         attn_packing=args.attn_packing, accum_chunks=args.accum_chunks,
-        fused_attention=args.fused_attention, entropy_loss_weight=args.entropy_weight,
+        fused_attention=args.fused_attention, cheap_dropout=args.cheap_dropout,
+        reuse_dropout_mask=args.reuse_dropout_mask, entropy_loss_weight=args.entropy_weight,
         human_input_dim=human_dim, robot_input_dim=robot_dim,
         compute_dtype="bfloat16" if args.bf16 else "float32", **opt)
     exp = dataclasses.replace(exp, log_dir=args.log_dir, checkpoint_dir=args.checkpoint_dir)

@@ -7,6 +7,7 @@ Speaks the npy/npz-over-HTTP protocol:
     joints = c.retarget(human_windows)          # (b, W, 126) -> (b, W, 29)
     recon  = c.robot_recon(robot_windows)       # (b, W, 29)  -> (b, W, 29)
     tokens = c.motion_codes(human_windows)      # -> {stream: (b, T') int32}
+    joints = c.decode_codes(tokens)             # -> (b, W, 29)
 
 Arrays travel as .npy/.npz bytes; errors surface as ServingError with the
 server's message. urllib and numpy only.
@@ -84,3 +85,10 @@ class ServingClient:
         npz = np.load(io.BytesIO(self._post("motion_codes", x_human)),
                       allow_pickle=False)
         return {k: npz[k] for k in npz.files}
+
+    def decode_codes(self, codes: Dict[str, np.ndarray]) -> np.ndarray:
+        """Code streams -> raw robot windows (the inverse of motion_codes)."""
+        buf = io.BytesIO()
+        np.savez(buf, **{k: np.ascontiguousarray(v, dtype=np.int32) for k, v in codes.items()})
+        return np.load(io.BytesIO(self._post_raw("decode_codes", buf.getvalue())),
+                       allow_pickle=False)

@@ -16,19 +16,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .streaming import window_starts
 
 ApplyFn = Callable[[torch.Tensor], torch.Tensor]
-
-
-def window_starts(seq_len: int, window: int, step: int) -> np.ndarray:
-    """range(0, T-W+1, step), plus a tail window at T-W if the strided sweep
-    stopped short."""
-    starts = list(range(0, seq_len - window + 1, step))
-    cursor = starts[-1] + step if starts else 0
-    if cursor < seq_len:
-        if not starts or starts[-1] != seq_len - window:
-            starts.append(seq_len - window)
-    return np.asarray(starts, dtype=np.int32)
 
 
 @torch.inference_mode()

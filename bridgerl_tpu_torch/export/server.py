@@ -1,4 +1,5 @@
-"""Stdlib HTTP serving host over the port's in-process serving module.
+"""Stdlib HTTP serving host over a serving module: a frozen artifact
+(``export/serialize.py``) or a live model (``export/serving.py``).
 
 Counterpart of ``bridgerl_tpu/export/server.py``. Endpoints:
     GET  /healthz          {"ok": true, "device": ..., "window": W, ...}
@@ -6,12 +7,14 @@ Counterpart of ``bridgerl_tpu/export/server.py``. Endpoints:
     POST /v1/retarget      (b, W, 126) raw human windows -> (b, W, 29) joints
     POST /v1/robot_recon   (b, W, 29)  raw robot windows -> (b, W, 29) recon
     POST /v1/motion_codes  (b, W, 126) raw human windows -> .npz of streams
+    POST /v1/decode_codes  .npz of (b, T') int32 streams -> (b, W, 29) robot
 
 Bodies are ``.npy`` bytes (application/octet-stream) or JSON
-``{"windows": [[[...]]]}``; the response mirrors the request's format.
-Batches are rounded up to the next power of two (zero-padded, the result
-sliced back), so the device sees a bounded set of shapes; a lock serialises
-device work across client threads.
+``{"windows": [[[...]]]}``; ``decode_codes`` takes an ``.npz`` of streams or
+JSON ``{"codes": {stream: [[...]]}}``. The response mirrors the request's
+format. Batches are rounded up to the next power of two (zero-padded, the
+result sliced back), so the device sees a bounded set of shapes; a lock
+serialises device work across client threads.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Union
 
 import numpy as np
 
@@ -46,31 +50,73 @@ class ServingApp:
         self._lock = threading.Lock()
 
     def call(self, fn_name: str, x):
-        """(b, W, D) float array in; an (b, ...) array, or a dict of them for
-        motion_codes, out."""
+        """An (b, ...) array, or a dict of them for motion_codes, out. ``x`` is
+        an (b, W, D) float array for the functions that take motion, a dict
+        of (b, T') integer code streams for decode_codes."""
         sig = self.module.meta["functions"].get(fn_name)
         if sig is None:
             raise KeyError(fn_name)
-        if not isinstance(x, np.ndarray):
-            raise ValueError(f"{fn_name} expects a single array body")
-        want = (sig["input"][1], sig["input"][2])
-        if x.ndim != 3 or x.shape[1:] != want:
-            raise ValueError(
-                f"{fn_name} expects (b, {want[0]}, {want[1]}) float32, got {x.shape}")
-        x = np.asarray(x, np.float32)
-        b = x.shape[0]
-        if self.bucket_batches and _bucket(b) != b:
-            x = np.concatenate([x, np.zeros((_bucket(b) - b, *x.shape[1:]), np.float32)])
+        if isinstance(sig["input"], dict):
+            x = self._check_codes(fn_name, sig, x)
+            b = next(iter(x.values())).shape[0]
+            pad = _bucket(b) - b if self.bucket_batches else 0
+            if pad:
+                x = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
+                     for k, v in x.items()}
+        else:
+            if not isinstance(x, np.ndarray):
+                raise ValueError(f"{fn_name} expects a single array body")
+            want = (sig["input"][1], sig["input"][2])
+            if x.ndim != 3 or x.shape[1:] != want:
+                raise ValueError(
+                    f"{fn_name} expects (b, {want[0]}, {want[1]}) float32, got {x.shape}")
+            x = np.asarray(x, np.float32)
+            b = x.shape[0]
+            if self.bucket_batches and _bucket(b) != b:
+                x = np.concatenate([x, np.zeros((_bucket(b) - b, *x.shape[1:]), np.float32)])
         with self._lock:
             out = self.module.fns[fn_name](x)
             if isinstance(out, dict):
                 return {k: _to_numpy(v)[:b] for k, v in out.items()}
             return _to_numpy(out)[:b]
 
+    @staticmethod
+    def _check_codes(fn_name: str, sig, x) -> dict:
+        """The streams of ``x`` as int32 arrays, each (b, T') as ``sig`` says;
+        a stream of floats is refused rather than truncated."""
+        if not isinstance(x, dict):
+            raise ValueError(f"{fn_name} expects a dict of code streams {sorted(sig['input'])} "
+                             "(npz or JSON 'codes' body)")
+        missing, extra = sorted(set(sig["input"]) - set(x)), sorted(set(x) - set(sig["input"]))
+        if missing or extra:
+            raise ValueError(f"{fn_name} streams mismatch: missing={missing} extra={extra}")
+        out, batch = {}, None
+        for k, spec in sig["input"].items():
+            v = np.asarray(x[k])
+            if v.ndim != 2 or v.shape[1] != spec[1] or not (
+                    np.issubdtype(v.dtype, np.integer) or v.size == 0):
+                raise ValueError(f"{fn_name} stream {k!r} expects (b, {spec[1]}) int32, "
+                                 f"got {v.shape} {v.dtype}")
+            if batch is None:
+                batch = v.shape[0]
+            elif v.shape[0] != batch:
+                raise ValueError(f"{fn_name} streams disagree on batch size")
+            out[k] = v.astype(np.int32)
+        return out
 
-def make_server(module: ServingModule, host: str = "127.0.0.1", port: int = 8764,
-                bucket_batches: bool = True) -> ThreadingHTTPServer:
-    """Build (but don't start) the HTTP server; port 0 picks a free one."""
+
+def make_server(artifact: Union[str, ServingModule], host: str = "127.0.0.1",
+                port: int = 8764, bucket_batches: bool = True,
+                device=None) -> ThreadingHTTPServer:
+    """Build (but don't start) the HTTP server over a serving module, or over
+    the artifact at the path ``artifact`` loaded on ``device`` (the card by
+    default); port 0 picks a free one."""
+    if isinstance(artifact, str):
+        from .serialize import load_serving_artifact
+
+        module = load_serving_artifact(artifact, device=device)
+    else:
+        module = artifact
     app = ServingApp(module, bucket_batches=bucket_batches)
     meta_payload = json.dumps(module.meta).encode()
     health_payload = json.dumps({
@@ -109,11 +155,19 @@ def make_server(module: ServingModule, host: str = "127.0.0.1", port: int = 8764
             try:
                 raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
                 ctype = (self.headers.get("Content-Type") or _OCTET).split(";")[0]
+                dict_input = isinstance(module.meta["functions"][fn_name]["input"], dict)
                 if ctype == _JSON:
                     body = json.loads(raw)
-                    if not isinstance(body, dict) or "windows" not in body:
-                        raise ValueError('JSON body must be {"windows": ...}')
-                    x = np.asarray(body["windows"], np.float32)
+                    key = "codes" if dict_input else "windows"
+                    if not isinstance(body, dict) or key not in body:
+                        raise ValueError(f'JSON body must be {{"{key}": ...}}')
+                    x = body["codes"] if dict_input else np.asarray(body["windows"], np.float32)
+                elif dict_input:
+                    z = np.load(io.BytesIO(raw), allow_pickle=False)
+                    if isinstance(z, np.ndarray):
+                        raise ValueError(f"{fn_name} expects an .npz of code streams")
+                    with z:
+                        x = {k: z[k] for k in z.files}
                 else:
                     x = np.load(io.BytesIO(raw), allow_pickle=False)
                     if not isinstance(x, np.ndarray):

@@ -59,7 +59,7 @@ def _check_ported(cfg: ModelConfig) -> None:
 def _transformer_kw(cfg: ModelConfig) -> Dict[str, Any]:
     return dict(d_model=cfg.d_model, n_heads=cfg.n_heads, num_layers=cfg.n_tf_layers,
                 ff_dim=cfg.ff_dim, attn_packing=cfg.attn_packing, tokens=cfg.tf_tokens,
-                dropout=cfg.dropout, dtype=compute_dtype(cfg))
+                dropout=cfg.dropout, dtype=compute_dtype(cfg), cheap_dropout=cfg.cheap_dropout)
 
 
 def make_encoder(cfg: ModelConfig, input_dim: int) -> nn.Module:

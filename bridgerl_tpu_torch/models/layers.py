@@ -21,7 +21,9 @@ it is (torch's ``BatchNorm1d`` stores the unbiased one).
 ``train=True`` turns on the four dropouts of each block at the config's
 rate: on the attention probabilities (inside K1), on the attention output
 before ``norm1``, after the ReLU, and on the feed-forward output before
-``norm2``. Their random numbers come from the explicit ``generator``.
+``norm2``. Their random numbers come from the explicit ``generator``. With
+``cheap_dropout`` the last three draw 8-bit masks (:func:`cheap_dropout`);
+the attention dropout stays K1's Philox draw at the exact rate.
 
 With ``attn_packing`` P > 1 and a batch divisible by P, P windows of T
 frames run as one (P*T)-token attention under the block-diagonal mask,
@@ -73,6 +75,23 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / _in_dtype(keep, x.dtype), 0.0)
+
+
+def cheap_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+                  ) -> torch.Tensor:
+    """flax ``CheapDropout`` in train mode (``bridgerl_tpu/models/layers.py``):
+    the mask comes from uint8 random bits, so the drop rate is quantized to
+    ``thresh / 256`` with ``thresh = min(round(rate * 256), 255)`` (0.1 ->
+    26/256), an element is kept when its bits are >= thresh, and kept values
+    are divided by ``1 - thresh / 256`` rounded to x's dtype."""
+    thresh = min(int(round(rate * 256.0)), 255)   # 256 overflows uint8
+    if rate <= 0.0 or thresh <= 0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    bits = torch.randint(0, 256, x.shape, generator=generator, device=x.device,
+                         dtype=torch.uint8)
+    return torch.where(bits >= thresh, x / _in_dtype(1.0 - thresh / 256.0, x.dtype), 0.0)
 
 
 def sinusoidal_pe(max_len: int, d_model: int, dtype: torch.dtype = torch.float32
@@ -161,12 +180,14 @@ class SelfAttention(nn.Module):
 class TransformerBlock(nn.Module):
     """Post-LN encoder layer: x = norm1(x + drop(attn(x)));
     x = norm2(x + drop(ff(x))), with a ReLU feed-forward (dropout after the
-    ReLU) and LayerNorm eps 1e-6."""
+    ReLU) and LayerNorm eps 1e-6. ``cheap`` draws those three dropouts'
+    masks from 8 bits (:func:`cheap_dropout`)."""
 
     def __init__(self, d_model: int, n_heads: int, ff_dim: int, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, cheap: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.cheap = cheap
         self.self_attn = SelfAttention(d_model, n_heads, dtype)
         self.linear1 = Dense(d_model, ff_dim, dtype)
         self.linear2 = Dense(ff_dim, d_model, dtype)
@@ -177,10 +198,11 @@ class TransformerBlock(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 window: Optional[int] = None) -> torch.Tensor:
         rate = self.dropout if train else 0.0
-        x = self.norm1(x + dropout(self.self_attn(x, bias, rate, generator, window), rate,
-                                   generator))
-        h = dropout(F.relu(self.linear1(x)), rate, generator)
-        return self.norm2(x + dropout(self.linear2(h), rate, generator))
+        drop = cheap_dropout if self.cheap else dropout
+        x = self.norm1(x + drop(self.self_attn(x, bias, rate, generator, window), rate,
+                                generator))
+        h = drop(F.relu(self.linear1(x)), rate, generator)
+        return self.norm2(x + drop(self.linear2(h), rate, generator))
 
 
 class TransformerStack(nn.Module):
@@ -193,11 +215,12 @@ class TransformerStack(nn.Module):
 
     def __init__(self, num_layers: int, d_model: int, n_heads: int, ff_dim: int,
                  seq_len: int, packing: int = 1, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, cheap_dropout: bool = False):
         super().__init__()
         self.seq_len, self.packing = seq_len, packing
-        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads, ff_dim, dropout, dtype)
-                                    for _ in range(num_layers))
+        self.layers = nn.ModuleList(
+            TransformerBlock(d_model, n_heads, ff_dim, dropout, dtype, cheap_dropout)
+            for _ in range(num_layers))
         self.register_buffer("pe", sinusoidal_pe(seq_len, d_model, dtype), persistent=False)
         self.register_buffer("bias_single", attention_bias(1, seq_len), persistent=False)
         self.register_buffer("bias_packed", attention_bias(packing, seq_len),
@@ -226,12 +249,14 @@ class TransformerMotionEncoder(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int, seq_len: int,
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
                  ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
-                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 cheap_dropout: bool = False):
         super().__init__()
         self.tokens = tokens
         self.input_proj = Dense(input_dim, d_model, dtype)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
-                                            seq_len, attn_packing, dropout, dtype)
+                                            seq_len, attn_packing, dropout, dtype,
+                                            cheap_dropout)
         self.output_proj = Dense(d_model, hidden_dim, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -251,12 +276,14 @@ class TransformerMotionDecoder(nn.Module):
     def __init__(self, output_dim: int, hidden_dim: int, seq_len: int,
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
                  ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
-                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 cheap_dropout: bool = False):
         super().__init__()
         self.seq_len, self.tokens = seq_len, tokens
         self.input_proj = Dense(hidden_dim, d_model, dtype)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
-                                            seq_len, attn_packing, dropout, dtype)
+                                            seq_len, attn_packing, dropout, dtype,
+                                            cheap_dropout)
         self.output_proj = Dense(d_model, output_dim, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,

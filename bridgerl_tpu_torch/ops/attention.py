@@ -14,10 +14,12 @@ block-diagonal bias of P windows of W frames and ``window=W`` this equals the
 full-row function up to summation order, because ``expf(-1e9 + ...)`` is
 exactly 0 in f32; the model's towers always pass their window.
 
-A CUDA tensor goes to the hand-written kernels ``csrc/packed_attention.cu``
-(forward) and ``csrc/packed_attention_bwd.cu`` (backward); a CPU tensor goes
-to the plain versions :func:`packed_attention_reference` and
-:func:`packed_attention_bwd_reference`.
+Both directions are ``torch.library`` custom ops (``bridgerl::packed_attention_fwd``
+and ``bridgerl::packed_attention_bwd``), so that ``torch.export`` can trace
+through them. On a CUDA tensor each runs its hand-written kernel,
+``csrc/packed_attention.cu`` (forward) or ``csrc/packed_attention_bwd.cu``
+(backward); on a CPU tensor its plain version,
+:func:`packed_attention_reference` or :func:`packed_attention_bwd_reference`.
 
 q, k, v and dout are float32 or bfloat16, all four alike; the bias is always
 float32. As in the TPU kernel, bfloat16 inputs are widened to float32 as they
@@ -26,9 +28,9 @@ float32, and out, dq, dk and dv are rounded to q's dtype once, at the end
 (round to nearest even). Each kernel has a float32 and a bfloat16 entry
 point, and each counts its launches on its own counter.
 
-:class:`PackedAttention` ties them into one autograd function whose
-backward recomputes the probabilities and the dropout mask, as the TPU
-kernel's custom VJP does.
+The forward op's registered autograd formula calls the backward op, which
+recomputes the probabilities and the dropout mask, as the TPU kernel's
+custom VJP does.
 
 Dropout is counter-based, so the backward regenerates the forward's mask
 from the seed alone. The generator is Philox4x32-10 (Salmon et al., SC'11),
@@ -290,43 +292,109 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window):
     return dq, dk, dv
 
 
+# ---------------------------------------------------------------- custom ops
+#
+# The dispatcher picks the implementation from the tensors' device; no device
+# but cuda and cpu has one. ``window`` reaches the ops resolved. Outside a
+# trace, CUDA tensors skip the dispatch and call the CUDA implementations
+# themselves (``kernels.eager_cuda``).
+
+_FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? seed, float scale, "
+               "float dropout_rate, int window) -> Tensor")
+_BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor dout, Tensor? seed, "
+               "float scale, float dropout_rate, int window) -> (Tensor, Tensor, Tensor)")
+
+
+def _fwd_cpu(q, k, v, bias, seed, scale, dropout_rate, window):
+    return packed_attention_reference(q, k, v, bias, scale, seed, dropout_rate, window)
+
+
+def _bwd_cpu(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+    return packed_attention_bwd_reference(q, k, v, bias, dout, scale, seed, dropout_rate,
+                                          window)
+
+
+fwd_op = torch.library.custom_op("bridgerl::packed_attention_fwd", _fwd_cpu, mutates_args=(),
+                                 device_types="cpu", schema=_FWD_SCHEMA)
+bwd_op = torch.library.custom_op("bridgerl::packed_attention_bwd", _bwd_cpu, mutates_args=(),
+                                 device_types="cpu", schema=_BWD_SCHEMA)
+
+
+# The kernels read contiguous rows. An exported graph may hand the ops a view
+# where the traced batch made a copy (a reshape after the head transpose is a
+# view at b = 1), so the CUDA implementations copy such inputs first.
+
+@fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, bias, seed, scale, dropout_rate, window):
+    q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
+    return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window)
+
+
+@bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+    q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
+    return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window)
+
+
+@fwd_op.register_fake
+def _fwd_fake(q, k, v, bias, seed, scale, dropout_rate, window):
+    return torch.empty_like(q)
+
+
+@bwd_op.register_fake
+def _bwd_fake(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+    return torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, bias, seed, scale, dropout_rate, window = inputs
+    ctx.save_for_backward(q, k, v, bias, seed)
+    ctx.scale, ctx.dropout_rate, ctx.window = scale, dropout_rate, window
+
+
+def _bwd(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+    if kernels.eager_cuda(q):
+        return _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window)
+    return bwd_op(q, k, v, bias, dout, seed, scale, dropout_rate, window)
+
+
+def _fwd_backward(ctx, dout):
+    """K1's backward: bias, seed, scale, rate and window get no gradient (the
+    TPU kernel gives bias a zero cotangent: it is the constant mask)."""
+    q, k, v, bias, seed = ctx.saved_tensors
+    dq, dk, dv = _bwd(q, k, v, bias, dout, seed, ctx.scale, ctx.dropout_rate, ctx.window)
+    return dq, dk, dv, None, None, None, None, None
+
+
+fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+class _EagerAttention(torch.autograd.Function):
+    """The op's CUDA implementation and autograd formula, called without
+    the op's dispatch (``kernels.eager_cuda``)."""
+    forward = staticmethod(_fwd_cuda)
+    setup_context = staticmethod(_fwd_setup)
+    backward = staticmethod(_fwd_backward)
+
+
 def attention_fwd(q, k, v, bias, scale: float, seed: Optional[torch.Tensor],
                   dropout_rate: float = 0.0, window: Optional[int] = None) -> torch.Tensor:
-    """K1's forward: the kernel for CUDA tensors, the plain version for CPU
-    tensors. ``seed`` is a one-element int32 tensor on q's device, read only
-    when ``dropout_rate`` > 0."""
-    if q.is_cuda:
-        return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window)
-    return packed_attention_reference(q, k, v, bias, scale, seed, dropout_rate, window)
+    """K1's forward, differentiable in q, k and v (its backward recomputes
+    the probabilities and the dropout mask, as the TPU kernel's custom VJP
+    does): the kernel for CUDA tensors, the plain version for CPU tensors.
+    ``seed`` is a one-element int32 tensor on q's device, read only when
+    ``dropout_rate`` > 0."""
+    args = (q, k, v, bias, seed, float(scale), float(dropout_rate),
+            resolve_window(q.shape[1], window))
+    return _EagerAttention.apply(*args) if kernels.eager_cuda(q) else fwd_op(*args)
 
 
 def attention_bwd(q, k, v, bias, dout, scale: float, seed: Optional[torch.Tensor],
                   dropout_rate: float = 0.0, window: Optional[int] = None):
     """K1's backward (dq, dk, dv): the kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if q.is_cuda:
-        return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window)
-    return packed_attention_bwd_reference(q, k, v, bias, dout, scale, seed, dropout_rate,
-                                          window)
-
-
-class PackedAttention(torch.autograd.Function):
-    """K1 forward and backward. bias, seed, scale, rate and window get no
-    gradient (the TPU kernel gives bias a zero cotangent: it is the constant
-    mask)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, bias, seed, scale, dropout_rate, window=None):
-        ctx.save_for_backward(q, k, v, bias, seed)
-        ctx.scale, ctx.dropout_rate, ctx.window = scale, dropout_rate, window
-        return attention_fwd(q, k, v, bias, scale, seed, dropout_rate, window)
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, bias, seed = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, bias, dout.contiguous(), ctx.scale, seed,
-                                   ctx.dropout_rate, ctx.window)
-        return dq, dk, dv, None, None, None, None, None
+    return _bwd(q, k, v, bias, dout, seed, float(scale), float(dropout_rate),
+                resolve_window(q.shape[1], window))
 
 
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -351,4 +419,4 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     versions. There is no fallback from one to the other.
     """
     seed = draw_seed(generator, q.device) if dropout_rate > 0.0 else None
-    return PackedAttention.apply(q, k, v, bias, seed, scale, float(dropout_rate), window)
+    return attention_fwd(q, k, v, bias, scale, seed, dropout_rate, window)

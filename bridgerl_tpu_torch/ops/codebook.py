@@ -1,10 +1,14 @@
 """Nearest-codebook search and its assignment statistics.
 
-``nearest_codes`` is K2: for a CUDA tensor it launches the hand-written
-kernel (``ops/vq_kernel.py``), for a CPU tensor it takes the plain version
-:func:`nearest_codes_plain`, the counterpart of the JAX package's
-``nearest_codes_xla``. Both return (indices (N,) int32, counts (K,),
-dw (K, D)), so callers never build the (N, K) one-hot matrix themselves.
+``nearest_codes`` is K2, the ``torch.library`` custom op
+``bridgerl::nearest_codes`` (so that ``torch.export`` can trace through it):
+on a CUDA tensor it launches the hand-written kernel (``ops/vq_kernel.py``),
+on a CPU tensor it runs the plain version :func:`nearest_codes_plain`, the
+counterpart of the JAX package's ``nearest_codes_xla``; no other device has
+an implementation. Outside a trace a CUDA tensor calls the op's CUDA
+implementation without the op's dispatch (``kernels.eager_cuda``). Both
+return (indices (N,) int32, counts (K,), dw (K, D)), so callers never build
+the (N, K) one-hot matrix themselves.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from . import kernels
 from .vq_kernel import nearest_codes_cuda
 
 Codes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -43,8 +48,26 @@ def quantize_lookup(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
     return codebook[indices.long()]
 
 
+nearest_codes_op = torch.library.custom_op(
+    "bridgerl::nearest_codes", nearest_codes_plain, mutates_args=(), device_types="cpu",
+    schema="(Tensor flat, Tensor codebook) -> (Tensor, Tensor, Tensor)")
+
+
+@nearest_codes_op.register_kernel("cuda")
+def _nearest_codes_cuda(flat, codebook):
+    # k2_plan sizes the launch at call time, from this call's N
+    return nearest_codes_cuda(flat.contiguous(), codebook.contiguous())
+
+
+@nearest_codes_op.register_fake
+def _nearest_codes_fake(flat, codebook):
+    K, D = codebook.shape
+    return (flat.new_empty(flat.shape[0], dtype=torch.int32), flat.new_empty(K),
+            flat.new_empty(K, D))
+
+
 def nearest_codes(flat: torch.Tensor, codebook: torch.Tensor) -> Codes:
     """The K2 kernel for CUDA tensors, the plain version for CPU tensors."""
-    if flat.is_cuda:
-        return nearest_codes_cuda(flat.contiguous(), codebook.contiguous())
-    return nearest_codes_plain(flat, codebook)
+    if kernels.eager_cuda(flat):
+        return _nearest_codes_cuda(flat, codebook)
+    return nearest_codes_op(flat, codebook)

@@ -135,3 +135,12 @@ def stream_ptr(t: torch.Tensor) -> int:
 def check(fn: str, status: int) -> None:
     if status != 0:
         raise RuntimeError(f"{fn}: CUDA error {status} at launch")
+
+
+def eager_cuda(t: torch.Tensor) -> bool:
+    """A plain CUDA tensor outside a trace. There the callers of the custom
+    ops run the ops' CUDA implementations themselves: the op's dispatch
+    costs ~10-80 µs of host time a call, a tenth of a teacher step (PERF.md
+    §6). A trace keeps the op: ``torch.compile`` and ``torch.export`` set
+    ``is_compiling``, and their fake and functional tensors are subclasses."""
+    return t.is_cuda and type(t) is torch.Tensor and not torch.compiler.is_compiling()

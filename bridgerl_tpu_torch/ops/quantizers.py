@@ -47,9 +47,12 @@ def ste(z: torch.Tensor, z_q: torch.Tensor) -> torch.Tensor:
 
 
 def unique_count(indices: torch.Tensor) -> torch.Tensor:
-    """Number of distinct values, as an f32 scalar (sort + adjacent diff)."""
+    """Number of distinct values, as an f32 scalar: sorted, k > 1 distinct
+    values differ from their cyclic predecessor at k places (one of them
+    the wrap-around), and one value at none. (Slicing off one end instead
+    would tie an exported program to its traced batch.)"""
     s = torch.sort(indices.reshape(-1)).values
-    return 1.0 + torch.sum((s[1:] != s[:-1]).float())
+    return torch.clamp(torch.sum((s != torch.roll(s, 1)).float()), min=1.0)
 
 
 def perplexity_from_counts(counts: torch.Tensor) -> torch.Tensor:
@@ -209,7 +212,7 @@ class FSQ(nn.Module):
         if self.bounded:
             zp = torch.tanh(zp + self._shift) * self._half - self._offset
         hard_vals = torch.round(zp)
-        z_hard = zp + (hard_vals - zp).detach()
+        z_hard = ste(zp, hard_vals)
         out = self.project_out(z_hard).to(in_dtype)
         # indices from the exact round(): z_hard is integral only to ~ulp
         indices = torch.sum(hard_vals.detach() * self._basis, dim=-1).to(torch.int32)

@@ -1,5 +1,5 @@
-"""Checkpoints in the reference's ``.pth`` layout, and the teacher->student
-transfer.
+"""Checkpoints in the reference's ``.pth`` layout, the teacher->student
+transfer, and the transfer init of ``init_from``.
 
 Counterpart of ``bridgerl_tpu/train/checkpoint.py``, writing the reference
 PyTorch files (``scripts/train_ablation.py:276-291, 357-364``) instead of
@@ -127,6 +127,18 @@ def merge_teacher_into_student(student_sd: Mapping[str, torch.Tensor],
     (parameters and EMA buffers alike)."""
     return {k: (v if is_human_encoder(k) or k not in teacher_sd else teacher_sd[k])
             for k, v in student_sd.items()}
+
+
+def merge_matching_variables(target_sd: Mapping[str, torch.Tensor],
+                             source_sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Every ``source_sd`` entry whose key exists in ``target_sd`` with the
+    same shape (parameters and buffers alike), in the target's dtype; every
+    other entry keeps its init. The transfer init of ``init_from``: an
+    ``ae``-pretrained encoder and decoder into a quantized model whose
+    quantizer stays fresh (the W64-transformer recipe)."""
+    return {k: (source_sd[k].to(v.dtype) if k in source_sd
+                and tuple(source_sd[k].shape) == tuple(v.shape) else v)
+            for k, v in target_sd.items()}
 
 
 def trainable_mask(model: nn.Module, mode: str) -> Dict[str, bool]:

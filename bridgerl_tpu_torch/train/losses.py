@@ -6,6 +6,8 @@ where the velocity term differences the CHANNEL axis with ``ref_exact_vel``
 (the reference's literal ``[:, :, 1:] - [:, :, :-1]``, the default) and the
 time axis without it. Student loss: ``lambda_align * MSE(z_e_human,
 sg(z_e_robot))``. Validation always differences the time axis.
+:func:`info_nce_loss` is the reference's contrastive alignment loss, which no
+default uses.
 """
 
 from __future__ import annotations
@@ -59,6 +61,21 @@ def student_loss(z_e_human: torch.Tensor, z_e_robot: torch.Tensor,
                  lambda_align: float = 100.0) -> Dict[str, torch.Tensor]:
     l_align = mse(z_e_human, z_e_robot.detach())
     return {"loss": lambda_align * l_align, "align_loss": l_align}
+
+
+def info_nce_loss(z_h: torch.Tensor, z_r: torch.Tensor, temperature: float = 0.07
+                  ) -> torch.Tensor:
+    """Symmetric contrastive loss between the rows of two latent batches
+    (train_ablation.py:71-78; the reference abandoned it for the direct MSE,
+    README.md:322)."""
+    zh, zr = z_h.reshape(z_h.shape[0], -1), z_r.reshape(z_r.shape[0], -1)
+    zh = zh / torch.clamp(torch.linalg.norm(zh, dim=-1, keepdim=True), min=1e-8)
+    zr = zr / torch.clamp(torch.linalg.norm(zr, dim=-1, keepdim=True), min=1e-8)
+    logits = zh @ zr.t() / temperature
+    diag = torch.diagonal(logits)
+    loss_h = torch.mean(torch.logsumexp(logits, dim=1) - diag)
+    loss_r = torch.mean(torch.logsumexp(logits.t(), dim=1) - diag)
+    return 0.5 * (loss_h + loss_r)
 
 
 def eval_metrics(outputs, x_robot: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -22,7 +22,17 @@ Counterpart of ``bridgerl_tpu/train/trainer.py``, run eagerly:
 
 All random numbers of an epoch (its shuffle and every dropout) come from one
 ``torch.Generator`` on the device, seeded from (seed, epoch), so a resumed
-run repeats the epochs it had not finished.
+run repeats the epochs it had not finished. With ``reuse_dropout_mask`` every
+microbatch of an optimizer step starts from the generator state the step
+started from, so all of them draw the same dropout masks and the same K1
+seed; the EMA codebooks and BatchNorm statistics still fold once a
+microbatch.
+
+A fresh teacher run (not a resume) can start from another checkpoint's
+matching weights (``init_from``, :func:`~.checkpoint.merge_matching_variables`)
+and then seed its first-stage EMA codebooks from the robot encoder's outputs
+on the first ``batch_size`` training windows (``codebook_data_init``,
+``train/codebook_seed.py``), both before the optimizer is built.
 """
 
 from __future__ import annotations
@@ -44,26 +54,22 @@ from ..models.dual_vqvae import init_model
 from ..utils.logging import TermColor, epoch_log
 from .checkpoint import (
     load_checkpoint,
+    merge_matching_variables,
     merge_teacher_into_student,
     resolve_teacher_ckpt,
     save_checkpoint,
     save_state_dict,
     trainable_mask,
 )
+from .codebook_seed import seed_codebooks
 from .losses import eval_metrics, student_loss, teacher_loss
 
 Logs = Dict[str, torch.Tensor]
 
 
 def _check_ported(exp: ExperimentConfig) -> None:
-    t = exp.train
-    for name, off in (("lambda_fk", t.lambda_fk == 0.0),
-                      ("codebook_data_init", not t.codebook_data_init),
-                      ("init_from", not t.init_from),
-                      ("reuse_dropout_mask", not t.reuse_dropout_mask),
-                      ("cheap_dropout", not exp.model.cheap_dropout)):
-        if not off:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md)")
+    if exp.train.lambda_fk != 0.0:
+        raise NotImplementedError("lambda_fk is not ported yet (ROADMAP.md)")
 
 
 def make_optimizer(model: nn.Module, exp: ExperimentConfig) -> torch.optim.AdamW:
@@ -106,13 +112,19 @@ def accumulate_grads(model: nn.Module, exp: ExperimentConfig, robot: torch.Tenso
                      generator: Optional[torch.Generator]) -> Logs:
     """Leave in ``.grad`` the gradient of one optimizer batch ``idx``: the sum
     over its microbatches divided by their number. Returns the logs
-    averaged over the microbatches (device tensors)."""
+    averaged over the microbatches (device tensors). With
+    ``reuse_dropout_mask`` each microbatch draws its dropout from the
+    generator state the batch started from."""
     accum = max(exp.train.accum_chunks, 1)
     n = idx.shape[0]
     acc = accum if n % accum == 0 else math.gcd(accum, n)
     student = exp.train.mode == "student"
+    reuse = exp.train.reuse_dropout_mask and generator is not None
+    start = generator.get_state() if reuse else None
     logs = []
     for mb in idx.reshape(acc, n // acc):
+        if reuse:
+            generator.set_state(start)
         loss, mb_logs = microbatch_loss(model, exp, robot[mb],
                                         human[mb] if student else None, generator)
         loss.backward()
@@ -219,7 +231,8 @@ class Trainer:
         history = empty_history()
         resumed_opt_state = None
         last_path = self.ckpt_path(seed, "last")
-        if tcfg.resume and os.path.exists(last_path):
+        resumed = bool(tcfg.resume and os.path.exists(last_path))
+        if resumed:
             ck = load_checkpoint(last_path)
             model.load_state_dict(ck["model_state_dict"])
             resumed_opt_state = ck["optimizer_state_dict"] or None
@@ -248,11 +261,27 @@ class Trainer:
             if self.verbose:
                 print(f"{TermColor.BLUE}    [Student] Loaded teacher: {tpath}{TermColor.ENDC}")
 
+        fresh_teacher = mode == "teacher" and not resumed
+        if tcfg.init_from and fresh_teacher:
+            ipath = resolve_teacher_ckpt(tcfg.init_from, seed)
+            source = load_checkpoint(ipath)["model_state_dict"]
+            model.load_state_dict(merge_matching_variables(model.state_dict(), source))
+            if self.verbose:
+                print(f"{TermColor.CYAN}    [InitFrom] {ipath}{TermColor.ENDC}")
+
         train_ds, val_ds = train_val_split(ds, tcfg.val_fraction, seed)
         if len(train_ds) == 0 or len(val_ds) == 0:
             raise ValueError(
                 f"val_fraction={tcfg.val_fraction} splits {len(ds)} windows "
                 f"into train={len(train_ds)}/val={len(val_ds)}; both must be non-empty")
+
+        if tcfg.codebook_data_init and fresh_teacher:
+            # from the train split: the dataset's head would leak validation
+            # windows into the codebook
+            seed_codebooks(model, train_ds.robot[: tcfg.batch_size])
+            if self.verbose:
+                print(f"{TermColor.CYAN}    [Seed] codebook data init "
+                      f"({min(len(train_ds), tcfg.batch_size)} windows){TermColor.ENDC}")
 
         opt = make_optimizer(model, exp)
         if resumed_opt_state is not None:

@@ -1,1 +1,1 @@
-"""Console logging."""
+"""Console logging and the retargeting API."""

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py             # from the repository root, on a machine with a card
     python3 chip_smoke.py --profile   # adds device-time breakdowns of retarget at b=4096
-                                      # and of one teacher optimizer step, in each dtype,
-                                      # after every timed phase
+                                      # (live and through the artifact) and of one teacher
+                                      # optimizer step, in each dtype, after every timed phase
 
 Phases, each printed as one JSON line; any failed check raises and the
 script exits non-zero. Each runs in float32 and then in bfloat16
@@ -91,9 +91,42 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    loss must fall. ``serve_trained``: that teacher's checkpoint served on
    its own windows, in float32 under the float32 rule and in bf16 under the
    bf16 rules, with the share of windows whose codes flip in bf16.
-8. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+8. The frozen serving artifact (``export/serialize.py``) of the flagship,
+   in float32 and in bf16: exported with cuda and cpu programs (timed),
+   loaded in a child process (which must import no ``models``, ``train``
+   or ``config``) and here, and its four functions called at b = 1, 7, 64
+   and 4096 with the launches of the unpacked path (the artifact exports
+   its towers with packing 1, so K1 runs at S = 10): in float32 within
+   1e-5 of the live serving module with codes equal, and
+   ``decode_codes(motion_codes(x))`` within 1e-5 of ``retarget(x)``; in
+   bf16 under the bf16 rules against the CPU runs up to b = 64, and at
+   4096 within 4 bf16 ulps of the live module's answer on the card. Retarget's windows/s at
+   b = 4096 and its b = 1 median latency through the artifact and through
+   the live module. ``decode_http``: one decode_codes request to the
+   artifact's HTTP host as an npz and as JSON, each equal to the
+   in-process answer, and a 400 for a malformed body. ``stream``:
+   ``StreamingRetargeter`` over the artifact's retarget for 240 frames at
+   window 10 and step 5, equal to offline overlap-add within 1e-5, every
+   frame out exactly W + 1 frames after it went in; the median time of a
+   push that completes a window.
+9. ``recipe``: the W64-transformer recipe through the CLI, each stage a
+   child process: ``process_data --synthetic --window 64``, an ``ae``
+   teacher for 2 epochs, the hybrid at step 0 (``--epochs 0``: its towers
+   must equal the ae checkpoint's and its first-stage codebook rows be the
+   robot encoder's outputs on the first 256 training windows, plus the
+   jitter) and then trained for 2 epochs with ``--init_from``,
+   ``--codebook_data_init``, ``--cheap_dropout``, ``--reuse_dropout_mask``
+   and ``--accum_chunks 4`` (finite losses; K1 forward and backward and K2
+   launched); ``export_motion`` on its checkpoint (the reference's file
+   names, equal to ``reconstruct_long_sequence`` over the same model),
+   ``export_serving --platforms cuda --check`` and ``serve_http
+   --max_requests 1``.
+10. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
-   them), then, last, ``{"ok": true, "device": {...}}``.
+   them, artifact in each dtype, decode_http, stream and recipe; counts
+   are set to 0 before a path, and a path that also runs the model only to
+   check an answer sums the launches of its own calls), then, last,
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
 """
@@ -105,12 +138,15 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -122,15 +158,19 @@ from bridgerl_tpu_torch.config import (
     compute_dtype,
     make_experiment,
 )
-from bridgerl_tpu_torch.data.dataset import PairedDataset
+from bridgerl_tpu_torch.data.dataset import PairedDataset, train_val_split
 from bridgerl_tpu_torch.export.client import ServingClient
-from bridgerl_tpu_torch.export.reconstruct import reconstruct_long_sequence, window_starts
+from bridgerl_tpu_torch.export.motion_export import load_model_from_checkpoint, robot_recon_fn
+from bridgerl_tpu_torch.export.reconstruct import reconstruct_long_sequence
+from bridgerl_tpu_torch.export.serialize import build_serving_artifact, load_serving_artifact
 from bridgerl_tpu_torch.export.server import ServingApp, make_server
 from bridgerl_tpu_torch.export.serving import build_serving_module
+from bridgerl_tpu_torch.export.streaming import StreamingRetargeter, window_starts
 from bridgerl_tpu_torch.models import init_model
 from bridgerl_tpu_torch.models.layers import attention_bias
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
 from bridgerl_tpu_torch.train.checkpoint import load_checkpoint
+from bridgerl_tpu_torch.train.codebook_seed import JITTER
 from bridgerl_tpu_torch.train.trainer import (
     Trainer,
     accumulate_grads,
@@ -147,18 +187,22 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM bfloat16 on the tensor cores (dense)
 BF16 = torch.bfloat16
 DTYPES = (torch.float32, BF16)
 DTYPE_NAME = {torch.float32: "float32", BF16: "bfloat16"}
-# (B*H, S, Dh, packing, dropout): serving at b=4096 and b=64 unpacked, and the
-# training microbatch of 512 windows packed 8 to a row
-# training microbatch of 512 windows packed 8 to a row, and the zoo's transformer at the
-# CLI's defaults (window 64, batch 256, no packing)
+# (B*H, S, Dh, packing, dropout): serving at b=4096 and b=64 unpacked, the training
+# microbatch of 512 windows packed 8 to a row, the zoo's transformer at the CLI's
+# defaults (window 64, batch 256, no packing), the artifact at b=4096 (unpacked), and
+# the recipe's hybrid stage (microbatches of 64 windows, validation of 49)
 K1_SHAPES = ((2048, 80, 64, 8, 0.0), (256, 10, 64, 1, 0.0), (256, 80, 64, 8, 0.0),
-             (256, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.0), (1024, 64, 64, 1, 0.1))
+             (256, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.0), (1024, 64, 64, 1, 0.1),
+             (16384, 10, 64, 1, 0.0),   # the artifact's retarget at b = 4096: unpacked
+             (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0), (196, 64, 64, 1, 0.0))
 K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8, 0.0),
-                 (2048, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.1), (1024, 64, 64, 1, 0.0))
+                 (2048, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.1), (1024, 64, 64, 1, 0.0),
+                 (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0))
 # (N, D, K): serving, training, validation; the zoo's standard, ema and rvq at K = 1024,
-# simple / resnet (N = 256 windows x 16 tokens) and resnet_no_down (x 64 frames)
+# simple / resnet (N = 256 windows x 16 tokens) and resnet_no_down (x 64 frames); the
+# recipe's hybrid microbatch and validation batch
 K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),
-             (16384, 64, 1024))
+             (16384, 64, 1024), (64, 64, 512), (49, 64, 512))
 K2_KERNELS = ("vq_assign_nearest", "vq_assign_stats")   # device names of K2's kernels
 K2_DEVICE_OPS = len(K2_KERNELS)   # its outputs need no zero-fill
 DROPOUT = 0.1
@@ -197,15 +241,36 @@ CLI_RUN = ("--arch", "resnet_no_down", "--method", "hybrid", "--window", "10",
 CLI_EPOCHS = {"teacher": 3, "student": 2}
 CLI_TEACHER = "checkpoints/Exp_resnet_no_down_W10_hybrid_teacher_seed_42_best.pth"
 CLI_TIMEOUT_S = 300
-# runs the CLI's main in a child process and prints its kernel launches last
-CLI_WRAPPER = ("import json, sys\n"
-               "from bridgerl_tpu_torch.cli import train_ablation\n"
+# runs a CLI module's main (argv[1]) in a child process and prints its kernel
+# launches last
+CLI_WRAPPER = ("import importlib, json, sys\n"
                "from bridgerl_tpu_torch.ops import kernels\n"
-               "rc = train_ablation.main(sys.argv[1:])\n"
+               "rc = importlib.import_module(sys.argv[1]).main(sys.argv[2:])\n"
                "print('LAUNCHES ' + json.dumps({n: c.count for n, c in "
                "kernels.COUNTERS.items()}))\n"
                "sys.exit(rc)\n")
+TRAIN_CLI = "bridgerl_tpu_torch.cli.train_ablation"
 SERVE_TRAINED_WINDOWS = 512
+# the frozen artifact of the flagship: request sizes, and the agreement with the live
+# module in float32 (the artifact computes unpacked attention: summation order only)
+ARTIFACT_BATCHES = (1, 7, 64, 4096)
+ARTIFACT_ATOL = 1e-5
+ARTIFACT_CPU_CHECKED = 64   # bf16: the CPU runs check the functions up to this b
+# loads the artifact in a child process and prints which modules it imported
+ARTIFACT_LOAD_PROBE = (
+    "import json, sys\n"
+    "import numpy as np\n"
+    "from bridgerl_tpu_torch.export.serialize import load_serving_artifact\n"
+    "mod = load_serving_artifact(sys.argv[1])\n"
+    "out = mod.retarget(np.zeros((2, mod.window_size, 126), np.float32)).cpu().numpy()\n"
+    "print(json.dumps({'finite': bool(np.isfinite(out).all()), 'shape': list(out.shape),\n"
+    "                  'device': str(mod.device), 'modules': sorted(sys.modules)}))\n")
+STREAM_FRAMES, STREAM_STEP = 240, 5
+# the W64-transformer recipe on the CLI: pretrain ae, then the hybrid from it
+RECIPE_WINDOW, RECIPE_EPOCHS, RECIPE_SEED, RECIPE_BATCH = 64, 2, 42, 256
+RECIPE_FLAGS = ("--codebook_data_init", "--cheap_dropout", "--reuse_dropout_mask",
+                "--accum_chunks", "4")
+RECIPE_MOTIONS = 2
 
 
 def emit(obj) -> None:
@@ -273,6 +338,13 @@ def k1_bound(dtype, elements: int, flops: int):
 
 def launches() -> dict:
     return {name: c.count for name, c in kernels.COUNTERS.items()}
+
+
+def add_launches(*deltas: dict) -> dict:
+    """The sum of launch deltas: a path's count is the sum over its own
+    calls, so that calls made only to check an answer (a bf16 answer's codes
+    on the card model, the live module beside the artifact) are left out."""
+    return {name: sum(d.get(name, 0) for d in deltas) for name in kernels.COUNTERS}
 
 
 # device names of the port's kernels
@@ -685,12 +757,13 @@ def serve_requests(exp, app, verify, requests, rng, x_for=None) -> list:
     lines = []
     for fn, b in requests:
         tries = B1_TRIES if dtype == BF16 and b == 1 and fn != "motion_codes" else 1
+        delta = add_launches()
         for tried in range(1, tries + 1):
             x = (x_for(fn, b) if x_for is not None
                  else rng.normal(size=(b, cfg.window_size, dims[fn])).astype(np.float32))
             before = launches()
             got = app.call(fn, x)
-            delta = _expect_launches(f"{fn} b={b}", before, 1, dtype, cfg)
+            delta = add_launches(delta, _expect_launches(f"{fn} b={b}", before, 1, dtype, cfg))
             checked = verify(f"{fn} b={b}", fn, x, got)
             if checked.get("rows_compared", 1) > 0:
                 break
@@ -719,7 +792,8 @@ def main_path(exp) -> tuple:
     requests += [("robot_recon", 64), ("motion_codes", 64)]
 
     kernels.reset_counters()
-    for line in serve_requests(exp, app, verify, requests, rng):
+    lines = serve_requests(exp, app, verify, requests, rng)
+    for line in lines:
         emit(line)
 
     srv = make_server(module, port=0)
@@ -733,13 +807,13 @@ def main_path(exp) -> tuple:
         x = rng.normal(size=(64, W, cfg.human_input_dim)).astype(np.float32)
         before = launches()
         got = client.retarget(x)
-        delta = _expect_launches("HTTP retarget", before, 1, dtype, cfg)
+        http_delta = _expect_launches("HTTP retarget", before, 1, dtype, cfg)
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join()
     emit({"phase": "request", "dtype": cfg.compute_dtype, "fn": "retarget", "b": 64,
-          "via": "http", "healthz": health, "launches": delta,
+          "via": "http", "healthz": health, "launches": http_delta,
           **verify("HTTP retarget", "retarget", x, got)})
 
     seq = rng.normal(size=(3000, cfg.robot_input_dim)).astype(np.float32)
@@ -768,7 +842,7 @@ def main_path(exp) -> tuple:
         checked = _check_answer("overlap-add", got, overlap(cpu.fns))
     emit({"phase": "request", "dtype": cfg.compute_dtype, "fn": "reconstruct_long_sequence",
           "frames": len(seq), "step": step, "launches": delta, **checked})
-    counts = launches()
+    counts = add_launches(*(l["launches"] for l in lines), http_delta, delta)
     require(counts[attention.ENTRY["fwd", dtype]] > 0 and counts["vq_assign"] > 0,
             f"a serving kernel never ran: {counts}")
 
@@ -1061,6 +1135,7 @@ def zoo_path() -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rng = np.random.default_rng(SEED + 4)
     kernels.reset_counters()
+    counts = add_launches()
     t0 = time.perf_counter()
     runs = [(arch, method, torch.float32) for arch in ARCHS for method in METHODS]
     runs += [(arch, "hybrid", BF16) for arch in ZOO_BF16_ARCHS]
@@ -1075,10 +1150,11 @@ def zoo_path() -> dict:
                 "requests": {l["fn"]: {k: v for k, v in l.items()
                                        if k not in ("phase", "fn", "dtype", "launches")}
                              for l in lines}}
+        counts = add_launches(counts, *(l["launches"] for l in lines))
         if dtype == torch.float32:
             line.update(zoo_step(exp, g))
+            counts = add_launches(counts, line["step_launches"])
         emit({**line, "seconds": time.perf_counter() - t1})
-    counts = launches()
     for name in (attention.ENTRY["fwd", torch.float32], attention.ENTRY["bwd", torch.float32],
                  "vq_assign"):
         require(counts[name] > 0, f"zoo: {name} never ran: {counts}")
@@ -1158,7 +1234,8 @@ def cli_path(smi: str) -> tuple:
     total = {name: 0 for name in kernels.COUNTERS}
     stages = {}
     for mode in ("teacher", "student"):
-        args = ["-c", CLI_WRAPPER, *CLI_RUN, "--epochs", str(CLI_EPOCHS[mode]), "--mode", mode]
+        args = ["-c", CLI_WRAPPER, TRAIN_CLI, *CLI_RUN, "--epochs", str(CLI_EPOCHS[mode]),
+                "--mode", mode]
         if mode == "student":
             args += ["--teacher_ckpt", CLI_TEACHER]
         t1 = time.perf_counter()
@@ -1231,6 +1308,464 @@ def serve_trained(workdir: str, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+
+def _calls(name: str, before: dict, dtype, k1: int, k2: int) -> dict:
+    """The launches since ``before`` must be ``k1`` K1 forwards of ``dtype``
+    and ``k2`` K2 launches, nothing else."""
+    now = launches()
+    delta = {k: now[k] - before[k] for k in now}
+    want = {k: 0 for k in now}
+    want[attention.ENTRY["fwd", dtype]] = k1
+    want["vq_assign"] = k2
+    require(delta == want, f"{name}: launches {delta}, want {want}")
+    return delta
+
+
+def _fn_launches(cfg, fn: str) -> tuple:
+    """K1 forwards and K2 launches of one call of serving function ``fn``:
+    a whole model call, or for decode_codes the decoder alone."""
+    k1, k2 = per_call(cfg)
+    return (cfg.n_tf_layers, 0) if fn == "decode_codes" else (k1, k2)
+
+
+def _bf16_vs_live(name: str, got, want) -> dict:
+    """A bf16 answer of the artifact against the live module's on the card,
+    which runs the same kernels on the same GEMM shapes (only K1's packing
+    differs): codes equal on at least CODES_AGREE of the windows, values
+    within BF16_SERVE_ULPS bf16 ulps of the answer's scale."""
+    if isinstance(want, dict):
+        agree = float(_rows_agree(got, want).mean())
+        require(agree >= CODES_AGREE, f"{name}: codes agree with the live module on {agree}")
+        return {"codes_agree_live": agree}
+    scale = float(np.abs(want).max())
+    ulps = float(np.abs(got - want).max()) / bf16_ulp(scale)
+    require(ulps <= BF16_SERVE_ULPS, f"{name}: {ulps} bf16 ulps of {scale} from the live module")
+    return {"ulps_vs_live": ulps, "scale": scale}
+
+
+def _serving_rate(app: ServingApp, x: np.ndarray, reps: int = 20) -> tuple:
+    """(windows/s of retarget at x's batch, median ms of a b = 1 request)
+    through ``app``, after a warm-up."""
+    for _ in range(3):
+        app.call("retarget", x)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        app.call("retarget", x)
+    wps = reps * len(x) / (time.perf_counter() - t0)
+    x1, lat = x[:1].copy(), []
+    for _ in range(5):
+        app.call("retarget", x1)
+    for _ in range(50):
+        t0 = time.perf_counter()
+        app.call("retarget", x1)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return wps, statistics.median(lat)
+
+
+def _load_in_child(path: str) -> dict:
+    """Load the artifact in a child process: it must serve on the card and
+    import nothing of the port's models, training or config."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", ARTIFACT_LOAD_PROBE, path], env=env,
+                       capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    require(r.returncode == 0, f"artifact load in a child: rc {r.returncode}\n{r.stderr[-3000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    model_code = [m for m in out["modules"] if m.split(".")[:2] in (
+        ["bridgerl_tpu_torch", "models"], ["bridgerl_tpu_torch", "train"],
+        ["bridgerl_tpu_torch", "config"])]
+    require(not model_code, f"loading the artifact imported {model_code}")
+    require(out["finite"] and out["shape"] == [2, 10, 29] and out["device"].startswith("cuda"),
+            f"artifact in a child: {out}")
+    return {"child_device": out["device"], "child_imported_model_code": model_code}
+
+
+def artifact_path(smi: str, dtype) -> tuple:
+    """The flagship frozen into a serving artifact (cuda and cpu programs,
+    timed), loaded in a child process and here, its four functions called
+    at each of ARTIFACT_BATCHES with their launches checked (the unpacked
+    path launches what the live module does) and held to the live module
+    on the card: in float32 within ARTIFACT_ATOL and codes equal; in bf16
+    under the bf16 rules against the CPU runs up to ARTIFACT_CPU_CHECKED
+    windows, and above that against the live module (_bf16_vs_live). The
+    line's launches add up the artifact's own calls, not the live module's
+    or the CPU checks'. Then retarget's rate at b = 4096 and b = 1 latency
+    through the artifact and the live module.
+    Returns the line, and (the loaded artifact, the live module, the work
+    directory) for the phases that follow."""
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8,
+                          compute_dtype=DTYPE_NAME[dtype])
+    cfg = exp.model
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
+    path = os.path.join(workdir, "flagship.zip")
+    model, live, verify, ((cpu16, _), (cpu32, _)) = serving_check(exp)
+    t0 = time.perf_counter()
+    meta = build_serving_artifact(model, exp, path, data_dir=None, platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    require(sorted(meta["functions"]) == ["decode_codes", "motion_codes", "retarget",
+                                          "robot_recon"], f"artifact functions {meta}")
+    child = _load_in_child(path)
+    art = load_serving_artifact(path)
+    own = []   # the launches of the artifact's own calls
+    rng = np.random.default_rng(SEED + 7)
+    for b in ARTIFACT_BATCHES:
+        xh = rng.normal(size=(b, cfg.window_size, cfg.human_input_dim)).astype(np.float32)
+        xr = rng.normal(size=(b, cfg.window_size, cfg.robot_input_dim)).astype(np.float32)
+        line = {"b": b}
+        got = {}
+        for fn, x in (("retarget", xh), ("robot_recon", xr), ("motion_codes", xh)):
+            before = launches()
+            got[fn] = _numpy(art.fns[fn](x))
+            own.append(_calls(f"artifact {fn} b={b}", before, dtype, *_fn_launches(cfg, fn)))
+            want = _numpy(live.fns[fn](x))
+            if fn == "motion_codes":
+                agree = float(_rows_agree(got[fn], want).mean())
+                line[f"{fn}_codes_agree_live"] = agree
+                require(dtype == BF16 or agree == 1.0, f"artifact {fn} b={b}: codes {agree}")
+            else:
+                err = float(np.abs(got[fn] - want).max())
+                line[f"{fn}_max_abs_err_vs_live"] = err
+                require(dtype == BF16 or err <= ARTIFACT_ATOL,
+                        f"artifact {fn} b={b}: {err} from the live module")
+            if dtype == BF16 and b <= ARTIFACT_CPU_CHECKED:
+                line[f"{fn}_vs_cpu"] = verify(f"artifact {fn} b={b}", fn, x, got[fn])
+            elif dtype == BF16:
+                line[f"{fn}_vs_live"] = _bf16_vs_live(f"artifact {fn} b={b}", got[fn], want)
+        codes = got["motion_codes"]
+        before = launches()
+        decoded = _numpy(art.decode_codes(codes))
+        own.append(_calls(f"artifact decode_codes b={b}", before, dtype,
+                          *_fn_launches(cfg, "decode_codes")))
+        live_decoded = _numpy(live.decode_codes(codes))
+        line["decode_codes_max_abs_err_vs_live"] = float(np.abs(decoded - live_decoded).max())
+        round_trip = float(np.abs(decoded - got["retarget"]).max())
+        line["decode_of_codes_max_abs_err_vs_retarget"] = round_trip
+        if dtype == BF16 and b <= ARTIFACT_CPU_CHECKED:   # codes are inputs: no flips
+            line["decode_codes_vs_cpu"] = _check_bf16_values(
+                f"artifact decode_codes b={b}", decoded, _numpy(cpu16.decode_codes(codes)),
+                _numpy(cpu32.decode_codes(codes)), np.ones(b, bool))
+        elif dtype == BF16:
+            line["decode_codes_vs_live"] = _bf16_vs_live(f"artifact decode_codes b={b}",
+                                                         decoded, live_decoded)
+        else:
+            require(line["decode_codes_max_abs_err_vs_live"] <= ARTIFACT_ATOL,
+                    f"artifact decode_codes b={b}: {line['decode_codes_max_abs_err_vs_live']}")
+            require(round_trip <= ARTIFACT_ATOL,
+                    f"artifact decode_codes(motion_codes(x)) b={b}: {round_trip} from retarget")
+        emit({"phase": "artifact_request", "dtype": DTYPE_NAME[dtype], **line})
+    x4096 = rng.normal(size=(4096, cfg.window_size, cfg.human_input_dim)).astype(np.float32)
+    art_wps, art_p50 = _serving_rate(ServingApp(art), x4096)
+    live_wps, live_p50 = _serving_rate(ServingApp(live), x4096)
+    out = {"phase": "artifact", "card": smi, "dtype": DTYPE_NAME[dtype],
+           "export_s": export_s, "export_s_by_platform": meta["export_seconds"],
+           "artifact_bytes": os.path.getsize(path), **child, "launches": add_launches(*own),
+           "artifact_retarget_windows_per_s_b4096": art_wps,
+           "live_retarget_windows_per_s_b4096": live_wps,
+           "artifact_retarget_p50_ms_b1": art_p50, "live_retarget_p50_ms_b1": live_p50,
+           "artifact_path_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out, (art, live, workdir)
+
+
+def _http_post(base: str, path: str, body: bytes, ctype: str) -> tuple:
+    req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype},
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def decode_http(smi: str, art, dtype=torch.float32) -> dict:
+    """One decode_codes request over HTTP from the artifact's server, as an
+    npz and as JSON: each answer equal to the in-process call's, and one
+    decoder's K1 launches each; a malformed body gets a 400."""
+    cfg = make_experiment("transformer", "hybrid", window=10).model
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 8)
+    x = rng.normal(size=(64, cfg.window_size, cfg.human_input_dim)).astype(np.float32)
+    codes = _numpy(art.motion_codes(x))
+    want = _numpy(art.decode_codes(codes))
+    srv = make_server(art, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    kernels.reset_counters()
+    try:
+        host, port = srv.server_address
+        base = f"http://{host}:{port}"
+        before = launches()
+        got_npz = ServingClient(base).decode_codes(codes)
+        _calls("HTTP decode_codes npz", before, dtype, *_fn_launches(cfg, "decode_codes"))
+        before = launches()
+        status, body = _http_post(base, "/v1/decode_codes", json.dumps(
+            {"codes": {k: v.tolist() for k, v in codes.items()}}).encode(), "application/json")
+        _calls("HTTP decode_codes json", before, dtype, *_fn_launches(cfg, "decode_codes"))
+        require(status == 200, f"HTTP decode_codes json: {status} {body[:300]}")
+        got_json = np.asarray(json.loads(body)["windows"], np.float32)
+        bad, _ = _http_post(base, "/v1/decode_codes", json.dumps(
+            {"codes": {k: v[:, :0].tolist() for k, v in codes.items()}}).encode(),
+            "application/json")
+        require(bad == 400, f"HTTP decode_codes with empty streams: {bad}, want 400")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    counts = launches()
+    errs = {"npz": float(np.abs(got_npz - want).max()),
+            "json": float(np.abs(got_json - want).max())}
+    require(got_npz.shape == want.shape and max(errs.values()) <= 1e-6,
+            f"HTTP decode_codes {errs}")
+    out = {"phase": "decode_http", "card": smi, "dtype": DTYPE_NAME[dtype], "b": len(x),
+           "max_abs_err_vs_in_process": errs, "malformed_status": bad, "launches": counts,
+           "decode_http_s": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def stream_path(smi: str, art, dtype=torch.float32) -> dict:
+    """StreamingRetargeter over the artifact's retarget: STREAM_FRAMES
+    frames at window 10 and step STREAM_STEP, one window a call. The output
+    equals offline overlap-add over the same function within ARTIFACT_ATOL,
+    each frame comes out exactly W + 1 frames after it went in, and each
+    push that completes a window is timed."""
+    cfg = make_experiment("transformer", "hybrid", window=10).model
+    W = cfg.window_size
+    t_phase = time.perf_counter()
+    seq = np.random.default_rng(SEED + 9).normal(
+        size=(STREAM_FRAMES, cfg.human_input_dim)).astype(np.float32)
+    kernels.reset_counters()
+    sr = StreamingRetargeter(art.retarget, window=W, step=STREAM_STEP,
+                             in_dim=cfg.human_input_dim)
+    out, late, window_ms = [], [], []
+    for n, frame in enumerate(seq, start=1):
+        t0 = time.perf_counter()
+        frames = sr.push(frame)
+        dt = (time.perf_counter() - t0) * 1e3
+        if n >= W and (n - W) % STREAM_STEP == 0:
+            window_ms.append(dt)
+        first = sum(len(o) for o in out)
+        late += [n - i for i in range(first, first + len(frames))]
+        if len(frames):
+            out.append(frames)
+    out.append(sr.flush())
+    got = np.concatenate([o for o in out if len(o)])
+    windows = len(window_starts(STREAM_FRAMES, W, STREAM_STEP))
+    k1, k2 = per_call(cfg)
+    counts = launches()
+    want_counts = {k: 0 for k in counts}
+    want_counts.update({attention.ENTRY["fwd", dtype]: k1 * windows, "vq_assign": k2 * windows})
+    require(counts == want_counts, f"stream: launches {counts}, want {want_counts}")
+    require(set(late) == {W + 1}, f"stream: frames came out {sorted(set(late))} frames later")
+    offline = reconstruct_long_sequence(art.fns["retarget"], seq, W, STREAM_STEP,
+                                        np.zeros(1, np.float32), np.ones(1, np.float32),
+                                        device="cuda")
+    err = float(np.abs(got - offline).max())
+    require(got.shape == offline.shape and err <= ARTIFACT_ATOL,
+            f"stream: {got.shape} {err} from offline overlap-add")
+    line = {"phase": "stream", "card": smi, "dtype": DTYPE_NAME[dtype], "frames": STREAM_FRAMES,
+            "window": W, "step": STREAM_STEP, "windows": windows, "launches": counts,
+            "latency_frames": W + 1, "max_abs_err_vs_offline": err,
+            "window_push_p50_ms": statistics.median(window_ms),
+            "window_push_max_ms": max(window_ms), "stream_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------- phase 9
+
+def _run_child(args, cwd: str, env: dict) -> tuple:
+    """A CLI module through CLI_WRAPPER in a child: (stdout, its launches,
+    seconds)."""
+    t0 = time.perf_counter()
+    stdout = _run_cli(["-c", CLI_WRAPPER, *args], cwd, env)
+    counts = json.loads(stdout.strip().splitlines()[-1].split("LAUNCHES ", 1)[1])
+    return stdout, counts, time.perf_counter() - t0
+
+
+def _history(workdir: str, name: str, epochs: int) -> dict:
+    with open(os.path.join(workdir, "results", name)) as f:
+        hist = json.load(f)
+    require(sorted(hist) == sorted(HISTORY_KEYS) and len(hist["train_loss"]) == epochs
+            and all(math.isfinite(v) for k in ("train_loss", "val_loss") for v in hist[k]),
+            f"recipe: {name}: {hist}")
+    return hist
+
+
+def _check_step0(workdir: str, ae_ckpt: str, step0_ckpt: str, batch: int) -> dict:
+    """The hybrid's weights at step 0: every tower entry equal to the ae
+    checkpoint's, and the first-stage codebook rows the robot encoder's
+    outputs on the first ``batch`` training windows plus the jitter."""
+    ae, step0 = load_checkpoint(ae_ckpt), load_checkpoint(step0_ckpt)
+    towers = [k for k in ae["model_state_dict"] if not k.startswith("quantizer.")]
+    same = [k for k in towers if torch.equal(ae["model_state_dict"][k],
+                                             step0["model_state_dict"][k])]
+    require(towers and same == towers, f"recipe step 0: {len(same)} of {len(towers)} tower "
+            "entries equal the ae checkpoint's")
+    data = os.path.join(workdir, "data", "processed")
+    ds = PairedDataset.from_numpy(np.load(os.path.join(data, "g1_train.npy")),
+                                  np.load(os.path.join(data, "human_train.npy")), "cuda")
+    train_ds, _ = train_val_split(ds, ae["config"].train.val_fraction, RECIPE_SEED)
+    model = init_model(ae["config"].model, SEED, device="cpu")
+    model.load_state_dict(ae["model_state_dict"])
+    model = model.to("cuda")
+    with torch.no_grad():
+        z = model.encode_robot(train_ds.robot[:batch]).float()
+    flat = z.reshape(-1, z.shape[-1]).cpu()
+    sd = step0["model_state_dict"]
+    emb = sd["quantizer.vq.layers.0.embedding.weight"]
+    idx = (torch.arange(emb.shape[0]) * flat.shape[0]) // emb.shape[0]
+    std = flat.std(dim=0, correction=0)
+    off = (emb - flat[idx]).abs()
+    scale = float(flat.abs().max())
+    require(bool((off <= 6 * JITTER * std + 1e-5 * scale).all()),
+            f"recipe step 0: codebook rows {float((off / std).max())} std from encoder rows")
+    require(torch.equal(sd["quantizer.vq.layers.0.ema_w"], emb)
+            and bool((sd["quantizer.vq.layers.0.ema_cluster_size"] == 1).all()),
+            "recipe step 0: EMA state not warm-started from the seeded rows")
+    return {"tower_entries_equal_ae": len(same), "codebook_rows": emb.shape[0],
+            "encoder_rows": flat.shape[0], "max_row_offset_in_std": float((off / std).max())}
+
+
+def recipe_path(smi: str) -> dict:
+    """The W64-transformer recipe through the CLI, each stage a child on the
+    card: process_data --synthetic, an ae teacher, the hybrid at step 0
+    (epochs 0: the towers must be the ae's and the first-stage codebook
+    encoder rows) and then trained with --init_from, --codebook_data_init,
+    --cheap_dropout, --reuse_dropout_mask and --accum_chunks 4 (finite
+    losses; K1 forward and backward and K2 launched); then export_motion
+    on its checkpoint (the reference's file names, equal to
+    reconstruct_long_sequence over the same model), export_serving --check
+    and serve_http --max_requests 1."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    W = RECIPE_WINDOW
+    try:
+        seconds, total = {}, {name: 0 for name in kernels.COUNTERS}
+        t1 = time.perf_counter()
+        _run_cli(["-m", "bridgerl_tpu_torch.cli.process_data", "--synthetic", "--window",
+                  str(W)], workdir, env)
+        seconds["process_data"] = time.perf_counter() - t1
+        common = ["--arch", "transformer", "--window", str(W), "--seed", str(RECIPE_SEED),
+                  "--batch_size", str(RECIPE_BATCH)]
+        ae_ckpt = f"checkpoints/Exp_transformer_W{W}_ae_teacher_seed_{RECIPE_SEED}_best.pth"
+        hybrid = f"Exp_transformer_W{W}_hybrid_teacher_seed_{RECIPE_SEED}"
+        stages = {
+            "ae": common + ["--method", "ae", "--epochs", str(RECIPE_EPOCHS)],
+            "hybrid_step0": common + ["--method", "hybrid", "--init_from", ae_ckpt,
+                                      *RECIPE_FLAGS, "--epochs", "0",
+                                      "--checkpoint_dir", "step0", "--log_dir", "step0"],
+            "hybrid": common + ["--method", "hybrid", "--init_from", ae_ckpt, *RECIPE_FLAGS,
+                                "--epochs", str(RECIPE_EPOCHS)]}
+        launched = {}
+        for stage, args in stages.items():
+            stdout, counts, seconds[stage] = _run_child([TRAIN_CLI, *args], workdir, env)
+            require(f"Success: Exp_transformer_W{W} | Mode: teacher" in stdout,
+                    f"recipe {stage}: {stdout[-2000:]}")
+            launched[stage] = counts
+            for k in total:
+                total[k] += counts.get(k, 0)
+        require("[InitFrom]" in stdout and "[Seed] codebook data init" in stdout,
+                f"recipe hybrid: no init or seeding line: {stdout[-2000:]}")
+        hist = {m: _history(workdir, make_experiment("transformer", m, window=W).log_name(
+            RECIPE_SEED), RECIPE_EPOCHS) for m in ("ae", "hybrid")}
+        step0 = _check_step0(workdir, os.path.join(workdir, ae_ckpt),
+                             os.path.join(workdir, "step0", f"{hybrid}_final.pth"), RECIPE_BATCH)
+        h = launched["hybrid"]
+        require(all(h[attention.ENTRY[d, torch.float32]] > 0 for d in ("fwd", "bwd"))
+                and h["vq_assign"] > 0, f"recipe hybrid: a kernel never ran: {h}")
+
+        best = os.path.join(workdir, "checkpoints", f"{hybrid}_best.pth")
+        stdout, counts, seconds["export_motion"] = _run_child(
+            ["bridgerl_tpu_torch.cli.export_motion", "--ckpt", best, "--num_samples",
+             str(RECIPE_MOTIONS)], workdir, env)
+        for k in total:
+            total[k] += counts.get(k, 0)
+        motions = _check_motions(workdir, best)
+
+        art = os.path.join(workdir, "serving", "hybrid.zip")
+        stdout, counts, seconds["export_serving"] = _run_child(
+            ["bridgerl_tpu_torch.cli.export_serving", "--ckpt", best, "--out", art, "--check",
+             "--platforms", "cuda"],   # the artifact phase exports and checks both platforms
+            workdir, env)
+        require("check ok: retarget (2, 64, 126) -> (2, 64, 29) on cuda" in stdout,
+                f"export_serving --check: {stdout[-2000:]}")
+        for k in total:
+            total[k] += counts.get(k, 0)
+        seconds["serve_http"], served = _serve_one(art, workdir, env)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    line = {"phase": "recipe", "card": smi, "window": W, "epochs": RECIPE_EPOCHS,
+            "stage_seconds": seconds, "launches_by_stage": launched, "launches": total,
+            "train_loss": {k: v["train_loss"] for k, v in hist.items()},
+            "val_loss": {k: v["val_loss"] for k, v in hist.items()},
+            "step0": step0, "motions": motions, "served": served,
+            "recipe_path_s": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def _check_motions(workdir: str, ckpt: str) -> dict:
+    """export_motion's files: the reference's names, each reconstruction
+    equal to reconstruct_long_sequence over the same model within
+    ARTIFACT_ATOL."""
+    model, exp = load_model_from_checkpoint(ckpt)
+    W = exp.model.window_size
+    raw = np.load(os.path.join(workdir, "data", "processed", "g1_train_full_raw.npy"),
+                  allow_pickle=True)
+    errs = []
+    for i in range(RECIPE_MOTIONS):
+        gt = np.load(os.path.join(workdir, "motions", f"idx{i}_gt.npy"))
+        got = np.load(os.path.join(workdir, "motions",
+                                   f"recon_transformer_FullSeq_W{W}_idx{i}.npy"))
+        want = reconstruct_long_sequence(robot_recon_fn(model), np.asarray(raw[i], np.float32),
+                                         W, W // 2, np.zeros(1, np.float32),
+                                         np.ones(1, np.float32), device="cuda")
+        require(np.array_equal(gt, np.asarray(raw[i], np.float32)) and got.shape == want.shape,
+                f"export_motion idx{i}: {gt.shape} {got.shape}")
+        errs.append(float(np.abs(got - want).max()))
+    require(max(errs) <= ARTIFACT_ATOL, f"export_motion: {errs} from reconstruct_long_sequence")
+    return {"files": 2 * RECIPE_MOTIONS, "max_abs_err_vs_reconstruct": max(errs)}
+
+
+def _serve_one(artifact: str, workdir: str, env: dict) -> tuple:
+    """serve_http --max_requests 1 as a child: one retarget request answered
+    (equal to the artifact in this process) and the child exits 0."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-m", "bridgerl_tpu_torch.cli.serve_http",
+                              "--artifact", artifact, "--port", str(port), "--max_requests",
+                              "1"], cwd=workdir, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        x = np.random.default_rng(SEED + 10).normal(size=(3, RECIPE_WINDOW, 126)).astype(
+            np.float32)
+        client = ServingClient(f"http://127.0.0.1:{port}")
+        deadline = time.perf_counter() + CLI_TIMEOUT_S
+        while True:
+            try:
+                got = client.retarget(x)
+                break
+            except (ConnectionError, urllib.error.URLError):
+                require(child.poll() is None and time.perf_counter() < deadline,
+                        f"serve_http did not come up: {child.poll()}")
+                time.sleep(0.2)
+        _, err = child.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    require(child.returncode == 0, f"serve_http: rc {child.returncode}\n{err[-2000:]}")
+    want = _numpy(load_serving_artifact(artifact).retarget(x))
+    diff = float(np.abs(got - want).max())
+    require(got.shape == (3, RECIPE_WINDOW, 29) and diff <= 1e-6, f"serve_http answer {diff}")
+    return time.perf_counter() - t0, {"b": 3, "max_abs_err_vs_in_process": diff}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1283,17 +1818,33 @@ def main(argv) -> int:
         serve_trained(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    artifact, served = {}, {}
+    try:
+        for dtype in DTYPES:
+            artifact[dtype], served[dtype] = artifact_path(smi, dtype)
+        http = decode_http(smi, served[torch.float32][0])
+        stream = stream_path(smi, served[torch.float32][0])
+    finally:
+        for _, _, artifact_dir in served.values():
+            shutil.rmtree(artifact_dir, ignore_errors=True)
+    recipe = recipe_path(smi)
     # the breakdowns come last, so that no timed phase runs after their
     # profiler sessions (PERF.md §6: bf16 serving timed after one read slower)
     if "--profile" in argv:
         for dtype in DTYPES:
             emit({"phase": "profile", "card": smi, "dtype": DTYPE_NAME[dtype],
                   **device_breakdown(*requests[dtype])})
+            emit({"phase": "profile", "card": smi, "dtype": DTYPE_NAME[dtype],
+                  "via": "artifact", **device_breakdown(ServingApp(served[dtype][0]),
+                                                        requests[dtype][1])})
         for dtype in DTYPES:
             emit({"phase": "profile", "card": smi, **train_breakdown(dtype)})
 
     paths = {"serve": serve[torch.float32], "serve_bf16": serve[BF16],
-             "train": train[torch.float32], "train_bf16": train[BF16], "zoo": zoo, "cli": cli}
+             "train": train[torch.float32], "train_bf16": train[BF16], "zoo": zoo, "cli": cli,
+             "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
+             "decode_http": http, "stream": stream, "recipe": recipe}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())

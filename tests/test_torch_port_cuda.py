@@ -133,7 +133,7 @@ def test_k1_empty_batch_launches_nothing(gen):
     assert out.shape == (0, 10, 64) and FWD_F32.count == before
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "bias_shape", "too_long"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "bias_shape", "too_long"])
 def test_k1_refuses_what_it_does_not_take(gen, bad):
     S, Dh = 10, 64
     q = torch.randn(4, S, Dh, device="cuda", generator=gen)
@@ -143,8 +143,6 @@ def test_k1_refuses_what_it_does_not_take(gen, bad):
         args = {n: torch.randn(4, S, 48, device="cuda") for n in "qkv"} | {"bias": bias}
     elif bad == "dtype":
         args["k"] = q.double()
-    elif bad == "strided":
-        args["v"] = torch.randn(4, Dh, S, device="cuda").transpose(1, 2)
     elif bad == "bias_shape":
         args["bias"] = torch.zeros(S, S + 1, device="cuda")
     elif bad == "too_long":
@@ -220,8 +218,8 @@ def test_k1_bwd_empty_batch_launches_nothing(gen):
     assert dq.shape == (0, 10, 64) and BWD_F32.count == before
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "dout_shape", "seed",
-                                 "no_seed", "too_long"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "dout_shape", "seed", "no_seed",
+                                 "too_long"])
 def test_k1_bwd_refuses_what_it_does_not_take(gen, bad):
     S, Dh = 10, 64
     t = lambda *shape: torch.randn(*shape, device="cuda")
@@ -231,8 +229,6 @@ def test_k1_bwd_refuses_what_it_does_not_take(gen, bad):
         args.update({n: t(4, S, 48) for n in ("q", "k", "v", "do")})
     elif bad == "dtype":
         args["k"] = args["k"].double()
-    elif bad == "strided":
-        args["do"] = t(4, Dh, S).transpose(1, 2)
     elif bad == "dout_shape":
         args["do"] = t(4, S + 1, Dh)
     elif bad == "seed":
@@ -494,7 +490,7 @@ def test_k1_bf16_masks_equal_plain_philox(gen):
     assert torch.equal(fwd, want) and torch.equal(dv[:, :S, :S].transpose(1, 2) > 0, want)
 
 
-@pytest.mark.parametrize("bad", ["mixed", "bias_bf16", "strided", "misaligned", "dout_f32"])
+@pytest.mark.parametrize("bad", ["mixed", "bias_bf16", "misaligned", "dout_f32"])
 def test_k1_bf16_refuses_what_it_does_not_take(gen, bad):
     S, Dh = 10, 64
     args = {n: _bf16(gen, 4, S, Dh) for n in ("q", "k", "v", "do")}
@@ -503,8 +499,6 @@ def test_k1_bf16_refuses_what_it_does_not_take(gen, bad):
         args["k"] = args["k"].float()
     elif bad == "bias_bf16":
         args["bias"] = args["bias"].to(BF16)
-    elif bad == "strided":
-        args["v"] = _bf16(gen, 4, Dh, S).transpose(1, 2)
     elif bad == "misaligned":
         args["q"] = _bf16(gen, 4 * S * Dh + 1)[1:].view(4, S, Dh)   # 2 bytes off
     elif bad == "dout_f32":
@@ -586,3 +580,117 @@ def test_k1_at_window_64(gen, rate):
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-4
     _bf16_pair(gen, 1024, 64, 64, bias, 64, rate)
+
+
+# ---------------------------------------------------------------- custom ops and the artifact
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_k1_takes_views_as_an_exported_graph_gives_them(gen, dtype):
+    """An exported graph's reshape after the head transpose is a view at
+    b = 1: both K1 ops take strided q, k, v and dout (copying them) and
+    agree with the plain version on the same values."""
+    S, Dh, W = 80, 64, 10
+    bias = attention_bias(8, W, "cuda")
+    q, k, v, do = (torch.randn(4, Dh, S, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    seed, scale = _seed(gen), Dh ** -0.5
+    kernels.reset_counters()
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, 0.1, W)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, 0.1, W)
+    torch.cuda.synchronize()
+    assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
+        attention.ENTRY["fwd", dtype]: 1, attention.ENTRY["bwd", dtype]: 1}
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, 0.1, W)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, 0.1, W)
+    for a, b in zip([out, *got], [ref, *want]):
+        if dtype == BF16:
+            assert bf16_ulps(a, b, BF16_ATOL) <= 1.0
+        else:
+            assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_custom_ops_launch_the_kernels_on_cuda_tensors(gen):
+    """torch.ops.bridgerl.* on CUDA tensors launch the kernels (one count
+    each) and agree with the plain versions; the autograd formula of the
+    forward op launches the backward kernel."""
+    q, k, v = (torch.randn(8, 10, 64, device="cuda", generator=gen, requires_grad=True)
+               for _ in range(3))
+    bias = torch.zeros(10, 10, device="cuda")
+    kernels.reset_counters()
+    out = torch.ops.bridgerl.packed_attention_fwd(q, k, v, bias, None, 0.125, 0.0, 10)
+    out.sum().backward()
+    x = torch.randn(300, 64, device="cuda", generator=gen)
+    cb = torch.randn(512, 64, device="cuda", generator=gen)
+    idx, counts, dw = torch.ops.bridgerl.nearest_codes(x, cb)
+    torch.cuda.synchronize()
+    assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
+        "packed_attention_fwd": 1, "packed_attention_bwd": 1, "vq_assign": 1}
+    ref = attention.packed_attention_reference(q.detach(), k.detach(), v.detach(), bias, 0.125)
+    assert (out.detach() - ref).abs().max().item() <= 1e-4
+    want_idx, want_counts, _ = codebook.nearest_codes_plain(x, cb)
+    assert torch.equal(idx, want_idx) and torch.equal(counts, want_counts)
+    # the CPU adds each code's rows in row order, as the kernel does; the
+    # card's index_add_ adds them in no fixed order
+    assert torch.equal(dw.cpu(), codebook.assignment_stats(x.cpu(), idx.cpu(), 512)[1])
+
+
+def test_eager_path_equals_the_custom_ops(gen):
+    """Outside a trace CUDA tensors skip the ops' dispatch; through the ops
+    (tools/dispatch_cost.py's through_ops, as a trace goes) one small
+    transformer + hybrid training microbatch gives the same loss and
+    gradients, bit for bit, with the same launches."""
+    from bridgerl_tpu_torch.tools.dispatch_cost import through_ops
+
+    exp = make_experiment("transformer", "hybrid", window=10, hidden_dim=16, d_model=64,
+                          n_tf_layers=1, ff_dim=64, attn_packing=4, batch_size=16,
+                          accum_chunks=2)
+    x = torch.randn(16, 10, exp.model.robot_input_dim, device="cuda", generator=gen)
+    runs = []
+    for ops in (False, True):
+        model = init_model(exp.model, 0, device="cuda")
+        make_optimizer(model, exp)
+        kernels.reset_counters()
+        g = torch.Generator(device="cuda").manual_seed(1)
+        with through_ops() if ops else torch.enable_grad():
+            logs = accumulate_grads(model, exp, x, x, torch.arange(16, device="cuda"), g)
+        torch.cuda.synchronize()
+        runs.append((logs["train_loss"].item(),
+                     {n: c.count for n, c in kernels.COUNTERS.items()},
+                     [p.grad.clone() for p in model.parameters() if p.grad is not None]))
+    (loss0, counts0, grads0), (loss1, counts1, grads1) = runs
+    assert loss0 == loss1 and counts0 == counts1 and counts0["packed_attention_bwd"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(grads0, grads1))
+
+
+def test_artifact_on_the_card_matches_the_live_module(gen, tmp_path):
+    """A small transformer + hybrid frozen with cuda programs: at b = 1, 3
+    and 16 every function agrees with the live module (packing 4) within
+    1e-5, codes equal, with one model call's launches (unpacked: the same
+    counts); decode_codes runs the decoder's K1 only."""
+    from bridgerl_tpu_torch.export.serialize import build_serving_artifact, load_serving_artifact
+
+    exp = make_experiment("transformer", "hybrid", window=10, hidden_dim=16, d_model=64,
+                          n_tf_layers=2, ff_dim=64, attn_packing=4)
+    model = init_model(exp.model, 3, device="cuda")
+    path = str(tmp_path / "a.zip")
+    build_serving_artifact(model, exp, path, data_dir=None, platforms=("cuda",))
+    art, live = load_serving_artifact(path), build_serving_module(model, exp)
+    rng = torch.Generator().manual_seed(2)
+    for b in (1, 3, 16):
+        x = torch.randn(b, 10, 126, generator=rng).numpy()
+        kernels.reset_counters()
+        got = art.retarget(x)
+        codes = art.motion_codes(x)
+        torch.cuda.synchronize()
+        assert kernels.COUNTERS["packed_attention_fwd"].count == 8
+        assert kernels.COUNTERS["vq_assign"].count == 8
+        assert (got - live.retarget(x)).abs().max().item() <= 1e-5
+        want = live.motion_codes(x)
+        assert all(torch.equal(codes[k], want[k]) for k in want)
+        kernels.reset_counters()
+        decoded = art.decode_codes(codes)
+        torch.cuda.synchronize()
+        assert kernels.COUNTERS["packed_attention_fwd"].count == 2
+        assert kernels.COUNTERS["vq_assign"].count == 0
+        assert (decoded - live.decode_codes(want)).abs().max().item() <= 1e-5
+        assert (decoded - got).abs().max().item() <= 1e-5

@@ -24,7 +24,14 @@ PORT_MODULES = [
     "bridgerl_tpu_torch.data.rotations", "bridgerl_tpu_torch.data.pipeline",
     "bridgerl_tpu_torch.data.synthetic", "bridgerl_tpu_torch.cli.process_data",
     "bridgerl_tpu_torch.cli.train_ablation", "bridgerl_tpu_torch.train.trainer",
+    "bridgerl_tpu_torch.ops.code_decode", "bridgerl_tpu_torch.export.serialize",
+    "bridgerl_tpu_torch.export.streaming", "bridgerl_tpu_torch.export.motion_export",
+    "bridgerl_tpu_torch.utils.alignment", "bridgerl_tpu_torch.train.codebook_seed",
+    "bridgerl_tpu_torch.cli.export_serving", "bridgerl_tpu_torch.cli.export_motion",
+    "bridgerl_tpu_torch.cli.serve_http",
 ]
+# modules a client host runs without torch
+TORCH_FREE = ["bridgerl_tpu_torch.export.streaming", "bridgerl_tpu_torch.export.client"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bridgerl_tpu")
 
 _PROBE = """
@@ -46,6 +53,13 @@ def _run(args, cwd=REPO, **kw):
 def test_no_jax_or_reference_package_is_loaded(modules):
     probe = _PROBE.replace("{forbidden}", repr(set(FORBIDDEN)))
     r = _run(["-c", probe, *modules])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_streaming_and_the_client_import_no_torch():
+    probe = _PROBE.replace("{forbidden}", repr({"torch", *FORBIDDEN}))
+    r = _run(["-c", probe, *TORCH_FREE])
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1] == "[]"
 

@@ -27,7 +27,8 @@ CARD_SHAPES = [(1, 64, 512), (33, 7, 5), (4096, 64, 512), (1000, 512, 100),
                (5000, 128, 1024), (31, 64, 1), (257, 33, 65), (512, 64, 512),
                (6554, 64, 512), (1000, 64, 65), (1000, 64, 513), (1000, 64, 1024),
                (1000, 64, 4096), (300, 512, 4096), (4097, 64, 512), (70, 16, 100),
-               (40001, 64, 512), (20000, 33, 64), (40000, 7, 5), (20000, 128, 256)]
+               (40001, 64, 512), (20000, 33, 64), (40000, 7, 5), (20000, 128, 256),
+               (64, 64, 512), (49, 64, 512)]
 
 
 def _check_plan(N, D, K):

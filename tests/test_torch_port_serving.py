@@ -1,8 +1,11 @@
 """The port's serving surface against the JAX package, on the CPU: the three
-serving functions against ``make_serving_fns`` (1e-5 absolute, codes exact),
-``meta["functions"]`` against a JAX serving artifact's, ``ServingApp``
-bucketing, a ``make_server`` round trip on localhost with the port's client,
-and overlap-add against the JAX ``reconstruct_long_sequence``."""
+serving functions that take windows against ``make_serving_fns`` (1e-5
+absolute, codes exact), ``meta["functions"]`` (the fourth, ``decode_codes``,
+included) against a JAX serving artifact's, ``ServingApp`` bucketing, a
+``make_server`` round trip on localhost with the port's client, and
+overlap-add against the JAX ``reconstruct_long_sequence``. The artifact and
+``decode_codes`` have their own tests (``test_torch_port_artifact.py``,
+``test_torch_port_code_decode.py``)."""
 
 import io
 import json
@@ -21,7 +24,7 @@ from bridgerl_tpu.export.serialize import make_serving_fns as jax_make_serving_f
 from bridgerl_tpu_torch.export import reconstruct
 from bridgerl_tpu_torch.export.client import ServingClient, ServingError
 from bridgerl_tpu_torch.export.server import ServingApp, _bucket, make_server
-from bridgerl_tpu_torch.export.serving import build_serving_module, identity_stats
+from bridgerl_tpu_torch.export.serving import FORMAT_TAG, build_serving_module, identity_stats
 
 from test_torch_port_model import jax_and_port, windows
 
@@ -74,9 +77,11 @@ def test_meta_functions_match_jax_artifact(tmp_path):
     meta = build_serving_artifact(jmodel, variables, exp, str(tmp_path / "a.zip"),
                                   data_dir=None, platforms=("cpu",))
     ours = build_serving_module(model, texp).meta
-    for fn in FNS:
+    assert sorted(ours["functions"]) == sorted(meta["functions"]) == sorted(FNS + ("decode_codes",))
+    for fn in meta["functions"]:
         assert ours["functions"][fn] == meta["functions"][fn], fn
-    assert ours["format"] == meta["format"]
+    # the port's programs are not StableHLO: its format tag is its own
+    assert ours["format"] == FORMAT_TAG != meta["format"]
     assert json.loads(ours["config_json"]) == json.loads(meta["config_json"])
 
 
@@ -121,6 +126,8 @@ def test_app_exact_shapes_without_bucketing(module):
 def test_app_rejects_bad_requests(module):
     app = ServingApp(module)
     with pytest.raises(KeyError):
+        app.call("generate", windows(0, 2, 10, 126))
+    with pytest.raises(ValueError, match="dict of code streams"):
         app.call("decode_codes", windows(0, 2, 10, 126))
     with pytest.raises(ValueError, match="expects"):
         app.call("retarget", windows(0, 2, 10, 29))
@@ -144,7 +151,7 @@ def test_http_health_and_meta(server, module):
     _, client = server
     health = client.health()
     assert health == {"ok": True, "device": "cpu", "platform": "cpu", "window": 10,
-                      "functions": sorted(FNS)}
+                      "functions": sorted(FNS + ("decode_codes",))}
     assert client.meta() == json.loads(json.dumps(module.meta))
 
 
@@ -197,7 +204,8 @@ def test_http_json_roundtrip(server, module):
     ("/v1/retarget", b"", "application/octet-stream", 400),
     ("/v1/retarget", b"not json", "application/json", 400),
     ("/v1/retarget", b'{"x": 1}', "application/json", 400),
-    ("/v1/decode_codes", b"", "application/octet-stream", 404),
+    ("/v1/decode_codes", b"", "application/octet-stream", 400),
+    ("/v1/generate", b"", "application/octet-stream", 404),
     ("/v2/retarget", b"", "application/octet-stream", 404),
 ])
 def test_http_errors(server, path, body, ctype, status):

@@ -201,9 +201,7 @@ def test_trainer_stops_early(tmp_path, monkeypatch):
     assert ck["patience_counter"] == 2 and ck["best_loss"] == 1.0
 
 
-@pytest.mark.parametrize("over", [dict(lambda_fk=1.0), dict(codebook_data_init=True),
-                                  dict(init_from="x.pth"), dict(reuse_dropout_mask=True),
-                                  dict(cheap_dropout=True)])
+@pytest.mark.parametrize("over", [dict(lambda_fk=1.0)])
 def test_unported_training_options_raise(tmp_path, over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(_exp(tmp_path, **over), device="cpu", verbose=False)

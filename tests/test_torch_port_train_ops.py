@@ -72,7 +72,7 @@ def _grads(B, S, H, Dh, packing, rate, seed=3):
     bias = layers.attention_bias(packing, S // packing)
     tq, tk, tv = (_fold(a).requires_grad_() for a in (q, k, v))
     s = torch.tensor([1234], dtype=torch.int32)
-    out = attention.PackedAttention.apply(tq, tk, tv, bias, s, Dh ** -0.5, rate)
+    out = attention.attention_fwd(tq, tk, tv, bias, Dh ** -0.5, s, rate)
     got = torch.autograd.grad(out, (tq, tk, tv), _fold(do))
     return (q, k, v, do, bias, s), out, got
 

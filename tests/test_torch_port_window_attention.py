@@ -49,7 +49,7 @@ def test_windowed_plain_matches_jax_fused_attention_and_vjp(packing, window):
     q, k, v, do = (rng.normal(size=(B, S, H, Dh)).astype(np.float32) for _ in range(4))
     tq, tk, tv = (_fold(a).requires_grad_() for a in (q, k, v))
     bias = layers.attention_bias(packing, window)
-    out = attention.PackedAttention.apply(tq, tk, tv, bias, None, Dh ** -0.5, 0.0, window)
+    out = attention.attention_fwd(tq, tk, tv, bias, Dh ** -0.5, None, 0.0, window)
     got = torch.autograd.grad(out, (tq, tk, tv), _fold(do))
     mask = jax_layers.block_diagonal_mask(packing, window) if packing > 1 else None
     ref, vjp = jax.vjp(lambda a, b, c: fused_attention_fn(a, b, c, mask=mask,

@@ -86,6 +86,17 @@ def windows(seed, b, W, dim):
     return np.random.default_rng(seed).normal(size=(b, W, dim)).astype(np.float32)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test, restored after it. Tier-1 runs
+    several pytest workers on a few cores, and the many small operations of
+    a small model slow tenfold when their thread pools contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_scaled_close(got, want, err_msg="", rtol=RTOL):
     """|got - want| <= rtol * (the largest |want|, at least 1e-3)."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
