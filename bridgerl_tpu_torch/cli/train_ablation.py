@@ -9,15 +9,23 @@
 The flags, defaults and artifact names of ``scripts/train_ablation.py``;
 checkpoints are the reference's ``.pth`` files where the JAX CLI writes
 ``.ckpt``, and ``--teacher_ckpt`` takes the port's ``.pth``. Several seeds
-train one after another. ``--device`` (default ``cuda``) picks the device:
+train one after another, or with ``--multiseed`` all at once as one stacked
+model (``train/multiseed.py``), as ``scripts/train_ablation.py`` does.
+``--lambda_fk`` adds the world-space FK loss to the teacher loss, and
+``--int8_ff`` runs the transformer blocks' feed-forward products in int8
+(straight-through backward). ``--device`` (default ``cuda``) picks the device:
 without a card the run stops unless ``--device cpu`` asks for the CPU.
 ``--profile DIR`` writes a ``torch.profiler`` trace of the run to
 ``DIR/trace.json``. ``--fused_attention`` is accepted: the port's attention
 always follows the fused kernel. ``--data_parallel`` does nothing on one
 card and stops the run where more are visible (data parallelism is not
-ported). The flags this port does not have yet (``--int8_ff``,
-``--lambda_fk``, ``--multiseed`` with several seeds, ``--prng``) stop the
-run with a message that names ``ROADMAP.md``.
+ported). ``--prng`` (JAX's generator, which the port does not have)
+stops the run with a message that names ``ROADMAP.md``.
+
+Several seeds as one stacked program, with the FK loss and int8 FF:
+
+    python -m bridgerl_tpu_torch.cli.train_ablation --arch transformer --method hybrid \
+        --multiseed --seed 1 2 3 --lambda_fk 1 --int8_ff
 
 The W64-transformer recipe: pretrain ``ae``, then train ``hybrid`` from it:
 
@@ -56,11 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tf_tokens", type=int, default=1,
                    help="Transformer latent tokens per window; must divide --window")
     p.add_argument("--multiseed", action="store_true",
-                   help="Train all seeds at once (not ported: one seed at a time)")
+                   help="Train all seeds at once, stacked into one model")
     p.add_argument("--data_parallel", "--force_multi_gpu", action="store_true",
                    dest="data_parallel", help="A no-op on one card")
     p.add_argument("--lambda_fk", type=float, default=0.0,
-                   help="World-space FK loss weight (not ported: 0 only)")
+                   help="World-space FK loss weight (teacher stage)")
     p.add_argument("--profile", type=str, default=None,
                    help="Write a torch.profiler trace of the run to DIR/trace.json")
     p.add_argument("--accum_chunks", type=int, default=1,
@@ -92,7 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Epochs between `_last` checkpoint writes")
     p.add_argument("--cheap_dropout", action="store_true",
                    help="8-bit dropout masks in the transformer blocks (K1 keeps its own)")
-    p.add_argument("--int8_ff", action="store_true", help="Not ported")
+    p.add_argument("--int8_ff", action="store_true",
+                   help="int8 forward for the transformer FF products (straight-through "
+                        "backward)")
     p.add_argument("--reuse_dropout_mask", action="store_true",
                    help="One dropout draw for all microbatches of an optimizer step")
     p.add_argument("--lfq_norm", action=argparse.BooleanOptionalAction, default=None,
@@ -112,12 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args) -> Optional[str]:
     """The first flag the port cannot run yet, or None."""
-    for flag, on in (("--multiseed with several seeds", args.multiseed and len(args.seed) > 1),
-                     ("--lambda_fk", args.lambda_fk != 0.0),
-                     ("--int8_ff", args.int8_ff),
-                     (f"--prng {args.prng}", args.prng != DEFAULT_PRNG)):
-        if on:
-            return flag
+    if args.prng != DEFAULT_PRNG:
+        return f"--prng {args.prng}"
     return None
 
 
@@ -133,7 +139,8 @@ def make_exp(args, robot_dim: int, human_dim: int):
         epochs=args.epochs, batch_size=args.batch_size, patience=args.patience,
         resume=args.resume, teacher_ckpt=args.teacher_ckpt, init_from=args.init_from,
         save_every=args.save_every,
-        learning_rate=args.lr, hidden_dim=args.hidden_dim, tf_tokens=args.tf_tokens,
+        learning_rate=args.lr, hidden_dim=args.hidden_dim, lambda_fk=args.lambda_fk,
+        tf_tokens=args.tf_tokens, int8_ff=args.int8_ff,
         attn_packing=args.attn_packing, accum_chunks=args.accum_chunks,
         fused_attention=args.fused_attention, cheap_dropout=args.cheap_dropout,
         reuse_dropout_mask=args.reuse_dropout_mask, entropy_loss_weight=args.entropy_weight,
@@ -157,18 +164,20 @@ def make_exp(args, robot_dim: int, human_dim: int):
     return exp
 
 
-def _run(exp, ds, device, profile_dir: Optional[str]) -> None:
+def _run(exp, ds, device, profile_dir: Optional[str], multiseed: bool) -> None:
+    from ..train.multiseed import MultiSeedTrainer
     from ..train.trainer import Trainer
 
+    trainer = (MultiSeedTrainer if multiseed and len(exp.train.seeds) > 1 else Trainer)
     if profile_dir is None:
-        Trainer(exp, device=device).run(ds)
+        trainer(exp, device=device).run(ds)
         return
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if device.type == "cuda" else [])
     with profile(activities=activities) as prof:
-        Trainer(exp, device=device).run(ds)
+        trainer(exp, device=device).run(ds)
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     print(f"Profile: {os.path.join(profile_dir, 'trace.json')}")
@@ -206,7 +215,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"Dataset loaded. Dim: R={ds.robot_dim}/H={ds.human_dim}, "
           f"N={len(ds)}, Batch={args.batch_size}")
     exp = make_exp(args, ds.robot_dim, ds.human_dim)
-    _run(exp, ds, device, args.profile)
+    _run(exp, ds, device, args.profile, args.multiseed)
     for seed in args.seed:
         print(f"Success: {exp.name} | Mode: {args.mode} | Seed: {seed}")
     return 0

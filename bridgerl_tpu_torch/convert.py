@@ -28,6 +28,11 @@ Layouts converted:
 - EMA codebook state copied as is; a standard VQ's codebook is a parameter
 - ``scan_layers``: the stacked ``stack/layers/block`` leaves, layer i at
   index i, go to ``transformer.layers.{i}`` as the unstacked ``layer_{i}`` do
+- ``int8_ff``: the JAX package's ``Int8Dense`` keeps ``nn.Dense``'s tree, so
+  its ``ff1`` / ``ff2`` go to ``linear1`` / ``linear2`` as they do without it
+- a seed-stacked tree (``bridgerl_tpu/train/multiseed.py``): one state_dict
+  per seed (:func:`state_dicts_from_stacked_jax`), or the port's stacked
+  model's (:func:`stacked_state_dict_from_jax`)
 """
 
 from __future__ import annotations
@@ -197,3 +202,25 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> Dict[str, torch.Te
             _conv_tower(sd, tower, variables, cfg)
     _quantizer(sd, variables, cfg)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _seed_tree(tree: Any, i: int) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _seed_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def state_dicts_from_stacked_jax(variables: Mapping[str, Any], cfg, seeds: int
+                                 ) -> list:
+    """A seed-stacked JAX variable tree (every leaf with a leading axis of
+    ``seeds``, as ``bridgerl_tpu/train/multiseed.py`` stacks it) -> one port
+    state_dict per seed."""
+    return [state_dict_from_jax(_seed_tree(variables, i), cfg) for i in range(seeds)]
+
+
+def stacked_state_dict_from_jax(variables: Mapping[str, Any], cfg, seeds: int
+                                ) -> Dict[str, torch.Tensor]:
+    """A seed-stacked JAX variable tree -> the state_dict of the port's
+    stacked model (``models/stacked.py``): each entry the seeds' stacked."""
+    sds = state_dicts_from_stacked_jax(variables, cfg, seeds)
+    return {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]}

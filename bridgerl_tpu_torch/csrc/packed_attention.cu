@@ -18,7 +18,11 @@
 // when Philox word attn_keep_bits(seed, r, i * S + j) < thresh (philox.cuh)
 // and is then scaled by inv_keep; the softmax's normaliser sums the
 // probabilities before the mask, as the TPU kernel does. seed is read from
-// device memory, so drawing it never waits for the card.
+// device memory, so drawing it never waits for the card. seed holds one
+// value per group of group_rows rows (BH / group_rows groups, the seeds of
+// a stacked multi-seed step): row r of group g = r / group_rows draws with
+// seed[g] as row r - g * group_rows, so each group gets the mask of a
+// launch of its own (philox.cuh); one group is the single-seed launch.
 //
 // Only the diagonal blocks, and that is exact: the model's bias is -1e9
 // across windows, so every across-window probability is expf(s - 1e9 - m),
@@ -80,7 +84,7 @@ __global__ void __launch_bounds__(k1::kTileThreads)
 k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
              const Elem* __restrict__ v, const float* __restrict__ bias,
              Elem* __restrict__ out, int S, int W, int G, int nwin, float scale,
-             const int* __restrict__ seed_ptr, unsigned thresh, float inv_keep,
+             const int* __restrict__ seed_ptr, int group_rows, unsigned thresh, float inv_keep,
              int dropout) {
   extern __shared__ float4 smem4[];
   constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
@@ -104,7 +108,6 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
   // While the copies are in flight: every element's bias and keep factor,
   // one thread per element, so that neither sits in the logits' chain.
-  const unsigned seed = dropout ? (unsigned)seed_ptr[0] : 0u;
   const int nwr = S / W;  // windows per packed row
   const int WW = W * W;
   for (int e = threadIdx.x; e < g * WW; e += blockDim.x) {
@@ -116,8 +119,8 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
     const int at = (lw * W + i) * PS + j;
     ps[at] = __ldg(bias + pos);
     if (dropout)
-      kf[at] = attn_keep_bits(seed, (unsigned)(n / nwr), (unsigned)pos) < thresh ? inv_keep
-                                                                                 : 0.f;
+      kf[at] = attn_keep_bits_grouped(seed_ptr, group_rows, (unsigned)(n / nwr),
+                                      (unsigned)pos) < thresh ? inv_keep : 0.f;
   }
   k1::cp_async_wait_all();
   __syncthreads();
@@ -203,7 +206,7 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 k1_fwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
             const Elem* __restrict__ v, const float* __restrict__ bias,
             Elem* __restrict__ out, int S, int W, float scale,
-            const int* __restrict__ seed_ptr, unsigned thresh, float inv_keep,
+            const int* __restrict__ seed_ptr, int group_rows, unsigned thresh, float inv_keep,
             int dropout) {
   extern __shared__ float smem[];
   constexpr int KS = DH + 1;                  // padded K row stride
@@ -214,9 +217,10 @@ k1_fwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
   const int n = blockIdx.x, nwr = S / W;
   const int w0 = (n % nwr) * W;
-  const unsigned row = n / nwr;
+  const unsigned grp = (unsigned)(n / nwr) / (unsigned)group_rows;  // seed group
+  const unsigned row = (unsigned)(n / nwr) - grp * (unsigned)group_rows;
   const size_t base = (size_t)n * W * DH;
-  const unsigned seed = dropout ? (unsigned)seed_ptr[0] : 0u;
+  const unsigned seed = dropout ? (unsigned)seed_ptr[grp] : 0u;
   const Elem* qr = q + base;
   const Elem* kr = k + base;
   const Elem* vr = v + base;
@@ -285,7 +289,7 @@ k1_fwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
 template <typename Elem, int DH>
 int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
-           Elem* out, int BH, int S, int W, float scale, const int* seed,
+           Elem* out, int BH, int S, int W, float scale, const int* seed, int group_rows,
            unsigned thresh, float inv_keep, int dropout, cudaStream_t stream) {
   const int nwin = BH * (S / W);
   constexpr int QS = TileDims<DH>::QS;
@@ -297,7 +301,7 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
     const cudaError_t e = k1::allow_smem(k1_fwd_tiles<Elem, DH>, smem);
     if (e != cudaSuccess) return (int)e;
     k1_fwd_tiles<Elem, DH><<<(nwin + G - 1) / G, k1::kTileThreads, smem, stream>>>(
-        q, k, v, bias, out, S, W, G, nwin, scale, seed, thresh, inv_keep, dropout);
+        q, k, v, bias, out, S, W, G, nwin, scale, seed, group_rows, thresh, inv_keep, dropout);
     return (int)cudaGetLastError();
   }
   const size_t smem = sizeof(float) * ((size_t)W * (2 * DH + 1) + kRowWarps * W);
@@ -305,19 +309,22 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
   const cudaError_t e = k1::allow_smem(k1_fwd_rows<Elem, DH>, smem);
   if (e != cudaSuccess) return (int)e;
   k1_fwd_rows<Elem, DH><<<nwin, kRowWarps * 32, smem, stream>>>(
-      q, k, v, bias, out, S, W, scale, seed, thresh, inv_keep, dropout);
+      q, k, v, bias, out, S, W, scale, seed, group_rows, thresh, inv_keep, dropout);
   return (int)cudaGetLastError();
 }
 
 template <typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out, int BH, int S,
-             int W, int Dh, float scale, const int* seed, unsigned thresh, float inv_keep,
+             int W, int Dh, float scale, const int* seed, int group_rows,
+             unsigned thresh, float inv_keep,
              int dropout, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (W < 1 || S % W != 0) return (int)cudaErrorInvalidValue;
+  if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
 #define K1_FWD(DH_) \
-  launch<Elem, DH_>(q, k, v, bias, out, BH, S, W, scale, seed, thresh, inv_keep, dropout, st)
+  launch<Elem, DH_>(q, k, v, bias, out, BH, S, W, scale, seed, group_rows, \
+                    thresh, inv_keep, dropout, st)
   switch (Dh) {
     case 16: return K1_FWD(16);
     case 32: return K1_FWD(32);
@@ -333,19 +340,21 @@ int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Ele
 extern "C" int packed_attention_fwd(const float* q, const float* k,
                                     const float* v, const float* bias,
                                     float* out, int BH, int S, int W, int Dh,
-                                    float scale, const int* seed,
+                                    float scale, const int* seed, int group_rows,
                                     unsigned thresh, float inv_keep,
                                     int dropout, void* stream) {
-  return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, thresh, inv_keep, dropout,
+  return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows,
+                  thresh, inv_keep, dropout,
                   stream);
 }
 
 extern "C" int packed_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                          const __nv_bfloat16* v, const float* bias,
                                          __nv_bfloat16* out, int BH, int S, int W, int Dh,
-                                         float scale, const int* seed,
+                                         float scale, const int* seed, int group_rows,
                                          unsigned thresh, float inv_keep,
                                          int dropout, void* stream) {
-  return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, thresh, inv_keep, dropout,
+  return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows,
+                  thresh, inv_keep, dropout,
                   stream);
 }

@@ -21,7 +21,8 @@
 // float32, and dq, dk and dv are rounded to bfloat16 once, as they are
 // stored (k1_tiles.cuh). W divides S. Dh is one of 16, 32, 64, 128. Element (i, j)
 // of row r keeps the forward's Philox counter i * S + j, i and j positions
-// in the packed row.
+// in the packed row, and the forward's seed groups (group_rows rows a seed,
+// philox.cuh).
 //
 // Only the diagonal blocks, and that is exact: with the model's -1e9 bias
 // across windows, every across-window p is exactly 0 in f32, so those
@@ -82,7 +83,7 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
              const Elem* __restrict__ v, const float* __restrict__ bias,
              const Elem* __restrict__ dout, Elem* __restrict__ dq,
              Elem* __restrict__ dk, Elem* __restrict__ dv, int S, int W, int G,
-             int nwin, float scale, const int* __restrict__ seed_ptr,
+             int nwin, float scale, const int* __restrict__ seed_ptr, int group_rows,
              unsigned thresh, float inv_keep, int dropout) {
   extern __shared__ float4 smem4[];
   constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
@@ -107,7 +108,6 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
   // While the copies are in flight: every element's bias and keep factor,
   // one thread per element, so that neither sits in the logits' chain.
-  const unsigned seed = dropout ? (unsigned)seed_ptr[0] : 0u;
   const int nwr = S / W;  // windows per packed row
   const int WW = W * W;
   for (int e = threadIdx.x; e < g * WW; e += blockDim.x) {
@@ -119,8 +119,8 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
     const int at = (lw * W + i) * PS + j;
     ps[at] = __ldg(bias + pos);
     if (dropout)
-      kf[at] = attn_keep_bits(seed, (unsigned)(n / nwr), (unsigned)pos) < thresh ? inv_keep
-                                                                                 : 0.f;
+      kf[at] = attn_keep_bits_grouped(seed_ptr, group_rows, (unsigned)(n / nwr),
+                                      (unsigned)pos) < thresh ? inv_keep : 0.f;
   }
   k1::cp_async_wait_all();
   __syncthreads();
@@ -271,7 +271,7 @@ k1_bwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
             const Elem* __restrict__ v, const float* __restrict__ bias,
             const Elem* __restrict__ dout, Elem* __restrict__ dq,
             Elem* __restrict__ dk, Elem* __restrict__ dv, int S, int W, float scale,
-            const int* __restrict__ seed_ptr, unsigned thresh, float inv_keep,
+            const int* __restrict__ seed_ptr, int group_rows, unsigned thresh, float inv_keep,
             int dropout) {
   extern __shared__ float smem[];
   constexpr int RS = DH + 1;                  // padded row stride
@@ -286,9 +286,10 @@ k1_bwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
   const int n = blockIdx.x, nwr = S / W;
   const int w0 = (n % nwr) * W;
-  const unsigned row = n / nwr;
+  const unsigned grp = (unsigned)(n / nwr) / (unsigned)group_rows;  // seed group
+  const unsigned row = (unsigned)(n / nwr) - grp * (unsigned)group_rows;
   const size_t base = (size_t)n * W * DH;
-  const unsigned seed = dropout ? (unsigned)seed_ptr[0] : 0u;
+  const unsigned seed = dropout ? (unsigned)seed_ptr[grp] : 0u;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* pw = wa + warp * W;
   float* gw = wb + warp * W;
@@ -438,7 +439,7 @@ k1_bwd_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
 template <typename Elem, int DH>
 int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
            const Elem* dout, Elem* dq, Elem* dk, Elem* dv, int BH, int S, int W,
-           float scale, const int* seed, unsigned thresh, float inv_keep,
+           float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
            int dropout, cudaStream_t stream) {
   const int nwin = BH * (S / W);
   constexpr int QS = TileDims<DH>::QS;
@@ -450,7 +451,7 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
     const cudaError_t e = k1::allow_smem(k1_bwd_tiles<Elem, DH>, smem);
     if (e != cudaSuccess) return (int)e;
     k1_bwd_tiles<Elem, DH><<<(nwin + G - 1) / G, k1::kTileThreads, smem, stream>>>(
-        q, k, v, bias, dout, dq, dk, dv, S, W, G, nwin, scale, seed, thresh, inv_keep,
+        q, k, v, bias, dout, dq, dk, dv, S, W, G, nwin, scale, seed, group_rows, thresh, inv_keep,
         dropout);
     return (int)cudaGetLastError();
   }
@@ -460,19 +461,22 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
   const cudaError_t e = k1::allow_smem(k1_bwd_rows<Elem, DH>, smem);
   if (e != cudaSuccess) return (int)e;
   k1_bwd_rows<Elem, DH><<<nwin, kRowWarps * 32, smem, stream>>>(
-      q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed, thresh, inv_keep, dropout);
+      q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed, group_rows, thresh, inv_keep, dropout);
   return (int)cudaGetLastError();
 }
 
 template <typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout, Elem* dq,
-             Elem* dk, Elem* dv, int BH, int S, int W, int Dh, float scale, const int* seed,
+             Elem* dk, Elem* dv, int BH, int S, int W, int Dh, float scale, const int* seed, int group_rows,
+             
              unsigned thresh, float inv_keep, int dropout, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (W < 1 || S % W != 0) return (int)cudaErrorInvalidValue;
+  if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
 #define K1_BWD(DH_) \
-  launch<Elem, DH_>(q, k, v, bias, dout, dq, dk, dv, BH, S, W, scale, seed, thresh, inv_keep, dropout, st)
+  launch<Elem, DH_>(q, k, v, bias, dout, dq, dk, dv, BH, S, W, scale, seed, group_rows, \
+                    thresh, inv_keep, dropout, st)
   switch (Dh) {
     case 16: return K1_BWD(16);
     case 32: return K1_BWD(32);
@@ -489,10 +493,10 @@ extern "C" int packed_attention_bwd(const float* q, const float* k,
                                     const float* v, const float* bias,
                                     const float* dout, float* dq, float* dk,
                                     float* dv, int BH, int S, int W, int Dh,
-                                    float scale, const int* seed,
+                                    float scale, const int* seed, int group_rows,
                                     unsigned thresh, float inv_keep,
                                     int dropout, void* stream) {
-  return dispatch(q, k, v, bias, dout, dq, dk, dv, BH, S, W, Dh, scale, seed, thresh,
+  return dispatch(q, k, v, bias, dout, dq, dk, dv, BH, S, W, Dh, scale, seed, group_rows, thresh,
                   inv_keep, dropout, stream);
 }
 
@@ -500,9 +504,10 @@ extern "C" int packed_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bflo
                                          const __nv_bfloat16* v, const float* bias,
                                          const __nv_bfloat16* dout, __nv_bfloat16* dq,
                                          __nv_bfloat16* dk, __nv_bfloat16* dv, int BH,
-                                         int S, int W, int Dh, float scale, const int* seed,
+                                         int S, int W, int Dh, float scale, const int* seed, int group_rows,
+                                         
                                          unsigned thresh, float inv_keep,
                                          int dropout, void* stream) {
-  return dispatch(q, k, v, bias, dout, dq, dk, dv, BH, S, W, Dh, scale, seed, thresh,
+  return dispatch(q, k, v, bias, dout, dq, dk, dv, BH, S, W, Dh, scale, seed, group_rows, thresh,
                   inv_keep, dropout, stream);
 }

@@ -7,6 +7,12 @@
 // from the seed alone. The plain version is ops/attention.py::philox4x32;
 // counter 0 and key 0 give 6627e8d5 e169c58d bc57ac4c 9b00dbd8 (Random123's
 // known-answer vector).
+//
+// Seed groups: a launch over G groups of group_rows rows each (the seeds of
+// a stacked multi-seed step, folded into B * H) reads seed_ptr[g] for the
+// rows of group g and numbers them from 0 within the group, so group g's
+// mask is bit for bit the mask of a launch of its own over group_rows rows
+// with seed g. One group (group_rows = B * H) is the single-seed launch.
 #pragma once
 
 __device__ __forceinline__ unsigned attn_keep_bits(unsigned seed, unsigned row,
@@ -27,4 +33,11 @@ __device__ __forceinline__ unsigned attn_keep_bits(unsigned seed, unsigned row,
     c3 = lo0;
   }
   return c0;
+}
+
+__device__ __forceinline__ unsigned attn_keep_bits_grouped(const int* __restrict__ seed_ptr,
+                                                           int group_rows, unsigned r,
+                                                           unsigned ctr) {
+  const unsigned g = r / (unsigned)group_rows;
+  return attn_keep_bits((unsigned)__ldg(seed_ptr + g), r - g * (unsigned)group_rows, ctr);
 }

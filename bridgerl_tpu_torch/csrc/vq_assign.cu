@@ -13,7 +13,14 @@
 // on every run.
 //
 // Shapes: x (N, D), codebook (K, D), float32, contiguous; any N >= 1, any
-// K >= 1, 1 <= D <= 512. The launch plan (tile rows, cluster size, slices
+// K >= 1, 1 <= D <= 512. Groups: x (G, N, D) and codebook (G, K, D) give
+// idx (G, N), counts (G, K) and dw (G, K, D), each group searched against
+// its own codebook and summed on its own, bit for bit what G launches of
+// one group give (the seeds of a stacked multi-seed step, which jax.vmap
+// gives one instance each of the TPU kernel). Both kernels take the group
+// from a grid dimension of their own (y for the nearest codes, whose
+// clusters run along x; z for the statistics), so one launch covers them
+// all; G = 1 is the single launch. The launch plan (tile rows, cluster size, slices
 // per block, tiles per cluster, shared-memory bytes, rows per statistics
 // pass) comes from the caller (ops/vq_kernel.py::k2_plan) and is checked
 // here.
@@ -222,6 +229,9 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
   // another block's shared memory, makes sure every block of the cluster has
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   extern __shared__ float4 smem4[];
+  x += (size_t)blockIdx.y * N * D;   // this block's group
+  cb += (size_t)blockIdx.y * K * D;
+  idx += (size_t)blockIdx.y * N;
   const int S = row_stride(DK ? DK : D);
   const int D4 = DK ? DK / 4 : (D + 3) / 4;
   const int XB = xbuf_floats(TR, DK ? DK : D);
@@ -377,6 +387,11 @@ vq_assign_stats(const float* __restrict__ x, const int* __restrict__ idx,
                 float* __restrict__ counts, float* __restrict__ dw, int N, int D, int K,
                 int pass_rows) {
   extern __shared__ unsigned sbits[];  // [warp][pass_rows / 32] bits, then [warp][kListRows] rows
+  x += (size_t)blockIdx.z * N * D;   // this block's group
+  idx += (size_t)blockIdx.z * N;
+  counts += (size_t)blockIdx.z * K;
+  dw += (size_t)blockIdx.z * K * D;
+  const bool idx16 = ((uintptr_t)idx & 15) == 0;  // a group's rows may start off 16 bytes
   const int words = pass_rows / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k0 = blockIdx.x * kStatWarps, k = k0 + warp;
@@ -398,7 +413,7 @@ vq_assign_stats(const float* __restrict__ x, const int* __restrict__ idx,
 #pragma unroll 4
     for (int r = 4 * threadIdx.x; r < len; r += 4 * blockDim.x) {
       int v[4];
-      if (r + 4 <= len) {  // base and r are multiples of 4: 16-byte aligned
+      if (idx16 && r + 4 <= len) {  // base and r are multiples of 4: 16-byte aligned
         const int4 q = *reinterpret_cast<const int4*>(idx + base + r);
         v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
       } else {
@@ -464,10 +479,11 @@ cudaError_t launch_nearest(const cudaLaunchConfig_t& cfg, const float* x, const 
 // The plan's numbers are checked against what the kernels need; a plan that
 // does not cover every (row, code) pair, or that does not fit, is refused.
 extern "C" int vq_assign(const float* x, const float* cb, int* idx, float* counts,
-                         float* dw, int N, int D, int K, int tile_rows, int cluster,
-                         int slices_per_block, int tiles_per_cluster, int smem_bytes,
-                         int pass_rows, void* stream) {
-  if (N < 1 || K < 1 || D < 1 || D > 512) return (int)cudaErrorInvalidValue;
+                         float* dw, int groups, int N, int D, int K, int tile_rows,
+                         int cluster, int slices_per_block, int tiles_per_cluster,
+                         int smem_bytes, int pass_rows, void* stream) {
+  if (groups < 1 || groups > 65535 || N < 1 || K < 1 || D < 1 || D > 512)
+    return (int)cudaErrorInvalidValue;
   const int slices = (K + kCodes - 1) / kCodes;
   if ((tile_rows != 32 && tile_rows != 64) || cluster < 1 || cluster > kMaxCluster ||
       cluster > slices || (long long)cluster * slices_per_block < slices ||
@@ -486,7 +502,8 @@ extern "C" int vq_assign(const float* x, const float* cb, int* idx, float* count
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * ((row_tiles + tiles_per_cluster - 1) / tiles_per_cluster));
+  cfg.gridDim = dim3(cluster * ((row_tiles + tiles_per_cluster - 1) / tiles_per_cluster),
+                     groups);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = (cudaStream_t)stream;
@@ -509,7 +526,8 @@ extern "C" int vq_assign(const float* x, const float* cb, int* idx, float* count
   dep[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   dep[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t scfg = {};
-  scfg.gridDim = dim3((K + kStatWarps - 1) / kStatWarps, (D + kStatCols - 1) / kStatCols);
+  scfg.gridDim = dim3((K + kStatWarps - 1) / kStatWarps, (D + kStatCols - 1) / kStatCols,
+                      groups);
   scfg.blockDim = dim3(kStatWarps * 32);
   scfg.dynamicSmemBytes = smem;
   scfg.stream = (cudaStream_t)stream;

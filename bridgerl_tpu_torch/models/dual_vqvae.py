@@ -51,15 +51,11 @@ from .layers import (
 )
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.int8_ff:
-        raise NotImplementedError("int8_ff is not ported yet (ROADMAP.md)")
-
-
 def _transformer_kw(cfg: ModelConfig) -> Dict[str, Any]:
     return dict(d_model=cfg.d_model, n_heads=cfg.n_heads, num_layers=cfg.n_tf_layers,
                 ff_dim=cfg.ff_dim, attn_packing=cfg.attn_packing, tokens=cfg.tf_tokens,
-                dropout=cfg.dropout, dtype=compute_dtype(cfg), cheap_dropout=cfg.cheap_dropout)
+                dropout=cfg.dropout, dtype=compute_dtype(cfg), cheap_dropout=cfg.cheap_dropout,
+                int8_ff=cfg.int8_ff)
 
 
 def make_encoder(cfg: ModelConfig, input_dim: int) -> nn.Module:
@@ -87,7 +83,6 @@ def make_decoder(cfg: ModelConfig) -> nn.Module:
 class DualMotionVQVAE(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.human_encoder = make_encoder(cfg, cfg.human_input_dim)
         self.robot_encoder = make_encoder(cfg, cfg.robot_input_dim)

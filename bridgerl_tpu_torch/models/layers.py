@@ -29,6 +29,19 @@ With ``attn_packing`` P > 1 and a batch divisible by P, P windows of T
 frames run as one (P*T)-token attention under the block-diagonal mask,
 which is the same math as P separate T-token attentions.
 
+``int8_ff`` makes each block's feed-forward pair :class:`Int8Dense`: an
+int8 forward product with a straight-through backward (``ops/int8.py``).
+
+Seed stacking (``models/stacked.py``): every parameter and persistent
+buffer may carry a leading axis of S seeds, and the batch is then S
+seed-major groups of B windows. Each layer takes the stacked case from its
+own weights: a ``Dense`` multiplies per seed (``torch.baddbmm``), a
+``LayerNorm`` scales per seed, attention runs one K1 launch with one
+dropout seed per group, a convolution tower folds the seeds into the
+channels (``(B, S*C, T)``) so that its convolutions are grouped by seed and
+its BatchNorms keep per-seed statistics, and the dropouts draw each seed's
+mask from that seed's generator, in the order a single-seed run draws it.
+
 ``dtype`` is the compute dtype (float32 or bfloat16), with flax's mixed
 precision: the parameters stay float32 and each layer casts at its own
 boundary. A :class:`Dense` casts its input, weight and bias to the dtype and
@@ -51,6 +64,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import packed_attention
+from ..ops.int8 import int8_matmul
+from ..ops.linear import linear, seed_count
 
 LN_EPS = 1e-6     # flax LayerNorm's default (torch's is 1e-5)
 MASK_BIAS = -1e9  # additive logit bias across windows
@@ -63,8 +78,25 @@ def _in_dtype(c: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(c, dtype=dtype))
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
-            ) -> torch.Tensor:
+def draw(draw_fn, shape, generator, device) -> torch.Tensor:
+    """``draw_fn(shape, generator, device)``, or with one generator per
+    seed of a stacked batch (whose first axis is S seed-major groups) each
+    seed's share from its own generator."""
+    if isinstance(generator, torch.Generator):
+        return draw_fn(shape, generator, device)
+    per_seed = (shape[0] // len(generator), *shape[1:])
+    return torch.cat([draw_fn(per_seed, g, device) for g in generator])
+
+
+def _uniform(shape, generator, device):
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _bytes(shape, generator, device):
+    return torch.randint(0, 256, shape, generator=generator, device=device, dtype=torch.uint8)
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate and
     scale kept values by 1 / (1 - rate), in x's dtype. ``F.dropout`` takes no
     generator."""
@@ -73,12 +105,11 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw(_uniform, x.shape, generator, x.device) < keep
     return torch.where(mask, x / _in_dtype(keep, x.dtype), 0.0)
 
 
-def cheap_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
-                  ) -> torch.Tensor:
+def cheap_dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """flax ``CheapDropout`` in train mode (``bridgerl_tpu/models/layers.py``):
     the mask comes from uint8 random bits, so the drop rate is quantized to
     ``thresh / 256`` with ``thresh = min(round(rate * 256), 255)`` (0.1 ->
@@ -89,8 +120,7 @@ def cheap_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Genera
         return x
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator")
-    bits = torch.randint(0, 256, x.shape, generator=generator, device=x.device,
-                         dtype=torch.uint8)
+    bits = draw(_bytes, x.shape, generator, x.device)
     return torch.where(bits >= thresh, x / _in_dtype(1.0 - thresh / 256.0, x.dtype), 0.0)
 
 
@@ -133,7 +163,23 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return linear(x.to(dt), self.weight.to(dt), self.bias.to(dt), seed_count(self))
+
+
+class Int8Dense(Dense):
+    """``Dense`` whose forward product is ``ops/int8.py::int8_matmul`` (int8
+    forward, straight-through backward) on the input and weight cast to the
+    compute dtype; the bias is added after it, in the compute dtype, as the
+    JAX package's ``Int8Dense`` adds it. Parameters and state-dict keys are
+    ``Dense``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w, b, S = self.weight.to(dt), self.bias.to(dt), seed_count(self)
+        if S is not None:
+            y = int8_matmul(x.to(dt).reshape(S, -1, x.shape[-1]), w, S) + b[:, None, :]
+            return y.reshape(*x.shape[:-1], w.shape[1])
+        return int8_matmul(x.to(dt), w) + b
 
 
 class LayerNorm(nn.LayerNorm):
@@ -141,8 +187,13 @@ class LayerNorm(nn.LayerNorm):
     float32, the result in the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        if seed_count(self) is None:
+            return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                                self.eps).to(x.dtype)
+        S, d = self.weight.shape                              # seed-stacked
+        y = F.layer_norm(x.float(), self.normalized_shape, None, None, self.eps)
+        y = y.reshape(S, -1, d) * self.weight[:, None] + self.bias[:, None]
+        return y.reshape(x.shape).to(x.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -162,13 +213,13 @@ class SelfAttention(nn.Module):
         self.out_proj = Dense(d_model, d_model, dtype)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None,
-                window: Optional[int] = None) -> torch.Tensor:
+                generator=None, window: Optional[int] = None) -> torch.Tensor:
         B, S, d = x.shape
         H = self.n_heads
         Dh = d // H
         dt = self.compute_dtype
-        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
+        qkv = linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
+                     seed_count(self))
         q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2).reshape(B * H, S, Dh)
                    .contiguous() for t in qkv.chunk(3, dim=-1))
         o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh), dropout_rate, generator,
@@ -181,22 +232,24 @@ class TransformerBlock(nn.Module):
     """Post-LN encoder layer: x = norm1(x + drop(attn(x)));
     x = norm2(x + drop(ff(x))), with a ReLU feed-forward (dropout after the
     ReLU) and LayerNorm eps 1e-6. ``cheap`` draws those three dropouts'
-    masks from 8 bits (:func:`cheap_dropout`)."""
+    masks from 8 bits (:func:`cheap_dropout`); ``int8_ff`` makes the
+    feed-forward pair :class:`Int8Dense`."""
 
     def __init__(self, d_model: int, n_heads: int, ff_dim: int, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32, cheap: bool = False):
+                 dtype: torch.dtype = torch.float32, cheap: bool = False,
+                 int8_ff: bool = False):
         super().__init__()
         self.dropout = dropout
         self.cheap = cheap
         self.self_attn = SelfAttention(d_model, n_heads, dtype)
-        self.linear1 = Dense(d_model, ff_dim, dtype)
-        self.linear2 = Dense(ff_dim, d_model, dtype)
+        ff = Int8Dense if int8_ff else Dense
+        self.linear1 = ff(d_model, ff_dim, dtype)
+        self.linear2 = ff(ff_dim, d_model, dtype)
         self.norm1 = LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None,
-                window: Optional[int] = None) -> torch.Tensor:
+                generator=None, window: Optional[int] = None) -> torch.Tensor:
         rate = self.dropout if train else 0.0
         drop = cheap_dropout if self.cheap else dropout
         x = self.norm1(x + drop(self.self_attn(x, bias, rate, generator, window), rate,
@@ -215,24 +268,25 @@ class TransformerStack(nn.Module):
 
     def __init__(self, num_layers: int, d_model: int, n_heads: int, ff_dim: int,
                  seq_len: int, packing: int = 1, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32, cheap_dropout: bool = False):
+                 dtype: torch.dtype = torch.float32, cheap_dropout: bool = False,
+                 int8_ff: bool = False):
         super().__init__()
         self.seq_len, self.packing = seq_len, packing
         self.layers = nn.ModuleList(
-            TransformerBlock(d_model, n_heads, ff_dim, dropout, dtype, cheap_dropout)
+            TransformerBlock(d_model, n_heads, ff_dim, dropout, dtype, cheap_dropout, int8_ff)
             for _ in range(num_layers))
         self.register_buffer("pe", sinusoidal_pe(seq_len, d_model, dtype), persistent=False)
         self.register_buffer("bias_single", attention_bias(1, seq_len), persistent=False)
         self.register_buffer("bias_packed", attention_bias(packing, seq_len),
                              persistent=False)
 
-    def forward(self, h: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         B, T, d = h.shape
         if T != self.seq_len:
             raise ValueError(f"windows of {T} frames; this model takes {self.seq_len}")
         h = h + self.pe
-        packed = self.packing > 1 and B % self.packing == 0
+        per_seed = B // (seed_count(self) or 1)   # packs never cross seeds
+        packed = self.packing > 1 and per_seed % self.packing == 0
         P = self.packing if packed else 1
         bias = self.bias_packed if packed else self.bias_single
         h = h.reshape(B // P, P * T, d)
@@ -250,17 +304,16 @@ class TransformerMotionEncoder(nn.Module):
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
                  ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32,
-                 cheap_dropout: bool = False):
+                 cheap_dropout: bool = False, int8_ff: bool = False):
         super().__init__()
         self.tokens = tokens
         self.input_proj = Dense(input_dim, d_model, dtype)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
                                             seq_len, attn_packing, dropout, dtype,
-                                            cheap_dropout)
+                                            cheap_dropout, int8_ff)
         self.output_proj = Dense(d_model, hidden_dim, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         h = self.transformer(self.input_proj(x), train, generator)
         B, T, d = h.shape
         # jnp.mean of bfloat16 sums in float32 and rounds the mean
@@ -277,17 +330,16 @@ class TransformerMotionDecoder(nn.Module):
                  d_model: int = 256, n_heads: int = 4, num_layers: int = 4,
                  ff_dim: int = 512, attn_packing: int = 1, tokens: int = 1,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32,
-                 cheap_dropout: bool = False):
+                 cheap_dropout: bool = False, int8_ff: bool = False):
         super().__init__()
         self.seq_len, self.tokens = seq_len, tokens
         self.input_proj = Dense(hidden_dim, d_model, dtype)
         self.transformer = TransformerStack(num_layers, d_model, n_heads, ff_dim,
                                             seq_len, attn_packing, dropout, dtype,
-                                            cheap_dropout)
+                                            cheap_dropout, int8_ff)
         self.output_proj = Dense(d_model, output_dim, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         h = self.input_proj(x)                                                # (B, k, d)
         h = torch.repeat_interleave(h, self.seq_len // self.tokens, dim=1)    # (B, T, d)
         return self.output_proj(self.transformer(h, train, generator))
@@ -315,6 +367,16 @@ class Upsample(nn.Module):
         return torch.repeat_interleave(x, 2, dim=2)
 
 
+def _grouped(conv: nn.Module):
+    """A convolution's weight, bias and groups: as they are, or for a
+    seed-stacked one's (S, a, b, k) and (S, c), the seeds as S groups over
+    seed-major channels."""
+    S = seed_count(conv)
+    if S is None:
+        return conv.weight, conv.bias, 1
+    return conv.weight.reshape(-1, *conv.weight.shape[2:]), conv.bias.reshape(-1), S
+
+
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` over (B, C, T) computing in ``dtype``, as flax's
     ``nn.Conv(dtype=...)``: input, weight and bias are cast to it."""
@@ -326,8 +388,9 @@ class Conv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
-                        self.padding)
+        w, b, groups = _grouped(self)
+        return F.conv1d(x.to(dt), w.to(dt), b.to(dt), self.stride, self.padding,
+                        groups=groups)
 
 
 class ConvTranspose1d(nn.ConvTranspose1d):
@@ -342,8 +405,9 @@ class ConvTranspose1d(nn.ConvTranspose1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv_transpose1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                                  self.stride, self.padding)
+        w, b, groups = _grouped(self)
+        return F.conv_transpose1d(x.to(dt), w.to(dt), b.to(dt), self.stride, self.padding,
+                                  groups=groups)
 
 
 class BatchNorm(nn.Module):
@@ -357,7 +421,9 @@ class BatchNorm(nn.Module):
     Normalising is float32 too, ``(x - mean) * (rsqrt(var + eps) * scale) +
     bias``, and the result is cast to x's dtype. In eval mode the running
     statistics take the batch's place. ``num_batches_tracked`` counts the
-    train calls, as torch's does; the JAX package has no such counter."""
+    train calls, as torch's does; the JAX package has no such counter.
+    Seed-stacked, the (S, C) parameters and statistics serve the S * C
+    seed-major channels of the tower's folded layout."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -369,18 +435,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x32 = x.float()
+        run_mean, run_var = self.running_mean.view(-1), self.running_var.view(-1)
         if train:
             mean = x32.mean(dim=(0, 2))
             var = torch.clamp_min((x32 * x32).mean(dim=(0, 2)) - mean * mean, 0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                run_mean.copy_(m * run_mean + (1 - m) * mean)
+                run_var.copy_(m * run_var + (1 - m) * var)
                 self.num_batches_tracked.add_(1)
         else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (x32 - mean[:, None]) * mul[:, None] + self.bias[:, None]
+            mean, var = run_mean, run_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.view(-1)
+        y = (x32 - mean[:, None]) * mul[:, None] + self.bias.view(-1)[:, None]
         return y.to(x.dtype)
 
 
@@ -410,15 +477,23 @@ class ResBlock1D(nn.Module):
 class ConvTower(nn.Module):
     """A convolutional tower: ``model`` applied to (B, C, T), taking and
     returning channel-last (B, T, C). ``generator`` is accepted for the
-    towers' common signature; nothing here drops out."""
+    towers' common signature; nothing here drops out. Seed-stacked, the
+    (S * B, T, C) batch runs as (B, S * C, T), each seed's channels
+    together."""
 
     def __init__(self, layers: "OrderedDict[str, nn.Module]"):
         super().__init__()
         self.model = nn.Sequential(layers)
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return _run(self.model, x.transpose(1, 2), train).transpose(1, 2)
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        S = seed_count(self)
+        if S is None:
+            return _run(self.model, x.transpose(1, 2), train).transpose(1, 2)
+        SB, T, C = x.shape
+        h = x.reshape(S, SB // S, T, C).permute(1, 0, 3, 2).reshape(SB // S, S * C, T)
+        h = _run(self.model, h, train)
+        B, SC, T2 = h.shape
+        return h.reshape(B, S, SC // S, T2).permute(1, 0, 3, 2).reshape(SB, T2, SC // S)
 
 
 def _numbered(layers) -> "OrderedDict[str, nn.Module]":

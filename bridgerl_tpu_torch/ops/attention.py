@@ -40,11 +40,18 @@ word. An element is kept when its word is below ``uint32(keep * 2**32)`` and
 is then scaled by ``1 / keep``. Each (batch*head) row draws its own mask; the
 TPU kernel does the same (one PRNG stream per grid program), while flax's
 default attention shares one mask across the batch.
+
+Seed groups: ``seed`` may hold G values, G dividing B*H (a stacked
+multi-seed step folds its S seeds into the rows, seed-major). Row r then
+draws with ``seed[r // (BH / G)]`` as Philox row ``r % (BH / G)``, so group
+g's mask is bit for bit that of a call of its own over BH / G rows with
+``seed[g]``: what ``jax.vmap`` of the TPU kernel gives each seed. One value
+is the single-seed call.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -65,6 +72,8 @@ ENTRY = {("fwd", torch.float32): "packed_attention_fwd",
 COUNTER = {key: kernels.LaunchCounter(name) for key, name in ENTRY.items()}
 
 Seed = Union[int, torch.Tensor]
+# one generator, or one per seed of a stacked multi-seed step
+Generators = Union[torch.Generator, Sequence[torch.Generator]]
 
 # ---------------------------------------------------------------- Philox
 
@@ -114,17 +123,29 @@ def resolve_window(S: int, window: Optional[int]) -> int:
     return W
 
 
+def seed_groups(seed: Seed, BH: int) -> torch.Tensor:
+    """The seed values as int64 (G,), G dividing BH."""
+    seeds = torch.as_tensor(seed).reshape(-1).to(torch.int64)
+    G = seeds.numel()
+    if G < 1 or BH % G:
+        raise ValueError(f"{G} seed values do not divide {BH} rows into equal groups")
+    return seeds
+
+
 def window_dropout_mask(seed: Seed, BH: int, S: int, W: int, dropout_rate: float = 0.1,
                         device=None) -> torch.Tensor:
     """The diagonal (W, W) blocks of the kernels' keep mask:
     bool (BH, S // W, W, W). Element (i, j) of window w is position
-    (w*W + i, w*W + j) of the packed row."""
-    seed = int(seed)
+    (w*W + i, w*W + j) of the packed row. With G seed values, row r draws
+    with seed ``r // (BH / G)`` as row ``r % (BH / G)``."""
+    seeds = seed_groups(seed, BH).to(device)
+    rows_per_group = BH // seeds.numel()
     start = torch.arange(0, S, W, dtype=torch.int64, device=device)[:, None, None]
     a = torch.arange(W, dtype=torch.int64, device=device)
     ij = (start + a[:, None]) * S + (start + a[None, :])           # (S // W, W, W)
-    row = torch.arange(BH, dtype=torch.int64, device=device)[:, None]
-    bits = philox4x32((ij.reshape(1, -1), row, 0, 0), (seed & _U32, 0))[0]
+    r = torch.arange(BH, dtype=torch.int64, device=device)[:, None]
+    key = seeds[r // rows_per_group] & _U32
+    bits = philox4x32((ij.reshape(1, -1), r % rows_per_group, 0, 0), (key, 0))[0]
     return (bits < keep_threshold(dropout_rate)).reshape(BH, S // W, W, W)
 
 
@@ -241,18 +262,22 @@ def _check(q, k, v, bias, seed, W, smem_bytes, extra=()):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if seed is not None and (seed.device != q.device or seed.dtype != torch.int32
-                             or seed.numel() != 1):
-        raise ValueError(f"seed must be one int32 on {q.device}")
+                             or seed.numel() < 1 or BH % seed.numel()):
+        raise ValueError(f"seed must be int32 on {q.device}, one value per equal group "
+                         f"of the {BH} rows")
     if Dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {Dh} not in {SUPPORTED_HEAD_DIMS}")
     if smem_bytes(W, Dh) > _SMEM_LIMIT:
         raise ValueError(f"window {W}, Dh={Dh} needs more shared memory than a block has")
 
 
-def _seed_ptr(seed, dropout_rate: float) -> int:
+def _seed_args(seed, dropout_rate: float, BH: int) -> Tuple[int, int]:
+    """The seed pointer and the rows of a seed group, as the kernels take them."""
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("dropout needs a seed")
-    return seed.data_ptr() if dropout_rate > 0.0 else 0
+    if dropout_rate == 0.0:
+        return 0, BH
+    return seed.data_ptr(), BH // seed.numel()
 
 
 def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window):
@@ -265,7 +290,7 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window):
     name = ENTRY["fwd", q.dtype]
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), BH, S, W, Dh, float(scale), _seed_ptr(seed, dropout_rate),
+                out.data_ptr(), BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), kernels.stream_ptr(q))
     kernels.check(name, status)
@@ -284,7 +309,7 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window):
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                BH, S, W, Dh, float(scale), _seed_ptr(seed, dropout_rate),
+                BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), kernels.stream_ptr(q))
     kernels.check(name, status)
@@ -382,7 +407,8 @@ def attention_fwd(q, k, v, bias, scale: float, seed: Optional[torch.Tensor],
     """K1's forward, differentiable in q, k and v (its backward recomputes
     the probabilities and the dropout mask, as the TPU kernel's custom VJP
     does): the kernel for CUDA tensors, the plain version for CPU tensors.
-    ``seed`` is a one-element int32 tensor on q's device, read only when
+    ``seed`` is an int32 tensor on q's device of one value, or of one per
+    equal group of rows (the module docstring), read only when
     ``dropout_rate`` > 0."""
     args = (q, k, v, bias, seed, float(scale), float(dropout_rate),
             resolve_window(q.shape[1], window))
@@ -397,24 +423,29 @@ def attention_bwd(q, k, v, bias, dout, scale: float, seed: Optional[torch.Tensor
                 resolve_window(q.shape[1], window))
 
 
-def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+def draw_seed(generator: Optional[Generators], device) -> torch.Tensor:
     """One seed in [0, 2**31 - 1) from ``generator``, kept on ``device`` so
-    that drawing it does not wait for the card."""
+    that drawing it does not wait for the card; given one generator per seed
+    of a stacked step, one seed from each, in their order."""
     if generator is None:
         raise ValueError("attention dropout needs an explicit torch.Generator")
-    return torch.randint(0, SEED_HIGH, (1,), generator=generator, device=device,
-                         dtype=torch.int32)
+    if isinstance(generator, torch.Generator):
+        return torch.randint(0, SEED_HIGH, (1,), generator=generator, device=device,
+                             dtype=torch.int32)
+    return torch.cat([draw_seed(g, device) for g in generator])
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
-                     generator: Optional[torch.Generator] = None,
+                     generator: Optional[Generators] = None,
                      window: Optional[int] = None) -> torch.Tensor:
     """dropout(softmax(q k^T * scale + bias)) v for (B*H, S, Dh) q, k, v
     (float32 or bfloat16, out in their dtype) and (S, S) float32 bias, within
     windows of ``window`` positions (default S), differentiable in q, k and v.
 
-    With ``dropout_rate`` > 0 the seed is drawn once from ``generator``.
+    With ``dropout_rate`` > 0 the seed is drawn once from ``generator``;
+    with a sequence of G generators (a stacked step's seeds, whose rows are
+    G equal groups, seed-major) one seed from each, one launch for all.
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     versions. There is no fallback from one to the other.
     """

@@ -8,7 +8,10 @@ counterpart of the JAX package's ``nearest_codes_xla``; no other device has
 an implementation. Outside a trace a CUDA tensor calls the op's CUDA
 implementation without the op's dispatch (``kernels.eager_cuda``). Both
 return (indices (N,) int32, counts (K,), dw (K, D)), so callers never build
-the (N, K) one-hot matrix themselves.
+the (N, K) one-hot matrix themselves. Given G groups, flat (G, N, D) and
+codebook (G, K, D) (the seeds of a stacked multi-seed step, each with its
+own codebook), they return (G, N), (G, K) and (G, K, D), group g as a call
+on (flat[g], codebook[g]) gives them: one launch on the card.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ Codes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def nearest_codes_plain(flat: torch.Tensor, codebook: torch.Tensor) -> Codes:
     """Plain version of K2: argmin_k ||e_k||^2 - 2 x.e_k in f32 (the constant
-    ||x||^2 is dropped), first index on ties, then the statistics."""
+    ||x||^2 is dropped), first index on ties, then the statistics; group by
+    group for 3-D inputs."""
+    if flat.ndim == 3:
+        parts = [nearest_codes_plain(f, c) for f, c in zip(flat, codebook)]
+        return tuple(torch.stack(t) for t in zip(*parts))
     dist = torch.sum(codebook * codebook, dim=1)[None, :] - 2.0 * (flat @ codebook.t())
     indices = torch.argmin(dist, dim=1).to(torch.int32)
     counts, dw = assignment_stats(flat, indices, codebook.shape[0])
@@ -44,7 +51,12 @@ def assignment_stats(flat: torch.Tensor, indices: torch.Tensor,
 
 
 def quantize_lookup(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Row gather: codebook[indices]."""
+    """Row gather: codebook[indices]; with G groups, indices (G, N) into
+    codebook (G, K, D) give (G, N, D)."""
+    if codebook.ndim == 3:
+        G, K, D = codebook.shape
+        rows = indices.long() + K * torch.arange(G, device=indices.device)[:, None]
+        return codebook.reshape(G * K, D)[rows]
     return codebook[indices.long()]
 
 
@@ -61,9 +73,8 @@ def _nearest_codes_cuda(flat, codebook):
 
 @nearest_codes_op.register_fake
 def _nearest_codes_fake(flat, codebook):
-    K, D = codebook.shape
-    return (flat.new_empty(flat.shape[0], dtype=torch.int32), flat.new_empty(K),
-            flat.new_empty(K, D))
+    return (flat.new_empty(flat.shape[:-1], dtype=torch.int32),
+            flat.new_empty(codebook.shape[:-1]), flat.new_empty(codebook.shape))
 
 
 def nearest_codes(flat: torch.Tensor, codebook: torch.Tensor) -> Codes:

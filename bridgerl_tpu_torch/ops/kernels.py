@@ -32,17 +32,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures: name -> (library, argtypes); every entry returns int
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_K1_FWD = [P, P, P, P, P, I, I, I, I, F, P, U, F, I, P]
-_K1_BWD = [P, P, P, P, P, P, P, P, I, I, I, I, F, P, U, F, I, P]
+# K1: ..., scale, seed pointer, rows per seed group, keep threshold, 1 / keep, dropout, stream
+_K1_FWD = [P, P, P, P, P, I, I, I, I, F, P, I, U, F, I, P]
+_K1_BWD = [P, P, P, P, P, P, P, P, I, I, I, I, F, P, I, U, F, I, P]
 SIGNATURES = {
     # K1: float32 and bfloat16 q, k, v (dout) and outputs; the bias is float32
     "packed_attention_fwd": ("packed_attention", _K1_FWD),
     "packed_attention_fwd_bf16": ("packed_attention", _K1_FWD),
     "packed_attention_bwd": ("packed_attention_bwd", _K1_BWD),
     "packed_attention_bwd_bf16": ("packed_attention_bwd", _K1_BWD),
-    # x, codebook, idx, counts, dw, N, D, K, then ops/vq_kernel.py's K2Plan:
+    # x, codebook, idx, counts, dw, groups, N, D, K, then ops/vq_kernel.py's K2Plan:
     # tile_rows, cluster, slices_per_block, tiles_per_cluster, smem_bytes, pass_rows
-    "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
+    "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -14,6 +14,12 @@ With ``train=True`` each EMA VQ folds the batch's assignment statistics
 (``use_ema=False``) keeps its codebook as a parameter that the optimizer
 updates through the lookup. Every VQ layer searches through
 ``ops/codebook.py``, so K2 runs on every VQ method on the card.
+
+Seed-stacked (``models/stacked.py``), a quantizer's parameters and buffers
+carry a leading axis of S seeds and its input is S seed-major groups of
+rows: a VQ searches all seeds in one grouped K2 launch and folds each
+seed's codebook from its own statistics, and the loss and metrics come back
+as (S,) vectors, one a seed.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .codebook import nearest_codes, quantize_lookup
+from .linear import linear, seed_count
 
 Metrics = Dict[str, torch.Tensor]
 Codes = Dict[str, torch.Tensor]
@@ -46,24 +53,35 @@ def ste(z: torch.Tensor, z_q: torch.Tensor) -> torch.Tensor:
     return z + (z_q - z).detach()
 
 
-def unique_count(indices: torch.Tensor) -> torch.Tensor:
+def unique_count(indices: torch.Tensor, seeds: Optional[int] = None) -> torch.Tensor:
     """Number of distinct values, as an f32 scalar: sorted, k > 1 distinct
     values differ from their cyclic predecessor at k places (one of them
     the wrap-around), and one value at none. (Slicing off one end instead
-    would tie an exported program to its traced batch.)"""
-    s = torch.sort(indices.reshape(-1)).values
-    return torch.clamp(torch.sum((s != torch.roll(s, 1)).float()), min=1.0)
+    would tie an exported program to its traced batch.) With ``seeds`` S,
+    per seed over S seed-major groups: (S,)."""
+    if seeds is None:
+        s = torch.sort(indices.reshape(-1)).values
+        return torch.clamp(torch.sum((s != torch.roll(s, 1)).float()), min=1.0)
+    s = torch.sort(indices.reshape(seeds, -1), dim=-1).values
+    return torch.clamp(torch.sum((s != torch.roll(s, 1, dims=-1)).float(), dim=-1), min=1.0)
+
+
+def seed_mean(x: torch.Tensor, seeds: Optional[int] = None) -> torch.Tensor:
+    """The mean of x, or with ``seeds`` S the (S,) means of its S seed-major
+    groups."""
+    return torch.mean(x) if seeds is None else x.reshape(seeds, -1).mean(dim=1)
 
 
 def perplexity_from_counts(counts: torch.Tensor) -> torch.Tensor:
-    """exp(-sum p log p) over the batch's code-usage histogram."""
-    probs = counts / torch.clamp(torch.sum(counts), min=1.0)
-    return torch.exp(-torch.sum(probs * torch.log(probs + 1e-10)))
+    """exp(-sum p log p) over the batch's code-usage histogram (over the
+    last axis: one a seed for stacked counts)."""
+    probs = counts / torch.clamp(torch.sum(counts, dim=-1, keepdim=True), min=1.0)
+    return torch.exp(-torch.sum(probs * torch.log(probs + 1e-10), dim=-1))
 
 
 def dcr_from_counts(counts: torch.Tensor) -> torch.Tensor:
     """Dead-code ratio: fraction of codes unused in this batch."""
-    return 1.0 - torch.sum((counts > 0).float()) / counts.shape[0]
+    return 1.0 - torch.sum((counts > 0).float(), dim=-1) / counts.shape[-1]
 
 
 def prefix_codes(prefix: str, codes: Codes) -> Codes:
@@ -123,10 +141,10 @@ class VectorQuantizer(nn.Module):
         d = self.decay
         new_cs = self.ema_cluster_size * d + counts * (1.0 - d)
         new_w = self.ema_w * d + dw * (1.0 - d)
-        n = torch.sum(new_cs)
-        K = new_cs.shape[0]
+        n = torch.sum(new_cs, dim=-1, keepdim=True)
+        K = new_cs.shape[-1]
         cluster_size = (new_cs + LAPLACE_EPS) / (n + K * LAPLACE_EPS) * n
-        new_embedding = new_w / cluster_size[:, None]
+        new_embedding = new_w / cluster_size[..., None]
         self.ema_cluster_size = new_cs
         self.ema_w = new_w
         self.embedding.weight = new_embedding
@@ -136,15 +154,18 @@ class VectorQuantizer(nn.Module):
         in_dtype = z.dtype
         z = z.float()
         embedding = self.embedding.weight
+        S = seed_count(self)
         flat = z.reshape(-1, self.embedding_dim)
+        if S is not None:                           # one K2 launch for all seeds
+            flat = flat.reshape(S, -1, self.embedding_dim)
         indices, counts, dw = nearest_codes(flat.detach(), embedding.detach())
         if train and self.use_ema:
             # the lookup (and so the commitment loss) uses the folded codebook
             embedding = self._fold(counts, dw)
         z_q = quantize_lookup(indices, embedding).reshape(z.shape)
-        loss = self.commitment_cost * torch.mean((z_q.detach() - z) ** 2)
+        loss = self.commitment_cost * seed_mean((z_q.detach() - z) ** 2, S)
         if not self.use_ema:
-            loss = torch.mean((z_q - z.detach()) ** 2) + loss
+            loss = seed_mean((z_q - z.detach()) ** 2, S) + loss
         metrics = {"perplexity": perplexity_from_counts(counts),
                    "dcr": dcr_from_counts(counts)}
         codes = {"": indices.reshape(z.shape[:-1])}
@@ -178,8 +199,8 @@ class ResidualVQ(nn.Module):
             ppls.append(m["perplexity"])
             dcrs.append(m["dcr"])
             codes.update(prefix_codes(f"vq_{i}", c))
-        metrics = {"perplexity": torch.mean(torch.stack(ppls)),
-                   "dcr": torch.mean(torch.stack(dcrs))}
+        metrics = {"perplexity": torch.mean(torch.stack(ppls), dim=0),
+                   "dcr": torch.mean(torch.stack(dcrs), dim=0)}
         return total_loss, quantized_out, metrics, codes
 
 
@@ -208,15 +229,16 @@ class FSQ(nn.Module):
 
     def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
         in_dtype = z.dtype
-        zp = self.project_in(z.float())
+        S = seed_count(self)
+        zp = linear(z.float(), self.project_in.weight, self.project_in.bias, S)
         if self.bounded:
             zp = torch.tanh(zp + self._shift) * self._half - self._offset
         hard_vals = torch.round(zp)
         z_hard = ste(zp, hard_vals)
-        out = self.project_out(z_hard).to(in_dtype)
+        out = linear(z_hard, self.project_out.weight, self.project_out.bias, S).to(in_dtype)
         # indices from the exact round(): z_hard is integral only to ~ulp
         indices = torch.sum(hard_vals.detach() * self._basis, dim=-1).to(torch.int32)
-        uniq = unique_count(indices)
+        uniq = unique_count(indices, S)
         metrics = {"perplexity": uniq,
                    "dcr": 1.0 - uniq / float(math.prod(self.levels))}
         return torch.zeros((), device=z.device), out, metrics, {"": indices}
@@ -269,16 +291,17 @@ class LFQ(nn.Module):
 
     def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
         in_dtype = z.dtype
-        z_e = self.project_in(z.float())
+        S = seed_count(self)
+        z_e = linear(z.float(), self.project_in.weight, self.project_in.bias, S)
         if self.norm:
             z_e = F.layer_norm(z_e, z_e.shape[-1:], eps=LFQ_NORM_EPS)
         z_q = ste(z_e, torch.where(z_e > 0, 1.0, -1.0))
         prob = torch.sigmoid(z_e)
         entropy = -(prob * torch.log(prob + 1e-6) + (1 - prob) * torch.log(1 - prob + 1e-6))
-        loss = -torch.mean(entropy) * self.entropy_loss_weight
-        out = self.project_out(z_q).to(in_dtype)
+        loss = -seed_mean(entropy, S) * self.entropy_loss_weight
+        out = linear(z_q, self.project_out.weight, self.project_out.bias, S).to(in_dtype)
         indices = torch.sum((z_q > 0).to(torch.int32) * self._basis, dim=-1, dtype=torch.int32)
-        uniq = unique_count(indices)
+        uniq = unique_count(indices, S)
         metrics = {"perplexity": uniq, "dcr": 1.0 - uniq / float(2 ** self.codebook_dim)}
         return loss, out, metrics, {"": indices}
 

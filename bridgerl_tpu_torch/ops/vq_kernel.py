@@ -11,6 +11,11 @@ order and writes every output once, so the outputs need no zeroing and dw
 is the same on every run. :func:`k2_plan` sizes both launches from
 (N, D, K). Shapes the kernels do not take raise: there is no silent
 fallback to the plain version.
+
+Groups: x (G, N, D) and codebook (G, K, D) give idx (G, N), counts (G, K)
+and dw (G, K, D) from one launch of each kernel, group g equal bit for bit
+to a call on (x[g], codebook[g]); the plan is one group's, repeated over a
+grid dimension. A stacked multi-seed step puts its seeds there.
 """
 
 from __future__ import annotations
@@ -112,30 +117,36 @@ def k2_plan(N: int, D: int, K: int) -> K2Plan:
 
 def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, D) and (K, D), or (G, N, D) and (G, K, D) for G groups."""
     if not (flat.is_cuda and codebook.device == flat.device):
         raise ValueError("nearest_codes_cuda takes CUDA tensors on one device")
-    if flat.ndim != 2 or codebook.ndim != 2 or flat.shape[1] != codebook.shape[1]:
+    grouped = flat.ndim == 3
+    if (flat.ndim not in (2, 3) or codebook.ndim != flat.ndim
+            or flat.shape[-1] != codebook.shape[-1]
+            or (grouped and flat.shape[0] != codebook.shape[0])):
         raise ValueError(f"shapes {tuple(flat.shape)} and {tuple(codebook.shape)} "
-                         "are not (N, D) and (K, D)")
-    N, D = flat.shape
-    K = codebook.shape[0]
+                         "are not (N, D) and (K, D), or (G, N, D) and (G, K, D)")
+    G = flat.shape[0] if grouped else 1
+    lead = (G,) if grouped else ()
+    N, D = flat.shape[-2:]
+    K = codebook.shape[-2]
     if not 1 <= D <= MAX_DIM or K < 1:
         raise ValueError(f"the kernel takes 1 <= D <= {MAX_DIM} and K >= 1, "
                          f"got D={D}, K={K}")
     for name, t in (("flat", flat), ("codebook", codebook)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
-    if N == 0:
-        return (torch.empty(0, dtype=torch.int32, device=flat.device),
-                torch.zeros(K, dtype=torch.float32, device=flat.device),
-                torch.zeros(K, D, dtype=torch.float32, device=flat.device))
+    if N == 0 or G == 0:
+        return (torch.empty(*lead, N, dtype=torch.int32, device=flat.device),
+                torch.zeros(*lead, K, dtype=torch.float32, device=flat.device),
+                torch.zeros(*lead, K, D, dtype=torch.float32, device=flat.device))
     plan = k2_plan(N, D, K)
-    idx = torch.empty(N, dtype=torch.int32, device=flat.device)
-    counts = torch.empty(K, dtype=torch.float32, device=flat.device)
-    dw = torch.empty(K, D, dtype=torch.float32, device=flat.device)
+    idx = torch.empty(*lead, N, dtype=torch.int32, device=flat.device)
+    counts = torch.empty(*lead, K, dtype=torch.float32, device=flat.device)
+    dw = torch.empty(*lead, K, D, dtype=torch.float32, device=flat.device)
     fn = kernels.entry("vq_assign")
     status = fn(flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(),
-                counts.data_ptr(), dw.data_ptr(), N, D, K, plan.tile_rows, plan.cluster,
+                counts.data_ptr(), dw.data_ptr(), G, N, D, K, plan.tile_rows, plan.cluster,
                 plan.slices_per_block, plan.tiles_per_cluster, plan.smem_bytes, plan.pass_rows,
                 kernels.stream_ptr(flat))
     kernels.check("vq_assign", status)

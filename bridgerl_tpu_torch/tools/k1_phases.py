@@ -119,7 +119,7 @@ def main(argv=None) -> int:
         out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
         tail = (attention.keep_threshold(rate), attention._inv_keep(rate), int(rate > 0),
                 kernels.stream_ptr(q))
-        head = (Dh ** -0.5, seed.data_ptr() if rate > 0 else 0)
+        head = (Dh ** -0.5, seed.data_ptr() if rate > 0 else 0, BH)   # one seed group
         args = {attention.ENTRY["fwd", dtype]: (q, k, v, bias, out),
                 attention.ENTRY["bwd", dtype]: (q, k, v, bias, do, dq, dk, dv)}
         G = max(1, tile_rows() // W)

@@ -124,7 +124,7 @@ def run(so) -> None:
         counts, dw = torch.empty(K, device="cuda"), torch.empty(K, D, device="cuda")
         p = vq_kernel.k2_plan(N, D, K)
         args = ([t.data_ptr() for t in (x, cb, idx, counts, dw)]
-                + [N, D, K, p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster,
+                + [1, N, D, K, p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster,
                    p.smem_bytes,
                    p.pass_rows, kernels.stream_ptr(x)])
         blocks = (p.clusters * p.cluster, p.stat_grid[0] * p.stat_grid[1])

@@ -23,7 +23,7 @@ with ``torch.load(weights_only=True)``.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -67,15 +67,24 @@ def _atomic_save(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, *, epoch: int, model: nn.Module,
-                    optimizer: Optional[torch.optim.Optimizer] = None,
+StateLike = Union[nn.Module, torch.optim.Optimizer, Mapping]
+
+
+def _state(obj: StateLike) -> Mapping:
+    """A module's or optimizer's state_dict, or a state_dict as it is (one
+    seed's share of a stacked run, ``models/stacked.py``)."""
+    return obj.state_dict() if hasattr(obj, "state_dict") else obj
+
+
+def save_checkpoint(path: str, *, epoch: int, model: StateLike,
+                    optimizer: Optional[StateLike] = None,
                     best_loss: float = float("inf"),
                     config: Optional[ExperimentConfig] = None,
                     patience_counter: int = 0) -> None:
     _atomic_save({
         "epoch": int(epoch),
-        "model_state_dict": to_reference_state_dict(model.state_dict()),
-        "optimizer_state_dict": optimizer.state_dict() if optimizer is not None else {},
+        "model_state_dict": to_reference_state_dict(_state(model)),
+        "optimizer_state_dict": _state(optimizer) if optimizer is not None else {},
         "best_loss": float(best_loss),
         "config": reference_config(config) if config is not None else {},
         # persisted so a kill/resume cycle early-stops where an uninterrupted
@@ -85,9 +94,9 @@ def save_checkpoint(path: str, *, epoch: int, model: nn.Module,
     }, path)
 
 
-def save_state_dict(path: str, model: nn.Module) -> None:
+def save_state_dict(path: str, model: StateLike) -> None:
     """The bare reference-layout state_dict (the ``_final`` file)."""
-    _atomic_save(to_reference_state_dict(model.state_dict()), path)
+    _atomic_save(to_reference_state_dict(_state(model)), path)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -6,6 +6,8 @@ where the velocity term differences the CHANNEL axis with ``ref_exact_vel``
 (the reference's literal ``[:, :, 1:] - [:, :, :-1]``, the default) and the
 time axis without it. Student loss: ``lambda_align * MSE(z_e_human,
 sg(z_e_robot))``. Validation always differences the time axis.
+:func:`fk_loss` is the world-space forward-kinematics term that
+``lambda_fk`` adds to the teacher loss.
 :func:`info_nce_loss` is the reference's contrastive alignment loss, which no
 default uses.
 """
@@ -61,6 +63,15 @@ def student_loss(z_e_human: torch.Tensor, z_e_robot: torch.Tensor,
                  lambda_align: float = 100.0) -> Dict[str, torch.Tensor]:
     l_align = mse(z_e_human, z_e_robot.detach())
     return {"loss": lambda_align * l_align, "align_loss": l_align}
+
+
+def fk_loss(recon: torch.Tensor, real: torch.Tensor, fk_fn) -> torch.Tensor:
+    """MSE between the world link positions of the reconstructed and the
+    real joint windows, in float32 whatever the compute dtype. ``fk_fn``
+    maps (B, W, 29) joint radians to (B, W, L, 3) positions
+    (``sim.kinematics.make_batched_fk``); the data are raw radians, so FK
+    applies directly and the loss is differentiable end to end."""
+    return mse(fk_fn(recon.float()), fk_fn(real.float()))
 
 
 def info_nce_loss(z_h: torch.Tensor, z_r: torch.Tensor, temperature: float = 0.07

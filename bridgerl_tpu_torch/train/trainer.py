@@ -16,6 +16,9 @@ Counterpart of ``bridgerl_tpu/train/trainer.py``, run eagerly:
   frozen towers' BatchNorm statistics still move: the robot decoder's fold
   twice a microbatch, robot branch first), as the JAX package's student
   step does;
+- with ``lambda_fk`` > 0 and a 29-dim robot, the teacher loss adds
+  ``lambda_fk`` times the world-space FK loss (``losses.fk_loss`` over the
+  G1 chain, ``sim/kinematics.py``), as the JAX package's does;
 - AdamW (lr 2e-4, weight decay 1e-4, betas 0.9/0.999, eps 1e-8) decays
   every parameter it updates, biases and LayerNorm included, as
   ``optax.adamw`` does; frozen parameters get neither update nor decay.
@@ -37,11 +40,12 @@ on the first ``batch_size`` training windows (``codebook_data_init``,
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,14 +66,25 @@ from .checkpoint import (
     trainable_mask,
 )
 from .codebook_seed import seed_codebooks
-from .losses import eval_metrics, student_loss, teacher_loss
+from .losses import eval_metrics, fk_loss, student_loss, teacher_loss
 
 Logs = Dict[str, torch.Tensor]
 
 
-def _check_ported(exp: ExperimentConfig) -> None:
-    if exp.train.lambda_fk != 0.0:
-        raise NotImplementedError("lambda_fk is not ported yet (ROADMAP.md)")
+@functools.lru_cache(maxsize=1)
+def _g1_positions():
+    """(B, W, 29) joint windows -> (B, W, 30, 3) G1 link positions."""
+    from ..sim import load_g1_chain, make_batched_fk
+
+    return make_batched_fk(load_g1_chain())
+
+
+def fk_fn(exp: ExperimentConfig):
+    """The FK of the teacher loss's ``lambda_fk`` term, or None when the
+    term is off: ``lambda_fk`` is 0, or the robot is not the 29-joint G1."""
+    if exp.train.lambda_fk > 0.0 and exp.model.robot_input_dim == 29:
+        return _g1_positions()
+    return None
 
 
 def make_optimizer(model: nn.Module, exp: ExperimentConfig) -> torch.optim.AdamW:
@@ -95,6 +110,10 @@ def microbatch_loss(model: nn.Module, exp: ExperimentConfig, x_r: torch.Tensor,
         parts = teacher_loss(out["robot"]["recon"], x_r, out["robot"]["loss_vq"],
                              tcfg.lambda_recon, tcfg.lambda_vq, tcfg.lambda_vel,
                              ref_exact_vel=tcfg.ref_exact_vel)
+        fk = fk_fn(exp)
+        if fk is not None:
+            parts["loss"] = parts["loss"] + tcfg.lambda_fk * fk_loss(out["robot"]["recon"],
+                                                                     x_r, fk)
         logs = {"train_loss": parts["loss"], "train_recon_loss": parts["recon_loss"],
                 "train_vq_loss": parts["vq_loss"]}
     else:
@@ -183,6 +202,57 @@ def empty_history() -> Dict[str, list]:
     return {k: [] for k in HISTORY_KEYS}
 
 
+def record_epoch(history: Dict[str, list], logs: Mapping[str, float],
+                 val: Mapping[str, float], cur: float) -> None:
+    """Append one epoch's train logs, validation metrics and monitored
+    validation loss ``cur`` to ``history`` (the reference's schema)."""
+    history["train_loss"].append(logs["train_loss"])
+    history["train_recon_loss"].append(logs.get("train_recon_loss", 0.0))
+    history["train_vq_loss"].append(logs.get("train_vq_loss", 0.0))
+    history["val_loss"].append(cur)
+    for k in ("val_recon", "val_cross_recon", "val_align", "val_vel", "val_jerk",
+              "perplexity", "dcr", "rvq_ppl"):
+        if k in val:
+            history[k].append(val[k])
+    history["dead_code_ratio"].append(val.get("dcr", 0.0))
+
+
+def prepare_seed_model(exp: ExperimentConfig, seed: int, device, train_robot: torch.Tensor,
+                       resume_ck: Optional[Dict], verbose: bool = False) -> nn.Module:
+    """Seed ``seed``'s model before its first epoch: ``init_model``, then the
+    resumed weights (``resume_ck``), or the teacher transfer (student), or
+    ``init_from`` and codebook seeding from the head of ``train_robot``,
+    the seed's training windows (a fresh teacher; the dataset's head would
+    leak validation windows into the codebook)."""
+    tcfg = exp.train
+    model = init_model(exp.model, seed, device=device)
+    if resume_ck is not None:
+        model.load_state_dict(resume_ck["model_state_dict"])
+        return model
+    if tcfg.mode == "student":
+        tpath = resolve_teacher_ckpt(tcfg.teacher_ckpt or "", seed)
+        if not tpath or not os.path.exists(tpath):
+            raise ValueError(f"Student mode requires a valid teacher_ckpt "
+                             f"(resolved: {tpath!r})")
+        teacher = load_checkpoint(tpath)["model_state_dict"]
+        model.load_state_dict(merge_teacher_into_student(model.state_dict(), teacher))
+        if verbose:
+            print(f"{TermColor.BLUE}    [Student] Loaded teacher: {tpath}{TermColor.ENDC}")
+        return model
+    if tcfg.init_from:
+        ipath = resolve_teacher_ckpt(tcfg.init_from, seed)
+        source = load_checkpoint(ipath)["model_state_dict"]
+        model.load_state_dict(merge_matching_variables(model.state_dict(), source))
+        if verbose:
+            print(f"{TermColor.CYAN}    [InitFrom] {ipath}{TermColor.ENDC}")
+    if tcfg.codebook_data_init:
+        seed_codebooks(model, train_robot[: tcfg.batch_size])
+        if verbose:
+            print(f"{TermColor.CYAN}    [Seed] codebook data init "
+                  f"({min(len(train_robot), tcfg.batch_size)} windows){TermColor.ENDC}")
+    return model
+
+
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The generator of one epoch's shuffle and dropout, from (seed, epoch)."""
     state = np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]
@@ -197,7 +267,6 @@ class Trainer:
     host, which waits for the device."""
 
     def __init__(self, exp: ExperimentConfig, device=None, verbose: bool = True):
-        _check_ported(exp)
         self.exp = exp
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -222,7 +291,11 @@ class Trainer:
         if self.verbose:
             print(f"{TermColor.HEADER}Start: {exp.run_name(seed)} | Mode: {mode.upper()} | "
                   f"Device: {self.device}{TermColor.ENDC}")
-        model = init_model(exp.model, seed, device=self.device)
+        train_ds, val_ds = train_val_split(ds, tcfg.val_fraction, seed)
+        if len(train_ds) == 0 or len(val_ds) == 0:
+            raise ValueError(
+                f"val_fraction={tcfg.val_fraction} splits {len(ds)} windows "
+                f"into train={len(train_ds)}/val={len(val_ds)}; both must be non-empty")
 
         # ---- resume / student transfer (train_ablation.py:152-180) ----
         start_epoch = 0
@@ -231,10 +304,9 @@ class Trainer:
         history = empty_history()
         resumed_opt_state = None
         last_path = self.ckpt_path(seed, "last")
-        resumed = bool(tcfg.resume and os.path.exists(last_path))
-        if resumed:
-            ck = load_checkpoint(last_path)
-            model.load_state_dict(ck["model_state_dict"])
+        ck = load_checkpoint(last_path) if tcfg.resume and os.path.exists(last_path) else None
+        model = prepare_seed_model(exp, seed, self.device, train_ds.robot, ck, self.verbose)
+        if ck is not None:
             resumed_opt_state = ck["optimizer_state_dict"] or None
             try:
                 with open(self._log_path(seed)) as f:
@@ -251,37 +323,6 @@ class Trainer:
             if self.verbose:
                 print(f"{TermColor.CYAN}    [Resume] {last_path} @ epoch {start_epoch}"
                       f"{TermColor.ENDC}")
-        elif mode == "student":
-            tpath = resolve_teacher_ckpt(tcfg.teacher_ckpt or "", seed)
-            if not tpath or not os.path.exists(tpath):
-                raise ValueError(f"Student mode requires a valid teacher_ckpt "
-                                 f"(resolved: {tpath!r})")
-            teacher = load_checkpoint(tpath)["model_state_dict"]
-            model.load_state_dict(merge_teacher_into_student(model.state_dict(), teacher))
-            if self.verbose:
-                print(f"{TermColor.BLUE}    [Student] Loaded teacher: {tpath}{TermColor.ENDC}")
-
-        fresh_teacher = mode == "teacher" and not resumed
-        if tcfg.init_from and fresh_teacher:
-            ipath = resolve_teacher_ckpt(tcfg.init_from, seed)
-            source = load_checkpoint(ipath)["model_state_dict"]
-            model.load_state_dict(merge_matching_variables(model.state_dict(), source))
-            if self.verbose:
-                print(f"{TermColor.CYAN}    [InitFrom] {ipath}{TermColor.ENDC}")
-
-        train_ds, val_ds = train_val_split(ds, tcfg.val_fraction, seed)
-        if len(train_ds) == 0 or len(val_ds) == 0:
-            raise ValueError(
-                f"val_fraction={tcfg.val_fraction} splits {len(ds)} windows "
-                f"into train={len(train_ds)}/val={len(val_ds)}; both must be non-empty")
-
-        if tcfg.codebook_data_init and fresh_teacher:
-            # from the train split: the dataset's head would leak validation
-            # windows into the codebook
-            seed_codebooks(model, train_ds.robot[: tcfg.batch_size])
-            if self.verbose:
-                print(f"{TermColor.CYAN}    [Seed] codebook data init "
-                      f"({min(len(train_ds), tcfg.batch_size)} windows){TermColor.ENDC}")
 
         opt = make_optimizer(model, exp)
         if resumed_opt_state is not None:
@@ -310,15 +351,7 @@ class Trainer:
             val = eval_epoch(model, val_ds.robot, val_ds.human, idx_val, mode)
             cur = val["val_recon"] if mode == "teacher" else val["val_align"]
 
-            history["train_loss"].append(logs["train_loss"])
-            history["train_recon_loss"].append(logs.get("train_recon_loss", 0.0))
-            history["train_vq_loss"].append(logs.get("train_vq_loss", 0.0))
-            history["val_loss"].append(cur)
-            for k in ("val_recon", "val_cross_recon", "val_align", "val_vel", "val_jerk",
-                      "perplexity", "dcr", "rvq_ppl"):
-                if k in val:
-                    history[k].append(val[k])
-            history["dead_code_ratio"].append(val.get("dcr", 0.0))
+            record_epoch(history, logs, val, cur)
 
             if self.verbose and (epoch % 5 == 0 or epoch == tcfg.epochs - 1):
                 done = epoch - start_epoch + 1

@@ -47,10 +47,13 @@ class MotionRetargeter:
         return y
 
     def robot_fk(self, q_windows: np.ndarray) -> np.ndarray:
-        """(N, W, 29) joint windows -> (N, W, L, 3) body positions: needs the
-        batched kinematics of the sim, which the port does not have yet."""
-        raise NotImplementedError("robot_fk needs the kinematic sim, which is not ported yet "
-                                  "(ROADMAP.md)")
+        """(N, W, 29) joint windows -> (N, W, L, 3) G1 body positions, by the
+        batched kinematics on the model's device, in float32."""
+        from ..sim import load_g1_chain, make_batched_fk
+
+        q = torch.as_tensor(np.asarray(q_windows, np.float32), device=self.device)
+        with torch.inference_mode():
+            return make_batched_fk(load_g1_chain())(q).cpu().numpy()
 
 
 def load_and_align_data(robot_path: str, human_path: str) -> Tuple[np.ndarray, np.ndarray]:

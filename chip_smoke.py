@@ -42,7 +42,11 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    one record of each a call (a profile that lost records is taken again,
    up to three); each K2 line carries the device time of each of its two
    kernels and the time of one and of two empty kernels
-   (``launch_floor_ms``), timed the same way.
+   (``launch_floor_ms``), timed the same way. Seed groups (a stacked
+   multi-seed step): K1 forward and backward, f32 and bf16, at (4096, 80,
+   64) with 4 seed groups, dropout 0.1 and 0.0, and K2 over 4 groups at
+   (N 2048, D 64, K 512), each bit for bit equal to the launches of one
+   group each and held to its plain version as above.
 3. The serving path: the flagship retargeting model (full width, weights
    from a fixed seed) served through the port's ``ServingApp``: ``retarget``
    at b = 1, 5, 64, 512, 4096, ``robot_recon`` and ``motion_codes`` at b = 64,
@@ -120,10 +124,34 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    launched); ``export_motion`` on its checkpoint (the reference's file
    names, equal to ``reconstruct_long_sequence`` over the same model),
    ``export_serving --platforms cuda --check`` and ``serve_http
-   --max_requests 1``.
-10. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+   --max_requests 1`` (its answer held to the checkpoint's live module).
+   The bf16 artifact exports cuda programs only.
+11. ``multiseed``: the stacked teacher (``MultiSeedTrainer``) at
+   bench.py:137-182's configuration (the flagship in bf16, seeds 0-3, batch
+   2048, packing 8, dropout 0.1, 32,768 seeded windows), 2 warm-up and 2
+   timed epochs, beside the same seeds one after another through
+   ``Trainer``: aggregate windows/s of each; the stacked run must launch K1
+   and K2 exactly as often as one seed's run. ``cli_multiseed`` (in the
+   CLI phase's directory): ``train_ablation --multiseed --seed 1 2
+   --lambda_fk 1 --int8_ff`` for 2 epochs, then the student from a
+   ``{seed}`` teacher pattern; each seed's files, other weights per seed.
+12. ``int8``: the flagship with ``int8_ff`` in bf16, ``retarget`` at b =
+   4096 and b = 1 held to the CPU's int8 model under the bf16 rules, its
+   rate beside the plain bf16 model's, then one teacher epoch.
+13. ``fk``: G1 link positions of 4,096 random windows on the card within
+   1e-5 of ``fk_numpy``; the f32 teacher with ``lambda_fk`` 1 for one epoch
+   at the train path's configuration; one step against the CPU under
+   train_agree's rule; device ms and operations of a microbatch of 512
+   with and without the FK term, and of FK alone.
+14. ``multiseed_profile``: device ms, operations and idle share of one
+   stacked optimizer step at S = 1 and S = 4 (torch.profiler);
+   ``multiseed_agree``: two seeds stacked, one f32 step at batch 512 and
+   dropout 0, each seed held to the card's sequential step under
+   train_agree's rule.
+15. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
-   them, artifact in each dtype, decode_http, stream and recipe; counts
+   them, artifact in each dtype, decode_http, stream, recipe, multiseed,
+   fk and int8 (cli includes cli_multiseed); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls), then, last,
    ``{"ok": true, "device": {...}}``.
@@ -168,9 +196,16 @@ from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.export.streaming import StreamingRetargeter, window_starts
 from bridgerl_tpu_torch.models import init_model
 from bridgerl_tpu_torch.models.layers import attention_bias
+from bridgerl_tpu_torch.models.stacked import stack_models
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
+from bridgerl_tpu_torch.sim import fk_numpy, load_g1_chain, make_batched_fk
 from bridgerl_tpu_torch.train.checkpoint import load_checkpoint
 from bridgerl_tpu_torch.train.codebook_seed import JITTER
+from bridgerl_tpu_torch.train.multiseed import (
+    MultiSeedTrainer,
+    make_stacked_train_epoch,
+    stacked_accumulate_grads,
+)
 from bridgerl_tpu_torch.train.trainer import (
     Trainer,
     accumulate_grads,
@@ -209,6 +244,11 @@ DROPOUT = 0.1
 K1_ATOL = 1e-4
 K1_BF16_ULPS, K1_BF16_ATOL = 1.0, 1e-6   # one bf16 ulp of the plain value, beyond the
                                          # float32 summation noise where a sum cancels
+# seed groups: K1 at the stacked multi-seed step's shape (4 seeds x 1024 rows: batch 2048
+# packed 8 to a row, 4 heads), K2 over 4 groups at its N
+K1_GROUPED = ((4096, 80, 64, 8, 0.1), (4096, 80, 64, 8, 0.0))
+K1_GROUPS = 4
+K2_GROUPED = ((4, 2048, 64, 512),)
 K2_TIE = 1e-5
 SERVE_ATOL = 1e-3
 CODES_AGREE = 0.999
@@ -266,6 +306,16 @@ ARTIFACT_LOAD_PROBE = (
     "print(json.dumps({'finite': bool(np.isfinite(out).all()), 'shape': list(out.shape),\n"
     "                  'device': str(mod.device), 'modules': sorted(sys.modules)}))\n")
 STREAM_FRAMES, STREAM_STEP = 240, 5
+# multiseed: bench.py:137-182's configuration (the flagship in bf16, 4 seeds, batch 2048,
+# packing 8, dropout 0.1, 32,768 seeded windows), 2 warm-up epochs, then timed ones;
+# the stacked run beside the same seeds one after another through Trainer
+MS_SEEDS, MS_WINDOWS, MS_BATCH, MS_WARM, MS_TIMED = (0, 1, 2, 3), 32768, 2048, 2, 2
+MS_AGREE_SEEDS = (0, 1)
+FK_TOL = 1e-5          # FK positions on the card against fk_numpy (float64)
+FK_FRAMES = 4096       # windows of random joint radians held to fk_numpy (16 frames each)
+CLI_MS_RUN = ("--arch", "transformer", "--method", "hybrid", "--window", "10",
+              "--batch_size", "256", "--multiseed", "--seed", "1", "2", "--int8_ff")
+CLI_MS_EPOCHS = {"teacher": 2, "student": 1}
 # the W64-transformer recipe on the CLI: pretrain ae, then the hybrid from it
 RECIPE_WINDOW, RECIPE_EPOCHS, RECIPE_SEED, RECIPE_BATCH = 64, 2, 42, 256
 RECIPE_FLAGS = ("--codebook_data_init", "--cheap_dropout", "--reuse_dropout_mask",
@@ -407,6 +457,51 @@ def _timings(kernel, plain, library_full, library_window) -> dict:
             "library_full_ms": full, "library_window_ms": window}
 
 
+def _k1_grouped_case(g, dtype, direction: str, BH, S, Dh, P, rate) -> dict:
+    """K1 (``direction`` fwd or bwd) with K1_GROUPS seed groups in one
+    launch: bit for bit the launches of one group each, and within today's
+    tolerance of the plain version's grouped call; timed as the other cases."""
+    W, G = S // P, K1_GROUPS
+    q, k, v, bias, scale, _ = _k1_inputs(g, BH, S, Dh, P, dtype)
+    do = torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
+    seeds = torch.randint(0, attention.SEED_HIGH, (G,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    if direction == "fwd":
+        run = lambda q, k, v, do, sd: [attention.attention_fwd(q, k, v, bias, scale, sd, rate, W)]
+        plain = lambda: [attention.packed_attention_reference(q, k, v, bias, scale, seeds, rate,
+                                                              W)]
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * S * W * Dh)
+    else:
+        run = lambda q, k, v, do, sd: list(attention.attention_bwd(q, k, v, bias, do, scale, sd,
+                                                                   rate, W))
+        plain = lambda: list(attention.packed_attention_bwd_reference(q, k, v, bias, do, scale,
+                                                                      seeds, rate, W))
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh)
+    got = run(q, k, v, do, seeds)
+    n = BH // G
+    for i in range(G):
+        r = slice(i * n, (i + 1) * n)
+        one = run(q[r], k[r], v[r], do[r], seeds[i:i + 1])
+        require(all(torch.equal(a[r], b) for a, b in zip(got, one)),
+                f"K1-{direction} {BH, S, Dh}: seed group {i} differs from its own launch")
+    torch.cuda.synchronize()
+    name = attention.ENTRY[direction, dtype]
+    if direction == "fwd":
+        library = _sdpa_forms(q, k, v, bias, scale, rate, W)
+    else:
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        outs = [f() for f in _sdpa_forms(qg, kg, vg, bias, scale, rate, W)]
+        library = [lambda o=o, d=d: torch.autograd.grad(o, (qg, kg, vg), d, retain_graph=True)
+                   for o, d in zip(outs, (do, do.view(-1, W, Dh)))]
+    case = {"shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
+            "dropout": rate, "seed_groups": G, "equal_to_single_group_launches": True,
+            **_agreement(f"{name} {BH, S, Dh} {G} groups dropout {rate}", got, plain(), dtype),
+            "bound_ms": b_ms, "bound_by": b_by,
+            **_timings(lambda: run(q, k, v, do, seeds), plain, *library)}
+    emit({"phase": "kernel", "name": name, **case})
+    return case
+
+
 def check_k1(g: torch.Generator, dtype=torch.float32) -> dict:
     """K1's forward for q, k, v of ``dtype`` against the plain version on the
     same inputs, at the serving and training shapes."""
@@ -431,6 +526,7 @@ def check_k1(g: torch.Generator, dtype=torch.float32) -> dict:
         }
         emit({"phase": "kernel", "name": name, **case})
         cases.append(case)
+    cases += [_k1_grouped_case(g, dtype, "fwd", *shape) for shape in K1_GROUPED]
     return _kernel_row(name, "bridgerl_tpu_torch/csrc/packed_attention.cu",
                        "bridgerl_tpu/ops/pallas/attention.py:143", cases)
 
@@ -495,6 +591,7 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
         }
         emit({"phase": "kernel", "name": name, **case})
         cases.append(case)
+    cases += [_k1_grouped_case(g, dtype, "bwd", *shape) for shape in K1_GROUPED]
     return _kernel_row(name, "bridgerl_tpu_torch/csrc/packed_attention_bwd.cu",
                        "bridgerl_tpu/ops/pallas/attention.py:164", cases)
 
@@ -543,6 +640,54 @@ def _k2_device_ops(x, cb, attempts: int = 3) -> dict:
                          f"call: {profiles}")
 
 
+def _k2_plain_mismatch(x, cb, idx) -> tuple:
+    """Rows where K2's indices differ from the plain version's, all of them
+    and those outside near ties (rows whose best two plain distances lie
+    within K2_TIE may go either way)."""
+    dist = torch.sum(cb * cb, dim=1)[None, :] - 2.0 * (x @ cb.t())
+    two = torch.topk(dist, 2, dim=1, largest=False).values
+    near_tie = (two[:, 1] - two[:, 0]) <= K2_TIE * (1.0 + two[:, 0].abs())
+    idx0, _, _ = codebook.nearest_codes_plain(x, cb)
+    return int((idx != idx0).sum()), int(((idx != idx0) & ~near_tie).sum())
+
+
+def _k2_grouped_case(g, G, N, D, K) -> dict:
+    """K2 over G groups in one launch: each group's indices against the
+    plain version outside near ties, each group bit for bit its own call
+    and the CPU's ``assignment_stats`` for its indices, a second call equal
+    to the first."""
+    x = torch.randn(G, N, D, device="cuda", generator=g)
+    cb = torch.randn(G, K, D, device="cuda", generator=g)
+    got = vq_kernel.nearest_codes_cuda(x, cb)
+    torch.cuda.synchronize()
+    near_ties, err = 0, 0.0
+    for i in range(G):
+        differ, mismatch = _k2_plain_mismatch(x[i], cb[i], got[0][i])
+        require(mismatch == 0, f"K2 {G} groups: group {i}: {mismatch} rows disagree")
+        near_ties += differ
+        one = vq_kernel.nearest_codes_cuda(x[i].contiguous(), cb[i].contiguous())
+        require(all(torch.equal(a[i], b) for a, b in zip(got, one)),
+                f"K2 {G} groups: group {i} differs from its own call")
+        c, d = codebook.assignment_stats(x[i].cpu(), got[0][i].cpu(), K)
+        err = max(err, (got[2][i].cpu() - d).abs().max().item())
+        require(torch.equal(got[1][i].cpu(), c) and torch.equal(got[2][i].cpu(), d),
+                f"K2 {G} groups: group {i} counts or dw differ from the CPU's row-order "
+                f"sums (dw by up to {err})")
+    again = vq_kernel.nearest_codes_cuda(x, cb)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"K2 {G} groups: a second call differs from the first")
+    b_ms, b_by = bound(4 * G * (N * D + K * D + N + K + K * D),
+                       G * (2 * N * K * D + 2 * K * D + N * D))
+    return {"shape": [N, D, K], "groups": G, "dw_equal_cpu_row_order": True,
+            "equal_to_single_group_calls": True, "repeat_equal": True,
+            "max_abs_err": err, "idx_mismatch_near_ties": near_ties,
+            "plan": vq_kernel.k2_plan(N, D, K)._asdict(),
+            "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb)),
+            "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
+            "plain_ms": time_ms(lambda: codebook.nearest_codes_plain(x, cb)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def check_k2(g: torch.Generator) -> dict:
     """K2 at the training, serving and validation shapes: indices against
     the plain version outside near ties; counts and dw bit for bit against
@@ -558,14 +703,8 @@ def check_k2(g: torch.Generator) -> dict:
         cb = torch.randn(K, D, device="cuda", generator=g)
         idx, counts, dw = vq_kernel.nearest_codes_cuda(x, cb)
         torch.cuda.synchronize()
-        # the plain distances: rows whose best two codes lie within the tie
-        # tolerance may go either way
-        dist = torch.sum(cb * cb, dim=1)[None, :] - 2.0 * (x @ cb.t())
-        two = torch.topk(dist, 2, dim=1, largest=False).values
-        near_tie = (two[:, 1] - two[:, 0]) <= K2_TIE * (1.0 + two[:, 0].abs())
-        idx0, _, _ = codebook.nearest_codes_plain(x, cb)
-        mismatch = (idx != idx0) & ~near_tie
-        require(not mismatch.any().item(), f"K2: {int(mismatch.sum())} rows disagree")
+        near_ties, mismatch = _k2_plain_mismatch(x, cb, idx)
+        require(mismatch == 0, f"K2: {mismatch} rows disagree")
         require(counts.sum().item() == N, f"K2: counts sum {counts.sum().item()} != {N}")
         own_counts, own_dw = codebook.assignment_stats(x.cpu(), idx.cpu(), K)
         require(torch.equal(counts.cpu(), own_counts), "K2: counts differ from its own indices")
@@ -580,7 +719,7 @@ def check_k2(g: torch.Generator) -> dict:
         plan = vq_kernel.k2_plan(N, D, K)
         case = {
             "shape": [N, D, K], "max_abs_err": err, "dw_equal_cpu_row_order": True,
-            "repeat_equal": True, "idx_mismatch_near_ties": int((idx != idx0).sum()),
+            "repeat_equal": True, "idx_mismatch_near_ties": near_ties,
             "plan": plan._asdict(),
             "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb)),
             "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
@@ -588,6 +727,10 @@ def check_k2(g: torch.Generator) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             **_k2_device_ops(x, cb), **floor,
         }
+        emit({"phase": "kernel", "name": "vq_assign", **case})
+        cases.append(case)
+    for G, N, D, K in K2_GROUPED:
+        case = _k2_grouped_case(g, G, N, D, K)
         emit({"phase": "kernel", "name": "vq_assign", **case})
         cases.append(case)
     return _kernel_row("vq_assign", "bridgerl_tpu_torch/csrc/vq_assign.cu",
@@ -991,37 +1134,44 @@ def _step_grads(exp, dev: str, robot: torch.Tensor, human: torch.Tensor,
              if p.grad is not None})
 
 
-def _agree_step(dev: str, dtype) -> tuple:
+def _agree_step(dev: str, dtype, **over) -> tuple:
     """The loss and every parameter's gradient of one optimizer batch of
     AGREE_BATCH at dropout 0 from one seed, on ``dev`` in ``dtype``."""
     exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8, dropout=0.0,
                           batch_size=AGREE_BATCH, accum_chunks=1,
-                          compute_dtype=DTYPE_NAME[dtype])
+                          compute_dtype=DTYPE_NAME[dtype], **over)
     rng = np.random.default_rng(SEED + 2)
     robot, human = (torch.from_numpy(rng.normal(size=(AGREE_BATCH, 10, d)).astype(np.float32))
                     for d in (29, 126))
     return _step_grads(exp, dev, robot, human)
 
 
-def train_agree() -> tuple:
-    """One optimizer batch at dropout 0, from one seed, on the card and on
-    the CPU (plain versions): the loss and every parameter's gradient.
-    Returns the line and the CPU's step, which train_agree_bf16 reuses."""
-    (l_gpu, g_gpu), cpu32 = _agree_step("cuda", torch.float32), _agree_step("cpu",
-                                                                          torch.float32)
-    l_cpu, g_cpu = cpu32
+def _agree_rule(what: str, got: tuple, want: tuple) -> dict:
+    """train_agree's rule: (loss, gradients) ``got`` against ``want``, the
+    loss within AGREE_LOSS_RTOL relative, every gradient within
+    AGREE_GRAD_RTOL in relative norm."""
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = got, want
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    require(loss_rel <= AGREE_LOSS_RTOL, f"train_agree: loss {l_gpu} vs {l_cpu}")
-    require(sorted(g_gpu) == sorted(g_cpu) and g_cpu, "train_agree: gradient sets differ")
+    require(loss_rel <= AGREE_LOSS_RTOL, f"{what}: loss {l_gpu} vs {l_cpu}")
+    require(sorted(g_gpu) == sorted(g_cpu) and g_cpu, f"{what}: gradient sets differ")
     worst, worst_name = 0.0, ""
     for name, gc in g_cpu.items():
         rel = ((g_gpu[name] - gc).norm() / gc.norm().clamp_min(1e-30)).item()
         if rel > worst:
             worst, worst_name = rel, name
-    require(worst <= AGREE_GRAD_RTOL, f"train_agree: {worst_name} gradient off by {worst}")
-    res = {"phase": "train_agree", "batch": AGREE_BATCH, "loss_cuda": l_gpu,
-           "loss_cpu": l_cpu, "loss_rel_err": loss_rel, "params_compared": len(g_cpu),
-           "worst_grad_rel_norm_err": worst, "worst_param": worst_name}
+    require(worst <= AGREE_GRAD_RTOL, f"{what}: {worst_name} gradient off by {worst}")
+    return {"loss_got": l_gpu, "loss_want": l_cpu, "loss_rel_err": loss_rel,
+            "params_compared": len(g_cpu), "worst_grad_rel_norm_err": worst,
+            "worst_param": worst_name}
+
+
+def train_agree() -> tuple:
+    """One optimizer batch at dropout 0, from one seed, on the card and on
+    the CPU (plain versions): the loss and every parameter's gradient.
+    Returns the line and the CPU's step, which train_agree_bf16 reuses."""
+    cpu32 = _agree_step("cpu", torch.float32)
+    res = {"phase": "train_agree", "batch": AGREE_BATCH,
+           **_agree_rule("train_agree", _agree_step("cuda", torch.float32), cpu32)}
     emit(res)
     return res, cpu32
 
@@ -1401,7 +1551,9 @@ def artifact_path(smi: str, dtype) -> tuple:
     path = os.path.join(workdir, "flagship.zip")
     model, live, verify, ((cpu16, _), (cpu32, _)) = serving_check(exp)
     t0 = time.perf_counter()
-    meta = build_serving_artifact(model, exp, path, data_dir=None, platforms=("cuda", "cpu"))
+    # the cpu programs are exported in float32 only: the bf16 line checks the cuda ones
+    platforms = ("cuda", "cpu") if dtype == torch.float32 else ("cuda",)
+    meta = build_serving_artifact(model, exp, path, data_dir=None, platforms=platforms)
     export_s = time.perf_counter() - t0
     require(sorted(meta["functions"]) == ["decode_codes", "motion_codes", "retarget",
                                           "robot_recon"], f"artifact functions {meta}")
@@ -1694,7 +1846,7 @@ def recipe_path(smi: str) -> dict:
                 f"export_serving --check: {stdout[-2000:]}")
         for k in total:
             total[k] += counts.get(k, 0)
-        seconds["serve_http"], served = _serve_one(art, workdir, env)
+        seconds["serve_http"], served = _serve_one(art, best, workdir, env)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     line = {"phase": "recipe", "card": smi, "window": W, "epochs": RECIPE_EPOCHS,
@@ -1730,9 +1882,11 @@ def _check_motions(workdir: str, ckpt: str) -> dict:
     return {"files": 2 * RECIPE_MOTIONS, "max_abs_err_vs_reconstruct": max(errs)}
 
 
-def _serve_one(artifact: str, workdir: str, env: dict) -> tuple:
+def _serve_one(artifact: str, ckpt: str, workdir: str, env: dict) -> tuple:
     """serve_http --max_requests 1 as a child: one retarget request answered
-    (equal to the artifact in this process) and the child exits 0."""
+    (within ARTIFACT_ATOL of the checkpoint's live module in this process:
+    the artifact's unpacked towers sum in another order) and the child
+    exits 0."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1760,10 +1914,341 @@ def _serve_one(artifact: str, workdir: str, env: dict) -> tuple:
             child.kill()
             child.wait()
     require(child.returncode == 0, f"serve_http: rc {child.returncode}\n{err[-2000:]}")
-    want = _numpy(load_serving_artifact(artifact).retarget(x))
+    model, exp = load_model_from_checkpoint(ckpt)
+    want = _numpy(build_serving_module(model, exp).retarget(x))
     diff = float(np.abs(got - want).max())
-    require(got.shape == (3, RECIPE_WINDOW, 29) and diff <= 1e-6, f"serve_http answer {diff}")
-    return time.perf_counter() - t0, {"b": 3, "max_abs_err_vs_in_process": diff}
+    require(got.shape == (3, RECIPE_WINDOW, 29) and diff <= ARTIFACT_ATOL,
+            f"serve_http answer {diff}")
+    return time.perf_counter() - t0, {"b": 3, "max_abs_err_vs_live": diff}
+
+
+# ---------------------------------------------------------------- phases 11-14
+
+def _profile_step(fn, what: str) -> dict:
+    """Device ms, device operations and the idle share of one call of
+    ``fn`` from torch.profiler, after one warm-up call (as --profile counts
+    a teacher step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    busy_ms = sum(r[1] for r in rows)
+    require(busy_ms > 0, f"{what}: the profiler saw no device time")
+    rows.sort(key=lambda r: -r[1])
+    return {"what": what, "wall_ms": wall_ms, "device_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "device_ops": sum(r[2] for r in rows),
+            "top": [{"kernel": name[:90], "ms": ms, "launches": n}
+                    for name, ms, n in _top(rows, 8)]}
+
+
+def _ms_exp(workdir: str, seeds, **over):
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8,
+                          batch_size=MS_BATCH, compute_dtype="bfloat16", dropout=DROPOUT,
+                          seeds=tuple(seeds), epochs=MS_WARM + MS_TIMED, **over)
+    return dataclasses.replace(exp, log_dir=os.path.join(workdir, "results"),
+                               checkpoint_dir=os.path.join(workdir, "checkpoints"))
+
+
+def _timed_rate(train_seconds, warm: int) -> tuple:
+    """(windows/s, windows, seconds) over the epochs from ``warm`` on."""
+    timed = [(w, t) for e, w, t in train_seconds if e >= warm]
+    windows, seconds = sum(w for w, _ in timed), sum(t for _, t in timed)
+    return windows / seconds, windows, seconds
+
+
+def multiseed_path(smi: str) -> dict:
+    """The stacked teacher at bench.py's multiseed configuration through
+    MultiSeedTrainer, then the same seeds one after another through Trainer
+    in the same call: aggregate windows/s over the timed epochs; the
+    stacked run must launch K1 and K2 exactly as often as one seed's run
+    (once a microbatch for all seeds), every loss finite, each seed's files
+    written."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_multiseed_")
+    S = len(MS_SEEDS)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    ds = PairedDataset(torch.randn(MS_WINDOWS, 10, 29, device="cuda", generator=g),
+                       torch.randn(MS_WINDOWS, 10, 126, device="cuda", generator=g))
+    t0 = time.perf_counter()
+    try:
+        kernels.reset_counters()
+        stacked = MultiSeedTrainer(_ms_exp(os.path.join(workdir, "stacked"), MS_SEEDS),
+                                   device="cuda", verbose=False)
+        hist = stacked.run(ds)
+        counts = launches()
+        stacked_s = time.perf_counter() - t0
+        kernels.reset_counters()
+        seq = Trainer(_ms_exp(os.path.join(workdir, "sequential"), MS_SEEDS), device="cuda",
+                      verbose=False)
+        seq_hist = seq.run(ds)
+        seq_counts = launches()
+        for s in MS_SEEDS:
+            for kind in ("best", "last", "final"):
+                require(os.path.exists(stacked.ckpt_path(s, kind)),
+                        f"multiseed: no {kind} checkpoint of seed {s}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    epochs = MS_WARM + MS_TIMED
+    n_train = int(0.9 * MS_WINDOWS)
+    micro = n_train // MS_BATCH                       # accum 1: a microbatch a step
+    val = max((MS_WINDOWS - n_train) // min(MS_BATCH, MS_WINDOWS - n_train), 1)
+    names = (attention.ENTRY["fwd", BF16], attention.ENTRY["bwd", BF16], "vq_assign")
+    one_seed = {name: 0 for name in kernels.COUNTERS}
+    one_seed.update({name: epochs * (micro * m + val * v)
+                     for name, m, v in zip(names, PER_MICROBATCH["teacher"],
+                                           PER_VAL_BATCH["teacher"])})
+    require(counts == one_seed, f"multiseed: launches {counts}, one seed's run {one_seed}")
+    require({k: v * S for k, v in counts.items()} == seq_counts,
+            f"multiseed: sequential launches {seq_counts}, {S} x the stacked {counts}")
+    for s in MS_SEEDS:
+        require(len(hist[s]["train_loss"]) == epochs
+                and all(math.isfinite(x) for k in ("train_loss", "val_loss")
+                        for x in hist[s][k]), f"multiseed seed {s}: {hist[s]}")
+    rate, windows, seconds = _timed_rate(stacked.train_seconds, MS_WARM)
+    seq_rate, seq_windows, seq_seconds = _timed_rate(seq.train_seconds, MS_WARM)
+    gap = max(abs(a - b) / abs(b) for s in MS_SEEDS
+              for a, b in zip(hist[s]["train_loss"], seq_hist[s]["train_loss"]))
+    line = {"phase": "multiseed", "card": smi, "dtype": "bfloat16", "seeds": S,
+            "batch": MS_BATCH, "windows": MS_WINDOWS, "timed_epochs": MS_TIMED,
+            "launches": counts, "sequential_launches": seq_counts,
+            "stacked_windows_per_s": rate, "stacked_timed_windows": windows,
+            "stacked_timed_seconds": seconds, "sequential_windows_per_s": seq_rate,
+            "sequential_timed_windows": seq_windows, "sequential_timed_seconds": seq_seconds,
+            "stacked_over_sequential": rate / seq_rate,
+            "bf16_train_loss_max_rel_gap_stacked_vs_sequential": gap,
+            "train_loss": {s: hist[s]["train_loss"] for s in MS_SEEDS},
+            "stacked_run_s": stacked_s, "multiseed_path_s": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def multiseed_breakdown(smi: str) -> dict:
+    """Device ms, device operations and idle share of one stacked optimizer
+    step (batch MS_BATCH a seed, bf16, dropout 0.1) at S = 1 and S = 4,
+    from torch.profiler."""
+    out = {}
+    for S in (1, len(MS_SEEDS)):
+        seeds = MS_SEEDS[:S]
+        exp = _ms_exp(tempfile.gettempdir(), seeds)
+        model = stack_models([init_model(exp.model, s, device="cuda") for s in seeds])
+        opt = make_optimizer(model, exp)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        robot = torch.randn(S * MS_BATCH, 10, 29, device="cuda", generator=g)
+        human = torch.randn(S * MS_BATCH, 10, 126, device="cuda", generator=g)
+        idx = torch.arange(S * MS_BATCH, device="cuda").reshape(S, 1, MS_BATCH)
+        gens = [torch.Generator(device="cuda").manual_seed(100 + s) for s in seeds]
+        step = make_stacked_train_epoch(exp)
+        out[f"S{S}"] = _profile_step(lambda: step(model, opt, robot, human, idx, gens),
+                                     f"stacked optimizer step, {S} seed(s)")
+        del model, opt
+    line = {"phase": "multiseed_profile", "card": smi, "dtype": "bfloat16",
+            "batch_per_seed": MS_BATCH, **out,
+            "device_ms_ratio_S4_over_S1": out["S4"]["device_ms"] / out["S1"]["device_ms"],
+            "device_ops_ratio_S4_over_S1": out["S4"]["device_ops"] / out["S1"]["device_ops"]}
+    emit(line)
+    return line
+
+
+def multiseed_agree() -> dict:
+    """Two seeds stacked, one float32 optimizer batch of AGREE_BATCH each at
+    dropout 0 on the card, each seed held to the card's sequential step for
+    that seed under train_agree's rule."""
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8, dropout=0.0,
+                          batch_size=AGREE_BATCH, accum_chunks=1, seeds=MS_AGREE_SEEDS)
+    S = len(MS_AGREE_SEEDS)
+    rng = np.random.default_rng(SEED + 13)
+    robot, human = (torch.from_numpy(rng.normal(size=(S * AGREE_BATCH, 10, d)).astype(
+        np.float32)).cuda() for d in (29, 126))
+    idx = torch.arange(S * AGREE_BATCH, device="cuda").reshape(S, AGREE_BATCH)
+    model = stack_models([init_model(exp.model, s, device="cuda") for s in MS_AGREE_SEEDS])
+    make_optimizer(model, exp).zero_grad(set_to_none=True)
+    logs = stacked_accumulate_grads(model, exp, robot, human, idx, None)
+    seeds = {}
+    for i, s in enumerate(MS_AGREE_SEEDS):
+        one = init_model(exp.model, s, device="cuda")
+        make_optimizer(one, exp).zero_grad(set_to_none=True)
+        want = accumulate_grads(one, exp, robot, human, idx[i], None)
+        got = (float(logs["train_loss"][i]),
+               {n: p.grad[i].detach().cpu() for n, p in model.named_parameters()
+                if p.grad is not None})
+        seeds[s] = _agree_rule(f"multiseed_agree seed {s}", got,
+                               (float(want["train_loss"]),
+                                {n: p.grad.detach().cpu() for n, p in one.named_parameters()
+                                 if p.grad is not None}))
+    line = {"phase": "multiseed_agree", "batch": AGREE_BATCH, "seeds": seeds}
+    emit(line)
+    return line
+
+
+def fk_path(smi: str) -> dict:
+    """The FK loss on the card: positions of FK_FRAMES random windows
+    against fk_numpy; the flagship float32 teacher with lambda_fk 1.0 at the
+    train path's configuration for one epoch (finite losses, the teacher's
+    launches); one step against the CPU under train_agree's rule; device ms
+    and operations of one microbatch of 512 with and without the FK term."""
+    t0 = time.perf_counter()
+    chain = load_g1_chain()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    q = torch.rand(FK_FRAMES, 10, 29, device="cuda", generator=g) * 3.0 - 1.5
+    pos = make_batched_fk(chain)(q).cpu().numpy()
+    qn = q.cpu().numpy().astype(np.float64)
+    err = max(float(np.abs(pos[i, t] - fk_numpy(chain, qn[i, t])[0]).max())
+              for i in range(0, FK_FRAMES, FK_FRAMES // 16) for t in (0, 9))
+    require(err <= FK_TOL, f"fk: positions {err} from fk_numpy")
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fk_")
+    try:
+        ds = PairedDataset(torch.randn(TRAIN_WINDOWS, 10, 29, device="cuda", generator=g) * 0.5,
+                           torch.randn(TRAIN_WINDOWS, 10, 126, device="cuda", generator=g))
+        trainer = Trainer(_train_exp(workdir, lambda_fk=1.0, epochs=1), device="cuda",
+                          verbose=False)
+        kernels.reset_counters()
+        hist = trainer.run(ds)[SEED]
+        counts = launches()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = _expected_train_launches(trainer, TRAIN_WINDOWS, 1)
+    require(counts == want, f"fk: launches {counts}, want {want}")
+    require(all(math.isfinite(x) for k in ("train_loss", "val_loss") for x in hist[k]),
+            f"fk: losses {hist}")
+    agree = _agree_rule("fk_agree", _agree_step("cuda", torch.float32, lambda_fk=1.0),
+                        _agree_step("cpu", torch.float32, lambda_fk=1.0))
+
+    micro = TRAIN_BATCH // TRAIN_ACCUM
+    robot = torch.randn(micro, 10, 29, device="cuda", generator=g) * 0.5
+    human = torch.randn(micro, 10, 126, device="cuda", generator=g)
+    idx = torch.arange(micro, device="cuda")
+    per_mb = {}
+    for lam in (0.0, 1.0):
+        exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8,
+                              batch_size=micro, lambda_fk=lam)
+        model = init_model(exp.model, SEED, device="cuda")
+        make_optimizer(model, exp)
+        mb_g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        per_mb[f"lambda_fk_{lam:g}"] = _profile_step(
+            lambda: accumulate_grads(model, exp, robot, human, idx, mb_g),
+            f"teacher microbatch of {micro}, lambda_fk {lam:g}")
+    fk_only = _profile_step(lambda: make_batched_fk(chain)(robot.requires_grad_()).sum()
+                            .backward(), f"FK forward and backward on {micro} windows")
+    line = {"phase": "fk", "card": smi, "dtype": "float32", "positions_max_abs_err": err,
+            "frames_checked": 32, "launches": counts, "train_loss": hist["train_loss"],
+            "val_loss": hist["val_loss"], "windows_per_s": _timed_rate(
+                trainer.train_seconds, 0)[0], "agree": agree, "microbatch": per_mb,
+            "fk_alone": fk_only,
+            "fk_device_ms_per_microbatch": (per_mb["lambda_fk_1"]["device_ms"]
+                                            - per_mb["lambda_fk_0"]["device_ms"]),
+            "fk_device_ops_per_microbatch": (per_mb["lambda_fk_1"]["device_ops"]
+                                             - per_mb["lambda_fk_0"]["device_ops"]),
+            "fk_path_s": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def int8_path(smi: str) -> dict:
+    """The flagship with int8_ff in bf16: retarget at b = 4096 and b = 1
+    (padded rows in the int8 product) through ServingApp, held to the CPU's
+    int8 model under the bf16 serving rules; its rate beside the same
+    model without int8_ff in the same call; then one teacher epoch at the
+    train path's configuration."""
+    t0 = time.perf_counter()
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8,
+                          compute_dtype="bfloat16", int8_ff=True)
+    W = exp.model.window_size
+    _, module, verify, _ = serving_check(exp)
+    app = ServingApp(module)
+    rng = np.random.default_rng(SEED + 16)
+    lines = serve_requests(exp, app, verify, [("retarget", 4096), ("retarget", 1)], rng)
+    for line in lines:
+        emit({**line, "int8_ff": True})
+    plain_exp = dataclasses.replace(exp, model=dataclasses.replace(exp.model, int8_ff=False))
+    plain_app = ServingApp(build_serving_module(seeded(plain_exp.model, "cuda"), plain_exp))
+    x4096 = rng.normal(size=(4096, W, exp.model.human_input_dim)).astype(np.float32)
+    before = launches()
+    int8_wps, int8_p50 = _serving_rate(app, x4096)
+    rate_delta = add_launches({k: v - before[k] for k, v in launches().items()})
+    plain_wps, plain_p50 = _serving_rate(plain_app, x4096)
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+        ds = PairedDataset(torch.randn(TRAIN_WINDOWS, 10, 29, device="cuda", generator=g),
+                           torch.randn(TRAIN_WINDOWS, 10, 126, device="cuda", generator=g))
+        trainer = Trainer(_train_exp(workdir, int8_ff=True, compute_dtype="bfloat16",
+                                     epochs=1), device="cuda", verbose=False)
+        before = launches()
+        hist = trainer.run(ds)[SEED]
+        train_delta = {k: v - before[k] for k, v in launches().items()}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = _expected_train_launches(trainer, TRAIN_WINDOWS, 1)
+    require(train_delta == want, f"int8: training launches {train_delta}, want {want}")
+    require(all(math.isfinite(x) for k in ("train_loss", "val_loss") for x in hist[k]),
+            f"int8: losses {hist}")
+    line = {"phase": "int8", "card": smi, "dtype": "bfloat16",
+            "launches": add_launches(*(l["launches"] for l in lines), rate_delta, train_delta),
+            "int8_retarget_windows_per_s_b4096": int8_wps,
+            "plain_retarget_windows_per_s_b4096": plain_wps,
+            "int8_retarget_p50_ms_b1": int8_p50, "plain_retarget_p50_ms_b1": plain_p50,
+            "teacher_windows_per_s": _timed_rate(trainer.train_seconds, 0)[0],
+            "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
+            "int8_path_s": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def cli_multiseed(workdir: str, smi: str) -> dict:
+    """In the CLI phase's work directory (its synthetic data at window 10):
+    train_ablation --multiseed --seed 1 2 --lambda_fk 1 --int8_ff for
+    CLI_MS_EPOCHS["teacher"] epochs, then the student from a {seed} teacher
+    pattern, each a child on the card: each seed's checkpoints and logs,
+    and the two seeds' final weights differ."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    teacher = "checkpoints/Exp_transformer_W10_hybrid_teacher_seed_{seed}_best.pth"
+    total = {name: 0 for name in kernels.COUNTERS}
+    stages = {}
+    for mode in ("teacher", "student"):
+        args = [TRAIN_CLI, *CLI_MS_RUN, "--epochs", str(CLI_MS_EPOCHS[mode]), "--mode", mode]
+        args += ["--lambda_fk", "1"] if mode == "teacher" else ["--teacher_ckpt", teacher]
+        stdout, counts, seconds = _run_child(args, workdir, env)
+        require("Multi-seed: Exp_transformer_W10 x 2 seeds" in stdout,
+                f"cli multiseed {mode}: {stdout[-2000:]}")
+        finals = []
+        for s in (1, 2):
+            require(f"Success: Exp_transformer_W10 | Mode: {mode} | Seed: {s}" in stdout,
+                    f"cli multiseed {mode}: {stdout[-2000:]}")
+            name = f"Exp_transformer_W10_hybrid_{mode}_seed_{s}"
+            for kind in ("best", "last", "final"):
+                require(os.path.exists(os.path.join(workdir, "checkpoints",
+                                                    f"{name}_{kind}.pth")),
+                        f"cli multiseed {mode}: no {name}_{kind}.pth")
+            with open(os.path.join(workdir, "results",
+                                   f"log_Exp_transformer_W10_{mode}_seed_{s}.json")) as f:
+                hist = json.load(f)
+            require(sorted(hist) == sorted(HISTORY_KEYS)
+                    and len(hist["train_loss"]) == CLI_MS_EPOCHS[mode]
+                    and all(math.isfinite(v) for v in hist["train_loss"]),
+                    f"cli multiseed {mode} seed {s}: {hist}")
+            finals.append(load_checkpoint(os.path.join(workdir, "checkpoints",
+                                                       f"{name}_final.pth"))["model_state_dict"])
+        key = "human_encoder.input_proj.weight"
+        require(not torch.equal(finals[0][key], finals[1][key]),
+                f"cli multiseed {mode}: the seeds' final weights are equal")
+        require(counts["vq_assign"] > 0 and counts[attention.ENTRY["fwd", torch.float32]] > 0,
+                f"cli multiseed {mode}: a kernel never ran: {counts}")
+        stages[mode] = {"launches": counts, "seconds": seconds}
+        for k in total:
+            total[k] += counts.get(k, 0)
+    line = {"phase": "cli_multiseed", "card": smi, "args": list(CLI_MS_RUN), **stages,
+            "launches": total}
+    emit(line)
+    return line
 
 
 def main(argv) -> int:
@@ -1816,8 +2301,10 @@ def main(argv) -> int:
     cli, workdir = cli_path(smi)
     try:
         serve_trained(workdir, smi)
+        cli_ms = cli_multiseed(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    cli["launches"] = add_launches(cli["launches"], cli_ms["launches"])
 
     artifact, served = {}, {}
     try:
@@ -1829,8 +2316,13 @@ def main(argv) -> int:
         for _, _, artifact_dir in served.values():
             shutil.rmtree(artifact_dir, ignore_errors=True)
     recipe = recipe_path(smi)
-    # the breakdowns come last, so that no timed phase runs after their
-    # profiler sessions (PERF.md §6: bf16 serving timed after one read slower)
+    multiseed = multiseed_path(smi)
+    int8 = int8_path(smi)
+    # the phases with profiler sessions come last, so that no timed phase
+    # runs after them (PERF.md §6: bf16 serving timed after one read slower)
+    fk = fk_path(smi)
+    multiseed_breakdown(smi)
+    multiseed_agree()
     if "--profile" in argv:
         for dtype in DTYPES:
             emit({"phase": "profile", "card": smi, "dtype": DTYPE_NAME[dtype],
@@ -1844,7 +2336,8 @@ def main(argv) -> int:
     paths = {"serve": serve[torch.float32], "serve_bf16": serve[BF16],
              "train": train[torch.float32], "train_bf16": train[BF16], "zoo": zoo, "cli": cli,
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
-             "decode_http": http, "stream": stream, "recipe": recipe}
+             "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
+             "fk": fk, "int8": int8}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -2,8 +2,11 @@
 ``process_data --synthetic``, a teacher for 2 epochs and a student for 1
 (``resnet_no_down``, ``ae``, hidden 16) through ``train_ablation``, with the
 reference's file names; the teacher's ``.pth`` read by the JAX package's
-``import_torch_checkpoint`` gives the port's outputs within 1e-5; every flag
-the port does not run yet exits non-zero naming ROADMAP.md."""
+``import_torch_checkpoint`` gives the port's outputs within 1e-5;
+``--multiseed`` with several seeds, ``--lambda_fk`` and ``--int8_ff`` train
+(the stacked trainer, the FK term, the int8 feed-forward) and build the JAX
+CLI's config; ``--prng``, which the port does not run, exits non-zero
+naming ROADMAP.md."""
 
 import json
 import os
@@ -66,8 +69,7 @@ def test_cli_teacher_then_student_and_the_jax_import(tmp_path, monkeypatch, caps
                                    atol=1e-5, err_msg=branch)
 
 
-@pytest.mark.parametrize("flags", [["--multiseed", "--seed", "1", "2"], ["--lambda_fk", "1"],
-                                   ["--int8_ff"], ["--prng", "rbg"]],
+@pytest.mark.parametrize("flags", [["--prng", "rbg"]],
                          ids=lambda f: f[0].strip("-"))
 def test_unported_flags_exit_non_zero(flags, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
@@ -135,5 +137,64 @@ def test_module_entry_points_run_as_python_m(tmp_path):
             "--n_sequences", "2")
     assert r.returncode == 0, r.stderr
     assert os.path.exists(tmp_path / "data" / "processed" / "g1_train.npy")
-    r = run("bridgerl_tpu_torch.cli.train_ablation", "--int8_ff")
+    r = run("bridgerl_tpu_torch.cli.train_ablation", "--prng", "rbg")
     assert r.returncode == 2 and "ROADMAP.md" in r.stderr
+
+
+def test_multiseed_fk_and_int8_flags_build_the_jax_cli_config():
+    from bridgerl_tpu.config import make_experiment as jax_make_experiment
+
+    args = train_ablation.build_parser().parse_args(
+        ["--arch", "transformer", "--method", "hybrid", "--multiseed", "--seed", "1", "2", "3",
+         "--lambda_fk", "1.5", "--int8_ff"])
+    exp = train_ablation.make_exp(args, 29, 126)
+    assert train_ablation.unported(args) is None
+    want = jax_make_experiment("transformer", "hybrid", window=64, mode="teacher",
+                               seeds=(1, 2, 3), epochs=400, batch_size=256, patience=-1,
+                               resume=False, teacher_ckpt=None, save_every=1,
+                               learning_rate=2e-4, hidden_dim=64, lambda_fk=1.5, tf_tokens=1,
+                               attn_packing=1, accum_chunks=1, fused_attention=False,
+                               int8_ff=True, entropy_loss_weight=0.1, human_input_dim=126,
+                               robot_input_dim=29)
+    assert exp.to_json() == want.to_json()
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """One intra-op thread: the suite runs several workers on one host, and
+    torch's default of one thread a core oversubscribes it (tens of times
+    slower for the full-width model of the test below)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_multiseed_with_fk_and_int8(tmp_path, monkeypatch, capsys, one_torch_thread):
+    """--multiseed --seed 1 2 --lambda_fk 1 --int8_ff trains both seeds as one
+    stacked model, then the student from a {seed} teacher pattern: each
+    seed's files, with other weights per seed."""
+    monkeypatch.chdir(tmp_path)
+    assert process_data.main(["--synthetic", "--window", "10", "--step", "10",
+                              "--n_sequences", "2"]) == 0
+    run = ["--arch", "transformer", "--method", "hybrid", "--window", "10", "--hidden_dim",
+           "16", "--batch_size", "64", "--device", "cpu", "--multiseed", "--seed", "1", "2",
+           "--int8_ff", "--epochs", "1"]
+    assert train_ablation.main(run + ["--lambda_fk", "1"]) == 0
+    pattern = "checkpoints/Exp_transformer_W10_hybrid_teacher_seed_{seed}_best.pth"
+    assert train_ablation.main(run + ["--mode", "student", "--teacher_ckpt", pattern]) == 0
+    out = capsys.readouterr().out
+    assert out.count("Multi-seed: Exp_transformer_W10 x 2 seeds") == 2
+    for mode in ("teacher", "student"):
+        finals = [load_checkpoint(f"checkpoints/Exp_transformer_W10_hybrid_{mode}_seed_{s}"
+                                  f"_final.pth")["model_state_dict"] for s in (1, 2)]
+        key = "human_encoder.input_proj.weight"
+        assert not torch.equal(finals[0][key], finals[1][key])
+        for s in (1, 2):
+            assert f"Success: Exp_transformer_W10 | Mode: {mode} | Seed: {s}" in out
+            with open(f"results/log_Exp_transformer_W10_{mode}_seed_{s}.json") as f:
+                hist = json.load(f)
+            assert sorted(hist) == sorted(HISTORY_KEYS)
+            assert np.isfinite(hist["train_loss"]).all() and len(hist["train_loss"]) == 1
+    ck = load_checkpoint("checkpoints/Exp_transformer_W10_hybrid_teacher_seed_2_last.pth")
+    assert ck["config"].train.lambda_fk == 1.0 and ck["config"].model.int8_ff

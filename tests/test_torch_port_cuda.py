@@ -367,7 +367,7 @@ def test_k2_refuses_a_plan_that_does_not_cover_the_codes(gen):
     stream = kernels.stream_ptr(x)
     good = (p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster, p.smem_bytes,
             p.pass_rows)
-    assert fn(*ptrs, 64, 64, 512, *good, stream) == 0
+    assert fn(*ptrs, 1, 64, 64, 512, *good, stream) == 0   # one group
     for bad in [(p.tile_rows, 4, 1, 1, p.smem_bytes, p.pass_rows),      # 4 of 8 slices
                 (p.tile_rows, 9, 1, 1, p.smem_bytes, p.pass_rows),      # cluster > 8
                 (48, p.cluster, 1, 1, p.smem_bytes, p.pass_rows),       # no such tile
@@ -375,7 +375,8 @@ def test_k2_refuses_a_plan_that_does_not_cover_the_codes(gen):
                 (p.tile_rows, p.cluster, 1, 2, p.smem_bytes, p.pass_rows),  # too little memory
                 (p.tile_rows, p.cluster, 1, 1, p.smem_bytes - 4, p.pass_rows),
                 (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, 0)]:
-        assert fn(*ptrs, 64, 64, 512, *bad, stream) != 0
+        assert fn(*ptrs, 1, 64, 64, 512, *bad, stream) != 0
+    assert fn(*ptrs, 0, 64, 64, 512, *good, stream) != 0       # no group
     torch.cuda.synchronize()
 
 
@@ -694,3 +695,137 @@ def test_artifact_on_the_card_matches_the_live_module(gen, tmp_path):
         assert kernels.COUNTERS["vq_assign"].count == 0
         assert (decoded - live.decode_codes(want)).abs().max().item() <= 1e-5
         assert (decoded - got).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------- seed groups, FK, int8
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_k1_seed_groups_equal_separate_launches(gen, dtype, rate):
+    """K1 with G = 4 seed groups, forward and backward, on the window tiles
+    (S 80, W 10) and the row kernels (S = W = 160 at Dh 128, too large to
+    tile, no bias): bit for bit the G launches of one group each, and the
+    plain version's grouped call at today's tolerance."""
+    G, BH = 4, 4 * 12
+    for S, W, Dh, bias in ((80, 10, 64, attention_bias(8, 10, "cuda")),
+                           (160, 160, 128, torch.zeros(160, 160, device="cuda"))):
+        q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype)
+                       for _ in range(4))
+        seeds = torch.randint(0, attention.SEED_HIGH, (G,), device="cuda", generator=gen,
+                              dtype=torch.int32)
+        fwd_before = attention.COUNTER["fwd", dtype].count
+        out = attention.attention_fwd(q, k, v, bias, 0.125, seeds, rate, W)
+        grads = attention.attention_bwd(q, k, v, bias, do, 0.125, seeds, rate, W)
+        torch.cuda.synchronize()
+        assert attention.COUNTER["fwd", dtype].count == fwd_before + 1
+        n = BH // G
+        for i in range(G):
+            r = slice(i * n, (i + 1) * n)
+            one = seeds[i:i + 1]
+            assert torch.equal(out[r], attention.attention_fwd(q[r], k[r], v[r], bias, 0.125,
+                                                               one, rate, W))
+            for a, b in zip(grads, attention.attention_bwd(q[r], k[r], v[r], bias, do[r],
+                                                           0.125, one, rate, W)):
+                assert torch.equal(a[r], b)
+        want = attention.packed_attention_reference(q, k, v, bias, 0.125, seeds, rate, W)
+        if dtype == torch.float32:
+            assert (out - want).abs().max().item() <= 1e-4
+        else:
+            assert bf16_ulps(out, want, 1e-6) <= 1.0
+
+
+def test_k1_one_seed_group_is_todays_launch(gen):
+    """A seed tensor of one value gives the single-seed call's mask."""
+    BH, S, W = 64, 80, 10
+    q, k = (torch.randn(BH, S, 128, device="cuda", generator=gen) for _ in range(2))
+    eye = torch.eye(W, 128, device="cuda").repeat(S // W, 1).expand(BH, S, 128).contiguous()
+    seed = attention.draw_seed(gen, "cuda")
+    bias = attention_bias(8, W, "cuda")
+    kept = attention.attention_fwd(q, k, eye, bias, 0.1, seed, 0.1, W) > 0
+    want = attention.window_dropout_mask(int(seed.item()), BH, S, W, 0.1, "cuda")
+    got = torch.stack([kept[:, w * W:(w + 1) * W, :W] for w in range(S // W)], dim=1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("G,N,D,K", [(4, 2048, 64, 512), (3, 1001, 64, 300), (2, 77, 20, 70)])
+def test_k2_groups_equal_separate_launches(gen, G, N, D, K):
+    """K2 over a group axis (one launch, N off a multiple of 4 included):
+    bit for bit the G calls of one group, dw bit-equal to the CPU's
+    assignment_stats of each group."""
+    x = torch.randn(G, N, D, device="cuda", generator=gen)
+    cb = torch.randn(G, K, D, device="cuda", generator=gen)
+    before = vq_kernel.launch_counter.count
+    idx, counts, dw = vq_kernel.nearest_codes_cuda(x, cb)
+    torch.cuda.synchronize()
+    assert vq_kernel.launch_counter.count == before + 1
+    assert idx.shape == (G, N) and counts.shape == (G, K) and dw.shape == (G, K, D)
+    for g in range(G):
+        one = vq_kernel.nearest_codes_cuda(x[g].contiguous(), cb[g].contiguous())
+        assert all(torch.equal(a[g], b) for a, b in zip((idx, counts, dw), one))
+        c, d = codebook.assignment_stats(x[g].cpu(), idx[g].cpu(), K)
+        assert torch.equal(counts[g].cpu(), c) and torch.equal(dw[g].cpu(), d)
+
+
+def test_fk_on_the_card_matches_numpy(gen):
+    import numpy as np
+
+    from bridgerl_tpu_torch.sim import fk_numpy, load_g1_chain, make_batched_fk
+
+    chain = load_g1_chain()
+    q = (torch.rand(8, 10, 29, device="cuda", generator=gen) * 3.0 - 1.5)
+    pos = make_batched_fk(chain)(q).cpu().numpy()
+    qn = q.cpu().numpy().astype(np.float64)
+    for i, t in ((0, 0), (3, 7), (7, 9)):
+        assert np.abs(pos[i, t] - fk_numpy(chain, qn[i, t])[0]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("M", [1, 10, 17, 4096])
+def test_int8_matmul_on_the_card_equals_the_cpu(gen, M):
+    """torch._int_mm with padded rows gives the CPU's exact product, so the
+    float32 forward is bit for bit the CPU's; the bf16 forward too."""
+    from bridgerl_tpu_torch.ops import int8
+
+    x = torch.randn(M, 256, device="cuda", generator=gen)
+    x[0, 0] = 50.0
+    w = torch.randn(512, 256, device="cuda", generator=gen) * 0.1
+    for dt in (torch.float32, torch.bfloat16):
+        got = int8.int8_matmul(x.to(dt), w.to(dt))
+        want = int8.int8_matmul(x.to(dt).cpu(), w.to(dt).cpu())
+        assert torch.equal(got.cpu(), want)
+
+
+def test_stacked_step_on_the_card_matches_the_cpu(gen):
+    """Two seeds of a small flagship stacked: one optimizer batch at dropout
+    0 on the card and on the CPU, each seed's loss within 1e-4 relative and
+    each gradient within 1e-3 in relative norm (train_agree's rule); one K1
+    forward a block and one K2 a VQ layer for both seeds."""
+    from bridgerl_tpu_torch.models.stacked import stack_models
+    from bridgerl_tpu_torch.train.multiseed import stacked_accumulate_grads
+
+    exp = make_experiment("transformer", "hybrid", window=10, hidden_dim=16, d_model=64,
+                          n_tf_layers=2, ff_dim=64, attn_packing=4, dropout=0.0,
+                          batch_size=32, seeds=(1, 2))
+    robot = torch.randn(64, 10, 29, generator=torch.Generator().manual_seed(0))
+    human = torch.randn(64, 10, 126, generator=torch.Generator().manual_seed(1))
+    idx = torch.stack([torch.arange(32), torch.arange(32, 64)])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = stack_models([init_model(exp.model, s, device=dev) for s in (1, 2)])
+        make_optimizer(model, exp).zero_grad(set_to_none=True)
+        kernels.reset_counters()
+        logs = stacked_accumulate_grads(model, exp, robot.to(dev), human.to(dev),
+                                        idx.to(dev), None)
+        out[dev] = (logs["train_loss"].cpu(), {n: p.grad.cpu() for n, p in
+                                               model.named_parameters()
+                                               if p.grad is not None})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.COUNTERS["packed_attention_fwd"].count == 4
+            assert kernels.COUNTERS["vq_assign"].count == 4
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert g_cpu and sorted(g_cpu) == sorted(g_gpu)
+    assert ((l_gpu - l_cpu).abs() / l_cpu.abs()).max().item() <= 1e-4
+    for name, gc in g_cpu.items():
+        for s in range(2):
+            rel = (g_gpu[name][s] - gc[s]).norm() / gc[s].norm().clamp_min(1e-30)
+            assert rel.item() <= 1e-3, (name, s)

@@ -194,12 +194,6 @@ def test_init_model_full_width_parameter_count_matches_jax():
     assert n_port == n_jax
 
 
-@pytest.mark.parametrize("over", [dict(int8_ff=True)])
-def test_unported_options_raise(over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DualMotionVQVAE(make_experiment("transformer", "hybrid", **SMALL, **over).model)
-
-
 def test_torch_init_off_raises():
     """torch_init=False no longer raises: kernels are flax's lecun-normal,
     a normal truncated to 2 standard units at variance 1 / fan_in (the
@@ -232,12 +226,20 @@ def test_eval_neutral_options_give_the_same_model(over):
 
 @pytest.mark.parametrize("arch,method", [("resnet", "hybrid"), ("transformer", "ema")])
 def test_unported_models_raise(arch, method):
-    """Every arch and method builds now; int8_ff is the option that still
-    raises, whatever the arch."""
-    DualMotionVQVAE(make_experiment(arch, method, window=16, **{
-        k: v for k, v in SMALL.items() if k != "window"}).model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DualMotionVQVAE(make_experiment(arch, method, window=16, int8_ff=True).model)
+    """Every arch and method builds, with int8_ff too: it makes the
+    transformer blocks' feed-forward pair Int8Dense and leaves a conv arch
+    as it is."""
+    from bridgerl_tpu_torch.models.layers import Int8Dense
+
+    small = {k: v for k, v in SMALL.items() if k != "window"}
+    plain = DualMotionVQVAE(make_experiment(arch, method, window=16, **small).model)
+    int8 = DualMotionVQVAE(make_experiment(arch, method, window=16, int8_ff=True,
+                                           **small).model)
+    assert not any(isinstance(m, Int8Dense) for m in plain.modules())
+    n_int8 = sum(isinstance(m, Int8Dense) for m in int8.modules())
+    assert n_int8 == (2 * 3 * SMALL["n_tf_layers"] if arch == "transformer" else 0)
+    assert {k: v.shape for k, v in plain.state_dict().items()} == \
+        {k: v.shape for k, v in int8.state_dict().items()}
 
 
 @pytest.mark.parametrize("kw", [

@@ -7,8 +7,8 @@ writes the same file names from both, with values within 1e-5, on the
 overlap-add path (full-raw sequences), with the reference's
 normalise-at-inference, and on the single-window path (sliced data only);
 the command line writes what the function does. ``MotionRetargeter``'s
-``human_to_robot`` agrees within 1e-5 and its ``robot_fk`` (which needs the
-sim) raises naming ``ROADMAP.md``.
+``human_to_robot`` agrees within 1e-5, and so does its ``robot_fk`` (the
+batched G1 kinematics) on random joint windows.
 """
 
 import os
@@ -113,8 +113,10 @@ def test_motion_retargeter_matches_jax(setup, with_stats):
     assert got.shape == (6, 10, 29) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     np.testing.assert_allclose(ours.human_to_robot(human[0]), want[:1], atol=ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ours.robot_fk(np.zeros((1, 10, 29), np.float32))
+    q = np.random.default_rng(4).uniform(-1.5, 1.5, size=(3, 10, 29)).astype(np.float32)
+    fk = ours.robot_fk(q)
+    assert fk.shape == (3, 10, 30, 3) and fk.dtype == np.float32
+    np.testing.assert_allclose(fk, np.asarray(theirs.robot_fk(q)), atol=ATOL, rtol=0)
 
 
 def test_load_and_align_data_matches_jax(setup, tmp_path):

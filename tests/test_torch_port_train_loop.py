@@ -201,12 +201,6 @@ def test_trainer_stops_early(tmp_path, monkeypatch):
     assert ck["patience_counter"] == 2 and ck["best_loss"] == 1.0
 
 
-@pytest.mark.parametrize("over", [dict(lambda_fk=1.0)])
-def test_unported_training_options_raise(tmp_path, over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(_exp(tmp_path, **over), device="cpu", verbose=False)
-
-
 def test_merge_and_mask_follow_the_human_encoder():
     model = init_model(make_experiment("transformer", "hybrid", **TRAIN_SMALL).model, 0,
                        device="cpu")
