@@ -33,6 +33,8 @@ Layouts converted:
 - a seed-stacked tree (``bridgerl_tpu/train/multiseed.py``): one state_dict
   per seed (:func:`state_dicts_from_stacked_jax`), or the port's stacked
   model's (:func:`stacked_state_dict_from_jax`)
+- the token prior (``bridgerl_tpu/models/token_prior.py``):
+  :func:`prior_state_dict_from_jax`
 """
 
 from __future__ import annotations
@@ -224,3 +226,28 @@ def stacked_state_dict_from_jax(variables: Mapping[str, Any], cfg, seeds: int
     stacked model (``models/stacked.py``): each entry the seeds' stacked."""
     sds = state_dicts_from_stacked_jax(variables, cfg, seeds)
     return {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]}
+
+
+def prior_state_dict_from_jax(variables: Mapping[str, Any], pcfg) -> Dict[str, torch.Tensor]:
+    """JAX variables of a ``MotionTokenPrior`` of ``pcfg`` (with or without
+    slot-AR and class conditioning) -> the port's prior state_dict:
+    ``embed_{s}`` -> ``embed.{s}``, ``head_{s}`` -> ``head.{s}``, ``bos``,
+    ``pos_embed``, ``depth_pos`` and ``class_embed`` as they are, and the
+    blocks of ``stack`` and ``depth_stack`` as the towers' blocks."""
+    params = variables.get("params", variables)
+    sd: StateDict = {}
+    for s in range(len(pcfg.vocab_sizes)):
+        sd[f"embed.{s}.weight"] = _get(params, f"embed_{s}/embedding")
+        _linear(sd, f"head.{s}", params, f"head_{s}")
+    sd["bos"] = _get(params, "bos")
+    sd["pos_embed"] = _get(params, "pos_embed")
+    if pcfg.class_names:
+        sd["class_embed.weight"] = _get(params, "class_embed/embedding")
+    stacks = [("stack", pcfg.n_layers)]
+    if pcfg.slot_ar:
+        sd["depth_pos"] = _get(params, "depth_pos")
+        stacks.append(("depth_stack", pcfg.depth_layers))
+    for name, n in stacks:
+        for i in range(n):
+            _block(sd, f"{name}.layers.{i}", _node(params, f"{name}/layer_{i}"))
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}

@@ -8,10 +8,13 @@ Counterpart of ``bridgerl_tpu/export/server.py``. Endpoints:
     POST /v1/robot_recon   (b, W, 29)  raw robot windows -> (b, W, 29) recon
     POST /v1/motion_codes  (b, W, 126) raw human windows -> .npz of streams
     POST /v1/decode_codes  .npz of (b, T') int32 streams -> (b, W, 29) robot
+    POST /v1/generate      a generator artifact's seed -> (n, T, 29) motion
+                           (``generate_{action}`` for a class-conditioned prior)
 
 Bodies are ``.npy`` bytes (application/octet-stream) or JSON
 ``{"windows": [[[...]]]}``; ``decode_codes`` takes an ``.npz`` of streams or
-JSON ``{"codes": {stream: [[...]]}}``. The response mirrors the request's
+JSON ``{"codes": {stream: [[...]]}}``; ``generate`` takes JSON
+``{"seed": N}`` or an ``.npy`` of one integer. The response mirrors the request's
 format. Batches are rounded up to the next power of two (zero-padded, the
 result sliced back), so the device sees a bounded set of shapes; a lock
 serialises device work across client threads.
@@ -56,6 +59,13 @@ class ServingApp:
         sig = self.module.meta["functions"].get(fn_name)
         if sig is None:
             raise KeyError(fn_name)
+        if sig.get("kind") == "generator":
+            seed = np.asarray(x)
+            if seed.size != 1 or not np.issubdtype(seed.dtype, np.integer):
+                raise ValueError(f"{fn_name} expects one integer seed (or JSON {{\"seed\": N}}), "
+                                 f"got {seed.dtype} of shape {seed.shape}")
+            with self._lock:
+                return _to_numpy(self.module.fns[fn_name](int(seed.reshape(-1)[0])))
         if isinstance(sig["input"], dict):
             x = self._check_codes(fn_name, sig, x)
             b = next(iter(x.values())).shape[0]
@@ -155,8 +165,14 @@ def make_server(artifact: Union[str, ServingModule], host: str = "127.0.0.1",
             try:
                 raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
                 ctype = (self.headers.get("Content-Type") or _OCTET).split(";")[0]
-                dict_input = isinstance(module.meta["functions"][fn_name]["input"], dict)
-                if ctype == _JSON:
+                sig = module.meta["functions"][fn_name]
+                dict_input = isinstance(sig["input"], dict)
+                if ctype == _JSON and sig.get("kind") == "generator":
+                    body = json.loads(raw)
+                    if not isinstance(body, dict) or not isinstance(body.get("seed"), int):
+                        raise ValueError('JSON body must be {"seed": <int>}')
+                    x = np.asarray(body["seed"], np.int64)
+                elif ctype == _JSON:
                     body = json.loads(raw)
                     key = "codes" if dict_input else "windows"
                     if not isinstance(body, dict) or key not in body:

@@ -24,6 +24,7 @@ package's default (``ref_normalize=False``).
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -37,6 +38,9 @@ from ..ops.code_decode import decode_codes
 # programs are torch.export ones, so it carries a tag of its own
 FORMAT_TAG = "bridgerl-torch-serving-v1"
 JAX_FORMAT_TAG = "bridgerl-serving-v1"
+# the generator artifact (``export/serialize.py::build_generator_artifact``)
+GENERATOR_TAG = "bridgerl-torch-generator-v1"
+JAX_GENERATOR_TAG = "bridgerl-generator-v1"
 Stats = Tuple[np.ndarray, np.ndarray]
 
 
@@ -193,9 +197,20 @@ class ServingModule:
         unbounded FSQ)."""
         return self.fns["decode_codes"](codes)
 
+    def generate(self, seed: int, action: Optional[str] = None) -> torch.Tensor:
+        """Generator artifacts only: (n_samples, T, D) novel raw motion from
+        a seed, for ``action`` with a class-conditioned prior."""
+        name = f"generate_{action}" if action else "generate"
+        if name not in self.fns:
+            raise KeyError(f"{name!r} not in this artifact; functions: {sorted(self.fns)}")
+        return self.fns[name](seed)
+
     @property
     def window_size(self) -> int:
-        return int(self.meta["functions"]["retarget"]["input"][1])
+        fn = self.meta["functions"].get("retarget")
+        if fn is not None:
+            return int(fn["input"][1])
+        return int(json.loads(self.meta["prior_config_json"])["window"])
 
 
 def serving_meta(exp, source: str, ref_normalize: bool) -> Dict[str, Any]:

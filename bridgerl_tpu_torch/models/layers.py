@@ -151,6 +151,12 @@ def attention_bias(packing: int, seq_len: int, device=None) -> torch.Tensor:
     return bias.to(device=device, dtype=torch.float32)
 
 
+def causal_bias(seq_len: int, device=None) -> torch.Tensor:
+    """(S, S) additive f32 bias for K1 under a causal mask: 0 on and below
+    the diagonal, -1e9 above it (position i attends to the j <= i)."""
+    return torch.full((seq_len, seq_len), MASK_BIAS, device=device).triu(1)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype``, as flax's ``nn.Dense(dtype=...)``:
     input, weight and bias are cast to it, and so is the output. The
@@ -293,6 +299,26 @@ class TransformerStack(nn.Module):
         for layer in self.layers:
             h = layer(h, bias, train, generator, window=self.seq_len)
         return h.reshape(B, T, d)
+
+
+class MaskedTransformerStack(nn.Module):
+    """The blocks alone, under an (S, S) float32 bias the caller gives
+    (``bridgerl_tpu/models/layers.py::TransformerStack`` with a mask): no
+    positional table, any sequence length. Attention runs over whole rows
+    (``window`` = S), so K1 reads every entry of the bias."""
+
+    def __init__(self, num_layers: int, d_model: int, n_heads: int, ff_dim: int,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerBlock(d_model, n_heads, ff_dim, dropout, dtype)
+            for _ in range(num_layers))
+
+    def forward(self, h: torch.Tensor, bias: torch.Tensor, train: bool = False,
+                generator=None) -> torch.Tensor:
+        for layer in self.layers:
+            h = layer(h, bias, train, generator, window=h.shape[1])
+        return h
 
 
 class TransformerMotionEncoder(nn.Module):

@@ -3,8 +3,14 @@
 The counterpart of ``bridgerl_tpu/ops/pallas/attention.py``
 (``_packed_attention_fwd`` and ``_packed_attention_bwd``):
 ``out = dropout(softmax(q k^T * scale + bias)) v`` with an f32 softmax, where
-``bias`` is one (S, S) additive term shared by every row: the block-diagonal
-window mask as 0 / -1e9, or zeros.
+``bias`` is one (S, S) additive term shared by every row. Three biases are in
+use: the block-diagonal window mask as 0 / -1e9 (the towers), zeros, and the
+causal mask, 0 on and below the diagonal and -1e9 above it (the token prior,
+``models/token_prior.py``: its backbone at S = the positions, its slot-AR
+depth stack at S = the slots of a position). Any other (S, S) float32 bias
+computes the same function. flax masks with ``where(mask, logits,
+finfo.min)`` instead; in f32 both make ``expf`` of a masked logit exactly 0,
+so the two agree up to summation order.
 
 ``window`` W (default S; it must divide S) restricts the function to the
 diagonal (W, W) blocks of each row: query i attends only to the keys j with
@@ -245,6 +251,9 @@ def _bwd_smem_bytes(W: int, Dh: int) -> int:
 
 
 def _check(q, k, v, bias, seed, W, smem_bytes, extra=()):
+    """Refuse what the kernels cannot take. Any (S, S) float32 bias is taken:
+    the block-diagonal window mask, zeros and the causal mask are the
+    model's; the kernels read only its diagonal (W, W) blocks."""
     BH, S, Dh = q.shape
     for name, t in (("k", k), ("v", v), *extra):
         if t.shape != q.shape:

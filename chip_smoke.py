@@ -148,10 +148,41 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    ``multiseed_agree``: two seeds stacked, one f32 step at batch 512 and
    dropout 0, each seed held to the card's sequential step under
    train_agree's rule.
-15. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+15. ``k1_causal`` (with the kernel checks of phase 2): K1 forward and
+   backward under the token prior's causal bias over whole rows, f32 and
+   bf16, at (128, 128, 64) (training: the row kernels), (16384, 5, 64) (the
+   slot-AR depth stack: window tiles), dropout 0.1 and 0, and (16, 32, 64)
+   (sampling), each held to the plain version under the rules of phase 2,
+   with its bound for the lower triangle's work and SDPA ``is_causal=True``
+   as the library yardstick; ``k1_causal_mask``: both kernels' keep bits at
+   (128, 128, 128) equal to the plain Philox mask on and below the
+   diagonal, in both dtypes.
+16. ``prior``: 256 synthetic takes of 645 frames through the flagship (seed
+   0) give (256, 128, 5) code grids on the card (K1, K2); on 32 takes the
+   CPU's grids are equal but where K2's near-tie rule explains an RVQ flip
+   (an FSQ flip counts against CODES_AGREE). The full-width prior
+   (``scripts/train_prior.py``'s defaults) trains 3 timed epochs in f32 and
+   in bf16 (windows/s, tokens/s, losses), a slot-AR prior (2 depth layers)
+   one; one step at dropout 0 is held to the CPU under train_agree's and
+   train_agree_bf16's rules.
+17. ``generate``: 4 motions of 32 positions from the f32 prior, unguided,
+   guided (8 candidates, guide_dyn 0.2) and prompted (8 positions of a
+   take): every token the CPU's draw from the card's prefix with the same
+   Philox-Gumbel noise, but where the CPU's two best perturbed scores lie
+   within 1e-4 (counted); each guided choice the CPU's argmin over its own
+   candidates where no draw or score ties; decoded motion within 1e-3 of
+   the CPU's decode of the same grid; frames/s of ``make_generation_fn``
+   unguided and guided, as scripts/bench_generation.py counts them.
+18. ``generator_artifact``: the f32 prior and the flagship frozen (32
+   positions unrolled, cuda programs; export timed), loaded in a child
+   process (no models, train or config imported) and here; ``generate``
+   for a seed within 1e-5 of the live ``make_generation_fn`` in the child,
+   here and over HTTP (``{"seed": N}``).
+19. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk and int8 (cli includes cli_multiseed); counts
+   fk, int8, prior, generate and generator_artifact (cli includes
+   cli_multiseed); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls), then, last,
    ``{"ok": true, "device": {...}}``.
@@ -161,6 +192,7 @@ It exits non-zero and prints no result when CUDA is unavailable.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -187,20 +219,43 @@ from bridgerl_tpu_torch.config import (
     make_experiment,
 )
 from bridgerl_tpu_torch.data.dataset import PairedDataset, train_val_split
+from bridgerl_tpu_torch.data.synthetic import synth_pair
 from bridgerl_tpu_torch.export.client import ServingClient
 from bridgerl_tpu_torch.export.motion_export import load_model_from_checkpoint, robot_recon_fn
 from bridgerl_tpu_torch.export.reconstruct import reconstruct_long_sequence
-from bridgerl_tpu_torch.export.serialize import build_serving_artifact, load_serving_artifact
+from bridgerl_tpu_torch.export.serialize import (
+    build_generator_artifact,
+    build_serving_artifact,
+    load_serving_artifact,
+)
 from bridgerl_tpu_torch.export.server import ServingApp, make_server
 from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.export.streaming import StreamingRetargeter, window_starts
 from bridgerl_tpu_torch.models import init_model
-from bridgerl_tpu_torch.models.layers import attention_bias
+from bridgerl_tpu_torch.models.layers import attention_bias, causal_bias
 from bridgerl_tpu_torch.models.stacked import stack_models
+from bridgerl_tpu_torch.models.token_prior import (
+    filter_logits,
+    init_prior,
+    position_noise,
+    prior_loss,
+    sample_grids,
+    sample_grids_guided,
+)
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
 from bridgerl_tpu_torch.sim import fk_numpy, load_g1_chain, make_batched_fk
 from bridgerl_tpu_torch.train.checkpoint import load_checkpoint
 from bridgerl_tpu_torch.train.codebook_seed import JITTER
+from bridgerl_tpu_torch.train.prior import (
+    PriorTrainConfig,
+    decode_grid,
+    epoch_order,
+    extract_code_grids,
+    make_decode_window_fn,
+    make_generation_fn,
+    split_indices,
+    train_prior,
+)
 from bridgerl_tpu_torch.train.multiseed import (
     MultiSeedTrainer,
     make_stacked_train_epoch,
@@ -321,6 +376,30 @@ RECIPE_WINDOW, RECIPE_EPOCHS, RECIPE_SEED, RECIPE_BATCH = 64, 2, 42, 256
 RECIPE_FLAGS = ("--codebook_data_init", "--cheap_dropout", "--reuse_dropout_mask",
                 "--accum_chunks", "4")
 RECIPE_MOTIONS = 2
+# the token prior: K1 under the causal bias at the prior's shapes (B*H, S, Dh, dropout):
+# training (batch 32 x 4 heads, 128 positions), the slot-AR depth stack (32 x 128 rows of
+# 5 slots x 4 heads) and sampling (4 samples x 4 heads, 32 positions)
+K1_CAUSAL = ((128, 128, 64, 0.1), (128, 128, 64, 0.0), (16384, 5, 64, 0.1),
+             (16384, 5, 64, 0.0), (16, 32, 64, 0.0))
+# synthetic takes of 645 frames: 128 windows each at W 10 and stride 5, one grid a take
+PRIOR_TAKES, PRIOR_FRAMES, PRIOR_POSITIONS, PRIOR_STRIDE = 256, 645, 128, 5
+PRIOR_EPOCHS = 3
+PRIOR_CPU_TAKES = 32          # the takes whose grids the CPU also extracts
+ZERO29, ONE29 = np.zeros(29, np.float32), np.ones(29, np.float32)   # raw in, raw out
+# sampling: motions a call, positions, guided candidates and dynamics weight (the
+# README's recommended policy), prompt positions, the seed
+GEN_SAMPLES, GEN_POSITIONS, GEN_CANDIDATES, GEN_DYN, GEN_PROMPT, GEN_SEED = 4, 32, 8, 0.2, 8, 7
+GEN_TIE = 1e-4                # the CPU's two best perturbed scores this close: not compared
+GEN_ATOL = 1e-3               # decoded motion, card against the CPU, on the same grid
+# loads the generator artifact in a child process, generates for a seed into a file
+GENERATOR_LOAD_PROBE = (
+    "import json, sys\n"
+    "import numpy as np\n"
+    "from bridgerl_tpu_torch.export.serialize import load_serving_artifact\n"
+    "mod = load_serving_artifact(sys.argv[1])\n"
+    "out = mod.generate(int(sys.argv[2])).cpu().numpy()\n"
+    "np.save(sys.argv[3], out)\n"
+    "print(json.dumps({'device': str(mod.device), 'modules': sorted(sys.modules)}))\n")
 
 
 def emit(obj) -> None:
@@ -388,6 +467,12 @@ def k1_bound(dtype, elements: int, flops: int):
 
 def launches() -> dict:
     return {name: c.count for name, c in kernels.COUNTERS.items()}
+
+
+def _delta(before: dict) -> dict:
+    """The launches since ``before``."""
+    now = launches()
+    return {k: now[k] - before[k] for k in now}
 
 
 def add_launches(*deltas: dict) -> dict:
@@ -615,19 +700,24 @@ def _device_ops(fn, reps: int = 10) -> dict:
             "device_ms_by_kernel": {name[:80]: ms for name, _, ms in rows}}
 
 
-def _k2_device_ops(x, cb, attempts: int = 3) -> dict:
+def _k2_device_ops(x, cb, attempts: int = 3, empty_retries: int = 3) -> dict:
     """K2's device operations, counted by kernel name over the profiled
     calls. In every profile each record is one of its two kernels (no fill,
     no copy) and neither kernel has more records than calls. torch.profiler
     loses activity records now and then (19 of 20 records in one profile,
     all 20 in another; PERF.md §6), so a profile short of one record of each
     kernel a call is taken again, up to ``attempts`` profiles, each listed
-    in ``profiles``; the check fails when none is whole."""
+    in ``profiles``; the check fails when none is whole. A profile with no
+    device record at all is a profile that traced nothing (two in a row
+    have been seen): it says nothing of K2 and is taken again without using
+    an attempt, up to ``empty_retries`` times."""
     profiles = []
-    for _ in range(attempts):
+    while len(profiles) < attempts + empty_retries:
         ops = _device_ops(lambda: vq_kernel.nearest_codes_cuda(x, cb))
         calls, records = ops["calls"], ops["device_records_by_kernel"]
         profiles.append(records)
+        if not records and sum(1 for p in profiles if not p) <= empty_retries:
+            continue
         per_kernel = {k: sum(n for name, n in records.items() if k in name)
                       for k in K2_KERNELS}
         require(sum(per_kernel.values()) == sum(records.values())
@@ -636,6 +726,8 @@ def _k2_device_ops(x, cb, attempts: int = 3) -> dict:
                 f"{K2_KERNELS} a call")
         if all(n == calls for n in per_kernel.values()):
             return {**ops, "profiles": profiles}
+        if sum(1 for p in profiles if p) >= attempts:
+            break
     raise AssertionError(f"K2: no profile of {attempts} holds {K2_DEVICE_OPS} records a "
                          f"call: {profiles}")
 
@@ -1178,35 +1270,41 @@ def train_agree() -> tuple:
 
 def train_agree_bf16(cpu32: tuple) -> dict:
     """The same batch in bf16 on the card and on the CPU, held to the CPU's
-    float32 step: the card's loss and each gradient no farther from float32
-    (in relative norm) than BF16_FACTOR times the CPU's bf16 ones; the loss
-    may always be one bf16 rounding of itself off."""
-    (l32, g32), (l_gpu, g_gpu), (l_cpu, g_cpu) = (cpu32, _agree_step("cuda", BF16),
-                                                  _agree_step("cpu", BF16))
-    card, own = abs(l_gpu - l32), abs(l_cpu - l32)
-    require(card <= max(BF16_FACTOR * own, BF16_LOSS_FLOOR * abs(l32)),
-            f"train_agree_bf16: loss {l_gpu}, CPU bf16 {l_cpu}, CPU float32 {l32}")
+    float32 step under _bf16_step_rule."""
+    res = {"phase": "train_agree_bf16", "batch": AGREE_BATCH,
+           **_bf16_step_rule("train_agree_bf16", cpu32, _agree_step("cuda", BF16),
+                             _agree_step("cpu", BF16))}
+    emit(res)
+    return res
+
+
+def _bf16_step_rule(what: str, cpu32: tuple, card: tuple, cpu16: tuple) -> dict:
+    """(loss, gradients) of a bf16 step on the card and on the CPU, each
+    held to the CPU's float32 step: the card's loss and each gradient no
+    farther from float32 (in relative norm) than BF16_FACTOR times the CPU's
+    bf16 ones; the loss may always be one bf16 rounding of itself off."""
+    (l32, g32), (l_gpu, g_gpu), (l_cpu, g_cpu) = cpu32, card, cpu16
+    err, own = abs(l_gpu - l32), abs(l_cpu - l32)
+    require(err <= max(BF16_FACTOR * own, BF16_LOSS_FLOOR * abs(l32)),
+            f"{what}: loss {l_gpu}, CPU bf16 {l_cpu}, CPU float32 {l32}")
     require(sorted(g_gpu) == sorted(g_cpu) == sorted(g32) and g32,
-            "train_agree_bf16: gradient sets differ")
+            f"{what}: gradient sets differ")
     rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
     worst, worst_name, ratios = 0.0, "", []
     for name, gc in g32.items():
         r_card, r_own = rel(g_gpu[name], gc), rel(g_cpu[name], gc)
         require(r_card <= BF16_FACTOR * r_own,
-                f"train_agree_bf16: {name} gradient {r_card} from float32, the CPU "
-                f"bf16's {r_own}")
+                f"{what}: {name} gradient {r_card} from float32, the CPU bf16's {r_own}")
         ratios.append(r_card / max(r_own, 1e-30))
         if r_card > worst:
             worst, worst_name = r_card, name
-    res = {"phase": "train_agree_bf16", "batch": AGREE_BATCH, "loss_cuda_bf16": l_gpu,
-           "loss_cpu_bf16": l_cpu, "loss_cpu_f32": l32, "loss_rel_err_vs_f32": card / abs(l32),
-           "cpu_bf16_loss_rel_err_vs_f32": own / abs(l32), "params_compared": len(g32),
-           "worst_grad_rel_norm_err_vs_f32": worst, "worst_param": worst_name,
-           "cpu_bf16_grad_rel_norm_err_vs_f32_for_it": rel(g_cpu[worst_name], g32[worst_name]),
-           "max_ratio_to_cpu_bf16": max(ratios), "median_ratio_to_cpu_bf16":
-           statistics.median(ratios)}
-    emit(res)
-    return res
+    return {"loss_cuda_bf16": l_gpu, "loss_cpu_bf16": l_cpu, "loss_cpu_f32": l32,
+            "loss_rel_err_vs_f32": err / abs(l32), "cpu_bf16_loss_rel_err_vs_f32": own / abs(l32),
+            "params_compared": len(g32), "worst_grad_rel_norm_err_vs_f32": worst,
+            "worst_param": worst_name,
+            "cpu_bf16_grad_rel_norm_err_vs_f32_for_it": rel(g_cpu[worst_name], g32[worst_name]),
+            "max_ratio_to_cpu_bf16": max(ratios),
+            "median_ratio_to_cpu_bf16": statistics.median(ratios)}
 
 
 def train_breakdown(dtype=torch.float32, reps: int = 1) -> dict:
@@ -2251,6 +2349,443 @@ def cli_multiseed(workdir: str, smi: str) -> dict:
     return line
 
 
+# ---------------------------------------------------------------- phases 16-19: the token prior
+
+def _causal_case(g, dtype, direction: str, BH, S, Dh, rate) -> dict:
+    """K1 (``direction`` fwd or bwd) under the prior's causal bias over whole
+    rows (window = S) against the plain version, with its bound for the
+    lower triangle's work, and the plain version's and SDPA's
+    ``is_causal=True`` times beside the kernel's."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype) for _ in range(3))
+    do = torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
+    bias, scale, seed = causal_bias(S, "cuda"), Dh ** -0.5, attention.draw_seed(g, "cuda")
+    pairs = S * (S + 1) // 2        # the (query, key) pairs the causal bias leaves
+    if direction == "fwd":
+        run = lambda: [attention.attention_fwd(q, k, v, bias, scale, seed, rate)]
+        plain = lambda: [attention.packed_attention_reference(q, k, v, bias, scale, seed, rate)]
+        library = lambda: sdpa(q, k, v, is_causal=True, scale=scale, dropout_p=rate)
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * pairs * Dh)
+    else:
+        run = lambda: list(attention.attention_bwd(q, k, v, bias, do, scale, seed, rate))
+        plain = lambda: list(attention.packed_attention_bwd_reference(q, k, v, bias, do, scale,
+                                                                      seed, rate))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o = sdpa(qg, kg, vg, is_causal=True, scale=scale, dropout_p=rate)
+        library = lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * pairs * Dh)
+    name = attention.ENTRY[direction, dtype]
+    got = run()
+    torch.cuda.synchronize()
+    case = {"shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "bias": "causal", "window": S,
+            "dropout": rate, **_agreement(f"{name} causal {BH, S, Dh} dropout {rate}", got,
+                                          plain(), dtype),
+            "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(run),
+            "ms_cold": time_ms(run, cold=True), "plain_ms": time_ms(plain, iters=10),
+            "library_ms": time_ms(library), "library": "sdpa is_causal=True"}
+    emit({"phase": "k1_causal", "name": name, **case})
+    return case
+
+
+def check_k1_causal(g: torch.Generator, table: list) -> dict:
+    """K1 forward and backward under the causal bias at the prior's shapes
+    (K1_CAUSAL), f32 and bf16, each case appended to its kernel's row of
+    ``table``; then the keep mask of both kernels, both dtypes, at S = 128
+    (the row kernels): bit for bit the plain Philox mask on and below the
+    diagonal, nothing kept above it."""
+    rows = {r["name"]: r for r in table}
+    for dtype in DTYPES:
+        for direction in ("fwd", "bwd"):
+            row = rows[attention.ENTRY[direction, dtype]]
+            row["cases"] += [_causal_case(g, dtype, direction, *shape) for shape in K1_CAUSAL]
+    BH, S, Dh = 128, 128, 128
+    lower = torch.ones(S, S, device="cuda").tril().bool()
+    out = {"phase": "k1_causal_mask", "shape": [BH, S, Dh], "dropout": DROPOUT}
+    for dtype in DTYPES:
+        q, k = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype) for _ in range(2))
+        eye = torch.eye(S, Dh, device="cuda", dtype=dtype).expand(BH, S, Dh).contiguous()
+        bias, seed = causal_bias(S, "cuda"), attention.draw_seed(g, "cuda")
+        fwd = attention.attention_fwd(q, k, eye, bias, Dh ** -0.5, seed, DROPOUT)[:, :, :S] > 0
+        dv = attention.attention_bwd(q, k, eye, bias, eye, Dh ** -0.5, seed, DROPOUT)[2]
+        bwd = dv[:, :S, :S].transpose(1, 2) > 0
+        want = attention.attention_dropout_mask(seed, BH, S, DROPOUT, "cuda") & lower
+        for what, got in (("fwd", fwd), ("bwd", bwd)):
+            require(torch.equal(got, want), f"K1 {what} {DTYPE_NAME[dtype]} causal keep mask "
+                    f"differs in {int((got != want).sum())}")
+        out[f"{DTYPE_NAME[dtype]}_kept_share"] = fwd.sum().item() / (int(lower.sum()) * BH)
+    out["mask_equal"] = True
+    emit(out)
+    return out
+
+
+def _prior_takes() -> list:
+    """PRIOR_TAKES synthetic robot takes of PRIOR_FRAMES frames (data/synthetic.py),
+    so PRIOR_POSITIONS windows each at W 10, stride 5."""
+    rng = np.random.default_rng(SEED + 11)
+    return [synth_pair(rng, PRIOR_FRAMES)[0] for _ in range(PRIOR_TAKES)]
+
+
+def _code_flips(model, exp, takes: list, got: np.ndarray, want: np.ndarray,
+                mask: np.ndarray) -> dict:
+    """Positions whose codes differ between ``got`` (the card's grids) and
+    ``want`` (the CPU's) over ``takes``, each explained or not by K2's
+    near-tie rule: at the first RVQ stage where they differ, the two codes'
+    plain distances to the CPU's residual lie within K2_TIE * (1 + |d|). An
+    FSQ flip (a rounding boundary, not K2) counts against CODES_AGREE."""
+    differ = (got != want).any(-1) & (mask > 0)
+    rows = np.argwhere(differ)
+    out = {"positions": int(mask.sum()), "positions_differ": len(rows), "fsq_flips": 0,
+           "rvq_near_ties": 0, "rvq_not_ties": 0}
+    if not len(rows):
+        return out
+    W, stride = exp.model.window_size, PRIOR_STRIDE
+    x = np.stack([takes[i][t * stride:t * stride + W] for i, t in rows])
+    with torch.no_grad():
+        q = model.quantizer
+        z = model.encode_robot(torch.from_numpy(x))
+        _, z_fsq, _, _ = q.fsq(z)
+        residual = (z - z_fsq)[:, 0]
+    g, w = got[tuple(rows.T)], want[tuple(rows.T)]
+    open_rows = g[:, 0] == w[:, 0]
+    out["fsq_flips"] = int((~open_rows).sum())
+    for i, layer in enumerate(q.vq.layers):
+        cb = layer.embedding.weight.float()
+        d = (residual ** 2).sum(-1, keepdim=True) - 2 * residual @ cb.T + (cb ** 2).sum(-1)
+        gi, wi = torch.from_numpy(g[:, 1 + i]).long(), torch.from_numpy(w[:, 1 + i]).long()
+        flip = open_rows & (g[:, 1 + i] != w[:, 1 + i])
+        dg, dw = d.gather(1, gi[:, None])[:, 0], d.gather(1, wi[:, None])[:, 0]
+        tie = ((dg - dw).abs() <= K2_TIE * (1 + dw.abs())).numpy()
+        out["rvq_near_ties"] += int((flip & tie).sum())
+        out["rvq_not_ties"] += int((flip & ~tie).sum())
+        open_rows = open_rows & ~flip
+        residual = residual - cb[wi]
+    require(out["rvq_not_ties"] == 0, f"prior grids: RVQ codes differ outside near ties {out}")
+    require(out["fsq_flips"] <= (1 - CODES_AGREE) * out["positions"] + 1,
+            f"prior grids: FSQ codes differ on too many positions {out}")
+    return out
+
+
+def _prior_config(pcfg, **over):
+    """scripts/train_prior.py's full width over the extracted code space."""
+    return dataclasses.replace(pcfg, d_model=256, n_heads=4, n_layers=4, ff_dim=512,
+                               dropout=0.1, **over)
+
+
+def _prior_tcfg(epochs: int, dtype) -> PriorTrainConfig:
+    return PriorTrainConfig(epochs=epochs, batch_size=32, lr=3e-4, weight_decay=0.01,
+                            patience=-1, seed=SEED, compute_dtype=DTYPE_NAME[dtype])
+
+
+def _prior_train(grids, mask, seq_ids, pcfg, dtype, epochs: int) -> tuple:
+    """train_prior on the card after a one-epoch warm-up call: (the prior,
+    history, seconds of the timed call, train positions an epoch)."""
+    tcfg = _prior_tcfg(epochs, dtype)
+    train_prior(grids, mask, pcfg, _prior_tcfg(1, dtype), verbose=False, seq_ids=seq_ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prior, hist = train_prior(grids, mask, pcfg, tcfg, verbose=False, seq_ids=seq_ids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_idx, _ = split_indices(len(grids), tcfg, seq_ids)
+    order = epoch_order(train_idx, tcfg, 0)
+    return prior, hist, seconds, float(mask[order.reshape(-1)].sum())
+
+
+def _prior_step(pcfg, dtype, dev: str, g: np.ndarray, m: np.ndarray) -> tuple:
+    """(loss, gradients) of one prior step at dropout 0 from seed 0's weights."""
+    prior = init_prior(dataclasses.replace(pcfg, dropout=0.0), SEED, DTYPE_NAME[dtype],
+                       device=dev)
+    gt, mt = torch.from_numpy(g).long().to(dev), torch.from_numpy(m).to(dev)
+    loss = prior_loss(prior(gt, train=True), gt, mt)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in prior.named_parameters()
+                         if p.grad is not None}
+
+
+def prior_path(smi: str) -> tuple:
+    """The token prior on the flagship's codes: PRIOR_TAKES synthetic takes
+    through the flagship (seed 0) give code grids on the card, held to the
+    CPU's on PRIOR_CPU_TAKES takes (_code_flips); the full-width prior
+    trains in f32 and bf16 for PRIOR_EPOCHS timed epochs (windows/s and
+    tokens/s, per-epoch losses), a slot-AR prior (2 depth layers) for one;
+    one step at dropout 0 on the card against the CPU under train_agree's
+    float32 rule and train_agree_bf16's bf16 rule. Returns the line and
+    (the f32 prior, the flagship, its experiment, grids, mask) for the
+    generation phases."""
+    t_phase = time.perf_counter()
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8)
+    takes = _prior_takes()
+    vq = init_model(exp.model, SEED)
+    own = []
+    before = launches()
+    t0 = time.perf_counter()
+    grids, mask, pcfg, seq_ids = extract_code_grids(vq, exp, takes, ZERO29, ONE29, PRIOR_STRIDE,
+                                                    max_len=PRIOR_POSITIONS)
+    extract_s = time.perf_counter() - t0
+    own.append(_delta(before))
+    require(grids.shape == (PRIOR_TAKES, PRIOR_POSITIONS, 5) and mask.all(),
+            f"prior grids {grids.shape}, {mask.sum()} positions")
+    n = PRIOR_CPU_TAKES
+    cpu_vq = init_model(exp.model, SEED, device="cpu")
+    cpu = extract_code_grids(cpu_vq, exp, takes[:n], ZERO29, ONE29, PRIOR_STRIDE,
+                             max_len=PRIOR_POSITIONS)
+    flips = _code_flips(cpu_vq, exp, takes[:n], grids[:n], cpu[0], cpu[1])
+    line = {"phase": "prior", "card": smi, "takes": PRIOR_TAKES, "grids": list(grids.shape),
+            "extract_windows": int(mask.sum()), "extract_s": extract_s,
+            "extract_windows_per_s": float(mask.sum()) / extract_s,
+            "cpu_checked_takes": n, "codes_vs_cpu": flips}
+    prior32 = None
+    for dtype in DTYPES:
+        full = _prior_config(pcfg)
+        before = launches()
+        prior, hist, seconds, positions = _prior_train(grids, mask, seq_ids, full, dtype,
+                                                       PRIOR_EPOCHS)
+        own.append(_delta(before))
+        require(all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
+                f"prior {DTYPE_NAME[dtype]} losses {hist}")
+        rate = PRIOR_EPOCHS * positions / seconds
+        line[DTYPE_NAME[dtype]] = {
+            "epochs": PRIOR_EPOCHS, "train_s": seconds, "windows_per_s": rate,
+            "tokens_per_s": rate * len(pcfg.vocab_sizes), "history": hist}
+        if dtype == torch.float32:
+            prior32 = prior
+    before = launches()
+    _, hist, seconds, positions = _prior_train(
+        grids, mask, seq_ids, _prior_config(pcfg, slot_ar=True, depth_layers=2),
+        torch.float32, 1)
+    own.append(_delta(before))
+    require(all(np.isfinite(hist["train_loss"])), f"slot-AR prior losses {hist}")
+    line["slot_ar"] = {"epochs": 1, "depth_layers": 2, "train_s": seconds,
+                       "windows_per_s": positions / seconds, "history": hist}
+    g, m = grids[:32], mask[:32]
+    full = _prior_config(pcfg)
+    cpu32 = _prior_step(full, torch.float32, "cpu", g, m)
+    line["step_agree"] = _agree_rule("prior step_agree",
+                                     _prior_step(full, torch.float32, "cuda", g, m), cpu32)
+    line["step_agree_bf16"] = _bf16_step_rule(
+        "prior step_agree_bf16", cpu32, _prior_step(full, BF16, "cuda", g, m),
+        _prior_step(full, BF16, "cpu", g, m))
+    line["launches"] = add_launches(*own)
+    line["prior_path_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return line, (prior32, vq, exp, grids, mask)
+
+
+def _replay_draws(cpu_prior, grid: torch.Tensor, seed: int, rows: int, pick, t0: int,
+                  **kw) -> dict:
+    """The CPU's draws from the card's prefix: teacher-forced logits on the
+    card's ``grid`` (B, N, S), filtered, plus the same Philox-Gumbel noise
+    (rows of ``rows`` a position; ``pick`` (B, N) the row each sample's kept
+    token came from) -> argmax. Every token from position ``t0`` on must be
+    the card's unless the CPU's two best perturbed scores lie within GEN_TIE."""
+    B, N, S = grid.shape
+    noise = position_noise(cpu_prior, torch.tensor(seed), N, rows)       # (N, S, rows, V)
+    with torch.no_grad():
+        logits = cpu_prior(grid.long())
+    ties = mismatches = 0
+    for s, lg in enumerate(logits):
+        nz = noise[torch.arange(N)[None, :], s, pick][..., :lg.shape[-1]]  # (B, N, V)
+        scores = filter_logits(lg, **kw) + nz
+        top2 = scores.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) <= GEN_TIE
+        bad = (scores.argmax(-1) != grid[..., s].long()) & ~tie
+        ties += int(tie[:, t0:].sum())
+        mismatches += int(bad[:, t0:].sum())
+    require(mismatches == 0, f"generate: {mismatches} tokens differ from the CPU's draw")
+    return {"tokens": B * (N - t0) * S, "near_ties": ties, "mismatches": 0}
+
+
+def _gen_rate(fn, frames: int) -> float:
+    """frames/s of ``fn`` (one call makes GEN_SAMPLES motions of ``frames``),
+    as scripts/bench_generation.py counts it: median of 3 calls after one."""
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fn(100 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return GEN_SAMPLES * frames / statistics.median(times[1:])
+
+
+def generate_path(smi: str, prior, vq, exp, grids) -> dict:
+    """GEN_SAMPLES motions of GEN_POSITIONS positions from the f32 prior on
+    the card, unguided, guided (GEN_CANDIDATES candidates, guide_dyn
+    GEN_DYN) and prompted (the first take's first GEN_PROMPT positions):
+    every token the CPU's draw from the card's prefix (_replay_draws); the
+    guided choices the CPU's argmin of the overlap score over its own
+    candidates, where no candidate's draw and no score is a near tie; the
+    decoded motions within GEN_ATOL of the CPU's decode of the card's grids.
+    frames/s of make_generation_fn, unguided and guided."""
+    t_phase = time.perf_counter()
+    pcfg = prior.cfg
+    cpu_prior, cpu_vq = copy.deepcopy(prior).cpu(), init_model(exp.model, SEED, device="cpu")
+    B, N, C = GEN_SAMPLES, GEN_POSITIONS, GEN_CANDIDATES
+    frames = pcfg.stride * (N - 1) + pcfg.window
+    line = {"phase": "generate", "card": smi, "samples": B, "positions": N,
+            "frames_per_motion": frames}
+    own = []
+    decode = make_decode_window_fn(vq, exp, pcfg, ZERO29, ONE29)
+    cpu_decode = make_decode_window_fn(cpu_vq, exp, pcfg, ZERO29, ONE29)
+    prompt = grids[0, :GEN_PROMPT]
+    runs = {"unguided": {}, "prompted": {"prompt": prompt},
+            "guided": {"guide": True}}
+    for name, kw in runs.items():
+        seed = GEN_SEED
+        before = launches()
+        with torch.inference_mode():
+            if kw.get("guide"):
+                grid, choices = sample_grids_guided(prior, seed, B, N, decode, candidates=C,
+                                                    dyn_weight=GEN_DYN, return_choices=True)
+            else:
+                grid = sample_grids(prior, seed, B, N, prompt=kw.get("prompt"))
+            wins = decode_grid(vq, exp, pcfg, grid, *_stats29(vq))
+        torch.cuda.synchronize()
+        own.append(_delta(before))
+        grid = grid.cpu()
+        t0 = GEN_PROMPT if name == "prompted" else 0
+        res = {}
+        if kw.get("guide"):
+            pick = torch.arange(B)[:, None] * C + choices.cpu()
+            res["draws"] = _replay_draws(cpu_prior, grid, seed, B * C, pick, t0)
+            res["choices"] = _replay_choices(cpu_prior, cpu_decode, grid, choices.cpu(), seed)
+        else:
+            pick = torch.arange(B)[:, None].expand(B, N)
+            res["draws"] = _replay_draws(cpu_prior, grid, seed, B, pick, t0)
+        if name == "prompted":
+            require(torch.equal(grid[:, :GEN_PROMPT].long(),
+                                torch.from_numpy(prompt).long().expand(B, -1, -1)),
+                    "generate: the prompt was not kept")
+        with torch.no_grad():
+            want = decode_grid(cpu_vq, exp, pcfg, grid, *_stats29(cpu_vq))
+        err = float((wins.cpu() - want).abs().max())
+        require(bool(torch.isfinite(wins).all()) and err <= GEN_ATOL,
+                f"generate {name}: decoded windows {err} from the CPU's")
+        res["decode_max_abs_err_vs_cpu"] = err
+        line[name] = res
+    for name, guide in (("unguided", 0), ("guided", C)):
+        fn = make_generation_fn(vq, exp, prior, ZERO29, ONE29, n_positions=N, n_samples=B,
+                                guide_candidates=guide, guide_dyn=GEN_DYN if guide else 0.0)
+        before = launches()
+        line[name]["frames_per_s"] = _gen_rate(fn, frames)
+        own.append(_delta(before))
+    line["launches"] = add_launches(*own)
+    line["generate_path_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
+def _stats29(model) -> tuple:
+    """Identity stats (raw motion) on ``model``'s device."""
+    dev = next(model.parameters()).device
+    return torch.zeros(29, device=dev), torch.ones(29, device=dev)
+
+
+def _replay_choices(cpu_prior, cpu_decode, grid: torch.Tensor, choices: torch.Tensor,
+                    seed: int) -> dict:
+    """The guided choices against the CPU's: from the card's prefix, the CPU
+    draws every candidate (the same noise rows), decodes them and takes the
+    argmin of the overlap score against the decode of the card's previous
+    position. A position whose CPU candidate draws hold a near tie, or whose
+    two best scores lie within GEN_TIE relative, is not compared."""
+    B, N, S = grid.shape
+    C, pcfg = GEN_CANDIDATES, cpu_prior.cfg
+    ov, stride = pcfg.window - pcfg.stride, pcfg.stride
+    noise = position_noise(cpu_prior, torch.tensor(seed), N, B * C)
+    compared = skipped = 0
+    with torch.no_grad():
+        ctx = cpu_prior(grid.long(), mode="context")
+        heads = cpu_prior(mode="position_logits", ctx=ctx.reshape(B * N, -1))
+        prev = cpu_decode(grid[:, 0].long())
+        for t in range(1, N):
+            tie = torch.zeros(B, dtype=torch.bool)
+            cand = torch.zeros(B * C, S, dtype=torch.int64)
+            for s, lg in enumerate(heads):
+                lg = lg.reshape(B, N, -1)[:, t].repeat_interleave(C, dim=0)
+                scores = lg + noise[t, s][:, :lg.shape[-1]]
+                top2 = scores.topk(2, dim=-1).values
+                tie |= ((top2[:, 0] - top2[:, 1]) <= GEN_TIE).reshape(B, C).any(1)
+                cand[:, s] = scores.argmax(-1)
+            wins = cpu_decode(cand).reshape(B, C, pcfg.window, -1)
+            score = ((wins[:, :, :ov] - prev[:, None, stride:]) ** 2).mean(dim=(2, 3))
+            score = score - GEN_DYN * wins.diff(dim=2).abs().mean(dim=(2, 3))
+            best2 = score.topk(2, dim=1, largest=False).values
+            tie |= (best2[:, 1] - best2[:, 0]) <= GEN_TIE * best2[:, 0].abs().clamp_min(1e-30)
+            ok = tie | (score.argmin(1) == choices[:, t])
+            require(bool(ok.all()), f"generate guided: position {t} choices "
+                    f"{choices[:, t].tolist()} vs the CPU's {score.argmin(1).tolist()}")
+            compared += int((~tie).sum())
+            skipped += int(tie.sum())
+            prev = cpu_decode(grid[:, t].long())
+    return {"compared": compared, "near_ties": skipped}
+
+
+def generator_artifact_path(smi: str, prior, vq, exp) -> dict:
+    """The f32 prior and the flagship frozen into a generator artifact
+    (unguided, GEN_SAMPLES x GEN_POSITIONS, cuda programs; export timed),
+    loaded in a child process (which must import no models, train or
+    config) and here; ``generate`` for a seed within 1e-5 of the live
+    make_generation_fn, in the child, here and over HTTP (``{"seed": N}``)."""
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_generator_")
+    try:
+        path = os.path.join(workdir, "generator.zip")
+        t0 = time.perf_counter()
+        meta = build_generator_artifact(vq, exp, prior, path, n_positions=GEN_POSITIONS,
+                                        n_samples=GEN_SAMPLES, platforms=("cuda",))
+        export_s = time.perf_counter() - t0
+        live_fn = make_generation_fn(vq, exp, prior, ZERO29, ONE29, n_positions=GEN_POSITIONS,
+                                     n_samples=GEN_SAMPLES)
+        with torch.inference_mode():
+            live = live_fn(GEN_SEED).cpu().numpy()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        child_out = os.path.join(workdir, "child.npy")
+        r = subprocess.run([sys.executable, "-c", GENERATOR_LOAD_PROBE, path, str(GEN_SEED),
+                            child_out], env=env, capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT_S)
+        require(r.returncode == 0, f"generator load in a child: rc {r.returncode}\n"
+                f"{r.stderr[-3000:]}")
+        child = json.loads(r.stdout.strip().splitlines()[-1])
+        model_code = [m for m in child["modules"] if m.split(".")[:2] in (
+            ["bridgerl_tpu_torch", "models"], ["bridgerl_tpu_torch", "train"],
+            ["bridgerl_tpu_torch", "config"])]
+        require(not model_code and child["device"].startswith("cuda"),
+                f"generator in a child: {child['device']}, imported {model_code}")
+        errs = {"child": float(np.abs(np.load(child_out) - live).max())}
+        t0 = time.perf_counter()
+        art = load_serving_artifact(path)
+        load_s = time.perf_counter() - t0
+        before = launches()
+        got = art.generate(GEN_SEED).cpu().numpy()
+        own = _delta(before)
+        errs["here"] = float(np.abs(got - live).max())
+        srv = make_server(art, port=0)
+        th = threading.Thread(target=srv.handle_request, daemon=True)
+        th.start()
+        host, port = srv.server_address
+        status, body = _http_post(f"http://{host}:{port}", "/v1/generate",
+                                  json.dumps({"seed": GEN_SEED}).encode(), "application/json")
+        th.join(60)
+        srv.server_close()
+        require(status == 200, f"generator over HTTP: {status} {body[:300]}")
+        errs["http"] = float(np.abs(np.asarray(json.loads(body)["windows"], np.float32)
+                                    - live).max())
+        shape = [GEN_SAMPLES, PRIOR_STRIDE * (GEN_POSITIONS - 1) + 10, 29]
+        require(list(got.shape) == shape and np.isfinite(got).all(), f"generator {got.shape}")
+        require(max(errs.values()) <= ARTIFACT_ATOL, f"generator vs live: {errs}")
+        line = {"phase": "generator_artifact", "card": smi, "positions": GEN_POSITIONS,
+                "samples": GEN_SAMPLES, "export_s": export_s,
+                "export_s_by_platform": meta["export_seconds"], "load_s": load_s,
+                "artifact_bytes": os.path.getsize(path), "max_abs_err_vs_live": errs,
+                "child_device": child["device"], "launches": own,
+                "generator_artifact_path_s": time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit(line)
+    return line
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2273,6 +2808,7 @@ def main(argv) -> int:
              check_k1_bwd(g, BF16)]
     for dtype in DTYPES:
         check_k1_mask(g, dtype)
+    check_k1_causal(g, table)
 
     serve, requests = {}, {}
     for dtype in DTYPES:
@@ -2318,6 +2854,10 @@ def main(argv) -> int:
     recipe = recipe_path(smi)
     multiseed = multiseed_path(smi)
     int8 = int8_path(smi)
+    prior, (prior32, vq, vq_exp, grids, _) = prior_path(smi)
+    generate = generate_path(smi, prior32, vq, vq_exp, grids)
+    generator = generator_artifact_path(smi, prior32, vq, vq_exp)
+    del prior32, vq
     # the phases with profiler sessions come last, so that no timed phase
     # runs after them (PERF.md §6: bf16 serving timed after one read slower)
     fk = fk_path(smi)
@@ -2337,7 +2877,8 @@ def main(argv) -> int:
              "train": train[torch.float32], "train_bf16": train[BF16], "zoo": zoo, "cli": cli,
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
-             "fk": fk, "int8": int8}
+             "fk": fk, "int8": int8, "prior": prior, "generate": generate,
+             "generator_artifact": generator}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -829,3 +829,104 @@ def test_stacked_step_on_the_card_matches_the_cpu(gen):
         for s in range(2):
             rel = (g_gpu[name][s] - gc[s]).norm() / gc[s].norm().clamp_min(1e-30)
             assert rel.item() <= 1e-3, (name, s)
+
+
+# ---------------------------------------------------------------- the token prior
+
+CAUSAL_SHAPES = [(128, 128, 64), (16384, 5, 64), (24, 32, 64), (6, 77, 16), (8, 128, 128)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("BH,S,Dh", CAUSAL_SHAPES)
+def test_k1_under_the_causal_bias_matches_plain(gen, BH, S, Dh, dtype, rate):
+    """K1 forward and backward under the prior's causal bias (window = S:
+    the row kernels at S = 128, the window tiles at S = 5 and 32): within
+    1e-4 in float32, one bf16 ulp in bf16, one launch each."""
+    from bridgerl_tpu_torch.models.layers import causal_bias
+
+    bias = causal_bias(S, "cuda")
+    if dtype == BF16:
+        return _bf16_pair(gen, BH, S, Dh, bias, None, rate)
+    q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen) for _ in range(4))
+    seed, scale = _seed(gen), Dh ** -0.5
+    kernels.reset_counters()
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate)
+    torch.cuda.synchronize()
+    assert FWD_F32.count == 1 and BWD_F32.count == 1
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate)
+    assert (out - ref).abs().max().item() <= 1e-4
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_k1_causal_keep_mask_equals_plain_philox(gen, dtype):
+    """v = I and dout = I at S = 128 (the row kernels): on and below the
+    diagonal both kernels keep exactly the plain Philox bits; above it p is
+    exactly 0."""
+    from bridgerl_tpu_torch.models.layers import causal_bias
+
+    BH, S, Dh = 16, 128, 128
+    q, k = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    eye = torch.eye(S, Dh, device="cuda", dtype=dtype).expand(BH, S, Dh).contiguous()
+    bias, seed = causal_bias(S, "cuda"), _seed(gen)
+    fwd = attention.attention_fwd(q, k, eye, bias, Dh ** -0.5, seed, 0.1)[:, :, :S] > 0
+    dv = attention.attention_bwd(q, k, eye, bias, eye, Dh ** -0.5, seed, 0.1)[2]
+    lower = torch.ones(S, S, device="cuda").tril().bool()
+    want = attention.attention_dropout_mask(seed, BH, S, 0.1, "cuda") & lower
+    assert torch.equal(fwd, want) and torch.equal(dv[:, :S, :S].transpose(1, 2) > 0, want)
+
+
+@pytest.mark.parametrize("slot_ar", [False, True])
+def test_small_prior_train_step_and_sampling_on_the_card_match_the_cpu(gen, slot_ar):
+    """A small prior: one training step at dropout 0 (loss within 1e-4
+    relative, gradients 1e-3 in relative norm) and greedy-free sampling
+    whose every token is the CPU's draw from the card's prefix (the same
+    Philox-Gumbel noise) but where the CPU's two best perturbed scores lie
+    within 1e-4."""
+    from bridgerl_tpu_torch.models.token_prior import (
+        PriorConfig,
+        filter_logits,
+        init_prior,
+        position_noise,
+        prior_loss,
+        sample_grids,
+    )
+
+    pcfg = PriorConfig(streams=("a", "b"), vocab_sizes=(40, 24), tokens_per_stream=1,
+                       window=10, stride=5, d_model=64, n_heads=4, n_layers=2, ff_dim=128,
+                       dropout=0.0, max_len=32, slot_ar=slot_ar, depth_layers=1)
+    g = torch.Generator().manual_seed(3)
+    grid = torch.stack([torch.randint(0, v, (8, 32), generator=g) for v in (40, 24)], -1)
+    mask = torch.ones(8, 32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = init_prior(pcfg, 0, device=dev)
+        kernels.reset_counters()
+        loss = prior_loss(model(grid.to(dev), train=True), grid.to(dev), mask.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert FWD_F32.count == pcfg.n_layers + pcfg.depth_layers * slot_ar
+            assert BWD_F32.count == FWD_F32.count
+            with torch.no_grad():
+                card = sample_grids(model, 9, 4, 12, temperature=0.9, top_k=10)
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for n, gc in g_cpu.items():
+        assert ((g_gpu[n] - gc).norm() / gc.norm().clamp_min(1e-30)).item() <= 1e-3, n
+    cpu = init_prior(pcfg, 0, device="cpu")
+    card = card.cpu().long()
+    noise = position_noise(cpu, torch.tensor(9), 12, 4)
+    with torch.no_grad():
+        logits = cpu(card)   # teacher-forced on the card's grid: every position's draw
+    for s, lg in enumerate(logits):
+        scores = filter_logits(lg, temperature=0.9, top_k=10) + noise[:, s].transpose(0, 1)[
+            ..., :lg.shape[-1]]
+        top2 = scores.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 1e-4
+        assert torch.equal(scores.argmax(-1)[clear], card[..., s][clear])
