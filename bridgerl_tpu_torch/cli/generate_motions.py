@@ -11,9 +11,11 @@ prior (``cli.train_prior``) samples token grids, plain, prompted on a take
 joint trajectories, one ``.npy`` a sample; ``--eval`` prints the statistics
 of ``eval/generation.py`` against the training data. ``--device`` (default
 ``cuda``) picks the device; without a card the run stops unless ``--device
-cpu`` asks for the CPU. ``--render``, ``--volumetric`` and ``--mesh`` need
-``sim/render.py``, which is not ported: they stop the run with a message
-that names ``ROADMAP.md``.
+cpu`` asks for the CPU. ``--render`` replays each sample through the G1
+scene on the device and writes a GIF beside its ``.npy`` (``sim/render.py``:
+the line skeleton, the collision volumes with ``--volumetric``, the vendor
+meshes with ``--mesh``, the volumes where none are found); it needs
+matplotlib and imageio.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ import argparse
 import sys
 from pathlib import Path
 from typing import Optional, Sequence
+
+from . import have_packages
+from ..utils.optional import RENDER_MODULES
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,9 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="overlap-consistency guided sampling: candidates per position "
                         "(0/1 = off, e.g. 8)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--render", action="store_true", help="render a GIF (not ported)")
-    p.add_argument("--volumetric", action="store_true", help="volumetric render (not ported)")
-    p.add_argument("--mesh", action="store_true", help="mesh render (not ported)")
+    p.add_argument("--render", action="store_true", help="render each sample to a GIF")
+    p.add_argument("--volumetric", action="store_true",
+                   help="with --render: draw the collision-primitive body volumes")
+    p.add_argument("--mesh", action="store_true",
+                   help="with --render: draw the vendor STL meshes (--volumetric where none "
+                        "are found)")
     p.add_argument("--fps", type=int, default=20, help="assumed motion fps")
     p.add_argument("--eval", action="store_true",
                    help="report motion statistics vs the training data")
@@ -64,11 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag in ("render", "volumetric", "mesh"):
-        if getattr(args, flag):
-            print(f"--{flag} needs sim/render.py, which is not ported to bridgerl_tpu_torch "
-                  "yet (ROADMAP.md)", file=sys.stderr)
-            return 2
+    if args.render and not have_packages("generate_motions", "--render", *RENDER_MODULES):
+        return 2
 
     import numpy as np
 
@@ -138,6 +143,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         dis = np.mean([overlap_disagreement(w, pcfg.stride) for w in windows])
         print(f"  window overlap disagreement RMS {dis:.4f} (data windows: 0 by construction)")
 
+    scene = None
+    if args.render:
+        from ..sim import G1ReplayScene
+        from ..sim.render import render_scene
+
+        scene = G1ReplayScene(device=args.device)
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for i, m in enumerate(motions):
@@ -149,6 +160,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         np.save(path, m)
         print(f"[INFO] sample {i}: {m.shape[0]} frames "
               f"({m.shape[0] / args.fps:.1f}s @ {args.fps}fps) -> {path}")
+        if scene is not None:
+            scene.load(m, args.fps, args.fps)
+            gif = render_scene(scene, str(path.with_suffix(".gif")), min(args.fps, 25),
+                               volumetric=args.volumetric, mesh=args.mesh)
+            print(f"[INFO] rendered {gif}")
     return 0
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -223,6 +223,18 @@ def ref_exact(exp: ExperimentConfig) -> ExperimentConfig:
         model=dataclasses.replace(exp.model, ema_warm_start=False, torch_init=True),
         train=dataclasses.replace(exp.train, ref_exact_vel=True),
     )
+
+
+# The ablation registry (reference models/experiment_config.py:9-18): id,
+# display name, arch and method; the LaTeX table's rows in this order.
+EXPERIMENTS: List[Dict[str, str]] = [
+    {"id": "simple_ema", "name": "Baseline(Simple)", "arch": "simple", "method": "ema"},
+    {"id": "resnet_ema", "name": "ResNet+EMA", "arch": "resnet", "method": "ema"},
+    {"id": "resnet_rvq", "name": "ResNet+RVQ", "arch": "resnet", "method": "rvq"},
+    {"id": "resnet_fsq", "name": "FSQ", "arch": "resnet", "method": "fsq"},
+    {"id": "resnet_lfq", "name": "LFQ", "arch": "resnet", "method": "lfq"},
+    {"id": "resnet_hybrid", "name": "Ours(Dual-Enc+Hybrid)", "arch": "resnet", "method": "hybrid"},
+]
 
 
 # Full metric schema the evaluators expect (reference export_latex_table.py:19-27,

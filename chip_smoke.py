@@ -33,7 +33,8 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    round the same float32 quantity); its bound counts 2 bytes an element
    and the FLOPs at the bf16 tensor cores' 989 TFLOP/s.
    K1 also runs at (1024, 64, 64) with window 64, the CLI's default
-   transformer (the zoo path). K2 runs at N = 4096 (serving), 512
+   transformer (the zoo path), and at the latent path's (128, 80, 64)
+   packed and (176, 10, 64) unpacked. K2 runs at N = 4096 (serving), 512
    (training) and 6554 (validation) with K = 512, and at K = 1024 with
    N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch):
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
@@ -178,10 +179,29 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    process (no models, train or config imported) and here; ``generate``
    for a seed within 1e-5 of the live ``make_generation_fn`` in the child,
    here and over HTTP (``{"seed": N}``).
-19. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+19. ``latent``: the flagship (seed 0, f32) saved as a ``.pth``, loaded on
+   the card and on the CPU; synthetic raw takes of 3 actions through
+   ``eval/latent.py``'s ``load_paired_data_by_action`` (300 windows an
+   action) and both encoders through ``get_latent_vectors`` at batch 256
+   (K1-fwd packed, the last 44 windows unpacked): card within 1e-3 of the
+   CPU, K1-fwd 4 launches a batch; the encoders' windows/s.
+20. ``csv``: ``cli.csv_to_npz`` on a seeded 300-frame LAFAN-style take at 30
+   fps, a child on the card and one with ``--device cpu``: every npz array
+   within 1e-5 of max(1, its largest value); each run's seconds.
+21. ``replay``: a seeded 400-frame take (drifting root, turning root
+   quaternion) at 20 -> 50 fps through ``load_motion`` on the card and the
+   CPU, every array within 1e-6; one pass of ``G1ReplayScene.step``
+   (sampled frames within 1e-5 of ``fk_numpy``) and of ``get_next_state``
+   (the wrap-around on the last frame only); ``rollout`` and
+   ``rollout_full`` at 20,000 frames, 64 sampled frames within 1e-5 of
+   ``fk_numpy``; replay steps/s at 20,000 frames (median of 3 calls of
+   ``benchmark_steps_per_sec``). ``replay_profile``, in a child process
+   (a process's later profiler sessions lose records): device ms,
+   operations and idle share of one rollout at 2,000 and at 20,000 frames.
+22. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk, int8, prior, generate and generator_artifact (cli includes
+   fk, int8, prior, generate, generator_artifact and latent (cli includes
    cli_multiseed); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls), then, last,
@@ -243,8 +263,15 @@ from bridgerl_tpu_torch.models.token_prior import (
     sample_grids_guided,
 )
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
-from bridgerl_tpu_torch.sim import fk_numpy, load_g1_chain, make_batched_fk
-from bridgerl_tpu_torch.train.checkpoint import load_checkpoint
+from bridgerl_tpu_torch.eval.latent import get_latent_vectors, load_paired_data_by_action
+from bridgerl_tpu_torch.sim import (
+    G1ReplayScene,
+    fk_numpy,
+    load_g1_chain,
+    load_motion,
+    make_batched_fk,
+)
+from bridgerl_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from bridgerl_tpu_torch.train.codebook_seed import JITTER
 from bridgerl_tpu_torch.train.prior import (
     PriorTrainConfig,
@@ -284,7 +311,9 @@ DTYPE_NAME = {torch.float32: "float32", BF16: "bfloat16"}
 K1_SHAPES = ((2048, 80, 64, 8, 0.0), (256, 10, 64, 1, 0.0), (256, 80, 64, 8, 0.0),
              (256, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.0), (1024, 64, 64, 1, 0.1),
              (16384, 10, 64, 1, 0.0),   # the artifact's retarget at b = 4096: unpacked
-             (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0), (196, 64, 64, 1, 0.0))
+             (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0), (196, 64, 64, 1, 0.0),
+             # the latent encoders at batch 256: packed, then the last 44 windows unpacked
+             (128, 80, 64, 8, 0.0), (176, 10, 64, 1, 0.0))
 K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8, 0.0),
                  (2048, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.1), (1024, 64, 64, 1, 0.0),
                  (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0))
@@ -391,6 +420,22 @@ ZERO29, ONE29 = np.zeros(29, np.float32), np.ones(29, np.float32)   # raw in, ra
 GEN_SAMPLES, GEN_POSITIONS, GEN_CANDIDATES, GEN_DYN, GEN_PROMPT, GEN_SEED = 4, 32, 8, 0.2, 8, 7
 GEN_TIE = 1e-4                # the CPU's two best perturbed scores this close: not compared
 GEN_ATOL = 1e-3               # decoded motion, card against the CPU, on the same grid
+REPLAY_TAKE = 400              # frames of the seeded take at 20 fps -> 998 frames at 50 fps
+REPLAY_FRAMES = 20000         # bench.py:185's replay frames (an 8,001-frame take at 20 -> 50 fps)
+REPLAY_PROFILED = (2000, 20000)
+REPLAY_SAMPLED = 64           # rollout frames held to fk_numpy
+MOTION_TOL = 1e-6             # load_motion, card against the CPU
+CSV_FRAMES = 300              # a LAFAN-style take at 30 fps
+CSV_TOL = 1e-5                # each npz array, card against CPU, of max(1, its largest |value|)
+LATENT_ACTIONS = ("walk", "run", "jump")
+LATENT_TAKES, LATENT_TAKE_FRAMES = 3, 600   # 357 windows an action at stride 5, capped at 300
+LATENT_BATCH = 256
+LATENT_ATOL = 1e-3            # the serving float32 rule
+# profiles one rollout at each of REPLAY_PROFILED frames in a child process
+REPLAY_PROFILE_PROBE = ("import json, torch\n"
+                        "torch.backends.cuda.matmul.allow_tf32 = False\n"
+                        "import chip_smoke\n"
+                        "print(json.dumps(chip_smoke.replay_profile_rows()))\n")
 # loads the generator artifact in a child process, generates for a seed into a file
 GENERATOR_LOAD_PROBE = (
     "import json, sys\n"
@@ -2786,6 +2831,226 @@ def generator_artifact_path(smi: str, prior, vq, exp) -> dict:
     return line
 
 
+# ---------------------------------------------------------------- phases 19-21: replay, csv, latent
+
+def _replay_take(frames: int, seed: int) -> tuple:
+    """A seeded (frames, 29) take with a drifting root and a root quaternion
+    (wxyz) turning twice about a tilted axis."""
+    g = np.random.default_rng(seed)
+    dof = g.uniform(-0.5, 0.5, (frames, 29)).astype(np.float32)
+    pos = (np.cumsum(g.normal(scale=0.01, size=(frames, 3)), axis=0)
+           + [0.0, 0.0, 0.74]).astype(np.float32)
+    half = np.linspace(0.0, 2.0 * np.pi, frames)[:, None]
+    axis = np.array([0.2, 0.1, 1.0]) / np.linalg.norm([0.2, 0.1, 1.0])
+    rot = np.concatenate([np.cos(half), np.sin(half) * axis], axis=1).astype(np.float32)
+    return dof, pos, rot
+
+
+def _fk_err(chain, pos, rot, q, base_pos=None) -> float:
+    """The largest distance of positions and rotations from fk_numpy's."""
+    want = fk_numpy(chain, q.astype(np.float64), base_pos)
+    return max(float(np.abs(pos - want[0]).max()), float(np.abs(rot - want[1]).max()))
+
+
+def _replay_motions() -> dict:
+    """frames -> a Motion of that many frames on the card (seeded takes of
+    2 * frames / 5 + 1 frames at 20 -> 50 fps)."""
+    motions = {}
+    for frames in REPLAY_PROFILED:
+        take = _replay_take(frames // 5 * 2 + 1, SEED + 21)[0]
+        motions[frames] = load_motion(take, 20, 50, device="cuda")
+        require(motions[frames].num_frames == frames, f"replay: {frames} frames")
+    return motions
+
+
+def replay_profile_rows() -> dict:
+    """Device ms, device operations and the idle share of one rollout at each
+    of REPLAY_PROFILED frames (torch.profiler, after one warm-up rollout)."""
+    scene = G1ReplayScene(device="cuda")
+    return {f"frames_{n}": _profile_step(lambda m=m: scene.rollout(m), f"rollout of {n} frames")
+            for n, m in _replay_motions().items()}
+
+
+def replay_path(smi: str) -> tuple:
+    """The G1 replay scene on the card: a seeded 400-frame take at 20 -> 50
+    fps through load_motion on the card and the CPU (every array within
+    MOTION_TOL); one pass of ``step`` (sampled frames within FK_TOL of
+    fk_numpy at the motion's root) and of ``get_next_state`` (the wrap-around
+    on the last frame only); rollout and rollout_full at 20,000 frames (64
+    sampled frames, positions and rotations, within FK_TOL of fk_numpy at the
+    default root); steps/s of ``benchmark_steps_per_sec(20000)``, the median
+    of 3 calls (each after its 2 warm-up rollouts)."""
+    t0 = time.perf_counter()
+    dof, pos, rot = _replay_take(REPLAY_TAKE, SEED + 20)
+    card = load_motion(dof, 20, 50, base_pos=pos, base_rot=rot, device="cuda")
+    cpu = load_motion(dof, 20, 50, base_pos=pos, base_rot=rot, device="cpu")
+    motion_err = {name: float((getattr(card, name).cpu() - getattr(cpu, name)).abs().max())
+                  for name in ("dof_pos", "dof_vel", "base_pos", "base_rot", "base_lin_vel",
+                               "base_ang_vel")}
+    require(card.num_frames == cpu.num_frames == 998 and max(motion_err.values()) <= MOTION_TOL,
+            f"replay: load_motion card vs CPU {motion_err}")
+
+    scene = G1ReplayScene(device="cuda")
+    chain = scene.chain
+    scene.motion, scene.current_idx = card, 0
+    q, base = cpu.dof_pos.numpy(), cpu.base_pos.numpy()
+    n, step_err = card.num_frames, 0.0
+    t1 = time.perf_counter()
+    for i in range(n):
+        p, r = scene.step()
+        if i % (n // 16) == 0 or i == n - 1:
+            step_err = max(step_err, _fk_err(chain, p.cpu().numpy(), r.cpu().numpy(), q[i],
+                                             base[i].astype(np.float64)))
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t1
+    require(scene.current_idx == 0 and step_err <= FK_TOL,
+            f"replay: step pass ended at {scene.current_idx}, {step_err} from fk_numpy")
+    flags = [scene.get_next_state()[1] for _ in range(n)]
+    require(flags[-1] and not any(flags[:-1]), "replay: wrap-around not on the last frame")
+
+    big = _replay_motions()[REPLAY_FRAMES]
+    traj = scene.rollout(big).cpu().numpy()
+    full_pos, full_rot = (a.cpu().numpy() for a in scene.rollout_full(big))
+    qb = big.dof_pos.cpu().numpy()
+    sampled = np.linspace(0, REPLAY_FRAMES - 1, REPLAY_SAMPLED).astype(int)
+    rollout_err = max(_fk_err(chain, full_pos[t], full_rot[t], qb[t]) for t in sampled)
+    rollout_err = max(rollout_err, float(np.abs(traj - full_pos).max()))
+    require(rollout_err <= FK_TOL, f"replay: rollout {rollout_err} from fk_numpy")
+
+    rates = sorted(scene.benchmark_steps_per_sec(REPLAY_FRAMES) for _ in range(3))
+    line = {"phase": "replay", "card": smi, "dtype": "float32",
+            "motion_max_abs_err": motion_err, "step_frames": n,
+            "step_max_abs_err": step_err, "steps_per_s_step_api": n / steps_s,
+            "rollout_frames": REPLAY_FRAMES, "rollout_frames_checked": REPLAY_SAMPLED,
+            "rollout_max_abs_err": rollout_err, "replay_steps_per_s": rates[1],
+            "replay_steps_per_s_all": rates, "replay_path_s": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def replay_profile(smi: str) -> dict:
+    """``replay_profile_rows`` in a child process: its profiler session is
+    the child's first (a process's later sessions lose records: this
+    script's own profiled phases come before it), and no later phase of
+    this script runs after it in the same process."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    stdout = _run_cli(["-c", REPLAY_PROFILE_PROBE], os.path.dirname(os.path.abspath(__file__)),
+                      env)
+    line = {"phase": "replay_profile", "card": smi,
+            **json.loads(stdout.strip().splitlines()[-1])}
+    emit(line)
+    return line
+
+
+def _lafan_csv(path: str, frames: int, seed: int) -> None:
+    """A LAFAN-style take: root position, root quaternion xyzw, 29 dof a row."""
+    dof, pos, rot = _replay_take(frames, seed)
+    xyzw = np.concatenate([rot[:, 1:], rot[:, :1]], axis=1)
+    np.savetxt(path, np.concatenate([pos, xyzw, dof], axis=1), delimiter=",")
+
+
+def csv_path(smi: str) -> dict:
+    """``cli.csv_to_npz`` on a seeded 300-frame, 30 fps take, a child process
+    on the card and one with ``--device cpu``: every array of the two npz
+    files within CSV_TOL of max(1, its largest |value|) (the velocities
+    divide float32 differences by dt), the link quaternions up to sign; each
+    run's seconds. The root turns through half turns, where the quaternion
+    of a matrix is read off its largest component."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_csv_")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        src = os.path.join(workdir, "take.csv")
+        _lafan_csv(src, CSV_FRAMES, SEED + 22)
+        seconds, out = {}, {}
+        for dev in ("cuda", "cpu"):
+            out[dev] = os.path.join(workdir, f"{dev}.npz")
+            t0 = time.perf_counter()
+            _run_cli(["-m", "bridgerl_tpu_torch.cli.csv_to_npz", "--input_file", src,
+                      "--input_fps", "30", "--output_fps", "50", "--output_file", out[dev],
+                      "--device", dev], workdir, env)
+            seconds[dev] = time.perf_counter() - t0
+        card, cpu = np.load(out["cuda"]), np.load(out["cpu"])
+        err = {k: float(np.abs(card[k] - cpu[k]).max()) for k in cpu.files}
+        # q and -q are one rotation: where w is near 0 the sign is noise
+        err["body_quat_w"] = float(np.minimum(
+            np.abs(card["body_quat_w"] - cpu["body_quat_w"]).max(-1),
+            np.abs(card["body_quat_w"] + cpu["body_quat_w"]).max(-1)).max())
+        scale = {k: max(1.0, float(np.abs(cpu[k]).max())) for k in cpu.files}
+        require(sorted(card.files) == sorted(cpu.files)
+                and all(err[k] <= CSV_TOL * scale[k] for k in err),
+                f"csv: card vs CPU {err} (scales {scale})")
+        frames = int(card["joint_pos"].shape[0])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    line = {"phase": "csv", "card": smi, "frames_in": CSV_FRAMES, "frames_out": frames,
+            "max_abs_err": err, "csv_to_npz_s_cuda": seconds["cuda"],
+            "csv_to_npz_s_cpu": seconds["cpu"]}
+    emit(line)
+    return line
+
+
+def _raw_takes(raw_dir: str) -> None:
+    g = np.random.default_rng(SEED + 23)
+    for action in LATENT_ACTIONS:
+        for i in range(LATENT_TAKES):
+            robot, human_aa = synth_pair(g, LATENT_TAKE_FRAMES)
+            np.savez(os.path.join(raw_dir, f"{action}_take_{i}.npz"), joint_pos=robot,
+                     smplx_pose_body=human_aa.reshape(LATENT_TAKE_FRAMES, -1, 3))
+
+
+def latent_path(smi: str) -> dict:
+    """``eval/latent.py`` on the card: the flagship (seed 0's weights, f32)
+    saved as a ``.pth`` and loaded on the card and the CPU; synthetic raw
+    takes of 3 actions through ``load_paired_data_by_action``; both encoders
+    through ``get_latent_vectors`` (batch 256: K1-fwd packed 8 at (128, 80,
+    64), then the last 44 windows unpacked), card within LATENT_ATOL of the
+    CPU; K1-fwd launched 4 times a batch; windows/s of the encoders, the
+    median of 3 passes after the counted one."""
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_latent_")
+    try:
+        ckpt = os.path.join(workdir, "flagship_best.pth")
+        save_checkpoint(ckpt, epoch=0, model=init_model(exp.model, SEED, device="cpu"),
+                        config=exp)
+        _raw_takes(workdir)
+        card_model, _ = load_model_from_checkpoint(ckpt, device="cuda")
+        cpu_model, _ = load_model_from_checkpoint(ckpt, device="cpu")
+        stats = {"mean": 0.0, "std": 1.0, "human_mean": 0.0, "human_std": 1.0}
+        by_action = load_paired_data_by_action(workdir, exp.model.window_size, stats)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    require(list(by_action) == list(LATENT_ACTIONS)
+            and all(len(r) == 300 for r, _ in by_action.values()), "latent: takes by action")
+
+    def encode(model):
+        return {(a, side): get_latent_vectors(model, x, side, LATENT_BATCH)
+                for a, (r, h) in by_action.items() for side, x in (("robot", r), ("human", h))}
+
+    kernels.reset_counters()
+    card = encode(card_model)
+    counts = launches()
+    cpu = encode(cpu_model)
+    err = max(float(np.abs(card[k] - cpu[k]).max()) for k in card)
+    require(all(card[k].shape == (300, exp.model.hidden_dim) for k in card)
+            and err <= LATENT_ATOL, f"latent: card vs CPU {err}")
+    batches = sum(math.ceil(len(x) / LATENT_BATCH) for x in
+                  (x for r, h in by_action.values() for x in (r, h)))
+    want = {**{k: 0 for k in kernels.COUNTERS},
+            "packed_attention_fwd": batches * exp.model.n_tf_layers}
+    require(counts == want, f"latent: launches {counts}, want {want}")
+    windows = sum(len(r) + len(h) for r, h in by_action.values())
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encode(card_model)
+        times.append(time.perf_counter() - t0)
+    line = {"phase": "latent", "card": smi, "dtype": "float32", "windows": windows,
+            "max_abs_err": err, "launches": counts,
+            "windows_per_s": windows / statistics.median(times), "seconds": times}
+    emit(line)
+    return line
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2858,6 +3123,10 @@ def main(argv) -> int:
     generate = generate_path(smi, prior32, vq, vq_exp, grids)
     generator = generator_artifact_path(smi, prior32, vq, vq_exp)
     del prior32, vq
+    latent = latent_path(smi)
+    csv_path(smi)
+    replay_path(smi)
+    replay_profile(smi)
     # the phases with profiler sessions come last, so that no timed phase
     # runs after them (PERF.md §6: bf16 serving timed after one read slower)
     fk = fk_path(smi)
@@ -2878,7 +3147,7 @@ def main(argv) -> int:
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "generate": generate,
-             "generator_artifact": generator}
+             "generator_artifact": generator, "latent": latent}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -930,3 +930,118 @@ def test_small_prior_train_step_and_sampling_on_the_card_match_the_cpu(gen, slot
         top2 = scores.topk(2, dim=-1).values
         clear = (top2[..., 0] - top2[..., 1]) > 1e-4
         assert torch.equal(scores.argmax(-1)[clear], card[..., s][clear])
+
+
+# ---- the sim layer and the latent encoders (slice 10), card against the CPU ----
+
+def _rot_inputs(seed):
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    q0 = g.normal(size=(64, 4)).astype(np.float32)
+    q0 /= np.linalg.norm(q0, axis=-1, keepdims=True)
+    return {"rotvec": g.uniform(-3, 3, (64, 3)).astype(np.float32), "q0": q0,
+            "q1": np.concatenate([-q0[:16], g.normal(size=(48, 4)).astype(np.float32)]),
+            "t": g.uniform(0, 1, (64, 1)).astype(np.float32),
+            "d6": g.normal(size=(64, 6)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("fn", ["axis_angle_to_matrix", "quat_to_matrix", "quat_to_matrix_wxyz",
+                                "rotation_6d_to_matrix", "quat_slerp"])
+def test_rotations_on_the_card_match_the_cpu(gen, fn):
+    from bridgerl_tpu_torch.data import rotations as rot
+
+    x = _rot_inputs(0)
+    calls = {"axis_angle_to_matrix": lambda t: rot.axis_angle_to_matrix(t["rotvec"]),
+             "quat_to_matrix": lambda t: rot.quat_to_matrix(t["q1"]),
+             "quat_to_matrix_wxyz": lambda t: rot.quat_to_matrix(t["q1"], scalar_first=True),
+             "rotation_6d_to_matrix": lambda t: rot.rotation_6d_to_matrix(t["d6"]),
+             "quat_slerp": lambda t: rot.quat_slerp(t["q0"], t["q1"], t["t"])}[fn]
+    card = calls({k: torch.as_tensor(v, device="cuda") for k, v in x.items()})
+    cpu = calls({k: torch.as_tensor(v) for k, v in x.items()})
+    assert card.device.type == "cuda" and (card.cpu() - cpu).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("root", [False, True])
+def test_load_motion_on_the_card_matches_the_cpu(gen, root):
+    import numpy as np
+
+    from bridgerl_tpu_torch.sim import load_motion
+
+    g = np.random.default_rng(1)
+    dof = g.uniform(-0.3, 0.3, (120, 29)).astype(np.float32)
+    kw = {}
+    if root:
+        ang = np.linspace(0, 3, 120)
+        kw = {"base_pos": np.cumsum(g.normal(scale=0.01, size=(120, 3)), 0).astype(np.float32),
+              "base_rot": np.stack([np.cos(ang / 2), 0 * ang, 0 * ang, np.sin(ang / 2)],
+                                   -1).astype(np.float32)}
+    card = load_motion(dof, 20, 50, device="cuda", **kw)
+    cpu = load_motion(dof, 20, 50, device="cpu", **kw)
+    for name in ("dof_pos", "dof_vel", "base_pos", "base_rot", "base_lin_vel", "base_ang_vel"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        assert a.device.type == "cuda" and (a.cpu() - b).abs().max().item() <= 1e-6, name
+
+
+def test_replay_scene_on_the_card(gen):
+    import numpy as np
+
+    from bridgerl_tpu_torch.sim import G1ReplayScene, fk_numpy
+
+    scene = G1ReplayScene(device="cuda")
+    m = scene.load(np.random.default_rng(2).uniform(-1, 1, (40, 29)).astype(np.float32))
+    pos, rot = (a.cpu().numpy() for a in scene.rollout_full())
+    q = m.dof_pos.cpu().numpy().astype(np.float64)
+    for t in (0, 17, m.num_frames - 1):
+        want = fk_numpy(scene.chain, q[t])
+        assert np.abs(pos[t] - want[0]).max() <= 1e-5 and np.abs(rot[t] - want[1]).max() <= 1e-5
+    flags = [scene.get_next_state()[1] for _ in range(m.num_frames)]
+    assert flags[-1] and not any(flags[:-1])
+    step_pos, _ = scene.step()
+    assert np.abs(step_pos.cpu().numpy() - fk_numpy(scene.chain, q[0], m.base_pos[0].cpu()
+                                                    .numpy())[0]).max() <= 1e-5
+    windows = scene.fk_windows(m.dof_pos[:36].reshape(4, 9, 29))
+    assert windows.device.type == "cuda" and windows.shape == (4, 9, 30, 3)
+    assert scene.benchmark_steps_per_sec(frames=2000) > 0
+
+
+def test_csv_to_npz_on_the_card_matches_the_cpu(gen, tmp_path):
+    import numpy as np
+
+    from bridgerl_tpu_torch.cli import csv_to_npz
+
+    g = np.random.default_rng(3)
+    T = 60
+    ang = np.linspace(0, 1.2, T)
+    rows = np.concatenate([np.cumsum(g.normal(scale=0.01, size=(T, 3)), 0),
+                           np.stack([0 * ang, 0 * ang, np.sin(ang / 2), np.cos(ang / 2)], -1),
+                           g.uniform(-0.4, 0.4, (T, 29))], 1)
+    np.savetxt(tmp_path / "m.csv", rows, delimiter=",")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = str(tmp_path / f"{dev}.npz")
+        assert csv_to_npz.main(["--input_file", str(tmp_path / "m.csv"), "--output_file",
+                                out[dev], "--device", dev]) == 0
+    card, cpu = np.load(out["cuda"]), np.load(out["cpu"])
+    for k in cpu.files:
+        scale = max(float(np.abs(cpu[k]).max()), 1e-3)
+        assert np.abs(card[k] - cpu[k]).max() <= 1e-5 * scale, k
+
+
+def test_latent_vectors_on_the_card_match_the_cpu(gen):
+    import copy
+
+    import numpy as np
+
+    from bridgerl_tpu_torch.eval.latent import get_latent_vectors
+
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8, d_model=64,
+                          ff_dim=128, n_tf_layers=2)
+    model = init_model(exp.model, 0, device="cuda").eval()
+    cpu = copy.deepcopy(model).cpu()
+    x = np.random.default_rng(4).normal(size=(300, 10, 126)).astype(np.float32)
+    before = FWD_F32.count
+    card = get_latent_vectors(model, x, "human", batch=256)    # 256 packed, then 44 unpacked
+    assert FWD_F32.count - before == 2 * exp.model.n_tf_layers
+    want = get_latent_vectors(cpu, x, "human", batch=256)
+    assert card.shape == (300, 64) and np.abs(card - want).max() <= 1e-3

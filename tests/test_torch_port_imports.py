@@ -1,5 +1,6 @@
 """The port stands alone: it and ``chip_smoke.py`` import no JAX and nothing
-of ``bridgerl_tpu``; it asks for the card by default and never falls back to
+of ``bridgerl_tpu``, nor matplotlib, imageio or scikit-learn (only the
+renders, plots and t-SNE import those, when they run); it asks for the card by default and never falls back to
 the CPU on its own; ``chip_smoke.py`` fails, printing nothing, where there is
 no card or no repository beside it."""
 
@@ -28,8 +29,19 @@ PORT_MODULES = [
     "bridgerl_tpu_torch.export.streaming", "bridgerl_tpu_torch.export.motion_export",
     "bridgerl_tpu_torch.utils.alignment", "bridgerl_tpu_torch.train.codebook_seed",
     "bridgerl_tpu_torch.cli.export_serving", "bridgerl_tpu_torch.cli.export_motion",
-    "bridgerl_tpu_torch.cli.serve_http",
+    "bridgerl_tpu_torch.cli.serve_http", "bridgerl_tpu_torch.sim", "bridgerl_tpu_torch.sim.motion",
+    "bridgerl_tpu_torch.sim.replay", "bridgerl_tpu_torch.sim.urdf", "bridgerl_tpu_torch.sim.render",
+    "bridgerl_tpu_torch.sim.mesh", "bridgerl_tpu_torch.sim.live", "bridgerl_tpu_torch.eval",
+    "bridgerl_tpu_torch.eval.latent", "bridgerl_tpu_torch.eval.plots",
+    "bridgerl_tpu_torch.eval.latex", "bridgerl_tpu_torch.eval.parity",
+    *(f"bridgerl_tpu_torch.cli.{name}" for name in (
+        "play_g1_npy", "render_video", "render_viewport", "live_viewer", "render_mesh_demo",
+        "debug_camera_views", "csv_to_npz", "extract_urdf_spec", "analyze_latent_space",
+        "plot_results", "export_latex_table", "check_parity", "generate_motions")),
 ]
+# packages that only the renders, plots and t-SNE need; the card's machine
+# has none of them
+PLOTTING = ("matplotlib", "mpl_toolkits", "imageio", "sklearn")
 # modules a client host runs without torch
 TORCH_FREE = ["bridgerl_tpu_torch.export.streaming", "bridgerl_tpu_torch.export.client"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bridgerl_tpu")
@@ -52,6 +64,14 @@ def _run(args, cwd=REPO, **kw):
 @pytest.mark.parametrize("modules", [PORT_MODULES, ["chip_smoke"]], ids=["package", "chip_smoke"])
 def test_no_jax_or_reference_package_is_loaded(modules):
     probe = _PROBE.replace("{forbidden}", repr(set(FORBIDDEN)))
+    r = _run(["-c", probe, *modules])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("modules", [PORT_MODULES, ["chip_smoke"]], ids=["package", "chip_smoke"])
+def test_no_plotting_package_is_loaded(modules):
+    probe = _PROBE.replace("{forbidden}", repr(set(PLOTTING)))
     r = _run(["-c", probe, *modules])
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1] == "[]"

@@ -11,7 +11,8 @@
   ``{"seed": N}`` request, and refusal of the JAX package's zip;
 - the CLIs end to end on the CPU: ``train_prior``, ``generate_motions
   --eval`` (plain and ``--guide``), ``export_serving --prior --check``, and
-  the flags that need unported modules exiting 2 naming ROADMAP.md.
+  ``generate_motions --render`` writing a GIF beside each sample, and
+  ``--prng`` exiting 2 naming ROADMAP.md.
 """
 
 import json
@@ -234,6 +235,11 @@ def test_prior_clis_end_to_end(tmp_path, monkeypatch, capsys, one_torch_thread):
                                 "serving/gen.zip", "--platforms", "cpu", "--positions", "3",
                                 "--num", "2", "--check", "--device", "cpu"]) == 0
     assert "check ok: generate(seed=0) -> (2, 20, 29)" in capsys.readouterr().out
-    assert generate_motions.main(gen + ["--render"]) == 2
+    assert generate_motions.main(gen + ["--render", "--seed", "2"]) == 0
+    gifs = sorted(f for f in os.listdir("motions/generated") if f.endswith(".gif"))
+    assert gifs == [f"gen_{texp.id}_N4_T1_seed2_idx{i}.gif" for i in range(2)]
+    import imageio.v2 as imageio
+    # the replay resamples 25 frames at 20 fps to 20 fps: arange(0, 24 / 20, 1 / 20)
+    assert len(imageio.mimread(os.path.join("motions/generated", gifs[0]))) == 24
     assert train_prior.main(["--ckpt", ckpt, "--prng", "rbg", "--device", "cpu"]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
