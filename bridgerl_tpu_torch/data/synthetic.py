@@ -71,6 +71,67 @@ def generate_synthetic_dataset(
                           np.concatenate(human_slices), robot_raw)
 
 
+def synth_robot_takes(n_sequences: int, min_len: int, max_len: int, seed: int
+                      ) -> List[np.ndarray]:
+    """Fresh raw robot takes from the pinned corpus's distribution, each
+    mixing its own oscillator bank (a new linear subspace of the same
+    family): the take pool of the prior's corpus-scaling study, seeded apart
+    from the pinned data."""
+    rng = np.random.default_rng(seed)
+    takes: List[np.ndarray] = []
+    for _ in range(n_sequences):
+        T = int(rng.integers(min_len, max_len + 1))
+        takes.append(synth_pair(rng, T)[0])
+    return takes
+
+
+# Per-action latent frequency bands (cycles/frame), slow -> fast: distinct
+# tempo bands, as distinct LAFAN actions differ in tempo (the reference's
+# dataset names its actions only in its file names). ``cli/gen_datasets.py``
+# draws the pinned raw_actions fixtures from the same table.
+ACTION_BANDS = {
+    "walk": (0.010, 0.030),
+    "run": (0.050, 0.080),
+    "jump": (0.090, 0.130),
+    "dance": (0.030, 0.055),
+    "fight": (0.130, 0.170),
+    "sprint": (0.080, 0.110),
+    "fall": (0.005, 0.015),
+}
+
+
+def synth_labeled_takes(n_per_action: int, min_len: int, max_len: int, seed: int,
+                        actions: Tuple[str, ...] = tuple(ACTION_BANDS)
+                        ) -> Tuple[List[np.ndarray], List[str]]:
+    """Long raw robot takes with action labels: ``synth_pair``'s oscillator
+    mixtures with each take's frequencies drawn from its action's band, for
+    the conditioned prior's scaling study. Each action draws from its own
+    child generator, so ``synth_labeled_takes(k)``'s takes of an action are
+    a prefix of ``synth_labeled_takes(k')``'s for k < k' under one seed.
+
+    Returns (takes, labels), takes[i] a (T_i, 29) float32 array."""
+    root = np.random.default_rng(seed)
+    streams = {a: np.random.default_rng(s)
+               for a, s in zip(actions, root.integers(0, 2**63, len(actions)))}
+    takes: List[np.ndarray] = []
+    labels: List[str] = []
+    for _ in range(n_per_action):
+        for action in actions:
+            rng = streams[action]
+            lo, hi = ACTION_BANDS[action]
+            T = int(rng.integers(min_len, max_len + 1))
+            t = np.arange(T, dtype=np.float32)[:, None]
+            freqs = rng.uniform(lo, hi, size=(1, 4)).astype(np.float32)
+            phases = rng.uniform(0, 2 * np.pi, size=(1, 4)).astype(np.float32)
+            amps = rng.uniform(0.2, 1.0, size=(1, 4)).astype(np.float32)
+            latent = amps * np.sin(2 * np.pi * freqs * t + phases)
+            w_r = rng.normal(0, 0.6, size=(4, G1_DOF)).astype(np.float32)
+            noise = 0.05 * rng.normal(0, 1, size=(T, G1_DOF)).astype(np.float32)
+            takes.append((latent @ w_r + noise).astype(np.float32))
+            labels.append(action)
+    return takes, labels
+
+
 def synthetic_npz_tree(root: str, n_files: int = 4, T: int = 200, seed: int = 0) -> str:
     """A raw npz tree shaped like the public download: a ``train_set``
     directory of files with ``joint_pos`` and ``smplx_pose_body``."""

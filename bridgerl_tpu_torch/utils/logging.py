@@ -1,13 +1,15 @@
 """Console logging: ANSI colours and per-epoch status lines with an ETA.
 
-The port's own copy of ``bridgerl_tpu/utils/logging.py``'s ``TermColor`` and
-``epoch_log`` (the reference's ``scripts/train_ablation.py:26-37, 263-273``).
+The port's own copy of ``bridgerl_tpu/utils/logging.py``'s ``TermColor``,
+``epoch_log`` (the reference's ``scripts/train_ablation.py:26-37, 263-273``)
+and ``Throughput``.
 """
 
 from __future__ import annotations
 
 import datetime
 import sys
+import time
 
 
 class TermColor:
@@ -38,3 +40,18 @@ def epoch_log(epoch: int, train_loss: float, val_metric: float, metric_name: str
         f"ETA {TermColor.CYAN}{fmt_eta(eta_seconds)}{TermColor.ENDC}"
     )
     print(msg, file=stream)
+
+
+class Throughput:
+    """Windows/s since construction."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.windows = 0
+
+    def add(self, n: int) -> None:
+        self.windows += n
+
+    def rate(self) -> float:
+        dt = time.perf_counter() - self.t0
+        return self.windows / dt if dt > 0 else 0.0

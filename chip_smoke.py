@@ -39,10 +39,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch):
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
    indices bit for bit, a second call must repeat the first bit for bit,
-   and the profiler must see no device operation but its two kernels and
-   one record of each a call (a profile that lost records is taken again,
-   up to three); each K2 line carries the device time of each of its two
-   kernels and the time of one and of two empty kernels
+   and in a child process one profile of all its shapes (``k2_device_ops``;
+   a process's later profiler sessions lose records, and none is taken
+   again) must see no device operation but its two kernels and one record
+   of each a call; each K2 line carries the device time of each of its two
+   kernels (the records inside its shape's range) and the time of one and
+   of two empty kernels
    (``launch_floor_ms``), timed the same way. Seed groups (a stacked
    multi-seed step): K1 forward and backward, f32 and bf16, at (4096, 80,
    64) with 4 seed groups, dropout 0.1 and 0.0, and K2 over 4 groups at
@@ -130,11 +132,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
 11. ``multiseed``: the stacked teacher (``MultiSeedTrainer``) at
    bench.py:137-182's configuration (the flagship in bf16, seeds 0-3, batch
    2048, packing 8, dropout 0.1, 32,768 seeded windows), 2 warm-up and 2
-   timed epochs, beside the same seeds one after another through
-   ``Trainer``: aggregate windows/s of each; the stacked run must launch K1
-   and K2 exactly as often as one seed's run. ``cli_multiseed`` (in the
-   CLI phase's directory): ``train_ablation --multiseed --seed 1 2
-   --lambda_fk 1 --int8_ff`` for 2 epochs, then the student from a
+   timed epochs, beside two of its seeds one after another through
+   ``Trainer`` (a sequential run's aggregate rate does not depend on its
+   seed count): aggregate windows/s of each; the stacked run must launch K1
+   and K2 exactly as often as one seed's run, the sequential run twice.
+   ``cli_multiseed`` (in the CLI phase's directory): ``train_ablation
+   --multiseed --seed 1 2 --lambda_fk 1 --int8_ff`` for 2 epochs, then the student from a
    ``{seed}`` teacher pattern; each seed's files, other weights per seed.
 12. ``int8``: the flagship with ``int8_ff`` in bf16, ``retarget`` at b =
    4096 and b = 1 held to the CPU's int8 model under the bf16 rules, its
@@ -174,7 +177,7 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    candidates where no draw or score ties; decoded motion within 1e-3 of
    the CPU's decode of the same grid; frames/s of ``make_generation_fn``
    unguided and guided, as scripts/bench_generation.py counts them.
-18. ``generator_artifact``: the f32 prior and the flagship frozen (32
+18. ``generator_artifact``: the f32 prior and the flagship frozen (8
    positions unrolled, cuda programs; export timed), loaded in a child
    process (no models, train or config imported) and here; ``generate``
    for a seed within 1e-5 of the live ``make_generation_fn`` in the child,
@@ -198,11 +201,29 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    ``benchmark_steps_per_sec``). ``replay_profile``, in a child process
    (a process's later profiler sessions lose records): device ms,
    operations and idle share of one rollout at 2,000 and at 20,000 frames.
-22. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+22. ``torch_import`` (the main path of the reference-checkpoint import):
+   the flagship (seed 0, FSQ unbounded, as the reference trains it) written
+   as a reference wrapper (``module.`` keys, a plain config dict), a bare
+   ``_final.pth`` and the learned tensors of ``cli.export_torch_ckpt``;
+   each imported by ``cli.import_torch_ckpt --check`` in a child process on
+   the card (the children started together; the bare file with ``--window
+   10``, and without it a child that must fail), every tensor bit for bit
+   the original's; the imported checkpoint served through ServingApp at
+   b = 1, 64 and 4096 under the float32 rule against the same payload
+   imported on the CPU, 8 K1-fwd and 4 K2 launches a call; its windows/s
+   at b = 4096 and b = 1 p50. ``runners``: ``cli.run_batch`` (a teacher,
+   its student, and a spec with JAX's ``prng`` that must fail: exit 1
+   naming it alone) and ``cli.run_queue`` (``process_data --synthetic``,
+   then ``import_torch_ckpt --check``), each a child; their seconds and
+   each entry's. ``demo_stream`` (after ``stream``): the demo's 6D feed of
+   240 frames streamed through the f32 artifact at step 5 (equal to offline
+   overlap-add within 1e-5, latency W + 1), then the G1 replay on the card
+   within 1e-5 of the CPU's; the median push.
+23. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk, int8, prior, generate, generator_artifact and latent (cli includes
-   cli_multiseed); counts
+   fk, int8, prior, generate, generator_artifact, latent, torch_import and
+   demo_stream (cli includes cli_multiseed); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls), then, last,
    ``{"ok": true, "device": {...}}``.
@@ -212,11 +233,13 @@ It exits non-zero and prints no result when CUDA is unavailable.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -231,6 +254,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from bridgerl_tpu_torch.cli import demo_stream_retarget, export_torch_ckpt
 from bridgerl_tpu_torch.config import (
     ARCHS,
     HISTORY_KEYS,
@@ -239,7 +263,7 @@ from bridgerl_tpu_torch.config import (
     make_experiment,
 )
 from bridgerl_tpu_torch.data.dataset import PairedDataset, train_val_split
-from bridgerl_tpu_torch.data.synthetic import synth_pair
+from bridgerl_tpu_torch.data.synthetic import generate_synthetic_dataset, synth_pair
 from bridgerl_tpu_torch.export.client import ServingClient
 from bridgerl_tpu_torch.export.motion_export import load_model_from_checkpoint, robot_recon_fn
 from bridgerl_tpu_torch.export.reconstruct import reconstruct_long_sequence
@@ -251,6 +275,7 @@ from bridgerl_tpu_torch.export.serialize import (
 from bridgerl_tpu_torch.export.server import ServingApp, make_server
 from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.export.streaming import StreamingRetargeter, window_starts
+from bridgerl_tpu_torch.export.torch_import import import_torch_checkpoint, load_pth
 from bridgerl_tpu_torch.models import init_model
 from bridgerl_tpu_torch.models.layers import attention_bias, causal_bias
 from bridgerl_tpu_torch.models.stacked import stack_models
@@ -271,7 +296,11 @@ from bridgerl_tpu_torch.sim import (
     load_motion,
     make_batched_fk,
 )
-from bridgerl_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from bridgerl_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+    to_reference_state_dict,
+)
 from bridgerl_tpu_torch.train.codebook_seed import JITTER
 from bridgerl_tpu_torch.train.prior import (
     PriorTrainConfig,
@@ -392,8 +421,10 @@ ARTIFACT_LOAD_PROBE = (
 STREAM_FRAMES, STREAM_STEP = 240, 5
 # multiseed: bench.py:137-182's configuration (the flagship in bf16, 4 seeds, batch 2048,
 # packing 8, dropout 0.1, 32,768 seeded windows), 2 warm-up epochs, then timed ones;
-# the stacked run beside the same seeds one after another through Trainer
+# the stacked run beside two of its seeds one after another through Trainer
 MS_SEEDS, MS_WINDOWS, MS_BATCH, MS_WARM, MS_TIMED = (0, 1, 2, 3), 32768, 2048, 2, 2
+MS_SEQ_SEEDS = MS_SEEDS[:2]   # the sequential half: its aggregate rate does not
+                              # depend on how many seeds run one after another
 MS_AGREE_SEEDS = (0, 1)
 FK_TOL = 1e-5          # FK positions on the card against fk_numpy (float64)
 FK_FRAMES = 4096       # windows of random joint radians held to fk_numpy (16 frames each)
@@ -418,6 +449,8 @@ ZERO29, ONE29 = np.zeros(29, np.float32), np.ones(29, np.float32)   # raw in, ra
 # sampling: motions a call, positions, guided candidates and dynamics weight (the
 # README's recommended policy), prompt positions, the seed
 GEN_SAMPLES, GEN_POSITIONS, GEN_CANDIDATES, GEN_DYN, GEN_PROMPT, GEN_SEED = 4, 32, 8, 0.2, 8, 7
+GENERATOR_POSITIONS = 8       # unrolled into the generator artifact (its export's time
+                              # grows with them; generate's frames/s keep GEN_POSITIONS)
 GEN_TIE = 1e-4                # the CPU's two best perturbed scores this close: not compared
 GEN_ATOL = 1e-3               # decoded motion, card against the CPU, on the same grid
 REPLAY_TAKE = 400              # frames of the seeded take at 20 fps -> 998 frames at 50 fps
@@ -436,6 +469,21 @@ REPLAY_PROFILE_PROBE = ("import json, torch\n"
                         "torch.backends.cuda.matmul.allow_tf32 = False\n"
                         "import chip_smoke\n"
                         "print(json.dumps(chip_smoke.replay_profile_rows()))\n")
+# the slice's main path: the flagship as the reference trains it (FSQ unbounded) in the
+# three file shapes a user brings, imported on the card and served at these batches
+IMPORT_CLI = "bridgerl_tpu_torch.cli.import_torch_ckpt"
+IMPORT_BATCHES = (1, 64, 4096)
+REFERENCE_CONFIG = {"arch": "transformer", "method": "hybrid", "window": 10, "hidden_dim": 64,
+                    "mode": "teacher"}
+# the streaming demo: the synthetic 6D feed through the f32 artifact, then the G1 replay
+DEMO_FRAMES, DEMO_STEP, DEMO_FPS = 240, 5, 25
+# the run drivers: run_batch's specs at the CLI's batch, and a run_queue of two entries
+RUNNER_EPOCHS = {"teacher": 2, "student": 1}
+RUNNER_OK = re.compile(r"=== ((?:batch|queue)\[\d+\] \S+).* OK \(([\d.]+)s\) ===")
+# profiles K2 at each of K2_SHAPES in a child process
+K2_PROFILE_PROBE = ("import json, torch\n"
+                    "import chip_smoke\n"
+                    "print(json.dumps(chip_smoke.k2_device_ops_rows()))\n")
 # loads the generator artifact in a child process, generates for a seed into a file
 GENERATOR_LOAD_PROBE = (
     "import json, sys\n"
@@ -726,55 +774,67 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
                        "bridgerl_tpu/ops/pallas/attention.py:164", cases)
 
 
-def _device_ops(fn, reps: int = 10) -> dict:
-    """Device operations and device time by kernel for one call of fn, from
-    torch.profiler over ``reps`` calls after a warm-up call."""
+def k2_device_ops_rows(reps: int = 10) -> dict:
+    """K2's device operations at each of K2_SHAPES from one torch.profiler
+    session, ``reps`` calls a shape after a warm-up call, each shape's calls
+    in a ``record_function`` range that ends in a synchronize. Every device
+    record must be one of K2's two kernels (no fill, no copy), one record of
+    each a call; no profile is taken again. A shape's records are those
+    inside its range (device timestamps on the host's clock); run in a
+    child process (``K2_PROFILE_PROBE``), where the session is the
+    process's first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    inputs = {f"k2 {N} {D} {K}": (torch.randn(N, D, device="cuda", generator=g),
+                                  torch.randn(K, D, device="cuda", generator=g))
+              for N, D, K in K2_SHAPES}
+    for x, cb in inputs.values():
+        vq_kernel.nearest_codes_cuda(x, cb)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3 / reps)
-            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-    return {"device_ops_per_call": sum(r[1] for r in rows) / reps, "calls": reps,
-            "device_records_by_kernel": {name[:80]: n for name, n, _ in rows},
-            "device_ms_by_kernel": {name[:80]: ms for name, _, ms in rows}}
-
-
-def _k2_device_ops(x, cb, attempts: int = 3, empty_retries: int = 3) -> dict:
-    """K2's device operations, counted by kernel name over the profiled
-    calls. In every profile each record is one of its two kernels (no fill,
-    no copy) and neither kernel has more records than calls. torch.profiler
-    loses activity records now and then (19 of 20 records in one profile,
-    all 20 in another; PERF.md §6), so a profile short of one record of each
-    kernel a call is taken again, up to ``attempts`` profiles, each listed
-    in ``profiles``; the check fails when none is whole. A profile with no
-    device record at all is a profile that traced nothing (two in a row
-    have been seen): it says nothing of K2 and is taken again without using
-    an attempt, up to ``empty_retries`` times."""
-    profiles = []
-    while len(profiles) < attempts + empty_retries:
-        ops = _device_ops(lambda: vq_kernel.nearest_codes_cuda(x, cb))
-        calls, records = ops["calls"], ops["device_records_by_kernel"]
-        profiles.append(records)
-        if not records and sum(1 for p in profiles if not p) <= empty_retries:
+        for name, (x, cb) in inputs.items():
+            with record_function(name):
+                for _ in range(reps):
+                    vq_kernel.nearest_codes_cuda(x, cb)
+                torch.cuda.synchronize()
+    events = prof.events()
+    # a range may also appear on the device's timeline as an annotation
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in inputs]
+    calls = reps * len(inputs)
+    per_kernel = {k: sum(1 for e in device if k in e.name) for k in K2_KERNELS}
+    require(sum(per_kernel.values()) == len(device) == K2_DEVICE_OPS * calls
+            and all(n == calls for n in per_kernel.values()),
+            f"K2: {len(device)} device records {per_kernel} in {calls} calls, want one of "
+            f"each of {K2_KERNELS} a call and nothing else: "
+            f"{sorted({e.name[:80] for e in device})}")
+    shapes = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name not in inputs:
             continue
-        per_kernel = {k: sum(n for name, n in records.items() if k in name)
-                      for k in K2_KERNELS}
-        require(sum(per_kernel.values()) == sum(records.values())
-                and all(n <= calls for n in per_kernel.values()),
-                f"K2: device records {records} in {calls} calls, want one of each of "
-                f"{K2_KERNELS} a call")
-        if all(n == calls for n in per_kernel.values()):
-            return {**ops, "profiles": profiles}
-        if sum(1 for p in profiles if p) >= attempts:
-            break
-    raise AssertionError(f"K2: no profile of {attempts} holds {K2_DEVICE_OPS} records a "
-                         f"call: {profiles}")
+        mine = [d for d in device if e.time_range.start <= d.time_range.start
+                and d.time_range.end <= e.time_range.end]
+        shapes[e.name] = {
+            "device_ops_per_call": len(mine) / reps, "calls": reps,
+            "device_records_by_kernel": {k: sum(1 for d in mine if k in d.name)
+                                         for k in K2_KERNELS},
+            "device_ms_by_kernel": {k: sum(d.time_range.elapsed_us() for d in mine
+                                           if k in d.name) / 1e3 / reps for k in K2_KERNELS}}
+    return {"calls": calls, "device_records": len(device), "records_by_kernel": per_kernel,
+            "shapes": shapes}
+
+
+def k2_device_ops(smi: str) -> dict:
+    """``k2_device_ops_rows`` in a child process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    stdout = _run_cli(["-c", K2_PROFILE_PROBE], here, dict(os.environ, PYTHONPATH=here))
+    rows = json.loads(stdout.strip().splitlines()[-1])
+    emit({"phase": "k2_device_ops", "card": smi, "calls": rows["calls"],
+          "device_records": rows["device_records"], "records_by_kernel": rows["records_by_kernel"],
+          "k2_device_ops_s": time.perf_counter() - t0})
+    return rows["shapes"]
 
 
 def _k2_plain_mismatch(x, cb, idx) -> tuple:
@@ -825,12 +885,13 @@ def _k2_grouped_case(g, G, N, D, K) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def check_k2(g: torch.Generator) -> dict:
+def check_k2(g: torch.Generator, smi: str) -> dict:
     """K2 at the training, serving and validation shapes: indices against
     the plain version outside near ties; counts and dw bit for bit against
     ``assignment_stats`` on the CPU for the kernel's own indices (both add
     each code's rows in row order), and a second call bit for bit equal to
     the first; two device operations a call (the two kernels, no fills)."""
+    device_ops = k2_device_ops(smi)
     floor = {"launch_floor_ms": time_ms(lambda: torch.cuda._sleep(0)),
              "launch_floor_two_ms": time_ms(lambda: (torch.cuda._sleep(0),
                                                      torch.cuda._sleep(0)))}
@@ -862,7 +923,7 @@ def check_k2(g: torch.Generator) -> dict:
             "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
             "plain_ms": time_ms(lambda: codebook.nearest_codes_plain(x, cb)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            **_k2_device_ops(x, cb), **floor,
+            **device_ops[f"k2 {N} {D} {K}"], **floor,
         }
         emit({"phase": "kernel", "name": "vq_assign", **case})
         cases.append(case)
@@ -1506,11 +1567,18 @@ def zoo_agree() -> list:
 
 # ---------------------------------------------------------------- phase 7
 
-def _run_cli(args, cwd: str, env: dict) -> str:
+def _run_rc(args, cwd: str, env: dict) -> tuple:
+    """A child process that may fail: (rc, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
     r = subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
                        text=True, timeout=CLI_TIMEOUT_S)
-    require(r.returncode == 0, f"{' '.join(args[:3])}: rc {r.returncode}\n{r.stderr[-3000:]}")
-    return r.stdout
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def _run_cli(args, cwd: str, env: dict) -> str:
+    rc, stdout, stderr, _ = _run_rc(args, cwd, env)
+    require(rc == 0, f"{' '.join(args[:3])}: rc {rc}\n{stderr[-3000:]}")
+    return stdout
 
 
 def cli_path(smi: str) -> tuple:
@@ -2109,11 +2177,11 @@ def _timed_rate(train_seconds, warm: int) -> tuple:
 
 def multiseed_path(smi: str) -> dict:
     """The stacked teacher at bench.py's multiseed configuration through
-    MultiSeedTrainer, then the same seeds one after another through Trainer
-    in the same call: aggregate windows/s over the timed epochs; the
+    MultiSeedTrainer, then two of its seeds one after another through
+    Trainer in the same call: aggregate windows/s over the timed epochs; the
     stacked run must launch K1 and K2 exactly as often as one seed's run
-    (once a microbatch for all seeds), every loss finite, each seed's files
-    written."""
+    (once a microbatch for all seeds) and the sequential run twice as
+    often, every loss finite, each seed's files written."""
     workdir = tempfile.mkdtemp(prefix="chip_smoke_multiseed_")
     S = len(MS_SEEDS)
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -2128,8 +2196,8 @@ def multiseed_path(smi: str) -> dict:
         counts = launches()
         stacked_s = time.perf_counter() - t0
         kernels.reset_counters()
-        seq = Trainer(_ms_exp(os.path.join(workdir, "sequential"), MS_SEEDS), device="cuda",
-                      verbose=False)
+        seq = Trainer(_ms_exp(os.path.join(workdir, "sequential"), MS_SEQ_SEEDS),
+                      device="cuda", verbose=False)
         seq_hist = seq.run(ds)
         seq_counts = launches()
         for s in MS_SEEDS:
@@ -2148,17 +2216,19 @@ def multiseed_path(smi: str) -> dict:
                      for name, m, v in zip(names, PER_MICROBATCH["teacher"],
                                            PER_VAL_BATCH["teacher"])})
     require(counts == one_seed, f"multiseed: launches {counts}, one seed's run {one_seed}")
-    require({k: v * S for k, v in counts.items()} == seq_counts,
-            f"multiseed: sequential launches {seq_counts}, {S} x the stacked {counts}")
+    n_seq = len(MS_SEQ_SEEDS)
+    require({k: v * n_seq for k, v in counts.items()} == seq_counts,
+            f"multiseed: sequential launches {seq_counts}, {n_seq} x the stacked {counts}")
     for s in MS_SEEDS:
         require(len(hist[s]["train_loss"]) == epochs
                 and all(math.isfinite(x) for k in ("train_loss", "val_loss")
                         for x in hist[s][k]), f"multiseed seed {s}: {hist[s]}")
     rate, windows, seconds = _timed_rate(stacked.train_seconds, MS_WARM)
     seq_rate, seq_windows, seq_seconds = _timed_rate(seq.train_seconds, MS_WARM)
-    gap = max(abs(a - b) / abs(b) for s in MS_SEEDS
+    gap = max(abs(a - b) / abs(b) for s in MS_SEQ_SEEDS
               for a, b in zip(hist[s]["train_loss"], seq_hist[s]["train_loss"]))
     line = {"phase": "multiseed", "card": smi, "dtype": "bfloat16", "seeds": S,
+            "sequential_seeds": n_seq,
             "batch": MS_BATCH, "windows": MS_WINDOWS, "timed_epochs": MS_TIMED,
             "launches": counts, "sequential_launches": seq_counts,
             "stacked_windows_per_s": rate, "stacked_timed_windows": windows,
@@ -2768,7 +2838,7 @@ def _replay_choices(cpu_prior, cpu_decode, grid: torch.Tensor, choices: torch.Te
 
 def generator_artifact_path(smi: str, prior, vq, exp) -> dict:
     """The f32 prior and the flagship frozen into a generator artifact
-    (unguided, GEN_SAMPLES x GEN_POSITIONS, cuda programs; export timed),
+    (unguided, GEN_SAMPLES x GENERATOR_POSITIONS, cuda programs; export timed),
     loaded in a child process (which must import no models, train or
     config) and here; ``generate`` for a seed within 1e-5 of the live
     make_generation_fn, in the child, here and over HTTP (``{"seed": N}``)."""
@@ -2777,11 +2847,12 @@ def generator_artifact_path(smi: str, prior, vq, exp) -> dict:
     try:
         path = os.path.join(workdir, "generator.zip")
         t0 = time.perf_counter()
-        meta = build_generator_artifact(vq, exp, prior, path, n_positions=GEN_POSITIONS,
+        meta = build_generator_artifact(vq, exp, prior, path,
+                                        n_positions=GENERATOR_POSITIONS,
                                         n_samples=GEN_SAMPLES, platforms=("cuda",))
         export_s = time.perf_counter() - t0
-        live_fn = make_generation_fn(vq, exp, prior, ZERO29, ONE29, n_positions=GEN_POSITIONS,
-                                     n_samples=GEN_SAMPLES)
+        live_fn = make_generation_fn(vq, exp, prior, ZERO29, ONE29,
+                                     n_positions=GENERATOR_POSITIONS, n_samples=GEN_SAMPLES)
         with torch.inference_mode():
             live = live_fn(GEN_SEED).cpu().numpy()
         env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
@@ -2816,10 +2887,10 @@ def generator_artifact_path(smi: str, prior, vq, exp) -> dict:
         require(status == 200, f"generator over HTTP: {status} {body[:300]}")
         errs["http"] = float(np.abs(np.asarray(json.loads(body)["windows"], np.float32)
                                     - live).max())
-        shape = [GEN_SAMPLES, PRIOR_STRIDE * (GEN_POSITIONS - 1) + 10, 29]
+        shape = [GEN_SAMPLES, PRIOR_STRIDE * (GENERATOR_POSITIONS - 1) + 10, 29]
         require(list(got.shape) == shape and np.isfinite(got).all(), f"generator {got.shape}")
         require(max(errs.values()) <= ARTIFACT_ATOL, f"generator vs live: {errs}")
-        line = {"phase": "generator_artifact", "card": smi, "positions": GEN_POSITIONS,
+        line = {"phase": "generator_artifact", "card": smi, "positions": GENERATOR_POSITIONS,
                 "samples": GEN_SAMPLES, "export_s": export_s,
                 "export_s_by_platform": meta["export_seconds"], "load_s": load_s,
                 "artifact_bytes": os.path.getsize(path), "max_abs_err_vs_live": errs,
@@ -3051,10 +3122,266 @@ def latent_path(smi: str) -> dict:
     return line
 
 
+# ---------------------------------------------------------------- phase 22: import, runners, demo
+
+def _run_parallel(jobs: dict, cwd: str, env: dict) -> dict:
+    """Each job's args in a child process, all started together: name ->
+    (rc, stdout, stderr, seconds). Every child is ended before this returns."""
+    procs = {}
+    try:
+        for name, args in jobs.items():
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, *args], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        out = {}
+        for name, (t0, p) in procs.items():
+            stdout, stderr = p.communicate(timeout=CLI_TIMEOUT_S)
+            out[name] = (p.returncode, stdout, stderr, time.perf_counter() - t0)
+        return out
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _reference_files(workdir: str) -> tuple:
+    """The flagship at SEED, FSQ unbounded, written as a user of the
+    reference brings it: a wrapper (DataParallel's ``module.`` keys, the
+    plain config dict, no ``config_json``), a bare ``_final.pth``, and the
+    learned tensors only, through ``cli.export_torch_ckpt``. Returns (the
+    model on the CPU, name -> path)."""
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8, fsq_bounded=False)
+    model = init_model(exp.model, SEED, device="cpu")
+    sd = to_reference_state_dict(model.state_dict())
+    files = {name: os.path.join(workdir, f"{name}.pth")
+             for name in ("reference_best", "reference_final", "exported")}
+    torch.save({"epoch": 3, "model_state_dict": {f"module.{k}": v for k, v in sd.items()},
+                "optimizer_state_dict": {}, "best_loss": 0.5, "config": REFERENCE_CONFIG},
+               files["reference_best"])
+    torch.save(sd, files["reference_final"])
+    port = os.path.join(workdir, "port_best.pth")
+    save_checkpoint(port, epoch=3, model=model, best_loss=0.5, config=exp)
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = export_torch_ckpt.main(["--ckpt", port, "--out", files["exported"]])
+    require(rc == 0, f"export_torch_ckpt: rc {rc}")
+    return model, files
+
+
+def torch_import_path(smi: str) -> tuple:
+    """The slice's main path. The flagship's weights in the three file
+    shapes of ``_reference_files``, each imported by ``cli.import_torch_ckpt
+    --check`` in a child process on the card (the four children started
+    together); the bare file with ``--window 10``, and without it a child
+    that must fail naming the window. Every imported tensor equal bit for
+    bit to the original (so export_torch_ckpt -> import_torch_ckpt gives
+    back every tensor), the reference semantics (FSQ unbounded) in the
+    config. The imported checkpoint served through ServingApp at
+    IMPORT_BATCHES (retarget) and 64 (motion_codes), held to the same
+    payload imported on the CPU under the float32 rule, 8 K1-fwd and 4 K2
+    launches a call; retarget's windows/s at b = 4096 and b = 1 p50.
+    Returns the line and the work directory (its files feed ``runners``)."""
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_import_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    model, files = _reference_files(workdir)
+    out = {name: os.path.join(workdir, f"imported_{name}.pth") for name in files}
+    jobs = {name: ["-c", CLI_WRAPPER, IMPORT_CLI, "--pth", path, "--out", out[name], "--check"]
+            + (["--window", "10"] if name == "reference_final" else [])
+            for name, path in files.items()}
+    jobs["reference_final_no_window"] = ["-c", CLI_WRAPPER, IMPORT_CLI, "--pth",
+                                         files["reference_final"], "--out",
+                                         os.path.join(workdir, "refused.pth")]
+    children = _run_parallel(jobs, workdir, env)
+    refused_rc, _, stderr, _ = children.pop("reference_final_no_window")
+    require(refused_rc != 0 and "window" in stderr
+            and not os.path.exists(os.path.join(workdir, "refused.pth")),
+            f"import of a bare file without --window: rc {refused_rc}\n{stderr[-2000:]}")
+    want_sd = model.state_dict()
+    child_lines, child_launches = {}, []
+    for name, (rc, stdout, stderr, seconds) in children.items():
+        require(rc == 0, f"import_torch_ckpt {name}: rc {rc}\n{stderr[-3000:]}")
+        require("check ok: recon (2, 10, 29), retargeted (2, 10, 29) on cuda" in stdout,
+                f"import_torch_ckpt {name}: {stdout[-2000:]}")
+        counts = json.loads(stdout.strip().splitlines()[-1].split("LAUNCHES ", 1)[1])
+        want = {**{k: 0 for k in kernels.COUNTERS}, "packed_attention_fwd": 16, "vq_assign": 8}
+        require(counts == want, f"import_torch_ckpt {name} --check: launches {counts}, "
+                f"want {want} (both branches)")
+        ck = load_checkpoint(out[name])
+        cfg = ck["config"].model
+        require((cfg.arch, cfg.method, cfg.window_size, cfg.fsq_bounded, cfg.lfq_norm)
+                == ("transformer", "hybrid", 10, False, False), f"import {name}: {cfg}")
+        got_sd = ck["model_state_dict"]
+        require(sorted(got_sd) == sorted(want_sd) and all(
+            torch.equal(got_sd[k], want_sd[k]) for k in want_sd),
+            f"import {name}: tensors differ from the original's")
+        child_lines[name] = {"seconds": seconds, "launches": counts, "epoch": ck["epoch"]}
+        child_launches.append(counts)
+
+    imported = out["reference_best"]
+    exp = load_checkpoint(imported)["config"]
+
+    def build(cfg, device):
+        if device == "cuda":
+            return load_model_from_checkpoint(imported, device="cuda")[0]
+        return import_torch_checkpoint(load_pth(files["reference_best"]), device="cpu")[1]
+
+    _, module, verify, _ = serving_check(exp, build)
+    app = ServingApp(module)
+    rng = np.random.default_rng(SEED + 23)
+    requests = [("retarget", b) for b in IMPORT_BATCHES] + [("motion_codes", 64)]
+    kernels.reset_counters()
+    lines = serve_requests(exp, app, verify, requests, rng)
+    for line in lines:
+        emit({**line, "path": "torch_import"})
+    x4096 = rng.normal(size=(4096, 10, exp.model.human_input_dim)).astype(np.float32)
+    wps, p50 = _serving_rate(app, x4096)
+    line = {"phase": "torch_import", "card": smi, "dtype": "float32",
+            "imports": child_lines, "tensors_checked": len(want_sd),
+            "bare_without_window_rc": refused_rc, "attn_packing": exp.model.attn_packing,
+            "launches": add_launches(*child_launches, *(l["launches"] for l in lines)),
+            "served_launches": add_launches(*(l["launches"] for l in lines)),
+            "retarget_windows_per_s_b4096": wps, "retarget_p50_ms_b1": p50,
+            "torch_import_path_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line, workdir
+
+
+def demo_stream_path(smi: str, art) -> dict:
+    """``cli.demo_stream_retarget``'s device half on the f32 flagship
+    artifact: ``stream_feed`` of DEMO_FRAMES synthetic human frames (the
+    demo's 6D feed) at step DEMO_STEP, equal to offline overlap-add within
+    ARTIFACT_ATOL, each frame released W + 1 frames after it went in,
+    8 K1-fwd and 4 K2 launches a window; then ``drive_g1`` on the card, its
+    trajectory within FK_TOL of the CPU replay of the same frames. The
+    median push and the median push that completes a window."""
+    t_phase = time.perf_counter()
+    cfg = make_experiment("transformer", "hybrid", window=10).model
+    W = art.window_size
+    feed = demo_stream_retarget.human_feed(None, DEMO_FRAMES)
+    kernels.reset_counters()
+    robot, push_ms, released = demo_stream_retarget.stream_feed(art, feed, DEMO_STEP)
+    counts = launches()
+    windows = len(window_starts(DEMO_FRAMES, W, DEMO_STEP))
+    k1, k2 = per_call(cfg)
+    want = {**{k: 0 for k in counts}, "packed_attention_fwd": k1 * windows,
+            "vq_assign": k2 * windows}
+    require(counts == want, f"demo_stream: launches {counts}, want {want}")
+    require(np.cumsum(released).tolist() == [max(n - W, 0) for n in range(1, DEMO_FRAMES + 1)],
+            "demo_stream: frames not released W + 1 frames after they went in")
+    offline = reconstruct_long_sequence(art.fns["retarget"], feed, W, DEMO_STEP,
+                                        np.zeros(1, np.float32), np.ones(1, np.float32),
+                                        device="cuda")
+    err = float(np.abs(robot - offline).max())
+    require(robot.shape == offline.shape == (DEMO_FRAMES, 29) and err <= ARTIFACT_ATOL,
+            f"demo_stream: {robot.shape} {err} from offline overlap-add")
+    t0 = time.perf_counter()
+    traj = demo_stream_retarget.drive_g1(robot, DEMO_FPS, "cuda")
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    cpu_traj = demo_stream_retarget.drive_g1(robot, DEMO_FPS, "cpu")
+    traj_err = float((traj.cpu() - cpu_traj).abs().max())
+    require(traj.device.type == "cuda" and traj.shape == cpu_traj.shape
+            and traj_err <= FK_TOL, f"demo_stream: G1 trajectory {traj_err} from the CPU's")
+    window_ms = [ms for n, ms in enumerate(push_ms, start=1)
+                 if n >= W and (n - W) % DEMO_STEP == 0]
+    line = {"phase": "demo_stream", "card": smi, "dtype": "float32", "frames": DEMO_FRAMES,
+            "window": W, "step": DEMO_STEP, "windows": windows, "launches": counts,
+            "latency_frames": W + 1, "max_abs_err_vs_offline": err,
+            "trajectory_frames": int(traj.shape[0]), "trajectory_max_abs_err_vs_cpu": traj_err,
+            "push_p50_ms": statistics.median(push_ms),
+            "window_push_p50_ms": statistics.median(window_ms), "drive_g1_s": drive_s,
+            "demo_stream_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
+def _entry_seconds(stdout: str) -> dict:
+    return {m.group(1): float(m.group(2)) for m in RUNNER_OK.finditer(stdout)}
+
+
+def runners_path(smi: str, reference_pth: str) -> dict:
+    """The run drivers, each a child process on the card. ``cli.run_batch``
+    over three specs at the CLI's batch: a resnet_no_down + hybrid W10
+    teacher (2 epochs), its student from the teacher's best checkpoint (1),
+    and a spec with JAX's ``prng``, which must fail: the batch exits 1
+    naming only that spec, the good runs write the reference's file names
+    with finite losses. Then ``cli.run_queue`` over ``process_data
+    --synthetic`` and ``import_torch_ckpt --check`` on the reference
+    wrapper file: exit 0, each entry's OK line. Each child's seconds and
+    the seconds of each entry inside it."""
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_runners_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    try:
+        data = os.path.join(workdir, "data")
+        generate_synthetic_dataset(data, n_sequences=8, window=10, step=2, seed=0)   # CLI_DATA
+        ckpts, results = os.path.join(workdir, "checkpoints"), os.path.join(workdir, "results")
+        base = {"arch": "resnet_no_down", "method": "hybrid", "data_dir": data, "window": 10,
+                "batch_size": 256, "seeds": [42], "save_every": 1, "log_dir": results,
+                "checkpoint_dir": ckpts}
+        teacher = os.path.join(ckpts, "Exp_resnet_no_down_W10_hybrid_teacher_seed_42_best.pth")
+        specs = [{**base, "label": "teacher", "epochs": RUNNER_EPOCHS["teacher"]},
+                 {**base, "label": "student", "mode": "student", "teacher_ckpt": teacher,
+                  "epochs": RUNNER_EPOCHS["student"]},
+                 {**base, "label": "jax_prng", "prng": "rbg", "epochs": 1}]
+        spec_path = os.path.join(workdir, "specs.json")
+        with open(spec_path, "w") as f:
+            json.dump(specs, f)
+        rc, stdout, stderr, batch_s = _run_rc(["-m", "bridgerl_tpu_torch.cli.run_batch",
+                                               spec_path], workdir, env)
+        require(rc == 1 and stdout.strip().splitlines()[-1] == "BATCH DONE failures=['jax_prng']"
+                and "prng='rbg'" in stdout, f"run_batch: rc {rc}\n{stdout[-2000:]}\n"
+                f"{stderr[-2000:]}")
+        losses = {}
+        for mode in ("teacher", "student"):
+            for kind in ("best", "last", "final"):
+                path = os.path.join(ckpts, f"Exp_resnet_no_down_W10_hybrid_{mode}_seed_42_"
+                                           f"{kind}.pth")
+                require(os.path.exists(path), f"run_batch {mode}: no {path}")
+            log = ("log_resnet_no_down_hybrid_seed_42.json" if mode == "teacher"
+                   else "log_resnet_no_down_hybrid_student_seed_42.json")
+            with open(os.path.join(results, log)) as f:
+                hist = json.load(f)
+            require(len(hist["train_loss"]) == RUNNER_EPOCHS[mode]
+                    and all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"]),
+                    f"run_batch {mode}: {hist['train_loss']}")
+            losses[mode] = hist["train_loss"]
+        batch_entries = _entry_seconds(stdout)
+        require(sorted(batch_entries) == ["batch[0] teacher", "batch[1] student"],
+                f"run_batch entries {batch_entries}")
+
+        queue = [["bridgerl_tpu_torch.cli.process_data", *CLI_DATA, "--output_dir",
+                  os.path.join(workdir, "queue_data")],
+                 [IMPORT_CLI, "--pth", reference_pth, "--out",
+                  os.path.join(workdir, "imported.pth"), "--check"]]
+        queue_path = os.path.join(workdir, "queue.json")
+        with open(queue_path, "w") as f:
+            json.dump(queue, f)
+        rc, stdout, stderr, queue_s = _run_rc(["-m", "bridgerl_tpu_torch.cli.run_queue",
+                                               queue_path], workdir, env)
+        queue_entries = _entry_seconds(stdout)
+        require(rc == 0 and "[QUEUE] all entries OK" in stdout and len(queue_entries) == 2
+                and "check ok: recon (2, 10, 29)" in stdout
+                and os.path.exists(os.path.join(workdir, "queue_data", "g1_train.npy")),
+                f"run_queue: rc {rc}\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    line = {"phase": "runners", "card": smi, "run_batch_s": batch_s,
+            "run_batch_entries_s": batch_entries, "run_batch_train_loss": losses,
+            "run_queue_s": queue_s, "run_queue_entries_s": queue_entries,
+            "runners_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -3069,7 +3396,7 @@ def main(argv) -> int:
     print(smi, flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    table = [check_k1(g), check_k1_bwd(g), check_k2(g), check_k1(g, BF16),
+    table = [check_k1(g), check_k1_bwd(g), check_k2(g, smi), check_k1(g, BF16),
              check_k1_bwd(g, BF16)]
     for dtype in DTYPES:
         check_k1_mask(g, dtype)
@@ -3113,6 +3440,7 @@ def main(argv) -> int:
             artifact[dtype], served[dtype] = artifact_path(smi, dtype)
         http = decode_http(smi, served[torch.float32][0])
         stream = stream_path(smi, served[torch.float32][0])
+        demo = demo_stream_path(smi, served[torch.float32][0])
     finally:
         for _, _, artifact_dir in served.values():
             shutil.rmtree(artifact_dir, ignore_errors=True)
@@ -3124,6 +3452,11 @@ def main(argv) -> int:
     generator = generator_artifact_path(smi, prior32, vq, vq_exp)
     del prior32, vq
     latent = latent_path(smi)
+    imported, import_dir = torch_import_path(smi)
+    try:
+        runners_path(smi, os.path.join(import_dir, "reference_best.pth"))
+    finally:
+        shutil.rmtree(import_dir, ignore_errors=True)
     csv_path(smi)
     replay_path(smi)
     replay_profile(smi)
@@ -3147,12 +3480,14 @@ def main(argv) -> int:
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "generate": generate,
-             "generator_artifact": generator, "latent": latent}
+             "generator_artifact": generator, "latent": latent, "torch_import": imported,
+             "demo_stream": demo}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         require(row["launches"] > 0, f"{row['name']} was never launched on the main paths")
+    emit({"phase": "total", "card": smi, "chip_smoke_s": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1045,3 +1045,50 @@ def test_latent_vectors_on_the_card_match_the_cpu(gen):
     assert FWD_F32.count - before == 2 * exp.model.n_tf_layers
     want = get_latent_vectors(cpu, x, "human", batch=256)
     assert card.shape == (300, 64) and np.abs(card - want).max() <= 1e-3
+
+
+def test_reference_import_on_the_card_matches_the_cpu_import(gen):
+    """A reference-layout wrapper of a small transformer + hybrid (DataParallel
+    keys, a plain config dict) imported on the card and on the CPU: the
+    float32 serving rule (1e-3, codes equal on >= 99.9% of rows), K1 and K2
+    launched on the card."""
+    import numpy as np
+
+    from bridgerl_tpu_torch.export.torch_import import import_torch_checkpoint
+    from bridgerl_tpu_torch.train.checkpoint import to_reference_state_dict
+
+    src = make_experiment("transformer", "hybrid", window=10, d_model=64, ff_dim=128,
+                          n_tf_layers=2, fsq_bounded=False)
+    sd = to_reference_state_dict(init_model(src.model, 3, device="cpu").state_dict())
+    payload = {"model_state_dict": {f"module.{k}": v for k, v in sd.items()}, "epoch": 2,
+               "config": {"arch": "transformer", "method": "hybrid", "window": 10}}
+    exp, card, _ = import_torch_checkpoint(payload, device="cuda")
+    _, cpu, _ = import_torch_checkpoint(payload, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(256, 10, 126)).astype(np.float32))
+    before = (FWD_F32.count, kernels.COUNTERS["vq_assign"].count)
+    with torch.inference_mode():
+        got = card(x_human=x.cuda())["human"]
+        want = cpu(x_human=x)["human"]
+    assert (FWD_F32.count - before[0], kernels.COUNTERS["vq_assign"].count - before[1]) == (4, 4)
+    assert (got["retargeted"].cpu() - want["retargeted"]).abs().max().item() <= 1e-3
+    for name, codes in want["codes"].items():
+        assert (got["codes"][name].cpu() == codes).float().mean().item() >= 0.999, name
+
+
+def test_trace_on_the_card_records_k1_and_k2(gen, tmp_path):
+    import json
+
+    from bridgerl_tpu_torch.utils.profiling import TRACE_NAME, trace
+
+    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8, d_model=64,
+                          ff_dim=128, n_tf_layers=1)
+    model = init_model(exp.model, 0, device="cuda")
+    x = torch.randn(64, 10, 126, device="cuda", generator=gen)
+    with torch.inference_mode():
+        model(x_human=x)
+        with trace(str(tmp_path)):
+            model(x_human=x)
+            torch.cuda.synchronize()
+    names = {e.get("name", "") for e in
+             json.loads((tmp_path / TRACE_NAME).read_text())["traceEvents"]}
+    assert any("k1_fwd_" in n for n in names) and any("vq_assign_nearest" in n for n in names)

@@ -34,10 +34,14 @@ PORT_MODULES = [
     "bridgerl_tpu_torch.sim.mesh", "bridgerl_tpu_torch.sim.live", "bridgerl_tpu_torch.eval",
     "bridgerl_tpu_torch.eval.latent", "bridgerl_tpu_torch.eval.plots",
     "bridgerl_tpu_torch.eval.latex", "bridgerl_tpu_torch.eval.parity",
+    "bridgerl_tpu_torch.export.torch_import", "bridgerl_tpu_torch.data.manifest",
+    "bridgerl_tpu_torch.utils.profiling", "bridgerl_tpu_torch.utils.logging",
     *(f"bridgerl_tpu_torch.cli.{name}" for name in (
         "play_g1_npy", "render_video", "render_viewport", "live_viewer", "render_mesh_demo",
         "debug_camera_views", "csv_to_npz", "extract_urdf_spec", "analyze_latent_space",
-        "plot_results", "export_latex_table", "check_parity", "generate_motions")),
+        "plot_results", "export_latex_table", "check_parity", "generate_motions",
+        "import_torch_ckpt", "export_torch_ckpt", "inspect_npz", "gen_datasets",
+        "demo_stream_retarget", "run_batch", "run_queue")),
 ]
 # packages that only the renders, plots and t-SNE need; the card's machine
 # has none of them
