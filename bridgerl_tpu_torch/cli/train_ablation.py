@@ -17,10 +17,22 @@ model (``train/multiseed.py``), as ``scripts/train_ablation.py`` does.
 without a card the run stops unless ``--device cpu`` asks for the CPU.
 ``--profile DIR`` writes a ``torch.profiler`` trace of the run to
 ``DIR/trace.json``. ``--fused_attention`` is accepted: the port's attention
-always follows the fused kernel. ``--data_parallel`` does nothing on one
-card and stops the run where more are visible (data parallelism is not
-ported). ``--prng`` (JAX's generator, which the port does not have)
-stops the run with a message that names ``ROADMAP.md``.
+always follows the fused kernel. ``--prng`` (JAX's generator, which the
+port does not have) stops the run with a message that names ``ROADMAP.md``.
+
+``--data_parallel`` does nothing on one card, as the JAX CLI's ``mesh=None``.
+With N > 1 cards visible it runs one process a card (``parallel.launch``,
+NCCL) and scales the batch by N, as the JAX CLI scales it: each optimizer
+batch is split over the cards, and the run computes what one process
+computes at the scaled batch (``train/trainer.py``). With ``--multiseed``
+the seeds are split over the cards instead, where N divides their number
+(``train/multiseed.py``). A rank that fails ends the run with exit code 1,
+naming the rank. Where ``RANK`` and ``WORLD_SIZE`` are set (a launcher such
+as ``torchrun`` started this process), the process joins that rendezvous as
+its rank instead (NCCL on ``--device cuda``, gloo on ``cpu``).
+
+    python -m bridgerl_tpu_torch.cli.train_ablation --arch transformer --method hybrid \
+        --data_parallel            # 4 cards: batch 1024, one process a card
 
 Several seeds as one stacked program, with the FK loss and int8 FF:
 
@@ -66,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multiseed", action="store_true",
                    help="Train all seeds at once, stacked into one model")
     p.add_argument("--data_parallel", "--force_multi_gpu", action="store_true",
-                   dest="data_parallel", help="A no-op on one card")
+                   dest="data_parallel",
+                   help="One process a visible card (NCCL), batch scaled by their number; "
+                        "a no-op on one card")
     p.add_argument("--lambda_fk", type=float, default=0.0,
                    help="World-space FK loss weight (teacher stage)")
     p.add_argument("--profile", type=str, default=None,
@@ -129,6 +143,7 @@ def unported(args) -> Optional[str]:
 
 def make_exp(args, robot_dim: int, human_dim: int):
     """The ExperimentConfig the flags ask for, assembled as the JAX CLI does."""
+    from .. import parallel
     from ..config import make_experiment, ref_exact
 
     opt = {k: v for k, v in (("fsq_bounded", args.fsq_bounded), ("lfq_norm", args.lfq_norm),
@@ -148,7 +163,8 @@ def make_exp(args, robot_dim: int, human_dim: int):
         compute_dtype="bfloat16" if args.bf16 else "float32", **opt)
     exp = dataclasses.replace(exp, log_dir=args.log_dir, checkpoint_dir=args.checkpoint_dir)
     if args.ref_exact:
-        print("!!! ref-exact mode: channel-axis velocity diff, torch inits, cold EMA init !!!")
+        if parallel.is_main():
+            print("!!! ref-exact mode: channel-axis velocity diff, torch inits, cold EMA init !!!")
         return ref_exact(exp)
     model_over, train_over = {}, {}
     if args.torch_init is not None and args.torch_init != exp.model.torch_init:
@@ -158,7 +174,8 @@ def make_exp(args, robot_dim: int, human_dim: int):
     if args.ref_exact_vel is not None and args.ref_exact_vel != exp.train.ref_exact_vel:
         train_over["ref_exact_vel"] = args.ref_exact_vel
     if model_over or train_over:
-        print(f"!!! single-flag arm(s): {sorted({**model_over, **train_over})} !!!")
+        if parallel.is_main():
+            print(f"!!! single-flag arm(s): {sorted({**model_over, **train_over})} !!!")
         exp = dataclasses.replace(exp, model=dataclasses.replace(exp.model, **model_over),
                                   train=dataclasses.replace(exp.train, **train_over))
     return exp
@@ -183,17 +200,65 @@ def _run(exp, ds, device, profile_dir: Optional[str], multiseed: bool) -> None:
     print(f"Profile: {os.path.join(profile_dir, 'trace.json')}")
 
 
+def data_parallel_world(args, device) -> int:
+    """The number of ranks ``--data_parallel`` asks for: the visible cards
+    (a rendezvous in the environment: its ``WORLD_SIZE``), or 1."""
+    import torch
+
+    if not args.data_parallel:
+        return 1
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def train(args, device) -> int:
+    """Load the data onto ``device`` and train: the whole run in one
+    process, or this rank's part of it under the active group, whose
+    ranks scale the batch by their number."""
+    import torch
+
+    from .. import parallel
+    from ..data.dataset import PairedDataset
+    from ..data.pipeline import load_artifacts
+
+    if device.type == "cuda":   # float32 means float32: no TF32 in GEMMs or convolutions
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    main_rank = parallel.is_main()
+    arrays = load_artifacts(args.data_dir)
+    ds = PairedDataset.from_numpy(arrays["g1_train.npy"], arrays["human_train.npy"],
+                                  device=device)
+    if main_rank:
+        print(f"Dataset loaded. Dim: R={ds.robot_dim}/H={ds.human_dim}, "
+              f"N={len(ds)}, Batch={args.batch_size}")
+    exp = make_exp(args, ds.robot_dim, ds.human_dim)
+    if parallel.world_size() > 1:
+        exp = dataclasses.replace(exp, train=dataclasses.replace(
+            exp.train, batch_size=args.batch_size * parallel.world_size()))
+    _run(exp, ds, device, args.profile if main_rank else None, args.multiseed)
+    if main_rank:
+        for seed in args.seed:
+            print(f"Success: {exp.name} | Mode: {args.mode} | Seed: {seed}")
+    return 0
+
+
+def rank_main(argv: Sequence[str]) -> int:
+    """One rank of ``--data_parallel`` (``parallel.launch``'s target)."""
+    from .. import parallel
+
+    return train(build_parser().parse_args(argv), parallel.active().device)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     flag = unported(args)
     if flag is not None:
         print(f"{flag} is not ported to bridgerl_tpu_torch yet (ROADMAP.md)", file=sys.stderr)
         return 2
 
-    import torch
-
-    from ..data.dataset import PairedDataset
-    from ..data.pipeline import load_artifacts
+    from .. import parallel
     from ..device import resolve_device
 
     try:
@@ -201,23 +266,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except RuntimeError as e:
         print(f"train_ablation: {e}", file=sys.stderr)
         return 1
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"--data_parallel over {torch.cuda.device_count()} cards is not ported "
-              "(ROADMAP.md); make one card visible", file=sys.stderr)
-        return 2
-    if device.type == "cuda":   # float32 means float32: no TF32 in GEMMs or convolutions
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    world = data_parallel_world(args, device)
+    if world == 1:
+        return train(args, device)
+    if int(os.environ.get("RANK", 0)) == 0:
+        # the global batch scales by the card count, as the JAX CLI mirrors
+        # the reference's DataParallel
+        print(f"!!! Data-parallel over {world} devices; scaling batch size to "
+              f"{args.batch_size * world} !!!")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
 
-    arrays = load_artifacts(args.data_dir)
-    ds = PairedDataset.from_numpy(arrays["g1_train.npy"], arrays["human_train.npy"],
-                                  device=device)
-    print(f"Dataset loaded. Dim: R={ds.robot_dim}/H={ds.human_dim}, "
-          f"N={len(ds)}, Batch={args.batch_size}")
-    exp = make_exp(args, ds.robot_dim, ds.human_dim)
-    _run(exp, ds, device, args.profile, args.multiseed)
-    for seed in args.seed:
-        print(f"Success: {exp.name} | Mode: {args.mode} | Seed: {seed}")
+        group = parallel.init_from_env(backend, args.device)
+        try:
+            with parallel.use_group(group):
+                return train(args, group.device)
+        finally:
+            dist.destroy_process_group()
+    try:
+        parallel.launch(rank_main, world, backend, args=(argv,))
+    except parallel.RankFailure as e:
+        print(f"train_ablation: {e}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -6,6 +6,12 @@ batches are on-device gathers: there is no DataLoader and no host copy per
 step. ``split_indices`` is numpy and gives the JAX package's split exactly;
 the per-epoch shuffles come from a ``torch.Generator`` and cannot match
 ``jax.random`` bit for bit.
+
+Data-parallel (``parallel/``), every rank holds the whole dataset on its
+own device, draws the same index matrices, and gathers only its contiguous
+share of each train or validation batch (``parallel.shard_rows``), as the
+JAX package's ``shard_batch`` pins a gathered batch to the ``data`` axis;
+:func:`require_split` refuses a batch that the ranks do not divide.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..device import resolve_device
 
 
@@ -70,3 +77,12 @@ def epoch_batch_indices(generator: torch.Generator, n: int, batch_size: int
     perm = torch.randperm(n, generator=generator, device=generator.device)
     num_batches = n // batch_size
     return perm[: num_batches * batch_size].reshape(num_batches, batch_size)
+
+
+def require_split(rows: int, what: str) -> None:
+    """Raise unless the data-parallel ranks divide a batch of ``rows``."""
+    R = parallel.world_size()
+    if rows % R:
+        raise ValueError(f"{what} of {rows} windows does not split over {R} ranks: "
+                         f"choose sizes whose batches are multiples of {R}")
+

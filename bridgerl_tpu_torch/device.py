@@ -1,5 +1,6 @@
 """Device resolution: the port runs on the card unless the caller asks for
-the CPU, and never falls back from one to the other on its own."""
+the CPU, and never falls back from one to the other on its own. Data
+parallel, each local rank runs on a card of its own (:func:`local_rank_device`)."""
 
 from __future__ import annotations
 
@@ -14,4 +15,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def local_rank_device(local_rank: int) -> torch.device:
+    """The card of local rank ``local_rank``: ``cuda:{local_rank}``. Raises
+    without CUDA or when this host has no such card."""
+    dev = resolve_device(torch.device("cuda", local_rank))
+    if local_rank >= torch.cuda.device_count():
+        raise RuntimeError(f"local rank {local_rank} has no card: this host has "
+                           f"{torch.cuda.device_count()}")
     return dev

@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops.attention import packed_attention
 from ..ops.int8 import int8_matmul
 from ..ops.linear import linear, seed_count
@@ -446,7 +447,11 @@ class BatchNorm(nn.Module):
     so once a microbatch, and once a branch where both branches run).
     Normalising is float32 too, ``(x - mean) * (rsqrt(var + eps) * scale) +
     bias``, and the result is cast to x's dtype. In eval mode the running
-    statistics take the batch's place. ``num_batches_tracked`` counts the
+    statistics take the batch's place. Under a data-parallel group
+    (``parallel/``) the train-mode mean and E[x^2] are those of the global
+    batch: summed over the ranks by a differentiable all-reduce and divided
+    by their number, so every rank folds the same running statistics.
+    ``num_batches_tracked`` counts the
     train calls, as torch's does; the JAX package has no such counter.
     Seed-stacked, the (S, C) parameters and statistics serve the S * C
     seed-major channels of the tower's folded layout."""
@@ -464,7 +469,14 @@ class BatchNorm(nn.Module):
         run_mean, run_var = self.running_mean.view(-1), self.running_var.view(-1)
         if train:
             mean = x32.mean(dim=(0, 2))
-            var = torch.clamp_min((x32 * x32).mean(dim=(0, 2)) - mean * mean, 0.0)
+            sq = (x32 * x32).mean(dim=(0, 2))
+            if parallel.active() is not None:
+                # SyncBatchNorm: the ranks' shares are equal, so the global
+                # moments are the mean of theirs; the gradient flows through
+                # them to every rank's rows, as under the JAX package's mesh
+                both = parallel.all_reduce_sum_differentiable(torch.cat([mean, sq]))
+                mean, sq = (both / parallel.world_size()).split(mean.shape[0])
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 run_mean.copy_(m * run_mean + (1 - m) * mean)

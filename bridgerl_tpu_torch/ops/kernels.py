@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``. The build runs
 at first use, one ``nvcc`` per source, all started together, into
 ``bridgerl_tpu_torch/_build/`` (listed in ``.gitignore``). A library's file
-name carries a hash of its source, so an edited kernel is rebuilt.
+name carries a hash of its source, so an edited kernel is rebuilt. The
+build holds a file lock on ``_build/``, so processes that start together
+(the ranks of a data-parallel run) build once and load what the first built;
+a build that fails raises in every process that needed it.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, launches on that stream without synchronising, and returns
@@ -15,6 +18,7 @@ here falls back to a kernel's plain version.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -94,33 +98,40 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         if _libs:
             return _libs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        sources = sorted(CSRC.glob("*.cu"))
-        jobs = []
-        for src in sources:
-            out = _lib_path(src)
-            if out.exists():
-                continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            jobs.append((src, tmp, out, proc))
-        errors = []
-        for src, tmp, out, proc in jobs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed on {src.name}:\n{log}")
-            else:
-                os.replace(tmp, out)
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        libs = {src.stem: ctypes.CDLL(str(_lib_path(src))) for src in sources}
-        for fn, (lib, argtypes) in SIGNATURES.items():
-            entry = getattr(libs[lib], fn)
-            entry.argtypes = argtypes
-            entry.restype = ctypes.c_int
-        _libs.update(libs)
-        return _libs
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)   # one build at a time across processes
+            return _build_and_load()
+
+
+def _build_and_load() -> Dict[str, ctypes.CDLL]:
+    """Under the build lock: compile what is missing, then load."""
+    sources = sorted(CSRC.glob("*.cu"))
+    jobs = []
+    for src in sources:
+        out = _lib_path(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, tmp, out, proc))
+    errors = []
+    for src, tmp, out, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src.name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    libs = {src.stem: ctypes.CDLL(str(_lib_path(src))) for src in sources}
+    for fn, (lib, argtypes) in SIGNATURES.items():
+        entry = getattr(libs[lib], fn)
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
+    _libs.update(libs)
+    return _libs
 
 
 def entry(fn: str):

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from .codebook import nearest_codes, quantize_lookup
 from .linear import linear, seed_count
 
@@ -64,6 +65,28 @@ def unique_count(indices: torch.Tensor, seeds: Optional[int] = None) -> torch.Te
         return torch.clamp(torch.sum((s != torch.roll(s, 1)).float()), min=1.0)
     s = torch.sort(indices.reshape(seeds, -1), dim=-1).values
     return torch.clamp(torch.sum((s != torch.roll(s, 1, dims=-1)).float(), dim=-1), min=1.0)
+
+
+def global_unique_count(indices: torch.Tensor, low: int, n: int,
+                        seeds: Optional[int] = None) -> torch.Tensor:
+    """:func:`unique_count` over every rank's ``indices``: a histogram of
+    the n codes ``low`` ... ``low + n - 1`` (per seed with ``seeds``), summed
+    over the ranks, and its non-empty bins counted."""
+    flat = (indices.reshape(1 if seeds is None else seeds, -1).long() - low)
+    S = flat.shape[0]
+    offsets = n * torch.arange(S, device=flat.device)[:, None]
+    hist = torch.bincount((flat + offsets).reshape(-1), minlength=S * n).float()
+    used = torch.sum(parallel.all_reduce_sum(hist).reshape(S, n) > 0, dim=-1).float()
+    used = torch.clamp(used, min=1.0)
+    return used[0] if seeds is None else used
+
+
+def code_range(indices: torch.Tensor) -> Tuple[int, int]:
+    """(lowest, count) of the integer codes seen on any rank: one
+    all-reduce of (-min, max)."""
+    ends = torch.stack([-indices.min(), indices.max()]).long()
+    lo, hi = parallel.all_reduce_max(ends).tolist()
+    return -lo, hi + lo + 1
 
 
 def seed_mean(x: torch.Tensor, seeds: Optional[int] = None) -> torch.Tensor:
@@ -159,6 +182,9 @@ class VectorQuantizer(nn.Module):
         if S is not None:                           # one K2 launch for all seeds
             flat = flat.reshape(S, -1, self.embedding_dim)
         indices, counts, dw = nearest_codes(flat.detach(), embedding.detach())
+        if parallel.active() is not None:       # batch-global statistics, one call
+            both = parallel.all_reduce_sum(torch.cat([counts.reshape(-1), dw.reshape(-1)]))
+            counts, dw = both[:counts.numel()].view_as(counts), both[counts.numel():].view_as(dw)
         if train and self.use_ema:
             # the lookup (and so the commitment loss) uses the folded codebook
             embedding = self._fold(counts, dw)
@@ -226,6 +252,7 @@ class FSQ(nn.Module):
         self.register_buffer("_offset", offset, persistent=False)
         self.register_buffer("_shift", torch.tan(offset / half), persistent=False)
         self.register_buffer("_basis", basis, persistent=False)
+        self._low = -sum((l // 2) * int(b) for l, b in zip(self.levels, basis.tolist()))
 
     def forward(self, z: torch.Tensor, train: bool = False) -> QuantOut:
         in_dtype = z.dtype
@@ -238,7 +265,13 @@ class FSQ(nn.Module):
         out = linear(z_hard, self.project_out.weight, self.project_out.bias, S).to(in_dtype)
         # indices from the exact round(): z_hard is integral only to ~ulp
         indices = torch.sum(hard_vals.detach() * self._basis, dim=-1).to(torch.int32)
-        uniq = unique_count(indices, S)
+        if parallel.active() is None:
+            uniq = unique_count(indices, S)
+        else:
+            # bounded: digit i runs over L_i integers from -(L_i // 2); unbounded: any
+            low, n = ((self._low, math.prod(self.levels)) if self.bounded
+                      else code_range(indices))
+            uniq = global_unique_count(indices, low, n, S)
         metrics = {"perplexity": uniq,
                    "dcr": 1.0 - uniq / float(math.prod(self.levels))}
         return torch.zeros((), device=z.device), out, metrics, {"": indices}
@@ -301,7 +334,8 @@ class LFQ(nn.Module):
         loss = -seed_mean(entropy, S) * self.entropy_loss_weight
         out = linear(z_q, self.project_out.weight, self.project_out.bias, S).to(in_dtype)
         indices = torch.sum((z_q > 0).to(torch.int32) * self._basis, dim=-1, dtype=torch.int32)
-        uniq = unique_count(indices, S)
+        uniq = (unique_count(indices, S) if parallel.active() is None
+                else global_unique_count(indices, 0, 2 ** self.codebook_dim, S))
         metrics = {"perplexity": uniq, "dcr": 1.0 - uniq / float(2 ** self.codebook_dim)}
         return loss, out, metrics, {"": indices}
 

@@ -28,6 +28,15 @@ partial set is an error; checkpoints of another stage are ignored); the
 best state of each seed is tracked on the device and its ``_best`` written
 at the end, with ``_last`` every ``save_every`` epochs and ``_final``; the
 run stops early when every seed has run out of patience.
+
+Data-parallel (an active ``parallel`` group of R ranks), the seeds are
+split, as the JAX package lays the seed axis over its mesh when the device
+count divides S: each rank trains a stacked model of its S / R whole seeds
+with no collective in the hot loop (one all-reduce an epoch decides the
+early stop over every seed), writes its seeds' files, and ``run`` returns
+every seed's history on every rank. Where R does not divide S the seeds
+stay unsplit on rank 0, as the JAX package keeps them unsharded, and the
+other ranks return at once.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..config import ExperimentConfig
 from ..data.dataset import PairedDataset, epoch_batch_indices, split_indices
 from ..device import resolve_device
@@ -189,7 +199,7 @@ class MultiSeedTrainer:
     def __init__(self, exp: ExperimentConfig, device=None, verbose: bool = True):
         self.exp = exp
         self.device = resolve_device(device)
-        self.verbose = verbose
+        self.verbose = verbose and parallel.is_main()   # logs print on rank 0 only
         self.train_seconds: List = []
         os.makedirs(exp.log_dir, exist_ok=True)
         os.makedirs(exp.checkpoint_dir, exist_ok=True)
@@ -225,22 +235,55 @@ class MultiSeedTrainer:
                         config=self.exp, patience_counter=patience_counter)
 
     def run(self, ds: PairedDataset) -> Dict[int, Dict[str, list]]:
+        seeds = list(self.exp.train.seeds)
+        group = parallel.active()
+        if group is None:
+            return self._run(ds, seeds, seeds, lambda stalled: stalled)
+        R = group.world_size
+        if len(seeds) % R:
+            if group.rank != 0:
+                return {}
+            print(f"!!! {len(seeds)} seeds do not split over {R} ranks: they stay unsplit "
+                  f"on rank 0 !!!")
+            with parallel.use_group(None):
+                return self._run(ds, seeds, seeds, lambda stalled: stalled)
+        share = len(seeds) // R
+        mine = seeds[group.rank * share:(group.rank + 1) * share]
+
+        def all_stalled(stalled: bool) -> bool:
+            with parallel.use_group(group):
+                return parallel.all_reduce_sum(
+                    torch.tensor([0.0 if stalled else 1.0], device=group.device)).item() == 0
+
+        with parallel.use_group(None):          # whole seeds a rank: no collective
+            histories = self._run(ds, seeds, mine, all_stalled)
+        with parallel.use_group(group):
+            gathered = parallel.gather_json(list(histories.items()))
+        merged = {int(s): h for part in gathered for s, h in part}
+        return {s: merged[s] for s in seeds}
+
+    def _run(self, ds: PairedDataset, all_seeds: Sequence[int], seeds: Sequence[int],
+             all_stalled) -> Dict[int, Dict[str, list]]:
+        """Train ``seeds`` stacked; splits are cut to the shortest over
+        ``all_seeds``; ``all_stalled(bool)`` is whether every seed of the run
+        (this process's and any other's) has run out of patience."""
         exp, tcfg = self.exp, self.exp.train
-        seeds = list(tcfg.seeds)
+        seeds = list(seeds)
         S, mode, dev = len(seeds), tcfg.mode, self.device
         if self.verbose:
             print(f"{TermColor.HEADER}Multi-seed: {exp.name} x {S} seeds, stacked | "
                   f"Mode: {mode.upper()} | Device: {dev}{TermColor.ENDC}")
         resume_cks = self._resume_checkpoints(seeds)
 
-        # per-seed splits, every seed's lists cut to the shortest
+        # per-seed splits, every seed's lists cut to the shortest of the run's
         n = len(ds)
-        splits = [split_indices(n, tcfg.val_fraction, s) for s in seeds]
-        n_train = min(len(tr) for tr, _ in splits)
-        n_val = min(len(va) for _, va in splits)
+        cuts = [split_indices(n, tcfg.val_fraction, s) for s in all_seeds]
+        n_train = min(len(tr) for tr, _ in cuts)
+        n_val = min(len(va) for _, va in cuts)
         if n_train == 0 or n_val == 0:
             raise ValueError(f"val_fraction={tcfg.val_fraction} splits {n} windows into "
                              f"train={n_train}/val={n_val}; both must be non-empty")
+        splits = [cuts[list(all_seeds).index(s)] for s in seeds]
         train_idx = torch.as_tensor(np.stack([tr[:n_train] for tr, _ in splits]), device=dev)
         val_idx = torch.as_tensor(np.stack([va[:n_val] for _, va in splits]), device=dev)
 
@@ -306,7 +349,7 @@ class MultiSeedTrainer:
             vals = stacked_eval_epoch(model, ds.robot, ds.human, vidx, mode)
 
             improved = np.zeros(S, dtype=bool)
-            all_stalled = True
+            stalled = True
             for i, s in enumerate(seeds):
                 h = histories[s]
                 cur = float(vals["val_recon"][i] if mode == "teacher" else vals["val_align"][i])
@@ -318,7 +361,7 @@ class MultiSeedTrainer:
                 else:
                     patience[s] += 1
                 if tcfg.patience <= 0 or patience[s] < tcfg.patience:
-                    all_stalled = False
+                    stalled = False
                 with open(os.path.join(exp.log_dir, exp.log_name(s)), "w") as f:
                     json.dump(h, f, indent=4)
 
@@ -338,7 +381,7 @@ class MultiSeedTrainer:
                 print(f"Ep {epoch}: mean train {float(np.mean(logs['train_loss'])):.4f} | "
                       f"mean {vkey} {float(np.mean(vals[vkey])):.4f} | "
                       f"{TermColor.CYAN}ETA {int(eta)}s{TermColor.ENDC}")
-            if tcfg.patience > 0 and all_stalled:
+            if tcfg.patience > 0 and all_stalled(stalled):
                 if self.verbose:
                     print(f"{TermColor.RED}!!! All seeds early-stopped at epoch {epoch} !!!"
                           f"{TermColor.ENDC}")

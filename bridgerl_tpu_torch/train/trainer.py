@@ -36,6 +36,21 @@ matching weights (``init_from``, :func:`~.checkpoint.merge_matching_variables`)
 and then seed its first-stage EMA codebooks from the robot encoder's outputs
 on the first ``batch_size`` training windows (``codebook_data_init``,
 ``train/codebook_seed.py``), both before the optimizer is built.
+
+Data-parallel (an active ``parallel`` group, one process a card), a run at
+world size R, global batch B and ``accum_chunks`` A computes what one
+process computes at B and A, up to summation order, as the JAX package does
+over its ``data`` mesh: each microbatch of B / A windows is split into R
+contiguous shares (``parallel.shard_rows``), the EMA codebooks and
+BatchNorm statistics fold batch-global statistics (``ops/quantizers.py``,
+``models/layers.py``), the gradients are summed over the ranks once an
+optimizer step and divided by R, and the logs and validation metrics are
+global means. The model is broadcast from rank 0 before the first epoch,
+so the parameters stay bit-equal on every rank. Every rank draws the
+epoch's shuffle; after it, rank r > 0 draws its dropout (and K1's seeds)
+from a stream of its own (:func:`fork_for_rank`). Only rank 0 writes
+checkpoints, histories and logs; the others wait for it at the end of each
+seed, so that a resume or a student reads complete files.
 """
 
 from __future__ import annotations
@@ -51,8 +66,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..config import HISTORY_KEYS, ExperimentConfig
-from ..data.dataset import PairedDataset, epoch_batch_indices, train_val_split
+from ..data.dataset import (
+    PairedDataset,
+    epoch_batch_indices,
+    require_split,
+    train_val_split,
+)
 from ..device import resolve_device
 from ..models.dual_vqvae import init_model
 from ..utils.logging import TermColor, epoch_log
@@ -126,6 +147,21 @@ def _mean_logs(logs: List[Logs]) -> Logs:
     return {k: torch.stack([l[k] for l in logs]).mean() for k in logs[0]}
 
 
+def _global_logs(logs: Logs) -> Logs:
+    """Each rank's means of equal shares -> the global means (one
+    all-reduce; the logs themselves without a group)."""
+    parallel.all_reduce_mean_(list(logs.values()))
+    return logs
+
+
+def microbatches(n: int, accum: int) -> int:
+    """The number of microbatches of an optimizer batch of ``n``:
+    ``accum``, or where it does not divide ``n`` the largest common divisor,
+    as the JAX package clamps it."""
+    accum = max(accum, 1)
+    return accum if n % accum == 0 else math.gcd(accum, n)
+
+
 def accumulate_grads(model: nn.Module, exp: ExperimentConfig, robot: torch.Tensor,
                      human: torch.Tensor, idx: torch.Tensor,
                      generator: Optional[torch.Generator]) -> Logs:
@@ -133,10 +169,12 @@ def accumulate_grads(model: nn.Module, exp: ExperimentConfig, robot: torch.Tenso
     over its microbatches divided by their number. Returns the logs
     averaged over the microbatches (device tensors). With
     ``reuse_dropout_mask`` each microbatch draws its dropout from the
-    generator state the batch started from."""
-    accum = max(exp.train.accum_chunks, 1)
+    generator state the batch started from. Data-parallel, each microbatch
+    row of ``idx`` is global: this rank takes its share, and the gradient
+    left in ``.grad`` is the global batch's (summed over the ranks once,
+    divided by their number); the logs stay this rank's."""
     n = idx.shape[0]
-    acc = accum if n % accum == 0 else math.gcd(accum, n)
+    acc = microbatches(n, exp.train.accum_chunks)
     student = exp.train.mode == "student"
     reuse = exp.train.reuse_dropout_mask and generator is not None
     start = generator.get_state() if reuse else None
@@ -144,6 +182,7 @@ def accumulate_grads(model: nn.Module, exp: ExperimentConfig, robot: torch.Tenso
     for mb in idx.reshape(acc, n // acc):
         if reuse:
             generator.set_state(start)
+        mb = parallel.shard_rows(mb)
         loss, mb_logs = microbatch_loss(model, exp, robot[mb],
                                         human[mb] if student else None, generator)
         loss.backward()
@@ -152,13 +191,14 @@ def accumulate_grads(model: nn.Module, exp: ExperimentConfig, robot: torch.Tenso
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(acc)
+    parallel.all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None])
     return _mean_logs(logs)
 
 
 def make_train_epoch(exp: ExperimentConfig) -> Callable:
     """``train_epoch(model, opt, robot, human, idx_mat, generator)``: one
     optimizer step per row of the (steps, batch) index matrix; returns the
-    logs averaged over the steps, as floats."""
+    logs averaged over the steps (and the ranks), as floats."""
 
     def train_epoch(model, opt, robot, human, idx_mat, generator) -> Dict[str, float]:
         logs = []
@@ -172,7 +212,7 @@ def make_train_epoch(exp: ExperimentConfig) -> Callable:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
             opt.step()
-        return {k: float(v) for k, v in _mean_logs(logs).items()}
+        return {k: float(v) for k, v in _global_logs(_mean_logs(logs)).items()}
 
     return train_epoch
 
@@ -182,13 +222,23 @@ def eval_epoch(model: nn.Module, robot: torch.Tensor, human: torch.Tensor,
                idx_mat: torch.Tensor, mode: str = "student") -> Dict[str, float]:
     """Validation in eval mode, averaged over the batches. The teacher
     evaluates the robot branch only (its human branch is untrained); the
-    student evaluates both, for the cross and alignment metrics."""
+    student evaluates both, for the cross and alignment metrics.
+    Data-parallel, each rank evaluates its contiguous share of every batch
+    (shares one row apart where the ranks do not divide it) and the metrics
+    are global means, weighted by the shares' rows."""
     metrics = []
     for idx in idx_mat:
-        x_r = robot[idx]
-        x_h = None if mode == "teacher" else human[idx]
+        rows = parallel.shard_rows(idx, even=False)
+        x_r = robot[rows]
+        x_h = None if mode == "teacher" else human[rows]
         metrics.append(eval_metrics(model(x_robot=x_r, x_human=x_h), x_r))
-    return {k: float(v) for k, v in _mean_logs(metrics).items()}
+    means = _mean_logs(metrics)
+    # shares may differ by a row: weight each rank's means by its rows
+    # (a factor of exactly 1 where the shares are equal)
+    weight = len(rows) * parallel.world_size() / idx_mat.shape[1]
+    if weight != 1.0:
+        means = {k: v * weight for k, v in means.items()}
+    return {k: float(v) for k, v in _global_logs(means).items()}
 
 
 def val_index_matrix(n_val: int, batch_size: int) -> np.ndarray:
@@ -259,6 +309,19 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def fork_for_rank(generator: torch.Generator, seed: int, epoch: int) -> torch.Generator:
+    """The dropout stream of this rank, after the epoch's shuffle: rank 0
+    (and a process without a group) goes on with ``generator``; rank r > 0
+    draws from a generator of its own, seeded from (seed, epoch, r), so that
+    the ranks' shares do not all get the same masks. (The JAX package's mask
+    is one draw over the global batch, which no rank split reproduces.)"""
+    group = parallel.active()
+    if group is None or group.rank == 0:
+        return generator
+    state = np.random.SeedSequence([seed, epoch, group.rank]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(int(state))
+
+
 class Trainer:
     """Host-level orchestration of one experiment across its seeds.
 
@@ -269,7 +332,7 @@ class Trainer:
     def __init__(self, exp: ExperimentConfig, device=None, verbose: bool = True):
         self.exp = exp
         self.device = resolve_device(device)
-        self.verbose = verbose
+        self.verbose = verbose and parallel.is_main()   # logs print on rank 0 only
         self.train_seconds: List[Tuple[int, int, float]] = []
         os.makedirs(exp.log_dir, exist_ok=True)
         os.makedirs(exp.checkpoint_dir, exist_ok=True)
@@ -306,6 +369,8 @@ class Trainer:
         last_path = self.ckpt_path(seed, "last")
         ck = load_checkpoint(last_path) if tcfg.resume and os.path.exists(last_path) else None
         model = prepare_seed_model(exp, seed, self.device, train_ds.robot, ck, self.verbose)
+        # rank 0's weights, its data-seeded codebooks included, on every rank
+        parallel.broadcast_module(model)
         if ck is not None:
             resumed_opt_state = ck["optimizer_state_dict"] or None
             try:
@@ -336,6 +401,8 @@ class Trainer:
         batch = min(tcfg.batch_size, n_train)
         idx_val = torch.as_tensor(val_index_matrix(len(val_ds), tcfg.batch_size),
                                   device=self.device)
+        require_split(batch // microbatches(batch, tcfg.accum_chunks), "a microbatch")
+        main = parallel.is_main()
         train_epoch = make_train_epoch(exp)
         patience = tcfg.patience
         t0 = time.time()
@@ -345,6 +412,7 @@ class Trainer:
         for epoch in range(start_epoch, tcfg.epochs):
             g = epoch_generator(seed, epoch, self.device)
             idx_mat = epoch_batch_indices(g, n_train, batch)
+            g = fork_for_rank(g, seed, epoch)
             t_epoch = time.perf_counter()
             logs = train_epoch(model, opt, train_ds.robot, train_ds.human, idx_mat, g)
             self.train_seconds.append((epoch, idx_mat.numel(), time.perf_counter() - t_epoch))
@@ -364,16 +432,18 @@ class Trainer:
             if improved:
                 best_val = cur
                 patience_counter = 0
-                save_checkpoint(self.ckpt_path(seed, "best"), epoch=epoch, model=model,
-                                optimizer=opt, best_loss=best_val, config=exp)
+                if main:
+                    save_checkpoint(self.ckpt_path(seed, "best"), epoch=epoch, model=model,
+                                    optimizer=opt, best_loss=best_val, config=exp)
             else:
                 patience_counter += 1
-            if epoch % max(tcfg.save_every, 1) == 0 or epoch == tcfg.epochs - 1:
+            if main and (epoch % max(tcfg.save_every, 1) == 0 or epoch == tcfg.epochs - 1):
                 save_checkpoint(last_path, epoch=epoch, model=model, optimizer=opt,
                                 best_loss=best_val, config=exp,
                                 patience_counter=patience_counter)
-            with open(self._log_path(seed), "w") as f:
-                json.dump(history, f, indent=4)
+            if main:
+                with open(self._log_path(seed), "w") as f:
+                    json.dump(history, f, indent=4)
 
             if not improved and patience > 0 and patience_counter >= patience:
                 if self.verbose:
@@ -381,9 +451,11 @@ class Trainer:
                           f"(no improvement for {patience}) !!!{TermColor.ENDC}")
                 break
 
-        save_state_dict(self.ckpt_path(seed, "final"), model)
-        with open(self._mode_log_path(seed), "w") as f:
-            json.dump(history, f, indent=4)
+        if main:
+            save_state_dict(self.ckpt_path(seed, "final"), model)
+            with open(self._mode_log_path(seed), "w") as f:
+                json.dump(history, f, indent=4)
+        parallel.barrier()   # rank 0's files are complete before any rank reads them
         return history
 
     def run(self, ds: PairedDataset) -> Dict[int, Dict[str, list]]:

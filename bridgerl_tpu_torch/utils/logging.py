@@ -2,7 +2,7 @@
 
 The port's own copy of ``bridgerl_tpu/utils/logging.py``'s ``TermColor``,
 ``epoch_log`` (the reference's ``scripts/train_ablation.py:26-37, 263-273``)
-and ``Throughput``.
+and ``Throughput``. Data-parallel, the epoch lines print on rank 0 only.
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ from __future__ import annotations
 import datetime
 import sys
 import time
+
+from .. import parallel
 
 
 class TermColor:
@@ -32,6 +34,8 @@ def fmt_eta(seconds: float) -> str:
 
 def epoch_log(epoch: int, train_loss: float, val_metric: float, metric_name: str,
               eta_seconds: float, stream=sys.stdout) -> None:
+    if not parallel.is_main():
+        return
     now = datetime.datetime.now().strftime("%H:%M")
     msg = (
         f"{TermColor.BOLD}[{now}]{TermColor.ENDC} Ep {epoch}: "

@@ -93,7 +93,7 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    simple + lfq and resnet_no_down + rvq.
 7. The port's CLI, each stage a child process on the card:
    ``cli.process_data --synthetic``, a teacher (resnet_no_down + hybrid,
-   window 10) for 3 epochs and its student for 2; the checkpoints and
+   window 10) for 2 epochs and its student for 1; the checkpoints and
    histories must carry the reference's names, and the teacher's train
    loss must fall. ``serve_trained``: that teacher's checkpoint served on
    its own windows, in float32 under the float32 rule and in bf16 under the
@@ -117,11 +117,13 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    frame out exactly W + 1 frames after it went in; the median time of a
    push that completes a window.
 9. ``recipe``: the W64-transformer recipe through the CLI, each stage a
-   child process: ``process_data --synthetic --window 64``, an ``ae``
-   teacher for 2 epochs, the hybrid at step 0 (``--epochs 0``: its towers
+   child process (stages that need only the same earlier file run
+   together; the children run in a thread beside phase 7's CLI children,
+   and their checks here after both): ``process_data --synthetic --window 64``, an ``ae``
+   teacher for 1 epoch, the hybrid at step 0 (``--epochs 0``: its towers
    must equal the ae checkpoint's and its first-stage codebook rows be the
    robot encoder's outputs on the first 256 training windows, plus the
-   jitter) and then trained for 2 epochs with ``--init_from``,
+   jitter) and then trained for 1 epoch with ``--init_from``,
    ``--codebook_data_init``, ``--cheap_dropout``, ``--reuse_dropout_mask``
    and ``--accum_chunks 4`` (finite losses; K1 forward and backward and K2
    launched); ``export_motion`` on its checkpoint (the reference's file
@@ -189,7 +191,7 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    (K1-fwd packed, the last 44 windows unpacked): card within 1e-3 of the
    CPU, K1-fwd 4 launches a batch; the encoders' windows/s.
 20. ``csv``: ``cli.csv_to_npz`` on a seeded 300-frame LAFAN-style take at 30
-   fps, a child on the card and one with ``--device cpu``: every npz array
+   fps, a child on the card and one with ``--device cpu`` (together): every npz array
    within 1e-5 of max(1, its largest value); each run's seconds.
 21. ``replay``: a seeded 400-frame take (drifting root, turning root
    quaternion) at 20 -> 50 fps through ``load_motion`` on the card and the
@@ -214,16 +216,36 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    at b = 4096 and b = 1 p50. ``runners``: ``cli.run_batch`` (a teacher,
    its student, and a spec with JAX's ``prng`` that must fail: exit 1
    naming it alone) and ``cli.run_queue`` (``process_data --synthetic``,
-   then ``import_torch_ckpt --check``), each a child; their seconds and
+   then ``import_torch_ckpt --check``), two children together; their seconds and
    each entry's. ``demo_stream`` (after ``stream``): the demo's 6D feed of
    240 frames streamed through the f32 artifact at step 5 (equal to offline
    overlap-add within 1e-5, latency W + 1), then the G1 replay on the card
    within 1e-5 of the CPU's; the median push.
-23. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+23. ``data_parallel`` (``parallel/``): the flagship at full width (f32,
+   dropout 0) trained through ``make_train_epoch``, the Trainer's step, on
+   two ranks sharing the card over gloo and on one NCCL rank, both started
+   with ``parallel.launch`` together while this process runs each case alone
+   as the reference, on the same index matrices: the teacher 3 optimizer
+   steps at batch 4096 in 8 microbatches (each rank takes 256 rows of each),
+   the student 1 step, the teacher at dropout 0.1 1 step (gloo), and
+   ``resnet_no_down`` + ``ema`` 2 steps (gloo; BatchNorm). The gloo ranks:
+   every step's logs within 2e-4 relative of one process, the first step's
+   gradients within 1e-5 * (1 + max|g|), EMA and BatchNorm state within
+   2e-3 (tests/test_sharding.py's bands); the BatchNorm case's gradients
+   and last state within those bands or 2x what the same batches with each
+   microbatch's rows swapped by halves or reversed move one process's own
+   run, whichever is larger (its tower's backward cancels, and Adam's
+   first step takes the sign of a gradient whose true value is 0); every parameter and buffer bit-equal
+   on both ranks; the NCCL rank bit-equal to this process; at dropout 0.1 the
+   ranks' first K1 keep masks differ; each rank's K1 and K2 launches equal a
+   microbatch's count times its microbatches. Windows/s a rank (two ranks
+   share one card, and the three processes overlap: no claim).
+24. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk, int8, prior, generate, generator_artifact, latent, torch_import and
-   demo_stream (cli includes cli_multiseed); counts
+   fk, int8, prior, generate, generator_artifact, latent, torch_import,
+   demo_stream and data_parallel (the ranks' launches; cli includes
+   cli_multiseed); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls), then, last,
    ``{"ok": true, "device": {...}}``.
@@ -233,9 +255,11 @@ It exits non-zero and prints no result when CUDA is unavailable.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -254,6 +278,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from bridgerl_tpu_torch import parallel
 from bridgerl_tpu_torch.cli import demo_stream_retarget, export_torch_ckpt
 from bridgerl_tpu_torch.config import (
     ARCHS,
@@ -320,6 +345,8 @@ from bridgerl_tpu_torch.train.multiseed import (
 from bridgerl_tpu_torch.train.trainer import (
     Trainer,
     accumulate_grads,
+    epoch_generator,
+    fork_for_rank,
     make_optimizer,
     make_train_epoch,
 )
@@ -391,7 +418,7 @@ ZOO_ORDER_FACTOR = 2.0   # x the CPU's own row-order spread of a gradient (zoo_a
 CLI_DATA = ("--synthetic", "--window", "10", "--step", "2", "--n_sequences", "8")
 CLI_RUN = ("--arch", "resnet_no_down", "--method", "hybrid", "--window", "10",
            "--batch_size", "256", "--seed", "42")
-CLI_EPOCHS = {"teacher": 3, "student": 2}
+CLI_EPOCHS = {"teacher": 2, "student": 1}
 CLI_TEACHER = "checkpoints/Exp_resnet_no_down_W10_hybrid_teacher_seed_42_best.pth"
 CLI_TIMEOUT_S = 300
 # runs a CLI module's main (argv[1]) in a child process and prints its kernel
@@ -432,10 +459,13 @@ CLI_MS_RUN = ("--arch", "transformer", "--method", "hybrid", "--window", "10",
               "--batch_size", "256", "--multiseed", "--seed", "1", "2", "--int8_ff")
 CLI_MS_EPOCHS = {"teacher": 2, "student": 1}
 # the W64-transformer recipe on the CLI: pretrain ae, then the hybrid from it
-RECIPE_WINDOW, RECIPE_EPOCHS, RECIPE_SEED, RECIPE_BATCH = 64, 2, 42, 256
+RECIPE_WINDOW, RECIPE_EPOCHS, RECIPE_SEED, RECIPE_BATCH = 64, 1, 42, 256
 RECIPE_FLAGS = ("--codebook_data_init", "--cheap_dropout", "--reuse_dropout_mask",
                 "--accum_chunks", "4")
 RECIPE_MOTIONS = 2
+RECIPE_AE_CKPT = (f"checkpoints/Exp_transformer_W{RECIPE_WINDOW}_ae_teacher_seed_{RECIPE_SEED}"
+                  "_best.pth")
+RECIPE_HYBRID = f"Exp_transformer_W{RECIPE_WINDOW}_hybrid_teacher_seed_{RECIPE_SEED}"
 # the token prior: K1 under the causal bias at the prior's shapes (B*H, S, Dh, dropout):
 # training (batch 32 x 4 heads, 128 positions), the slot-AR depth stack (32 x 128 rows of
 # 5 slots x 4 heads) and sampling (4 samples x 4 heads, 32 positions)
@@ -480,6 +510,22 @@ DEMO_FRAMES, DEMO_STEP, DEMO_FPS = 240, 5, 25
 # the run drivers: run_batch's specs at the CLI's batch, and a run_queue of two entries
 RUNNER_EPOCHS = {"teacher": 2, "student": 1}
 RUNNER_OK = re.compile(r"=== ((?:batch|queue)\[\d+\] \S+).* OK \(([\d.]+)s\) ===")
+# data_parallel: the flagship (f32, dropout 0) on 2 ranks sharing the card over gloo and
+# on 1 NCCL rank, each case against the one-process Trainer path (make_train_epoch) on
+# the same index matrices: (arch, method, mode, optimizer steps, dropout, gradients kept)
+DP_RANKS, DP_BATCH, DP_ACCUM, DP_STEPS = 2, 4096, 8, 3
+DP_CASES = {"teacher": ("transformer", "hybrid", "teacher", DP_STEPS, 0.0, True),
+            "student": ("transformer", "hybrid", "student", 1, 0.0, True),
+            "dropout": ("transformer", "hybrid", "teacher", 1, DROPOUT, False),
+            "batchnorm": ("resnet_no_down", "ema", "teacher", 2, 0.0, True)}
+DP_NCCL_CASES = ("teacher", "student")
+# tests/test_sharding.py's bands: loss rtol, gradient atol * (1 + max|g|), EMA / BatchNorm
+DP_LOSS_RTOL, DP_GRAD_ATOL, DP_STATE_ATOL = 2e-4, 1e-5, 2e-3
+DP_STATE = ("ema_w", "ema_cluster_size", "embedding.weight", "running_mean", "running_var")
+# the BatchNorm case against one process's own row-order spread: the same batches with each
+# microbatch's rows in these orders, in this process; held to DP_ORDER_FACTOR x the spread
+DP_ORDERS, DP_ORDER_FACTOR = ("halves_swapped", "reversed"), 2.0
+DP_TIMEOUT_S = 300
 # profiles K2 at each of K2_SHAPES in a child process
 K2_PROFILE_PROBE = ("import json, torch\n"
                     "import chip_smoke\n"
@@ -495,8 +541,20 @@ GENERATOR_LOAD_PROBE = (
     "print(json.dumps({'device': str(mod.device), 'modules': sorted(sys.modules)}))\n")
 
 
+T_START = time.perf_counter()
+# runs a phase's child process beside the phase's own checks
+BACKGROUND = concurrent.futures.ThreadPoolExecutor(2)
+EMIT_LOCK = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print ``obj`` as a line of JSON, whole (phases may run in threads); a
+    phase's line also carries the script's seconds so far (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
+    with EMIT_LOCK:
+        sys.stdout.write(json.dumps(obj) + "\n")
+        sys.stdout.flush()
 
 
 def require(ok: bool, what: str) -> None:
@@ -1584,7 +1642,7 @@ def _run_cli(args, cwd: str, env: dict) -> str:
 def cli_path(smi: str) -> tuple:
     """The verify drive on the port's own CLI, each stage a child process on
     the card: ``cli.process_data --synthetic``, a teacher (``resnet_no_down``,
-    ``hybrid``, window 10) for 3 epochs, then its student for 2. The
+    ``hybrid``, window 10) for 2 epochs, then its student for 1. The
     checkpoints and histories must carry the reference's names and the
     teacher's train loss must fall. Returns the line (with the stages'
     launches, which the children print) and the work directory."""
@@ -1768,7 +1826,7 @@ def artifact_path(smi: str, dtype) -> tuple:
     export_s = time.perf_counter() - t0
     require(sorted(meta["functions"]) == ["decode_codes", "motion_codes", "retarget",
                                           "robot_recon"], f"artifact functions {meta}")
-    child = _load_in_child(path)
+    loaded = BACKGROUND.submit(_load_in_child, path)   # a child: beside the checks here
     art = load_serving_artifact(path)
     own = []   # the launches of the artifact's own calls
     rng = np.random.default_rng(SEED + 7)
@@ -1817,6 +1875,7 @@ def artifact_path(smi: str, dtype) -> tuple:
             require(round_trip <= ARTIFACT_ATOL,
                     f"artifact decode_codes(motion_codes(x)) b={b}: {round_trip} from retarget")
         emit({"phase": "artifact_request", "dtype": DTYPE_NAME[dtype], **line})
+    child = loaded.result()   # before the rates: no child beside them
     x4096 = rng.normal(size=(4096, cfg.window_size, cfg.human_input_dim)).astype(np.float32)
     art_wps, art_p50 = _serving_rate(ServingApp(art), x4096)
     live_wps, live_p50 = _serving_rate(ServingApp(live), x4096)
@@ -1947,6 +2006,18 @@ def _run_child(args, cwd: str, env: dict) -> tuple:
     return stdout, counts, time.perf_counter() - t0
 
 
+def _run_children(jobs: dict, cwd: str, env: dict) -> dict:
+    """CLI modules through CLI_WRAPPER, each a child, all started together:
+    name -> (stdout, its launches, seconds); any failure raises."""
+    out = {}
+    for name, (rc, stdout, stderr, sec) in _run_parallel(
+            {n: ["-c", CLI_WRAPPER, *args] for n, args in jobs.items()}, cwd, env).items():
+        require(rc == 0, f"{name}: rc {rc}\n{stderr[-3000:]}")
+        counts = json.loads(stdout.strip().splitlines()[-1].split("LAUNCHES ", 1)[1])
+        out[name] = (stdout, counts, sec)
+    return out
+
+
 def _history(workdir: str, name: str, epochs: int) -> dict:
     with open(os.path.join(workdir, "results", name)) as f:
         hist = json.load(f)
@@ -1991,81 +2062,100 @@ def _check_step0(workdir: str, ae_ckpt: str, step0_ckpt: str, batch: int) -> dic
             "encoder_rows": flat.shape[0], "max_row_offset_in_std": float((off / std).max())}
 
 
-def recipe_path(smi: str) -> dict:
-    """The W64-transformer recipe through the CLI, each stage a child on the
-    card: process_data --synthetic, an ae teacher, the hybrid at step 0
-    (epochs 0: the towers must be the ae's and the first-stage codebook
-    encoder rows) and then trained with --init_from, --codebook_data_init,
-    --cheap_dropout, --reuse_dropout_mask and --accum_chunks 4 (finite
-    losses; K1 forward and backward and K2 launched); then export_motion
-    on its checkpoint (the reference's file names, equal to
-    reconstruct_long_sequence over the same model), export_serving --check
-    and serve_http --max_requests 1."""
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+def recipe_children(workdir: str) -> dict:
+    """The W64-transformer recipe's children, in ``workdir``, each stage a
+    child on the card: process_data --synthetic, an ae teacher, the hybrid
+    at step 0 (epochs 0) and, beside it, trained with --init_from,
+    --codebook_data_init, --cheap_dropout, --reuse_dropout_mask and
+    --accum_chunks 4; then export_motion on its checkpoint beside
+    export_serving --check, and serve_http --max_requests 1 with one
+    retarget request. Children and files only, no kernel launch in this
+    process: it runs in a thread beside other phases, and recipe_path
+    checks what it leaves. Returns each stage's stdout, launches and
+    seconds, and the request with its answer."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     t0 = time.perf_counter()
     W = RECIPE_WINDOW
-    try:
-        seconds, total = {}, {name: 0 for name in kernels.COUNTERS}
-        t1 = time.perf_counter()
-        _run_cli(["-m", "bridgerl_tpu_torch.cli.process_data", "--synthetic", "--window",
-                  str(W)], workdir, env)
-        seconds["process_data"] = time.perf_counter() - t1
-        common = ["--arch", "transformer", "--window", str(W), "--seed", str(RECIPE_SEED),
-                  "--batch_size", str(RECIPE_BATCH)]
-        ae_ckpt = f"checkpoints/Exp_transformer_W{W}_ae_teacher_seed_{RECIPE_SEED}_best.pth"
-        hybrid = f"Exp_transformer_W{W}_hybrid_teacher_seed_{RECIPE_SEED}"
-        stages = {
-            "ae": common + ["--method", "ae", "--epochs", str(RECIPE_EPOCHS)],
-            "hybrid_step0": common + ["--method", "hybrid", "--init_from", ae_ckpt,
-                                      *RECIPE_FLAGS, "--epochs", "0",
-                                      "--checkpoint_dir", "step0", "--log_dir", "step0"],
-            "hybrid": common + ["--method", "hybrid", "--init_from", ae_ckpt, *RECIPE_FLAGS,
-                                "--epochs", str(RECIPE_EPOCHS)]}
-        launched = {}
-        for stage, args in stages.items():
-            stdout, counts, seconds[stage] = _run_child([TRAIN_CLI, *args], workdir, env)
-            require(f"Success: Exp_transformer_W{W} | Mode: teacher" in stdout,
-                    f"recipe {stage}: {stdout[-2000:]}")
+    seconds, total = {}, {name: 0 for name in kernels.COUNTERS}
+    t1 = time.perf_counter()
+    _run_cli(["-m", "bridgerl_tpu_torch.cli.process_data", "--synthetic", "--window",
+              str(W)], workdir, env)
+    seconds["process_data"] = time.perf_counter() - t1
+    common = ["--arch", "transformer", "--window", str(W), "--seed", str(RECIPE_SEED),
+              "--batch_size", str(RECIPE_BATCH)]
+    stages = {
+        "ae": common + ["--method", "ae", "--epochs", str(RECIPE_EPOCHS)],
+        "hybrid_step0": common + ["--method", "hybrid", "--init_from", RECIPE_AE_CKPT,
+                                  *RECIPE_FLAGS, "--epochs", "0",
+                                  "--checkpoint_dir", "step0", "--log_dir", "step0"],
+        "hybrid": common + ["--method", "hybrid", "--init_from", RECIPE_AE_CKPT, *RECIPE_FLAGS,
+                            "--epochs", str(RECIPE_EPOCHS)]}
+    launched, stdouts = {}, {}
+    # the two hybrid stages need only the ae checkpoint: they run together
+    for group in (("ae",), ("hybrid_step0", "hybrid")):
+        done = _run_children({stage: [TRAIN_CLI, *stages[stage]] for stage in group},
+                             workdir, env)
+        for stage, (stdouts[stage], counts, seconds[stage]) in done.items():
+            require(f"Success: Exp_transformer_W{W} | Mode: teacher" in stdouts[stage],
+                    f"recipe {stage}: {stdouts[stage][-2000:]}")
             launched[stage] = counts
             for k in total:
                 total[k] += counts.get(k, 0)
+    best = os.path.join(workdir, "checkpoints", f"{RECIPE_HYBRID}_best.pth")
+    art = os.path.join(workdir, "serving", "hybrid.zip")
+    done = _run_children({   # both read the checkpoint only: they run together
+        "export_motion": ["bridgerl_tpu_torch.cli.export_motion", "--ckpt", best,
+                          "--num_samples", str(RECIPE_MOTIONS)],
+        "export_serving": ["bridgerl_tpu_torch.cli.export_serving", "--ckpt", best,
+                           "--out", art, "--check", "--platforms", "cuda"]},
+        workdir, env)          # the artifact phase exports and checks both platforms
+    for stage, (stdouts[stage], counts, seconds[stage]) in done.items():
+        for k in total:
+            total[k] += counts.get(k, 0)
+    stdout = stdouts["export_serving"]
+    require("check ok: retarget (2, 64, 126) -> (2, 64, 29) on cuda" in stdout,
+            f"export_serving --check: {stdout[-2000:]}")
+    seconds["serve_http"], request = _serve_one(art, workdir, env)
+    return {"seconds": seconds, "launched": launched, "launches": total, "stdouts": stdouts,
+            "request": request, "children_s": time.perf_counter() - t0}
+
+
+def recipe_path(smi: str, workdir: str, children) -> dict:
+    """The W64-transformer recipe through the CLI: recipe_children's result
+    (``children``, a future), then its checks here. Finite losses; K1
+    forward and backward and K2 launched in the trained hybrid; the hybrid
+    at step 0 holds the ae's towers and the first-stage codebook encoder
+    rows; export_motion's files carry the reference's names and equal
+    reconstruct_long_sequence over the same model; serve_http's answer is
+    the checkpoint's live module's."""
+    W = RECIPE_WINDOW
+    try:
+        run = children.result()
+        t0 = time.perf_counter()
+        stdout = run["stdouts"]["hybrid"]
         require("[InitFrom]" in stdout and "[Seed] codebook data init" in stdout,
                 f"recipe hybrid: no init or seeding line: {stdout[-2000:]}")
         hist = {m: _history(workdir, make_experiment("transformer", m, window=W).log_name(
             RECIPE_SEED), RECIPE_EPOCHS) for m in ("ae", "hybrid")}
-        step0 = _check_step0(workdir, os.path.join(workdir, ae_ckpt),
-                             os.path.join(workdir, "step0", f"{hybrid}_final.pth"), RECIPE_BATCH)
-        h = launched["hybrid"]
+        step0 = _check_step0(workdir, os.path.join(workdir, RECIPE_AE_CKPT),
+                             os.path.join(workdir, "step0", f"{RECIPE_HYBRID}_final.pth"),
+                             RECIPE_BATCH)
+        h = run["launched"]["hybrid"]
         require(all(h[attention.ENTRY[d, torch.float32]] > 0 for d in ("fwd", "bwd"))
                 and h["vq_assign"] > 0, f"recipe hybrid: a kernel never ran: {h}")
-
-        best = os.path.join(workdir, "checkpoints", f"{hybrid}_best.pth")
-        stdout, counts, seconds["export_motion"] = _run_child(
-            ["bridgerl_tpu_torch.cli.export_motion", "--ckpt", best, "--num_samples",
-             str(RECIPE_MOTIONS)], workdir, env)
-        for k in total:
-            total[k] += counts.get(k, 0)
+        best = os.path.join(workdir, "checkpoints", f"{RECIPE_HYBRID}_best.pth")
         motions = _check_motions(workdir, best)
-
-        art = os.path.join(workdir, "serving", "hybrid.zip")
-        stdout, counts, seconds["export_serving"] = _run_child(
-            ["bridgerl_tpu_torch.cli.export_serving", "--ckpt", best, "--out", art, "--check",
-             "--platforms", "cuda"],   # the artifact phase exports and checks both platforms
-            workdir, env)
-        require("check ok: retarget (2, 64, 126) -> (2, 64, 29) on cuda" in stdout,
-                f"export_serving --check: {stdout[-2000:]}")
-        for k in total:
-            total[k] += counts.get(k, 0)
-        seconds["serve_http"], served = _serve_one(art, best, workdir, env)
+        served = _check_served(best, *run["request"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     line = {"phase": "recipe", "card": smi, "window": W, "epochs": RECIPE_EPOCHS,
-            "stage_seconds": seconds, "launches_by_stage": launched, "launches": total,
+            "stage_seconds": run["seconds"], "launches_by_stage": run["launched"],
+            "launches": run["launches"],
             "train_loss": {k: v["train_loss"] for k, v in hist.items()},
             "val_loss": {k: v["val_loss"] for k, v in hist.items()},
             "step0": step0, "motions": motions, "served": served,
-            "recipe_path_s": time.perf_counter() - t0}
+            "recipe_children_s": run["children_s"],
+            "recipe_path_s": run["children_s"] + time.perf_counter() - t0}
     emit(line)
     return line
 
@@ -2093,11 +2183,9 @@ def _check_motions(workdir: str, ckpt: str) -> dict:
     return {"files": 2 * RECIPE_MOTIONS, "max_abs_err_vs_reconstruct": max(errs)}
 
 
-def _serve_one(artifact: str, ckpt: str, workdir: str, env: dict) -> tuple:
+def _serve_one(artifact: str, workdir: str, env: dict) -> tuple:
     """serve_http --max_requests 1 as a child: one retarget request answered
-    (within ARTIFACT_ATOL of the checkpoint's live module in this process:
-    the artifact's unpacked towers sum in another order) and the child
-    exits 0."""
+    and the child exits 0. Returns the seconds and (request, answer)."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -2125,12 +2213,19 @@ def _serve_one(artifact: str, ckpt: str, workdir: str, env: dict) -> tuple:
             child.kill()
             child.wait()
     require(child.returncode == 0, f"serve_http: rc {child.returncode}\n{err[-2000:]}")
+    return time.perf_counter() - t0, (x, got)
+
+
+def _check_served(ckpt: str, x: np.ndarray, got: np.ndarray) -> dict:
+    """serve_http's answer within ARTIFACT_ATOL of the checkpoint's live
+    module in this process (the artifact's unpacked towers sum in another
+    order)."""
     model, exp = load_model_from_checkpoint(ckpt)
     want = _numpy(build_serving_module(model, exp).retarget(x))
     diff = float(np.abs(got - want).max())
     require(got.shape == (3, RECIPE_WINDOW, 29) and diff <= ARTIFACT_ATOL,
             f"serve_http answer {diff}")
-    return time.perf_counter() - t0, {"b": 3, "max_abs_err_vs_live": diff}
+    return {"b": 3, "max_abs_err_vs_live": diff}
 
 
 # ---------------------------------------------------------------- phases 11-14
@@ -2851,15 +2946,24 @@ def generator_artifact_path(smi: str, prior, vq, exp) -> dict:
                                         n_positions=GENERATOR_POSITIONS,
                                         n_samples=GEN_SAMPLES, platforms=("cuda",))
         export_s = time.perf_counter() - t0
+        child_out = os.path.join(workdir, "child.npy")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        loaded = BACKGROUND.submit(   # a child: beside the checks here
+            subprocess.run, [sys.executable, "-c", GENERATOR_LOAD_PROBE, path, str(GEN_SEED),
+                             child_out], env=env, capture_output=True, text=True,
+            timeout=CLI_TIMEOUT_S)
         live_fn = make_generation_fn(vq, exp, prior, ZERO29, ONE29,
                                      n_positions=GENERATOR_POSITIONS, n_samples=GEN_SAMPLES)
         with torch.inference_mode():
             live = live_fn(GEN_SEED).cpu().numpy()
-        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-        child_out = os.path.join(workdir, "child.npy")
-        r = subprocess.run([sys.executable, "-c", GENERATOR_LOAD_PROBE, path, str(GEN_SEED),
-                            child_out], env=env, capture_output=True, text=True,
-                           timeout=CLI_TIMEOUT_S)
+        t0 = time.perf_counter()
+        art = load_serving_artifact(path)
+        load_s = time.perf_counter() - t0
+        before = launches()
+        got = art.generate(GEN_SEED).cpu().numpy()
+        own = _delta(before)
+        errs = {"here": float(np.abs(got - live).max())}
+        r = loaded.result()
         require(r.returncode == 0, f"generator load in a child: rc {r.returncode}\n"
                 f"{r.stderr[-3000:]}")
         child = json.loads(r.stdout.strip().splitlines()[-1])
@@ -2868,14 +2972,7 @@ def generator_artifact_path(smi: str, prior, vq, exp) -> dict:
             ["bridgerl_tpu_torch", "config"])]
         require(not model_code and child["device"].startswith("cuda"),
                 f"generator in a child: {child['device']}, imported {model_code}")
-        errs = {"child": float(np.abs(np.load(child_out) - live).max())}
-        t0 = time.perf_counter()
-        art = load_serving_artifact(path)
-        load_s = time.perf_counter() - t0
-        before = launches()
-        got = art.generate(GEN_SEED).cpu().numpy()
-        own = _delta(before)
-        errs["here"] = float(np.abs(got - live).max())
+        errs["child"] = float(np.abs(np.load(child_out) - live).max())
         srv = make_server(art, port=0)
         th = threading.Thread(target=srv.handle_request, daemon=True)
         th.start()
@@ -3032,14 +3129,13 @@ def csv_path(smi: str) -> dict:
     try:
         src = os.path.join(workdir, "take.csv")
         _lafan_csv(src, CSV_FRAMES, SEED + 22)
-        seconds, out = {}, {}
-        for dev in ("cuda", "cpu"):
-            out[dev] = os.path.join(workdir, f"{dev}.npz")
-            t0 = time.perf_counter()
-            _run_cli(["-m", "bridgerl_tpu_torch.cli.csv_to_npz", "--input_file", src,
+        out = {dev: os.path.join(workdir, f"{dev}.npz") for dev in ("cuda", "cpu")}
+        seconds = {}
+        for dev, (rc, _, stderr, seconds[dev]) in _run_parallel({   # together
+                dev: ["-m", "bridgerl_tpu_torch.cli.csv_to_npz", "--input_file", src,
                       "--input_fps", "30", "--output_fps", "50", "--output_file", out[dev],
-                      "--device", dev], workdir, env)
-            seconds[dev] = time.perf_counter() - t0
+                      "--device", dev] for dev in out}, workdir, env).items():
+            require(rc == 0, f"csv_to_npz --device {dev}: rc {rc}\n{stderr[-3000:]}")
         card, cpu = np.load(out["cuda"]), np.load(out["cpu"])
         err = {k: float(np.abs(card[k] - cpu[k]).max()) for k in cpu.files}
         # q and -q are one rotation: where w is near 0 the sign is noise
@@ -3309,8 +3405,8 @@ def runners_path(smi: str, reference_pth: str) -> dict:
     naming only that spec, the good runs write the reference's file names
     with finite losses. Then ``cli.run_queue`` over ``process_data
     --synthetic`` and ``import_torch_ckpt --check`` on the reference
-    wrapper file: exit 0, each entry's OK line. Each child's seconds and
-    the seconds of each entry inside it."""
+    wrapper file: exit 0, each entry's OK line. The two children run
+    together. Each child's seconds and the seconds of each entry inside it."""
     t_phase = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_runners_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3330,8 +3426,17 @@ def runners_path(smi: str, reference_pth: str) -> dict:
         spec_path = os.path.join(workdir, "specs.json")
         with open(spec_path, "w") as f:
             json.dump(specs, f)
-        rc, stdout, stderr, batch_s = _run_rc(["-m", "bridgerl_tpu_torch.cli.run_batch",
-                                               spec_path], workdir, env)
+        queue = [["bridgerl_tpu_torch.cli.process_data", *CLI_DATA, "--output_dir",
+                  os.path.join(workdir, "queue_data")],
+                 [IMPORT_CLI, "--pth", reference_pth, "--out",
+                  os.path.join(workdir, "imported.pth"), "--check"]]
+        queue_path = os.path.join(workdir, "queue.json")
+        with open(queue_path, "w") as f:
+            json.dump(queue, f)
+        done = _run_parallel({   # they share no file: together
+            "batch": ["-m", "bridgerl_tpu_torch.cli.run_batch", spec_path],
+            "queue": ["-m", "bridgerl_tpu_torch.cli.run_queue", queue_path]}, workdir, env)
+        rc, stdout, stderr, batch_s = done["batch"]
         require(rc == 1 and stdout.strip().splitlines()[-1] == "BATCH DONE failures=['jax_prng']"
                 and "prng='rbg'" in stdout, f"run_batch: rc {rc}\n{stdout[-2000:]}\n"
                 f"{stderr[-2000:]}")
@@ -3353,15 +3458,7 @@ def runners_path(smi: str, reference_pth: str) -> dict:
         require(sorted(batch_entries) == ["batch[0] teacher", "batch[1] student"],
                 f"run_batch entries {batch_entries}")
 
-        queue = [["bridgerl_tpu_torch.cli.process_data", *CLI_DATA, "--output_dir",
-                  os.path.join(workdir, "queue_data")],
-                 [IMPORT_CLI, "--pth", reference_pth, "--out",
-                  os.path.join(workdir, "imported.pth"), "--check"]]
-        queue_path = os.path.join(workdir, "queue.json")
-        with open(queue_path, "w") as f:
-            json.dump(queue, f)
-        rc, stdout, stderr, queue_s = _run_rc(["-m", "bridgerl_tpu_torch.cli.run_queue",
-                                               queue_path], workdir, env)
+        rc, stdout, stderr, queue_s = done["queue"]
         queue_entries = _entry_seconds(stdout)
         require(rc == 0 and "[QUEUE] all entries OK" in stdout and len(queue_entries) == 2
                 and "check ok: recon (2, 10, 29)" in stdout
@@ -3373,6 +3470,277 @@ def runners_path(smi: str, reference_pth: str) -> dict:
             "run_batch_entries_s": batch_entries, "run_batch_train_loss": losses,
             "run_queue_s": queue_s, "run_queue_entries_s": queue_entries,
             "runners_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------- data_parallel
+
+def dp_exp(case: str):
+    arch, method, mode, _, dropout, _ = DP_CASES[case]
+    packing = {"attn_packing": 8} if arch == "transformer" else {}
+    return make_experiment(arch, method, window=10, mode=mode, dropout=dropout,
+                           batch_size=DP_BATCH, accum_chunks=DP_ACCUM, **packing)
+
+
+def dp_data(device) -> tuple:
+    """Seeded normal windows and the (DP_STEPS, DP_BATCH) index matrix."""
+    rng = np.random.default_rng(SEED + 3)
+    n = DP_BATCH * DP_STEPS
+    robot, human = (torch.from_numpy(rng.normal(size=(n, 10, d)).astype(np.float32)).to(device)
+                    for d in (29, 126))
+    return robot, human, torch.from_numpy(rng.permutation(n).reshape(DP_STEPS, DP_BATCH)).to(
+        device)
+
+
+def state_digest(model) -> str:
+    """sha256 of every parameter's and buffer's bytes: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _reorder(idx: torch.Tensor, order: str) -> torch.Tensor:
+    """The (steps, batch) index matrix with each microbatch's rows in
+    ``order`` (DP_ORDERS, or "given"): the same batches, summed in another
+    order."""
+    if order == "given":
+        return idx
+    mb = idx.reshape(idx.shape[0], DP_ACCUM, -1)
+    half = mb.shape[-1] // 2
+    mb = (torch.cat([mb[..., half:], mb[..., :half]], -1) if order == "halves_swapped"
+          else mb.flip(-1))
+    return mb.reshape(idx.shape)
+
+
+def dp_steps(case: str, device, order: str = "given") -> dict:
+    """One case of the data_parallel phase through make_train_epoch, one
+    call an optimizer step, on a rank (with its share of each microbatch)
+    or in this process (each microbatch's rows in ``order``): the logs of
+    each step, the gradients the first leaves (where kept), the EMA and
+    BatchNorm state, a digest of every parameter and buffer, the K1 seeds
+    drawn, the launches and seconds."""
+    _, _, mode, steps, _, keep_grads = DP_CASES[case]
+    exp = dp_exp(case)
+    model = init_model(exp.model, SEED, device=device)
+    parallel.broadcast_module(model)
+    opt = make_optimizer(model, exp)
+    train_epoch = make_train_epoch(exp)
+    robot, human, idx = dp_data(device)
+    idx = _reorder(idx, order)
+    gen = fork_for_rank(epoch_generator(SEED, 0, device), SEED, 0)
+    draw, seeds = attention.draw_seed, []
+
+    def recording_draw(generator, dev):
+        out = draw(generator, dev)
+        seeds.append(out)
+        return out
+
+    logs, grads, step_s = [], None, []
+    attention.draw_seed = recording_draw
+    kernels.reset_counters()
+    try:
+        for step in range(steps):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            logs.append(train_epoch(model, opt, robot, human, idx[step:step + 1], gen))
+            torch.cuda.synchronize(device)
+            step_s.append(time.perf_counter() - t0)
+            if step == 0:
+                first = _dp_state(model)
+                if keep_grads:
+                    grads = {n: p.grad.detach().cpu().numpy()
+                             for n, p in model.named_parameters()
+                             if p.grad is not None and p.requires_grad}
+    finally:
+        attention.draw_seed = draw
+    counts = launches()
+    return {"logs": logs, "grads": grads, "launches": counts, "step_seconds": step_s,
+            "windows_per_step": DP_BATCH // parallel.world_size(),
+            "state_first": first, "state": _dp_state(model),
+            "digest": state_digest(model), "k1_seeds": [int(s[0]) for s in seeds]}
+
+
+def _dp_state(model) -> dict:
+    """The EMA codebook and BatchNorm state, as numpy."""
+    return {k: v.detach().cpu().clone().numpy() for k, v in model.state_dict().items()
+            if k.endswith(DP_STATE)}
+
+
+def dp_rank(cases) -> list:
+    """A rank of the data_parallel phase (parallel.launch's target)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_all()
+    return [dp_steps(case, parallel.active().device) for case in cases]
+
+
+def _dp_expected(case: str) -> dict:
+    """K1-fwd, K1-bwd and K2 launches of a case's run on one rank: every
+    microbatch share runs the whole model (train_path's counts)."""
+    arch, method, mode, steps, _, _ = DP_CASES[case]
+    per = PER_MICROBATCH[mode] if arch == "transformer" else (0, 0, 1)   # one EMA VQ
+    names = (attention.ENTRY["fwd", torch.float32], attention.ENTRY["bwd", torch.float32],
+             "vq_assign")
+    want = {name: 0 for name in kernels.COUNTERS}
+    want.update({name: steps * DP_ACCUM * m for name, m in zip(names, per)})
+    return want
+
+
+def _feeds_batchnorm(name: str) -> bool:
+    """A residual block's convolution bias, which a BatchNorm follows."""
+    return ".net.0.bias" in name or ".net.3.bias" in name
+
+
+def _dp_gaps(got: dict, want: dict) -> dict:
+    """``got``'s distance from ``want``: the largest relative difference of
+    the logs; each gradient of the first step, max|dg| / (1 + max|g|); each
+    EMA / BatchNorm state key, its largest |d| after the first step and
+    after the last."""
+    require(sorted(got["grads"]) == sorted(want["grads"]), "gradient sets differ")
+    return {"loss": max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                        for g, w in zip(got["logs"], want["logs"]) for k in w),
+            "grads": {k: float(np.abs(got["grads"][k] - w).max()) / (1.0 + float(np.abs(w).max()))
+                      for k, w in want["grads"].items()},
+            "first": {k: float(np.abs(got["state_first"][k] - w).max())
+                      for k, w in want["state_first"].items()},
+            "last": {k: float(np.abs(got["state"][k] - w).max())
+                     for k, w in want["state"].items()}}
+
+
+def _dp_spread(runs: list, want: dict) -> dict:
+    """Key by key, the largest _dp_gaps of ``runs`` (one process, its rows
+    in DP_ORDERS) from ``want`` (the given order)."""
+    gaps = [_dp_gaps(run, want) for run in runs]
+    return {part: {k: max(g[part][k] for g in gaps) for k in gaps[0][part]}
+            for part in ("grads", "first", "last")}
+
+
+def _worst(over: dict) -> tuple:
+    return max((v, k) for k, v in over.items())
+
+
+def _dp_rule(what: str, got: dict, want: dict, spread: dict = None) -> dict:
+    """Case (b)'s rule: each step's logs within DP_LOSS_RTOL relative, the
+    first step's gradients within DP_GRAD_ATOL * (1 + max|g|), the EMA and
+    BatchNorm state within DP_STATE_ATOL after the first step (both runs
+    started from the same bits) and after the last.
+
+    With ``spread`` (the BatchNorm case: _dp_spread, what taking the same
+    batches in other row orders moves one process's own run) the gradients
+    and the state after the last step may also lie up to DP_ORDER_FACTOR
+    times the largest such move away. The BatchNorm tower's backward cancels (a
+    convolution bias that feeds a BatchNorm has a true gradient of exactly
+    0; zoo_agree reads the same of the row order on the CPU), so rounding
+    decides the sign of such a gradient. Adam's first step moves every
+    parameter by lr times that sign: the runs leave step 1 up to 2 lr
+    apart there, and after it a row near a code tie moves ema_w by
+    (1 - decay) |x|. One process in another row order meets the same."""
+    gaps = _dp_gaps(got, want)
+    require(gaps["loss"] <= DP_LOSS_RTOL, f"{what}: logs off by {gaps['loss']} relative: "
+            f"{got['logs']} vs {want['logs']}")
+    first, first_key = _worst(gaps["first"])
+    require(first <= DP_STATE_ATOL, f"{what}: {first_key} off by {first} after step 1")
+    out = {"loss_rel_err": gaps["loss"], "state_err_step1": first}
+    for part, band in (("grads", DP_GRAD_ATOL), ("last", DP_STATE_ATOL)):
+        err, key = _worst(gaps[part])
+        limit = max(band, DP_ORDER_FACTOR * _worst(spread[part])[0]) if spread else band
+        require(err <= limit, f"{what}: {key} off by {err} (limit {limit}"
+                f"{', from the row-order spread' if limit > band else ''}) "
+                f"{'in the first step' if part == 'grads' else 'after the last step'}")
+        name = "grad" if part == "grads" else "state_last"
+        out[f"{name}_err"], out[f"{name}_worst"], out[f"{name}_limit"] = err, key, limit
+        if spread:
+            out[f"{name}_order_spread"] = _worst(spread[part])
+    rel, rel_key = max((float(np.linalg.norm(got["grads"][k] - w))
+                        / max(float(np.linalg.norm(w)), 1e-30), k)
+                       for k, w in want["grads"].items() if not _feeds_batchnorm(k))
+    out["grad_rel_norm_err"], out["grad_rel_norm_worst"] = rel, rel_key
+    return out
+
+
+def _dp_equal(what: str, got: dict, want: dict) -> None:
+    """Bit-equal runs: logs, gradients, every parameter and buffer."""
+    require(got["logs"] == want["logs"], f"{what}: logs {got['logs']} vs {want['logs']}")
+    if want["grads"] is not None:
+        require(all(np.array_equal(got["grads"][k], w) for k, w in want["grads"].items()),
+                f"{what}: gradients differ")
+    require(got["digest"] == want["digest"], f"{what}: parameters or buffers differ")
+
+
+def _dp_rate(run: dict) -> float:
+    """Windows a second of one process or rank, over the steps after the first."""
+    timed = run["step_seconds"][1:]
+    return run["windows_per_step"] * len(timed) / sum(timed)
+
+
+def data_parallel_path(smi: str) -> dict:
+    """Data-parallel training (``parallel/``) at the flagship's full width:
+    DP_CASES on DP_RANKS ranks sharing the card over gloo and DP_NCCL_CASES
+    on one NCCL rank, started together and run while this process runs
+    every case alone (the reference): the gloo ranks under case (b)'s rule
+    and bit-equal to each other, the NCCL rank bit-equal to this process;
+    at dropout 0.1 the ranks' K1 keep masks differ; every rank launches K1
+    and K2 in each microbatch share."""
+    import chip_smoke as this   # the ranks import the script's functions by name
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        gloo = pool.submit(parallel.launch, this.dp_rank, DP_RANKS, "gloo",
+                           args=(list(DP_CASES),), device="cuda", timeout=DP_TIMEOUT_S)
+        nccl = pool.submit(parallel.launch, this.dp_rank, 1, "nccl",
+                           args=(list(DP_NCCL_CASES),), timeout=DP_TIMEOUT_S)
+        one = {case: dp_steps(case, torch.device("cuda")) for case in DP_CASES}
+        spread = _dp_spread([dp_steps("batchnorm", torch.device("cuda"), order)
+                             for order in DP_ORDERS], one["batchnorm"])
+        ranks = [dict(zip(DP_CASES, r)) for r in gloo.result()]
+        world1 = dict(zip(DP_NCCL_CASES, nccl.result()[0]))
+    emit({"phase": "data_parallel_gaps", "card": smi,
+          "batchnorm_order_spread": {part: _worst(v) for part, v in spread.items()},
+          "gloo": {case: [{part: _worst(v) if isinstance(v, dict) else v
+                           for part, v in _dp_gaps(rank[case], one[case]).items()}
+                          for rank in ranks] for case in DP_CASES if case != "dropout"}})
+    checks, total = {}, {name: 0 for name in kernels.COUNTERS}
+    for case in DP_CASES:
+        want = _dp_expected(case)
+        runs = [rank[case] for rank in ranks]
+        for r, run in enumerate(runs):
+            require(run["launches"] == want, f"gloo rank {r} {case}: launches "
+                    f"{run['launches']}, want {want}")
+            require(all(math.isfinite(v) for l in run["logs"] for v in l.values()),
+                    f"gloo rank {r} {case}: losses {run['logs']}")
+            total = add_launches(total, run["launches"])
+        require(all(run["digest"] == runs[0]["digest"] for run in runs),
+                f"{case}: the ranks' parameters or buffers differ")
+        if case != "dropout":
+            checks[case] = [_dp_rule(f"gloo rank {r} {case}", run, one[case],
+                                     spread if case == "batchnorm" else None)
+                            for r, run in enumerate(runs)]
+    for case, run in world1.items():
+        require(run["launches"] == _dp_expected(case), f"nccl {case}: {run['launches']}")
+        _dp_equal(f"nccl world 1 {case}", run, one[case])
+        total = add_launches(total, run["launches"])
+    # the first K1 call of each rank at dropout 0.1: another seed, another keep mask
+    cfg = dp_exp("dropout").model
+    BH = DP_BATCH // DP_ACCUM // DP_RANKS // cfg.attn_packing * cfg.n_heads
+    masks = [attention.attention_dropout_mask(run["dropout"]["k1_seeds"][0], BH,
+                                              cfg.window_size * cfg.attn_packing, DROPOUT,
+                                              "cuda") for run in ranks]
+    require(not torch.equal(*masks), "the ranks drew the same K1 keep mask")
+    line = {"phase": "data_parallel", "card": smi, "ranks": DP_RANKS, "batch": DP_BATCH,
+            "accum_chunks": DP_ACCUM, "rows_per_rank_microbatch": DP_BATCH // DP_ACCUM // DP_RANKS,
+            "checks": checks, "nccl_world1_bit_equal": list(world1),
+            "dropout_k1_seeds": [run["dropout"]["k1_seeds"][:2] for run in ranks],
+            "dropout_mask_differs": int((masks[0] != masks[1]).sum()),
+            "launches_by_rank": {f"gloo{r}": {case: {k: v for k, v in run[case]["launches"].items()
+                                                     if v} for case in DP_CASES}
+                                 for r, run in enumerate(ranks)},
+            "teacher_windows_per_s_per_rank": [_dp_rate(run["teacher"]) for run in ranks],
+            "teacher_windows_per_s_one_process": _dp_rate(one["teacher"]),
+            "teacher_windows_per_s_nccl_world1": _dp_rate(world1["teacher"]),
+            "launches": total, "data_parallel_path_s": time.perf_counter() - t0}
     emit(line)
     return line
 
@@ -3426,12 +3794,17 @@ def main(argv) -> int:
     zoo = zoo_path()
     emit({"phase": "zoo_summary", "card": smi, **zoo})
     zoo_agree()
-    cli, workdir = cli_path(smi)
-    try:
-        serve_trained(workdir, smi)
-        cli_ms = cli_multiseed(workdir, smi)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    # the recipe's children run in a thread beside the CLI phases, which are children too
+    recipe_dir = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        recipe_run = pool.submit(recipe_children, recipe_dir)
+        cli, workdir = cli_path(smi)
+        try:
+            serve_trained(workdir, smi)
+            cli_ms = cli_multiseed(workdir, smi)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        recipe = recipe_path(smi, recipe_dir, recipe_run)
     cli["launches"] = add_launches(cli["launches"], cli_ms["launches"])
 
     artifact, served = {}, {}
@@ -3444,7 +3817,6 @@ def main(argv) -> int:
     finally:
         for _, _, artifact_dir in served.values():
             shutil.rmtree(artifact_dir, ignore_errors=True)
-    recipe = recipe_path(smi)
     multiseed = multiseed_path(smi)
     int8 = int8_path(smi)
     prior, (prior32, vq, vq_exp, grids, _) = prior_path(smi)
@@ -3459,6 +3831,7 @@ def main(argv) -> int:
         shutil.rmtree(import_dir, ignore_errors=True)
     csv_path(smi)
     replay_path(smi)
+    dp = data_parallel_path(smi)
     replay_profile(smi)
     # the phases with profiler sessions come last, so that no timed phase
     # runs after them (PERF.md §6: bf16 serving timed after one read slower)
@@ -3481,7 +3854,7 @@ def main(argv) -> int:
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "generate": generate,
              "generator_artifact": generator, "latent": latent, "torch_import": imported,
-             "demo_stream": demo}
+             "demo_stream": demo, "data_parallel": dp}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())

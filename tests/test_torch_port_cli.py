@@ -6,7 +6,8 @@ reference's file names; the teacher's ``.pth`` read by the JAX package's
 ``--multiseed`` with several seeds, ``--lambda_fk`` and ``--int8_ff`` train
 (the stacked trainer, the FK term, the int8 feed-forward) and build the JAX
 CLI's config; ``--prng``, which the port does not run, exits non-zero
-naming ROADMAP.md."""
+naming ROADMAP.md; ``--data_parallel`` over two cards that its ranks do not
+find exits non-zero naming the rank."""
 
 import json
 import os
@@ -79,10 +80,17 @@ def test_unported_flags_exit_non_zero(flags, tmp_path, monkeypatch, capsys):
 
 
 def test_data_parallel_over_several_cards_exits(monkeypatch, capsys):
+    """With two cards visible --data_parallel launches one NCCL rank a card
+    and scales the batch; here the ranks find no card, and the run exits
+    non-zero naming the failed rank (nothing falls back to the CPU)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     assert train_ablation.main(["--data_parallel"]) != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
+    captured = capsys.readouterr()
+    assert "Data-parallel over 2 devices; scaling batch size to 512" in captured.out
+    assert "of 2 failed" in captured.err and "CUDA is not available" in captured.err
 
 
 def test_no_card_without_device_cpu_exits(monkeypatch, capsys):

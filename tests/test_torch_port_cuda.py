@@ -13,7 +13,8 @@ cluster rank and ragged last slices, N off the row tile, exact ties (also
 across the slices of one cluster), repeat calls, and the shapes and launch
 plans it refuses; the model zoo's shapes (K2 at K 1024 and N 4,096 and
 16,384, also from the crowding untrained codebook; K1 at S = W = 64 in both
-dtypes); one small-model train step against the CPU. K1's bfloat16
+dtypes); one small-model train step against the CPU; two data-parallel
+ranks sharing the card over gloo against one process. K1's bfloat16
 instantiations run at every head dim, on windows, whole rows and the row
 kernels, with the dropout mask, what they refuse, and a small bf16 train
 step.
@@ -31,6 +32,7 @@ increasing row order), and equal on every run.
 import pytest
 import torch
 
+from bridgerl_tpu_torch import parallel
 from bridgerl_tpu_torch.config import make_experiment
 from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.models import init_model
@@ -1092,3 +1094,38 @@ def test_trace_on_the_card_records_k1_and_k2(gen, tmp_path):
     names = {e.get("name", "") for e in
              json.loads((tmp_path / TRACE_NAME).read_text())["traceEvents"]}
     assert any("k1_fwd_" in n for n in names) and any("vq_assign_nearest" in n for n in names)
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(gen):
+    """A small transformer + hybrid teacher, two steps at batch 32 in 2
+    microbatches, on two ranks sharing the card over gloo (CUDA tensors in
+    the collectives) against one process on the card: losses within 2e-4
+    relative, the first step's gradients within 1e-5 * (1 + max|g|), EMA
+    state within 2e-3 (tests/test_sharding.py's bands); the parameters
+    bit-equal on both ranks."""
+    import numpy as np
+
+    import torch_parallel_cases as cases
+
+    rng = np.random.default_rng(0)
+    spec = dict(arch="transformer", method="hybrid", device="cuda",
+                over=dict(window=10, hidden_dim=16, d_model=64, n_tf_layers=1, n_heads=2,
+                          ff_dim=64, attn_packing=2, dropout=0.0, batch_size=32,
+                          accum_chunks=2),
+                robot=rng.normal(size=(64, 10, 29)).astype(np.float32),
+                human=rng.normal(size=(64, 10, 126)).astype(np.float32),
+                idx=rng.permutation(64).reshape(2, 32))
+    ranks = [r[0] for r in parallel.launch(cases.run, 2, "gloo", args=([("steps", spec)],),
+                                           device="cuda", timeout=300)]
+    one = cases.run([("steps", spec)])[0]
+    for run in ranks:
+        for got, want in zip(run["logs"], one["logs"]):
+            for k in want:
+                assert abs(got[k] - want[k]) <= 2e-4 * abs(want[k]), k
+        for k, w in one["grads"].items():
+            assert np.abs(run["grads"][k] - w).max() <= 1e-5 * (1.0 + np.abs(w).max()), k
+        for k in one["state"]:
+            if k.endswith(("ema_w", "ema_cluster_size")):
+                assert np.abs(run["state"][k] - one["state"][k]).max() <= 2e-3, k
+    for k in ranks[0]["state"]:
+        assert np.array_equal(ranks[0]["state"][k], ranks[1]["state"][k]), k

@@ -36,6 +36,8 @@ PORT_MODULES = [
     "bridgerl_tpu_torch.eval.latex", "bridgerl_tpu_torch.eval.parity",
     "bridgerl_tpu_torch.export.torch_import", "bridgerl_tpu_torch.data.manifest",
     "bridgerl_tpu_torch.utils.profiling", "bridgerl_tpu_torch.utils.logging",
+    "bridgerl_tpu_torch.parallel", "bridgerl_tpu_torch.parallel.mesh",
+    "bridgerl_tpu_torch.train.multiseed",
     *(f"bridgerl_tpu_torch.cli.{name}" for name in (
         "play_g1_npy", "render_video", "render_viewport", "live_viewer", "render_mesh_demo",
         "debug_camera_views", "csv_to_npz", "extract_urdf_spec", "analyze_latent_space",
