@@ -1,6 +1,12 @@
 """Command-line entry points of the port (``python -m
 bridgerl_tpu_torch.cli.<name>``), with the JAX scripts' flags, defaults and
-file names, and ``--device`` (default ``cuda``)."""
+file names, and ``--device`` (default ``cuda``).
+
+The token-prior studies (``exp_prior_ar``, ``exp_prior_sampling``,
+``exp_prior_prompted``, ``exp_prior_scaling``, ``exp_prior_conditioned``,
+``exp_prior_dynamics``), their plots (``plot_prior_scaling``,
+``plot_prior_conditioned``) and the quantizer diagnostics
+(``diag_fsq_spread``, ``diag_lfq``) share ``eval/studies.py``."""
 
 from __future__ import annotations
 

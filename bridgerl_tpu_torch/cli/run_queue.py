@@ -17,7 +17,10 @@ Between entries every ``bridgerl_tpu_torch`` module is dropped from
 ``sys.modules``, as the JAX queue drops ``bridgerl_tpu``'s, so each entry
 runs the code on disk. The compiled kernel libraries stay mapped in the
 process: the reloaded ``ops`` find them in ``_build/`` and do not build them
-again.
+again. A caller of ``main`` may pass ``after_entry``, called with each
+entry's label once it has ended and before its modules are dropped (for
+example to read ``ops.kernels.COUNTERS``, which the next entry starts
+anew).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 PACKAGE = "bridgerl_tpu_torch"
 
@@ -40,7 +43,8 @@ def _drop_port_modules() -> None:
     gc.collect()
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def main(argv: Optional[Sequence[str]] = None,
+         after_entry: Optional[Callable[[str], None]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if len(argv) != 1:
         print("usage: python -m bridgerl_tpu_torch.cli.run_queue QUEUE.json", file=sys.stderr)
@@ -68,6 +72,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"=== {label} FAILED ===", flush=True)
         finally:
             sys.argv = saved
+            if after_entry is not None:
+                after_entry(label)
             _drop_port_modules()
     if failures:
         print(f"[QUEUE] {len(failures)} failed: {failures}", flush=True)

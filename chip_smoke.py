@@ -33,9 +33,11 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    round the same float32 quantity); its bound counts 2 bytes an element
    and the FLOPs at the bf16 tensor cores' 989 TFLOP/s.
    K1 also runs at (1024, 64, 64) with window 64, the CLI's default
-   transformer (the zoo path), and at the latent path's (128, 80, 64)
-   packed and (176, 10, 64) unpacked. K2 runs at N = 4096 (serving), 512
-   (training) and 6554 (validation) with K = 512, and at K = 1024 with
+   transformer (the zoo path), at the latent path's (128, 80, 64)
+   packed and (176, 10, 64) unpacked, and at (8192, 128, 64) with window 64
+   and packing 2 (the studies' K4 teacher tokenizing 4096 windows). K2 runs
+   at N = 4096 (serving), 512 (training), 6554 (validation) and 16384 (the
+   K4 teacher's 4096 windows x 4 tokens) with K = 512, and at K = 1024 with
    N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch):
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
    indices bit for bit, a second call must repeat the first bit for bit,
@@ -157,8 +159,9 @@ script exits non-zero. Each runs in float32 and then in bfloat16
 15. ``k1_causal`` (with the kernel checks of phase 2): K1 forward and
    backward under the token prior's causal bias over whole rows, f32 and
    bf16, at (128, 128, 64) (training: the row kernels), (16384, 5, 64) (the
-   slot-AR depth stack: window tiles), dropout 0.1 and 0, and (16, 32, 64)
-   (sampling), each held to the plain version under the rules of phase 2,
+   slot-AR depth stack: window tiles), dropout 0.1 and 0, (16, 32, 64)
+   (sampling) and (128, 96, 64) (the studies' prior at max_len 96), dropout
+   0.1 and 0, each held to the plain version under the rules of phase 2,
    with its bound for the lower triangle's work and SDPA ``is_causal=True``
    as the library yardstick; ``k1_causal_mask``: both kernels' keep bits at
    (128, 128, 128) equal to the plain Philox mask on and below the
@@ -199,7 +202,8 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    (sampled frames within 1e-5 of ``fk_numpy``) and of ``get_next_state``
    (the wrap-around on the last frame only); ``rollout`` and
    ``rollout_full`` at 20,000 frames, 64 sampled frames within 1e-5 of
-   ``fk_numpy``; replay steps/s at 20,000 frames (median of 3 calls of
+   ``fk_numpy`` and every frame within 1e-5 of the CPU's ``BatchedFK`` on
+   the same motion; replay steps/s at 20,000 frames (median of 3 calls of
    ``benchmark_steps_per_sec``). ``replay_profile``, in a child process
    (a process's later profiler sessions lose records): device ms,
    operations and idle share of one rollout at 2,000 and at 20,000 frames.
@@ -240,12 +244,32 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    ranks' first K1 keep masks differ; each rank's K1 and K2 launches equal a
    microbatch's count times its microbatches. Windows/s a rank (two ranks
    share one card, and the three processes overlap: no claim).
-24. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+24. ``native`` (after the kernel checks): the host's C++ runtime
+   (``runtime/native.py``) built with g++ (its seconds), each function bit
+   for bit equal to its numpy version on seeded inputs (statistics within
+   1e-6). ``research``: the token-prior studies and the quantizer
+   diagnostics of ``cli/`` as one ``run_queue`` child on the card, in a
+   thread beside the CLI phases' children (its inputs written and the CPU's
+   side of its checks taken there): the W64 K4 teacher (transformer +
+   hybrid, 4 tokens a window, packing 2; seed 0, f32, and bf16 for sampling
+   and prompting), seed-0 W64 fsq and lfq transformers and 40 synthetic
+   takes, at the studies' widths with depth cut (``RESEARCH_REDUCED``):
+   exp_prior_ar (fact, ar), exp_prior_sampling (T 1.0, top_k 0 and 1),
+   exp_prior_prompted (P 0 and 8), exp_prior_scaling (one arm),
+   exp_prior_conditioned (3 takes a class), exp_prior_dynamics (one seed,
+   lam 0 and 0.75), diag_fsq_spread, diag_lfq. Exit 0 and each entry's OK
+   line, the JAX scripts' JSON keys with every number finite, the
+   diagnostics' reports; the card's tokenization of the takes against the
+   CPU's on the same weights (f32 codes equal on 99.9% of the valid
+   positions' slots and exp_prior_ar's ceiling within 1e-3 of the CPU's;
+   bf16 under the bf16 code rule); each entry's seconds and launches.
+25. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
    fk, int8, prior, generate, generator_artifact, latent, torch_import,
-   demo_stream and data_parallel (the ranks' launches; cli includes
-   cli_multiseed); counts
+   demo_stream, data_parallel (the ranks' launches; cli includes
+   cli_multiseed) and research (the studies' child, summed over its
+   entries); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls), then, last,
    ``{"ok": true, "device": {...}}``.
@@ -314,6 +338,8 @@ from bridgerl_tpu_torch.models.token_prior import (
 )
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
 from bridgerl_tpu_torch.eval.latent import get_latent_vectors, load_paired_data_by_action
+from bridgerl_tpu_torch.eval.studies import RAW_MEAN, RAW_STD, decode_ceiling, load_takes
+from bridgerl_tpu_torch.runtime import native
 from bridgerl_tpu_torch.sim import (
     G1ReplayScene,
     fk_numpy,
@@ -321,6 +347,7 @@ from bridgerl_tpu_torch.sim import (
     load_motion,
     make_batched_fk,
 )
+from bridgerl_tpu_torch.sim.kinematics import BatchedFK
 from bridgerl_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -369,7 +396,10 @@ K1_SHAPES = ((2048, 80, 64, 8, 0.0), (256, 10, 64, 1, 0.0), (256, 80, 64, 8, 0.0
              (16384, 10, 64, 1, 0.0),   # the artifact's retarget at b = 4096: unpacked
              (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0), (196, 64, 64, 1, 0.0),
              # the latent encoders at batch 256: packed, then the last 44 windows unpacked
-             (128, 80, 64, 8, 0.0), (176, 10, 64, 1, 0.0))
+             (128, 80, 64, 8, 0.0), (176, 10, 64, 1, 0.0),
+             # the studies' W64 teacher (packing 2, 4 tokens a window) tokenizing a chunk
+             # of 4096 windows
+             (8192, 128, 64, 2, 0.0))
 K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8, 0.0),
                  (2048, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.1), (1024, 64, 64, 1, 0.0),
                  (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0))
@@ -377,7 +407,9 @@ K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8,
 # simple / resnet (N = 256 windows x 16 tokens) and resnet_no_down (x 64 frames); the
 # recipe's hybrid microbatch and validation batch
 K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),
-             (16384, 64, 1024), (64, 64, 512), (49, 64, 512))
+             (16384, 64, 1024), (64, 64, 512), (49, 64, 512),
+             (16384, 64, 512))   # the studies' teacher: 4096 windows x 4 tokens
+
 K2_KERNELS = ("vq_assign_nearest", "vq_assign_stats")   # device names of K2's kernels
 K2_DEVICE_OPS = len(K2_KERNELS)   # its outputs need no zero-fill
 DROPOUT = 0.1
@@ -394,7 +426,7 @@ SERVE_ATOL = 1e-3
 CODES_AGREE = 0.999
 RETARGET_BATCHES = (1, 5, 64, 512, 4096)
 TRAIN_WINDOWS, TRAIN_BATCH, TRAIN_ACCUM = 65536, 16384, 32
-TEACHER_EPOCHS, STUDENT_EPOCHS = 3, 2
+TEACHER_EPOCHS, STUDENT_EPOCHS = 2, 2   # each rate from the epochs after the first
 # launches per microbatch (train) and per validation batch: K1 fwd, K1 bwd, K2
 PER_MICROBATCH = {"teacher": (8, 8, 4), "student": (16, 4, 8)}
 PER_VAL_BATCH = {"teacher": (8, 0, 4), "student": (16, 0, 8)}
@@ -468,9 +500,10 @@ RECIPE_AE_CKPT = (f"checkpoints/Exp_transformer_W{RECIPE_WINDOW}_ae_teacher_seed
 RECIPE_HYBRID = f"Exp_transformer_W{RECIPE_WINDOW}_hybrid_teacher_seed_{RECIPE_SEED}"
 # the token prior: K1 under the causal bias at the prior's shapes (B*H, S, Dh, dropout):
 # training (batch 32 x 4 heads, 128 positions), the slot-AR depth stack (32 x 128 rows of
-# 5 slots x 4 heads) and sampling (4 samples x 4 heads, 32 positions)
+# 5 slots x 4 heads), sampling (4 samples x 4 heads, 32 positions) and the studies'
+# prior (batch 32 x 4 heads, max_len 96)
 K1_CAUSAL = ((128, 128, 64, 0.1), (128, 128, 64, 0.0), (16384, 5, 64, 0.1),
-             (16384, 5, 64, 0.0), (16, 32, 64, 0.0))
+             (16384, 5, 64, 0.0), (16, 32, 64, 0.0), (128, 96, 64, 0.1), (128, 96, 64, 0.0))
 # synthetic takes of 645 frames: 128 windows each at W 10 and stride 5, one grid a take
 PRIOR_TAKES, PRIOR_FRAMES, PRIOR_POSITIONS, PRIOR_STRIDE = 256, 645, 128, 5
 PRIOR_EPOCHS = 3
@@ -486,7 +519,8 @@ GEN_ATOL = 1e-3               # decoded motion, card against the CPU, on the sam
 REPLAY_TAKE = 400              # frames of the seeded take at 20 fps -> 998 frames at 50 fps
 REPLAY_FRAMES = 20000         # bench.py:185's replay frames (an 8,001-frame take at 20 -> 50 fps)
 REPLAY_PROFILED = (2000, 20000)
-REPLAY_SAMPLED = 64           # rollout frames held to fk_numpy
+REPLAY_SAMPLED = 64           # rollout frames held to fk_numpy (every frame: to the CPU's
+                              # BatchedFK on the same motion, within FK_TOL)
 MOTION_TOL = 1e-6             # load_motion, card against the CPU
 CSV_FRAMES = 300              # a LAFAN-style take at 30 fps
 CSV_TOL = 1e-5                # each npz array, card against CPU, of max(1, its largest |value|)
@@ -510,6 +544,47 @@ DEMO_FRAMES, DEMO_STEP, DEMO_FPS = 240, 5, 25
 # the run drivers: run_batch's specs at the CLI's batch, and a run_queue of two entries
 RUNNER_EPOCHS = {"teacher": 2, "student": 1}
 RUNNER_OK = re.compile(r"=== ((?:batch|queue)\[\d+\] \S+).* OK \(([\d.]+)s\) ===")
+# the research phase: the token-prior studies of cli/ as one run_queue child on the card,
+# on the W64 K4 teacher (transformer + hybrid, 4 tokens a window, packing 2; seed 0, f32
+# and bf16), seed-0 fsq and lfq W64 checkpoints and RESEARCH_TAKES synthetic takes; depth
+# is cut (RESEARCH_REDUCED), widths are the studies' own
+RESEARCH_TEACHER = dict(window=64, tf_tokens=4, attn_packing=2)
+RESEARCH_TAKES, RESEARCH_FRAMES = 40, (1100, 1300)   # 33-39 windows a take at stride 32
+RESEARCH_EPOCHS, RESEARCH_POSITIONS = 2, 32
+RESEARCH_CPU_TAKES = {"float32": 16, "bfloat16": 8}   # tokenized on the CPU as well
+RESEARCH_CEILING_ATOL = 1e-3   # exp_prior_ar's ceiling against the CPU's
+RESEARCH_TIMEOUT_S = 600
+RESEARCH_NICE = 10   # the child's CPU priority below the CLI and recipe children
+RESEARCH_REDUCED = [
+    f"epochs {RESEARCH_EPOCHS} (the studies' defaults: 200-300)",
+    f"positions {RESEARCH_POSITIONS} (default 64)",
+    f"{RESEARCH_TAKES} synthetic takes of {RESEARCH_FRAMES[0]}-{RESEARCH_FRAMES[1]} frames "
+    "(the studies: 64-1280 takes of 6,000-6,400)",
+    "exp_prior_ar arms fact,ar (default fact,ar,ar_ph4)",
+    "exp_prior_sampling T 1.0, top_k 0 and 1 over the ar prior",
+    "exp_prior_prompted P 0 and 8 (default 0,4,8,16)",
+    f"exp_prior_scaling one arm of {RESEARCH_TAKES + 4} takes (default 64,160,320)",
+    "exp_prior_conditioned arms 3 at 700-800 frames, 2 samples a class (default 3,12,48 "
+    "at 6,000-6,400, 6 a class)",
+    f"exp_prior_dynamics {RESEARCH_TAKES} takes, seed 42, lam 0 and 0.75 (default 1280 "
+    "takes, seeds 42,43)"]
+# JSON keys the studies write (the JAX scripts'): the statistics of compare_to_data, code
+# novelty and the nearest data window
+GEN_KEYS = ("jerk_ratio", "jerk_rms_data", "jerk_rms_gen", "range_coverage_mean",
+            "range_coverage_min", "static_frac_data", "static_frac_gen", "vel_ratio",
+            "vel_rms_data", "vel_rms_gen")
+NOVELTY_KEYS, NN_KEYS = ("bigram_novel_frac", "position_novel_frac"), (
+    "nn_mse_max", "nn_mse_mean", "nn_mse_min")
+CURVE_KEYS = ("nn_mse_by_offset", "offsets", "truth_mse_by_offset")
+# runs run_queue's main (argv[1]) and prints each entry's kernel launches after it: the
+# queue drops the port's modules between entries, and with them the counters
+RESEARCH_WRAPPER = ("import json, sys\n"
+                    "from bridgerl_tpu_torch.cli import run_queue\n"
+                    "def launches(label):\n"
+                    "    k = sys.modules.get('bridgerl_tpu_torch.ops.kernels')\n"
+                    "    counts = {n: c.count for n, c in k.COUNTERS.items()} if k else {}\n"
+                    "    print('LAUNCHES ' + json.dumps(counts), flush=True)\n"
+                    "sys.exit(run_queue.main(sys.argv[1:], after_entry=launches))\n")
 # data_parallel: the flagship (f32, dropout 0) on 2 ranks sharing the card over gloo and
 # on 1 NCCL rank, each case against the one-process Trainer path (make_train_epoch) on
 # the same index matrices: (arch, method, mode, optimizer steps, dropout, gradients kept)
@@ -862,11 +937,6 @@ def k2_device_ops_rows(reps: int = 10) -> dict:
     device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in inputs]
     calls = reps * len(inputs)
     per_kernel = {k: sum(1 for e in device if k in e.name) for k in K2_KERNELS}
-    require(sum(per_kernel.values()) == len(device) == K2_DEVICE_OPS * calls
-            and all(n == calls for n in per_kernel.values()),
-            f"K2: {len(device)} device records {per_kernel} in {calls} calls, want one of "
-            f"each of {K2_KERNELS} a call and nothing else: "
-            f"{sorted({e.name[:80] for e in device})}")
     shapes = {}
     for e in events:
         if e.device_type != DeviceType.CPU or e.name not in inputs:
@@ -879,6 +949,12 @@ def k2_device_ops_rows(reps: int = 10) -> dict:
                                          for k in K2_KERNELS},
             "device_ms_by_kernel": {k: sum(d.time_range.elapsed_us() for d in mine
                                            if k in d.name) / 1e3 / reps for k in K2_KERNELS}}
+    require(sum(per_kernel.values()) == len(device) == K2_DEVICE_OPS * calls
+            and all(n == calls for n in per_kernel.values()),
+            f"K2: {len(device)} device records {per_kernel} in {calls} calls, want one of "
+            f"each of {K2_KERNELS} a call and nothing else: "
+            f"{sorted({e.name[:80] for e in device})}; by shape, in order: "
+            f"{[(n, shapes.get(n, {}).get('device_records_by_kernel')) for n in inputs]}")
     return {"calls": calls, "device_records": len(device), "records_by_kernel": per_kernel,
             "shapes": shapes}
 
@@ -3046,7 +3122,8 @@ def replay_path(smi: str) -> tuple:
     fk_numpy at the motion's root) and of ``get_next_state`` (the wrap-around
     on the last frame only); rollout and rollout_full at 20,000 frames (64
     sampled frames, positions and rotations, within FK_TOL of fk_numpy at the
-    default root); steps/s of ``benchmark_steps_per_sec(20000)``, the median
+    default root, and every frame within FK_TOL of the CPU's BatchedFK on
+    the same motion); steps/s of ``benchmark_steps_per_sec(20000)``, the median
     of 3 calls (each after its 2 warm-up rollouts)."""
     t0 = time.perf_counter()
     dof, pos, rot = _replay_take(REPLAY_TAKE, SEED + 20)
@@ -3084,13 +3161,22 @@ def replay_path(smi: str) -> tuple:
     rollout_err = max(_fk_err(chain, full_pos[t], full_rot[t], qb[t]) for t in sampled)
     rollout_err = max(rollout_err, float(np.abs(traj - full_pos).max()))
     require(rollout_err <= FK_TOL, f"replay: rollout {rollout_err} from fk_numpy")
+    # every frame against the CPU's BatchedFK on the same motion
+    cpu_pos, cpu_rot = (a.numpy() for a in BatchedFK(chain)(big.dof_pos.cpu()))
+    frame_err = np.maximum(np.abs(full_pos - cpu_pos).max(axis=(1, 2)),
+                           np.abs(full_rot - cpu_rot).max(axis=(1, 2, 3)))
+    worst = int(frame_err.argmax())
+    require(frame_err[worst] <= FK_TOL,
+            f"replay: rollout frame {worst} is {frame_err[worst]} from the CPU's BatchedFK")
 
     rates = sorted(scene.benchmark_steps_per_sec(REPLAY_FRAMES) for _ in range(3))
     line = {"phase": "replay", "card": smi, "dtype": "float32",
             "motion_max_abs_err": motion_err, "step_frames": n,
             "step_max_abs_err": step_err, "steps_per_s_step_api": n / steps_s,
             "rollout_frames": REPLAY_FRAMES, "rollout_frames_checked": REPLAY_SAMPLED,
-            "rollout_max_abs_err": rollout_err, "replay_steps_per_s": rates[1],
+            "rollout_max_abs_err": rollout_err, "rollout_frames_vs_cpu": len(frame_err),
+            "rollout_max_abs_err_vs_cpu": float(frame_err[worst]),
+            "rollout_worst_frame_vs_cpu": worst, "replay_steps_per_s": rates[1],
             "replay_steps_per_s_all": rates, "replay_path_s": time.perf_counter() - t0}
     emit(line)
     return line
@@ -3474,6 +3560,314 @@ def runners_path(smi: str, reference_pth: str) -> dict:
     return line
 
 
+# ---------------------------------------------------------------- research, native
+
+def _research_exp(dtype: str):
+    """The studies' teacher: the W64 K4 quality configuration at the default widths."""
+    return make_experiment("transformer", "hybrid", **RESEARCH_TEACHER, compute_dtype=dtype)
+
+
+def research_files(workdir: str) -> dict:
+    """The studies' inputs, written on the host: the K4 teacher at SEED in
+    float32 and bfloat16 (the same weights), W64 fsq and lfq transformers at
+    SEED, and RESEARCH_TAKES synthetic takes at W 64 (``data/``)."""
+    files = {"data": os.path.join(workdir, "data"), "out": os.path.join(workdir, "out")}
+    weights = init_model(_research_exp("float32").model, SEED, device="cpu").state_dict()
+    for dtype in ("float32", "bfloat16"):
+        files[dtype] = os.path.join(workdir, f"teacher_{dtype}.pth")
+        save_checkpoint(files[dtype], epoch=0, model=weights, config=_research_exp(dtype))
+    for method in ("fsq", "lfq"):
+        exp = make_experiment("transformer", method, window=64)
+        files[method] = os.path.join(workdir, f"{method}.pth")
+        save_checkpoint(files[method], epoch=0, model=init_model(exp.model, SEED, device="cpu"),
+                        config=exp)
+    generate_synthetic_dataset(files["data"], n_sequences=RESEARCH_TAKES,
+                               min_len=RESEARCH_FRAMES[0], max_len=RESEARCH_FRAMES[1],
+                               window=64, step=32, seed=SEED)
+    return files
+
+
+def research_queue(files: dict) -> list:
+    """The run_queue entries: each study at its own widths and cut depth
+    (RESEARCH_REDUCED), then the two diagnostics."""
+    cli, out, data = "bridgerl_tpu_torch.cli.", files["out"], files["data"]
+    depth = ["--epochs", str(RESEARCH_EPOCHS), "--positions", str(RESEARCH_POSITIONS)]
+    prior = os.path.join(out, "ar", "prior_ar.ckpt")
+    frames = ["--min_len", str(RESEARCH_FRAMES[0]), "--max_len_frames", str(RESEARCH_FRAMES[1])]
+    return [
+        [cli + "exp_prior_ar", "--ckpt", files["float32"], "--data_dir", data, "--arms",
+         "fact,ar", *depth, "--out_dir", os.path.join(out, "ar")],
+        [cli + "exp_prior_sampling", "--ckpt", files["bfloat16"], "--priors", prior,
+         "--data_dir", data, "--temperatures", "1.0", "--top_ks", "0,1", *depth[2:],
+         "--out", os.path.join(out, "sampling.json")],
+        [cli + "exp_prior_prompted", "--ckpt", files["bfloat16"], "--priors", prior,
+         "--data_dir", data, "--prompt_positions", "0,8", *depth[2:],
+         "--out", os.path.join(out, "prompted.json")],
+        [cli + "exp_prior_scaling", "--ckpt", files["float32"], "--data_dir", data, "--arms",
+         str(RESEARCH_TAKES + 4), *frames, *depth, "--out_dir", os.path.join(out, "scale")],
+        [cli + "exp_prior_conditioned", "--ckpt", files["float32"], "--arms", "3",
+         "--min_len", "700", "--max_len_frames", "800", "--gen_per_class", "2", *depth,
+         "--out_dir", os.path.join(out, "cond")],
+        [cli + "exp_prior_dynamics", "--ckpt", files["float32"], "--data_dir", data, "--takes",
+         str(RESEARCH_TAKES), "--seeds", "42", "--lams", "0.0,0.75", *depth,
+         "--out_dir", os.path.join(out, "dyn")],
+        [cli + "diag_fsq_spread", "--ckpt", files["fsq"], "--data_dir", data],
+        [cli + "diag_lfq", "--ckpt", files["lfq"], "--data_dir", data],
+    ]
+
+
+def _research_tokens(files: dict, dtype: str, device: str, takes: list) -> tuple:
+    """(model, experiment, grids, mask, prior config) of ``takes`` through the
+    K4 teacher in ``dtype`` on ``device``, at the studies' stride 32 and
+    max_len 96 (one grid a take)."""
+    model, exp = load_model_from_checkpoint(files[dtype], device=device)
+    grids, mask, pcfg, _ = extract_code_grids(model, exp, takes, RAW_MEAN, RAW_STD, 32,
+                                              max_len=96)
+    return model, exp, grids, mask, pcfg
+
+
+def research_background(workdir: str) -> dict:
+    """Beside the CLI phases, in a thread: writes the studies' inputs, starts
+    the run_queue child (RESEARCH_WRAPPER) on the card and, while it runs,
+    takes the CPU's side of the tokenization check: the takes' grids in
+    float32 and bfloat16 and exp_prior_ar's ceiling in float32. Nothing here
+    runs on the card (the launch counters belong to the main thread's
+    phases). Returns the inputs, the child's (rc, stdout, stderr, seconds)
+    and the CPU's results. The child is ended before this returns."""
+    files = research_files(workdir)
+    queue_path = os.path.join(workdir, "queue.json")
+    with open(queue_path, "w") as f:
+        json.dump(research_queue(files), f)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    # at a lower CPU priority than the timed children beside it
+    proc = subprocess.Popen(["nice", "-n", str(RESEARCH_NICE), sys.executable, "-c",
+                             RESEARCH_WRAPPER, queue_path], cwd=workdir, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t_cpu = time.perf_counter()
+        takes = load_takes(files["data"])
+        cpu = {dtype: _research_tokens(files, dtype, "cpu", takes[:n])[2:4]
+               for dtype, n in RESEARCH_CPU_TAKES.items()}
+        model, exp, grids, mask, pcfg = _research_tokens(files, "float32", "cpu", takes[:8])
+        cpu["ceiling"] = decode_ceiling(model, exp, grids, mask, pcfg, takes, 32)
+        cpu["seconds"] = time.perf_counter() - t_cpu
+        stdout, stderr = proc.communicate(timeout=RESEARCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"files": files, "child": (proc.returncode, stdout, stderr,
+                                      time.perf_counter() - t0), "cpu": cpu}
+
+
+def _entries(stdout: str) -> dict:
+    """The queue's entries in order: label -> {"seconds", "launches", "stdout"}
+    (the lines an entry printed, and the launches printed after its OK)."""
+    entries, label, lines = {}, None, []
+    for line in stdout.splitlines():
+        ok = RUNNER_OK.match(line)
+        if line.startswith("=== queue[") and line.endswith(" start ==="):
+            label, lines = None, []
+        elif ok:
+            label = ok.group(1)
+            entries[label] = {"seconds": float(ok.group(2)), "stdout": lines}
+            lines = []
+        elif line.startswith("LAUNCHES ") and label:
+            entries[label]["launches"] = json.loads(line.split(" ", 1)[1])
+        else:
+            lines.append(line)
+    return entries
+
+
+def _walk_numbers(obj, where: str) -> int:
+    """The count of numbers in a JSON value; raises at a non-finite one."""
+    if isinstance(obj, dict):
+        return sum(_walk_numbers(v, f"{where}/{k}") for k, v in obj.items())
+    if isinstance(obj, list):
+        return sum(_walk_numbers(v, f"{where}[{i}]") for i, v in enumerate(obj))
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        require(math.isfinite(obj), f"research: {where} is {obj}")
+        return 1
+    return 0
+
+
+def _require_keys(what: str, row: dict, *groups) -> None:
+    want = sorted(k for g in groups for k in g)
+    require(sorted(row) == want, f"research: {what} keys {sorted(row)}, want {want}")
+
+
+def _research_outputs(out: str) -> dict:
+    """Each study's JSON against the JAX scripts' keys, every number finite;
+    returns the numbers checked by file."""
+    def read(*parts):
+        with open(os.path.join(out, *parts)) as f:
+            return json.load(f)
+
+    sample_row = GEN_KEYS + NOVELTY_KEYS + NN_KEYS + ("overlap_disagreement",)
+    files = {"ar/summary.json": read("ar", "summary.json"),
+             "sampling.json": read("sampling.json"), "prompted.json": read("prompted.json"),
+             "scale/scaling.json": read("scale", "scaling.json"),
+             "cond/conditioned.json": read("cond", "conditioned.json"),
+             "dyn/dynamics.json": read("dyn", "dynamics.json")}
+    ar = files["ar/summary.json"]
+    require(sorted(ar) == ["arms", "ceiling"] and sorted(ar["arms"]) == ["ar", "fact"],
+            f"research: summary.json {sorted(ar)}")
+    _require_keys("ceiling", ar["ceiling"], GEN_KEYS, NN_KEYS, ("overlap_disagreement",))
+    for arm, row in ar["arms"].items():
+        _require_keys(f"arm {arm}", row, sample_row,
+                      ("best_val_ce", "best_train_ce", "epochs_run", "train_s"))
+    require(sorted(files["sampling.json"]) == ["prior_ar|T1.0|k0", "prior_ar|T1.0|k1"],
+            f"research: sampling rows {sorted(files['sampling.json'])}")
+    for key, row in files["sampling.json"].items():
+        _require_keys(key, row, sample_row, ("sample_s",))
+    require(sorted(files["prompted.json"]) == ["prior_ar|P0", "prior_ar|P8"],
+            f"research: prompted rows {sorted(files['prompted.json'])}")
+    for key, row in files["prompted.json"].items():
+        _require_keys(key, row, GEN_KEYS, NOVELTY_KEYS, NN_KEYS, CURVE_KEYS, (
+            "overlap_disagreement_seam", "overlap_disagreement_cont", "sample_s"))
+    prompted = GEN_KEYS + NOVELTY_KEYS + CURVE_KEYS
+    (arm, row), = files["scale/scaling.json"].items()
+    require(arm == f"takes{RESEARCH_TAKES + 4}", f"research: scaling arm {arm}")
+    _require_keys(arm, row, ("arm_s", "best_train_ce", "epochs_run", "free_run", "n_grids",
+                             "n_positions", "n_val_takes", "prompted_val_P8", "recon_floor",
+                             "val_ce_best", "val_ce_best_epoch", "val_ce_epoch0",
+                             "val_ce_final", "val_nn_floor"))
+    _require_keys(f"{arm} free_run", row["free_run"], sample_row)
+    _require_keys(f"{arm} prompted", row["prompted_val_P8"], prompted)
+    (arm, row), = files["cond/conditioned.json"].items()
+    require(arm == "perclass3", f"research: conditioned arm {arm}")
+    _require_keys(arm, row, ("arm_s", "classifier_accuracy_train", "classifier_accuracy_val",
+                             "classifier_confusion", "cond_val_ce_best", "cond_val_ce_epoch0",
+                             "conditioning_gain_nats", "histogram_match", "n_grids",
+                             "n_takes", "uncond_val_ce_best", "uncond_val_ce_epoch0",
+                             "vel_ratio_by_class"))
+    _require_keys(f"{arm} histogram_match", row["histogram_match"],
+                  ("accuracy", "margins", "n_classes", "predicted"))
+    rows = files["dyn/dynamics.json"]
+    require(sorted(rows) == ["lam0.75_seed42", "lam0_seed42"],
+            f"research: dynamics {sorted(rows)}")
+    for arm, row in rows.items():
+        _require_keys(arm, row, ("arm_s", "best_train_ce", "epochs_run", "free_guided",
+                                 "free_unguided", "lam", "n_grids", "prompted_val_P8", "seed",
+                                 "val_ce_best", "val_ce_best_epoch", "val_ce_epoch0"))
+        for key in ("free_guided", "free_unguided"):
+            _require_keys(f"{arm} {key}", row[key], sample_row, ("frames", "sample_s"))
+        _require_keys(f"{arm} prompted", row["prompted_val_P8"], prompted)
+    return {name: _walk_numbers(obj, name) for name, obj in files.items()}
+
+
+def _codes_equal(name: str, card: tuple, cpu: tuple) -> float:
+    """The share of valid positions' codes equal between two (grids, mask)."""
+    (g, m), (w, wm) = card, cpu
+    require(g.shape == w.shape and np.array_equal(m, wm), f"{name}: grids {g.shape} {w.shape}")
+    return float((g == w)[m > 0].mean())
+
+
+def research_path(smi: str, run) -> dict:
+    """The studies on the card, from ``research_background``'s child: exit 0
+    and every entry's OK line; each study's JSON with the JAX scripts' keys
+    and finite numbers; the diagnostics' reports; K1 (f32 and bf16 teacher,
+    the prior's causal training) and K2 launched. The card's tokenization of
+    the takes against the CPU's on the same weights: float32 codes equal on
+    CODES_AGREE of the valid positions' slots, and exp_prior_ar's ceiling (the
+    child's, on the card) within RESEARCH_CEILING_ATOL of the CPU's; bfloat16
+    under the bf16 code rule (``_codes_rule``). Each entry's seconds and
+    launches, the child's seconds and the cuts."""
+    t0 = time.perf_counter()
+    result = run.result()
+    files, cpu = result["files"], result["cpu"]
+    rc, stdout, stderr, child_s = result["child"]
+    require(rc == 0 and "[QUEUE] all entries OK" in stdout,
+            f"research: rc {rc}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    entries = _entries(stdout)
+    require(len(entries) == len(research_queue(files))
+            and all("launches" in e for e in entries.values()),
+            f"research: entries {list(entries)}")
+    numbers = _research_outputs(files["out"])
+    fsq, lfq = (entries[f"queue[{i}] bridgerl_tpu_torch.cli.diag_{m}"]["stdout"]
+                for i, m in ((6, "fsq_spread"), (7, "lfq")))
+    fsq_json = json.loads(fsq[-1])
+    require(sorted(fsq_json) == ["nominal", "ratio", "uniq", "z_e_std", "zp_std"]
+            and fsq_json["nominal"] == 1000 and len(fsq_json["zp_std"]) == 4,
+            f"research: diag_fsq_spread {fsq[-3:]}")
+    require(any(line.startswith("live bits:") for line in lfq)
+            and lfq[-1].startswith("z_e variance expressible"), f"research: diag_lfq {lfq[-3:]}")
+
+    takes = load_takes(files["data"])
+    tokens = {}
+    n32 = RESEARCH_CPU_TAKES["float32"]
+    card32 = _research_tokens(files, "float32", "cuda", takes[:n32])[2:4]
+    tokens["float32"] = {"takes": n32, "positions": int(card32[1].sum()),
+                         "codes_agree": _codes_equal("research f32 tokens", card32,
+                                                     cpu["float32"])}
+    require(tokens["float32"]["codes_agree"] >= CODES_AGREE,
+            f"research: f32 codes agree on {tokens['float32']['codes_agree']}")
+    n16 = RESEARCH_CPU_TAKES["bfloat16"]
+    card16 = _research_tokens(files, "bfloat16", "cuda", takes[:n16])[2:4]
+    valid = cpu["bfloat16"][1] > 0
+    rows = lambda grids: {"grid": np.ascontiguousarray(grids[:n16][valid])}   # noqa: E731
+    shares, _ = _codes_rule("research bf16 tokens", rows(card16[0]), rows(cpu["bfloat16"][0]),
+                            rows(cpu["float32"][0]))
+    tokens["bfloat16"] = {"takes": n16, "positions": int(valid.sum()), **shares}
+    with open(os.path.join(files["out"], "ar", "summary.json")) as f:
+        ceiling = json.load(f)["ceiling"]
+    ceiling_err = max(abs(ceiling[k] - v) for k, v in cpu["ceiling"].items())
+    require(ceiling_err <= RESEARCH_CEILING_ATOL,
+            f"research: exp_prior_ar's ceiling {ceiling_err} from the CPU's")
+
+    total = add_launches(*(e["launches"] for e in entries.values()))
+    for name in (attention.ENTRY["fwd", torch.float32], attention.ENTRY["bwd", torch.float32],
+                 attention.ENTRY["fwd", BF16], "vq_assign"):
+        require(total[name] > 0, f"research: {name} never launched: {total}")
+    line = {"phase": "research", "card": smi,
+            "entries": {label: {"seconds": e["seconds"], "launches": e["launches"]}
+                        for label, e in entries.items()},
+            "child_s": child_s, "cpu_tokenize_s": cpu["seconds"],
+            "json_numbers_checked": numbers, "tokenize": tokens,
+            "ceiling_max_abs_err_vs_cpu": ceiling_err, "reduced": RESEARCH_REDUCED,
+            "launches": total, "research_path_s": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def native_path(smi: str) -> dict:
+    """The host's native runtime (``runtime/native.py`` over
+    ``csrc/motiondata.cpp``): the g++ build's seconds (built anew), then each
+    function on seeded inputs of the studies' size, bit for bit equal to its
+    numpy version (``mean_std`` within 1e-6): npy v1 and v2 loads of a
+    6,400-frame take, its W64 windows at stride 32, their statistics, a
+    permutation of 65,536 and the windows normalised."""
+    t0 = time.perf_counter()
+    native.ensure_built(rebuild=True)
+    build_s = time.perf_counter() - t0
+    take = np.random.default_rng(SEED + 31).normal(size=(6400, 29)).astype(np.float32)
+    equal = {}
+    with tempfile.TemporaryDirectory() as d:
+        for version in ((1, 0), (2, 0)):
+            path = os.path.join(d, f"take_v{version[0]}.npy")
+            with open(path, "wb") as f:
+                np.lib.format.write_array(f, take, version=version)
+            equal[f"load_npy_f32_v{version[0]}"] = np.array_equal(
+                native.load_npy_f32(path), native.load_npy_f32_numpy(path))
+    wins = native.slice_windows(take, 64, 32)
+    equal["slice_windows"] = np.array_equal(wins, native.slice_windows_numpy(take, 64, 32))
+    mean, std = native.mean_std(wins)
+    stats_err = max(float(np.abs(a - b).max())
+                    for a, b in zip((mean, std), native.mean_std_numpy(wins)))
+    equal["shuffle_indices"] = np.array_equal(native.shuffle_indices(65536, 42),
+                                              native.shuffle_indices_numpy(65536, 42))
+    equal["normalize_inplace"] = np.array_equal(native.normalize_inplace(wins.copy(), mean, std),
+                                                native.normalize_inplace_numpy(wins, mean, std))
+    require(all(equal.values()) and stats_err <= 1e-6,
+            f"native: {equal}, mean_std {stats_err} from numpy")
+    line = {"phase": "native", "card": smi, "build_s": build_s, "bit_equal": equal,
+            "mean_std_max_abs_err": stats_err, "windows": list(wins.shape),
+            "native_s": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
 # ---------------------------------------------------------------- data_parallel
 
 def dp_exp(case: str):
@@ -3769,6 +4163,7 @@ def main(argv) -> int:
     for dtype in DTYPES:
         check_k1_mask(g, dtype)
     check_k1_causal(g, table)
+    native_path(smi)
 
     serve, requests = {}, {}
     for dtype in DTYPES:
@@ -3794,17 +4189,24 @@ def main(argv) -> int:
     zoo = zoo_path()
     emit({"phase": "zoo_summary", "card": smi, **zoo})
     zoo_agree()
-    # the recipe's children run in a thread beside the CLI phases, which are children too
+    # the recipe's children and the studies' queue child run in threads beside the CLI
+    # phases, which are children too
     recipe_dir = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        recipe_run = pool.submit(recipe_children, recipe_dir)
-        cli, workdir = cli_path(smi)
-        try:
-            serve_trained(workdir, smi)
-            cli_ms = cli_multiseed(workdir, smi)
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
-        recipe = recipe_path(smi, recipe_dir, recipe_run)
+    research_dir = tempfile.mkdtemp(prefix="chip_smoke_research_")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            recipe_run = pool.submit(recipe_children, recipe_dir)
+            research_run = pool.submit(research_background, research_dir)
+            cli, workdir = cli_path(smi)
+            try:
+                serve_trained(workdir, smi)
+                cli_ms = cli_multiseed(workdir, smi)
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
+            recipe = recipe_path(smi, recipe_dir, recipe_run)
+            research = research_path(smi, research_run)
+    finally:
+        shutil.rmtree(research_dir, ignore_errors=True)
     cli["launches"] = add_launches(cli["launches"], cli_ms["launches"])
 
     artifact, served = {}, {}
@@ -3854,7 +4256,7 @@ def main(argv) -> int:
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "generate": generate,
              "generator_artifact": generator, "latent": latent, "torch_import": imported,
-             "demo_stream": demo, "data_parallel": dp}
+             "demo_stream": demo, "data_parallel": dp, "research": research}
     for row in table:
         by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
         row["launches"] = sum(by_path.values())

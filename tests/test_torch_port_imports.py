@@ -37,13 +37,17 @@ PORT_MODULES = [
     "bridgerl_tpu_torch.export.torch_import", "bridgerl_tpu_torch.data.manifest",
     "bridgerl_tpu_torch.utils.profiling", "bridgerl_tpu_torch.utils.logging",
     "bridgerl_tpu_torch.parallel", "bridgerl_tpu_torch.parallel.mesh",
-    "bridgerl_tpu_torch.train.multiseed",
+    "bridgerl_tpu_torch.train.multiseed", "bridgerl_tpu_torch.runtime",
+    "bridgerl_tpu_torch.runtime.native", "bridgerl_tpu_torch.eval.studies",
     *(f"bridgerl_tpu_torch.cli.{name}" for name in (
         "play_g1_npy", "render_video", "render_viewport", "live_viewer", "render_mesh_demo",
         "debug_camera_views", "csv_to_npz", "extract_urdf_spec", "analyze_latent_space",
         "plot_results", "export_latex_table", "check_parity", "generate_motions",
         "import_torch_ckpt", "export_torch_ckpt", "inspect_npz", "gen_datasets",
-        "demo_stream_retarget", "run_batch", "run_queue")),
+        "demo_stream_retarget", "run_batch", "run_queue", "exp_prior_ar", "exp_prior_sampling",
+        "exp_prior_prompted", "exp_prior_scaling", "exp_prior_conditioned",
+        "exp_prior_dynamics", "plot_prior_scaling", "plot_prior_conditioned",
+        "diag_fsq_spread", "diag_lfq")),
 ]
 # packages that only the renders, plots and t-SNE need; the card's machine
 # has none of them
