@@ -1,0 +1,752 @@
+// K1 backward: gradients of out = dropout(softmax(q k^T * scale + bias)) v
+// with respect to q, k and v, within windows of W positions of each packed
+// row.
+//
+// Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_bwd
+// (attention.py:164, pallas_call at :171, kernel body _attn_bwd_kernel at
+// :75). Like the TPU kernel it recomputes the probabilities (flash-style)
+// and regenerates the dropout mask from the seed (philox.cuh), so no
+// (S, S) tensor is saved between the directions or written to device
+// memory. bias gets no gradient.
+//
+// Per window, with p the softmax before dropout and keep the mask:
+//   dv = p_drop^T do,  dp = keep * (do v^T) / keep_prob,
+//   ds = p * (dp - rowsum(dp * p)) * scale,  dq = ds k,  dk = ds^T q.
+//
+// Shapes: q, k, v, dout, dq, dk, dv are (BH, S, Dh), contiguous, 16-byte
+// aligned, all float32 (entry point packed_attention_bwd) or all bfloat16
+// (packed_attention_bwd_bf16); bias is (S, S) float32 in both, read only
+// inside the diagonal (W, W) blocks. Everything inside is float32, and dq,
+// dk and dv are rounded to bfloat16 once, as they are stored. W divides S.
+// Dh is one of 16, 32, 64, 128. Element (i, j) of row r keeps the forward's
+// Philox counter i * S + j, i and j positions in the packed row, and the
+// forward's seed groups (group_rows rows a seed, philox.cuh). causal states
+// that the bias is the causal bias, as in the forward: the long-window path
+// reads none of it above the diagonal and skips the tiles wholly above it.
+// The two-kernel long-window path takes `stats`, scratch for 3 * BH * S
+// floats (each position's row max, 1 / normaliser and rowsum(dp * p)),
+// which its first kernel writes and its second reads.
+//
+// Only the diagonal blocks, and that is exact: with the model's -1e9 bias
+// across windows, every across-window p is exactly 0 in f32, so those
+// blocks add exactly 0 to dv, to rowsum(dp * p), and (through ds = p * ...)
+// to dq and dk. A window therefore owns every output of its rows and keys:
+// dk_j and dv_j sum over the window's W query rows only.
+//
+// Two paths, picked by W (ops/attention.py::k1_plan; the launcher refuses
+// any other plan):
+//
+// Window tiles, W < kMinWindow (32). What bounds them: at the training shape
+// (256, 80, 64), W = 10, the function moves 7 * 4 * BH * S * Dh = 36.7 MB
+// (11 us at 3.35 TB/s) and needs about 10 * BH * S * W * Dh = 131 MFLOP (2 us
+// on the float32 cores): 3.6 FLOP a byte, bound by bytes, in bfloat16 too.
+// One pass per window: a block of 128 threads takes G = 20 / W consecutive
+// windows, copies q, k, v and dout with 16-byte cp.async into padded float32
+// rows (bf16 widened as staged); one thread per element fetches bias_ij and
+// the keep factor while the copies fly; then the logits and do . v in 2 x 2
+// tiles a thread, the softmax, D_i and ds a row a thread, and dq, dk, dv for
+// two rows at one 16-byte column a thread, on the float32 cores. No atomics;
+// the phases' chain, not the bytes, sets the time (PERF.md).
+//
+// Long windows, W >= 32 (k1_mma.cuh): about 0.36 W FLOP a byte in float32
+// (23 at W 64), so the float32 cores would set the pace; the products run
+// on the tensor cores (bf16 operands, float32 ones as three bf16 parts; the
+// float32 entry point in 3xTF32, at 495 TFLOP/s for each of the three
+// products). No atomics: every output is summed in a fixed order by one
+// warp. Windows of up to 128 positions at Dh 64 (the towers' W 64, the
+// prior's 96 and 128) take one window-resident kernel: five products and
+// one Philox draw an element. Others (any W up to S = 65,535, any Dh)
+// take two kernels and nine
+// products (q k^T and do v^T twice in the dq kernel's two sweeps, and once
+// more, transposed, in the dk / dv kernel), with the rows' statistics
+// passed through the scratch array.
+//
+// The entry points are packed_attention_bwd.cu (float32) and
+// packed_attention_bwd_bf16.cu, two libraries that ops/kernels.py builds in
+// parallel; each instantiates only its own dtype's kernels.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "k1_mma.cuh"
+#include "k1_tiles.cuh"
+#include "philox.cuh"
+
+namespace {
+
+using k1::TileDims;
+
+template <typename Elem, int DH>
+__global__ void __launch_bounds__(k1::kTileThreads)
+k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
+             const Elem* __restrict__ v, const float* __restrict__ bias,
+             const Elem* __restrict__ dout, Elem* __restrict__ dq,
+             Elem* __restrict__ dk, Elem* __restrict__ dv, int S, int W, int G,
+             int nwin, float scale, const int* __restrict__ seed_ptr, int group_rows,
+             unsigned thresh, float inv_keep, int dropout) {
+  extern __shared__ float4 smem4[];
+  constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
+  const int PS = W + 1;
+  const int n0 = blockIdx.x * G;
+  const int g = min(G, nwin - n0);
+  const int rows = g * W;
+  float* qs = reinterpret_cast<float*>(smem4);   // G * W * QS each
+  float* ks = qs + G * W * QS;
+  float* vs = ks + G * W * QS;
+  float* os = vs + G * W * QS;                   // dout
+  float* ps = os + G * W * QS;                   // G * W * PS: logits, p, then p_drop
+  float* gs = ps + G * W * PS;                   // G * W * PS: dp, then ds
+  float* kf = gs + G * W * PS;                   // G * W * PS: keep factors
+
+  const size_t gbase = (size_t)n0 * W * DH;
+  {
+    float* const dst[4] = {qs, ks, vs, os};
+    const Elem* const src[4] = {q + gbase, k + gbase, v + gbase, dout + gbase};
+    k1::stage_tiles<DH>(dst, src, rows);
+  }
+
+  // While the copies are in flight: every element's bias and keep factor,
+  // one thread per element, so that neither sits in the logits' chain.
+  const int nwr = S / W;  // windows per packed row
+  const int WW = W * W;
+  for (int e = threadIdx.x; e < g * WW; e += blockDim.x) {
+    const int lw = e / WW, ij = e - lw * WW;
+    const int i = ij / W, j = ij - i * W;
+    const int n = n0 + lw;
+    const int w0 = (n % nwr) * W;
+    const size_t pos = (size_t)(w0 + i) * S + (w0 + j);
+    const int at = (lw * W + i) * PS + j;
+    ps[at] = __ldg(bias + pos);
+    if (dropout)
+      kf[at] = attn_keep_bits_grouped(seed_ptr, group_rows, (unsigned)(n / nwr),
+                                      (unsigned)pos) < thresh ? inv_keep : 0.f;
+  }
+  k1::cp_async_wait_all();
+  __syncthreads();
+
+  const int T = (W + 1) / 2, TT = T * T;  // 2 x 2 tiles of a window's logits
+  for (int e = threadIdx.x; e < g * TT; e += blockDim.x) {
+    const int lw = e / TT, t = e - lw * TT;
+    const int i0 = 2 * (t / T), j0 = 2 * (t % T);
+    const int top = lw * W;
+    const int ra = (top + i0) * QS, rb = (top + min(i0 + 1, W - 1)) * QS;
+    const int ca = (top + j0) * QS, cb = (top + min(j0 + 1, W - 1)) * QS;
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int c = 0; c < D4; ++c) {
+      const float4 q0 = reinterpret_cast<const float4*>(qs + ra)[c];
+      const float4 q1 = reinterpret_cast<const float4*>(qs + rb)[c];
+      const float4 k0 = reinterpret_cast<const float4*>(ks + ca)[c];
+      const float4 k1v = reinterpret_cast<const float4*>(ks + cb)[c];
+      s[0][0] = k1::dot4(q0, k0, s[0][0]);
+      s[0][1] = k1::dot4(q0, k1v, s[0][1]);
+      s[1][0] = k1::dot4(q1, k0, s[1][0]);
+      s[1][1] = k1::dot4(q1, k1v, s[1][1]);
+      const float4 o0 = reinterpret_cast<const float4*>(os + ra)[c];
+      const float4 o1 = reinterpret_cast<const float4*>(os + rb)[c];
+      const float4 v0 = reinterpret_cast<const float4*>(vs + ca)[c];
+      const float4 v1 = reinterpret_cast<const float4*>(vs + cb)[c];
+      dp[0][0] = k1::dot4(o0, v0, dp[0][0]);
+      dp[0][1] = k1::dot4(o0, v1, dp[0][1]);
+      dp[1][0] = k1::dot4(o1, v0, dp[1][0]);
+      dp[1][1] = k1::dot4(o1, v1, dp[1][1]);
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        if (i0 + a >= W || j0 + b >= W) continue;
+        const int at = (top + i0 + a) * PS + j0 + b;
+        ps[at] = s[a][b] * scale + ps[at];
+        gs[at] = dropout ? dp[a][b] * kf[at] : dp[a][b];
+      }
+  }
+  __syncthreads();
+
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    float* pr = ps + r * PS;
+    float* gr = gs + r * PS;
+    float m = -INFINITY;
+    for (int j = 0; j < W; ++j) m = fmaxf(m, pr[j]);
+    float l = 0.f;
+    for (int j = 0; j < W; ++j) {
+      const float e = expf(pr[j] - m);
+      pr[j] = e;
+      l += e;
+    }
+    const float il = 1.f / l;
+    float dsum = 0.f;
+    for (int j = 0; j < W; ++j) {
+      const float p = pr[j] * il;
+      pr[j] = p;
+      dsum = fmaf(gr[j], p, dsum);
+    }
+    for (int j = 0; j < W; ++j) {
+      const float p = pr[j];
+      gr[j] = p * (gr[j] - dsum) * scale;
+      if (dropout) pr[j] = p * kf[r * PS + j];
+    }
+  }
+  __syncthreads();
+
+  // Rows a0 and a0 + 1 of a window at one 16-byte column, so that each
+  // operand row read from shared memory feeds two outputs:
+  //   dq_a = sum_j ds_aj k_j,  then  dk_a = sum_i ds_ia q_i, dv_a = sum_i p_drop_ia do_i.
+  for (int e = threadIdx.x; e < g * T * D4; e += blockDim.x) {
+    const int pair = e / D4, c = e - pair * D4;
+    const int lw = pair / T, a0 = 2 * (pair - lw * T);
+    const int top = lw * W;
+    const int r0 = top + a0, r1 = top + min(a0 + 1, W - 1);
+    const float* kw = ks + top * QS + 4 * c;
+    const float* g0 = gs + r0 * PS;
+    const float* g1 = gs + r1 * PS;
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    for (int j = 0; j < W; ++j) {
+      const float4 kj = *reinterpret_cast<const float4*>(kw + j * QS);
+      x0 = k1::axpy4(g0[j], kj, x0);
+      x1 = k1::axpy4(g1[j], kj, x1);
+    }
+    Elem* out = dq + gbase + (size_t)r0 * DH + 4 * c;
+    k1::store4(out, x0);
+    if (a0 + 1 < W) k1::store4(out + DH, x1);
+  }
+  for (int e = threadIdx.x; e < g * T * D4; e += blockDim.x) {
+    const int pair = e / D4, c = e - pair * D4;
+    const int lw = pair / T, a0 = 2 * (pair - lw * T);
+    const int top = lw * W;
+    const int b0 = a0, b1 = min(a0 + 1, W - 1);
+    const float* qw = qs + top * QS + 4 * c;
+    const float* ow = os + top * QS + 4 * c;
+    const float* gc = gs + top * PS;
+    const float* pc = ps + top * PS;
+    float4 k0 = make_float4(0.f, 0.f, 0.f, 0.f), k1v = k0, v0 = k0, v1 = k0;
+    for (int i = 0; i < W; ++i) {
+      const float4 qi = *reinterpret_cast<const float4*>(qw + i * QS);
+      const float4 oi = *reinterpret_cast<const float4*>(ow + i * QS);
+      k0 = k1::axpy4(gc[i * PS + b0], qi, k0);
+      k1v = k1::axpy4(gc[i * PS + b1], qi, k1v);
+      v0 = k1::axpy4(pc[i * PS + b0], oi, v0);
+      v1 = k1::axpy4(pc[i * PS + b1], oi, v1);
+    }
+    const size_t at = gbase + (size_t)(top + a0) * DH + 4 * c;
+    k1::store4(dk + at, k0);
+    k1::store4(dv + at, v0);
+    if (a0 + 1 < W) {
+      k1::store4(dk + at + DH, k1v);
+      k1::store4(dv + at + DH, v1);
+    }
+  }
+}
+
+// Long-window path (W >= kMinWindow; k1_mma.cuh), two kernels a call and no
+// atomics. The dq kernel: block (window n, query tile qt) owns kRows query
+// rows, 16 a warp, with their q and dout in shared memory, and streams K and
+// V in double-buffered tiles of kCols keys, twice. Sweep 1 computes the
+// logits and dp = keep * (dout v^T) / keep_prob on the tensor cores and
+// keeps, per row, the running max m, l = sum_j e_ij and sum_j e_ij dp_ij
+// (e_ij = expf(s_ij - m), rescaled as m grows); then D = that sum / l.
+// Sweep 2 recomputes them, forms p = e / l and ds = p (dp - D) * scale, and
+// adds ds k on the tensor cores; dq is stored once. The rows' m, 1 / l and
+// D go to a scratch array (3 floats a position). The dk / dv kernel: block
+// (window n, key tile kt) owns kRows keys, 16 a warp, with their k and v in
+// shared memory, and streams q, dout and the rows' statistics in tiles of
+// kCols queries; a warp computes s^T = k q^T and dp^T = v dout^T for its
+// keys, p^T = expf(s^T - m_i) / l_i, the keep bits, ds^T, and adds
+// p_drop^T dout to dv and ds^T q to dk, each stored once. Every sum runs in
+// a fixed order, so dq, dk and dv are the same on every launch. Under
+// causal, the dq kernel skips the key tiles past its last query and the
+// dk / dv kernel the query tiles before its first key.
+template <typename Elem, int DH>
+__global__ void __launch_bounds__(k1::kMmaThreads)
+k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
+              const Elem* __restrict__ v, const float* __restrict__ bias,
+              const Elem* __restrict__ dout, Elem* __restrict__ dq, float* __restrict__ stats,
+              int S, int W, int qtiles, size_t positions, float scale,
+              const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
+              float inv_keep, int dropout, int causal) {
+  using namespace k1;
+  constexpr int LS = MmaTile<Elem, DH>::LS, NT = kCols / 8;
+  extern __shared__ float4 smem4[];
+  Elem* qs = reinterpret_cast<Elem*>(smem4);   // kRows x LS
+  Elem* os = qs + kRows * LS;                   // dout, kRows x LS
+  Elem* kvs = os + kRows * LS;                  // 2 stages of (K, V), kCols x LS each
+
+  const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
+  const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
+  const int i0 = qt * kRows;
+  const size_t base = (size_t)n * W * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int ra = i0 + warp * 16 + (lane >> 2);
+  const int nk = key_tiles(W, qt, causal);
+  K1_PHASE_BEGIN();
+  unsigned seed = 0, prow = 0;
+  if (dropout) {
+    const unsigned grp = (unsigned)row / (unsigned)group_rows;
+    seed = (unsigned)__ldg(seed_ptr + grp);
+    prow = (unsigned)row - grp * (unsigned)group_rows;
+  }
+
+  stage_mma<Elem, DH>(qs, q + base + (size_t)i0 * DH, kRows, W - i0, q);
+  stage_mma<Elem, DH>(os, dout + base + (size_t)i0 * DH, kRows, W - i0, dout);
+  stage_mma<Elem, DH>(kvs, k + base, kCols, W, k);
+  stage_mma<Elem, DH>(kvs + kCols * LS, v + base, kCols, W, v);
+  cp_async_commit();
+
+  float dqa[DH / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dn[2] = {0.f, 0.f};
+  float il[2] = {0.f, 0.f}, D[2] = {0.f, 0.f};
+  for (int it = 0; it < 2 * nk; ++it) {   // sweep 1: it < nk; sweep 2: the rest
+    const int kt = it < nk ? it : it - nk;
+    if (it + 1 < 2 * nk) {
+      Elem* nxt = kvs + ((it + 1) & 1) * 2 * kCols * LS;
+      const int j1 = (it + 1 < nk ? it + 1 : it + 1 - nk) * kCols;
+      stage_mma<Elem, DH>(nxt, k + base + (size_t)j1 * DH, kCols, W - j1, k);
+      stage_mma<Elem, DH>(nxt + kCols * LS, v + base + (size_t)j1 * DH, kCols, W - j1, v);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    K1_PHASE(0);
+    const Elem* ks = kvs + (it & 1) * 2 * kCols * LS;
+    const Elem* vs = ks + kCols * LS;
+    if (it == nk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        il[h] = 1.f / quad_sum(l[h]);
+        D[h] = quad_sum(dn[h]) * il[h];
+      }
+    }
+
+    float s[NT][4] = {}, dp[NT][4] = {};
+    gemm_nt<NT, DH>(s, qs + warp * 16 * LS, ks, lane);
+    gemm_nt<NT, DH>(dp, os + warp * 16 * LS, vs, lane);
+    float mx[2] = {m[0], m[1]};
+    const unsigned long long keep =
+        dropout ? keep_bits(seed, prow, S, w0, W, ra, kt * kCols, NT, causal, thresh, false,
+                            lane)
+                : 0ull;
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = ra + 8 * (e >> 1), j = kt * kCols + c * 8 + 2 * t + (e & 1);
+        float x;
+        if (j >= W || (causal && j > i))
+          x = -INFINITY;
+        else
+          x = i < W ? s[c][e] * scale + __ldg(bias + (size_t)(w0 + i) * S + w0 + j)
+                    : s[c][e] * scale;
+        s[c][e] = x;
+        if (dropout) dp[c][e] = (keep >> (4 * c + e)) & 1ull ? dp[c][e] * inv_keep : 0.f;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    if (it < nk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = quad_max(mx[h]);
+        const float corr = __expf(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= corr;
+        dn[h] *= corr;
+      }
+#pragma unroll
+      for (int c = 0; c < NT; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = __expf(s[c][e] - m[e >> 1]);
+          l[e >> 1] += p;
+          dn[e >> 1] = fmaf(p, dp[c][e], dn[e >> 1]);
+        }
+      K1_PHASE(1);
+    } else {
+#pragma unroll
+      for (int c = 0; c < NT; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float p = __expf(s[c][e] - m[h]) * il[h];
+          s[c][e] = p * (dp[c][e] - D[h]) * scale;
+        }
+      K1_PHASE(1);
+      gemm_pv<NT, DH>(dqa, s, ks, lane);
+      K1_PHASE(2);
+    }
+    __syncthreads();
+  }
+  store_rows<Elem, DH>(dq + base, dqa, ra, W, 1.f, 1.f, lane);
+  if (t == 0) {
+    const size_t at = (size_t)row * S + w0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = ra + 8 * h;
+      if (i < W) {
+        stats[at + i] = m[h];
+        stats[positions + at + i] = il[h];
+        stats[2 * positions + at + i] = D[h];
+      }
+    }
+  }
+  K1_PHASE(3);
+  K1_PHASE_END(0);
+}
+
+template <typename Elem, int DH>
+__global__ void __launch_bounds__(k1::kMmaThreads)
+k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
+               const Elem* __restrict__ v, const float* __restrict__ bias,
+               const Elem* __restrict__ dout, Elem* __restrict__ dk, Elem* __restrict__ dv,
+               const float* __restrict__ stats, int S, int W, int ktiles, size_t positions,
+               float scale, const int* __restrict__ seed_ptr, int group_rows,
+               unsigned thresh, float inv_keep, int dropout, int causal) {
+  using namespace k1;
+  constexpr int LS = MmaTile<Elem, DH>::LS, NT = kCols / 8;
+  extern __shared__ float4 smem4[];
+  Elem* ks = reinterpret_cast<Elem*>(smem4);   // kRows x LS
+  Elem* vs = ks + kRows * LS;
+  Elem* qos = vs + kRows * LS;                  // 2 stages of (q, dout), kCols x LS each
+  float* sts = reinterpret_cast<float*>(qos + 4 * kCols * LS);   // 2 stages of (m, 1/l, D)
+
+  const int n = blockIdx.x / ktiles, kt = blockIdx.x - n * ktiles;
+  const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
+  const int j0 = kt * kRows;
+  const size_t base = (size_t)n * W * DH;
+  const size_t at = (size_t)row * S + w0;       // the window's first position in stats
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int ja = j0 + warp * 16 + (lane >> 2);  // the thread's keys: ja and ja + 8
+  const int nq = (W + kCols - 1) / kCols, q0 = first_query_tile(kt, causal);
+  K1_PHASE_BEGIN();
+  unsigned seed = 0, prow = 0;
+  if (dropout) {
+    const unsigned grp = (unsigned)row / (unsigned)group_rows;
+    seed = (unsigned)__ldg(seed_ptr + grp);
+    prow = (unsigned)row - grp * (unsigned)group_rows;
+  }
+
+  auto stage_queries = [&](int qi, int buf) {
+    Elem* dst = qos + buf * 2 * kCols * LS;
+    const int i1 = qi * kCols;
+    stage_mma<Elem, DH>(dst, q + base + (size_t)i1 * DH, kCols, W - i1, q);
+    stage_mma<Elem, DH>(dst + kCols * LS, dout + base + (size_t)i1 * DH, kCols, W - i1, dout);
+    for (int e = threadIdx.x; e < 3 * kCols; e += kMmaThreads) {
+      const int a = e / kCols, i = e - a * kCols;
+      const bool ok = i1 + i < W;
+      cp_async4_zfill(sts + (buf * 3 + a) * kCols + i,
+                      ok ? stats + a * positions + at + i1 + i : stats, ok);
+    }
+  };
+  stage_mma<Elem, DH>(ks, k + base + (size_t)j0 * DH, kRows, W - j0, k);
+  stage_mma<Elem, DH>(vs, v + base + (size_t)j0 * DH, kRows, W - j0, v);
+  stage_queries(q0, 0);
+  cp_async_commit();
+
+  float dka[DH / 8][4] = {}, dva[DH / 8][4] = {};
+  for (int qi = q0; qi < nq; ++qi) {
+    const int buf = (qi - q0) & 1;
+    if (qi + 1 < nq) stage_queries(qi + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    K1_PHASE(0);
+    const Elem* qt_ = qos + buf * 2 * kCols * LS;
+    const Elem* ot = qt_ + kCols * LS;
+    const float* st = sts + buf * 3 * kCols;
+
+    float s[NT][4] = {}, dp[NT][4] = {};
+    gemm_nt<NT, DH>(s, ks + warp * 16 * LS, qt_, lane);
+    gemm_nt<NT, DH>(dp, vs + warp * 16 * LS, ot, lane);
+    const unsigned long long keep =
+        dropout ? keep_bits(seed, prow, S, w0, W, ja, qi * kCols, NT, causal, thresh, true,
+                            lane)
+                : 0ull;
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int li = c * 8 + 2 * t + (e & 1);      // query, within the tile
+        const int i = qi * kCols + li, j = ja + 8 * (e >> 1);
+        float p = 0.f, ds = 0.f;
+        if (i < W && j < W && !(causal && j > i)) {
+          const float x = s[c][e] * scale + __ldg(bias + (size_t)(w0 + i) * S + w0 + j);
+          p = __expf(x - st[li]) * st[kCols + li];
+          const bool kept = !dropout || ((keep >> (4 * c + e)) & 1ull);
+          const float g = !dropout ? dp[c][e] : kept ? dp[c][e] * inv_keep : 0.f;
+          ds = p * (g - st[2 * kCols + li]) * scale;
+          p = !dropout ? p : kept ? p * inv_keep : 0.f;
+        }
+        s[c][e] = p;    // p_drop
+        dp[c][e] = ds;
+      }
+    K1_PHASE(1);
+    gemm_pv<NT, DH>(dva, s, ot, lane);
+    gemm_pv<NT, DH>(dka, dp, qt_, lane);
+    K1_PHASE(2);
+    __syncthreads();
+  }
+  store_rows<Elem, DH>(dv + base, dva, ja, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH>(dk + base, dka, ja, W, 1.f, 1.f, lane);
+  K1_PHASE(3);
+  K1_PHASE_END(1);
+}
+
+// Windows of up to 128 positions at Dh 64 (the head dim of every model the
+// port trains): one block of NW warps (4 for W <= 64, 8 up to 128)
+// owns the whole window, R = 16 NW rows, and computes dq, dk and dv in one
+// pass, with five products and one Philox draw an element. q, k, v and dout
+// of the window are staged once. Warp w takes query rows 16w .. 16w + 15:
+// s = q k^T and dp = dout v^T over the window's keys in registers, the
+// row's softmax, D and ds = p (dp - D) * scale, then dq = ds k. Then warp w
+// takes keys 16w .. 16w + 15: p_drop goes through one shared (R, R + 4)
+// tile, which the warp reads by columns as a register tile (transposed on
+// the load) for dv = p_drop^T dout; then ds, kept in registers meanwhile,
+// goes through the same tile for dk = ds^T q. Under causal the 8-wide
+// column tiles wholly above the diagonal are neither computed nor read, and
+// no bias above the diagonal is read.
+template <typename Elem, int DH, int NW>
+__global__ void __launch_bounds__(32 * NW)
+k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                  const Elem* __restrict__ v, const float* __restrict__ bias,
+                  const Elem* __restrict__ dout, Elem* __restrict__ dq, Elem* __restrict__ dk,
+                  Elem* __restrict__ dv, int S, int W, float scale,
+                  const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
+                  float inv_keep, int dropout, int causal) {
+  using namespace k1;
+  constexpr int R = 16 * NW, LS = MmaTile<Elem, DH>::LS, NT = R / 8, PS = R + 4;
+  extern __shared__ float4 smem4[];
+  Elem* qs = reinterpret_cast<Elem*>(smem4);   // R x LS each
+  Elem* ks = qs + R * LS;
+  Elem* vs = ks + R * LS;
+  Elem* os = vs + R * LS;
+  float* pt = reinterpret_cast<float*>(os + R * LS);   // R x PS: p_drop, then ds
+
+  const int n = blockIdx.x, nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
+  const size_t base = (size_t)n * W * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int ra = warp * 16 + (lane >> 2);   // the thread's rows (queries, then keys)
+  // under causal: the column tiles that reach the warp's last query, and the
+  // first one that reaches its first key
+  const int c_end = causal ? min(NT, 2 * warp + 2) : NT, c_begin = causal ? 2 * warp : 0;
+  K1_PHASE_BEGIN();
+  unsigned seed = 0, prow = 0;
+  if (dropout) {
+    const unsigned grp = (unsigned)row / (unsigned)group_rows;
+    seed = (unsigned)__ldg(seed_ptr + grp);
+    prow = (unsigned)row - grp * (unsigned)group_rows;
+  }
+  stage_mma<Elem, DH>(qs, q + base, R, W, q);
+  stage_mma<Elem, DH>(ks, k + base, R, W, k);
+  stage_mma<Elem, DH>(vs, v + base, R, W, v);
+  stage_mma<Elem, DH>(os, dout + base, R, W, dout);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  K1_PHASE(0);
+
+  float s[NT][4] = {}, dp[NT][4] = {};
+  gemm_nt<NT, DH>(s, qs + warp * 16 * LS, ks, lane, c_end);
+  gemm_nt<NT, DH>(dp, os + warp * 16 * LS, vs, lane, c_end);
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = ra + 8 * (e >> 1), j = c * 8 + 2 * t + (e & 1);
+      float x;
+      if (j >= W || (causal && j > i))
+        x = -INFINITY;
+      else
+        x = i < W ? s[c][e] * scale + __ldg(bias + (size_t)(w0 + i) * S + w0 + j)
+                  : s[c][e] * scale;   // a row past the window: computed, never used
+      s[c][e] = x;
+      m[e >> 1] = fmaxf(m[e >> 1], x);
+    }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m[h] = quad_max(m[h]);
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[c][e] = __expf(s[c][e] - m[e >> 1]);
+      l[e >> 1] += s[c][e];
+    }
+  float il[2], D[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) il[h] = 1.f / quad_sum(l[h]);
+  // the thread's keep bits, element (c, e) at bit 4c + e
+  const unsigned long long keep =
+      dropout ? keep_bits(seed, prow, S, w0, W, ra, 0, c_end, causal, thresh, false, lane)
+              : 0ull;
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float p = s[c][e] * il[h];
+      const float gd = !dropout ? dp[c][e] : (keep >> (4 * c + e)) & 1ull ? dp[c][e] * inv_keep
+                                                                           : 0.f;
+      s[c][e] = p;
+      dp[c][e] = gd;
+      D[h] = fmaf(p, gd, D[h]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) D[h] = quad_sum(D[h]);
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, i = ra + 8 * h;
+      const float p = s[c][e];
+      dp[c][e] = i < W ? p * (dp[c][e] - D[h]) * scale : 0.f;   // ds
+      s[c][e] = i >= W ? 0.f : !dropout ? p : (keep >> (4 * c + e)) & 1ull ? p * inv_keep : 0.f;
+    }
+  K1_PHASE(1);
+  float acc[DH / 8][4] = {};
+  gemm_pv<NT, DH>(acc, dp, ks, lane, 0, c_end);
+  store_rows<Elem, DH>(dq + base, acc, ra, W, 1.f, 1.f, lane);
+
+  // the warp's rows of a (R, R) register tile into the shared tile, and the
+  // warp's keys' columns of it back as a register tile (element (key r,
+  // query c) is the shared tile's row c, column r)
+  const auto put = [&](const float (&tile)[NT][4]) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      float* at = pt + ra * PS + c * 8 + 2 * t;
+      *reinterpret_cast<float2*>(at) = make_float2(tile[c][0], tile[c][1]);
+      *reinterpret_cast<float2*>(at + 8 * PS) = make_float2(tile[c][2], tile[c][3]);
+    }
+  };
+  const auto columns = [&](float (&tile)[NT][4]) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      if (c < c_begin) continue;
+      const float* at = pt + (c * 8 + 2 * t) * PS + ra;
+      tile[c][0] = at[0];
+      tile[c][1] = at[PS];
+      tile[c][2] = at[8];
+      tile[c][3] = at[PS + 8];
+    }
+  };
+  put(s);
+  __syncthreads();
+  K1_PHASE(2);
+  columns(s);
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  gemm_pv<NT, DH>(acc, s, os, lane, c_begin, NT);
+  store_rows<Elem, DH>(dv + base, acc, ra, W, 1.f, 1.f, lane);
+  __syncthreads();
+  put(dp);
+  __syncthreads();
+  columns(dp);
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  gemm_pv<NT, DH>(acc, dp, qs, lane, c_begin, NT);
+  store_rows<Elem, DH>(dk + base, acc, ra, W, 1.f, 1.f, lane);
+  K1_PHASE(3);
+  K1_PHASE_END(0);
+}
+
+template <typename Elem, int DH, int NW>
+int launch_window(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+                  const Elem* dout, Elem* dq, Elem* dk, Elem* dv, int S, int W, float scale,
+                  const int* seed, int group_rows, unsigned thresh, float inv_keep, int dropout,
+                  int causal, int blocks, int smem, cudaStream_t stream) {
+  const cudaError_t e = k1::allow_smem(k1_bwd_mma_window<Elem, DH, NW>, smem);
+  if (e != cudaSuccess) return (int)e;
+  k1_bwd_mma_window<Elem, DH, NW><<<blocks, 32 * NW, smem, stream>>>(
+      q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed, group_rows, thresh, inv_keep,
+      dropout, causal);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan's numbers: path 0 (window tiles) or 1 (long windows), the
+// blocks and shared memory of the first kernel (tiles, or dq) and of the
+// dk / dv kernel (0 on the tile path). The caller's plan must equal them.
+template <typename Elem, int DH>
+int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+           const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W,
+           float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
+           int dropout, int causal, int path, int blocks, int smem_bytes, int blocks_kv,
+           int smem_kv, cudaStream_t stream) {
+  const int nwin = BH * (S / W);
+  if (W < k1::kMinWindow) {
+    constexpr int QS = TileDims<DH>::QS;
+    const size_t per_window =
+        sizeof(float) * ((size_t)4 * W * QS + 3 * (size_t)W * (W + 1));
+    const int G = k1::windows_per_block(per_window, W, nwin);
+    if (G < 1 || path != 0 || blocks != (nwin + G - 1) / G ||
+        (size_t)smem_bytes != G * per_window || blocks_kv != 0 || smem_kv != 0)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t e = k1::allow_smem(k1_bwd_tiles<Elem, DH>, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    k1_bwd_tiles<Elem, DH><<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
+        q, k, v, bias, dout, dq, dk, dv, S, W, G, nwin, scale, seed, group_rows, thresh,
+        inv_keep, dropout);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (DH == k1::kWindowDh) {
+    if (W <= 2 * k1::kRows) {
+      const int R = W <= k1::kRows ? k1::kRows : 2 * k1::kRows;   // window-resident rows
+      const int smem = k1::bwd_window_smem<Elem, DH>(R);
+      if (path != 1 || blocks != nwin || smem_bytes != smem || blocks_kv != 0 || smem_kv != 0)
+        return (int)cudaErrorInvalidValue;
+      return R == k1::kRows
+                 ? launch_window<Elem, DH, 4>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
+                                              group_rows, thresh, inv_keep, dropout, causal,
+                                              blocks, smem, stream)
+                 : launch_window<Elem, DH, 8>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
+                                              group_rows, thresh, inv_keep, dropout, causal,
+                                              blocks, smem, stream);
+    }
+  }
+  const int tiles = (W + k1::kRows - 1) / k1::kRows;
+  constexpr int smem = k1::bwd_dq_smem<Elem, DH>(), smem2 = k1::bwd_dkv_smem<Elem, DH>();
+  if (stats == nullptr || path != 1 || (long long)blocks != (long long)nwin * tiles ||
+      blocks_kv != blocks || smem_bytes != smem || smem_kv != smem2)
+    return (int)cudaErrorInvalidValue;
+  const size_t positions = (size_t)BH * S;
+  cudaError_t e = k1::allow_smem(k1_bwd_mma_dq<Elem, DH>, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = k1::allow_smem(k1_bwd_mma_dkv<Elem, DH>, smem2);
+  if (e != cudaSuccess) return (int)e;
+  k1_bwd_mma_dq<Elem, DH><<<blocks, k1::kMmaThreads, smem, stream>>>(
+      q, k, v, bias, dout, dq, stats, S, W, tiles, positions, scale, seed, group_rows, thresh,
+      inv_keep, dropout, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  k1_bwd_mma_dkv<Elem, DH><<<blocks_kv, k1::kMmaThreads, smem2, stream>>>(
+      q, k, v, bias, dout, dk, dv, stats, S, W, tiles, positions, scale, seed, group_rows,
+      thresh, inv_keep, dropout, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename Elem>
+int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout,
+             Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, int Dh,
+             float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
+             int dropout, int causal, int path, int blocks, int smem_bytes, int blocks_kv,
+             int smem_kv, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
+  if (W < 1 || S % W != 0 || S > k1::kMaxRow) return (int)cudaErrorInvalidValue;
+  if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
+#define K1_BWD(DH_)                                                                        \
+  launch<Elem, DH_>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,        \
+                    group_rows, thresh, inv_keep, dropout, causal, path, blocks, smem_bytes, \
+                    blocks_kv, smem_kv, st)
+  switch (Dh) {
+    case 16: return K1_BWD(16);
+    case 32: return K1_BWD(32);
+    case 64: return K1_BWD(64);
+    case 128: return K1_BWD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K1_BWD
+}
+
+}  // namespace

@@ -1,5 +1,5 @@
-// Shared pieces of K1's window-tile path (packed_attention.cu and
-// packed_attention_bwd.cu): the block shape, the shared-memory budget, and
+// Shared pieces of K1's window-tile path (k1_fwd.cuh and k1_bwd.cuh):
+// the block shape, the shared-memory budget, and
 // 16-byte asynchronous copies from device memory into shared memory. K2
 // (vq_assign.cu) uses the budget, the copies and dot4 too.
 //
@@ -29,7 +29,6 @@ namespace k1 {
 constexpr int kSmemLimit = 232448;  // bytes of shared memory one H100 block may use
 constexpr int kTileThreads = 128;   // threads of a window-tile block
 constexpr int kTileRows = 20;       // query rows a block aims to hold: G = 20 / W windows
-constexpr int kRowWarps = 8;        // warps of a row-path block (one query row each)
 
 template <int DH>
 struct TileDims {

@@ -1,0 +1,18 @@
+// K1 forward, bfloat16: the C entry point packed_attention_fwd_bf16. The
+// kernels, their launcher and the notes on their design are in k1_fwd.cuh;
+// the float32 entry point is packed_attention.cu.
+//
+// Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_fwd
+// (attention.py:143, pallas_call at :149), for bfloat16 inputs.
+#include "k1_fwd.cuh"
+
+extern "C" int packed_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v, const float* bias,
+                                         __nv_bfloat16* out, int BH, int S, int W, int Dh,
+                                         float scale, const int* seed, int group_rows,
+                                         unsigned thresh, float inv_keep, int dropout,
+                                         int causal, int path, int blocks, int smem_bytes,
+                                         void* stream) {
+  return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows, thresh,
+                  inv_keep, dropout, causal, path, blocks, smem_bytes, stream);
+}

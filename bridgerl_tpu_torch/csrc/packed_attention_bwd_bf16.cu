@@ -1,0 +1,21 @@
+// K1 backward, bfloat16: the C entry point packed_attention_bwd_bf16. The
+// kernels, their launcher and the notes on their design are in k1_bwd.cuh;
+// the float32 entry point is packed_attention_bwd.cu.
+//
+// Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_bwd
+// (attention.py:164, pallas_call at :171), for bfloat16 inputs.
+#include "k1_bwd.cuh"
+
+extern "C" int packed_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v, const float* bias,
+                                         const __nv_bfloat16* dout, __nv_bfloat16* dq,
+                                         __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats,
+                                         int BH, int S, int W, int Dh, float scale,
+                                         const int* seed, int group_rows, unsigned thresh,
+                                         float inv_keep, int dropout, int causal, int path,
+                                         int blocks, int smem_bytes, int blocks_kv,
+                                         int smem_kv, void* stream) {
+  return dispatch(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale, seed,
+                  group_rows, thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
+                  blocks_kv, smem_kv, stream);
+}

@@ -220,7 +220,8 @@ class SelfAttention(nn.Module):
         self.out_proj = Dense(d_model, d_model, dtype)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
-                generator=None, window: Optional[int] = None) -> torch.Tensor:
+                generator=None, window: Optional[int] = None,
+                causal: bool = False) -> torch.Tensor:
         B, S, d = x.shape
         H = self.n_heads
         Dh = d // H
@@ -230,7 +231,7 @@ class SelfAttention(nn.Module):
         q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2).reshape(B * H, S, Dh)
                    .contiguous() for t in qkv.chunk(3, dim=-1))
         o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh), dropout_rate, generator,
-                             window=window)
+                             window=window, causal=causal)
         o = o.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, d)
         return self.out_proj(o)
 
@@ -256,10 +257,11 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, train: bool = False,
-                generator=None, window: Optional[int] = None) -> torch.Tensor:
+                generator=None, window: Optional[int] = None,
+                causal: bool = False) -> torch.Tensor:
         rate = self.dropout if train else 0.0
         drop = cheap_dropout if self.cheap else dropout
-        x = self.norm1(x + drop(self.self_attn(x, bias, rate, generator, window), rate,
+        x = self.norm1(x + drop(self.self_attn(x, bias, rate, generator, window, causal), rate,
                                 generator))
         h = drop(F.relu(self.linear1(x)), rate, generator)
         return self.norm2(x + drop(self.linear2(h), rate, generator))
@@ -306,7 +308,9 @@ class MaskedTransformerStack(nn.Module):
     """The blocks alone, under an (S, S) float32 bias the caller gives
     (``bridgerl_tpu/models/layers.py::TransformerStack`` with a mask): no
     positional table, any sequence length. Attention runs over whole rows
-    (``window`` = S), so K1 reads every entry of the bias."""
+    (``window`` = S) under :func:`causal_bias`, the token prior's two
+    stacks: K1 is called with ``causal=True``, so it reads none of the bias
+    above the diagonal and skips the tiles there."""
 
     def __init__(self, num_layers: int, d_model: int, n_heads: int, ff_dim: int,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
@@ -318,7 +322,7 @@ class MaskedTransformerStack(nn.Module):
     def forward(self, h: torch.Tensor, bias: torch.Tensor, train: bool = False,
                 generator=None) -> torch.Tensor:
         for layer in self.layers:
-            h = layer(h, bias, train, generator, window=h.shape[1])
+            h = layer(h, bias, train, generator, window=h.shape[1], causal=True)
         return h
 
 

@@ -16,8 +16,9 @@ together; with ``slot_ar`` a small causal depth transformer feeds slot s the
 position's own slots < s (RQ-transformer).
 
 Attention runs through K1 under the causal bias (``models/layers.py::
-causal_bias``): the backbone at S = N positions, the depth stack at S = the
-slots. Embeddings and the stacks compute in ``dtype``; the heads and the
+causal_bias``), which ``MaskedTransformerStack`` states to K1 (``causal=True``:
+the tiles above the diagonal are skipped): the backbone at S = N positions,
+the depth stack at S = the slots. Embeddings and the stacks compute in ``dtype``; the heads and the
 losses stay float32, as in the JAX package.
 
 Random draws. ``jax.random.categorical`` is a Gumbel-max draw; the port draws

@@ -12,6 +12,14 @@ computes the same function. flax masks with ``where(mask, logits,
 finfo.min)`` instead; in f32 both make ``expf`` of a masked logit exactly 0,
 so the two agree up to summation order.
 
+``causal`` states that the bias is ``models/layers.py::causal_bias`` (0 on and
+below the diagonal, -1e9 above it): the token prior's two stacks pass it. The
+plain versions and the long-window kernels then read no entry of the bias
+above the diagonal (p is 0 there, as ``expf(-1e9 - m)`` is), and the kernels
+skip the tiles that lie wholly above it; the result is the same as with the
+bias read. The window tiles read their (W, W) block, the causal bias by the
+contract.
+
 ``window`` W (default S; it must divide S) restricts the function to the
 diagonal (W, W) blocks of each row: query i attends only to the keys j with
 i // W == j // W, with ``bias[i, j]`` added, and no gradient crosses a
@@ -23,9 +31,10 @@ exactly 0 in f32; the model's towers always pass their window.
 Both directions are ``torch.library`` custom ops (``bridgerl::packed_attention_fwd``
 and ``bridgerl::packed_attention_bwd``), so that ``torch.export`` can trace
 through them. On a CUDA tensor each runs its hand-written kernel,
-``csrc/packed_attention.cu`` (forward) or ``csrc/packed_attention_bwd.cu``
-(backward); on a CPU tensor its plain version,
-:func:`packed_attention_reference` or :func:`packed_attention_bwd_reference`.
+``csrc/k1_fwd.cuh`` (forward) or ``csrc/k1_bwd.cuh`` (backward), through
+the entry point of its dtype (``csrc/packed_attention*.cu``); on a CPU
+tensor its plain version, :func:`packed_attention_reference` or
+:func:`packed_attention_bwd_reference`.
 
 q, k, v and dout are float32 or bfloat16, all four alike; the bias is always
 float32. As in the TPU kernel, bfloat16 inputs are widened to float32 as they
@@ -33,6 +42,15 @@ are read, everything inside (logits, softmax, dropout, both products) is
 float32, and out, dq, dk and dv are rounded to q's dtype once, at the end
 (round to nearest even). Each kernel has a float32 and a bfloat16 entry
 point, and each counts its launches on its own counter.
+
+Each launch follows :func:`k1_plan`, which mirrors the C launchers: windows
+shorter than ``MIN_MMA_WINDOW`` take the window tiles (several whole
+windows a block, float32 cores), longer ones the tensor-core path (tiles of
+64 rows a block against streamed tiles of 32, online softmax; the backward
+one window-resident kernel up to W 128 at Dh 64, else two kernels with a
+scratch array of 3 floats a position between them). The C entry points
+recompute the plan and refuse any other. Each entry point counts its
+launches, and the tensor-core path's on a second counter (``MMA_COUNTER``).
 
 The forward op's registered autograd formula calls the backward op, which
 recomputes the probabilities and the dropout mask, as the TPU kernel's
@@ -57,15 +75,20 @@ is the single-seed call.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from . import kernels
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-_ROW_WARPS = 8                # kRowWarps in both csrc/packed_attention*.cu
-_SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
+SMEM_LIMIT = 232448           # bytes of shared memory one H100 block may use
+TILE_ROWS = 20                # csrc/k1_tiles.cuh kTileRows: G = 20 // W windows a block
+MIN_MMA_WINDOW = 32           # csrc/k1_mma.cuh kMinWindow: W* of the tensor-core path
+MMA_ROWS, MMA_COLS = 64, 32   # kRows (a block's rows, 16 a warp) and kCols (a streamed tile)
+MAX_ROW = 65535               # kMaxRow: the Philox counter i * S + j has 32 bits
+WINDOW_DH = 64                # kWindowDh: the head dim at which the backward holds windows
+                              # of up to 128 whole (every model's the port trains)
 SEED_HIGH = 2 ** 31 - 1       # seeds are drawn from [0, SEED_HIGH), as in JAX
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -76,6 +99,8 @@ ENTRY = {("fwd", torch.float32): "packed_attention_fwd",
          ("bwd", torch.float32): "packed_attention_bwd",
          ("bwd", torch.bfloat16): "packed_attention_bwd_bf16"}
 COUNTER = {key: kernels.LaunchCounter(name) for key, name in ENTRY.items()}
+# the launches among those that took the tensor-core path (W >= MIN_MMA_WINDOW)
+MMA_COUNTER = {key: kernels.LaunchCounter(name + "_mma") for key, name in ENTRY.items()}
 
 Seed = Union[int, torch.Tensor]
 # one generator, or one per seed of a stacked multi-seed step
@@ -120,7 +145,10 @@ def keep_threshold(dropout_rate: float) -> int:
 
 
 def resolve_window(S: int, window: Optional[int]) -> int:
-    """The window length: S when ``window`` is None; it must divide S."""
+    """The window length: S when ``window`` is None; it must divide S, and
+    S is at most MAX_ROW (the dropout counter i * S + j has 32 bits)."""
+    if S > MAX_ROW:
+        raise ValueError(f"rows of {S} positions: K1 takes at most {MAX_ROW}")
     if window is None:
         return S
     W = int(window)
@@ -178,6 +206,16 @@ def _window_bias(bias: torch.Tensor, W: int) -> torch.Tensor:
     return bias.reshape(n, W, n, W).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
 
 
+def _causal_blocks(bias: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The window blocks of the bias, with -inf above each block's diagonal
+    under ``causal`` (what is there is never read)."""
+    if not causal:
+        return bias
+    W = bias.shape[-1]
+    lower = torch.ones(W, W, dtype=torch.bool, device=bias.device).tril()
+    return torch.where(lower, bias, float("-inf"))
+
+
 def _probs(q, k, bias, scale):
     s = torch.matmul(q, k.transpose(-1, -2)) * scale + bias
     return torch.softmax(s, dim=-1)
@@ -186,13 +224,16 @@ def _probs(q, k, bias, scale):
 def packed_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                bias: torch.Tensor, scale: float, seed: Seed = 0,
                                dropout_rate: float = 0.0,
-                               window: Optional[int] = None) -> torch.Tensor:
+                               window: Optional[int] = None,
+                               causal: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K1's forward, window by window, in float32;
-    the result is rounded to q's dtype."""
+    the result is rounded to q's dtype. Under ``causal`` no entry of the bias
+    above the diagonal is read."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    p = _probs(_windows(q32, W), _windows(k32, W), _window_bias(bias, W), scale)
+    bias_w = _causal_blocks(_window_bias(bias, W), causal)
+    p = _probs(_windows(q32, W), _windows(k32, W), bias_w, scale)
     if dropout_rate > 0.0:
         keep = window_dropout_mask(seed, BH, S, W, dropout_rate, q.device)
         p = torch.where(keep, p * _inv_keep(dropout_rate), 0.0)
@@ -201,17 +242,18 @@ def packed_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def packed_attention_bwd_reference(q, k, v, bias, dout, scale: float, seed: Seed = 0,
                                    dropout_rate: float = 0.0,
-                                   window: Optional[int] = None):
+                                   window: Optional[int] = None, causal: bool = False):
     """Plain PyTorch version of K1's backward, window by window, written out
     as the TPU kernel's ``_attn_bwd_kernel`` is: recompute p and the mask,
     then dv = p_drop^T do, dp = keep * (do v^T) / keep_prob,
     ds = p * (dp - sum(dp * p)) * scale, dq = ds k, dk = ds^T q. It computes
-    in float32 and rounds dq, dk and dv to q's dtype."""
+    in float32 and rounds dq, dk and dv to q's dtype. Under ``causal`` no
+    entry of the bias above the diagonal is read."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     dtype = q.dtype
     q, k, v, dout = (_windows(t.float(), W) for t in (q, k, v, dout))
-    p = _probs(q, k, _window_bias(bias, W), scale)
+    p = _probs(q, k, _causal_blocks(_window_bias(bias, W), causal), scale)
     if dropout_rate > 0.0:
         keep = window_dropout_mask(seed, BH, S, W, dropout_rate, q.device)
         inv = _inv_keep(dropout_rate)
@@ -226,34 +268,130 @@ def packed_attention_bwd_reference(q, k, v, bias, dout, scale: float, seed: Seed
     return tuple(t.reshape(BH, S, Dh).to(dtype) for t in (dq, dk, dv))
 
 
-# ---------------------------------------------------------------- kernels
-#
-# Each kernel source has two code paths, and the C launcher picks the first
-# whose shared memory fits one block (the formulas below mirror it):
-#   window tiles: whole windows staged in shared memory, padded rows of
-#     Dh + 4 floats, and the (W, W + 1) probability tiles;
-#   rows: for windows too large to tile, one block per window that stages
-#     K and V (forward) or two of q, k, v, dout per pass (backward) with
-#     rows of Dh + 1, one warp per query row.
-
-def _fwd_smem_bytes(W: int, Dh: int) -> int:
-    """Least shared memory a forward block needs for one window."""
-    tile = 3 * W * (Dh + 4) + 2 * W * (W + 1) + W
-    rows = W * (2 * Dh + 1) + _ROW_WARPS * W
-    return 4 * min(tile, rows)
+# ---------------------------------------------------------------- the launch plan
 
 
-def _bwd_smem_bytes(W: int, Dh: int) -> int:
-    """Least shared memory a backward block needs for one window."""
-    tile = 4 * W * (Dh + 4) + 3 * W * (W + 1)
-    rows = 2 * W * (Dh + 1) + 2 * _ROW_WARPS * W + 3 * W
-    return 4 * min(tile, rows)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def _check(q, k, v, bias, seed, W, smem_bytes, extra=()):
-    """Refuse what the kernels cannot take. Any (S, S) float32 bias is taken:
-    the block-diagonal window mask, zeros and the causal mask are the
-    model's; the kernels read only its diagonal (W, W) blocks."""
+class K1Plan(NamedTuple):
+    """One K1 launch (``direction`` fwd or bwd) at window W, as the C
+    launchers make it.
+
+    ``tiles``: blocks of 128 threads take ``windows_per_block`` (G) whole
+    windows each (``rows`` = G * W query rows), ``blocks`` of them with
+    ``smem_bytes`` of shared memory; the backward is one kernel.
+    ``mma``: block (window, tile) owns ``rows`` = 64 rows (queries; keys in
+    the backward's dk / dv kernel) and streams the window's other side in
+    tiles of ``cols`` = 32; ``blocks`` = windows x ``row_tiles`` for the
+    forward and the dq kernel, ``blocks_kv`` for the dk / dv kernel, with
+    ``smem_bytes`` and ``smem_kv``. The backward of a window of at most 128
+    positions at Dh = WINDOW_DH is one window-resident kernel: a block a
+    window, ``rows`` = ``cols`` = 64 (W <= 64) or 128, everything staged at
+    once, ``blocks_kv`` 0. Under ``causal`` the tiles that
+    :meth:`key_tiles` and :meth:`query_tiles` leave out, all wholly above the
+    diagonal, do not run."""
+    path: str
+    direction: str
+    W: int
+    causal: bool
+    windows: int
+    rows: int
+    cols: int
+    windows_per_block: int
+    blocks: int
+    smem_bytes: int
+    blocks_kv: int
+    smem_kv: int
+
+    @property
+    def row_tiles(self) -> int:
+        """Tiles of ``rows`` rows a window (mma)."""
+        return _cdiv(self.W, self.rows)
+
+    def key_tiles(self, query_tile: int) -> range:
+        """The key tiles (of ``cols``) that query tile ``query_tile`` reads in
+        the forward and the dq kernel: k1_mma.cuh's key_tiles."""
+        n = _cdiv(self.W, self.cols)
+        if self.causal:
+            n = min(n, (query_tile * self.rows + self.rows - 1) // self.cols + 1)
+        return range(n)
+
+    def query_tiles(self, key_tile: int) -> range:
+        """The query tiles (of ``cols``) that key tile ``key_tile`` reads in
+        the dk / dv kernel: from k1_mma.cuh's first_query_tile on."""
+        first = key_tile * self.rows // self.cols if self.causal else 0
+        return range(first, _cdiv(self.W, self.cols))
+
+
+def tile_bytes_per_window(W: int, Dh: int, direction: str) -> int:
+    """Shared memory of one window on the window-tile path: padded float32
+    rows of q, k, v (and dout) and the (W, W + 1) tiles."""
+    if direction == "fwd":
+        return 4 * (3 * W * (Dh + 4) + 2 * W * (W + 1) + W)
+    return 4 * (4 * W * (Dh + 4) + 3 * W * (W + 1))
+
+
+def mma_row_bytes(Dh: int, dtype: torch.dtype) -> int:
+    """A padded row of a tensor-core tile: Dh elements and 16 bytes."""
+    return Dh * dtype.itemsize + 16
+
+
+def k1_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
+            direction: str = "fwd", causal: bool = False) -> K1Plan:
+    """The launch of K1 at (BH, S, Dh), window W: the window tiles below
+    MIN_MMA_WINDOW, the tensor-core path (:func:`mma_plan`) from it on.
+    Raises on what the kernels do not take."""
+    windows = _windows_of(BH, S, W, Dh, dtype, direction)
+    if W >= MIN_MMA_WINDOW:
+        return mma_plan(BH, S, W, Dh, dtype, direction, causal)
+    per = tile_bytes_per_window(W, Dh, direction)
+    G = min(max(1, TILE_ROWS // W), SMEM_LIMIT // per, max(windows, 1))
+    return K1Plan("tiles", direction, W, causal, windows, G * W, 0, G, _cdiv(windows, G),
+                  G * per, 0, 0)
+
+
+def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
+             direction: str = "fwd", causal: bool = False) -> K1Plan:
+    """The tensor-core path's launch at any W: :func:`k1_plan`'s from
+    MIN_MMA_WINDOW on (``tools/k1_phases.py --crossover`` also times it
+    below, in a build of its own)."""
+    windows = _windows_of(BH, S, W, Dh, dtype, direction)
+    row = mma_row_bytes(Dh, dtype)
+    blocks = windows * _cdiv(W, MMA_ROWS)
+    if direction == "fwd":
+        return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks,
+                      (MMA_ROWS + 4 * MMA_COLS) * row, 0, 0)
+    if Dh == WINDOW_DH and W <= 2 * MMA_ROWS:
+        # one window-resident kernel: a block of R rows holds the whole window
+        R = MMA_ROWS if W <= MMA_ROWS else 2 * MMA_ROWS
+        return K1Plan("mma", direction, W, causal, windows, R, R, 1, windows,
+                      4 * R * row + R * (R + 4) * 4, 0, 0)
+    smem = (2 * MMA_ROWS + 4 * MMA_COLS) * row
+    return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks, smem,
+                  blocks, smem + 2 * 3 * MMA_COLS * 4)
+
+
+def _windows_of(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype, direction: str) -> int:
+    """The windows of a launch; raises on what the kernels do not take."""
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction {direction!r} is not fwd or bwd")
+    if dtype not in DTYPES:
+        raise ValueError(f"q is {dtype}; the kernels take {DTYPES}")
+    if Dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {Dh} not in {SUPPORTED_HEAD_DIMS}")
+    resolve_window(S, W)
+    if BH < 0:
+        raise ValueError(f"BH {BH} is negative")
+    return BH * (S // W)
+
+
+def _check(q, k, v, bias, seed, W, direction, causal=False, extra=()) -> K1Plan:
+    """Refuse what the kernels cannot take, and return the launch plan. Any
+    (S, S) float32 bias is taken: the block-diagonal window mask, zeros and
+    the causal mask are the model's; the kernels read only its diagonal
+    (W, W) blocks."""
     BH, S, Dh = q.shape
     for name, t in (("k", k), ("v", v), *extra):
         if t.shape != q.shape:
@@ -274,10 +412,7 @@ def _check(q, k, v, bias, seed, W, smem_bytes, extra=()):
                              or seed.numel() < 1 or BH % seed.numel()):
         raise ValueError(f"seed must be int32 on {q.device}, one value per equal group "
                          f"of the {BH} rows")
-    if Dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not in {SUPPORTED_HEAD_DIMS}")
-    if smem_bytes(W, Dh) > _SMEM_LIMIT:
-        raise ValueError(f"window {W}, Dh={Dh} needs more shared memory than a block has")
+    return k1_plan(BH, S, W, Dh, q.dtype, direction, causal)
 
 
 def _seed_args(seed, dropout_rate: float, BH: int) -> Tuple[int, int]:
@@ -289,10 +424,16 @@ def _seed_args(seed, dropout_rate: float, BH: int) -> Tuple[int, int]:
     return seed.data_ptr(), BH // seed.numel()
 
 
-def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window):
+def _count(direction: str, plan: K1Plan, dtype) -> None:
+    COUNTER[direction, dtype].add()
+    if plan.path == "mma":
+        MMA_COUNTER[direction, dtype].add()
+
+
+def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
-    _check(q, k, v, bias, seed, W, _fwd_smem_bytes)
+    plan = _check(q, k, v, bias, seed, W, "fwd", causal)
     out = torch.empty_like(q)
     if BH == 0:
         return out
@@ -301,28 +442,35 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window):
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
-                int(dropout_rate > 0.0), kernels.stream_ptr(q))
+                int(dropout_rate > 0.0), int(causal), int(plan.path == "mma"), plan.blocks,
+                plan.smem_bytes, kernels.stream_ptr(q))
     kernels.check(name, status)
-    COUNTER["fwd", q.dtype].add()
+    _count("fwd", plan, q.dtype)
     return out
 
 
-def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window):
+def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=False):
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
-    _check(q, k, v, bias, seed, W, _bwd_smem_bytes, extra=(("dout", dout),))
+    plan = _check(q, k, v, bias, seed, W, "bwd", causal, extra=(("dout", dout),))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if BH == 0:
         return dq, dk, dv
+    # the rows' max, 1 / normaliser and rowsum(dp * p), from the dq kernel to
+    # the dk / dv kernel; 4 floats beyond, which the last tile's copies may read
+    stats = (torch.empty(3 * BH * S + 4, dtype=torch.float32, device=q.device)
+             if plan.blocks_kv else None)
     name = ENTRY["bwd", q.dtype]
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                0 if stats is None else stats.data_ptr(),
                 BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
-                int(dropout_rate > 0.0), kernels.stream_ptr(q))
+                int(dropout_rate > 0.0), int(causal), int(plan.path == "mma"), plan.blocks,
+                plan.smem_bytes, plan.blocks_kv, plan.smem_kv, kernels.stream_ptr(q))
     kernels.check(name, status)
-    COUNTER["bwd", q.dtype].add()
+    _count("bwd", plan, q.dtype)
     return dq, dk, dv
 
 
@@ -334,18 +482,19 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window):
 # themselves (``kernels.eager_cuda``).
 
 _FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? seed, float scale, "
-               "float dropout_rate, int window) -> Tensor")
+               "float dropout_rate, int window, bool causal=False) -> Tensor")
 _BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor dout, Tensor? seed, "
-               "float scale, float dropout_rate, int window) -> (Tensor, Tensor, Tensor)")
+               "float scale, float dropout_rate, int window, bool causal=False) "
+               "-> (Tensor, Tensor, Tensor)")
 
 
-def _fwd_cpu(q, k, v, bias, seed, scale, dropout_rate, window):
-    return packed_attention_reference(q, k, v, bias, scale, seed, dropout_rate, window)
+def _fwd_cpu(q, k, v, bias, seed, scale, dropout_rate, window, causal=False):
+    return packed_attention_reference(q, k, v, bias, scale, seed, dropout_rate, window, causal)
 
 
-def _bwd_cpu(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+def _bwd_cpu(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal=False):
     return packed_attention_bwd_reference(q, k, v, bias, dout, scale, seed, dropout_rate,
-                                          window)
+                                          window, causal)
 
 
 fwd_op = torch.library.custom_op("bridgerl::packed_attention_fwd", _fwd_cpu, mutates_args=(),
@@ -359,45 +508,48 @@ bwd_op = torch.library.custom_op("bridgerl::packed_attention_bwd", _bwd_cpu, mut
 # view at b = 1), so the CUDA implementations copy such inputs first.
 
 @fwd_op.register_kernel("cuda")
-def _fwd_cuda(q, k, v, bias, seed, scale, dropout_rate, window):
+def _fwd_cuda(q, k, v, bias, seed, scale, dropout_rate, window, causal=False):
     q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
-    return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window)
+    return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal)
 
 
 @bwd_op.register_kernel("cuda")
-def _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+def _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal=False):
     q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
-    return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window)
+    return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal)
 
 
 @fwd_op.register_fake
-def _fwd_fake(q, k, v, bias, seed, scale, dropout_rate, window):
+def _fwd_fake(q, k, v, bias, seed, scale, dropout_rate, window, causal=False):
     return torch.empty_like(q)
 
 
 @bwd_op.register_fake
-def _bwd_fake(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+def _bwd_fake(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal=False):
     return torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
 
 
 def _fwd_setup(ctx, inputs, output):
-    q, k, v, bias, seed, scale, dropout_rate, window = inputs
+    q, k, v, bias, seed, scale, dropout_rate, window, *causal = inputs   # causal may be left out
     ctx.save_for_backward(q, k, v, bias, seed)
     ctx.scale, ctx.dropout_rate, ctx.window = scale, dropout_rate, window
+    ctx.causal = bool(causal and causal[0])
 
 
-def _bwd(q, k, v, bias, dout, seed, scale, dropout_rate, window):
+def _bwd(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal):
     if kernels.eager_cuda(q):
-        return _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window)
-    return bwd_op(q, k, v, bias, dout, seed, scale, dropout_rate, window)
+        return _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal)
+    return bwd_op(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal)
 
 
 def _fwd_backward(ctx, dout):
-    """K1's backward: bias, seed, scale, rate and window get no gradient (the
-    TPU kernel gives bias a zero cotangent: it is the constant mask)."""
+    """K1's backward: bias, seed, scale, rate, window and causal get no
+    gradient (the TPU kernel gives bias a zero cotangent: it is the constant
+    mask)."""
     q, k, v, bias, seed = ctx.saved_tensors
-    dq, dk, dv = _bwd(q, k, v, bias, dout, seed, ctx.scale, ctx.dropout_rate, ctx.window)
-    return dq, dk, dv, None, None, None, None, None
+    dq, dk, dv = _bwd(q, k, v, bias, dout, seed, ctx.scale, ctx.dropout_rate, ctx.window,
+                      ctx.causal)
+    return dq, dk, dv, None, None, None, None, None, None
 
 
 fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
@@ -412,24 +564,27 @@ class _EagerAttention(torch.autograd.Function):
 
 
 def attention_fwd(q, k, v, bias, scale: float, seed: Optional[torch.Tensor],
-                  dropout_rate: float = 0.0, window: Optional[int] = None) -> torch.Tensor:
+                  dropout_rate: float = 0.0, window: Optional[int] = None,
+                  causal: bool = False) -> torch.Tensor:
     """K1's forward, differentiable in q, k and v (its backward recomputes
     the probabilities and the dropout mask, as the TPU kernel's custom VJP
     does): the kernel for CUDA tensors, the plain version for CPU tensors.
     ``seed`` is an int32 tensor on q's device of one value, or of one per
     equal group of rows (the module docstring), read only when
-    ``dropout_rate`` > 0."""
+    ``dropout_rate`` > 0. ``causal``: the bias is the causal bias (module
+    docstring)."""
     args = (q, k, v, bias, seed, float(scale), float(dropout_rate),
-            resolve_window(q.shape[1], window))
+            resolve_window(q.shape[1], window), bool(causal))
     return _EagerAttention.apply(*args) if kernels.eager_cuda(q) else fwd_op(*args)
 
 
 def attention_bwd(q, k, v, bias, dout, scale: float, seed: Optional[torch.Tensor],
-                  dropout_rate: float = 0.0, window: Optional[int] = None):
+                  dropout_rate: float = 0.0, window: Optional[int] = None,
+                  causal: bool = False):
     """K1's backward (dq, dk, dv): the kernel for CUDA tensors, the plain
     version for CPU tensors."""
     return _bwd(q, k, v, bias, dout, seed, float(scale), float(dropout_rate),
-                resolve_window(q.shape[1], window))
+                resolve_window(q.shape[1], window), bool(causal))
 
 
 def draw_seed(generator: Optional[Generators], device) -> torch.Tensor:
@@ -447,7 +602,7 @@ def draw_seed(generator: Optional[Generators], device) -> torch.Tensor:
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
                      generator: Optional[Generators] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None, causal: bool = False) -> torch.Tensor:
     """dropout(softmax(q k^T * scale + bias)) v for (B*H, S, Dh) q, k, v
     (float32 or bfloat16, out in their dtype) and (S, S) float32 bias, within
     windows of ``window`` positions (default S), differentiable in q, k and v.
@@ -455,8 +610,9 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     With ``dropout_rate`` > 0 the seed is drawn once from ``generator``;
     with a sequence of G generators (a stacked step's seeds, whose rows are
     G equal groups, seed-major) one seed from each, one launch for all.
+    ``causal`` states that ``bias`` is the causal bias (the token prior).
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     versions. There is no fallback from one to the other.
     """
     seed = draw_seed(generator, q.device) if dropout_rate > 0.0 else None
-    return attention_fwd(q, k, v, bias, scale, seed, dropout_rate, window)
+    return attention_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal)

@@ -31,11 +31,19 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    bit in both directions, and its kept share lie within 4 sigma of 0.9.
    K1 in bf16 must lie within one bf16 ulp of the plain version (both
    round the same float32 quantity); its bound counts 2 bytes an element
-   and the FLOPs at the bf16 tensor cores' 989 TFLOP/s.
+   and the FLOPs at the bf16 tensor cores' 989 TFLOP/s. Windows of 32 and
+   more take K1's tensor-core path (``attention.k1_plan``); in float32 it
+   does three tf32 products for each (3xTF32), so its bound counts 3x the
+   FLOPs at the tf32 tensor cores' 495 TFLOP/s.
    K1 also runs at (1024, 64, 64) with window 64, the CLI's default
    transformer (the zoo path), at the latent path's (128, 80, 64)
    packed and (176, 10, 64) unpacked, and at (8192, 128, 64) with window 64
-   and packing 2 (the studies' K4 teacher tokenizing 4096 windows). K2 runs
+   and packing 2 (the studies' K4 teacher tokenizing 4096 windows; its
+   backward at the teacher's training microbatch, (1024, 128, 64)). The
+   backward also runs at S = W = 160, Dh 128 and at S = W = 200, Dh 64,
+   which take its two-kernel tensor-core path (the others up to W 128 at
+   Dh 64 take the window-resident kernel); every backward case is launched
+   twice and its dq, dk and dv must repeat bit for bit. K2 runs
    at N = 4096 (serving), 512 (training), 6554 (validation) and 16384 (the
    K4 teacher's 4096 windows x 4 tokens) with K = 512, and at K = 1024 with
    N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch):
@@ -158,10 +166,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    train_agree's rule.
 15. ``k1_causal`` (with the kernel checks of phase 2): K1 forward and
    backward under the token prior's causal bias over whole rows, f32 and
-   bf16, at (128, 128, 64) (training: the row kernels), (16384, 5, 64) (the
+   bf16, at (128, 128, 64) (training: the tensor-core path), (16384, 5, 64) (the
    slot-AR depth stack: window tiles), dropout 0.1 and 0, (16, 32, 64)
    (sampling) and (128, 96, 64) (the studies' prior at max_len 96), dropout
-   0.1 and 0, each held to the plain version under the rules of phase 2,
+   0.1 and 0, and (32, 160, 64) (the backward's two-kernel path), each
+   held to the plain version under the rules of phase 2, the backward's
+   second launch bit for bit its first,
    with its bound for the lower triangle's work and SDPA ``is_causal=True``
    as the library yardstick; ``k1_causal_mask``: both kernels' keep bits at
    (128, 128, 128) equal to the plain Philox mask on and below the
@@ -263,7 +273,9 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    CPU's on the same weights (f32 codes equal on 99.9% of the valid
    positions' slots and exp_prior_ar's ceiling within 1e-3 of the CPU's;
    bf16 under the bf16 code rule); each entry's seconds and launches.
-25. The ``kernels`` line (every kernel, float32 and bf16 rows, with its
+25. The ``kernels`` line (every kernel, float32 and bf16 rows, K1's split
+   into the window tiles, under the entry point's name, and the tensor-core
+   path, under ``<entry>_mma``, each with its own cases; with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
    fk, int8, prior, generate, generator_artifact, latent, torch_import,
@@ -271,7 +283,9 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    cli_multiseed) and research (the studies' child, summed over its
    entries); counts
    are set to 0 before a path, and a path that also runs the model only to
-   check an answer sums the launches of its own calls), then, last,
+   check an answer sums the launches of its own calls; the float32
+   tensor-core rows must show launches on the zoo, recipe, prior and
+   research paths), then, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
@@ -384,6 +398,8 @@ L2_FLUSH_BYTES = 128 << 20     # written before each cold launch: over twice the
 HOST_LEAD_CYCLES = 10_000_000  # a ~5 ms spin queued before each timed call
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bfloat16 on the tensor cores (dense)
+TF32_FLOPS_PER_S = 495e12      # H100 SXM tf32 on the tensor cores (dense): K1's float32
+                               # long windows, three tf32 products a product (3xTF32)
 BF16 = torch.bfloat16
 DTYPES = (torch.float32, BF16)
 DTYPE_NAME = {torch.float32: "float32", BF16: "bfloat16"}
@@ -402,7 +418,12 @@ K1_SHAPES = ((2048, 80, 64, 8, 0.0), (256, 10, 64, 1, 0.0), (256, 80, 64, 8, 0.0
              (8192, 128, 64, 2, 0.0))
 K1_BWD_SHAPES = ((256, 80, 64, 8, 0.1), (256, 80, 64, 8, 0.0), (2048, 80, 64, 8, 0.0),
                  (2048, 80, 64, 8, 0.1), (1024, 64, 64, 1, 0.1), (1024, 64, 64, 1, 0.0),
-                 (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0))
+                 (256, 64, 64, 1, 0.1), (256, 64, 64, 1, 0.0),
+                 # the studies' W64 K4 teacher's training microbatch (packing 2)
+                 (1024, 128, 64, 2, 0.1),
+                 # windows past the window-resident backward (W > 128, or Dh != 64):
+                 # its two-kernel path
+                 (24, 160, 128, 1, 0.1), (48, 200, 64, 1, 0.1))
 # (N, D, K): serving, training, validation; the zoo's standard, ema and rvq at K = 1024,
 # simple / resnet (N = 256 windows x 16 tokens) and resnet_no_down (x 64 frames); the
 # recipe's hybrid microbatch and validation batch
@@ -498,12 +519,15 @@ RECIPE_MOTIONS = 2
 RECIPE_AE_CKPT = (f"checkpoints/Exp_transformer_W{RECIPE_WINDOW}_ae_teacher_seed_{RECIPE_SEED}"
                   "_best.pth")
 RECIPE_HYBRID = f"Exp_transformer_W{RECIPE_WINDOW}_hybrid_teacher_seed_{RECIPE_SEED}"
+# the paths whose K1 must show launches of the tensor-core kernels (W >= 32)
+MMA_PATHS = ("zoo", "recipe", "prior", "research")
 # the token prior: K1 under the causal bias at the prior's shapes (B*H, S, Dh, dropout):
 # training (batch 32 x 4 heads, 128 positions), the slot-AR depth stack (32 x 128 rows of
 # 5 slots x 4 heads), sampling (4 samples x 4 heads, 32 positions) and the studies'
 # prior (batch 32 x 4 heads, max_len 96)
 K1_CAUSAL = ((128, 128, 64, 0.1), (128, 128, 64, 0.0), (16384, 5, 64, 0.1),
-             (16384, 5, 64, 0.0), (16, 32, 64, 0.0), (128, 96, 64, 0.1), (128, 96, 64, 0.0))
+             (16384, 5, 64, 0.0), (16, 32, 64, 0.0), (128, 96, 64, 0.1), (128, 96, 64, 0.0),
+             (32, 160, 64, 0.1))   # past the window-resident backward: its two kernels
 # synthetic takes of 645 frames: 128 windows each at W 10 and stride 5, one grid a take
 PRIOR_TAKES, PRIOR_FRAMES, PRIOR_POSITIONS, PRIOR_STRIDE = 256, 645, 128, 5
 PRIOR_EPOCHS = 3
@@ -683,12 +707,25 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0) -> float
     return ((g - w).abs() - atol).clamp_min(0.0).div(ulp).max().item()
 
 
-def k1_bound(dtype, elements: int, flops: int):
+def k1_bound(dtype, elements: int, flops: int, window: int):
     """K1's bound for its dtype: bytes at the element's size, FLOPs at the
-    float32 cores' rate (float32) or the bf16 tensor cores' (bfloat16)."""
+    rate of the units the kernel uses: the bf16 tensor cores (bfloat16), the
+    float32 cores (float32 window tiles) or, for float32 long windows, the
+    tf32 tensor cores doing three products for each (3xTF32)."""
     if dtype == BF16:
         return bound(2 * elements, flops, BF16_FLOPS_PER_S)
+    if window >= attention.MIN_MMA_WINDOW:
+        return bound(4 * elements, 3 * flops, TF32_FLOPS_PER_S)
     return bound(4 * elements, flops)
+
+
+def k1_want(want: dict, window: int) -> dict:
+    """``want`` with each K1 entry point's tensor-core counter: the entry's
+    launches where ``window`` takes that path (W >= MIN_MMA_WINDOW), else 0."""
+    for name in attention.ENTRY.values():
+        long = window >= attention.MIN_MMA_WINDOW
+        want[name + "_mma"] = want.get(name, 0) if long else 0
+    return want
 
 
 def launches() -> dict:
@@ -761,6 +798,38 @@ def _kernel_row(name: str, source: str, replaces: str, cases: list) -> dict:
             **main, "kernel_ms": main["ms"], "cases": rest}
 
 
+ROW_KEYS = ("name", "route", "source", "replaces", "kernel_ms", "cases")
+
+
+def split_k1_rows(table: list) -> list:
+    """Each K1 entry point's row split by the kernels it launched: the window
+    tiles (W < MIN_MMA_WINDOW) under the entry's name, the tensor-core path
+    under its counter's (``<entry>_mma``), each with its own cases, the first
+    its main one. K2's row is kept."""
+    out = []
+    for row in table:
+        if row["name"] not in attention.ENTRY.values():
+            out.append(row)
+            continue
+        main = {k: v for k, v in row.items() if k not in ROW_KEYS}
+        cases = [main, *row["cases"]]
+        for name, part in ((row["name"], [c for c in cases
+                                          if c["window"] < attention.MIN_MMA_WINDOW]),
+                           (row["name"] + "_mma", [c for c in cases
+                                                   if c["window"] >= attention.MIN_MMA_WINDOW])):
+            out.append(_kernel_row(name, row["source"], row["replaces"], part))
+    return out
+
+
+def row_launches(row: dict, launched: dict) -> int:
+    """A kernel row's launches in one path's counts: an entry point's window
+    tiles are its launches less its tensor-core ones."""
+    name = row["name"]
+    if name in attention.ENTRY.values():
+        return launched[name] - launched[name + "_mma"]
+    return launched[name]
+
+
 def _timings(kernel, plain, library_full, library_window) -> dict:
     full, window = time_ms(library_full), time_ms(library_window)
     return {"ms": time_ms(kernel), "ms_cold": time_ms(kernel, cold=True),
@@ -781,13 +850,13 @@ def _k1_grouped_case(g, dtype, direction: str, BH, S, Dh, P, rate) -> dict:
         run = lambda q, k, v, do, sd: [attention.attention_fwd(q, k, v, bias, scale, sd, rate, W)]
         plain = lambda: [attention.packed_attention_reference(q, k, v, bias, scale, seeds, rate,
                                                               W)]
-        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * S * W * Dh)
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * S * W * Dh, W)
     else:
         run = lambda q, k, v, do, sd: list(attention.attention_bwd(q, k, v, bias, do, scale, sd,
                                                                    rate, W))
         plain = lambda: list(attention.packed_attention_bwd_reference(q, k, v, bias, do, scale,
                                                                       seeds, rate, W))
-        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh)
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh, W)
     got = run(q, k, v, do, seeds)
     n = BH // G
     for i in range(G):
@@ -824,7 +893,7 @@ def check_k1(g: torch.Generator, dtype=torch.float32) -> dict:
         out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, W)
         torch.cuda.synchronize()
         ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W)
-        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * S * W * Dh)
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * S * W * Dh, W)
         case = {
             "shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
             "dropout": rate, **_agreement(f"{name} {BH, S, Dh} dropout {rate}", [out], [ref],
@@ -838,7 +907,7 @@ def check_k1(g: torch.Generator, dtype=torch.float32) -> dict:
         emit({"phase": "kernel", "name": name, **case})
         cases.append(case)
     cases += [_k1_grouped_case(g, dtype, "fwd", *shape) for shape in K1_GROUPED]
-    return _kernel_row(name, "bridgerl_tpu_torch/csrc/packed_attention.cu",
+    return _kernel_row(name, "bridgerl_tpu_torch/csrc/k1_fwd.cuh",
                        "bridgerl_tpu/ops/pallas/attention.py:143", cases)
 
 
@@ -880,17 +949,20 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
         q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P, dtype)
         do = torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
         got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W)
+        again = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{name} {BH, S, Dh} dropout {rate}: a second launch differs")
         want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
                                                         W)
-        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh)
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh, W)
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
         lib_outs = [f() for f in _sdpa_forms(qg, kg, vg, bias, scale, rate, W)]
         lib_do = (do, do.view(-1, W, Dh))
         case = {
             "shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
-            "dropout": rate, **_agreement(f"{name} {BH, S, Dh} dropout {rate}", got, want,
-                                          dtype),
+            "dropout": rate, "repeat_equal": True,
+            **_agreement(f"{name} {BH, S, Dh} dropout {rate}", got, want, dtype),
             "bound_ms": b_ms, "bound_by": b_by,
             **_timings(lambda: attention.attention_bwd(q, k, v, bias, do, scale, seed, rate,
                                                        W),
@@ -903,7 +975,7 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
         emit({"phase": "kernel", "name": name, **case})
         cases.append(case)
     cases += [_k1_grouped_case(g, dtype, "bwd", *shape) for shape in K1_GROUPED]
-    return _kernel_row(name, "bridgerl_tpu_torch/csrc/packed_attention_bwd.cu",
+    return _kernel_row(name, "bridgerl_tpu_torch/csrc/k1_bwd.cuh",
                        "bridgerl_tpu/ops/pallas/attention.py:164", cases)
 
 
@@ -1175,6 +1247,7 @@ def _expect_launches(name: str, before: dict, calls: int, dtype, cfg) -> dict:
     want = {k: 0 for k in now}
     want[attention.ENTRY["fwd", dtype]] = k1 * calls
     want["vq_assign"] = k2 * calls
+    k1_want(want, cfg.window_size)
     require(delta == want, f"{name}: launches {delta}, want {want}")
     return delta
 
@@ -1609,6 +1682,7 @@ def zoo_step(exp, g: torch.Generator) -> dict:
     want = {k: 0 for k in now}
     want.update({attention.ENTRY["fwd", torch.float32]: k1,
                  attention.ENTRY["bwd", torch.float32]: k1, "vq_assign": k2})
+    k1_want(want, cfg.window_size)
     require(delta == want, f"{exp.id} step: launches {delta}, want {want}")
     require(all(math.isfinite(v) for v in logs.values()), f"{exp.id} step: logs {logs}")
     return {"train_loss": logs["train_loss"], "step_launches": delta}
@@ -2639,30 +2713,35 @@ def cli_multiseed(workdir: str, smi: str) -> dict:
 
 def _causal_case(g, dtype, direction: str, BH, S, Dh, rate) -> dict:
     """K1 (``direction`` fwd or bwd) under the prior's causal bias over whole
-    rows (window = S) against the plain version, with its bound for the
-    lower triangle's work, and the plain version's and SDPA's
-    ``is_causal=True`` times beside the kernel's."""
+    rows (window = S, causal=True as the prior's stacks call it) against the
+    plain version, with its bound for the lower triangle's work, and the
+    plain version's and SDPA's ``is_causal=True`` times beside the
+    kernel's."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype) for _ in range(3))
     do = torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
     bias, scale, seed = causal_bias(S, "cuda"), Dh ** -0.5, attention.draw_seed(g, "cuda")
     pairs = S * (S + 1) // 2        # the (query, key) pairs the causal bias leaves
     if direction == "fwd":
-        run = lambda: [attention.attention_fwd(q, k, v, bias, scale, seed, rate)]
-        plain = lambda: [attention.packed_attention_reference(q, k, v, bias, scale, seed, rate)]
+        run = lambda: [attention.attention_fwd(q, k, v, bias, scale, seed, rate, causal=True)]
+        plain = lambda: [attention.packed_attention_reference(q, k, v, bias, scale, seed, rate,
+                                                              causal=True)]
         library = lambda: sdpa(q, k, v, is_causal=True, scale=scale, dropout_p=rate)
-        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * pairs * Dh)
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * pairs * Dh, S)
     else:
-        run = lambda: list(attention.attention_bwd(q, k, v, bias, do, scale, seed, rate))
+        run = lambda: list(attention.attention_bwd(q, k, v, bias, do, scale, seed, rate,
+                                                   causal=True))
         plain = lambda: list(attention.packed_attention_bwd_reference(q, k, v, bias, do, scale,
-                                                                      seed, rate))
+                                                                      seed, rate, causal=True))
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
         o = sdpa(qg, kg, vg, is_causal=True, scale=scale, dropout_p=rate)
         library = lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
-        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * pairs * Dh)
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * pairs * Dh, S)
     name = attention.ENTRY[direction, dtype]
-    got = run()
+    got, again = run(), run()
     torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name} causal {BH, S, Dh} dropout {rate}: a second launch differs")
     case = {"shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "bias": "causal", "window": S,
             "dropout": rate, **_agreement(f"{name} causal {BH, S, Dh} dropout {rate}", got,
                                           plain(), dtype),
@@ -2677,8 +2756,8 @@ def check_k1_causal(g: torch.Generator, table: list) -> dict:
     """K1 forward and backward under the causal bias at the prior's shapes
     (K1_CAUSAL), f32 and bf16, each case appended to its kernel's row of
     ``table``; then the keep mask of both kernels, both dtypes, at S = 128
-    (the row kernels): bit for bit the plain Philox mask on and below the
-    diagonal, nothing kept above it."""
+    (the tensor-core path, causal=True): bit for bit the plain Philox mask
+    on and below the diagonal, nothing kept above it."""
     rows = {r["name"]: r for r in table}
     for dtype in DTYPES:
         for direction in ("fwd", "bwd"):
@@ -2691,8 +2770,10 @@ def check_k1_causal(g: torch.Generator, table: list) -> dict:
         q, k = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype) for _ in range(2))
         eye = torch.eye(S, Dh, device="cuda", dtype=dtype).expand(BH, S, Dh).contiguous()
         bias, seed = causal_bias(S, "cuda"), attention.draw_seed(g, "cuda")
-        fwd = attention.attention_fwd(q, k, eye, bias, Dh ** -0.5, seed, DROPOUT)[:, :, :S] > 0
-        dv = attention.attention_bwd(q, k, eye, bias, eye, Dh ** -0.5, seed, DROPOUT)[2]
+        fwd = attention.attention_fwd(q, k, eye, bias, Dh ** -0.5, seed, DROPOUT,
+                                      causal=True)[:, :, :S] > 0
+        dv = attention.attention_bwd(q, k, eye, bias, eye, Dh ** -0.5, seed, DROPOUT,
+                                     causal=True)[2]
         bwd = dv[:, :S, :S].transpose(1, 2) > 0
         want = attention.attention_dropout_mask(seed, BH, S, DROPOUT, "cuda") & lower
         for what, got in (("fwd", fwd), ("bwd", bwd)):
@@ -4163,6 +4244,7 @@ def main(argv) -> int:
     for dtype in DTYPES:
         check_k1_mask(g, dtype)
     check_k1_causal(g, table)
+    table = split_k1_rows(table)
     native_path(smi)
 
     serve, requests = {}, {}
@@ -4258,10 +4340,15 @@ def main(argv) -> int:
              "generator_artifact": generator, "latent": latent, "torch_import": imported,
              "demo_stream": demo, "data_parallel": dp, "research": research}
     for row in table:
-        by_path = {p: r["launches"][row["name"]] for p, r in paths.items()}
+        by_path = {p: row_launches(row, r["launches"]) for p, r in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         require(row["launches"] > 0, f"{row['name']} was never launched on the main paths")
+    for direction in ("fwd", "bwd"):
+        name = attention.ENTRY[direction, torch.float32] + "_mma"
+        by_path = next(r["launches_by_path"] for r in table if r["name"] == name)
+        require(all(by_path[p] > 0 for p in MMA_PATHS),
+                f"{name}: no launch on one of {MMA_PATHS}: {by_path}")
     emit({"phase": "total", "card": smi, "chip_smoke_s": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,8 +162,8 @@ def test_k1_wrapper_checks_take_bf16_alike_and_a_float32_bias(bad):
     all float32 or all bf16, the bias float32."""
     q = torch.zeros(2, 10, 16, dtype=BF16)
     bias = torch.zeros(10, 10)
-    attention._check(q, q, q, bias, None, 10, attention._bwd_smem_bytes,
-                     extra=(("dout", q),))
+    plan = attention._check(q, q, q, bias, None, 10, "bwd", extra=(("dout", q),))
+    assert plan == attention.k1_plan(2, 10, 10, 16, BF16, "bwd")
     args = dict(q=q, k=q, v=q, bias=bias, dout=q)
     if bad == "mixed":
         args["k"] = q.float()
@@ -174,8 +174,8 @@ def test_k1_wrapper_checks_take_bf16_alike_and_a_float32_bias(bad):
     elif bad == "dout_f32":
         args["dout"] = q.float()
     with pytest.raises(ValueError):
-        attention._check(args["q"], args["k"], args["v"], args["bias"], None, 10,
-                         attention._bwd_smem_bytes, extra=(("dout", args["dout"]),))
+        attention._check(args["q"], args["k"], args["v"], args["bias"], None, 10, "bwd",
+                         extra=(("dout", args["dout"]),))
 
 
 # ---------------------------------------------------------------- towers and model

@@ -15,9 +15,12 @@ plans it refuses; the model zoo's shapes (K2 at K 1024 and N 4,096 and
 16,384, also from the crowding untrained codebook; K1 at S = W = 64 in both
 dtypes); one small-model train step against the CPU; two data-parallel
 ranks sharing the card over gloo against one process. K1's bfloat16
-instantiations run at every head dim, on windows, whole rows and the row
-kernels, with the dropout mask, what they refuse, and a small bf16 train
-step.
+instantiations run at every head dim, on windows, whole rows and the
+tensor-core path's long windows, with the dropout mask, what they refuse,
+and a small bf16 train step. K1's tensor-core path (windows of 32 and more)
+runs at ragged windows (W 40, 96), S = W = 160 at Dh 128, under the causal
+bias with its tiles skipped (causal=True) and read (causal=False), and
+repeats dq, dk and dv bit for bit over two launches.
 
 K1 runs with ``window`` (the diagonal blocks of each packed row only) and
 without it (W = S, any bias). Tolerances: K1 1e-4 absolute (f32, other summation order and expf), with
@@ -147,10 +150,10 @@ def test_k1_refuses_what_it_does_not_take(gen, bad):
         args["k"] = q.double()
     elif bad == "bias_shape":
         args["bias"] = torch.zeros(S, S + 1, device="cuda")
-    elif bad == "too_long":
-        S = 1024
-        args = {n: torch.randn(1, S, 128, device="cuda") for n in "qkv"}
-        args["bias"] = torch.zeros(S, S, device="cuda")
+    elif bad == "too_long":   # the Philox counter i * S + j has 32 bits
+        S = attention.MAX_ROW + 1
+        args = {n: torch.randn(1, S, 16, device="cuda") for n in "qkv"}
+        args["bias"] = torch.zeros(1, 1, device="cuda").expand(S, S)
     with pytest.raises(ValueError):
         attention.packed_attention(args["q"], args["k"], args["v"], args["bias"], 0.1)
 
@@ -237,9 +240,10 @@ def test_k1_bwd_refuses_what_it_does_not_take(gen, bad):
         args["seed"] = args["seed"].long()
     elif bad == "no_seed":
         args["seed"] = None
-    elif bad == "too_long":
-        args.update({n: t(1, 240, 128) for n in ("q", "k", "v", "do")})
-        args["bias"] = torch.zeros(240, 240, device="cuda")
+    elif bad == "too_long":   # the Philox counter i * S + j has 32 bits
+        S = attention.MAX_ROW + 1
+        args.update({n: t(1, S, 16) for n in ("q", "k", "v", "do")})
+        args["bias"] = torch.zeros(1, 1, device="cuda").expand(S, S)
     with pytest.raises(ValueError):
         attention.attention_bwd(args["q"], args["k"], args["v"], args["bias"], args["do"],
                                 0.1, args["seed"], args["rate"])
@@ -433,21 +437,26 @@ def _bf16(gen, *shape):
     return torch.randn(*shape, device="cuda", generator=gen).to(BF16)
 
 
-def _bf16_pair(gen, BH, S, Dh, bias, window, rate):
+def _bf16_pair(gen, BH, S, Dh, bias, window, rate, causal=False):
     """Both bf16 kernels against the bf16 plain versions on the same inputs:
     at most one bf16 ulp apart (both round the same float32 quantity), each
-    launched once on its own bf16 counter and the float32 ones untouched."""
+    launched once on its own bf16 counter (and on its tensor-core counter
+    for windows of MIN_MMA_WINDOW and more) and the float32 ones untouched."""
     q, k, v, do = (_bf16(gen, BH, S, Dh) for _ in range(4))
     seed, scale = _seed(gen), Dh ** -0.5
     kernels.reset_counters()
-    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, window)
-    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, window)
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, window, causal)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, window, causal)
     torch.cuda.synchronize()
-    assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
-        "packed_attention_fwd_bf16": 1, "packed_attention_bwd_bf16": 1}
-    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, window)
+    names = ["packed_attention_fwd_bf16", "packed_attention_bwd_bf16"]
+    if (window or S) >= attention.MIN_MMA_WINDOW:
+        names += [n + "_mma" for n in names]
+    assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == dict.fromkeys(
+        names, 1)
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, window,
+                                               causal)
     want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
-                                                    window)
+                                                    window, causal)
     assert out.dtype == BF16 and bf16_ulps(out, ref, BF16_ATOL) <= 1.0
     for a, b in zip(got, want):
         assert a.dtype == BF16 and bf16_ulps(a, b, BF16_ATOL) <= 1.0
@@ -465,18 +474,21 @@ def test_k1_bf16_windowed_fwd_and_bwd_match_plain(gen, packing, window, Dh, rate
 @pytest.mark.parametrize("Dh,S", [(16, 33), (64, 80), (128, 120), (128, 200)])
 def test_k1_bf16_whole_rows_and_the_row_kernels(gen, Dh, S, rate):
     """window=None with a general bias; at Dh 128 and S 120 or 200 the
-    windows are too large to tile and both kernels take their row path."""
+    windows are too large to tile (the row kernels took them once) and both
+    kernels take the tensor-core path, as S 33 and 80 do."""
     bias = torch.randn(S, S, device="cuda", generator=gen) * 3.0
     _bf16_pair(gen, 12, S, Dh, bias, None, rate)
 
 
 def test_k1_bf16_row_paths_are_exercised():
-    """The shapes above that must take the row kernels do (the launcher's
-    rule: a window's tile does not fit one block's shared memory)."""
-    tile_fwd = lambda W, Dh: 4 * (3 * W * (Dh + 4) + 2 * W * (W + 1) + W)
-    tile_bwd = lambda W, Dh: 4 * (4 * W * (Dh + 4) + 3 * W * (W + 1))
-    assert tile_fwd(200, 128) > attention._SMEM_LIMIT
-    assert tile_bwd(120, 128) > attention._SMEM_LIMIT
+    """The shapes above that the row kernels took (a window's tile does not
+    fit one block's shared memory) take the tensor-core path (k1_plan, the
+    launchers' rule), within the budget."""
+    assert attention.tile_bytes_per_window(200, 128, "fwd") > attention.SMEM_LIMIT
+    assert attention.tile_bytes_per_window(120, 128, "bwd") > attention.SMEM_LIMIT
+    for S, direction in ((200, "fwd"), (120, "bwd"), (200, "bwd")):
+        plan = attention.k1_plan(12, S, S, 128, BF16, direction)
+        assert plan.path == "mma" and max(plan.smem_bytes, plan.smem_kv) <= 232448
 
 
 def test_k1_bf16_masks_equal_plain_philox(gen):
@@ -705,9 +717,9 @@ def test_artifact_on_the_card_matches_the_live_module(gen, tmp_path):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_k1_seed_groups_equal_separate_launches(gen, dtype, rate):
     """K1 with G = 4 seed groups, forward and backward, on the window tiles
-    (S 80, W 10) and the row kernels (S = W = 160 at Dh 128, too large to
-    tile, no bias): bit for bit the G launches of one group each, and the
-    plain version's grouped call at today's tolerance."""
+    (S 80, W 10) and the tensor-core path (S = W = 160 at Dh 128, no bias):
+    bit for bit the G launches of one group each, and the plain version's
+    grouped call at today's tolerance."""
     G, BH = 4, 4 * 12
     for S, W, Dh, bias in ((80, 10, 64, attention_bias(8, 10, "cuda")),
                            (160, 160, 128, torch.zeros(160, 160, device="cuda"))):
@@ -843,22 +855,24 @@ CAUSAL_SHAPES = [(128, 128, 64), (16384, 5, 64), (24, 32, 64), (6, 77, 16), (8, 
 @pytest.mark.parametrize("BH,S,Dh", CAUSAL_SHAPES)
 def test_k1_under_the_causal_bias_matches_plain(gen, BH, S, Dh, dtype, rate):
     """K1 forward and backward under the prior's causal bias (window = S:
-    the row kernels at S = 128, the window tiles at S = 5 and 32): within
-    1e-4 in float32, one bf16 ulp in bf16, one launch each."""
+    the tensor-core path at S 32, 77 and 128, the window tiles at S 5), with
+    causal=True (the tiles above the diagonal skipped): within 1e-4 in
+    float32, one bf16 ulp in bf16, one launch each."""
     from bridgerl_tpu_torch.models.layers import causal_bias
 
     bias = causal_bias(S, "cuda")
     if dtype == BF16:
-        return _bf16_pair(gen, BH, S, Dh, bias, None, rate)
+        return _bf16_pair(gen, BH, S, Dh, bias, None, rate, causal=True)
     q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen) for _ in range(4))
     seed, scale = _seed(gen), Dh ** -0.5
     kernels.reset_counters()
-    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate)
-    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate)
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, causal=True)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, causal=True)
     torch.cuda.synchronize()
     assert FWD_F32.count == 1 and BWD_F32.count == 1
-    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate)
-    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate)
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, causal=True)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
+                                                    causal=True)
     assert (out - ref).abs().max().item() <= 1e-4
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-4
@@ -866,17 +880,18 @@ def test_k1_under_the_causal_bias_matches_plain(gen, BH, S, Dh, dtype, rate):
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 def test_k1_causal_keep_mask_equals_plain_philox(gen, dtype):
-    """v = I and dout = I at S = 128 (the row kernels): on and below the
-    diagonal both kernels keep exactly the plain Philox bits; above it p is
-    exactly 0."""
+    """v = I and dout = I at S = 128 (the tensor-core path, causal=True):
+    on and below the diagonal both kernels keep exactly the plain Philox
+    bits; above it p is exactly 0."""
     from bridgerl_tpu_torch.models.layers import causal_bias
 
     BH, S, Dh = 16, 128, 128
     q, k = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype) for _ in range(2))
     eye = torch.eye(S, Dh, device="cuda", dtype=dtype).expand(BH, S, Dh).contiguous()
     bias, seed = causal_bias(S, "cuda"), _seed(gen)
-    fwd = attention.attention_fwd(q, k, eye, bias, Dh ** -0.5, seed, 0.1)[:, :, :S] > 0
-    dv = attention.attention_bwd(q, k, eye, bias, eye, Dh ** -0.5, seed, 0.1)[2]
+    fwd = attention.attention_fwd(q, k, eye, bias, Dh ** -0.5, seed, 0.1,
+                                  causal=True)[:, :, :S] > 0
+    dv = attention.attention_bwd(q, k, eye, bias, eye, Dh ** -0.5, seed, 0.1, causal=True)[2]
     lower = torch.ones(S, S, device="cuda").tril().bool()
     want = attention.attention_dropout_mask(seed, BH, S, 0.1, "cuda") & lower
     assert torch.equal(fwd, want) and torch.equal(dv[:, :S, :S].transpose(1, 2) > 0, want)
@@ -1129,3 +1144,103 @@ def test_two_gloo_ranks_on_the_card_match_one_process(gen):
                 assert np.abs(run["state"][k] - one["state"][k]).max() <= 2e-3, k
     for k in ranks[0]["state"]:
         assert np.array_equal(ranks[0]["state"][k], ranks[1]["state"][k]), k
+
+
+# ---------------------------------------------------------------- K1's tensor-core path
+
+def _k1_pair(gen, dtype, BH, S, Dh, bias, window, rate, causal=False):
+    """Both kernels against the plain versions (1e-4 in float32, one bf16
+    ulp in bf16); a second launch of each repeats the first bit for bit."""
+    q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    seed, scale = _seed(gen), Dh ** -0.5
+    kernels.reset_counters()
+    run = lambda: [attention.attention_fwd(q, k, v, bias, scale, seed, rate, window, causal),
+                   *attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, window,
+                                            causal)]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert attention.MMA_COUNTER["fwd", dtype].count == 2
+    assert attention.MMA_COUNTER["bwd", dtype].count == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = [attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, window,
+                                                 causal),
+            *attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
+                                                      window, causal)]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        if dtype == BF16:
+            assert bf16_ulps(a, b, BF16_ATOL) <= 1.0
+        else:
+            assert (a - b).abs().max().item() <= 1e-4
+    return got
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("packing,window,Dh", [(4, 40, 64), (2, 40, 16), (1, 96, 32),
+                                               (2, 96, 128), (1, 160, 128), (3, 32, 64),
+                                               (1, 200, 64)])
+def test_k1_long_windows_match_plain_and_repeat(gen, packing, window, Dh, dtype, rate):
+    """Ragged windows (W 40 and 96 are not multiples of the 64-row block or
+    the 32-row tile), S = W = 160 at Dh 128 (the row kernels' shape), W 32
+    and 200: the window mask's bias, forward and backward."""
+    _k1_pair(gen, dtype, 24, packing * window, Dh, attention_bias(packing, window, "cuda"),
+             window, rate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("BH,S,Dh,rate", [(128, 128, 64, 0.1), (40, 96, 64, 0.0),
+                                          (12, 160, 128, 0.1), (16, 33, 16, 0.1)])
+def test_k1_causal_with_and_without_the_skip(gen, BH, S, Dh, dtype, rate):
+    """causal=True skips the tiles above the diagonal and reads no bias
+    there (here garbage); causal=False reads the causal bias in every tile.
+    Both within the plain version's tolerance, and equal to each other."""
+    from bridgerl_tpu_torch.models.layers import causal_bias
+
+    bias = causal_bias(S, "cuda")
+    garbage = torch.where(bias == 0, 0.0, torch.randn(S, S, device="cuda", generator=gen) * 1e4)
+    state = gen.get_state()
+    skip = _k1_pair(gen, dtype, BH, S, Dh, garbage, None, rate, causal=True)
+    gen.set_state(state)
+    full = _k1_pair(gen, dtype, BH, S, Dh, bias, None, rate, causal=False)
+    for a, b in zip(skip, full):
+        if dtype == BF16:
+            assert bf16_ulps(a, b, BF16_ATOL) <= 1.0
+        else:
+            assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_k1_long_window_keep_mask_equals_plain_philox(gen, dtype):
+    """v = I and dout = I at W 64 over packed rows of 2 windows (the K4
+    teacher's layout): both tensor-core kernels keep exactly the plain
+    Philox bits inside the windows."""
+    BH, S, W, Dh = 24, 128, 64, 128
+    q, k = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    eye = torch.eye(W, Dh, device="cuda", dtype=dtype).repeat(2, 1).expand(BH, S, Dh)
+    eye = eye.contiguous()
+    bias, seed = attention_bias(2, W, "cuda"), _seed(gen)
+    fwd = attention.attention_fwd(q, k, eye, bias, 0.125, seed, 0.1, W)[:, :, :W]
+    dv = attention.attention_bwd(q, k, eye, bias, eye, 0.125, seed, 0.1, W)[2][:, :, :W]
+    want = attention.window_dropout_mask(seed, BH, S, W, 0.1, "cuda")
+    got_fwd = fwd.reshape(BH, 2, W, W) > 0
+    got_bwd = dv.reshape(BH, 2, W, W).transpose(2, 3) > 0
+    assert torch.equal(got_fwd, want) and torch.equal(got_bwd, want)
+
+
+def test_k1_refuses_a_plan_that_is_not_the_launchers(gen):
+    """The C entry points recompute the plan and refuse any other."""
+    q = torch.randn(8, 64, 64, device="cuda", generator=gen)
+    out = torch.empty_like(q)
+    bias = torch.zeros(64, 64, device="cuda")
+    plan = attention.k1_plan(8, 64, 64, 64, torch.float32, "fwd")
+    fn = kernels.entry("packed_attention_fwd")
+    call = lambda path, blocks, smem: fn(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), out.data_ptr(), 8, 64, 64,
+        64, 0.125, 0, 8, 0, 1.0, 0, 0, path, blocks, smem, kernels.stream_ptr(q))
+    assert call(1, plan.blocks, plan.smem_bytes) == 0
+    for bad in [(0, plan.blocks, plan.smem_bytes), (1, plan.blocks - 1, plan.smem_bytes),
+                (1, plan.blocks, plan.smem_bytes - 16)]:
+        assert call(*bad) != 0
+    torch.cuda.synchronize()

@@ -5,6 +5,7 @@ the CPU on its own; ``chip_smoke.py`` fails, printing nothing, where there is
 no card or no repository beside it."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -155,8 +156,11 @@ def test_kernel_sources_and_signatures_agree():
         assert f'extern "C" int {fn}(' in src
         params = src.split(f'extern "C" int {fn}(')[1].split(")")[0]
         assert len(params.split(",")) == len(argtypes), fn
-        assert "cudaGetLastError()" in src
         assert "Replaces:" in src
+        # the launcher may live in a header of csrc/ the source includes
+        headers = "".join((kernels.CSRC / h).read_text()
+                          for h in re.findall(r'^#include "(\w+\.cuh)"', src, re.M))
+        assert "cudaGetLastError()" in src + headers
 
 
 def test_library_name_follows_included_headers(tmp_path, monkeypatch):
@@ -175,5 +179,8 @@ def test_counters_reset():
     kernels.reset_counters()
     assert {c.count for c in kernels.COUNTERS.values()} == {0}
     assert sorted(kernels.COUNTERS) == ["packed_attention_bwd", "packed_attention_bwd_bf16",
-                                        "packed_attention_fwd", "packed_attention_fwd_bf16",
-                                        "vq_assign"]
+                                        "packed_attention_bwd_bf16_mma",
+                                        "packed_attention_bwd_mma", "packed_attention_fwd",
+                                        "packed_attention_fwd_bf16",
+                                        "packed_attention_fwd_bf16_mma",
+                                        "packed_attention_fwd_mma", "vq_assign"]

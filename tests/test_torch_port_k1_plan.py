@@ -1,0 +1,215 @@
+"""K1's launch plan (``ops/attention.py::k1_plan``), on the CPU.
+
+The kernels of ``csrc/packed_attention*.cu`` run only on the card, but the
+plan that picks their path and sizes their launches is Python, and the C
+launchers refuse any plan but their own, so what it promises is checked
+here: windows shorter than ``MIN_MMA_WINDOW`` take the window tiles, longer
+ones the tensor-core path; every (query, key) pair inside a window, or on
+and below the diagonal under ``causal``, is computed exactly once by the
+forward, by the dq kernel and by the dk / dv kernel; a tile that is skipped
+lies wholly above the diagonal; no block asks for more than 232,448 bytes of
+shared memory; and every shape the launchers took before the tensor-core
+path (the window tiles, or the row kernels it replaced) is still taken.
+The block-to-work mapping below is the kernels' own index arithmetic.
+"""
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from bridgerl_tpu_torch.ops import attention
+from bridgerl_tpu_torch.ops.attention import (MIN_MMA_WINDOW, MMA_COLS, MMA_ROWS, SMEM_LIMIT,
+                                              k1_plan)
+
+BF16 = torch.bfloat16
+ROW_WARPS = 8   # the row kernels' warps a block, for the rule they took shapes by
+
+
+def taken_before(W, Dh, direction):
+    """Whether the launchers took (W, Dh) before the tensor-core path: the
+    window tiles or, failing them, the row kernels fit one block's shared
+    memory."""
+    if direction == "fwd":
+        tile = 3 * W * (Dh + 4) + 2 * W * (W + 1) + W
+        rows = W * (2 * Dh + 1) + ROW_WARPS * W
+    else:
+        tile = 4 * W * (Dh + 4) + 3 * W * (W + 1)
+        rows = 2 * W * (Dh + 1) + 2 * ROW_WARPS * W + 3 * W
+    return 4 * min(tile, rows) <= SMEM_LIMIT
+
+
+# (B*H, S, W, Dh) of chip_smoke.py (K1_SHAPES, K1_BWD_SHAPES, K1_GROUPED, K1_CAUSAL,
+# the causal mask at S 128 and Dh 128) and of the card tests beyond them: ragged windows
+# (W 40, 96), S = W = 160 and 200 at Dh 128 (the row kernels' shapes), general biases
+CARD_SHAPES = [(2048, 80, 10, 64), (256, 10, 10, 64), (256, 80, 10, 64), (1024, 64, 64, 64),
+               (16384, 10, 10, 64), (256, 64, 64, 64), (196, 64, 64, 64), (128, 80, 10, 64),
+               (176, 10, 10, 64), (8192, 128, 64, 64), (1024, 128, 64, 64),
+               (4096, 80, 10, 64), (128, 128, 128, 64), (16384, 5, 5, 64), (16, 32, 32, 64),
+               (128, 96, 96, 64), (128, 128, 128, 128), (48, 160, 160, 128),
+               (12, 200, 200, 128), (12, 120, 120, 128), (40, 160, 40, 64), (40, 96, 96, 32),
+               (3, 128, 128, 16), (300, 33, 33, 16), (1024, 1024, 1024, 16),
+               (1, 240, 240, 128), (7, 10, 10, 128), (24, 160, 160, 128), (48, 200, 200, 64),
+               (32, 160, 160, 64)]
+
+
+def _check_mma_coverage(plan, causal):
+    """Each kernel's pairs, from its blocks and the tiles they read."""
+    W, R, C = plan.W, plan.rows, plan.cols
+    lower = np.tril(np.ones((W, W), bool)) if causal else np.ones((W, W), bool)
+    assert plan.windows_per_block == 1 and plan.blocks == plan.windows * plan.row_tiles
+    # forward and dq kernel: block (window, query tile qt) x key tiles
+    seen = np.zeros((W, W), np.int64)
+    for qt in range(plan.row_tiles):
+        rows = slice(qt * R, min((qt + 1) * R, W))
+        tiles = plan.key_tiles(qt)
+        for kt in range(-(-W // C)):
+            if kt in tiles:
+                seen[rows, kt * C:min((kt + 1) * C, W)] += 1
+            else:   # skipped: its first key lies past the block's last query
+                assert causal and kt * C > min((qt + 1) * R, W) - 1
+    assert (seen[lower] == 1).all() and seen.max() <= 1
+    if plan.direction == "fwd" or plan.blocks_kv == 0:   # the window-resident backward
+        return
+    # dk / dv kernel: block (window, key tile kt) x query tiles
+    assert plan.blocks_kv == plan.windows * plan.row_tiles
+    seen[:] = 0
+    for kt in range(plan.row_tiles):
+        keys = slice(kt * R, min((kt + 1) * R, W))
+        tiles = plan.query_tiles(kt)
+        for qi in range(-(-W // C)):
+            if qi in tiles:
+                seen[qi * C:min((qi + 1) * C, W), keys] += 1
+            else:   # skipped: its last query lies before the block's first key
+                assert causal and min((qi + 1) * C, W) - 1 < kt * R
+    assert (seen[lower] == 1).all() and seen.max() <= 1
+
+
+def _check_plan(BH, S, W, Dh, dtype, direction, causal):
+    plan = k1_plan(BH, S, W, Dh, dtype, direction, causal)
+    assert plan.W == W and plan.direction == direction and plan.windows == BH * (S // W)
+    assert 0 < plan.smem_bytes <= SMEM_LIMIT and plan.smem_kv <= SMEM_LIMIT
+    if W < MIN_MMA_WINDOW:
+        G = plan.windows_per_block
+        assert plan.path == "tiles" and plan.rows == G * W and plan.blocks_kv == 0
+        assert G == min(max(1, attention.TILE_ROWS // W), max(plan.windows, 1))
+        assert plan.smem_bytes == G * attention.tile_bytes_per_window(W, Dh, direction)
+        covered = np.zeros(plan.windows, np.int64)   # block b takes windows b G .. b G + G - 1
+        for b in range(plan.blocks):
+            covered[b * G:(b + 1) * G] += 1
+        assert (covered == 1).all()
+        return plan
+    row = Dh * (4 if dtype == torch.float32 else 2) + 16
+    R = MMA_ROWS if W <= MMA_ROWS else 2 * MMA_ROWS   # the window-resident block's rows
+    resident = 4 * R * row + R * (R + 4) * 4   # q, k, v, dout, one float32 (R, R + 4) tile
+    if direction == "bwd" and Dh == attention.WINDOW_DH and W <= 2 * MMA_ROWS:
+        # one block a window, everything staged
+        assert plan.path == "mma" and (plan.rows, plan.cols) == (R, R)
+        assert plan.blocks == plan.windows and plan.blocks_kv == plan.smem_kv == 0
+        assert plan.smem_bytes == resident
+    elif direction == "fwd":   # the block's q rows, two stages of (k, v) tiles
+        assert plan.path == "mma" and (plan.rows, plan.cols) == (MMA_ROWS, MMA_COLS)
+        assert plan.smem_bytes == (MMA_ROWS + 2 * 2 * MMA_COLS) * row
+    else:   # q and dout rows (or k and v), two stages of two tiles, and of 3 statistics
+        assert W > 2 * MMA_ROWS or Dh != attention.WINDOW_DH
+        assert plan.path == "mma" and (plan.rows, plan.cols) == (MMA_ROWS, MMA_COLS)
+        assert plan.smem_bytes == (2 * MMA_ROWS + 2 * 2 * MMA_COLS) * row
+        assert plan.smem_kv == plan.smem_bytes + 2 * 3 * MMA_COLS * 4
+    _check_mma_coverage(plan, causal)
+    return plan
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("BH,S,W,Dh", CARD_SHAPES)
+def test_plan_covers_every_pair_once_at_the_card_shapes(BH, S, W, Dh, direction, causal):
+    for dtype in attention.DTYPES:
+        _check_plan(BH, S, W, Dh, dtype, direction, causal)
+
+
+@settings(max_examples=150, deadline=None)
+@given(W=st.integers(1, 300), P=st.integers(1, 4), Dh=st.sampled_from([16, 32, 64, 128]),
+       bf16=st.booleans(), bwd=st.booleans(), causal=st.booleans())
+def test_plan_sweep(W, P, Dh, bf16, bwd, causal):
+    _check_plan(3, P * W, W, Dh, BF16 if bf16 else torch.float32, "bwd" if bwd else "fwd",
+                causal)
+
+
+@settings(max_examples=150, deadline=None)
+@given(W=st.integers(1, 2000), Dh=st.sampled_from([16, 32, 64, 128]), bwd=st.booleans())
+def test_every_shape_taken_before_is_still_taken(W, Dh, bwd):
+    """The row kernels took windows up to the shared memory of one block
+    (W 219 at Dh 128 forward, 1417 at Dh 16); the tensor-core path takes
+    them all, within the budget."""
+    direction = "bwd" if bwd else "fwd"
+    plan = k1_plan(2, W, W, Dh, torch.float32, direction)
+    assert max(plan.smem_bytes, plan.smem_kv) <= SMEM_LIMIT
+    if taken_before(W, Dh, direction):
+        assert plan.path == ("tiles" if W < MIN_MMA_WINDOW else "mma")
+
+
+def test_the_row_kernels_shapes_take_the_tensor_core_path():
+    """S = W = 160 and 200 at Dh 128 went to the row kernels; they, and the
+    prior's causal rows, take the tensor-core path now."""
+    for S in (120, 160, 200):
+        assert taken_before(S, 128, "fwd") and not (
+            4 * (4 * S * 132 + 3 * S * (S + 1)) <= SMEM_LIMIT)   # no window tile fit
+        for direction in ("fwd", "bwd"):
+            assert k1_plan(12, S, S, 128, BF16, direction).path == "mma"
+    assert k1_plan(128, 128, 128, 64, torch.float32, "bwd", causal=True).path == "mma"
+    assert k1_plan(16384, 5, 5, 64, torch.float32, "bwd", causal=True).path == "tiles"
+
+
+def test_causal_skips_the_tiles_above_the_diagonal():
+    """At S = W = 128 on the two-kernel backward (float32, Dh 128): query
+    tile 0 reads key tiles 0 and 1 of 4, tile 1 all four; key tile 1 of the
+    dk / dv kernel reads query tiles 2 and 3. Up to W 128 elsewhere (the
+    prior's rows) the backward's one block holds the whole window."""
+    plan = k1_plan(128, 128, 128, 128, torch.float32, "bwd", causal=True)
+    assert [list(plan.key_tiles(qt)) for qt in range(2)] == [[0, 1], [0, 1, 2, 3]]
+    assert [list(plan.query_tiles(kt)) for kt in range(2)] == [[0, 1, 2, 3], [2, 3]]
+    full = plan._replace(causal=False)
+    assert list(full.key_tiles(0)) == [0, 1, 2, 3] and list(full.query_tiles(1)) == [0, 1, 2, 3]
+    small = k1_plan(16, 32, 32, 64, torch.float32, "bwd", causal=True)
+    assert small.blocks == 16 and small.blocks_kv == 0 and list(small.key_tiles(0)) == [0]
+    resident = k1_plan(128, 128, 128, 64, torch.float32, "bwd", causal=True)
+    assert (resident.rows, resident.blocks, resident.blocks_kv) == (128, 128, 0)
+
+
+@pytest.mark.parametrize("bad", [dict(Dh=48), dict(W=7), dict(S=65536, W=65536),
+                                 dict(dtype=torch.float16), dict(direction="up")])
+def test_plan_refuses_what_the_kernels_do_not_take(bad):
+    args = dict(BH=4, S=64, W=64, Dh=64, dtype=torch.float32, direction="fwd") | bad
+    with pytest.raises(ValueError):
+        k1_plan(**args)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_mma_plan_is_the_plan_from_the_crossover_on(direction):
+    """k1_plan hands every window of MIN_MMA_WINDOW and more to mma_plan;
+    below it mma_plan still plans the tensor-core path (the crossover tool's
+    build), which k1_plan does not take."""
+    for W in (10, 16, 31, 32, 40, 64, 96, 160):
+        for Dh in (16, 64, 128):
+            mma = attention.mma_plan(4, 2 * W, W, Dh, BF16, direction, True)
+            assert mma.path == "mma"
+            plan = k1_plan(4, 2 * W, W, Dh, BF16, direction, True)
+            assert (plan == mma) == (W >= MIN_MMA_WINDOW)
+    with pytest.raises(ValueError):
+        attention.mma_plan(4, 64, 64, 48)
+
+
+def test_phase_tool_finds_what_it_rewrites_in_the_sources():
+    """tools/k1_phases.py instruments copies of the window-tile kernels and,
+    for its crossover, rewrites kMinWindow: each must still be where it
+    looks, with W* equal to MIN_MMA_WINDOW."""
+    from bridgerl_tpu_torch.ops import kernels
+    from bridgerl_tpu_torch.tools import k1_phases
+
+    for src, kernel, _ in k1_phases.KERNELS:
+        text = k1_phases.instrument((kernels.CSRC / src).read_text(), kernel)
+        assert all(f"K1_MARK({p});" in text for p in range(5))
+        assert 'extern "C" int k1_phases(' in text
+    mma = (kernels.CSRC / "k1_mma.cuh").read_text()
+    assert mma.count(k1_phases.MIN_WINDOW.format(MIN_MMA_WINDOW)) == 1

@@ -128,6 +128,35 @@ def test_causality_and_class_required():
         tc(_t(g))
 
 
+def test_prior_stacks_pass_causal_and_the_towers_do_not(monkeypatch):
+    """Both of the prior's stacks (the backbone and the slot-AR depth stack)
+    call K1 with causal=True over whole rows under the causal bias; a
+    tower's stack calls it with causal=False."""
+    from bridgerl_tpu_torch.models import layers
+
+    calls = []
+    real = layers.packed_attention
+
+    def spy(q, k, v, bias, scale, dropout_rate=0.0, generator=None, window=None,
+            causal=False):
+        calls.append((q.shape[1], window, causal,
+                      torch.equal(bias, layers.causal_bias(q.shape[1]))))
+        return real(q, k, v, bias, scale, dropout_rate, generator, window=window,
+                    causal=causal)
+
+    monkeypatch.setattr(layers, "packed_attention", spy)
+    pcfg, _, _, tm = pair("slot_ar")
+    g, _ = grid_and_classes(pcfg, b=2)
+    with torch.no_grad():
+        tm(_t(g))
+    N, S = pcfg.max_len, len(pcfg.vocab_sizes)
+    assert calls == [(N, N, True, True)] * pcfg.n_layers + [(S, S, True, True)]
+    calls.clear()
+    tower = layers.TransformerStack(1, 16, 2, 32, seq_len=5, packing=2, dropout=0.0)
+    tower(torch.zeros(4, 5, 16))
+    assert calls == [(10, 5, False, False)]
+
+
 def test_losses_match_jax():
     pcfg, jm, jv, tm = pair("slot_ar")
     g, _ = grid_and_classes(pcfg, b=4, seed=3)

@@ -135,16 +135,73 @@ def test_window_none_is_the_whole_row():
                          ids=["packed", "batch-not-divisible", "unpacked"])
 def test_transformer_stack_passes_its_window(monkeypatch, packing, batch):
     """Every attention call of the towers takes window = seq_len, whether
-    the batch is packed into rows of P windows or not."""
+    the batch is packed into rows of P windows or not, and causal False."""
     calls = []
     real = layers.packed_attention
 
-    def spy(q, k, v, bias, scale, dropout_rate=0.0, generator=None, window=None):
-        calls.append((q.shape[1], window))
-        return real(q, k, v, bias, scale, dropout_rate, generator, window=window)
+    def spy(q, k, v, bias, scale, dropout_rate=0.0, generator=None, window=None,
+            causal=False):
+        calls.append((q.shape[1], window, causal))
+        return real(q, k, v, bias, scale, dropout_rate, generator, window=window,
+                    causal=causal)
 
     monkeypatch.setattr(layers, "packed_attention", spy)
     stack = layers.TransformerStack(2, 16, 2, 32, seq_len=5, packing=packing, dropout=0.0)
     stack(torch.randn(batch, 5, 16, generator=torch.Generator().manual_seed(0)))
     rows = 5 * packing if batch % packing == 0 else 5
-    assert calls == [(rows, 5)] * 2
+    assert calls == [(rows, 5, False)] * 2
+
+
+# ---------------------------------------------------------------- causal
+
+def _garbage_above(S: int, seed: int = 5) -> torch.Tensor:
+    """The causal bias with large random values, and NaNs, above the diagonal."""
+    rng = np.random.default_rng(seed)
+    bias = torch.from_numpy(rng.normal(scale=1e4, size=(S, S)).astype(np.float32))
+    bias[0, S - 1] = float("nan")
+    return torch.where(torch.ones(S, S, dtype=torch.bool).tril(), 0.0, bias)
+
+
+@pytest.mark.parametrize("S", [5, 12, 40])
+def test_causal_plain_matches_jax_fused_attention_and_vjp(S):
+    """``causal=True`` with garbage above the diagonal: the plain forward and,
+    through the op's autograd, the plain backward equal JAX's
+    fused_attention_fn under the causal mask and its vjp, at the windowed
+    tests' tolerances."""
+    B, H, Dh = 2, 2, 16
+    rng = np.random.default_rng(2)
+    q, k, v, do = (rng.normal(size=(B, S, H, Dh)).astype(np.float32) for _ in range(4))
+    tq, tk, tv = (_fold(a).requires_grad_() for a in (q, k, v))
+    out = attention.attention_fwd(tq, tk, tv, _garbage_above(S), Dh ** -0.5, None, 0.0,
+                                  causal=True)
+    got = torch.autograd.grad(out, (tq, tk, tv), _fold(do))
+    mask = jnp.tril(jnp.ones((S, S), bool))
+    ref, vjp = jax.vjp(lambda a, b, c: fused_attention_fn(a, b, c, mask=mask,
+                                                          deterministic=True),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(_unfold(out.detach(), B, H), np.asarray(ref), atol=2e-6)
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(_unfold(g, B, H), np.asarray(w), atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_causal_plain_does_not_read_above_the_diagonal(rate, window):
+    """Garbage above the diagonal changes neither the plain forward nor the
+    plain backward under ``causal=True`` (bit for bit), and both equal the
+    functions with the causal bias read (causal=False), since expf of -1e9
+    is exactly 0."""
+    BH, S, Dh = 6, 24, 16
+    q, k, v, do = _inputs(BH, S, Dh, seed=4)
+    bias = layers.causal_bias(S)
+    garbage = _garbage_above(S)
+    seed = torch.tensor([9], dtype=torch.int32)
+    fwd = lambda b, c: attention.packed_attention_reference(q, k, v, b, 0.25, seed, rate,
+                                                            window, causal=c)
+    bwd = lambda b, c: attention.packed_attention_bwd_reference(q, k, v, b, do, 0.25, seed,
+                                                                rate, window, causal=c)
+    assert torch.equal(fwd(garbage, True), fwd(bias, True))
+    torch.testing.assert_close(fwd(garbage, True), fwd(bias, False), rtol=0, atol=1e-6)
+    for a, b, c in zip(bwd(garbage, True), bwd(bias, True), bwd(bias, False)):
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-6)
