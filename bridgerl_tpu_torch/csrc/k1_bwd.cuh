@@ -23,9 +23,11 @@
 // forward's seed groups (group_rows rows a seed, philox.cuh). causal states
 // that the bias is the causal bias, as in the forward: the long-window path
 // reads none of it above the diagonal and skips the tiles wholly above it.
-// The two-kernel long-window path takes `stats`, scratch for 3 * BH * S
-// floats (each position's row max, 1 / normaliser and rowsum(dp * p)),
-// which its first kernel writes and its second reads.
+// The two-kernel long-window path takes `stats`, scratch that its first
+// kernel writes and its second reads: the p_drop and ds planes of every
+// window (the row-buffered dq kernel), or each position's row max,
+// 1 / normaliser and rowsum(dp * p) (the two-sweep dq kernel;
+// ops/attention.py::backward_scratch).
 //
 // Only the diagonal blocks, and that is exact: with the model's -1e9 bias
 // across windows, every across-window p is exactly 0 in f32, so those
@@ -52,18 +54,34 @@
 // (23 at W 64), so the float32 cores would set the pace; the products run
 // on the tensor cores (bf16 operands, float32 ones as three bf16 parts; the
 // float32 entry point in 3xTF32, at 495 TFLOP/s for each of the three
-// products). No atomics: every output is summed in a fixed order by one
-// warp. Windows of up to 128 positions at Dh 64 (the towers' W 64, the
-// prior's 96 and 128) take one window-resident kernel: five products and
-// one Philox draw an element. Others (any W up to S = 65,535, any Dh)
-// take two kernels and nine
-// products (q k^T and do v^T twice in the dq kernel's two sweeps, and once
-// more, transposed, in the dk / dv kernel), with the rows' statistics
-// passed through the scratch array.
+// products). No atomics: every output is summed in a fixed order. Windows
+// of up to 64 positions, and up to 128 at Dh <= 64 (the towers' W 64, the
+// prior's 96 and 128), take one window-resident kernel: five products and
+// one Philox draw an element. Longer ones (any W up to S = 65,535) take two
+// kernels. What bounds them at the shapes they run (W 160-256, tens to a
+// hundred windows) is not the card's rate but latency: at 72-192 blocks of
+// four warps, under one block an SM, each warp waits on its mma.sync and
+// Philox chains (tools/k1_phases.py: the logits phase 70-84% of a block).
+// The design answers with fewer products and draws and more warps where
+// 64-row blocks would not fill the card: the row-buffered dq kernel sweeps K
+// and V once (the logits and dp of its rows kept in shared memory) where the
+// two-sweep kernel swept twice, and hands p_drop and ds to the keys kernel
+// through two (W, W) float32 planes a window in device memory (L2-resident
+// at these grids), so the keys kernel computes no logits and draws nothing:
+// five products and one draw an element in all, as the window-resident
+// kernel, where the two-sweep pair takes nine and three. Both take 32 rows
+// (keys) a block, each streamed tile split between two warps (twice the
+// warps in flight). On a full card (the prior at 256 positions) the row
+// buffers would leave one block an SM, and the two-sweep dq kernel's three
+// an SM win: it runs there with the dk / dv kernel, as it does where no row
+// buffer fits (W past about 500-800). The second kernel is launched as the
+// first's programmatic dependent, staging what it can while the first ends.
 //
 // The entry points are packed_attention_bwd.cu (float32) and
-// packed_attention_bwd_bf16.cu, two libraries that ops/kernels.py builds in
-// parallel; each instantiates only its own dtype's kernels.
+// packed_attention_bwd_bf16.cu (window tiles and the window-resident
+// kernel), and packed_attention_bwd_long.cu and _bf16_long.cu (the two
+// kernels): four libraries that ops/kernels.py builds in parallel, each
+// instantiating only its own dtype's and path's kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -239,23 +257,24 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
   }
 }
 
-// Long-window path (W >= kMinWindow; k1_mma.cuh), two kernels a call and no
-// atomics. The dq kernel: block (window n, query tile qt) owns kRows query
-// rows, 16 a warp, with their q and dout in shared memory, and streams K and
-// V in double-buffered tiles of kCols keys, twice. Sweep 1 computes the
-// logits and dp = keep * (dout v^T) / keep_prob on the tensor cores and
-// keeps, per row, the running max m, l = sum_j e_ij and sum_j e_ij dp_ij
-// (e_ij = expf(s_ij - m), rescaled as m grows); then D = that sum / l.
-// Sweep 2 recomputes them, forms p = e / l and ds = p (dp - D) * scale, and
-// adds ds k on the tensor cores; dq is stored once. The rows' m, 1 / l and
-// D go to a scratch array (3 floats a position). The dk / dv kernel: block
-// (window n, key tile kt) owns kRows keys, 16 a warp, with their k and v in
-// shared memory, and streams q, dout and the rows' statistics in tiles of
-// kCols queries; a warp computes s^T = k q^T and dp^T = v dout^T for its
-// keys, p^T = expf(s^T - m_i) / l_i, the keep bits, ds^T, and adds
-// p_drop^T dout to dv and ds^T q to dk, each stored once. Every sum runs in
-// a fixed order, so dq, dk and dv are the same on every launch. Under
-// causal, the dq kernel skips the key tiles past its last query and the
+// The two-kernel path (W past the window-resident kernel; k1_mma.cuh), no
+// atomics. The two-sweep dq kernel, for windows whose row buffers would not
+// fit (the row-buffered kernel below takes the rest): block (window n, query
+// tile qt) owns kRows query rows, 16 a warp, with their q and dout in shared
+// memory, and streams K and V in double-buffered tiles of kCols keys, twice.
+// Sweep 1 computes the logits and dp = keep * (dout v^T) / keep_prob on the
+// tensor cores and keeps, per row, the running max m, l = sum_j e_ij and
+// sum_j e_ij dp_ij (e_ij = expf(s_ij - m), rescaled as m grows); then D =
+// that sum / l. Sweep 2 recomputes them, forms p = e / l and ds = p (dp - D)
+// * scale, and adds ds k on the tensor cores; dq is stored once. The rows'
+// m, 1 / l and D go to a scratch array (3 floats a position). The dk / dv
+// kernel: block (window n, key tile kt) owns kRows keys, 16 a warp, with
+// their k and v in shared memory, and streams q, dout and the rows'
+// statistics in tiles of kCols queries; a warp computes s^T = k q^T and dp^T
+// = v dout^T for its keys, p^T = expf(s^T - m_i) / l_i, the keep bits, ds^T,
+// and adds p_drop^T dout to dv and ds^T q to dk, each stored once. Every
+// sum runs in a fixed order, so dq, dk and dv are the same on every launch.
+// Under causal, the dq kernel skips the key tiles past its last query and the
 // dk / dv kernel the query tiles before its first key.
 template <typename Elem, int DH>
 __global__ void __launch_bounds__(k1::kMmaThreads)
@@ -400,21 +419,21 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                float scale, const int* __restrict__ seed_ptr, int group_rows,
                unsigned thresh, float inv_keep, int dropout, int causal) {
   using namespace k1;
-  constexpr int LS = MmaTile<Elem, DH>::LS, NT = kCols / 8;
+  constexpr int LS = MmaTile<Elem, DH>::LS, RB = kRows, NT = kCols / 8, NO = DH / 8;
   extern __shared__ float4 smem4[];
-  Elem* ks = reinterpret_cast<Elem*>(smem4);   // kRows x LS
-  Elem* vs = ks + kRows * LS;
-  Elem* qos = vs + kRows * LS;                  // 2 stages of (q, dout), kCols x LS each
+  Elem* ks = reinterpret_cast<Elem*>(smem4);   // RB x LS
+  Elem* vs = ks + RB * LS;
+  Elem* qos = vs + RB * LS;                     // 2 stages of (q, dout), kCols x LS each
   float* sts = reinterpret_cast<float*>(qos + 4 * kCols * LS);   // 2 stages of (m, 1/l, D)
 
   const int n = blockIdx.x / ktiles, kt = blockIdx.x - n * ktiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
-  const int j0 = kt * kRows;
+  const int j0 = kt * RB;
   const size_t base = (size_t)n * W * DH;
   const size_t at = (size_t)row * S + w0;       // the window's first position in stats
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ja = j0 + warp * 16 + (lane >> 2);  // the thread's keys: ja and ja + 8
-  const int nq = (W + kCols - 1) / kCols, q0 = first_query_tile(kt, causal);
+  const int nq = (W + kCols - 1) / kCols, q0 = first_query_tile(kt, causal, RB);
   K1_PHASE_BEGIN();
   unsigned seed = 0, prow = 0;
   if (dropout) {
@@ -435,12 +454,15 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                       ok ? stats + a * positions + at + i1 + i : stats, ok);
     }
   };
-  stage_mma<Elem, DH>(ks, k + base + (size_t)j0 * DH, kRows, W - j0, k);
-  stage_mma<Elem, DH>(vs, v + base + (size_t)j0 * DH, kRows, W - j0, v);
+  stage_mma<Elem, DH>(ks, k + base + (size_t)j0 * DH, RB, W - j0, k);
+  stage_mma<Elem, DH>(vs, v + base + (size_t)j0 * DH, RB, W - j0, v);
+  // launched as the dq kernel's dependent: its keys are staged while the dq
+  // kernel ends, and nothing of the statistics is read before it has
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   stage_queries(q0, 0);
   cp_async_commit();
 
-  float dka[DH / 8][4] = {}, dva[DH / 8][4] = {};
+  float dka[NO][4] = {}, dva[NO][4] = {};
   for (int qi = q0; qi < nq; ++qi) {
     const int buf = (qi - q0) & 1;
     if (qi + 1 < nq) stage_queries(qi + 1, buf ^ 1);
@@ -489,9 +511,317 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
   K1_PHASE_END(1);
 }
 
-// Windows of up to 128 positions at Dh 64 (the head dim of every model the
-// port trains): one block of NW warps (4 for W <= 64, 8 up to 128)
-// owns the whole window, R = 16 NW rows, and computes dq, dk and dv in one
+// The row-buffered dq kernel (the two-kernel path's first kernel where blocks
+// of 64 rows would not fill the card and its buffers fit: k1_mma.cuh's
+// bwd_block_rows). Block (window n, query tile qt) owns RB = 32 query rows
+// with their q and dout in shared memory, and
+// streams K and V in double-buffered tiles of kCols keys once: each warp takes
+// 16 rows and a 32 / KP-key part of the tile, computes s = q k^T and
+// dp = dout v^T on the tensor cores, its keep bits, and writes the logits
+// (scale and bias added; -inf past the window and above a causal diagonal),
+// keep * dp / keep_prob into (RB, keys) float32 buffers in shared memory and
+// the keep flags into a bit mask. Then 128 / RB threads a row take the row's max m, l = sum_j expf(x
+// - m), D = sum_j p dp with p = expf(x - m) / l, and ds = p (dp - D) * scale,
+// each in a fixed order; ds stays in the buffer, and p_drop and ds go to two
+// (W, W) float32 planes a window in device memory (row stride
+// bwd_plane_stride), from which the keys kernel below takes dk and dv. Last,
+// K streams again (its first tile fetched while the rows are reduced) and
+// each warp adds ds k for 16 rows and a 1 / KP share of dq's columns, stored
+// once. With the keys kernel's two products: five products and one Philox
+// draw an element, as the window-resident kernel, where the two-sweep kernel
+// and the dk / dv kernel take nine and three.
+template <typename Elem, int DH>
+__global__ void __launch_bounds__(k1::kMmaThreads)
+k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                const Elem* __restrict__ v, const float* __restrict__ bias,
+                const Elem* __restrict__ dout, Elem* __restrict__ dq, float* __restrict__ pd,
+                int S, int W, int qtiles, size_t plane, float scale,
+                const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
+                float inv_keep, int dropout, int causal) {
+  using namespace k1;
+  constexpr int LS = MmaTile<Elem, DH>::LS, RB = kRows / 2, RG = RB / 16, KP = kMmaWarps / RG;
+  constexpr int NTW = kCols / 8 / KP, NO = DH / 8, NOW = NO / KP, TPR = kMmaThreads / RB;
+  static_assert(RG * KP == kMmaWarps && NO % KP == 0, "two warps a streamed tile");
+  extern __shared__ float4 smem4[];
+  Elem* qs = reinterpret_cast<Elem*>(smem4);   // RB x LS
+  Elem* os = qs + RB * LS;                      // dout, RB x LS
+  Elem* kvs = os + RB * LS;                     // 2 stages of (K, V), kCols x LS each
+  const int BS = bwd_buffer_stride(W);
+  float* xs = reinterpret_cast<float*>(kvs + 4 * kCols * LS);   // RB x BS: logits, p, ds
+  float* gs = xs + RB * BS;                                     // RB x BS: dp
+  // keep flags: bit j % 32 of word (row, j / 32), RB x NKW words
+  const int NKW = (W + kCols - 1) / kCols;
+  unsigned* kw = reinterpret_cast<unsigned*>(gs + RB * BS);
+
+  const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
+  const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
+  const int i0 = qt * RB;
+  const size_t base = (size_t)n * W * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int rg = warp % RG, part = warp / RG, c0 = part * 8 * NTW;
+  const int lr = rg * 16 + (lane >> 2);   // the thread's rows in the block: lr and lr + 8
+  const int ra = i0 + lr;
+  const int nk = key_tiles(W, qt, causal, RB);
+  K1_PHASE_BEGIN();
+  unsigned seed = 0, prow = 0;
+  if (dropout) {
+    const unsigned grp = (unsigned)row / (unsigned)group_rows;
+    seed = (unsigned)__ldg(seed_ptr + grp);
+    prow = (unsigned)row - grp * (unsigned)group_rows;
+  }
+
+  stage_mma<Elem, DH>(qs, q + base + (size_t)i0 * DH, RB, W - i0, q);
+  stage_mma<Elem, DH>(os, dout + base + (size_t)i0 * DH, RB, W - i0, dout);
+  stage_mma<Elem, DH>(kvs, k + base, kCols, W, k);
+  stage_mma<Elem, DH>(kvs + kCols * LS, v + base, kCols, W, v);
+  cp_async_commit();
+  // under causal, the warp's column tiles that reach its last row
+  const int last = i0 + rg * 16 + 15;
+  for (int kt = 0; kt < nk; ++kt) {
+    Elem* nxt = kvs + ((kt + 1) & 1) * 2 * kCols * LS;
+    if (kt + 1 < nk) {
+      const int j1 = (kt + 1) * kCols;
+      stage_mma<Elem, DH>(nxt, k + base + (size_t)j1 * DH, kCols, W - j1, k);
+      stage_mma<Elem, DH>(nxt + kCols * LS, v + base + (size_t)j1 * DH, kCols, W - j1, v);
+    } else {
+      stage_mma<Elem, DH>(nxt, k + base, kCols, W, k);   // the dq products' first K tile
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    K1_PHASE(0);
+    const Elem* ks = kvs + (kt & 1) * 2 * kCols * LS + c0 * LS;   // the warp's keys
+    const Elem* vs = ks + kCols * LS;
+    const int j00 = kt * kCols + c0;
+    const int c_end = !causal ? NTW : last < j00 ? 0 : min(NTW, (last - j00) / 8 + 1);
+
+    float s[NTW][4] = {}, dp[NTW][4] = {};
+    gemm_nt<NTW, DH>(s, qs + rg * 16 * LS, ks, lane, c_end);
+    gemm_nt<NTW, DH>(dp, os + rg * 16 * LS, vs, lane, c_end);
+    const unsigned long long keep =
+        dropout ? keep_bits(seed, prow, S, w0, W, ra, j00, c_end, causal, thresh, false, lane)
+                : 0ull;
+    unsigned kb[2] = {0u, 0u};   // rows lr and lr + 8: the flags of the warp's 8 NTW keys
+#pragma unroll
+    for (int c = 0; c < NTW; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = ra + 8 * h;
+        float x[2], gd[2];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int e = 2 * h + b, j = j00 + c * 8 + 2 * t + b;
+          if (j >= W || (causal && j > i))
+            x[b] = -INFINITY;
+          else
+            x[b] = i < W ? s[c][e] * scale + __ldg(bias + (size_t)(w0 + i) * S + w0 + j)
+                         : s[c][e] * scale;   // a row past the window: never stored
+          gd[b] = !dropout ? dp[c][e] : (keep >> (4 * c + e)) & 1ull ? dp[c][e] * inv_keep : 0.f;
+        }
+        const int off = (lr + 8 * h) * BS + j00 + c * 8 + 2 * t;
+        *reinterpret_cast<float2*>(xs + off) = make_float2(x[0], x[1]);
+        *reinterpret_cast<float2*>(gs + off) = make_float2(gd[0], gd[1]);
+        kb[h] |= (unsigned)((keep >> (4 * c + 2 * h)) & 3ull) << (8 * c + 2 * t);
+      }
+    if (dropout) {   // the 4 lanes of a row hold its flags between them
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        kb[h] |= __shfl_xor_sync(0xffffffffu, kb[h], 1);
+        kb[h] |= __shfl_xor_sync(0xffffffffu, kb[h], 2);
+        if (t == 0)   // the warp's half (8 NTW = 16 keys) of the tile's word
+          reinterpret_cast<unsigned short*>(kw + (lr + 8 * h) * NKW + kt)[part] =
+              (unsigned short)kb[h];
+      }
+    }
+    K1_PHASE(1);
+    __syncthreads();
+  }
+
+  {   // the rows: TPR adjacent threads a row, each over every TPR-th key
+    const int r = threadIdx.x / TPR, p0 = threadIdx.x - r * TPR, ncol = nk * kCols;
+    float* xr = xs + r * BS;
+    const float* gr = gs + r * BS;
+    const unsigned* kwr = kw + r * NKW;
+    float m = -INFINITY;
+    for (int j = p0; j < ncol; j += TPR) m = fmaxf(m, xr[j]);
+    m = lanes_max<TPR>(m);
+    float l = 0.f;
+    for (int j = p0; j < ncol; j += TPR) {
+      const float e = __expf(xr[j] - m);
+      xr[j] = e;
+      l += e;
+    }
+    const float il = 1.f / lanes_sum<TPR>(l);
+    float D = 0.f;
+    for (int j = p0; j < ncol; j += TPR) D = fmaf(gr[j], xr[j] * il, D);
+    D = lanes_sum<TPR>(D);
+    const int i = i0 + r;
+    // the row's p_drop and ds, row-major in the window's planes for the keys
+    // kernel (rows past the window are not stored)
+    float* pdr = pd + ((size_t)n * W + i) * bwd_plane_stride(W);
+    for (int j = p0; j < ncol; j += TPR) {
+      const float p = xr[j] * il;
+      const float ds = i < W ? p * (gr[j] - D) * scale : 0.f;
+      xr[j] = ds;
+      if (i < W) {
+        pdr[j] = !dropout || (kwr[j >> 5] >> (j & 31)) & 1u ? p * inv_keep : 0.f;
+        pdr[plane + j] = ds;
+      }
+    }
+  }
+  // the keys kernel may be scheduled now (it waits for this grid's end before
+  // it reads the planes)
+  asm volatile("griddepcontrol.launch_dependents;");
+  K1_PHASE(2);
+
+  // dq = ds k: the warp's 16 rows and NOW tiles of 8 columns from column c8
+  const int c8 = part * NOW * 8;
+  float acc[NOW][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      const int j1 = (kt + 1) * kCols;
+      stage_mma<Elem, DH>(kvs + ((nk + kt + 1) & 1) * 2 * kCols * LS,
+                          k + base + (size_t)j1 * DH, kCols, W - j1, k);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    K1_PHASE(0);
+    const Elem* ks = kvs + ((nk + kt) & 1) * 2 * kCols * LS;
+    float p[kCols / 8][4];
+#pragma unroll
+    for (int c = 0; c < kCols / 8; ++c) {
+      const float* at = xs + lr * BS + kt * kCols + c * 8 + 2 * t;
+      const float2 a = *reinterpret_cast<const float2*>(at);
+      const float2 b = *reinterpret_cast<const float2*>(at + 8 * BS);
+      p[c][0] = a.x;
+      p[c][1] = a.y;
+      p[c][2] = b.x;
+      p[c][3] = b.y;
+    }
+    gemm_pv<kCols / 8, DH, NOW>(acc, p, ks + c8, lane);
+    K1_PHASE(3);
+    __syncthreads();
+  }
+  store_rows<Elem, DH, NOW>(dq + base + c8, acc, ra, W, 1.f, 1.f, lane);
+  K1_PHASE_END(0);
+}
+
+// The keys kernel (with the row-buffered dq kernel): block (window n, key
+// tile kt) owns RB = kRows / 2 keys, 16 a warp, and streams q, dout and the
+// dq kernel's p_drop and ds planes in double-buffered tiles of kCols queries
+// (only those on and below a causal diagonal), each tile split between two
+// warps; a warp reads its (16 keys, 16 queries) parts of p_drop^T and ds^T
+// from the staged tiles by columns, adds p_drop^T dout to dv and ds^T q to
+// dk, and the two parts' sums are added in part order; each output is
+// stored once. No logits, softmax or draws: two products an element.
+template <typename Elem, int DH>
+__global__ void __launch_bounds__(k1::kMmaThreads)
+k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
+                Elem* __restrict__ dk, Elem* __restrict__ dv, const float* __restrict__ pd,
+                int W, int ktiles, size_t plane, int causal) {
+  using namespace k1;
+  constexpr int RB = kRows / 2, RG = RB / 16, KP = kMmaWarps / RG, NTW = kCols / 8 / KP;
+  constexpr int LS = MmaTile<Elem, DH>::LS, NO = DH / 8, PS = RB + 4;
+  static_assert(RG * KP == kMmaWarps && NTW % 2 == 0, "two warps a streamed tile");
+  extern __shared__ float4 smem4[];
+  Elem* qos = reinterpret_cast<Elem*>(smem4);   // 2 stages of (q, dout), kCols x LS each
+  float* pts = reinterpret_cast<float*>(qos + 4 * kCols * LS);   // 2 stages of (p_drop, ds),
+                                                                  // kCols queries x PS
+  const int n = blockIdx.x / ktiles, kt = blockIdx.x - n * ktiles;
+  const int j0 = kt * RB, WP = bwd_plane_stride(W);
+  const size_t base = (size_t)n * W * DH;
+  const float* pdw = pd + (size_t)n * W * WP;   // the window's p_drop plane; ds at + plane
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp % RG, part = warp / RG, c0 = part * 8 * NTW;
+  const int ja = j0 + rg * 16 + g;   // the thread's keys: ja and ja + 8
+  const int nq = (W + kCols - 1) / kCols, q0 = first_query_tile(kt, causal, RB);
+  K1_PHASE_BEGIN();
+
+  auto stage_rows = [&](int qi, int buf) {
+    Elem* dst = qos + buf * 2 * kCols * LS;
+    const int i1 = qi * kCols;
+    stage_mma<Elem, DH>(dst, q + base + (size_t)i1 * DH, kCols, W - i1, q);
+    stage_mma<Elem, DH>(dst + kCols * LS, dout + base + (size_t)i1 * DH, kCols, W - i1, dout);
+  };
+  auto stage_planes = [&](int qi, int buf) {   // rows i1 .. i1 + 31, keys j0 .. j0 + RB - 1
+    const int i1 = qi * kCols;
+    for (int e = threadIdx.x; e < 2 * kCols * (RB / 4); e += kMmaThreads) {
+      const int a = e / (kCols * (RB / 4)), r = (e / (RB / 4)) % kCols, c = e % (RB / 4);
+      const bool ok = i1 + r < W;
+      cp_async16_zfill(pts + ((buf * 2 + a) * kCols + r) * PS + 4 * c,
+                       ok ? pdw + a * plane + (size_t)(i1 + r) * WP + j0 + 4 * c : pd, ok);
+    }
+  };
+  stage_rows(q0, 0);
+  // launched as the dq kernel's dependent: q and dout are staged while it ends,
+  // and nothing of its planes is read before it has
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  stage_planes(q0, 0);
+  cp_async_commit();
+
+  float dka[NO][4] = {}, dva[NO][4] = {};
+  for (int qi = q0; qi < nq; ++qi) {
+    const int buf = (qi - q0) & 1;
+    if (qi + 1 < nq) {
+      stage_rows(qi + 1, buf ^ 1);
+      stage_planes(qi + 1, buf ^ 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    K1_PHASE(0);
+    const Elem* qt_ = qos + buf * 2 * kCols * LS + c0 * LS;   // the warp's queries
+    const Elem* ot = qt_ + kCols * LS;
+    float pf[NTW][4], sf[NTW][4];   // p_drop^T and ds^T, (key, query) by columns
+#pragma unroll
+    for (int c = 0; c < NTW; ++c) {
+      const float* at = pts + (buf * 2 * kCols + c0 + c * 8 + 2 * t) * PS + rg * 16 + g;
+      pf[c][0] = at[0];
+      pf[c][1] = at[PS];
+      pf[c][2] = at[8];
+      pf[c][3] = at[PS + 8];
+      at += kCols * PS;
+      sf[c][0] = at[0];
+      sf[c][1] = at[PS];
+      sf[c][2] = at[8];
+      sf[c][3] = at[PS + 8];
+    }
+    K1_PHASE(1);
+    gemm_pv<NTW, DH>(dva, pf, ot, lane);
+    gemm_pv<NTW, DH>(dka, sf, qt_, lane);
+    K1_PHASE(2);
+    __syncthreads();
+  }
+  // the query parts' sums, added in part order through the (now idle) stage buffers
+  float* red = reinterpret_cast<float*>(qos) + rg * 2 * NO * 4 * 32 + lane;
+  if (part == 1) {
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[(c * 4 + e) * 32] = dva[c][e];
+        red[((NO + c) * 4 + e) * 32] = dka[c][e];
+      }
+  }
+  __syncthreads();
+  if (part != 0) return;
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dva[c][e] += red[(c * 4 + e) * 32];
+      dka[c][e] += red[((NO + c) * 4 + e) * 32];
+    }
+  store_rows<Elem, DH>(dv + base, dva, ja, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH>(dk + base, dka, ja, W, 1.f, 1.f, lane);
+  K1_PHASE(3);
+  K1_PHASE_END(1);
+}
+
+// Windows of up to 64 positions at any head dim, and up to 128 at Dh <= 64
+// (k1_mma.cuh's bwd_window_rows): one block of NW warps (4 for W <= 64, 8 up
+// to 128) owns the whole window, R = 16 NW rows, and computes dq, dk and dv in one
 // pass, with five products and one Philox draw an element. q, k, v and dout
 // of the window are staged once. Warp w takes query rows 16w .. 16w + 15:
 // s = q k^T and dp = dout v^T over the window's keys in registers, the
@@ -665,14 +995,17 @@ int launch_window(const Elem* q, const Elem* k, const Elem* v, const float* bias
 }
 
 // The launch plan's numbers: path 0 (window tiles) or 1 (long windows), the
-// blocks and shared memory of the first kernel (tiles, or dq) and of the
-// dk / dv kernel (0 on the tile path). The caller's plan must equal them.
+// blocks and shared memory of the first kernel (tiles, the window-resident
+// kernel, or dq) and of the dk / dv kernel (0 on the one-kernel paths). The
+// caller's plan must equal them. The one-kernel paths (launch_one) and the
+// two-kernel path (launch_two) are entry points of their own libraries, so
+// that nvcc builds them in parallel: each refuses the other's plans.
 template <typename Elem, int DH>
-int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
-           const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W,
-           float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
-           int dropout, int causal, int path, int blocks, int smem_bytes, int blocks_kv,
-           int smem_kv, cudaStream_t stream) {
+int launch_one(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+               const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S,
+               int W, float scale, const int* seed, int group_rows, unsigned thresh,
+               float inv_keep, int dropout, int causal, int path, int blocks, int smem_bytes,
+               int blocks_kv, int smem_kv, cudaStream_t stream) {
   const int nwin = BH * (S / W);
   if (W < k1::kMinWindow) {
     constexpr int QS = TileDims<DH>::QS;
@@ -689,43 +1022,111 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
         inv_keep, dropout);
     return (int)cudaGetLastError();
   }
-  if constexpr (DH == k1::kWindowDh) {
-    if (W <= 2 * k1::kRows) {
-      const int R = W <= k1::kRows ? k1::kRows : 2 * k1::kRows;   // window-resident rows
-      const int smem = k1::bwd_window_smem<Elem, DH>(R);
-      if (path != 1 || blocks != nwin || smem_bytes != smem || blocks_kv != 0 || smem_kv != 0)
-        return (int)cudaErrorInvalidValue;
-      return R == k1::kRows
-                 ? launch_window<Elem, DH, 4>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
-                                              group_rows, thresh, inv_keep, dropout, causal,
-                                              blocks, smem, stream)
-                 : launch_window<Elem, DH, 8>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
-                                              group_rows, thresh, inv_keep, dropout, causal,
-                                              blocks, smem, stream);
-    }
-  }
-  const int tiles = (W + k1::kRows - 1) / k1::kRows;
-  constexpr int smem = k1::bwd_dq_smem<Elem, DH>(), smem2 = k1::bwd_dkv_smem<Elem, DH>();
-  if (stats == nullptr || path != 1 || (long long)blocks != (long long)nwin * tiles ||
-      blocks_kv != blocks || smem_bytes != smem || smem_kv != smem2)
+  const int R = k1::bwd_window_rows<DH>(W);   // window-resident rows, or 0: two kernels
+  const int smem = R ? k1::bwd_window_smem<Elem, DH>(R) : 0;
+  if (!R || path != 1 || blocks != nwin || smem_bytes != smem || blocks_kv != 0 || smem_kv != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t positions = (size_t)BH * S;
-  cudaError_t e = k1::allow_smem(k1_bwd_mma_dq<Elem, DH>, smem);
+  if constexpr (DH <= 64) {
+    if (R == 2 * k1::kRows)
+      return launch_window<Elem, DH, 8>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
+                                        group_rows, thresh, inv_keep, dropout, causal, blocks,
+                                        smem, stream);
+  }
+  return launch_window<Elem, DH, 4>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
+                                    group_rows, thresh, inv_keep, dropout, causal, blocks, smem,
+                                    stream);
+}
+
+// A second kernel launched as the first's programmatic dependent: it stages
+// what does not depend on the first while that one ends.
+template <typename Kernel, typename... Args>
+cudaError_t launch_dependent(Kernel kernel, int blocks, int smem, cudaStream_t stream,
+                             Args... args) {
+  cudaError_t e = k1::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute dep[1];
+  dep[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dep[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(k1::kMmaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = dep;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Two kernels (k1_mma.cuh's bwd_block_rows): the row-buffered dq kernel in
+// blocks of kRows / 2 rows and the keys kernel, through the p_drop and ds
+// planes in `scratch` (2 * BH * (S / W) * W * bwd_plane_stride(W) floats);
+// or, on a full card or where no row buffer fits, the two-sweep dq kernel
+// and the dk / dv kernel in blocks of kRows, through the rows' statistics in
+// `scratch` (3 * BH * S floats, and 4).
+template <typename Elem, int DH>
+int launch_two(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+               const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* scratch, int BH, int S,
+               int W, float scale, const int* seed, int group_rows, unsigned thresh,
+               float inv_keep, int dropout, int causal, int path, int blocks, int smem_bytes,
+               int blocks_kv, int smem_kv, cudaStream_t stream) {
+  const int nwin = BH * (S / W);
+  if (W < k1::kMinWindow || k1::bwd_window_rows<DH>(W) || path != 1 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int RB = k1::bwd_block_rows<Elem, DH>(nwin, W);
+  const int tiles = (W + (RB ? RB : k1::kRows) - 1) / (RB ? RB : k1::kRows);
+  const long long smem = RB ? k1::bwd_rows_smem<Elem, DH>(RB, W) : k1::bwd_dq_smem<Elem, DH>();
+  const int smem2 = RB ? k1::bwd_keys_smem<Elem, DH>() : k1::bwd_cols_smem<Elem, DH>();
+  if ((long long)blocks != (long long)nwin * tiles || blocks_kv != blocks ||
+      smem_bytes != smem || smem_kv != smem2)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (RB) {
+    const size_t plane = (size_t)nwin * W * k1::bwd_plane_stride(W);
+    e = k1::allow_smem(k1_bwd_mma_rows<Elem, DH>, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    k1_bwd_mma_rows<Elem, DH><<<blocks, k1::kMmaThreads, smem_bytes, stream>>>(
+        q, k, v, bias, dout, dq, scratch, S, W, tiles, plane, scale, seed, group_rows, thresh,
+        inv_keep, dropout, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    e = launch_dependent(k1_bwd_mma_keys<Elem, DH>, blocks_kv, smem2, stream, q, dout, dk, dv,
+                         (const float*)scratch, W, tiles, plane, causal);
+  } else {
+    const size_t positions = (size_t)BH * S;
+    e = k1::allow_smem(k1_bwd_mma_dq<Elem, DH>, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    k1_bwd_mma_dq<Elem, DH><<<blocks, k1::kMmaThreads, smem_bytes, stream>>>(
+        q, k, v, bias, dout, dq, scratch, S, W, tiles, positions, scale, seed, group_rows,
+        thresh, inv_keep, dropout, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    e = launch_dependent(k1_bwd_mma_dkv<Elem, DH>, blocks_kv, smem2, stream, q, k, v, bias,
+                         dout, dk, dv, (const float*)scratch, S, W, tiles, positions, scale,
+                         seed, group_rows, thresh, inv_keep, dropout, causal);
+  }
   if (e != cudaSuccess) return (int)e;
-  e = k1::allow_smem(k1_bwd_mma_dkv<Elem, DH>, smem2);
-  if (e != cudaSuccess) return (int)e;
-  k1_bwd_mma_dq<Elem, DH><<<blocks, k1::kMmaThreads, smem, stream>>>(
-      q, k, v, bias, dout, dq, stats, S, W, tiles, positions, scale, seed, group_rows, thresh,
-      inv_keep, dropout, causal);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  k1_bwd_mma_dkv<Elem, DH><<<blocks_kv, k1::kMmaThreads, smem2, stream>>>(
-      q, k, v, bias, dout, dk, dv, stats, S, W, tiles, positions, scale, seed, group_rows,
-      thresh, inv_keep, dropout, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename Elem>
+// kTwo: the two-kernel library's launcher (launch_two), else launch_one; only
+// the one a library names is instantiated there.
+template <bool kTwo, typename Elem, int DH>
+int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout,
+           Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, float scale,
+           const int* seed, int group_rows, unsigned thresh, float inv_keep, int dropout,
+           int causal, int path, int blocks, int smem_bytes, int blocks_kv, int smem_kv,
+           cudaStream_t stream) {
+  if constexpr (kTwo)
+    return launch_two<Elem, DH>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,
+                                group_rows, thresh, inv_keep, dropout, causal, path, blocks,
+                                smem_bytes, blocks_kv, smem_kv, stream);
+  else
+    return launch_one<Elem, DH>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,
+                                group_rows, thresh, inv_keep, dropout, causal, path, blocks,
+                                smem_bytes, blocks_kv, smem_kv, stream);
+}
+
+template <bool kTwo, typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout,
              Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, int Dh,
              float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
@@ -735,10 +1136,10 @@ int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, con
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (W < 1 || S % W != 0 || S > k1::kMaxRow) return (int)cudaErrorInvalidValue;
   if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
-#define K1_BWD(DH_)                                                                        \
-  launch<Elem, DH_>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,        \
-                    group_rows, thresh, inv_keep, dropout, causal, path, blocks, smem_bytes, \
-                    blocks_kv, smem_kv, st)
+#define K1_BWD(DH_)                                                                         \
+  launch<kTwo, Elem, DH_>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,    \
+                          group_rows, thresh, inv_keep, dropout, causal, path, blocks,      \
+                          smem_bytes, blocks_kv, smem_kv, st)
   switch (Dh) {
     case 16: return K1_BWD(16);
     case 32: return K1_BWD(32);

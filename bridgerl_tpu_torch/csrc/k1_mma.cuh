@@ -60,6 +60,10 @@ constexpr int kRows = 16 * kMmaWarps;  // rows a long-window block owns
 constexpr int kCols = 32;              // rows of a streamed tile
 constexpr int kMinWindow = 32;         // W*: shorter windows take the window tiles
 constexpr int kMaxRow = 65535;         // S: i * S + j must fit the 32-bit Philox counter
+// The two-kernel backward takes the row-buffered dq kernel and the keys kernel (blocks of
+// kRows / 2) where blocks of kRows would number fewer than kFullGrid, two an SM of the
+// H100's 132 (bwd_block_rows).
+constexpr int kFullGrid = 264;
 
 template <typename Elem, int DH>
 struct MmaTile {
@@ -72,34 +76,76 @@ template <typename Elem, int DH>
 constexpr int fwd_mma_smem() {
   return (kRows + 4 * kCols) * MmaTile<Elem, DH>::LS * (int)sizeof(Elem);
 }
+// The two-sweep dq kernel (full cards, and windows too long for the row buffers below).
 template <typename Elem, int DH>
 constexpr int bwd_dq_smem() {
   return (2 * kRows + 4 * kCols) * MmaTile<Elem, DH>::LS * (int)sizeof(Elem);
 }
-template <typename Elem, int DH>
-constexpr int bwd_dkv_smem() {
-  return bwd_dq_smem<Elem, DH>() + 2 * 3 * kCols * (int)sizeof(float);
+// The row-buffered dq kernel of RB rows: q and dout rows, two stages of (K, V) tiles, two
+// (RB, bwd_buffer_stride(W)) float32 buffers (logits then ds; dp) and the keep flags, a
+// 32-bit word a row and key tile. A buffer row holds the window's keys in whole tiles, and
+// 4 more, so that the phases' accesses of consecutive rows fall in other banks.
+__host__ __device__ constexpr int bwd_buffer_stride(int W) {
+  return (W + kCols - 1) / kCols * kCols + 4;
 }
-// The window-resident backward, built at Dh = kWindowDh only (the head dim
-// of every model the port trains; other head dims take the two-kernel
-// path): R = 16 NW rows (NW warps, 4 for W <= 64, 8 up to W 128) of q, k, v
-// and dout, and one (R, R + 4) float32 tile that holds p_drop, then ds.
-constexpr int kWindowDh = 64;
+template <typename Elem, int DH>
+constexpr long long bwd_rows_smem(int RB, int W) {
+  return (long long)(2 * RB + 4 * kCols) * MmaTile<Elem, DH>::LS * (int)sizeof(Elem) +
+         8LL * RB * bwd_buffer_stride(W) + 4LL * RB * ((W + kCols - 1) / kCols);
+}
+// The row stride of the p_drop and ds planes the row-buffered dq kernel writes (W x W
+// floats a window each, rows in whole tiles) and the keys kernel reads.
+__host__ __device__ constexpr int bwd_plane_stride(int W) {
+  return (W + kCols - 1) / kCols * kCols;
+}
+// The keys kernel: two stages of (q, dout) tiles and of (p_drop, ds) tiles of kCols queries
+// by kRows / 2 + 4 floats.
+template <typename Elem, int DH>
+constexpr int bwd_keys_smem() {
+  return 4 * kCols * MmaTile<Elem, DH>::LS * (int)sizeof(Elem) +
+         4 * kCols * (kRows / 2 + 4) * (int)sizeof(float);
+}
+// The dk / dv kernel (with the two-sweep dq kernel) of kRows keys: k and v rows, two stages
+// of (q, dout) tiles and of the rows' three statistics.
+template <typename Elem, int DH>
+constexpr int bwd_cols_smem() {
+  return (2 * kRows + 4 * kCols) * MmaTile<Elem, DH>::LS * (int)sizeof(Elem) +
+         2 * 3 * kCols * (int)sizeof(float);
+}
+// The rows of the row-buffered dq kernel's blocks (and the keys of the keys
+// kernel's with it): kRows / 2 where blocks of kRows would not fill the card
+// (kFullGrid) and the row buffers fit; else 0, and the two-sweep dq kernel
+// runs with the dk / dv kernel in blocks of kRows. On a full card the
+// two-sweep kernel's small blocks (three an SM) beat the row buffers' (one an
+// SM at W 256; PERF.md §6).
+template <typename Elem, int DH>
+int bwd_block_rows(long long nwin, int W) {
+  const bool full = nwin * ((W + kRows - 1) / kRows) >= kFullGrid;
+  return !full && bwd_rows_smem<Elem, DH>(kRows / 2, W) <= kSmemLimit ? kRows / 2 : 0;
+}
+// The window-resident backward: R = 16 NW rows (NW warps) of q, k, v and dout, and one
+// (R, R + 4) float32 tile that holds p_drop, then ds. It takes windows of up to kRows
+// positions at every head dim, and up to 2 kRows at Dh <= 64 (at Dh 128 the staged rows
+// and the tile would not fit, nor a thread's registers); bwd_window_rows is its R, or 0.
+template <int DH>
+constexpr int bwd_window_rows(int W) {
+  return W <= kRows ? kRows : (DH <= 64 && W <= 2 * kRows) ? 2 * kRows : 0;
+}
 template <typename Elem, int DH>
 constexpr int bwd_window_smem(int R) {
   return 4 * R * MmaTile<Elem, DH>::LS * (int)sizeof(Elem) + R * (R + 4) * (int)sizeof(float);
 }
 
-// Key tiles a query tile qt reads (forward, dq): all of the window's, or
-// under causal those that reach the block's last query.
-__device__ __forceinline__ int key_tiles(int W, int qt, int causal) {
+// Key tiles a query tile qt of `rows` rows reads (forward, dq): all of the
+// window's, or under causal those that reach the block's last query.
+__device__ __forceinline__ int key_tiles(int W, int qt, int causal, int rows = kRows) {
   const int n = (W + kCols - 1) / kCols;
-  return causal ? min(n, (qt * kRows + kRows - 1) / kCols + 1) : n;
+  return causal ? min(n, (qt * rows + rows - 1) / kCols + 1) : n;
 }
-// First query tile a key tile kt reads (dk / dv): under causal, the one that
-// holds the block's first key; every later one runs.
-__device__ __forceinline__ int first_query_tile(int kt, int causal) {
-  return causal ? kt * kRows / kCols : 0;
+// First query tile a key tile kt of `rows` keys reads (dk / dv): under causal,
+// the one that holds the block's first key; every later one runs.
+__device__ __forceinline__ int first_query_tile(int kt, int causal, int rows = kRows) {
+  return causal ? kt * rows / kCols : 0;
 }
 
 __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
@@ -252,15 +298,17 @@ __device__ __forceinline__ void gemm_nt(float (&acc)[NT][4], const __nv_bfloat16
   }
 }
 
-// acc[n] += P . Z[:, 8n .. 8n + 8): P the warp's (16, 8 KT) register tile
-// (accumulator layout), Z the streamed tile of 8 KT rows, row-major. Only P's
+// acc[n] += P . Z[:, 8n .. 8n + 8) for the NO output tiles of 8 columns
+// (all of DH's by default; fewer where Z points at a warp's share of the
+// columns): P the warp's (16, 8 KT) register tile (accumulator layout), Z the
+// streamed tile of 8 KT rows, row-major with DH's padded stride. Only P's
 // column tiles k_begin .. k_end - 1 are read (the others are 0: wholly above
 // a causal diagonal); in bf16 they are taken in pairs.
-template <int KT, int DH>
-__device__ __forceinline__ void gemm_pv(float (&acc)[DH / 8][4], const float (&p)[KT][4],
+template <int KT, int DH, int NO = DH / 8>
+__device__ __forceinline__ void gemm_pv(float (&acc)[NO][4], const float (&p)[KT][4],
                                         const float* Z, int lane, int k_begin = 0,
                                         int k_end = KT) {
-  constexpr int LS = MmaTile<float, DH>::LS, NO = DH / 8;
+  constexpr int LS = MmaTile<float, DH>::LS;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
@@ -293,12 +341,12 @@ __device__ __forceinline__ void gemm_pv(float (&acc)[DH / 8][4], const float (&p
   }
 }
 
-template <int KT, int DH>
-__device__ __forceinline__ void gemm_pv(float (&acc)[DH / 8][4], const float (&p)[KT][4],
+template <int KT, int DH, int NO = DH / 8>
+__device__ __forceinline__ void gemm_pv(float (&acc)[NO][4], const float (&p)[KT][4],
                                         const __nv_bfloat16* Z, int lane, int k_begin = 0,
                                         int k_end = KT) {
   static_assert(KT % 2 == 0, "bf16 products take column tiles in pairs");
-  constexpr int LS = MmaTile<__nv_bfloat16, DH>::LS, NO = DH / 8;
+  constexpr int LS = MmaTile<__nv_bfloat16, DH>::LS;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kp = 0; kp < KT / 2; ++kp) {
@@ -342,6 +390,20 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Max and sum over N (a power of two) adjacent lanes, the same value in each
+template <int N>
+__device__ __forceinline__ float lanes_max(float x) {
+#pragma unroll
+  for (int o = 1; o < N; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+template <int N>
+__device__ __forceinline__ float lanes_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < N; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 // The keep bits of the thread's elements of a warp's (16, 8 nt) tile: bit
 // 4c + e for element e of column tile c (rows ra and ra + 8, columns c0 +
 // 8c + 2t and + 1, window-local; with keys_in_rows the rows are keys and the
@@ -377,15 +439,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<unsigned*>(dst) = round_bf16x2(a, b);
 }
 
-// Store the warp's (16, DH) accumulator: rows r0 + g and r0 + g + 8 of the
-// window (those below W) at `dst`, row stride DH, each value times the row's
-// factor.
-template <typename Elem, int DH>
-__device__ __forceinline__ void store_rows(Elem* dst, const float (&acc)[DH / 8][4], int ra,
+// Store the warp's (16, 8 NO) accumulator (NO tiles of 8 columns, all of DH's
+// by default): rows r0 + g and r0 + g + 8 of the window (those below W) at
+// `dst`, row stride DH, each value times the row's factor.
+template <typename Elem, int DH, int NO = DH / 8>
+__device__ __forceinline__ void store_rows(Elem* dst, const float (&acc)[NO][4], int ra,
                                            int W, float fa, float fb, int lane) {
   const int t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
+  for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + 2 * t;
     if (ra < W) store2(dst + (size_t)ra * DH + c, acc[n][0] * fa, acc[n][1] * fa);
     if (ra + 8 < W) store2(dst + (size_t)(ra + 8) * DH + c, acc[n][2] * fb, acc[n][3] * fb);

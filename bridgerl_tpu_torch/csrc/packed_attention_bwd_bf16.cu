@@ -1,6 +1,8 @@
-// K1 backward, bfloat16: the C entry point packed_attention_bwd_bf16. The
-// kernels, their launcher and the notes on their design are in k1_bwd.cuh;
-// the float32 entry point is packed_attention_bwd.cu.
+// K1 backward, bfloat16: the C entry point packed_attention_bwd_bf16, the
+// one-kernel paths (window tiles, the window-resident kernel). The kernels,
+// their launcher and the notes on their design are in k1_bwd.cuh; the
+// two-kernel path is packed_attention_bwd_bf16_long.cu, the other dtype's
+// entry point packed_attention_bwd.cu.
 //
 // Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_bwd
 // (attention.py:164, pallas_call at :171), for bfloat16 inputs.
@@ -15,7 +17,7 @@ extern "C" int packed_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bflo
                                          float inv_keep, int dropout, int causal, int path,
                                          int blocks, int smem_bytes, int blocks_kv,
                                          int smem_kv, void* stream) {
-  return dispatch(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale, seed,
-                  group_rows, thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
-                  blocks_kv, smem_kv, stream);
+  return dispatch<false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale, seed,
+                         group_rows, thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
+                         blocks_kv, smem_kv, stream);
 }

@@ -47,10 +47,13 @@ Each launch follows :func:`k1_plan`, which mirrors the C launchers: windows
 shorter than ``MIN_MMA_WINDOW`` take the window tiles (several whole
 windows a block, float32 cores), longer ones the tensor-core path (tiles of
 64 rows a block against streamed tiles of 32, online softmax; the backward
-one window-resident kernel up to W 128 at Dh 64, else two kernels with a
-scratch array of 3 floats a position between them). The C entry points
+one window-resident kernel up to W 64, and 128 at Dh <= 64, else two kernels
+with a scratch array between them). The C entry points
 recompute the plan and refuse any other. Each entry point counts its
-launches, and the tensor-core path's on a second counter (``MMA_COUNTER``).
+launches, the tensor-core path's on a second counter (``MMA_COUNTER``). The
+backward's two-kernel path has a C entry point of its own
+(``LONG_ENTRY``, ``csrc/packed_attention_bwd[_bf16]_long.cu``), whose
+launches count on the backward's counters and on ``LONG_COUNTER``.
 
 The forward op's registered autograd formula calls the backward op, which
 recomputes the probabilities and the dropout mask, as the TPU kernel's
@@ -87,8 +90,8 @@ TILE_ROWS = 20                # csrc/k1_tiles.cuh kTileRows: G = 20 // W windows
 MIN_MMA_WINDOW = 32           # csrc/k1_mma.cuh kMinWindow: W* of the tensor-core path
 MMA_ROWS, MMA_COLS = 64, 32   # kRows (a block's rows, 16 a warp) and kCols (a streamed tile)
 MAX_ROW = 65535               # kMaxRow: the Philox counter i * S + j has 32 bits
-WINDOW_DH = 64                # kWindowDh: the head dim at which the backward holds windows
-                              # of up to 128 whole (every model's the port trains)
+FULL_GRID = 264               # kFullGrid: two-kernel backward blocks of MMA_ROWS rows
+                              # below which the row-buffered dq kernel runs (two an SM)
 SEED_HIGH = 2 ** 31 - 1       # seeds are drawn from [0, SEED_HIGH), as in JAX
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -101,6 +104,10 @@ ENTRY = {("fwd", torch.float32): "packed_attention_fwd",
 COUNTER = {key: kernels.LaunchCounter(name) for key, name in ENTRY.items()}
 # the launches among those that took the tensor-core path (W >= MIN_MMA_WINDOW)
 MMA_COUNTER = {key: kernels.LaunchCounter(name + "_mma") for key, name in ENTRY.items()}
+# the backward's tensor-core launches that took two kernels (past the window-resident one),
+# each dtype's through a C entry point (and library) of the same name
+LONG_ENTRY = {dtype: ENTRY["bwd", dtype] + "_long" for dtype in DTYPES}
+LONG_COUNTER = {("bwd", dtype): kernels.LaunchCounter(name) for dtype, name in LONG_ENTRY.items()}
 
 Seed = Union[int, torch.Tensor]
 # one generator, or one per seed of a stacked multi-seed step
@@ -282,16 +289,22 @@ class K1Plan(NamedTuple):
     ``tiles``: blocks of 128 threads take ``windows_per_block`` (G) whole
     windows each (``rows`` = G * W query rows), ``blocks`` of them with
     ``smem_bytes`` of shared memory; the backward is one kernel.
-    ``mma``: block (window, tile) owns ``rows`` = 64 rows (queries; keys in
-    the backward's dk / dv kernel) and streams the window's other side in
-    tiles of ``cols`` = 32; ``blocks`` = windows x ``row_tiles`` for the
-    forward and the dq kernel, ``blocks_kv`` for the dk / dv kernel, with
-    ``smem_bytes`` and ``smem_kv``. The backward of a window of at most 128
-    positions at Dh = WINDOW_DH is one window-resident kernel: a block a
-    window, ``rows`` = ``cols`` = 64 (W <= 64) or 128, everything staged at
-    once, ``blocks_kv`` 0. Under ``causal`` the tiles that
-    :meth:`key_tiles` and :meth:`query_tiles` leave out, all wholly above the
-    diagonal, do not run."""
+    ``mma``: block (window, tile) owns ``rows`` rows (queries; keys in the
+    backward's dk / dv kernel) and streams the window's other side in tiles
+    of ``cols`` = 32; ``blocks`` = windows x ``row_tiles`` for the forward
+    and the dq kernel, ``blocks_kv`` for the dk / dv kernel, with
+    ``smem_bytes`` and ``smem_kv``. The forward's blocks take 64 rows. The
+    backward of a window of at most 64 positions, or 128 at Dh <= 64
+    (:func:`window_rows`), is one window-resident kernel: a block a window,
+    ``rows`` = ``cols`` = 64 or 128, everything staged at once, ``blocks_kv``
+    0. Longer windows take two kernels (:func:`backward_rows`): the
+    row-buffered dq kernel and the keys kernel in blocks of 32 rows (keys)
+    where 64-row blocks would not fill the card, through p_drop and ds planes
+    in device memory; else (or where no row buffer fits) the two-sweep dq
+    kernel and the dk / dv kernel in blocks of 64, through the rows'
+    statistics (:func:`backward_scratch`). Under
+    ``causal`` the tiles that :meth:`key_tiles` and :meth:`query_tiles` leave
+    out, all wholly above the diagonal, do not run."""
     path: str
     direction: str
     W: int
@@ -338,6 +351,59 @@ def mma_row_bytes(Dh: int, dtype: torch.dtype) -> int:
     return Dh * dtype.itemsize + 16
 
 
+def window_rows(W: int, Dh: int) -> int:
+    """The window-resident backward's rows (k1_mma.cuh's bwd_window_rows):
+    64 for W <= 64, 128 for W <= 128 at Dh <= 64 (at Dh 128 neither the
+    staged rows and the (128, 132) tile nor a thread's registers fit); 0
+    where the window takes two kernels."""
+    if W <= MMA_ROWS:
+        return MMA_ROWS
+    return 2 * MMA_ROWS if Dh <= 64 and W <= 2 * MMA_ROWS else 0
+
+
+def row_buffer_stride(W: int) -> int:
+    """k1_mma.cuh's bwd_buffer_stride: a row of the dq kernel's float32
+    buffers, the window's keys in whole tiles and 4 floats."""
+    return _cdiv(W, MMA_COLS) * MMA_COLS + 4
+
+
+def rows_smem(rows: int, W: int, row: int) -> int:
+    """The row-buffered dq kernel's shared memory: q and dout rows, two
+    stages of (K, V) tiles, two (rows, stride) float32 buffers and the keep
+    flags (a 32-bit word a row and key tile)."""
+    return ((2 * rows + 4 * MMA_COLS) * row + 8 * rows * row_buffer_stride(W)
+            + 4 * rows * _cdiv(W, MMA_COLS))
+
+
+def plane_stride(W: int) -> int:
+    """k1_mma.cuh's bwd_plane_stride: the row stride of the p_drop and ds
+    planes between the row-buffered dq kernel and the keys kernel."""
+    return _cdiv(W, MMA_COLS) * MMA_COLS
+
+
+def backward_scratch(plan: "K1Plan") -> int:
+    """Floats of scratch the two-kernel backward needs: the p_drop and ds
+    planes of every window (the row-buffered dq kernel, ``rows`` 32), or the
+    rows' max, 1 / normaliser and D and 4 floats more, which the dk / dv
+    kernel's last copies may read (the two-sweep dq kernel); 0 for one
+    kernel."""
+    if not plan.blocks_kv:
+        return 0
+    if plan.rows < MMA_ROWS:
+        return 2 * plan.windows * plan.W * plane_stride(plan.W)
+    return 3 * plan.windows * plan.W + 4
+
+
+def backward_rows(windows: int, W: int, Dh: int, dtype: torch.dtype) -> int:
+    """The rows of the row-buffered dq kernel's blocks (k1_mma.cuh's
+    bwd_block_rows): 32 where blocks of 64 rows would number fewer than
+    FULL_GRID and the row buffers fit; 0 where the two-sweep dq kernel runs
+    (a full card, whose blocks it fits three an SM, or no buffer fits)."""
+    full = windows * _cdiv(W, MMA_ROWS) >= FULL_GRID
+    fits = rows_smem(MMA_ROWS // 2, W, mma_row_bytes(Dh, dtype)) <= SMEM_LIMIT
+    return MMA_ROWS // 2 if not full and fits else 0
+
+
 def k1_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
             direction: str = "fwd", causal: bool = False) -> K1Plan:
     """The launch of K1 at (BH, S, Dh), window W: the window tiles below
@@ -359,18 +425,23 @@ def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float3
     below, in a build of its own)."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
     row = mma_row_bytes(Dh, dtype)
-    blocks = windows * _cdiv(W, MMA_ROWS)
     if direction == "fwd":
-        return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks,
-                      (MMA_ROWS + 4 * MMA_COLS) * row, 0, 0)
-    if Dh == WINDOW_DH and W <= 2 * MMA_ROWS:
-        # one window-resident kernel: a block of R rows holds the whole window
-        R = MMA_ROWS if W <= MMA_ROWS else 2 * MMA_ROWS
+        return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1,
+                      windows * _cdiv(W, MMA_ROWS), (MMA_ROWS + 4 * MMA_COLS) * row, 0, 0)
+    R = window_rows(W, Dh)
+    if R:   # one window-resident kernel: a block of R rows holds the whole window
         return K1Plan("mma", direction, W, causal, windows, R, R, 1, windows,
                       4 * R * row + R * (R + 4) * 4, 0, 0)
-    smem = (2 * MMA_ROWS + 4 * MMA_COLS) * row
-    return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks, smem,
-                  blocks, smem + 2 * 3 * MMA_COLS * 4)
+    RB = backward_rows(windows, W, Dh, dtype)
+    blocks = windows * _cdiv(W, RB or MMA_ROWS)
+    if RB:   # the row-buffered dq kernel and the keys kernel
+        return K1Plan("mma", direction, W, causal, windows, RB, MMA_COLS, 1, blocks,
+                      rows_smem(RB, W, row), blocks,
+                      4 * MMA_COLS * row + 4 * MMA_COLS * (RB + 4) * 4)
+    # the two-sweep dq kernel and the dk / dv kernel
+    return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks,
+                  (2 * MMA_ROWS + 4 * MMA_COLS) * row, blocks,
+                  (2 * MMA_ROWS + 4 * MMA_COLS) * row + 2 * 3 * MMA_COLS * 4)
 
 
 def _windows_of(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype, direction: str) -> int:
@@ -428,6 +499,8 @@ def _count(direction: str, plan: K1Plan, dtype) -> None:
     COUNTER[direction, dtype].add()
     if plan.path == "mma":
         MMA_COUNTER[direction, dtype].add()
+    if plan.blocks_kv:
+        LONG_COUNTER[direction, dtype].add()
 
 
 def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
@@ -456,11 +529,10 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=F
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if BH == 0:
         return dq, dk, dv
-    # the rows' max, 1 / normaliser and rowsum(dp * p), from the dq kernel to
-    # the dk / dv kernel; 4 floats beyond, which the last tile's copies may read
-    stats = (torch.empty(3 * BH * S + 4, dtype=torch.float32, device=q.device)
-             if plan.blocks_kv else None)
-    name = ENTRY["bwd", q.dtype]
+    # what the two-kernel backward's first kernel hands its second
+    scratch = backward_scratch(plan)
+    stats = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
+    name = LONG_ENTRY[q.dtype] if plan.blocks_kv else ENTRY["bwd", q.dtype]
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -18,9 +18,13 @@ products and stores. Tensor-core path (the ``K1_PHASE`` marks of
 waiting for a tile), logits (the products q k^T and dout v^T, bias, masks,
 softmax and draws), products (from registers: p v, ds k, p^T dout, ds^T q)
 and stores; the two-kernel backward's kernels (dq, then dk / dv) each on
-its own line; the window-resident backward (W <= 128 at Dh 64): stage, rows
-(s and dp, softmax, draws, ds), dq (its product, p_drop into shared memory)
-and keys (dv and dk by key columns, and the stores). ``--crossover`` builds the sources as shipped and, in a
+its own line, the row-buffered dq kernel (``dq_rows``) with wait, logits
+(s, dp and the draws into the row buffers), rows (max, normaliser, D, ds,
+the planes written) and products (ds k), and the keys kernel after it
+(``keys``: wait, fragments of the planes, products, stores); the window-resident backward (W <= 64, and <= 128 at
+Dh <= 64): stage, rows (s and dp, softmax, draws, ds), dq (its product,
+p_drop into shared memory) and keys (dv and dk by key columns, and the
+stores). ``--crossover`` builds the sources as shipped and, in a
 copy whose ``kMinWindow`` is 1, with every window on the tensor-core path
 (launched with ``ops/attention.py::mma_plan``), and times both paths' forward
 and backward (CUDA events, the median of 30 after warm-up) at CROSSOVER_W
@@ -50,13 +54,20 @@ from ..ops import attention, kernels
 # (B*H, S, Dh, packing, dropout, causal)
 SHAPES = ((256, 80, 64, 8, 0.1, False), (2048, 80, 64, 8, 0.0, False),
           (1024, 64, 64, 1, 0.1, False), (1024, 64, 64, 1, 0.0, False),
-          (128, 128, 64, 1, 0.1, True))
+          (128, 128, 64, 1, 0.1, True),
+          # past the window-resident backward at Dh 64 and W <= 128: W 160 at Dh 128,
+          # W 200, causal S 160, the prior at 256 positions and at d_model 128 (Dh 32)
+          (24, 160, 128, 1, 0.1, False), (48, 200, 64, 1, 0.1, False),
+          (32, 160, 64, 1, 0.1, True), (128, 256, 64, 1, 0.1, True),
+          (128, 128, 32, 1, 0.1, True))
 CROSSOVER_W = (16, 20, 24, 28, 32, 40, 48, 64)
 CROSSOVER_POSITIONS = 65536
 MAX_BLOCKS = 1 << 16
 TILE_PHASES = ("stage", "logits", "softmax", "products")
 MMA_PHASES = ("wait", "logits", "products", "stores")
 WINDOW_PHASES = ("stage", "rows", "dq", "keys")   # the window-resident backward
+ROWS_PHASES = ("wait", "logits", "rows", "products")   # the row-buffered dq kernel
+KEYS_PHASES = ("wait", "fragments", "products", "stores")   # the keys kernel after it
 KERNELS = (("k1_fwd.cuh", "k1_fwd_tiles", "fwd"), ("k1_bwd.cuh", "k1_bwd_tiles", "bwd"))
 MIN_WINDOW = "constexpr int kMinWindow = {};"   # k1_mma.cuh's W*, which the copy rewrites
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -143,9 +154,11 @@ def build(workdir: str, dtype=torch.float32, mma_everywhere: bool = False):
     if mma_everywhere:
         _rewrite(f"{workdir}/k1_mma.cuh", lambda text: text.replace(
             MIN_WINDOW.format(attention.MIN_MMA_WINDOW), MIN_WINDOW.format(1)))
+    names = [attention.ENTRY["fwd", dtype], attention.ENTRY["bwd", dtype],
+             attention.LONG_ENTRY[dtype]]
     procs = []
-    for _, _, direction in KERNELS:
-        lib = kernels.SIGNATURES[attention.ENTRY[direction, dtype]][0]
+    for fn in names:
+        lib = kernels.SIGNATURES[fn][0]
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-include", f"{workdir}/k1_phase_marks.h",
                "-o", f"{workdir}/lib{lib}.so", f"{workdir}/{lib}.cu"]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -155,15 +168,14 @@ def build(workdir: str, dtype=torch.float32, mma_everywhere: bool = False):
         if p.returncode:
             raise RuntimeError(log)
     out = {}
-    for _, _, direction in KERNELS:
-        fn = attention.ENTRY[direction, dtype]
+    for fn in names:
         so = ctypes.CDLL(f"{workdir}/lib{kernels.SIGNATURES[fn][0]}.so")
         entry = getattr(so, fn)
         entry.argtypes, entry.restype = kernels.SIGNATURES[fn][1], ctypes.c_int
         for dump in ("k1_marks", "k1_phases"):
             getattr(so, dump).argtypes = [ctypes.c_void_p]
             getattr(so, dump).restype = ctypes.c_int
-        out[direction] = (entry, so)
+        out[fn] = (entry, so)
     return out
 
 
@@ -177,13 +189,22 @@ class Call:
         self.bias = causal_bias(S, "cuda") if causal else attention_bias(P, W, "cuda")
         self.seed = attention.draw_seed(g, "cuda")
         self.out, self.dq, self.dk, self.dv = (torch.empty_like(self.q) for _ in range(4))
-        self.stats = torch.empty(3 * BH * S + 4, device="cuda")
+        self.stats = None   # the backward's scratch, sized by its plan below
         self.dims = (BH, S, W, Dh)
         self.head = (Dh ** -0.5, self.seed.data_ptr() if rate > 0 else 0, BH)   # one group
         self.tail = (attention.keep_threshold(rate), attention._inv_keep(rate), int(rate > 0),
                      int(causal))
         plan = attention.mma_plan if mma_everywhere else attention.k1_plan
         self.plans = {d: plan(BH, S, W, Dh, dtype, d, causal) for d in ("fwd", "bwd")}
+        self.dtype = dtype
+        self.stats = torch.empty(max(attention.backward_scratch(self.plans["bwd"]), 1),
+                                 device="cuda")
+
+    def entry_name(self, direction) -> str:
+        """The C entry point of the launch: the backward's two kernels have their own."""
+        if direction == "bwd" and self.plans["bwd"].blocks_kv:
+            return attention.LONG_ENTRY[self.dtype]
+        return attention.ENTRY[direction, self.dtype]
 
     def __call__(self, direction, entry) -> int:
         plan = self.plans[direction]
@@ -221,7 +242,8 @@ def phases(dtype) -> None:
     card = torch.cuda.get_device_name(0)
     for BH, S, Dh, P, rate, causal in SHAPES:
         call = Call(g, dtype, BH, S, Dh, P, rate, causal)
-        for direction, (entry, so) in libs.items():
+        for direction in ("fwd", "bwd"):
+            entry, so = libs[call.entry_name(direction)]
             plan = call.plans[direction]
             for cold in (False, True):
                 for _ in range(3):
@@ -233,7 +255,7 @@ def phases(dtype) -> None:
                 torch.cuda.synchronize()
                 if status:
                     raise RuntimeError(f"{direction}: CUDA error {status}")
-                line = {"kernel": attention.ENTRY[direction, dtype],
+                line = {"kernel": call.entry_name(direction),
                         "dtype": str(dtype).replace("torch.", ""), "shape": [BH, S, Dh],
                         "window": S // P, "dropout": rate, "causal": causal, "path": plan.path,
                         "l2": "cold" if cold else "warm", "card": card}
@@ -260,7 +282,9 @@ def _spans(so, plan):
     if plan.direction == "fwd":
         parts = [("fwd", plan.blocks, raw[0])]
     elif plan.blocks_kv:
-        parts = [("dq", plan.blocks, raw[0]), ("dkv", plan.blocks_kv, raw[1])]
+        rows = plan.rows < attention.MMA_ROWS   # the row-buffered dq kernel, then keys
+        parts = [("dq_rows" if rows else "dq", plan.blocks, raw[0]),
+                 ("keys" if rows else "dkv", plan.blocks_kv, raw[1])]
     else:
         parts = [("window", plan.blocks, raw[0])]
     out = []
@@ -286,6 +310,7 @@ def _span_fields(t, path) -> dict:
 
 def _phase_medians(t, path, part) -> dict:
     names = (TILE_PHASES if path == "tiles" else WINDOW_PHASES if part == "window"
+             else ROWS_PHASES if part == "dq_rows" else KEYS_PHASES if part == "keys"
              else MMA_PHASES)
     return {"phase_us_p50": {name: float(np.median(t[i + 1] - t[i])) / 1e3
                              for i, name in enumerate(names)}}
@@ -312,7 +337,7 @@ def crossover() -> None:
                 for direction in ("fwd", "bwd"):
                     line[f"{direction}_{key}_path"] = call.plans[direction].path
                     line[f"{direction}_{key}_ms"] = _median_ms(
-                        lambda: call(direction, libs[direction][0]))
+                        lambda: call(direction, libs[call.entry_name(direction)][0]))
             print(json.dumps(line), flush=True)
 
 

@@ -41,8 +41,10 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    and packing 2 (the studies' K4 teacher tokenizing 4096 windows; its
    backward at the teacher's training microbatch, (1024, 128, 64)). The
    backward also runs at S = W = 160, Dh 128 and at S = W = 200, Dh 64,
-   which take its two-kernel tensor-core path (the others up to W 128 at
-   Dh 64 take the window-resident kernel); every backward case is launched
+   which take its two-kernel tensor-core path (the row-buffered dq kernel
+   and the keys kernel, entry points ``packed_attention_bwd[_bf16]_long``;
+   windows up to 64, and up to 128 at Dh <= 64, take the window-resident
+   kernel); every backward case is launched
    twice and its dq, dk and dv must repeat bit for bit. K2 runs
    at N = 4096 (serving), 512 (training), 6554 (validation) and 16384 (the
    K4 teacher's 4096 windows x 4 tokens) with K = 512, and at K = 1024 with
@@ -50,9 +52,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
    indices bit for bit, a second call must repeat the first bit for bit,
    and in a child process one profile of all its shapes (``k2_device_ops``;
-   a process's later profiler sessions lose records, and none is taken
-   again) must see no device operation but its two kernels and one record
-   of each a call; each K2 line carries the device time of each of its two
+   a process's later profiler sessions lose records) must see no device
+   operation but its two kernels and one record of each a call: a record
+   of any other operation fails at once, and a profile whose records are
+   all K2's but fewer (the profiler lost some) is reported with its listing
+   by shape and taken once more in a fresh child, which must be whole;
+   each K2 line carries the device time of each of its two
    kernels (the records inside its shape's range) and the time of one and
    of two empty kernels
    (``launch_floor_ms``), timed the same way. Seed groups (a stacked
@@ -106,8 +111,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    window 10) for 2 epochs and its student for 1; the checkpoints and
    histories must carry the reference's names, and the teacher's train
    loss must fall. ``serve_trained``: that teacher's checkpoint served on
-   its own windows, in float32 under the float32 rule and in bf16 under the
-   bf16 rules, with the share of windows whose codes flip in bf16.
+   its own windows, in float32 (trained weights put windows on code
+   boundaries) with values within 1e-3 of the CPU's on the windows whose
+   codes the two share, and every token whose codes differ an RVQ near tie
+   under K2's rule (FSQ flips within CODES_AGREE's share, and one), and in
+   bf16 under the bf16 rules, with the share of windows whose codes flip in
+   bf16.
 8. The frozen serving artifact (``export/serialize.py``) of the flagship,
    in float32 and in bf16: exported with cuda and cpu programs (timed),
    loaded in a child process (which must import no ``models``, ``train``
@@ -169,9 +178,11 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    bf16, at (128, 128, 64) (training: the tensor-core path), (16384, 5, 64) (the
    slot-AR depth stack: window tiles), dropout 0.1 and 0, (16, 32, 64)
    (sampling) and (128, 96, 64) (the studies' prior at max_len 96), dropout
-   0.1 and 0, and (32, 160, 64) (the backward's two-kernel path), each
-   held to the plain version under the rules of phase 2, the backward's
-   second launch bit for bit its first,
+   0.1 and 0, (32, 160, 64) (the backward's two-kernel path), (128, 256,
+   64) (the prior at 256 positions: two kernels) at dropout 0.1 and 0, and
+   (128, 128, 32) (a prior at d_model 128: the window-resident kernel at Dh
+   32), each held to the plain version under the rules of phase 2, the
+   backward's second launch bit for bit its first,
    with its bound for the lower triangle's work and SDPA ``is_causal=True``
    as the library yardstick; ``k1_causal_mask``: both kernels' keep bits at
    (128, 128, 128) equal to the plain Philox mask on and below the
@@ -184,6 +195,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    in bf16 (windows/s, tokens/s, losses), a slot-AR prior (2 depth layers)
    one; one step at dropout 0 is held to the CPU under train_agree's and
    train_agree_bf16's rules.
+    ``prior_long`` (after ``generator_artifact``): the same at 256 positions,
+   the JAX TokenPrior's own max_len: 128 takes of 1,285 frames give (128,
+   256, 5) grids on the card, 8 takes held to the CPU's; the full-width
+   prior trains 2 timed epochs in f32 and bf16, every K1 backward on the
+   two-kernel path; one step at dropout 0 against the CPU under the same
+   two rules.
 17. ``generate``: 4 motions of 32 positions from the f32 prior, unguided,
    guided (8 candidates, guide_dyn 0.2) and prompted (8 positions of a
    take): every token the CPU's draw from the card's prefix with the same
@@ -192,7 +209,7 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    candidates where no draw or score ties; decoded motion within 1e-3 of
    the CPU's decode of the same grid; frames/s of ``make_generation_fn``
    unguided and guided, as scripts/bench_generation.py counts them.
-18. ``generator_artifact``: the f32 prior and the flagship frozen (8
+18. ``generator_artifact``: the f32 prior and the flagship frozen (4
    positions unrolled, cuda programs; export timed), loaded in a child
    process (no models, train or config imported) and here; ``generate``
    for a seed within 1e-5 of the live ``make_generation_fn`` in the child,
@@ -275,17 +292,19 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    bf16 under the bf16 code rule); each entry's seconds and launches.
 25. The ``kernels`` line (every kernel, float32 and bf16 rows, K1's split
    into the window tiles, under the entry point's name, and the tensor-core
-   path, under ``<entry>_mma``, each with its own cases; with its
+   path, under ``<entry>_mma``, the backward's two-kernel launches apart
+   under ``<entry>_long``, each with its own cases; with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk, int8, prior, generate, generator_artifact, latent, torch_import,
+   fk, int8, prior, prior_long, generate, generator_artifact, latent,
+   torch_import,
    demo_stream, data_parallel (the ranks' launches; cli includes
    cli_multiseed) and research (the studies' child, summed over its
    entries); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls; the float32
    tensor-core rows must show launches on the zoo, recipe, prior and
-   research paths), then, last,
+   research paths, the two-kernel rows on prior_long), then, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
@@ -527,16 +546,24 @@ MMA_PATHS = ("zoo", "recipe", "prior", "research")
 # prior (batch 32 x 4 heads, max_len 96)
 K1_CAUSAL = ((128, 128, 64, 0.1), (128, 128, 64, 0.0), (16384, 5, 64, 0.1),
              (16384, 5, 64, 0.0), (16, 32, 64, 0.0), (128, 96, 64, 0.1), (128, 96, 64, 0.0),
-             (32, 160, 64, 0.1))   # past the window-resident backward: its two kernels
+             (32, 160, 64, 0.1),   # past the window-resident backward: its two kernels
+             # the prior at 256 positions (the JAX TokenPrior's max_len; two kernels) and at
+             # d_model 128 with 4 heads (Dh 32, 128 positions; window-resident)
+             (128, 256, 64, 0.1), (128, 256, 64, 0.0), (128, 128, 32, 0.1))
 # synthetic takes of 645 frames: 128 windows each at W 10 and stride 5, one grid a take
 PRIOR_TAKES, PRIOR_FRAMES, PRIOR_POSITIONS, PRIOR_STRIDE = 256, 645, 128, 5
 PRIOR_EPOCHS = 3
 PRIOR_CPU_TAKES = 32          # the takes whose grids the CPU also extracts
+# the prior at 256 positions, the JAX TokenPrior's own max_len (models/token_prior.py:64):
+# takes of 1,285 frames, 256 windows each at W 10 and stride 5; its backward is K1 causal
+# (128, 256, 64), the two-kernel path
+PRIOR_LONG_TAKES, PRIOR_LONG_FRAMES, PRIOR_LONG_POSITIONS = 128, 1285, 256
+PRIOR_LONG_EPOCHS, PRIOR_LONG_CPU_TAKES = 2, 8
 ZERO29, ONE29 = np.zeros(29, np.float32), np.ones(29, np.float32)   # raw in, raw out
 # sampling: motions a call, positions, guided candidates and dynamics weight (the
 # README's recommended policy), prompt positions, the seed
 GEN_SAMPLES, GEN_POSITIONS, GEN_CANDIDATES, GEN_DYN, GEN_PROMPT, GEN_SEED = 4, 32, 8, 0.2, 8, 7
-GENERATOR_POSITIONS = 8       # unrolled into the generator artifact (its export's time
+GENERATOR_POSITIONS = 4       # unrolled into the generator artifact (its export's time
                               # grows with them; generate's frames/s keep GEN_POSITIONS)
 GEN_TIE = 1e-4                # the CPU's two best perturbed scores this close: not compared
 GEN_ATOL = 1e-3               # decoded motion, card against the CPU, on the same grid
@@ -801,11 +828,24 @@ def _kernel_row(name: str, source: str, replaces: str, cases: list) -> dict:
 ROW_KEYS = ("name", "route", "source", "replaces", "kernel_ms", "cases")
 
 
+def k1_case_kernel(name: str, case: dict) -> str:
+    """The row of the ``kernels`` line that a K1 case of entry point ``name``
+    belongs to: the window tiles (W < MIN_MMA_WINDOW) under the entry's
+    name; the tensor-core path under ``<entry>_mma`` and, for the backward's
+    two-kernel launches (its plan has a dk / dv kernel), ``<entry>_long``."""
+    if case["window"] < attention.MIN_MMA_WINDOW:
+        return name
+    BH, S, Dh = case["shape"]
+    direction = "bwd" if "bwd" in name else "fwd"
+    plan = attention.k1_plan(BH, S, case["window"], Dh, BF16 if "bf16" in name else torch.float32,
+                             direction, case.get("bias") == "causal")
+    return name + ("_long" if plan.blocks_kv else "_mma")
+
+
 def split_k1_rows(table: list) -> list:
-    """Each K1 entry point's row split by the kernels it launched: the window
-    tiles (W < MIN_MMA_WINDOW) under the entry's name, the tensor-core path
-    under its counter's (``<entry>_mma``), each with its own cases, the first
-    its main one. K2's row is kept."""
+    """Each K1 entry point's row split by the kernels it launched
+    (:func:`k1_case_kernel`), each with its own cases, the first its main
+    one. K2's row is kept."""
     out = []
     for row in table:
         if row["name"] not in attention.ENTRY.values():
@@ -813,20 +853,24 @@ def split_k1_rows(table: list) -> list:
             continue
         main = {k: v for k, v in row.items() if k not in ROW_KEYS}
         cases = [main, *row["cases"]]
-        for name, part in ((row["name"], [c for c in cases
-                                          if c["window"] < attention.MIN_MMA_WINDOW]),
-                           (row["name"] + "_mma", [c for c in cases
-                                                   if c["window"] >= attention.MIN_MMA_WINDOW])):
+        names = [row["name"], row["name"] + "_mma"]
+        if "bwd" in row["name"]:
+            names.append(row["name"] + "_long")
+        for name in names:
+            part = [c for c in cases if k1_case_kernel(row["name"], c) == name]
             out.append(_kernel_row(name, row["source"], row["replaces"], part))
     return out
 
 
 def row_launches(row: dict, launched: dict) -> int:
     """A kernel row's launches in one path's counts: an entry point's window
-    tiles are its launches less its tensor-core ones."""
+    tiles are its launches less its tensor-core ones, and the backward's
+    window-resident kernel its tensor-core launches less its two-kernel ones."""
     name = row["name"]
     if name in attention.ENTRY.values():
         return launched[name] - launched[name + "_mma"]
+    if name.endswith("_mma") and name[:-4] + "_long" in launched:
+        return launched[name] - launched[name[:-4] + "_long"]
     return launched[name]
 
 
@@ -979,15 +1023,28 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
                        "bridgerl_tpu/ops/pallas/attention.py:164", cases)
 
 
+def k2_profile_status(names: list, calls: int) -> str:
+    """A K2 profile's device records (their names) over ``calls`` calls:
+    "whole", one record of each of K2's two kernels a call and nothing else;
+    "short", every record one of K2's kernels but fewer than that (the
+    profiler lost records, PERF.md §7). Raises on any other record, and on
+    more than a record of each kernel a call."""
+    foreign = sorted({n[:80] for n in names if not any(k in n for k in K2_KERNELS)})
+    require(not foreign, f"K2: device records of other operations: {foreign}")
+    per = {k: sum(1 for n in names if k in n) for k in K2_KERNELS}
+    require(all(n <= calls for n in per.values()),
+            f"K2: {per} device records in {calls} calls, more than one of each a call")
+    return "whole" if all(n == calls for n in per.values()) else "short"
+
+
 def k2_device_ops_rows(reps: int = 10) -> dict:
     """K2's device operations at each of K2_SHAPES from one torch.profiler
     session, ``reps`` calls a shape after a warm-up call, each shape's calls
-    in a ``record_function`` range that ends in a synchronize. Every device
-    record must be one of K2's two kernels (no fill, no copy), one record of
-    each a call; no profile is taken again. A shape's records are those
-    inside its range (device timestamps on the host's clock); run in a
-    child process (``K2_PROFILE_PROBE``), where the session is the
-    process's first."""
+    in a ``record_function`` range that ends in a synchronize, and the
+    profile's :func:`k2_profile_status`. A shape's records are those inside
+    its range (device timestamps on the host's clock); run in a child
+    process (``K2_PROFILE_PROBE``), where the session is the process's
+    first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1021,25 +1078,32 @@ def k2_device_ops_rows(reps: int = 10) -> dict:
                                          for k in K2_KERNELS},
             "device_ms_by_kernel": {k: sum(d.time_range.elapsed_us() for d in mine
                                            if k in d.name) / 1e3 / reps for k in K2_KERNELS}}
-    require(sum(per_kernel.values()) == len(device) == K2_DEVICE_OPS * calls
-            and all(n == calls for n in per_kernel.values()),
-            f"K2: {len(device)} device records {per_kernel} in {calls} calls, want one of "
-            f"each of {K2_KERNELS} a call and nothing else: "
-            f"{sorted({e.name[:80] for e in device})}; by shape, in order: "
-            f"{[(n, shapes.get(n, {}).get('device_records_by_kernel')) for n in inputs]}")
-    return {"calls": calls, "device_records": len(device), "records_by_kernel": per_kernel,
-            "shapes": shapes}
+    return {"status": k2_profile_status([e.name for e in device], calls), "calls": calls,
+            "device_records": len(device), "records_by_kernel": per_kernel, "shapes": shapes}
 
 
 def k2_device_ops(smi: str) -> dict:
-    """``k2_device_ops_rows`` in a child process."""
+    """``k2_device_ops_rows`` in a child process. A profile that lost some of
+    K2's records ("short") is reported with its listing by shape and taken
+    once more in a fresh child, which must be whole: one record of each of
+    K2's two kernels a call."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    stdout = _run_cli(["-c", K2_PROFILE_PROBE], here, dict(os.environ, PYTHONPATH=here))
-    rows = json.loads(stdout.strip().splitlines()[-1])
+    profile_child = lambda: json.loads(_run_cli(["-c", K2_PROFILE_PROBE], here, dict(
+        os.environ, PYTHONPATH=here)).strip().splitlines()[-1])   # noqa: E731
+    rows, retaken = profile_child(), False
+    if rows["status"] == "short":
+        emit({"phase": "k2_device_ops_short", "card": smi, "calls": rows["calls"],
+              "device_records": rows["device_records"],
+              "records_by_kernel": rows["records_by_kernel"],
+              "by_shape": {n: r["device_records_by_kernel"] for n, r in rows["shapes"].items()}})
+        rows, retaken = profile_child(), True
+        require(rows["status"] == "whole",
+                f"K2: the retaken profile lost records too: {rows['device_records']} records "
+                f"{rows['records_by_kernel']} in {rows['calls']} calls")
     emit({"phase": "k2_device_ops", "card": smi, "calls": rows["calls"],
           "device_records": rows["device_records"], "records_by_kernel": rows["records_by_kernel"],
-          "k2_device_ops_s": time.perf_counter() - t0})
+          "retaken": retaken, "k2_device_ops_s": time.perf_counter() - t0})
     return rows["shapes"]
 
 
@@ -1841,9 +1905,12 @@ def cli_path(smi: str) -> tuple:
 
 def serve_trained(workdir: str, smi: str) -> dict:
     """The CLI-trained teacher served through ServingApp on the card, on
-    SERVE_TRAINED_WINDOWS of its own training windows: in float32 under the
-    f32 rule; in bf16 (the same weights) under the bf16 rules, with the
-    share of windows whose codes leave float32's on trained weights."""
+    SERVE_TRAINED_WINDOWS of its own training windows: in float32 under
+    :func:`trained_f32_rule` (trained weights put windows on code
+    boundaries: values on the windows whose codes the card and the CPU
+    share, every other window a near tie); in bf16 (the same weights) under
+    the bf16 rules, with the share of windows whose codes leave float32's
+    on trained weights."""
     ck = load_checkpoint(os.path.join(workdir, CLI_TEACHER))
     weights = ck["model_state_dict"]
 
@@ -1861,7 +1928,9 @@ def serve_trained(workdir: str, smi: str) -> dict:
     for dtype in DTYPES:
         exp = dataclasses.replace(ck["config"], model=dataclasses.replace(
             ck["config"].model, compute_dtype=DTYPE_NAME[dtype]))
-        _, module, verify, _ = serving_check(exp, trained)
+        model, module, verify, ((cpu, cpu_model), _) = serving_check(exp, trained)
+        if dtype == torch.float32:
+            verify = _trained_verify(model, cpu, cpu_model)
         singles = iter(pick)   # b = 1 tries successive windows
 
         def x_for(fn, b, singles=singles):
@@ -1875,6 +1944,24 @@ def serve_trained(workdir: str, smi: str) -> dict:
     out["bf16_code_flip_share"] = max(flips)
     emit(out)
     return out
+
+
+def _trained_verify(model, cpu, cpu_model):
+    """serve_trained's float32 check (:func:`trained_f32_rule`): the codes
+    of each window on the card and on the CPU, the CPU's latents, and the
+    answer's values against the CPU's on the windows whose codes agree."""
+    def verify(name, fn, x, got):
+        branch = "robot" if fn == "robot_recon" else "human"
+        want = _numpy(cpu.fns[fn](x))
+        with torch.no_grad():
+            xt = torch.as_tensor(x)
+            z = cpu_model.encode_robot(xt) if branch == "robot" else cpu_model.encode_human(xt)
+        if fn == "motion_codes":
+            require(sorted(got) == sorted(want), f"{name}: streams {sorted(got)}")
+            return trained_f32_rule(name, cpu_model.quantizer, z, got, want)
+        return trained_f32_rule(name, cpu_model.quantizer, z, _window_codes(model, branch, x),
+                                _window_codes(cpu_model, branch, x), got, want)
+    return verify
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2785,51 +2872,102 @@ def check_k1_causal(g: torch.Generator, table: list) -> dict:
     return out
 
 
-def _prior_takes() -> list:
-    """PRIOR_TAKES synthetic robot takes of PRIOR_FRAMES frames (data/synthetic.py),
-    so PRIOR_POSITIONS windows each at W 10, stride 5."""
-    rng = np.random.default_rng(SEED + 11)
-    return [synth_pair(rng, PRIOR_FRAMES)[0] for _ in range(PRIOR_TAKES)]
+def _prior_takes(n: int = PRIOR_TAKES, frames: int = PRIOR_FRAMES, seed: int = SEED + 11) -> list:
+    """n synthetic robot takes of ``frames`` frames (data/synthetic.py): PRIOR_TAKES
+    of PRIOR_FRAMES, so PRIOR_POSITIONS windows each at W 10, stride 5."""
+    rng = np.random.default_rng(seed)
+    return [synth_pair(rng, frames)[0] for _ in range(n)]
 
 
-def _code_flips(model, exp, takes: list, got: np.ndarray, want: np.ndarray,
-                mask: np.ndarray) -> dict:
-    """Positions whose codes differ between ``got`` (the card's grids) and
-    ``want`` (the CPU's) over ``takes``, each explained or not by K2's
-    near-tie rule: at the first RVQ stage where they differ, the two codes'
-    plain distances to the CPU's residual lie within K2_TIE * (1 + |d|). An
-    FSQ flip (a rounding boundary, not K2) counts against CODES_AGREE."""
-    differ = (got != want).any(-1) & (mask > 0)
-    rows = np.argwhere(differ)
-    out = {"positions": int(mask.sum()), "positions_differ": len(rows), "fsq_flips": 0,
-           "rvq_near_ties": 0, "rvq_not_ties": 0}
-    if not len(rows):
+def rvq_flip_counts(q, z: torch.Tensor, got: np.ndarray, want: np.ndarray) -> dict:
+    """Tokens whose hybrid codes differ between ``got`` (the card's) and
+    ``want`` (the CPU's), rows of (FSQ code, each RVQ stage's code), with
+    ``z`` (N, D) their CPU latents before quantization: an FSQ flip (a
+    rounding boundary, not K2), or at the first RVQ stage where they differ
+    a near tie under K2's rule (the two codes' plain distances to the CPU's
+    residual within K2_TIE * (1 + |d|)) or not."""
+    out = {"fsq_flips": 0, "rvq_near_ties": 0, "rvq_not_ties": 0}
+    if not len(got):
         return out
-    W, stride = exp.model.window_size, PRIOR_STRIDE
-    x = np.stack([takes[i][t * stride:t * stride + W] for i, t in rows])
     with torch.no_grad():
-        q = model.quantizer
-        z = model.encode_robot(torch.from_numpy(x))
         _, z_fsq, _, _ = q.fsq(z)
-        residual = (z - z_fsq)[:, 0]
-    g, w = got[tuple(rows.T)], want[tuple(rows.T)]
-    open_rows = g[:, 0] == w[:, 0]
+        residual = (z - z_fsq).float()
+    open_rows = got[:, 0] == want[:, 0]
     out["fsq_flips"] = int((~open_rows).sum())
     for i, layer in enumerate(q.vq.layers):
         cb = layer.embedding.weight.float()
         d = (residual ** 2).sum(-1, keepdim=True) - 2 * residual @ cb.T + (cb ** 2).sum(-1)
-        gi, wi = torch.from_numpy(g[:, 1 + i]).long(), torch.from_numpy(w[:, 1 + i]).long()
-        flip = open_rows & (g[:, 1 + i] != w[:, 1 + i])
+        gi, wi = torch.from_numpy(got[:, 1 + i]).long(), torch.from_numpy(want[:, 1 + i]).long()
+        flip = open_rows & (got[:, 1 + i] != want[:, 1 + i])
         dg, dw = d.gather(1, gi[:, None])[:, 0], d.gather(1, wi[:, None])[:, 0]
         tie = ((dg - dw).abs() <= K2_TIE * (1 + dw.abs())).numpy()
         out["rvq_near_ties"] += int((flip & tie).sum())
         out["rvq_not_ties"] += int((flip & ~tie).sum())
         open_rows = open_rows & ~flip
         residual = residual - cb[wi]
-    require(out["rvq_not_ties"] == 0, f"prior grids: RVQ codes differ outside near ties {out}")
-    require(out["fsq_flips"] <= (1 - CODES_AGREE) * out["positions"] + 1,
-            f"prior grids: FSQ codes differ on too many positions {out}")
     return out
+
+
+def require_near_ties(name: str, flips: dict, tokens: int) -> None:
+    """Every RVQ flip a near tie; FSQ flips no more than CODES_AGREE leaves,
+    and one."""
+    require(flips["rvq_not_ties"] == 0, f"{name}: RVQ codes differ outside near ties {flips}")
+    require(flips["fsq_flips"] <= (1 - CODES_AGREE) * tokens + 1,
+            f"{name}: FSQ codes differ on too many tokens {flips}")
+
+
+def _code_flips(model, exp, takes: list, got: np.ndarray, want: np.ndarray,
+                mask: np.ndarray) -> dict:
+    """Positions whose codes differ between ``got`` (the card's grids) and
+    ``want`` (the CPU's) over ``takes``, each held to :func:`rvq_flip_counts`'s
+    rule by :func:`require_near_ties`."""
+    differ = (got != want).any(-1) & (mask > 0)
+    rows = np.argwhere(differ)
+    out = {"positions": int(mask.sum()), "positions_differ": len(rows)}
+    x = np.stack([takes[i][t * PRIOR_STRIDE:t * PRIOR_STRIDE + exp.model.window_size]
+                  for i, t in rows]) if len(rows) else None
+    with torch.no_grad():
+        z = model.encode_robot(torch.from_numpy(x))[:, 0] if len(rows) else None
+    out.update(rvq_flip_counts(model.quantizer, z, got[tuple(rows.T)], want[tuple(rows.T)]))
+    require_near_ties("prior grids", out, out["positions"])
+    return out
+
+
+def trained_f32_rule(name: str, q, z: torch.Tensor, got: dict, want: dict,
+                     got_values=None, want_values=None) -> dict:
+    """The float32 serving rule on weights trained on the card, whose
+    windows may sit on a code boundary: ``got`` and ``want`` are the card's
+    and the CPU's hybrid code streams of each window ({stream: (B, T)}),
+    ``z`` (B, T, D) the CPU's latents. Each token whose codes differ must be
+    an RVQ near tie or one of the few FSQ flips :func:`require_near_ties`
+    allows; the values (B, ...) are held within SERVE_ATOL of the CPU's on
+    the windows whose codes the two share."""
+    streams = ["fsq"] + [f"rvq/vq_{i}" for i in range(len(q.vq.layers))]
+
+    def stream(codes, name):   # a model's streams carry its quantizer's path
+        key = [k for k in codes if k == name or k.endswith("/" + name)]
+        require(len(key) == 1, f"{name}: no one code stream {name} in {sorted(codes)}")
+        return np.asarray(codes[key[0]]).reshape(len(codes[key[0]]), -1)
+
+    g, w = (np.stack([stream(c, k) for k in streams], -1) for c in (got, want))
+    require(g.shape == w.shape and g.dtype == w.dtype == np.int32,
+            f"{name}: codes {g.shape} {g.dtype}, want {w.shape} {w.dtype}")
+    differ = (g != w).any(-1)   # (B, T)
+    flips = {"tokens": int(differ.size), "tokens_differ": int(differ.sum()),
+             **rvq_flip_counts(q, z[torch.from_numpy(differ)], g[differ], w[differ])}
+    require_near_ties(name, flips, flips["tokens"])
+    out = {"codes_agree": 1.0 - flips["tokens_differ"] / flips["tokens"], "code_flips": flips}
+    if got_values is None:
+        return out
+    require(got_values.shape == want_values.shape and got_values.dtype == np.float32,
+            f"{name}: {got_values.shape} {got_values.dtype}, want {want_values.shape}")
+    require(bool(np.isfinite(got_values).all()), f"{name}: non-finite values")
+    rows = ~differ.any(1)
+    err = float(np.abs(got_values[rows] - want_values[rows]).max()) if rows.any() else 0.0
+    require(err <= SERVE_ATOL, f"{name}: max abs error vs CPU {err} > {SERVE_ATOL} on the "
+            f"{int(rows.sum())} windows whose codes agree")
+    return {**out, "max_abs_err_vs_cpu": err, "rows_compared": int(rows.sum()),
+            "rows": len(rows), "max_abs_err_all_rows": float(np.abs(got_values - want_values).max())}
 
 
 def _prior_config(pcfg, **over):
@@ -2936,6 +3074,66 @@ def prior_path(smi: str) -> tuple:
     line["prior_path_s"] = time.perf_counter() - t_phase
     emit(line)
     return line, (prior32, vq, exp, grids, mask)
+
+
+def prior_long_path(smi: str, vq, exp) -> dict:
+    """The prior at PRIOR_LONG_POSITIONS positions on the flagship's codes
+    (``vq``, seed 0): PRIOR_LONG_TAKES synthetic takes give (128, 256, 5)
+    grids on the card (K1, K2), held to the CPU's on PRIOR_LONG_CPU_TAKES
+    takes under the prior phase's rule; the full-width prior trains
+    PRIOR_LONG_EPOCHS timed epochs in f32 and bf16 (windows/s, tokens/s),
+    its backward on K1's two-kernel path; one step at dropout 0 is held to
+    the CPU under the prior phase's ``step_agree`` and ``step_agree_bf16``
+    rules. The launches of its own calls, K1's by kernel."""
+    t_phase = time.perf_counter()
+    takes = _prior_takes(PRIOR_LONG_TAKES, PRIOR_LONG_FRAMES, SEED + 12)
+    own = []
+    before = launches()
+    t0 = time.perf_counter()
+    grids, mask, pcfg, seq_ids = extract_code_grids(vq, exp, takes, ZERO29, ONE29, PRIOR_STRIDE,
+                                                    max_len=PRIOR_LONG_POSITIONS)
+    extract_s = time.perf_counter() - t0
+    own.append(_delta(before))
+    require(grids.shape == (PRIOR_LONG_TAKES, PRIOR_LONG_POSITIONS, 5) and mask.all(),
+            f"prior_long grids {grids.shape}, {mask.sum()} positions")
+    n = PRIOR_LONG_CPU_TAKES
+    cpu_vq = init_model(exp.model, SEED, device="cpu")
+    cpu = extract_code_grids(cpu_vq, exp, takes[:n], ZERO29, ONE29, PRIOR_STRIDE,
+                             max_len=PRIOR_LONG_POSITIONS)
+    line = {"phase": "prior_long", "card": smi, "takes": PRIOR_LONG_TAKES,
+            "grids": list(grids.shape), "extract_windows": int(mask.sum()),
+            "extract_s": extract_s, "extract_windows_per_s": float(mask.sum()) / extract_s,
+            "cpu_checked_takes": n,
+            "codes_vs_cpu": _code_flips(cpu_vq, exp, takes[:n], grids[:n], cpu[0], cpu[1])}
+    full = _prior_config(pcfg)
+    require(full.max_len == PRIOR_LONG_POSITIONS, f"prior_long max_len {full.max_len}")
+    for dtype in DTYPES:
+        before = launches()
+        _, hist, seconds, positions = _prior_train(grids, mask, seq_ids, full, dtype,
+                                                   PRIOR_LONG_EPOCHS)
+        delta = _delta(before)
+        own.append(delta)
+        require(all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
+                f"prior_long {DTYPE_NAME[dtype]} losses {hist}")
+        long = attention.LONG_COUNTER["bwd", dtype]
+        require(delta[long.name] > 0 and delta[long.name] == delta[attention.ENTRY["bwd", dtype]],
+                f"prior_long {DTYPE_NAME[dtype]}: every K1 backward must take the two-kernel "
+                f"path: {delta}")
+        rate = PRIOR_LONG_EPOCHS * positions / seconds
+        line[DTYPE_NAME[dtype]] = {
+            "epochs": PRIOR_LONG_EPOCHS, "train_s": seconds, "windows_per_s": rate,
+            "tokens_per_s": rate * len(pcfg.vocab_sizes), "history": hist}
+    g, m = grids[:32], mask[:32]
+    cpu32 = _prior_step(full, torch.float32, "cpu", g, m)
+    line["step_agree"] = _agree_rule("prior_long step_agree",
+                                     _prior_step(full, torch.float32, "cuda", g, m), cpu32)
+    line["step_agree_bf16"] = _bf16_step_rule(
+        "prior_long step_agree_bf16", cpu32, _prior_step(full, BF16, "cuda", g, m),
+        _prior_step(full, BF16, "cpu", g, m))
+    line["launches"] = add_launches(*own)
+    line["prior_long_path_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
 
 
 def _replay_draws(cpu_prior, grid: torch.Tensor, seed: int, rows: int, pick, t0: int,
@@ -4306,6 +4504,7 @@ def main(argv) -> int:
     prior, (prior32, vq, vq_exp, grids, _) = prior_path(smi)
     generate = generate_path(smi, prior32, vq, vq_exp, grids)
     generator = generator_artifact_path(smi, prior32, vq, vq_exp)
+    prior_long = prior_long_path(smi, vq, vq_exp)
     del prior32, vq
     latent = latent_path(smi)
     imported, import_dir = torch_import_path(smi)
@@ -4336,7 +4535,8 @@ def main(argv) -> int:
              "train": train[torch.float32], "train_bf16": train[BF16], "zoo": zoo, "cli": cli,
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
-             "fk": fk, "int8": int8, "prior": prior, "generate": generate,
+             "fk": fk, "int8": int8, "prior": prior, "prior_long": prior_long,
+             "generate": generate,
              "generator_artifact": generator, "latent": latent, "torch_import": imported,
              "demo_stream": demo, "data_parallel": dp, "research": research}
     for row in table:
@@ -4349,6 +4549,10 @@ def main(argv) -> int:
         by_path = next(r["launches_by_path"] for r in table if r["name"] == name)
         require(all(by_path[p] > 0 for p in MMA_PATHS),
                 f"{name}: no launch on one of {MMA_PATHS}: {by_path}")
+    for dtype in DTYPES:
+        name = attention.LONG_COUNTER["bwd", dtype].name
+        by_path = next(r["launches_by_path"] for r in table if r["name"] == name)
+        require(by_path["prior_long"] > 0, f"{name}: no launch on prior_long: {by_path}")
     emit({"phase": "total", "card": smi, "chip_smoke_s": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

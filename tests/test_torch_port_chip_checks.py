@@ -1,0 +1,119 @@
+"""Rules of ``chip_smoke.py`` that decide a check on the card, run here on
+synthetic inputs: the float32 serving rule on weights trained on the card
+(``trained_f32_rule``: values on the windows whose codes agree, every other
+window an RVQ near tie or one of the few FSQ flips allowed) and the K2
+profile's status (``k2_profile_status``: whole, short, or failed at once).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from bridgerl_tpu_torch.ops.quantizers import HybridVQ
+
+B, T, D, K, STAGES = 6, 2, 4, 8, 2
+
+
+def _quantizer(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return HybridVQ(D, fsq_levels=(3, 3), vq_codebook_size=K, num_quantizers=STAGES, generator=g)
+
+
+def _codes(q, z):
+    """The quantizer's code streams on the CPU for latents z (B, T, D)."""
+    with torch.no_grad():
+        codes = q(z)[3]
+    return {k: v.numpy().astype(np.int32) for k, v in codes.items()}
+
+
+def _tie_case(q, z, b, t):
+    """Make window b's token t an exact first-stage RVQ tie: another code is
+    moved to the mirror image of its nearest code through its residual, so
+    the two lie at one distance and the card may pick either. Returns the
+    CPU's codes and the other code."""
+    with torch.no_grad():
+        _, z_fsq, _, _ = q.fsq(z)
+        residual = (z - z_fsq)[b, t]
+        cb = q.vq.layers[0].embedding.weight
+        first = int(torch.argmin(((residual - cb) ** 2).sum(-1)))
+        other = (first + 1) % K
+        cb[other] = 2 * residual - cb[first]
+    want = _codes(q, z)
+    pick = int(want["rvq/vq_0"][b, t])
+    assert pick in (first, other)
+    return want, first if pick == other else other
+
+
+def test_a_near_tie_flip_passes_and_the_shared_windows_are_compared():
+    q = _quantizer()
+    z = torch.randn(B, T, D, generator=torch.Generator().manual_seed(1))
+    want, other = _tie_case(q, z, 2, 1)
+    got = {k: v.copy() for k, v in want.items()}
+    got["rvq/vq_0"][2, 1] = other     # the card's pick of the tie
+    got["rvq/vq_1"][2, 1] = (got["rvq/vq_1"][2, 1] + 1) % K   # later stages follow it
+    values = np.random.default_rng(0).normal(size=(B, 10, 29)).astype(np.float32)
+    card = values.copy()
+    card[2] += 0.5                    # the flipped window's values: not compared
+    card[0] += 0.5 * chip_smoke.SERVE_ATOL
+    out = chip_smoke.trained_f32_rule("tie", q, z, got, want, card, values)
+    assert out["code_flips"]["rvq_near_ties"] == 1 and out["code_flips"]["rvq_not_ties"] == 0
+    assert out["rows_compared"] == B - 1 and out["max_abs_err_vs_cpu"] <= chip_smoke.SERVE_ATOL
+    assert out["max_abs_err_all_rows"] >= 0.5
+
+
+def test_a_flip_outside_a_near_tie_fails():
+    q = _quantizer()
+    z = torch.randn(B, T, D, generator=torch.Generator().manual_seed(2))
+    want = _codes(q, z)
+    with torch.no_grad():
+        _, z_fsq, _, _ = q.fsq(z)
+        d = (((z - z_fsq)[3, 0] - q.vq.layers[0].embedding.weight) ** 2).sum(-1)
+    far = int(torch.argmax(d))        # the farthest code: no tie
+    got = {k: v.copy() for k, v in want.items()}
+    got["rvq/vq_0"][3, 0] = far
+    with pytest.raises(AssertionError, match="outside near ties"):
+        chip_smoke.trained_f32_rule("far", q, z, got, want)
+
+
+def test_a_value_error_on_a_shared_window_fails():
+    q = _quantizer()
+    z = torch.randn(B, T, D, generator=torch.Generator().manual_seed(3))
+    want = _codes(q, z)
+    values = np.zeros((B, 10, 29), np.float32)
+    card = values.copy()
+    card[4, 3, 7] = 2 * chip_smoke.SERVE_ATOL
+    with pytest.raises(AssertionError, match="windows whose codes agree"):
+        chip_smoke.trained_f32_rule("value", q, z, want, want, card, values)
+
+
+def test_fsq_flips_count_against_codes_agree():
+    """FSQ flips are rounding boundaries, not K2: one is allowed at this
+    size (0.1% of 12 tokens, and one), two are not."""
+    q = _quantizer()
+    z = torch.randn(B, T, D, generator=torch.Generator().manual_seed(4))
+    want = _codes(q, z)
+    got = {k: v.copy() for k, v in want.items()}
+    got["fsq"][0, 0] += 1
+    assert chip_smoke.trained_f32_rule("fsq", q, z, got, want)["code_flips"]["fsq_flips"] == 1
+    got["fsq"][1, 1] += 1
+    with pytest.raises(AssertionError, match="FSQ codes differ"):
+        chip_smoke.trained_f32_rule("fsq", q, z, got, want)
+
+
+@pytest.mark.parametrize("names,calls,status", [
+    (["vq_assign_nearest_kernel", "vq_assign_stats_kernel"] * 3, 3, "whole"),
+    (["vq_assign_nearest_kernel"] * 3 + ["vq_assign_stats_kernel"] * 2, 3, "short"),
+    ([], 3, "short"),
+])
+def test_k2_profile_status(names, calls, status):
+    assert chip_smoke.k2_profile_status(names, calls) == status
+
+
+@pytest.mark.parametrize("names", [
+    ["vq_assign_nearest_kernel", "vq_assign_stats_kernel", "Memset (Device)"],
+    ["vq_assign_nearest_kernel"] * 4 + ["vq_assign_stats_kernel"] * 3,
+])
+def test_k2_profile_fails_at_once_on_another_record_or_too_many(names):
+    with pytest.raises(AssertionError):
+        chip_smoke.k2_profile_status(names, 3)

@@ -20,7 +20,10 @@ tensor-core path's long windows, with the dropout mask, what they refuse,
 and a small bf16 train step. K1's tensor-core path (windows of 32 and more)
 runs at ragged windows (W 40, 96), S = W = 160 at Dh 128, under the causal
 bias with its tiles skipped (causal=True) and read (causal=False), and
-repeats dq, dk and dv bit for bit over two launches.
+repeats dq, dk and dv bit for bit over two launches; the backward past its
+window-resident kernel (``LONG_BWD``: the row-buffered dq kernel in blocks
+of 32 and 64 rows, the two-sweep one, the prior at 256 positions) and the
+window-resident kernel at Dh 16, 32 and 128.
 
 K1 runs with ``window`` (the diagonal blocks of each packed row only) and
 without it (W = S, any bias). Tolerances: K1 1e-4 absolute (f32, other summation order and expf), with
@@ -451,6 +454,8 @@ def _bf16_pair(gen, BH, S, Dh, bias, window, rate, causal=False):
     names = ["packed_attention_fwd_bf16", "packed_attention_bwd_bf16"]
     if (window or S) >= attention.MIN_MMA_WINDOW:
         names += [n + "_mma" for n in names]
+    if attention.k1_plan(BH, S, window or S, Dh, BF16, "bwd", causal).blocks_kv:
+        names.append("packed_attention_bwd_bf16_long")
     assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == dict.fromkeys(
         names, 1)
     ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, window,
@@ -1211,6 +1216,31 @@ def test_k1_causal_with_and_without_the_skip(gen, BH, S, Dh, dtype, rate):
             assert (a - b).abs().max().item() <= 1e-5
 
 
+# past the window-resident backward (W > 128, or W > 64 at Dh 128): chip_smoke.py's
+# two-kernel cases (the row-buffered dq kernel in 32-row blocks), the prior at 256
+# positions and the same at Dh 128 (full cards: the two-sweep dq kernel), a window whose
+# row buffers fill most of the shared memory (W 600), one too long for them (two-sweep),
+# and the window-resident kernel at Dh 32 and 16 (W 128) and at Dh 128 (W 64)
+LONG_BWD = [(24, 160, 128, False), (48, 200, 64, False), (32, 160, 64, True),
+            (128, 256, 64, True), (512, 128, 128, True), (2, 600, 64, False),
+            (2, 1024, 16, True), (128, 128, 32, True), (3, 128, 16, False), (4, 64, 128, True)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("BH,S,Dh,causal", LONG_BWD)
+def test_k1_backward_past_the_window_resident_kernel(gen, BH, S, Dh, causal, dtype, rate):
+    """Forward and backward against the plain versions, each launched twice
+    and bit-equal; the backward's launches counted on the two-kernel counter
+    exactly where its plan has a dk / dv kernel."""
+    from bridgerl_tpu_torch.models.layers import causal_bias
+
+    bias = causal_bias(S, "cuda") if causal else attention_bias(1, S, "cuda")
+    _k1_pair(gen, dtype, BH, S, Dh, bias, None, rate, causal)
+    plan = attention.k1_plan(BH, S, S, Dh, dtype, "bwd", causal)
+    assert attention.LONG_COUNTER["bwd", dtype].count == (2 if plan.blocks_kv else 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 def test_k1_long_window_keep_mask_equals_plain_philox(gen, dtype):
     """v = I and dout = I at W 64 over packed rows of 2 windows (the K4
@@ -1244,3 +1274,27 @@ def test_k1_refuses_a_plan_that_is_not_the_launchers(gen):
                 (1, plan.blocks, plan.smem_bytes - 16)]:
         assert call(*bad) != 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("S", [64, 160])
+def test_k1_backward_entry_points_refuse_each_others_plans(gen, S):
+    """The one-kernel entry point (window tiles, window-resident) and the
+    two-kernel one (``LONG_ENTRY``) are libraries of their own: each takes
+    only its own plans."""
+    BH, Dh = 4, 64
+    q = torch.randn(BH, S, Dh, device="cuda", generator=gen)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    bias = torch.zeros(S, S, device="cuda")
+    plan = attention.k1_plan(BH, S, S, Dh, torch.float32, "bwd")
+    stats = torch.empty(max(attention.backward_scratch(plan), 1), device="cuda")
+    assert bool(plan.blocks_kv) == (S == 160)
+    status = {}
+    for name in ("packed_attention_bwd", attention.LONG_ENTRY[torch.float32]):
+        status[name] = kernels.entry(name)(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), BH, S, S, Dh,
+            Dh ** -0.5, 0, BH, 0, 1.0, 0, 0, 1, plan.blocks, plan.smem_bytes, plan.blocks_kv,
+            plan.smem_kv, kernels.stream_ptr(q))
+    torch.cuda.synchronize()
+    own = attention.LONG_ENTRY[torch.float32] if plan.blocks_kv else "packed_attention_bwd"
+    assert {n: s == 0 for n, s in status.items()} == {n: n == own for n in status}

@@ -179,7 +179,9 @@ def test_counters_reset():
     kernels.reset_counters()
     assert {c.count for c in kernels.COUNTERS.values()} == {0}
     assert sorted(kernels.COUNTERS) == ["packed_attention_bwd", "packed_attention_bwd_bf16",
+                                        "packed_attention_bwd_bf16_long",
                                         "packed_attention_bwd_bf16_mma",
+                                        "packed_attention_bwd_long",
                                         "packed_attention_bwd_mma", "packed_attention_fwd",
                                         "packed_attention_fwd_bf16",
                                         "packed_attention_fwd_bf16_mma",

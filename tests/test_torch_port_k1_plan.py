@@ -6,11 +6,12 @@ launchers refuse any plan but their own, so what it promises is checked
 here: windows shorter than ``MIN_MMA_WINDOW`` take the window tiles, longer
 ones the tensor-core path; every (query, key) pair inside a window, or on
 and below the diagonal under ``causal``, is computed exactly once by the
-forward, by the dq kernel and by the dk / dv kernel; a tile that is skipped
-lies wholly above the diagonal; no block asks for more than 232,448 bytes of
-shared memory; and every shape the launchers took before the tensor-core
-path (the window tiles, or the row kernels it replaced) is still taken.
-The block-to-work mapping below is the kernels' own index arithmetic.
+forward, by the dq kernel and by the dk / dv kernel, down to the warps of
+the two-kernel backward's blocks; a tile that is skipped lies wholly above
+the diagonal; no block asks for more than 232,448 bytes of shared memory;
+and every shape the launchers took before the tensor-core path (the window
+tiles, or the row kernels it replaced) is still taken. The block-to-work
+mapping below is the kernels' own index arithmetic.
 """
 
 import numpy as np
@@ -51,7 +52,13 @@ CARD_SHAPES = [(2048, 80, 10, 64), (256, 10, 10, 64), (256, 80, 10, 64), (1024, 
                (12, 200, 200, 128), (12, 120, 120, 128), (40, 160, 40, 64), (40, 96, 96, 32),
                (3, 128, 128, 16), (300, 33, 33, 16), (1024, 1024, 1024, 16),
                (1, 240, 240, 128), (7, 10, 10, 128), (24, 160, 160, 128), (48, 200, 200, 64),
-               (32, 160, 160, 64)]
+               (32, 160, 160, 64),
+               # the prior at 256 positions and at d_model 128 (Dh 32); K1_CAUSAL's new cases
+               (128, 256, 256, 64), (128, 128, 128, 32)]
+# the two-kernel backward's shapes in chip_smoke.py (B*H, S = W, Dh, causal)
+LONG_SHAPES = [(24, 160, 128, False), (48, 200, 64, False), (32, 160, 64, True),
+               (128, 256, 64, True)]
+WARPS = 4   # a tensor-core block's warps (csrc/k1_mma.cuh kMmaWarps)
 
 
 def _check_mma_coverage(plan, causal):
@@ -72,6 +79,7 @@ def _check_mma_coverage(plan, causal):
     assert (seen[lower] == 1).all() and seen.max() <= 1
     if plan.direction == "fwd" or plan.blocks_kv == 0:   # the window-resident backward
         return
+    _check_warps(plan, causal, lower)
     # dk / dv kernel: block (window, key tile kt) x query tiles
     assert plan.blocks_kv == plan.windows * plan.row_tiles
     seen[:] = 0
@@ -84,6 +92,45 @@ def _check_mma_coverage(plan, causal):
             else:   # skipped: its last query lies before the block's first key
                 assert causal and min((qi + 1) * C, W) - 1 < kt * R
     assert (seen[lower] == 1).all() and seen.max() <= 1
+
+
+def _check_warps(plan, causal, lower):
+    """The two-kernel backward's warps (csrc/k1_bwd.cuh): a block of R rows
+    has R / 16 groups of 16 rows, and each 32-wide streamed tile is split in
+    KP = 4 / (R / 16) parts, one a warp. In the dq kernel a warp computes its
+    rows against its part of each key tile, and skips under causal the 8-key
+    column tiles past its last row; then it adds ds k for its rows and a
+    1 / KP share of dq's columns. In the dk / dv kernel a warp takes its 16
+    keys against its part of each query tile, and the parts' sums are added
+    in part order. Every pair on and below the diagonal is computed once."""
+    W, R, C = plan.W, plan.rows, plan.cols
+    RG, KP = R // 16, WARPS // (R // 16)
+    NTW = C // 8 // KP
+    assert RG * KP == WARPS and NTW in (2, 4) and R in (32, 64)
+    dq, dkv = np.zeros((W, W), np.int64), np.zeros((W, W), np.int64)
+    for t in range(plan.row_tiles):
+        for w in range(WARPS):
+            rg, part = w % RG, w // RG
+            first = t * R + rg * 16
+            rows = slice(first, min(first + 16, W))
+            for kt in plan.key_tiles(t):
+                for c in range(NTW):
+                    j = kt * C + part * NTW * 8 + c * 8
+                    if causal and j > first + 15:   # c_end: wholly above the warp's rows
+                        continue
+                    dq[rows, j:min(j + 8, W)] += 1
+            keys = slice(first, min(first + 16, W))
+            for qi in plan.query_tiles(t):
+                i = qi * C + part * NTW * 8
+                dkv[i:min(i + 8 * NTW, W), keys] += 1
+    for seen in (dq, dkv):
+        assert (seen[lower] == 1).all() and seen.max() <= 1
+    # dq's output column tiles, a 1 / KP share a warp of a row group
+    for Dh in attention.SUPPORTED_HEAD_DIMS:
+        NO = Dh // 8
+        assert NO % KP == 0
+        assert sorted(n for part in range(KP) for n in range(part * NO // KP,
+                                                              (part + 1) * NO // KP)) == list(range(NO))
 
 
 def _check_plan(BH, S, W, Dh, dtype, direction, causal):
@@ -101,21 +148,41 @@ def _check_plan(BH, S, W, Dh, dtype, direction, causal):
         assert (covered == 1).all()
         return plan
     row = Dh * (4 if dtype == torch.float32 else 2) + 16
-    R = MMA_ROWS if W <= MMA_ROWS else 2 * MMA_ROWS   # the window-resident block's rows
-    resident = 4 * R * row + R * (R + 4) * 4   # q, k, v, dout, one float32 (R, R + 4) tile
-    if direction == "bwd" and Dh == attention.WINDOW_DH and W <= 2 * MMA_ROWS:
-        # one block a window, everything staged
+    # the window-resident block's rows: up to W 64 at every Dh, up to 128 at Dh <= 64
+    R = MMA_ROWS if W <= MMA_ROWS else 2 * MMA_ROWS if Dh <= 64 and W <= 2 * MMA_ROWS else 0
+    if direction == "bwd" and R:
+        # one block a window, everything staged: q, k, v, dout, one float32 (R, R + 4) tile
         assert plan.path == "mma" and (plan.rows, plan.cols) == (R, R)
         assert plan.blocks == plan.windows and plan.blocks_kv == plan.smem_kv == 0
-        assert plan.smem_bytes == resident
+        assert plan.smem_bytes == 4 * R * row + R * (R + 4) * 4
     elif direction == "fwd":   # the block's q rows, two stages of (k, v) tiles
         assert plan.path == "mma" and (plan.rows, plan.cols) == (MMA_ROWS, MMA_COLS)
         assert plan.smem_bytes == (MMA_ROWS + 2 * 2 * MMA_COLS) * row
-    else:   # q and dout rows (or k and v), two stages of two tiles, and of 3 statistics
-        assert W > 2 * MMA_ROWS or Dh != attention.WINDOW_DH
-        assert plan.path == "mma" and (plan.rows, plan.cols) == (MMA_ROWS, MMA_COLS)
-        assert plan.smem_bytes == (2 * MMA_ROWS + 2 * 2 * MMA_COLS) * row
-        assert plan.smem_kv == plan.smem_bytes + 2 * 3 * MMA_COLS * 4
+    else:
+        # two kernels, blocks of RB rows (keys in dk / dv): q and dout rows (k and v), two
+        # stages of two 32-row tiles; the dq kernel two float32 (RB, keys + 4) buffers,
+        # the dk / dv kernel two stages of the rows' 3 statistics
+        RB = plan.rows
+        stride = -(-W // MMA_COLS) * MMA_COLS + 4
+        # two float32 buffers and the keep flags, a 32-bit word a row and key tile
+        buffered = lambda rb: ((2 * rb + 2 * 2 * MMA_COLS) * row + 8 * rb * stride  # noqa: E731
+                               + 4 * rb * -(-W // MMA_COLS))
+        assert plan.path == "mma" and plan.cols == MMA_COLS and RB in (32, 64)
+        assert plan.blocks_kv == plan.blocks == plan.windows * plan.row_tiles
+        full = plan.windows * -(-W // MMA_ROWS) >= attention.FULL_GRID
+        if full or buffered(32) > SMEM_LIMIT:
+            # a full card, or no row buffer fits: the two-sweep dq kernel and the dk / dv
+            # kernel, 64-row blocks, through the rows' 3 statistics
+            assert RB == MMA_ROWS and plan.smem_bytes == (2 * RB + 2 * 2 * MMA_COLS) * row
+            assert plan.smem_kv == (2 * RB + 2 * 2 * MMA_COLS) * row + 2 * 3 * MMA_COLS * 4
+            assert attention.backward_scratch(plan) == 3 * plan.windows * W + 4
+        else:
+            # the row-buffered dq kernel and the keys kernel in 32-row blocks, through
+            # the p_drop and ds planes (two stages of (q, dout) and of the planes' tiles)
+            assert RB == 32 and plan.smem_bytes == buffered(RB)
+            assert plan.smem_kv == 2 * 2 * MMA_COLS * row + 2 * 2 * MMA_COLS * (RB + 4) * 4
+            assert attention.backward_scratch(plan) == (2 * plan.windows * W
+                                                        * -(-W // MMA_COLS) * MMA_COLS)
     _check_mma_coverage(plan, causal)
     return plan
 
@@ -134,6 +201,32 @@ def test_plan_covers_every_pair_once_at_the_card_shapes(BH, S, W, Dh, direction,
 def test_plan_sweep(W, P, Dh, bf16, bwd, causal):
     _check_plan(3, P * W, W, Dh, BF16 if bf16 else torch.float32, "bwd" if bwd else "fwd",
                 causal)
+
+
+@settings(max_examples=150, deadline=None)
+@given(W=st.integers(33, 256), BH=st.integers(1, 600), Dh=st.sampled_from([16, 32, 64, 128]),
+       bf16=st.booleans(), causal=st.booleans())
+def test_backward_sweep_past_the_window_tiles(W, BH, Dh, bf16, causal):
+    """The backward from W 33 to 256 at every head dim, over grids small and
+    large enough for both block heights: window-resident or two kernels,
+    every pair once, down to the warps, within the shared memory."""
+    plan = _check_plan(BH, W, W, Dh, BF16 if bf16 else torch.float32, "bwd", causal)
+    assert max(plan.smem_bytes, plan.smem_kv) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("BH,S,Dh,causal", LONG_SHAPES)
+def test_chip_shapes_past_the_window_resident_kernel_take_the_row_kernels(BH, S, Dh, causal):
+    """chip_smoke.py's two-kernel cases take the row-buffered dq kernel in
+    32-row blocks in both dtypes, but the prior at 256 positions, whose 512
+    blocks of 64 rows fill the card: the two-sweep dq kernel; the prior at
+    d_model 128 (Dh 32, 128 positions) one window-resident kernel."""
+    for dtype in attention.DTYPES:
+        plan = _check_plan(BH, S, S, Dh, dtype, "bwd", causal)
+        sweeps = (2 * 64 + 4 * MMA_COLS) * attention.mma_row_bytes(Dh, dtype)
+        assert plan.blocks_kv and plan.rows == (64 if BH == 128 else 32)
+        assert (plan.smem_bytes == sweeps) == (BH == 128)
+        resident = _check_plan(128, 128, 128, 32, dtype, "bwd", True)
+        assert (resident.rows, resident.blocks, resident.blocks_kv) == (128, 128, 0)
 
 
 @settings(max_examples=150, deadline=None)
@@ -162,15 +255,23 @@ def test_the_row_kernels_shapes_take_the_tensor_core_path():
 
 
 def test_causal_skips_the_tiles_above_the_diagonal():
-    """At S = W = 128 on the two-kernel backward (float32, Dh 128): query
-    tile 0 reads key tiles 0 and 1 of 4, tile 1 all four; key tile 1 of the
-    dk / dv kernel reads query tiles 2 and 3. Up to W 128 elsewhere (the
-    prior's rows) the backward's one block holds the whole window."""
+    """At S = W = 128 on the two-kernel backward (float32, Dh 128, 128
+    windows: 32-row blocks): query tile t reads key tiles 0 .. t of 4; key
+    tile 1 of the dk / dv kernel reads query tiles 1 to 3. At 512 windows
+    (64-row blocks) query tile 0 reads key tiles 0 and 1, tile 1 all four,
+    and key tile 1 query tiles 2 and 3. Up to W 128 at Dh <= 64 (the prior's
+    rows) the backward's one block holds the whole window."""
     plan = k1_plan(128, 128, 128, 128, torch.float32, "bwd", causal=True)
-    assert [list(plan.key_tiles(qt)) for qt in range(2)] == [[0, 1], [0, 1, 2, 3]]
-    assert [list(plan.query_tiles(kt)) for kt in range(2)] == [[0, 1, 2, 3], [2, 3]]
+    assert plan.rows == 32
+    assert [list(plan.key_tiles(qt)) for qt in range(4)] == [[0], [0, 1], [0, 1, 2],
+                                                             [0, 1, 2, 3]]
+    assert [list(plan.query_tiles(kt)) for kt in range(2)] == [[0, 1, 2, 3], [1, 2, 3]]
     full = plan._replace(causal=False)
     assert list(full.key_tiles(0)) == [0, 1, 2, 3] and list(full.query_tiles(1)) == [0, 1, 2, 3]
+    wide = k1_plan(512, 128, 128, 128, torch.float32, "bwd", causal=True)
+    assert wide.rows == 64
+    assert [list(wide.key_tiles(qt)) for qt in range(2)] == [[0, 1], [0, 1, 2, 3]]
+    assert [list(wide.query_tiles(kt)) for kt in range(2)] == [[0, 1, 2, 3], [2, 3]]
     small = k1_plan(16, 32, 32, 64, torch.float32, "bwd", causal=True)
     assert small.blocks == 16 and small.blocks_kv == 0 and list(small.key_tiles(0)) == [0]
     resident = k1_plan(128, 128, 128, 64, torch.float32, "bwd", causal=True)

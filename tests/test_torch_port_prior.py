@@ -36,8 +36,13 @@ TINY = jtp.PriorConfig(
     max_len=8)
 VARIANTS = {"plain": {}, "slot_ar": dict(slot_ar=True, depth_layers=1),
             "class": dict(class_names=("walk", "run")),
-            "slot_ar_class": dict(slot_ar=True, depth_layers=1, class_names=("walk", "run"))}
+            "slot_ar_class": dict(slot_ar=True, depth_layers=1, class_names=("walk", "run")),
+            # the JAX TokenPrior's own max_len, at a small width: also one training step
+            "max_len_256": dict(d_model=32, n_heads=2, ff_dim=64, max_len=256)}
 ATOL = 1e-5
+# one step of the max_len 256 case: the loss and every gradient against jax.grad of the
+# JAX prior's loss (float32; sums over 256 positions in another order)
+STEP_LOSS_RTOL, STEP_GRAD_ATOL = 1e-5, 1e-6
 
 
 def jax_prior(pcfg, seed=0, dtype=jnp.float32):
@@ -111,6 +116,29 @@ def test_three_modes_match_jax(name):
         np.testing.assert_allclose(staged[s].numpy(), np.asarray(want_staged[s]), atol=ATOL)
         # the staged step is the full forward's column t
         np.testing.assert_allclose(staged[s].numpy(), got[s][:, t].numpy(), atol=ATOL)
+    if pcfg.max_len == 256:
+        _step_matches_jax(pcfg, jm, jv, tm, g)
+
+
+def _step_matches_jax(pcfg, jm, jv, tm, g):
+    """One training step's loss and gradients (dropout 0) against jax.grad of
+    the JAX prior's loss on the same grids and mask, the gradients mapped to
+    the port's layout by the same converter as the weights."""
+    mask = np.ones(g.shape[:2], np.float32)
+    mask[0, 200:] = 0.0
+    loss_fn = lambda v: jtp.prior_loss(jm.apply(v, _j(g)), _j(g), _j(mask))  # noqa: E731
+    jloss, jgrads = jax.value_and_grad(loss_fn)(jv)
+    tcfg = ttp.PriorConfig.from_json(pcfg.to_json())
+    want = prior_state_dict_from_jax(jgrads, tcfg)
+    tm.train()
+    loss = ttp.prior_loss(tm(_t(g), train=True), _t(g), _t(mask))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=STEP_LOSS_RTOL)
+    grads = {n: p.grad for n, p in tm.named_parameters()}
+    assert sorted(grads) == sorted(want)
+    for n, gr in grads.items():
+        np.testing.assert_allclose(gr.numpy(), np.asarray(want[n]), atol=STEP_GRAD_ATOL,
+                                   err_msg=n)
 
 
 def test_causality_and_class_required():

@@ -77,7 +77,8 @@ def _grads(B, S, H, Dh, packing, rate, seed=3):
     return (q, k, v, do, bias, s), out, got
 
 
-SHAPES = [(3, 80, 2, 16, 8), (4, 10, 2, 16, 1), (2, 80, 4, 64, 8)]
+SHAPES = [(3, 80, 2, 16, 8), (4, 10, 2, 16, 1), (2, 80, 4, 64, 8),
+          (1, 160, 2, 128, 1)]   # a whole row of 160 at Dh 128 (K1's two-kernel backward)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -162,7 +162,7 @@ def _garbage_above(S: int, seed: int = 5) -> torch.Tensor:
     return torch.where(torch.ones(S, S, dtype=torch.bool).tril(), 0.0, bias)
 
 
-@pytest.mark.parametrize("S", [5, 12, 40])
+@pytest.mark.parametrize("S", [5, 12, 40, 256])   # 256: the prior's JAX default max_len
 def test_causal_plain_matches_jax_fused_attention_and_vjp(S):
     """``causal=True`` with garbage above the diagonal: the plain forward and,
     through the op's autograd, the plain backward equal JAX's
