@@ -18,11 +18,12 @@
 // (packed_attention_bwd_bf16); bias is (S, S) float32 in both, read only
 // inside the diagonal (W, W) blocks. Everything inside is float32, and dq,
 // dk and dv are rounded to bfloat16 once, as they are stored. W divides S.
-// Dh is one of 16, 32, 64, 128. Element (i, j) of row r keeps the forward's
-// Philox counter i * S + j, i and j positions in the packed row, and the
-// forward's seed groups (group_rows rows a seed, philox.cuh). causal states
-// that the bias is the causal bias, as in the forward: the long-window path
-// reads none of it above the diagonal and skips the tiles wholly above it.
+// Dh is one of 16, 32, 64, 96, 128 (others: as the forward). Element (i, j)
+// of row r keeps the forward's Philox counter i * S + j, i and j positions
+// in the packed row, and the forward's seed groups (group_rows rows a seed,
+// philox.cuh). causal states that the bias is the causal bias, as in the
+// forward: the long-window path reads none of it above the diagonal and
+// skips the tiles wholly above it.
 // The two-kernel long-window path takes `stats`, scratch that its first
 // kernel writes and its second reads: the p_drop and ds planes of every
 // window (the row-buffered dq kernel), or each position's row max,
@@ -1144,6 +1145,7 @@ int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, con
     case 16: return K1_BWD(16);
     case 32: return K1_BWD(32);
     case 64: return K1_BWD(64);
+    case 96: return K1_BWD(96);
     case 128: return K1_BWD(128);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -12,11 +12,13 @@
 // softmax, dropout and the sums of p v are float32 in both dtypes, and out is
 // rounded to bfloat16 once, as it is stored. W divides S; query i attends to
 // the keys j of its own window (i / W == j / W) with bias[i * S + j] added,
-// and nothing else of bias is read. Dh is one of 16, 32, 64, 128 (a
-// template argument). With dropout on, element (i, j) of row r (positions
-// in the packed row) is kept when Philox word attn_keep_bits(seed, r, i * S
-// + j) < thresh (philox.cuh) and is then scaled by inv_keep; the softmax's
-// normaliser sums the probabilities before the mask, as the TPU kernel does.
+// and nothing else of bias is read. Dh is one of 16, 32, 64, 96, 128 (a
+// template argument; ops/attention.py pads any other Dh up to 128 to the
+// next of them, and runs Dh past 128 through k1_wide.cuh). With dropout on,
+// element (i, j) of row r (positions in the packed row) is kept when Philox
+// word attn_keep_bits(seed, r, i * S + j) < thresh (philox.cuh) and is then
+// scaled by inv_keep; the softmax's normaliser sums the probabilities before
+// the mask, as the TPU kernel does.
 // seed is read from device memory, so drawing it never waits for the card.
 // seed holds one value per group of group_rows rows (BH / group_rows groups,
 // the seeds of a stacked multi-seed step): row r of group g = r / group_rows
@@ -359,6 +361,7 @@ int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Ele
     case 16: return K1_FWD(16);
     case 32: return K1_FWD(32);
     case 64: return K1_FWD(64);
+    case 96: return K1_FWD(96);
     case 128: return K1_FWD(128);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -169,18 +169,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Issue the copies of `rows` rows of DH elements, contiguous at `src`, into
-// the padded tile `dst`; rows at or past `valid` are zero-filled (nothing is
-// read for them: `safe` is any valid address).
+// Issue the copies of `rows` rows of DH elements at `src`, row stride `ld`
+// elements (DH: contiguous rows; a head dim's column chunk in k1_wide.cuh),
+// into the padded tile `dst`; rows at or past `valid` are zero-filled
+// (nothing is read for them: `safe` is any valid address).
 template <typename Elem, int DH>
 __device__ __forceinline__ void stage_mma(Elem* dst, const Elem* src, int rows, int valid,
-                                          const Elem* safe) {
+                                          const Elem* safe, int ld = DH) {
   constexpr int LS = MmaTile<Elem, DH>::LS, CH = MmaTile<Elem, DH>::CH;
   constexpr int E = 16 / (int)sizeof(Elem);
   for (int e = threadIdx.x; e < rows * CH; e += kMmaThreads) {
     const int r = e / CH, c = e - r * CH;
     const bool ok = r < valid;
-    cp_async16_zfill(dst + r * LS + c * E, ok ? src + (size_t)r * DH + c * E : safe, ok);
+    cp_async16_zfill(dst + r * LS + c * E, ok ? src + (size_t)r * ld + c * E : safe, ok);
   }
 }
 
@@ -441,16 +442,16 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
 
 // Store the warp's (16, 8 NO) accumulator (NO tiles of 8 columns, all of DH's
 // by default): rows r0 + g and r0 + g + 8 of the window (those below W) at
-// `dst`, row stride DH, each value times the row's factor.
+// `dst`, row stride `ld` (DH by default), each value times the row's factor.
 template <typename Elem, int DH, int NO = DH / 8>
 __device__ __forceinline__ void store_rows(Elem* dst, const float (&acc)[NO][4], int ra,
-                                           int W, float fa, float fb, int lane) {
+                                           int W, float fa, float fb, int lane, int ld = DH) {
   const int t = lane & 3;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + 2 * t;
-    if (ra < W) store2(dst + (size_t)ra * DH + c, acc[n][0] * fa, acc[n][1] * fa);
-    if (ra + 8 < W) store2(dst + (size_t)(ra + 8) * DH + c, acc[n][2] * fb, acc[n][3] * fb);
+    if (ra < W) store2(dst + (size_t)ra * ld + c, acc[n][0] * fa, acc[n][1] * fa);
+    if (ra + 8 < W) store2(dst + (size_t)(ra + 8) * ld + c, acc[n][2] * fb, acc[n][3] * fb);
   }
 }
 

@@ -13,7 +13,8 @@
 // on every run.
 //
 // Shapes: x (N, D), codebook (K, D), float32, contiguous; any N >= 1, any
-// K >= 1, 1 <= D <= 512. Groups: x (G, N, D) and codebook (G, K, D) give
+// K >= 1, any D >= 1 (the nearest-code kernel takes D past 512 in chunks of
+// at most 512 columns: design, 1). Groups: x (G, N, D) and codebook (G, K, D) give
 // idx (G, N), counts (G, K) and dw (G, K, D), each group searched against
 // its own codebook and summed on its own, bit for bit what G launches of
 // one group give (the seeds of a stacked multi-seed step, which jax.vmap
@@ -56,7 +57,13 @@
 //    (dist, idx) and pushes it into the shared memory of the rank that owns
 //    the row through distributed shared memory; after one cluster barrier
 //    each owner takes the minimum over the ranks and writes idx. Ties
-//    therefore go to the lowest index, however the codes are split. D = 64,
+//    therefore go to the lowest index, however the codes are split. Past
+//    D = 512 a tile's rows and a slice's codes no longer fit one block's
+//    shared memory: the plan then splits D into chunks of at most 512
+//    columns (`chunk`) and a cluster takes one tile; for each slice the
+//    block stages the tile's and the slice's columns chunk by chunk, and
+//    both the norms and the scores keep adding over the chunks in column
+//    order, so each is one fixed sum. D = 64,
 //    the flagship, is a template argument, so the score loop unrolls; other
 //    D run the same kernel with a runtime D. The tensor cores are not used:
 //    TF32 flips nearest codes, and at N = 4096 the float32 scoring already
@@ -96,6 +103,7 @@ constexpr int kStatCols = 64;     // columns per statistics warp, two per lane
 constexpr int kWindow = 32;       // rows a statistics lane loads at a time
 constexpr int kListRows = 2048;   // rows a statistics warp lists before adding them
 constexpr int kMaxPassRows = 32768;
+constexpr int kMaxChunk = 512;    // columns of x and the codes staged at once
 
 // Padded row stride in floats: D rounded up to 8, plus 4. Row r's 16-byte
 // column c then falls in bank group (r * S / 4 + c) mod 8 with S / 4 odd.
@@ -123,20 +131,21 @@ inline size_t stats_smem(int pass_rows) {
   return sizeof(int) * (size_t)kStatWarps * (pass_rows / 32 + kListRows);
 }
 
-// Copy `valid` rows of D floats (contiguous at src) into n rows of stride S
-// at dst; the rest of the n rows, and the columns up to the next multiple
-// of 4, are zero. vec (D % 4 == 0 and 16-byte aligned sources): cp.async,
-// completed by the caller's wait; otherwise plain loads and stores.
+// Copy `valid` rows of D floats at src, row stride ld (ld = D: contiguous;
+// a column chunk of wider rows), into n rows of stride S at dst; the rest of
+// the n rows, and the columns up to the next multiple of 4, are zero. vec
+// (D and ld multiples of 4, 16-byte aligned sources): cp.async, completed
+// by the caller's wait; otherwise plain loads and stores.
 template <int DK>
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int valid,
-                                      int n, int D, int S, bool vec) {
+                                      int n, int D, int S, bool vec, int ld) {
   const int D4 = DK ? DK / 4 : (D + 3) / 4;
   if (vec) {
     for (int e = threadIdx.x; e < n * D4; e += blockDim.x) {
       const int r = e / D4, c = e - r * D4;
       float* d = dst + r * S + 4 * c;
       if (r < valid)
-        k1::cp_async16(d, src + 4 * (size_t)e);
+        k1::cp_async16(d, src + (size_t)r * ld + 4 * c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -144,7 +153,7 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
     const int W = 4 * D4;
     for (int e = threadIdx.x; e < n * W; e += blockDim.x) {
       const int r = e / W, c = e - r * W;
-      dst[r * S + c] = (r < valid && c < D) ? __ldg(src + (size_t)r * D + c) : 0.f;
+      dst[r * S + c] = (r < valid && c < D) ? __ldg(src + (size_t)r * ld + c) : 0.f;
     }
   }
 }
@@ -220,7 +229,8 @@ __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
 template <int TR, int DK>
 __global__ void __launch_bounds__(kThreads, 2)
 vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
-                  int* __restrict__ idx, int N, int D, int K, int spb, int tiles, bool vec) {
+                  int* __restrict__ idx, int N, int D, int K, int spb, int tiles, int chunk,
+                  bool vec) {
   constexpr int RPT = TR / kRowGroups;    // a thread's rows: g, g + 8, g + 16, ...
   constexpr int TPC = kThreads / kCodes;  // threads per code norm
   // the statistics kernel may be scheduled now: it waits for this grid's end
@@ -232,9 +242,10 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
   x += (size_t)blockIdx.y * N * D;   // this block's group
   cb += (size_t)blockIdx.y * K * D;
   idx += (size_t)blockIdx.y * N;
-  const int S = row_stride(DK ? DK : D);
-  const int D4 = DK ? DK / 4 : (D + 3) / 4;
-  const int XB = xbuf_floats(TR, DK ? DK : D);
+  const int S = row_stride(DK ? DK : chunk);
+  // column chunks: more than one only past 512 (never for the flagship's D = 64, DK)
+  const int nch = DK ? 1 : (D + chunk - 1) / chunk;
+  const int XB = xbuf_floats(TR, DK ? DK : chunk);
   float* xbuf = reinterpret_cast<float*>(smem4);     // x-tile buffers: tile t in t & 1
   float* cs = xbuf + (tiles > 1 ? 2 : 1) * XB;        // the code slice
   float* cn = cs + kCodes * S;                        // its squared norms
@@ -248,12 +259,15 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
   const int ntiles = min(tiles, (N + TR - 1) / TR - tile0);
   const int slices = (K + kCodes - 1) / kCodes;
   const int rg = threadIdx.x / kCodeGroups, cgi = threadIdx.x % kCodeGroups;
-  const bool keep_codes = spb == 1;  // one slice: staged once for every tile
+  // one slice and one chunk: the codes are staged once for every tile
+  const bool keep_codes = spb == 1 && nch == 1;
 
-  // the first x tile and, with one slice, the codes: one copy group
-  stage<DK>(xbuf, x + (size_t)tile0 * TR * D, min(TR, N - tile0 * TR), TR, D, S, vec);
+  // the first x tile and, with one slice, the codes: one copy group (chunked,
+  // each (slice, chunk) stages its own columns of both below)
+  if (nch == 1)
+    stage<DK>(xbuf, x + (size_t)tile0 * TR * D, min(TR, N - tile0 * TR), TR, D, S, vec, D);
   if (keep_codes) stage<DK>(cs, cb + (size_t)rank * kCodes * D, min(kCodes, K - rank * kCodes),
-                            kCodes, D, S, vec);
+                            kCodes, D, S, vec, D);
   cp_async_commit();
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 
@@ -263,7 +277,7 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
     float* xs = xbuf + (t & 1) * XB;
     if (t + 1 < ntiles)  // the next tile streams in while this one is scored
       stage<DK>(xbuf + ((t + 1) & 1) * XB, x + (size_t)(row0 + TR) * D,
-                min(TR, N - row0 - TR), TR, D, S, vec);
+                min(TR, N - row0 - TR), TR, D, S, vec, D);
     cp_async_commit();
 
     float best[RPT];
@@ -277,52 +291,62 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
       const int s = rank + j * C;
       if (s >= slices) break;  // the same for the whole block
       const int k0 = s * kCodes;
-      if (!keep_codes) {  // then tiles == 1: nothing else is in flight
-        if (j > 0) __syncthreads();  // the previous slice has been read
-        stage<DK>(cs, cb + (size_t)k0 * D, min(kCodes, K - k0), kCodes, D, S, vec);
-        cp_async_commit();
-      }
-      if (keep_codes)
-        cp_async_wait<1>();  // all but the next tile's copies
-      else
-        cp_async_wait<0>();
-      __syncthreads();
-      if (!keep_codes || t == 0) {  // the slice's squared norms; padding codes get inf
-        const int c = threadIdx.x / TPC, p = threadIdx.x % TPC;
-        const float* e = cs + c * S;
-        float sum = 0.f;
-        for (int d4 = p; d4 < D4; d4 += TPC) {
-          const float4 v = *reinterpret_cast<const float4*>(e + 4 * d4);
-          sum = k1::dot4(v, v, sum);
-        }
-#pragma unroll
-        for (int off = TPC / 2; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (p == 0) cn[c] = (k0 + c < K) ? sum : INFINITY;
-      }
-
-      float acc[RPT][4];
+      const bool norms = !keep_codes || t == 0;   // the slice's squared norms are due
+      const int c = threadIdx.x / TPC, p = threadIdx.x % TPC;
+      float sum = 0.f, acc[RPT][4];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+        for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
       const float* xr = xs + rg * S;
       const float* cr = cs + cgi * S;
-      if constexpr (DK > 0) {
+      for (int ch = 0; ch < nch; ++ch) {   // column chunks, in order
+        const int c0 = ch * chunk, wc = min(chunk, D - c0);
+        if (nch > 1) {   // then tiles == 1: nothing else is in flight
+          __syncthreads();   // the previous chunk has been read
+          stage<DK>(xs, x + (size_t)row0 * D + c0, rows, TR, wc, S, vec, D);
+          stage<DK>(cs, cb + (size_t)k0 * D + c0, min(kCodes, K - k0), kCodes, wc, S, vec, D);
+          cp_async_commit();
+        } else if (!keep_codes) {  // then tiles == 1: nothing else is in flight
+          if (j > 0) __syncthreads();  // the previous slice has been read
+          stage<DK>(cs, cb + (size_t)k0 * D, min(kCodes, K - k0), kCodes, D, S, vec, D);
+          cp_async_commit();
+        }
+        if (keep_codes)
+          cp_async_wait<1>();  // all but the next tile's copies
+        else
+          cp_async_wait<0>();
+        __syncthreads();
+        const int D4 = DK ? DK / 4 : (wc + 3) / 4;
+        if (norms) {
+          const float* e = cs + c * S;
+          for (int d4 = p; d4 < D4; d4 += TPC) {
+            const float4 v = *reinterpret_cast<const float4*>(e + 4 * d4);
+            sum = k1::dot4(v, v, sum);
+          }
+          if (ch == nch - 1) {  // the slice's squared norms; padding codes get inf
 #pragma unroll
-        for (int d4 = 0; d4 < DK / 4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
-      } else {
+            for (int off = TPC / 2; off > 0; off >>= 1)
+              sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            if (p == 0) cn[c] = (k0 + c < K) ? sum : INFINITY;
+          }
+        }
+        if constexpr (DK > 0) {
+#pragma unroll
+          for (int d4 = 0; d4 < DK / 4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
+        } else {
 #pragma unroll 2
-        for (int d4 = 0; d4 < D4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
+          for (int d4 = 0; d4 < D4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
+        }
       }
       __syncthreads();  // the norms are in, and the tile has been read
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {  // increasing code index
-        const int lc = cgi + c * kCodeGroups;
+      for (int q = 0; q < 4; ++q) {  // increasing code index
+        const int lc = cgi + q * kCodeGroups;
         const float norm = cn[lc];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
-          const float dist = norm - 2.f * acc[i][c];
+          const float dist = norm - 2.f * acc[i][q];
           if (dist < best[i]) {
             best[i] = dist;
             bidx[i] = k0 + lc;
@@ -467,11 +491,12 @@ vq_assign_stats(const float* __restrict__ x, const int* __restrict__ idx,
 
 template <int TR, int DK>
 cudaError_t launch_nearest(const cudaLaunchConfig_t& cfg, const float* x, const float* cb,
-                           int* idx, int N, int D, int K, int spb, int tiles, bool vec) {
+                           int* idx, int N, int D, int K, int spb, int tiles, int chunk,
+                           bool vec) {
   const cudaError_t e = k1::allow_smem(vq_assign_nearest<TR, DK>, cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
   return cudaLaunchKernelEx(&cfg, vq_assign_nearest<TR, DK>, x, cb, idx, N, D, K, spb, tiles,
-                            vec);
+                            chunk, vec);
 }
 
 }  // namespace
@@ -481,14 +506,20 @@ cudaError_t launch_nearest(const cudaLaunchConfig_t& cfg, const float* x, const 
 extern "C" int vq_assign(const float* x, const float* cb, int* idx, float* counts,
                          float* dw, int groups, int N, int D, int K, int tile_rows,
                          int cluster, int slices_per_block, int tiles_per_cluster,
-                         int smem_bytes, int pass_rows, void* stream) {
-  if (groups < 1 || groups > 65535 || N < 1 || K < 1 || D < 1 || D > 512)
+                         int smem_bytes, int pass_rows, int chunk, void* stream) {
+  if (groups < 1 || groups > 65535 || N < 1 || K < 1 || D < 1)
+    return (int)cudaErrorInvalidValue;
+  // columns a chunk: all of D up to 512, past it at most 512 (ops/vq_kernel.py::k2_chunk),
+  // and a cluster of one tile
+  const int nch = chunk >= 1 ? (D + chunk - 1) / chunk : 0;
+  if (chunk < 1 || chunk > kMaxChunk || (D <= kMaxChunk && chunk != D) ||
+      (nch > 1 && (chunk % 8 != 0 || tiles_per_cluster != 1)))
     return (int)cudaErrorInvalidValue;
   const int slices = (K + kCodes - 1) / kCodes;
   if ((tile_rows != 32 && tile_rows != 64) || cluster < 1 || cluster > kMaxCluster ||
       cluster > slices || (long long)cluster * slices_per_block < slices ||
       tiles_per_cluster < 1 || (slices_per_block > 1 && tiles_per_cluster > 1) ||
-      smem_bytes < (long long)nearest_smem(tile_rows, D, tiles_per_cluster) ||
+      smem_bytes < (long long)nearest_smem(tile_rows, chunk, tiles_per_cluster) ||
       smem_bytes > k1::kSmemLimit || pass_rows < 32 || pass_rows % 32 != 0 ||
       pass_rows > kMaxPassRows || (long long)stats_smem(pass_rows) > k1::kSmemLimit)
     return (int)cudaErrorInvalidValue;
@@ -512,11 +543,11 @@ extern "C" int vq_assign(const float* x, const float* cb, int* idx, float* count
   const int spb = slices_per_block, T = tiles_per_cluster;
   cudaError_t e;
   if (tile_rows == 64)
-    e = (D == 64 && vec) ? launch_nearest<64, 64>(cfg, x, cb, idx, N, D, K, spb, T, vec)
-                         : launch_nearest<64, 0>(cfg, x, cb, idx, N, D, K, spb, T, vec);
+    e = (D == 64 && vec) ? launch_nearest<64, 64>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec)
+                         : launch_nearest<64, 0>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec);
   else
-    e = (D == 64 && vec) ? launch_nearest<32, 64>(cfg, x, cb, idx, N, D, K, spb, T, vec)
-                         : launch_nearest<32, 0>(cfg, x, cb, idx, N, D, K, spb, T, vec);
+    e = (D == 64 && vec) ? launch_nearest<32, 64>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec)
+                         : launch_nearest<32, 0>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec);
   if (e != cudaSuccess) return (int)e;
 
   const size_t smem = stats_smem(pass_rows);

@@ -55,6 +55,15 @@ backward's two-kernel path has a C entry point of its own
 (``LONG_ENTRY``, ``csrc/packed_attention_bwd[_bf16]_long.cu``), whose
 launches count on the backward's counters and on ``LONG_COUNTER``.
 
+Head dims: the kernels are instantiated at ``SUPPORTED_HEAD_DIMS`` (16, 32,
+64, 96, 128). Any other Dh up to 128 runs at the next of them, q, k, v (and
+dout) zero-padded and out, dq, dk and dv sliced back (:func:`padded_fwd`,
+:func:`padded_bwd`); past 128 the head dim is padded to a multiple of
+``CHUNK_DIM`` and runs through the chunked kernels of ``csrc/k1_wide.cuh``.
+Zero columns add nothing to q k^T or to dout v^T, the scale is the caller's
+(1 / sqrt of the true Dh), and the keep bits are keyed on (seed, row, i * S
++ j) alone, so the padded call computes the unpadded function.
+
 The forward op's registered autograd formula calls the backward op, which
 recomputes the probabilities and the dropout mask, as the TPU kernel's
 custom VJP does.
@@ -84,7 +93,9 @@ import torch
 
 from . import kernels
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# the head dims the kernels are instantiated at; others: head_width
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128)
+CHUNK_DIM = 128               # csrc/k1_wide.cuh kChunk
 SMEM_LIMIT = 232448           # bytes of shared memory one H100 block may use
 TILE_ROWS = 20                # csrc/k1_tiles.cuh kTileRows: G = 20 // W windows a block
 MIN_MMA_WINDOW = 32           # csrc/k1_mma.cuh kMinWindow: W* of the tensor-core path
@@ -108,6 +119,10 @@ MMA_COUNTER = {key: kernels.LaunchCounter(name + "_mma") for key, name in ENTRY.
 # each dtype's through a C entry point (and library) of the same name
 LONG_ENTRY = {dtype: ENTRY["bwd", dtype] + "_long" for dtype in DTYPES}
 LONG_COUNTER = {("bwd", dtype): kernels.LaunchCounter(name) for dtype, name in LONG_ENTRY.items()}
+# head dims past CHUNK_DIM: each kernel's chunked form, a C entry point (and a library a
+# dtype) of its own; its launches count on the counters of the path it stands in for (the
+# forward's on MMA_COUNTER, the backward's two kernels also on LONG_COUNTER)
+WIDE_ENTRY = {key: name + "_wide" for key, name in ENTRY.items()}
 
 Seed = Union[int, torch.Tensor]
 # one generator, or one per seed of a stacked multi-seed step
@@ -304,7 +319,12 @@ class K1Plan(NamedTuple):
     kernel and the dk / dv kernel in blocks of 64, through the rows'
     statistics (:func:`backward_scratch`). Under
     ``causal`` the tiles that :meth:`key_tiles` and :meth:`query_tiles` leave
-    out, all wholly above the diagonal, do not run."""
+    out, all wholly above the diagonal, do not run.
+
+    ``chunks`` > 1: a head dim past CHUNK_DIM, padded to ``chunks`` x
+    CHUNK_DIM (:func:`wide_plan`). Every block owns one CHUNK_DIM-wide column
+    chunk of its outputs (the grid is the unchunked one times ``chunks``) and
+    streams the contractions over the head dim chunk by chunk."""
     path: str
     direction: str
     W: int
@@ -317,6 +337,7 @@ class K1Plan(NamedTuple):
     smem_bytes: int
     blocks_kv: int
     smem_kv: int
+    chunks: int = 1
 
     @property
     def row_tiles(self) -> int:
@@ -404,13 +425,27 @@ def backward_rows(windows: int, W: int, Dh: int, dtype: torch.dtype) -> int:
     return MMA_ROWS // 2 if not full and fits else 0
 
 
+def head_width(Dh: int) -> int:
+    """The head dim the kernels run a head dim of ``Dh`` at: the least of
+    SUPPORTED_HEAD_DIMS at or above it up to 128, past 128 the least
+    multiple of CHUNK_DIM at or above it."""
+    if Dh < 1:
+        raise ValueError(f"head dim {Dh} is not positive")
+    if Dh > CHUNK_DIM:
+        return _cdiv(Dh, CHUNK_DIM) * CHUNK_DIM
+    return next(d for d in SUPPORTED_HEAD_DIMS if d >= Dh)
+
+
 def k1_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
             direction: str = "fwd", causal: bool = False) -> K1Plan:
-    """The launch of K1 at (BH, S, Dh), window W: the window tiles below
-    MIN_MMA_WINDOW, the tensor-core path (:func:`mma_plan`) from it on.
-    Raises on what the kernels do not take."""
+    """The launch of K1 at (BH, S, Dh), window W, at the head dim
+    :func:`head_width` gives: the window tiles below MIN_MMA_WINDOW, the
+    tensor-core path (:func:`mma_plan`) from it on, and past CHUNK_DIM the
+    chunked kernels at every W (:func:`wide_plan`). Raises on what the
+    kernels do not take."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
-    if W >= MIN_MMA_WINDOW:
+    Dh = head_width(Dh)
+    if W >= MIN_MMA_WINDOW or Dh > CHUNK_DIM:
         return mma_plan(BH, S, W, Dh, dtype, direction, causal)
     per = tile_bytes_per_window(W, Dh, direction)
     G = min(max(1, TILE_ROWS // W), SMEM_LIMIT // per, max(windows, 1))
@@ -424,6 +459,9 @@ def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float3
     MIN_MMA_WINDOW on (``tools/k1_phases.py --crossover`` also times it
     below, in a build of its own)."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
+    Dh = head_width(Dh)
+    if Dh > CHUNK_DIM:
+        return wide_plan(windows, W, Dh, dtype, direction, causal)
     row = mma_row_bytes(Dh, dtype)
     if direction == "fwd":
         return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1,
@@ -444,14 +482,34 @@ def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float3
                   (2 * MMA_ROWS + 4 * MMA_COLS) * row + 2 * 3 * MMA_COLS * 4)
 
 
+def wide_plan(windows: int, W: int, Dh: int, dtype: torch.dtype, direction: str,
+              causal: bool) -> K1Plan:
+    """The chunked kernels' launch (csrc/k1_wide.cuh) at a head dim ``Dh``
+    past CHUNK_DIM, a multiple of it: block (window, row tile of 64, column
+    chunk) at every W. Each stage of the double-buffered ring holds one
+    CHUNK_DIM-wide column chunk of what a step contracts: the forward's q
+    rows and a key tile (or a value tile); the backward's q and dout rows
+    with a (K, V) tile in the two-sweep dq kernel, its k and v rows with a
+    (q, dout) tile in the dk / dv kernel, which also stages two stages of
+    the rows' three statistics."""
+    chunks = Dh // CHUNK_DIM
+    row = mma_row_bytes(CHUNK_DIM, dtype)
+    blocks = windows * _cdiv(W, MMA_ROWS) * chunks
+    if direction == "fwd":
+        return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks,
+                      2 * (MMA_ROWS + MMA_COLS) * row, 0, 0, chunks)
+    smem = 2 * (2 * MMA_ROWS + 2 * MMA_COLS) * row
+    return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks, smem,
+                  blocks, smem + 2 * 3 * MMA_COLS * 4, chunks)
+
+
 def _windows_of(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype, direction: str) -> int:
     """The windows of a launch; raises on what the kernels do not take."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction {direction!r} is not fwd or bwd")
     if dtype not in DTYPES:
         raise ValueError(f"q is {dtype}; the kernels take {DTYPES}")
-    if Dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not in {SUPPORTED_HEAD_DIMS}")
+    head_width(Dh)
     resolve_window(S, W)
     if BH < 0:
         raise ValueError(f"BH {BH} is negative")
@@ -464,13 +522,13 @@ def _check(q, k, v, bias, seed, W, direction, causal=False, extra=()) -> K1Plan:
     the causal mask are the model's; the kernels read only its diagonal
     (W, W) blocks."""
     BH, S, Dh = q.shape
-    for name, t in (("k", k), ("v", v), *extra):
-        if t.shape != q.shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, q {tuple(q.shape)}")
+    _same_shapes(q, ("k", k), ("v", v), *extra)
     if bias.shape != (S, S):
         raise ValueError(f"bias must be ({S}, {S}), got {tuple(bias.shape)}")
     if q.dtype not in DTYPES:
         raise ValueError(f"q is {q.dtype}; the kernels take {DTYPES}")
+    if head_width(Dh) != Dh:
+        raise ValueError(f"head dim {Dh}: the launch takes {head_width(Dh)} (padded_fwd)")
     for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
                            ("bias", bias, torch.float32),
                            *((n, t, q.dtype) for n, t in extra)):
@@ -503,14 +561,52 @@ def _count(direction: str, plan: K1Plan, dtype) -> None:
         LONG_COUNTER[direction, dtype].add()
 
 
+def _same_shapes(q, *named) -> None:
+    for name, t in named:
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q {tuple(q.shape)}")
+
+
+def _pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (..., Dh) with zero columns up to ``width``."""
+    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _cut_heads(t: torch.Tensor, Dh: int) -> torch.Tensor:
+    return t if t.shape[-1] == Dh else t[..., :Dh].contiguous()
+
+
+def padded_fwd(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)`` (a K1 forward: the launcher or the plain
+    version) at the head dim :func:`head_width` gives: q, k and v padded
+    with zero columns, out sliced back to Dh."""
+    _same_shapes(q, ("k", k), ("v", v))
+    Dh = q.shape[-1]
+    width = head_width(Dh)
+    return _cut_heads(fn(*(_pad_heads(t, width) for t in (q, k, v)), *args), Dh)
+
+
+def padded_bwd(fn, q, k, v, bias, dout, *args):
+    """``fn(q, k, v, bias, dout, *args)`` (a K1 backward) at the head dim
+    :func:`head_width` gives: q, k, v and dout padded with zero columns; dq,
+    dk and dv sliced back to Dh."""
+    _same_shapes(q, ("k", k), ("v", v), ("dout", dout))
+    Dh = q.shape[-1]
+    width = head_width(Dh)
+    q, k, v, dout = (_pad_heads(t, width) for t in (q, k, v, dout))
+    return tuple(_cut_heads(t, Dh) for t in fn(q, k, v, bias, dout, *args))
+
+
 def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
+    """The forward's launch at an instantiated head dim (or a multiple of
+    CHUNK_DIM past it): :func:`padded_fwd` brings any other to one."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "fwd", causal)
     out = torch.empty_like(q)
     if BH == 0:
         return out
-    name = ENTRY["fwd", q.dtype]
+    name = (WIDE_ENTRY if plan.chunks > 1 else ENTRY)["fwd", q.dtype]
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
@@ -523,6 +619,8 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
 
 
 def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=False):
+    """The backward's launch at an instantiated head dim (or a multiple of
+    CHUNK_DIM past it): :func:`padded_bwd` brings any other to one."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "bwd", causal, extra=(("dout", dout),))
@@ -532,7 +630,8 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=F
     # what the two-kernel backward's first kernel hands its second
     scratch = backward_scratch(plan)
     stats = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
-    name = LONG_ENTRY[q.dtype] if plan.blocks_kv else ENTRY["bwd", q.dtype]
+    name = (WIDE_ENTRY["bwd", q.dtype] if plan.chunks > 1
+            else LONG_ENTRY[q.dtype] if plan.blocks_kv else ENTRY["bwd", q.dtype])
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -582,13 +681,14 @@ bwd_op = torch.library.custom_op("bridgerl::packed_attention_bwd", _bwd_cpu, mut
 @fwd_op.register_kernel("cuda")
 def _fwd_cuda(q, k, v, bias, seed, scale, dropout_rate, window, causal=False):
     q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
-    return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal)
+    return padded_fwd(_launch_fwd, q, k, v, bias, scale, seed, dropout_rate, window, causal)
 
 
 @bwd_op.register_kernel("cuda")
 def _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal=False):
     q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
-    return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal)
+    return padded_bwd(_launch_bwd, q, k, v, bias, dout, scale, seed, dropout_rate, window,
+                      causal)
 
 
 @fwd_op.register_fake

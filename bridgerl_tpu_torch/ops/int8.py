@@ -10,8 +10,10 @@ Counterpart of ``bridgerl_tpu/ops/int8.py`` (plain XLA there, not Pallas):
   product summed exactly in int32; the rescale ``(acc * sx) * sw`` in
   float32, then one cast to x's dtype. On a CUDA tensor the product is
   ``torch._int_mm`` (int8 tensor cores), with the rows padded to a
-  multiple of 8 and at least 24 where it needs that; on a CPU tensor it is
-  the plain exact product (float64, exact while |acc| < 2**53).
+  multiple of 8 and at least 24, and K and N zero-padded to multiples of 8,
+  where it needs that (exact: the scales are taken before the padding, and
+  a zero product adds nothing to an int32 sum); on a CPU tensor it is the
+  plain exact product (float64, exact while |acc| < 2**53).
 - The backward treats the quantization as the identity, in x's dtype:
   ``gx = g @ w``, ``gw = g^T x`` (the JAX package's ``custom_vjp``).
 - ``models/layers.py::Int8Dense`` is ``Dense`` with that forward product:
@@ -44,20 +46,23 @@ def quantize(v: torch.Tensor, dim: int):
     return q.to(torch.int8), s
 
 
-def _pad_rows(a: torch.Tensor) -> torch.Tensor:
-    M = a.shape[0]
-    rows = max(_INT_MM_MIN_ROWS, -(-M // _INT_MM_MULT) * _INT_MM_MULT)
-    return a if rows == M else torch.cat([a, a.new_zeros(rows - M, a.shape[1])])
+def _mult(n: int) -> int:
+    return -(-n // _INT_MM_MULT) * _INT_MM_MULT
+
+
+def _pad(a: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``a`` with zero rows and columns up to (rows, cols)."""
+    M, K = a.shape
+    return a if (rows, cols) == (M, K) else torch.nn.functional.pad(a, (0, cols - K,
+                                                                        0, rows - M))
 
 
 def int_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """Exact int32 xq @ wq^T for int8 (M, K) and (N, K)."""
+    """Exact int32 xq @ wq^T for int8 (M, K) and (N, K), at any M, K, N."""
     if xq.is_cuda:
-        K, N = xq.shape[1], wq.shape[0]
-        if K % _INT_MM_MULT or N % _INT_MM_MULT:
-            raise ValueError(f"the int8 product takes K and N that are multiples of "
-                             f"{_INT_MM_MULT}, got K={K}, N={N}")
-        return torch._int_mm(_pad_rows(xq), wq.t())[: xq.shape[0]]
+        (M, K), N = xq.shape, wq.shape[0]
+        x = _pad(xq, max(_INT_MM_MIN_ROWS, _mult(M)), _mult(K))
+        return torch._int_mm(x, _pad(wq, _mult(N), _mult(K)).t())[:M, :N]
     return torch.matmul(xq.double(), wq.double().t()).to(torch.int32)
 
 

@@ -51,9 +51,14 @@ SIGNATURES = {
     # the backward's two-kernel path, a library of its own for a parallel build
     "packed_attention_bwd_long": ("packed_attention_bwd_long", _K1_BWD),
     "packed_attention_bwd_bf16_long": ("packed_attention_bwd_bf16_long", _K1_BWD),
+    # head dims past 128 (csrc/k1_wide.cuh): both directions, a library a dtype
+    "packed_attention_fwd_wide": ("packed_attention_wide", _K1_FWD),
+    "packed_attention_bwd_wide": ("packed_attention_wide", _K1_BWD),
+    "packed_attention_fwd_bf16_wide": ("packed_attention_wide_bf16", _K1_FWD),
+    "packed_attention_bwd_bf16_wide": ("packed_attention_wide_bf16", _K1_BWD),
     # x, codebook, idx, counts, dw, groups, N, D, K, then ops/vq_kernel.py's K2Plan:
-    # tile_rows, cluster, slices_per_block, tiles_per_cluster, smem_bytes, pass_rows
-    "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P]),
+    # tile_rows, cluster, slices_per_block, tiles_per_cluster, smem_bytes, pass_rows, chunk
+    "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -9,8 +9,9 @@ into row tiles and code slices with the slices of a tile in one
 thread-block cluster; the other adds each code's rows in increasing row
 order and writes every output once, so the outputs need no zeroing and dw
 is the same on every run. :func:`k2_plan` sizes both launches from
-(N, D, K). Shapes the kernels do not take raise: there is no silent
-fallback to the plain version.
+(N, D, K): any N, K and D of at least 1; past MAX_CHUNK columns the
+nearest-code kernel takes D in chunks (:func:`k2_chunk`). Shapes the kernels
+do not take raise: there is no silent fallback to the plain version.
 
 Groups: x (G, N, D) and codebook (G, K, D) give idx (G, N), counts (G, K)
 and dw (G, K, D) from one launch of each kernel, group g equal bit for bit
@@ -26,7 +27,7 @@ import torch
 
 from . import kernels
 
-MAX_DIM = 512
+MAX_CHUNK = 512          # columns of x and the codes a nearest-code block stages at once
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448      # bytes of shared memory one block may use
 CODES_PER_SLICE = 64
@@ -53,7 +54,9 @@ class K2Plan(NamedTuple):
     warps; block (i, j), warp w, owns code i * STAT_CODES + w and columns
     j * STAT_COLS + lane and j * STAT_COLS + 32 + lane, and reads idx in
     passes of ``pass_rows`` rows (a bitmap of that many bits per code in
-    shared memory)."""
+    shared memory). Past MAX_CHUNK columns the nearest-code blocks take D
+    in chunks of ``chunk`` columns (one tile a cluster); else ``chunk`` is
+    D."""
     tile_rows: int
     row_tiles: int
     slices: int
@@ -64,6 +67,7 @@ class K2Plan(NamedTuple):
     smem_bytes: int
     pass_rows: int
     stat_grid: Tuple[int, int]
+    chunk: int
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -88,31 +92,43 @@ def stats_smem(pass_rows: int) -> int:
     return 4 * STAT_CODES * (pass_rows // 32 + LIST_ROWS)
 
 
+def k2_chunk(D: int) -> int:
+    """The columns a nearest-code block stages at once: all of D up to
+    MAX_CHUNK; past it D split evenly into the fewest chunks of at most
+    MAX_CHUNK, rounded up to a multiple of 8 (the last chunk may be
+    narrower). Each score and norm adds its chunks in column order."""
+    if D <= MAX_CHUNK:
+        return D
+    return _cdiv(_cdiv(D, _cdiv(D, MAX_CHUNK)), 8) * 8
+
+
 def k2_plan(N: int, D: int, K: int) -> K2Plan:
     """64-row tiles when they still give a block per SM and fit in shared
     memory, else 32; one cluster of up to 8 blocks splits a tile's codes.
-    With one slice per block, a cluster takes several tiles (at most 16),
-    so that about two blocks run on each SM and each loads its codes once."""
-    if N < 1 or K < 1 or not 1 <= D <= MAX_DIM:
-        raise ValueError(f"K2 takes N >= 1, K >= 1 and 1 <= D <= {MAX_DIM}, "
-                         f"got N={N}, D={D}, K={K}")
+    With one slice per block and one column chunk (D up to MAX_CHUNK), a
+    cluster takes several tiles (at most 16), so that about two blocks run
+    on each SM and each loads its codes once."""
+    if N < 1 or K < 1 or D < 1:
+        raise ValueError(f"K2 takes N >= 1, K >= 1 and D >= 1, got N={N}, D={D}, K={K}")
+    chunk = k2_chunk(D)
     slices = _cdiv(K, CODES_PER_SLICE)
     cluster = min(MAX_CLUSTER, slices)
     tile_rows = next(t for t in TILE_ROWS
                      if t == TILE_ROWS[-1] or (_cdiv(N, t) * cluster >= SMS
-                                               and nearest_smem(t, D) <= SMEM_LIMIT))
+                                               and nearest_smem(t, chunk) <= SMEM_LIMIT))
     row_tiles = _cdiv(N, tile_rows)
     slices_per_block = _cdiv(slices, cluster)
     tiles = 1
-    if slices_per_block == 1:
+    if slices_per_block == 1 and chunk == D:
         tiles = min(MAX_TILES, _cdiv(row_tiles, max(1, BLOCKS_PER_SM * SMS // cluster)))
-        while tiles > 1 and nearest_smem(tile_rows, D, tiles) > SMEM_LIMIT:
+        while tiles > 1 and nearest_smem(tile_rows, chunk, tiles) > SMEM_LIMIT:
             tiles -= 1
     return K2Plan(tile_rows=tile_rows, row_tiles=row_tiles, slices=slices, cluster=cluster,
                   slices_per_block=slices_per_block, tiles_per_cluster=tiles,
-                  clusters=_cdiv(row_tiles, tiles), smem_bytes=nearest_smem(tile_rows, D, tiles),
+                  clusters=_cdiv(row_tiles, tiles),
+                  smem_bytes=nearest_smem(tile_rows, chunk, tiles),
                   pass_rows=min(_cdiv(N, 32) * 32, MAX_PASS_ROWS),
-                  stat_grid=(_cdiv(K, STAT_CODES), _cdiv(D, STAT_COLS)))
+                  stat_grid=(_cdiv(K, STAT_CODES), _cdiv(D, STAT_COLS)), chunk=chunk)
 
 
 def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor
@@ -130,9 +146,8 @@ def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor
     lead = (G,) if grouped else ()
     N, D = flat.shape[-2:]
     K = codebook.shape[-2]
-    if not 1 <= D <= MAX_DIM or K < 1:
-        raise ValueError(f"the kernel takes 1 <= D <= {MAX_DIM} and K >= 1, "
-                         f"got D={D}, K={K}")
+    if D < 1 or K < 1:
+        raise ValueError(f"the kernel takes D >= 1 and K >= 1, got D={D}, K={K}")
     for name, t in (("flat", flat), ("codebook", codebook)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
@@ -148,7 +163,7 @@ def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor
     status = fn(flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(),
                 counts.data_ptr(), dw.data_ptr(), G, N, D, K, plan.tile_rows, plan.cluster,
                 plan.slices_per_block, plan.tiles_per_cluster, plan.smem_bytes, plan.pass_rows,
-                kernels.stream_ptr(flat))
+                plan.chunk, kernels.stream_ptr(flat))
     kernels.check("vq_assign", status)
     launch_counter.add()
     return idx, counts, dw

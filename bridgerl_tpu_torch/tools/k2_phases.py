@@ -55,8 +55,8 @@ extern "C" int k2_marks(unsigned long long* out) {
 # (text in csrc/vq_assign.cu, text with its mark); each must occur once
 _POINTS = (
     ("bool vec) {\n  constexpr", "bool vec) {\n  K2_MARK(0, 0);\n  constexpr"),
-    ("      __syncthreads();\n      if (!keep_codes || t == 0) {",
-     "      __syncthreads();\n      if (t == 0) K2_MARK(0, 1);\n      if (!keep_codes || t == 0) {"),
+    ("        __syncthreads();\n        const int D4 = DK",
+     "        __syncthreads();\n        if (t == 0) K2_MARK(0, 1);\n        const int D4 = DK"),
     ("      __syncthreads();  // the norms are in, and the tile has been read\n",
      "      __syncthreads();  // the norms are in, and the tile has been read\n"
      "      if (t == 0) K2_MARK(0, 2);\n"),
@@ -125,8 +125,7 @@ def run(so) -> None:
         p = vq_kernel.k2_plan(N, D, K)
         args = ([t.data_ptr() for t in (x, cb, idx, counts, dw)]
                 + [1, N, D, K, p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster,
-                   p.smem_bytes,
-                   p.pass_rows, kernels.stream_ptr(x)])
+                   p.smem_bytes, p.pass_rows, p.chunk, kernels.stream_ptr(x)])
         blocks = (p.clusters * p.cluster, p.stat_grid[0] * p.stat_grid[1])
         for cold in (False, True):
             for _ in range(3):

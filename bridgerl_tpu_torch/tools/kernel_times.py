@@ -1,0 +1,90 @@
+"""Warm device times of K1 and K2 at fixed shapes, on the card, in the tree it
+runs from: the way to compare two versions of the kernels in one call.
+
+    python -m bridgerl_tpu_torch.tools.kernel_times TAG [--build]   # one H100
+
+prints one JSON line per case (``tree`` = TAG): K1's forward and backward
+(float32 and bf16, dropout 0.1) at the token prior's, the towers' and the
+two-kernel backward's shapes, and K2 at the flagship's and the zoo's. Each
+time is the median of 50 CUDA-event timings after 5 warm-up calls, with a
+~5 ms spin queued before each so that the events bracket the device work
+(``chip_smoke.py::time_ms``'s method). ``--build`` only builds the kernels.
+
+To compare a parent commit with a change, unpack the parent into a
+directory that ``.gitignore`` lists (``git archive``), build both trees
+together, then run parent, change, change, parent in one call, each from
+its own tree's root with ``PYTHONPATH`` at that root.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+
+import torch
+
+from ..models.layers import attention_bias, causal_bias
+from ..ops import attention, kernels, vq_kernel
+
+# (B*H, S, W, Dh, causal): the towers' W 10 (packing 8) and W 64, the prior at 128 and 256
+# positions and at d_model 128, the backward's two-kernel shapes, the slot-AR depth stack
+K1_SHAPES = ((256, 80, 10, 64, False), (2048, 80, 10, 64, False), (1024, 64, 64, 64, False),
+             (128, 128, 128, 64, True), (128, 128, 128, 32, True), (24, 160, 160, 128, False),
+             (48, 200, 200, 64, False), (32, 160, 160, 64, True), (128, 256, 256, 64, True),
+             (16384, 5, 5, 64, True))
+# (N, D, K): serving, training, validation, the zoo's K 1024, the studies' teacher, and two
+# other widths
+K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),
+             (16384, 64, 1024), (16384, 64, 512), (1000, 512, 100), (5000, 128, 1024))
+LEAD_CYCLES = 10_000_000
+
+
+def time_ms(fn, warmup: int = 5, iters: int = 50) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        torch.cuda._sleep(LEAD_CYCLES)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs a card")
+    kernels.build_all()
+    if "--build" in argv:
+        return 0
+    tag = argv[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in attention.DTYPES:
+        for BH, S, W, Dh, causal in K1_SHAPES:
+            q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
+                           for _ in range(4))
+            bias = causal_bias(S, "cuda") if causal else attention_bias(S // W, W, "cuda")
+            seed, scale = attention.draw_seed(g, "cuda"), Dh ** -0.5
+            fwd = lambda: attention.attention_fwd(q, k, v, bias, scale, seed, 0.1, W, causal)
+            bwd = lambda: attention.attention_bwd(q, k, v, bias, do, scale, seed, 0.1, W,
+                                                  causal)
+            print(json.dumps({"tree": tag, "kernel": "k1", "dtype": str(dtype)[6:],
+                              "shape": [BH, S, W, Dh], "causal": causal,
+                              "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd)}), flush=True)
+    for N, D, K in K2_SHAPES:
+        x = torch.randn(N, D, device="cuda", generator=g)
+        cb = torch.randn(K, D, device="cuda", generator=g)
+        print(json.dumps({"tree": tag, "kernel": "k2", "shape": [N, D, K],
+                          "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb))}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -48,7 +48,9 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    twice and its dq, dk and dv must repeat bit for bit. K2 runs
    at N = 4096 (serving), 512 (training), 6554 (validation) and 16384 (the
    K4 teacher's 4096 windows x 4 tokens) with K = 512, and at K = 1024 with
-   N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch):
+   N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch),
+   and past 512 columns (D 640 and 1024 at N 512 and 4096, K 512: the
+   nearest-code kernel's column chunks; no profile):
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
    indices bit for bit, a second call must repeat the first bit for bit,
    and in a child process one profile of all its shapes (``k2_device_ops``;
@@ -95,6 +97,8 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    batch in bf16 on the card and on the CPU, each held to the CPU float32
    step: the card's loss and every gradient no farther than twice the CPU
    bf16 step's (the loss may always be one bf16 rounding, 2**-8, off).
+   ``train_agree_wide``: the transformer + ema at hidden_dim 640 (K2 at D
+   640 in training), one f32 step under train_agree's rule.
 6. The model zoo: every arch x method at full width (the JAX package's
    defaults; window 64, the CLI's) served through ServingApp on 64 windows
    (``retarget``, ``robot_recon``, and ``motion_codes`` where the method
@@ -162,7 +166,9 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    ``{seed}`` teacher pattern; each seed's files, other weights per seed.
 12. ``int8``: the flagship with ``int8_ff`` in bf16, ``retarget`` at b =
    4096 and b = 1 held to the CPU's int8 model under the bf16 rules, its
-   rate beside the plain bf16 model's, then one teacher epoch.
+   rate beside the plain bf16 model's, then one teacher epoch; the int8
+   product at (M 37, K 100, N 196), K and N off multiples of 8, bit for bit
+   the CPU's in both dtypes.
 13. ``fk``: G1 link positions of 4,096 random windows on the card within
    1e-5 of ``fk_numpy``; the f32 teacher with ``lambda_fk`` 1 for one epoch
    at the train path's configuration; one step against the CPU under
@@ -186,7 +192,17 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    with its bound for the lower triangle's work and SDPA ``is_causal=True``
    as the library yardstick; ``k1_causal_mask``: both kernels' keep bits at
    (128, 128, 128) equal to the plain Philox mask on and below the
-   diagonal, in both dtypes.
+   diagonal, in both dtypes. ``k1_head_dims``: K1 forward and backward, f32
+   and bf16, dropout 0.1, at head dims the instantiated ones (16, 32, 64,
+   96, 128) do not cover, padded (Dh 8 and 24 on the window tiles at W 10,
+   48 on the window-resident kernel at W 64), at 96 (W 10; the d384L6
+   prior's backbone (128, 96, 96) and depth stack (12288, 5, 96), causal;
+   the full grid (128, 256, 96) causal, whose backward takes the two-sweep
+   kernels) and past 128 in chunks (256 at W 10, 160 at W 64, the full grid
+   (128, 256, 256) causal, 512 at (8, 64, 64)), under the rules of phase 2,
+   two launches bit for bit, with the true Dh's bound and SDPA;
+   ``k1_head_dim_masks``: both kernels' keep bits at Dh 24, 96, 160 and 512
+   equal to the plain Philox mask, in both dtypes.
 16. ``prior``: 256 synthetic takes of 645 frames through the flagship (seed
    0) give (256, 128, 5) code grids on the card (K1, K2); on 32 takes the
    CPU's grids are equal but where K2's near-tie rule explains an RVQ flip
@@ -201,6 +217,15 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    prior trains 2 timed epochs in f32 and bf16, every K1 backward on the
    two-kernel path; one step at dropout 0 against the CPU under the same
    two rules.
+    ``prior_wide`` (after ``prior_long``): the prior-capacity arm d384L6 of
+   ``scripts/exp_prior_scaling.py`` (d_model 384, 6 layers, 4 heads: Dh 96,
+   ff_dim 768, slot-AR with 2 depth layers, dropout 0.1, max_len 96, batch
+   32) at full width: 256 takes of 485 frames give (256, 96, 5) grids on
+   the card, 8 takes held to the CPU's; 2 timed epochs in f32 and bf16,
+   each launching K1's forward and backward; one step at dropout 0 under
+   the same two rules; one greedy ``sample_grids`` call (4 samples, 8
+   positions) on the f32 prior, every token the argmax of the CPU's
+   teacher-forced logits but where its two best lie within 1e-4.
 17. ``generate``: 4 motions of 32 positions from the f32 prior, unguided,
    guided (8 candidates, guide_dyn 0.2) and prompted (8 positions of a
    take): every token the CPU's draw from the card's prefix with the same
@@ -209,7 +234,7 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    candidates where no draw or score ties; decoded motion within 1e-3 of
    the CPU's decode of the same grid; frames/s of ``make_generation_fn``
    unguided and guided, as scripts/bench_generation.py counts them.
-18. ``generator_artifact``: the f32 prior and the flagship frozen (4
+18. ``generator_artifact``: the f32 prior and the flagship frozen (8
    positions unrolled, cuda programs; export timed), loaded in a child
    process (no models, train or config imported) and here; ``generate``
    for a seed within 1e-5 of the live ``make_generation_fn`` in the child,
@@ -296,15 +321,16 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    under ``<entry>_long``, each with its own cases; with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk, int8, prior, prior_long, generate, generator_artifact, latent,
-   torch_import,
+   fk, int8, prior, prior_long, prior_wide, generate, generator_artifact,
+   latent, torch_import,
    demo_stream, data_parallel (the ranks' launches; cli includes
    cli_multiseed) and research (the studies' child, summed over its
    entries); counts
    are set to 0 before a path, and a path that also runs the model only to
    check an answer sums the launches of its own calls; the float32
    tensor-core rows must show launches on the zoo, recipe, prior and
-   research paths, the two-kernel rows on prior_long), then, last,
+   research paths, the two-kernel rows on prior_long, K1's forward and
+   backward of each dtype and K2 on prior_wide), then, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
@@ -559,11 +585,42 @@ PRIOR_CPU_TAKES = 32          # the takes whose grids the CPU also extracts
 # (128, 256, 64), the two-kernel path
 PRIOR_LONG_TAKES, PRIOR_LONG_FRAMES, PRIOR_LONG_POSITIONS = 128, 1285, 256
 PRIOR_LONG_EPOCHS, PRIOR_LONG_CPU_TAKES = 2, 8
+# the prior-capacity arm takes640_d384L6 (docs/ROUND3.md:373-377; scripts/exp_prior_scaling.py
+# --d_model 384 --n_layers 6 with its defaults: 4 heads, so Dh 96; ff_dim 2 d_model, slot-AR
+# with 2 depth layers, dropout 0.1, max_len 96, batch 32) at full width on the flagship's
+# codes of synthetic takes of 485 frames (96 windows each at W 10 and stride 5); its K1 runs
+# at (128, 96, 96) causal (the backbone) and (12288, 5, 96) causal (the depth stack)
+PRIOR_WIDE = dict(d_model=384, n_heads=4, n_layers=6, ff_dim=768, dropout=0.1, slot_ar=True,
+                  depth_layers=2)
+PRIOR_WIDE_TAKES, PRIOR_WIDE_FRAMES, PRIOR_WIDE_POSITIONS = 256, 485, 96
+PRIOR_WIDE_EPOCHS, PRIOR_WIDE_CPU_TAKES = 2, 8
+PRIOR_WIDE_SAMPLES, PRIOR_WIDE_SAMPLED = 4, 8   # greedy sample_grids: samples, positions
+# K1 at the head dims the instantiated ones do not cover (B*H, S, W, Dh, causal, what): padded
+# (Dh 8, 24, 48), the d384L6 prior's 96 natively, and past 128 in chunks (160, 256, 512)
+K1_HEAD_DIMS = ((256, 80, 10, 8, False, "tiles, padded to 16"),
+                (256, 80, 10, 24, False, "tiles, padded to 32"),
+                (256, 80, 10, 96, False, "tiles"),
+                (256, 80, 10, 256, False, "chunked, 2 chunks"),
+                (128, 96, 96, 96, True, "d384L6 backbone: tensor cores; row-buffered backward"),
+                (12288, 5, 5, 96, True, "d384L6 depth stack: tiles"),
+                (256, 64, 64, 48, False, "window-resident, padded to 64"),
+                (256, 64, 64, 160, False, "chunked, padded to 256"),
+                (128, 256, 256, 96, True, "full grid: two-sweep backward"),
+                (128, 256, 256, 256, True, "full grid: chunked two-sweep backward"),
+                (8, 64, 64, 512, False, "chunked, 4 chunks, small grid"))
+# the keep masks at head dims off the instantiated ones (B*H, S, W, Dh, causal): v = I
+# reads p_drop, so Dh >= S
+K1_HEAD_DIM_MASKS = ((64, 20, 10, 24, False), (128, 96, 96, 96, True),
+                     (64, 64, 64, 160, False), (8, 64, 64, 512, False))
+# K2 past 512 columns (N, D, K): the nearest-code kernel's column chunks
+K2_WIDE = ((512, 640, 512), (4096, 640, 512), (512, 1024, 512), (4096, 1024, 512))
+INT8_ODD = (37, 100, 196)     # the int8 product at K and N off multiples of 8: M, K, N
+AGREE_WIDE_HIDDEN = 640       # train_agree_wide: K2 at D 640 in training (transformer + ema)
 ZERO29, ONE29 = np.zeros(29, np.float32), np.ones(29, np.float32)   # raw in, raw out
 # sampling: motions a call, positions, guided candidates and dynamics weight (the
 # README's recommended policy), prompt positions, the seed
 GEN_SAMPLES, GEN_POSITIONS, GEN_CANDIDATES, GEN_DYN, GEN_PROMPT, GEN_SEED = 4, 32, 8, 0.2, 8, 7
-GENERATOR_POSITIONS = 4       # unrolled into the generator artifact (its export's time
+GENERATOR_POSITIONS = 8       # unrolled into the generator artifact (its export's time
                               # grows with them; generate's frames/s keep GEN_POSITIONS)
 GEN_TIE = 1e-4                # the CPU's two best perturbed scores this close: not compared
 GEN_ATOL = 1e-3               # decoded motion, card against the CPU, on the same grid
@@ -734,14 +791,15 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0) -> float
     return ((g - w).abs() - atol).clamp_min(0.0).div(ulp).max().item()
 
 
-def k1_bound(dtype, elements: int, flops: int, window: int):
+def k1_bound(dtype, elements: int, flops: int, window: int, mma=None):
     """K1's bound for its dtype: bytes at the element's size, FLOPs at the
     rate of the units the kernel uses: the bf16 tensor cores (bfloat16), the
-    float32 cores (float32 window tiles) or, for float32 long windows, the
-    tf32 tensor cores doing three products for each (3xTF32)."""
+    float32 cores (float32 window tiles) or, for float32 long windows (and
+    ``mma``: the chunked kernels of head dims past 128 at any W), the tf32
+    tensor cores doing three products for each (3xTF32)."""
     if dtype == BF16:
         return bound(2 * elements, flops, BF16_FLOPS_PER_S)
-    if window >= attention.MIN_MMA_WINDOW:
+    if (window >= attention.MIN_MMA_WINDOW) if mma is None else mma:
         return bound(4 * elements, 3 * flops, TF32_FLOPS_PER_S)
     return bound(4 * elements, flops)
 
@@ -832,13 +890,15 @@ def k1_case_kernel(name: str, case: dict) -> str:
     """The row of the ``kernels`` line that a K1 case of entry point ``name``
     belongs to: the window tiles (W < MIN_MMA_WINDOW) under the entry's
     name; the tensor-core path under ``<entry>_mma`` and, for the backward's
-    two-kernel launches (its plan has a dk / dv kernel), ``<entry>_long``."""
-    if case["window"] < attention.MIN_MMA_WINDOW:
-        return name
+    two-kernel launches (its plan has a dk / dv kernel), ``<entry>_long``.
+    A head dim past 128 takes the chunked kernels at every W: the forward's
+    row is ``_mma``, the backward's (two kernels) ``_long``."""
     BH, S, Dh = case["shape"]
     direction = "bwd" if "bwd" in name else "fwd"
     plan = attention.k1_plan(BH, S, case["window"], Dh, BF16 if "bf16" in name else torch.float32,
                              direction, case.get("bias") == "causal")
+    if plan.path == "tiles":
+        return name
     return name + ("_long" if plan.blocks_kv else "_mma")
 
 
@@ -1166,7 +1226,7 @@ def check_k2(g: torch.Generator, smi: str) -> dict:
              "launch_floor_two_ms": time_ms(lambda: (torch.cuda._sleep(0),
                                                      torch.cuda._sleep(0)))}
     cases = []
-    for N, D, K in K2_SHAPES:
+    for N, D, K in K2_SHAPES + K2_WIDE:
         x = torch.randn(N, D, device="cuda", generator=g)
         cb = torch.randn(K, D, device="cuda", generator=g)
         idx, counts, dw = vq_kernel.nearest_codes_cuda(x, cb)
@@ -1193,7 +1253,7 @@ def check_k2(g: torch.Generator, smi: str) -> dict:
             "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
             "plain_ms": time_ms(lambda: codebook.nearest_codes_plain(x, cb)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            **device_ops[f"k2 {N} {D} {K}"], **floor,
+            **device_ops.get(f"k2 {N} {D} {K}", {}), **floor,   # past 512 columns: no profile
         }
         emit({"phase": "kernel", "name": "vq_assign", **case})
         cases.append(case)
@@ -1603,10 +1663,10 @@ def _step_grads(exp, dev: str, robot: torch.Tensor, human: torch.Tensor,
              if p.grad is not None})
 
 
-def _agree_step(dev: str, dtype, **over) -> tuple:
+def _agree_step(dev: str, dtype, method: str = "hybrid", **over) -> tuple:
     """The loss and every parameter's gradient of one optimizer batch of
     AGREE_BATCH at dropout 0 from one seed, on ``dev`` in ``dtype``."""
-    exp = make_experiment("transformer", "hybrid", window=10, attn_packing=8, dropout=0.0,
+    exp = make_experiment("transformer", method, window=10, attn_packing=8, dropout=0.0,
                           batch_size=AGREE_BATCH, accum_chunks=1,
                           compute_dtype=DTYPE_NAME[dtype], **over)
     rng = np.random.default_rng(SEED + 2)
@@ -1651,6 +1711,23 @@ def train_agree_bf16(cpu32: tuple) -> dict:
     res = {"phase": "train_agree_bf16", "batch": AGREE_BATCH,
            **_bf16_step_rule("train_agree_bf16", cpu32, _agree_step("cuda", BF16),
                              _agree_step("cpu", BF16))}
+    emit(res)
+    return res
+
+
+def train_agree_wide() -> dict:
+    """train_agree's rule for the transformer + ema at hidden_dim
+    AGREE_WIDE_HIDDEN in float32: K2 at D 640 (two column chunks) in
+    training, card against the CPU."""
+    over = dict(method="ema", hidden_dim=AGREE_WIDE_HIDDEN)
+    before = launches()
+    card = _agree_step("cuda", torch.float32, **over)
+    k2 = _delta(before)[vq_kernel.launch_counter.name]
+    require(k2 > 0, "train_agree_wide: K2 was not launched")
+    res = {"phase": "train_agree_wide", "batch": AGREE_BATCH, "method": "ema",
+           "hidden_dim": AGREE_WIDE_HIDDEN, "k2_launches": k2,
+           "k2_chunk": vq_kernel.k2_chunk(AGREE_WIDE_HIDDEN),
+           **_agree_rule("train_agree_wide", card, _agree_step("cpu", torch.float32, **over))}
     emit(res)
     return res
 
@@ -2719,6 +2796,19 @@ def int8_path(smi: str) -> dict:
     int8_wps, int8_p50 = _serving_rate(app, x4096)
     rate_delta = add_launches({k: v - before[k] for k, v in launches().items()})
     plain_wps, plain_p50 = _serving_rate(plain_app, x4096)
+    # the int8 product at K and N off multiples of 8 (zero-padded for torch._int_mm),
+    # bit for bit the CPU's exact product, in both dtypes
+    from bridgerl_tpu_torch.ops import int8 as int8_ops
+    M, K, N = INT8_ODD
+    x = torch.randn(M, K, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    w = torch.randn(N, K, device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
+    odd = {"shape": [M, K, N]}
+    for dtype in DTYPES:
+        got = int8_ops.int8_matmul(x.to(dtype), (0.1 * w).to(dtype))
+        want = int8_ops.int8_matmul(x.to(dtype).cpu(), (0.1 * w).to(dtype).cpu())
+        require(got.shape == (M, N) and torch.equal(got.cpu(), want),
+                f"int8 {DTYPE_NAME[dtype]} at {INT8_ODD}: differs from the CPU's product")
+        odd[f"{DTYPE_NAME[dtype]}_equal_cpu"] = True
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_int8_")
     try:
@@ -2741,6 +2831,7 @@ def int8_path(smi: str) -> dict:
             "int8_retarget_windows_per_s_b4096": int8_wps,
             "plain_retarget_windows_per_s_b4096": plain_wps,
             "int8_retarget_p50_ms_b1": int8_p50, "plain_retarget_p50_ms_b1": plain_p50,
+            "odd_widths": odd,
             "teacher_windows_per_s": _timed_rate(trainer.train_seconds, 0)[0],
             "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
             "int8_path_s": time.perf_counter() - t0}
@@ -2867,6 +2958,97 @@ def check_k1_causal(g: torch.Generator, table: list) -> dict:
             require(torch.equal(got, want), f"K1 {what} {DTYPE_NAME[dtype]} causal keep mask "
                     f"differs in {int((got != want).sum())}")
         out[f"{DTYPE_NAME[dtype]}_kept_share"] = fwd.sum().item() / (int(lower.sum()) * BH)
+    out["mask_equal"] = True
+    emit(out)
+    return out
+
+
+def _head_dim_bias(S: int, W: int, causal: bool) -> torch.Tensor:
+    return causal_bias(S, "cuda") if causal else attention_bias(S // W, W, "cuda")
+
+
+def _head_dim_case(g, dtype, direction: str, BH, S, W, Dh, causal, what: str) -> dict:
+    """K1 (``direction`` fwd or bwd) at a head dim off the instantiated ones
+    (padded), at 96, or past 128 (chunked), dropout 0.1, against the plain
+    version at the true Dh under the rules of phase 2, two launches bit for
+    bit; its bound counts the true Dh's work (windows, or the lower
+    triangle), at the units of the path it takes; SDPA the library form."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    bias, scale = _head_dim_bias(S, W, causal), Dh ** -0.5
+    seed, rate = attention.draw_seed(g, "cuda"), DROPOUT
+    plan = attention.k1_plan(BH, S, W, Dh, dtype, direction, causal)
+    pairs = BH * (S * (S + 1) // 2 if causal else S * W)   # the (query, key) pairs computed
+    lib = ((lambda q, k, v: [lambda: sdpa(q, k, v, is_causal=True, scale=scale,
+                                          dropout_p=rate)]) if causal
+           else (lambda q, k, v: list(_sdpa_forms(q, k, v, bias, scale, rate, W))))
+    if direction == "fwd":
+        run = lambda: [attention.attention_fwd(q, k, v, bias, scale, seed, rate, W, causal)]
+        plain = lambda: [attention.packed_attention_reference(q, k, v, bias, scale, seed, rate,
+                                                              W, causal)]
+        library = lib(q, k, v)
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * pairs * Dh, W, plan.path == "mma")
+    else:
+        run = lambda: list(attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W,
+                                                   causal))
+        plain = lambda: list(attention.packed_attention_bwd_reference(q, k, v, bias, do, scale,
+                                                                      seed, rate, W, causal))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        outs = [f() for f in lib(qg, kg, vg)]
+        library = [lambda o=o: torch.autograd.grad(o, (qg, kg, vg), do.view(o.shape),
+                                                   retain_graph=True) for o in outs]
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * pairs * Dh, W, plan.path == "mma")
+    name = attention.ENTRY[direction, dtype]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name} Dh {Dh} {BH, S, W}: a second launch differs")
+    lib_ms = [time_ms(f) for f in library]
+    case = {"shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "window": W,
+            "bias": "causal" if causal else "window", "dropout": rate, "what": what,
+            "head_width": attention.head_width(Dh), "chunks": plan.chunks,
+            "kernel_path": k1_case_kernel(name, {"shape": [BH, S, Dh], "window": W,
+                                                 "bias": "causal" if causal else "window"}),
+            "repeat_equal": True,
+            **_agreement(f"{name} Dh {Dh} {BH, S, W}", got, plain(), dtype),
+            "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(run),
+            "ms_cold": time_ms(run, cold=True), "plain_ms": time_ms(plain, iters=10),
+            "library_ms": min(lib_ms), "library": "sdpa is_causal=True" if causal
+            else "sdpa full rows / windows", "library_forms_ms": lib_ms}
+    emit({"phase": "k1_head_dims", "name": name, **case})
+    return case
+
+
+def check_k1_head_dims(g: torch.Generator, table: list) -> dict:
+    """K1 forward and backward at K1_HEAD_DIMS, f32 and bf16, each case
+    appended to its kernel's row of ``table``; then both kernels' keep bits
+    at K1_HEAD_DIM_MASKS, both dtypes, equal to the plain Philox mask inside
+    the windows (on and below the diagonal), nothing kept elsewhere."""
+    rows = {r["name"]: r for r in table}
+    for dtype in DTYPES:
+        for direction in ("fwd", "bwd"):
+            row = rows[attention.ENTRY[direction, dtype]]
+            row["cases"] += [_head_dim_case(g, dtype, direction, *shape)
+                             for shape in K1_HEAD_DIMS]
+    out = {"phase": "k1_head_dim_masks", "dropout": DROPOUT, "shapes": K1_HEAD_DIM_MASKS}
+    for BH, S, W, Dh, causal in K1_HEAD_DIM_MASKS:
+        bias = _head_dim_bias(S, W, causal)
+        allowed = (torch.ones(S, S, device="cuda").tril().bool() if causal else bias == 0)
+        for dtype in DTYPES:
+            q, k = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
+                    for _ in range(2))
+            eye = torch.eye(S, Dh, device="cuda", dtype=dtype).expand(BH, S, Dh).contiguous()
+            seed = attention.draw_seed(g, "cuda")
+            fwd = attention.attention_fwd(q, k, eye, bias, Dh ** -0.5, seed, DROPOUT, W,
+                                          causal)[:, :, :S] > 0
+            dv = attention.attention_bwd(q, k, eye, bias, eye, Dh ** -0.5, seed, DROPOUT, W,
+                                         causal)[2]
+            bwd = dv[:, :S, :S].transpose(1, 2) > 0
+            want = attention.attention_dropout_mask(seed, BH, S, DROPOUT, "cuda") & allowed
+            for what, got in (("fwd", fwd), ("bwd", bwd)):
+                require(torch.equal(got, want), f"K1 {what} {DTYPE_NAME[dtype]} Dh {Dh} keep "
+                        f"mask differs in {int((got != want).sum())}")
     out["mask_equal"] = True
     emit(out)
     return out
@@ -3132,6 +3314,97 @@ def prior_long_path(smi: str, vq, exp) -> dict:
         _prior_step(full, BF16, "cpu", g, m))
     line["launches"] = add_launches(*own)
     line["prior_long_path_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
+def _greedy_rule(cpu_prior, grid: torch.Tensor) -> dict:
+    """Greedy tokens (``grid`` (B, N, S), the card's ``sample_grids`` at
+    top_k 1) against the CPU: each the argmax of the CPU's teacher-forced
+    logits on the card's prefix, but where the CPU's two best logits lie
+    within GEN_TIE."""
+    with torch.no_grad():
+        logits = cpu_prior(grid.long())
+    ties = mismatches = 0
+    for s_, lg in enumerate(logits):
+        top2 = lg.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) <= GEN_TIE
+        ties += int(tie.sum())
+        mismatches += int(((lg.argmax(-1) != grid[..., s_].long()) & ~tie).sum())
+    require(mismatches == 0, f"greedy sampling: {mismatches} tokens differ from the CPU's")
+    return {"tokens": grid.numel(), "near_ties": ties, "mismatches": 0}
+
+
+def prior_wide_path(smi: str, vq, exp) -> dict:
+    """The prior-capacity arm d384L6 (PRIOR_WIDE: 4 heads of Dh 96, K1 at
+    that head dim natively) on the flagship's codes (``vq``, seed 0):
+    PRIOR_WIDE_TAKES synthetic takes give (256, 96, 5) grids on the card (K1,
+    K2), held to the CPU's on PRIOR_WIDE_CPU_TAKES takes under the prior
+    phase's rule; the prior trains PRIOR_WIDE_EPOCHS timed epochs in f32 and
+    bf16 (windows/s, tokens/s), each launching both K1 entry points of its
+    dtype; one step at dropout 0 is held to the CPU under ``step_agree`` and
+    ``step_agree_bf16``; one greedy ``sample_grids`` call on the f32 prior
+    (PRIOR_WIDE_SAMPLES x PRIOR_WIDE_SAMPLED positions) under
+    :func:`_greedy_rule`. The launches of its own calls."""
+    t_phase = time.perf_counter()
+    takes = _prior_takes(PRIOR_WIDE_TAKES, PRIOR_WIDE_FRAMES, SEED + 13)
+    own = []
+    before = launches()
+    t0 = time.perf_counter()
+    grids, mask, pcfg, seq_ids = extract_code_grids(vq, exp, takes, ZERO29, ONE29, PRIOR_STRIDE,
+                                                    max_len=PRIOR_WIDE_POSITIONS)
+    extract_s = time.perf_counter() - t0
+    own.append(_delta(before))
+    require(grids.shape == (PRIOR_WIDE_TAKES, PRIOR_WIDE_POSITIONS, 5) and mask.all(),
+            f"prior_wide grids {grids.shape}, {mask.sum()} positions")
+    n = PRIOR_WIDE_CPU_TAKES
+    cpu_vq = init_model(exp.model, SEED, device="cpu")
+    cpu = extract_code_grids(cpu_vq, exp, takes[:n], ZERO29, ONE29, PRIOR_STRIDE,
+                             max_len=PRIOR_WIDE_POSITIONS)
+    full = dataclasses.replace(pcfg, **PRIOR_WIDE)
+    require(full.d_model // full.n_heads == 96 and full.max_len == PRIOR_WIDE_POSITIONS,
+            f"prior_wide config {full}")
+    line = {"phase": "prior_wide", "card": smi, "config": PRIOR_WIDE, "takes": PRIOR_WIDE_TAKES,
+            "grids": list(grids.shape), "extract_windows": int(mask.sum()),
+            "extract_s": extract_s, "extract_windows_per_s": float(mask.sum()) / extract_s,
+            "cpu_checked_takes": n,
+            "codes_vs_cpu": _code_flips(cpu_vq, exp, takes[:n], grids[:n], cpu[0], cpu[1])}
+    prior32 = None
+    for dtype in DTYPES:
+        before = launches()
+        prior, hist, seconds, positions = _prior_train(grids, mask, seq_ids, full, dtype,
+                                                       PRIOR_WIDE_EPOCHS)
+        delta = _delta(before)
+        own.append(delta)
+        require(all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
+                f"prior_wide {DTYPE_NAME[dtype]} losses {hist}")
+        require(all(delta[attention.ENTRY[d, dtype]] > 0 for d in ("fwd", "bwd")),
+                f"prior_wide {DTYPE_NAME[dtype]}: K1 forward and backward must launch: {delta}")
+        rate = PRIOR_WIDE_EPOCHS * positions / seconds
+        line[DTYPE_NAME[dtype]] = {
+            "epochs": PRIOR_WIDE_EPOCHS, "train_s": seconds, "windows_per_s": rate,
+            "tokens_per_s": rate * len(pcfg.vocab_sizes), "history": hist}
+        if dtype == torch.float32:
+            prior32 = prior
+    g, m = grids[:32], mask[:32]
+    cpu32 = _prior_step(full, torch.float32, "cpu", g, m)
+    line["step_agree"] = _agree_rule("prior_wide step_agree",
+                                     _prior_step(full, torch.float32, "cuda", g, m), cpu32)
+    line["step_agree_bf16"] = _bf16_step_rule(
+        "prior_wide step_agree_bf16", cpu32, _prior_step(full, BF16, "cuda", g, m),
+        _prior_step(full, BF16, "cpu", g, m))
+    before = launches()
+    with torch.inference_mode():
+        sampled = sample_grids(prior32.eval(), GEN_SEED, PRIOR_WIDE_SAMPLES, PRIOR_WIDE_SAMPLED,
+                               top_k=1)
+    torch.cuda.synchronize()
+    own.append(_delta(before))
+    line["greedy"] = {"samples": PRIOR_WIDE_SAMPLES, "positions": PRIOR_WIDE_SAMPLED,
+                      **_greedy_rule(copy.deepcopy(prior32).cpu(), sampled.cpu())}
+    line["launches"] = add_launches(*own)
+    require(line["launches"][vq_kernel.launch_counter.name] > 0,
+            f"prior_wide: K2 was not launched: {line['launches']}")
+    line["prior_wide_path_s"] = time.perf_counter() - t_phase
     emit(line)
     return line
 
@@ -4442,6 +4715,7 @@ def main(argv) -> int:
     for dtype in DTYPES:
         check_k1_mask(g, dtype)
     check_k1_causal(g, table)
+    check_k1_head_dims(g, table)
     table = split_k1_rows(table)
     native_path(smi)
 
@@ -4465,6 +4739,7 @@ def main(argv) -> int:
               "train_path_s": time.perf_counter() - t0})
     _, cpu32 = train_agree()
     train_agree_bf16(cpu32)
+    train_agree_wide()
 
     zoo = zoo_path()
     emit({"phase": "zoo_summary", "card": smi, **zoo})
@@ -4505,6 +4780,7 @@ def main(argv) -> int:
     generate = generate_path(smi, prior32, vq, vq_exp, grids)
     generator = generator_artifact_path(smi, prior32, vq, vq_exp)
     prior_long = prior_long_path(smi, vq, vq_exp)
+    prior_wide = prior_wide_path(smi, vq, vq_exp)
     del prior32, vq
     latent = latent_path(smi)
     imported, import_dir = torch_import_path(smi)
@@ -4536,7 +4812,7 @@ def main(argv) -> int:
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "prior_long": prior_long,
-             "generate": generate,
+             "prior_wide": prior_wide, "generate": generate,
              "generator_artifact": generator, "latent": latent, "torch_import": imported,
              "demo_stream": demo, "data_parallel": dp, "research": research}
     for row in table:
@@ -4553,6 +4829,11 @@ def main(argv) -> int:
         name = attention.LONG_COUNTER["bwd", dtype].name
         by_path = next(r["launches_by_path"] for r in table if r["name"] == name)
         require(by_path["prior_long"] > 0, f"{name}: no launch on prior_long: {by_path}")
+    # prior_wide (Dh 96): K1's forward and backward of each dtype, and K2
+    for name in [*attention.ENTRY.values(), "vq_assign"]:
+        launched = sum(r["launches_by_path"]["prior_wide"] for r in table
+                       if r["name"] in (name, name + "_mma", name + "_long"))
+        require(launched > 0, f"{name}: no launch on prior_wide")
     emit({"phase": "total", "card": smi, "chip_smoke_s": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,15 @@ machine with one (which needs no JAX), run
 ``--noconftest`` skips tests/conftest.py, which configures JAX for the rest
 of the suite. Shapes go beyond chip_smoke.py's: every head dim K1 takes, odd
 sequence lengths and general biases, forward and backward, with dropout 0
-and 0.1; K2 at odd N, D and K, D up to 512, K over several slices of a
-cluster rank and ragged last slices, N off the row tile, exact ties (also
-across the slices of one cluster), repeat calls, and the shapes and launch
-plans it refuses; the model zoo's shapes (K2 at K 1024 and N 4,096 and
-16,384, also from the crowding untrained codebook; K1 at S = W = 64 in both
-dtypes); one small-model train step against the CPU; two data-parallel
-ranks sharing the card over gloo against one process. K1's bfloat16
+and 0.1, at head dims padded (8, 24, 48), native (96) and chunked (160,
+256, 512); K2 at odd N, D and K, D up to 2048 (in column chunks past 512),
+K over several slices of a cluster rank and ragged last slices, N off the
+row tile, exact ties (also across the slices of one cluster), repeat calls,
+and the shapes and launch plans it refuses; the model zoo's shapes (K2 at K
+1024 and N 4,096 and 16,384, also from the crowding untrained codebook; K1
+at S = W = 64 in both dtypes); the int8 product at widths off 8 (K 100, N
+196); one small-model train step against the CPU; two data-parallel ranks
+sharing the card over gloo against one process. K1's bfloat16
 instantiations run at every head dim, on windows, whole rows and the
 tensor-core path's long windows, with the dropout mask, what they refuse,
 and a small bf16 train step. K1's tensor-core path (windows of 32 and more)
@@ -141,14 +143,14 @@ def test_k1_empty_batch_launches_nothing(gen):
     assert out.shape == (0, 10, 64) and FWD_F32.count == before
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "bias_shape", "too_long"])
+@pytest.mark.parametrize("bad", ["bias_device", "dtype", "bias_shape", "too_long"])
 def test_k1_refuses_what_it_does_not_take(gen, bad):
     S, Dh = 10, 64
     q = torch.randn(4, S, Dh, device="cuda", generator=gen)
     bias = torch.zeros(S, S, device="cuda")
     args = {"q": q, "k": q, "v": q, "bias": bias}
-    if bad == "head_dim":
-        args = {n: torch.randn(4, S, 48, device="cuda") for n in "qkv"} | {"bias": bias}
+    if bad == "bias_device":   # any head dim is taken (padded or chunked): not this
+        args["bias"] = bias.cpu()
     elif bad == "dtype":
         args["k"] = q.double()
     elif bad == "bias_shape":
@@ -226,15 +228,15 @@ def test_k1_bwd_empty_batch_launches_nothing(gen):
     assert dq.shape == (0, 10, 64) and BWD_F32.count == before
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "dout_shape", "seed", "no_seed",
+@pytest.mark.parametrize("bad", ["bias_device", "dtype", "dout_shape", "seed", "no_seed",
                                  "too_long"])
 def test_k1_bwd_refuses_what_it_does_not_take(gen, bad):
     S, Dh = 10, 64
     t = lambda *shape: torch.randn(*shape, device="cuda")
     args = {"q": t(4, S, Dh), "k": t(4, S, Dh), "v": t(4, S, Dh), "do": t(4, S, Dh),
             "bias": torch.zeros(S, S, device="cuda"), "seed": _seed(gen), "rate": 0.1}
-    if bad == "head_dim":
-        args.update({n: t(4, S, 48) for n in ("q", "k", "v", "do")})
+    if bad == "bias_device":
+        args["bias"] = args["bias"].cpu()
     elif bad == "dtype":
         args["k"] = args["k"].double()
     elif bad == "dout_shape":
@@ -375,15 +377,16 @@ def test_k2_refuses_a_plan_that_does_not_cover_the_codes(gen):
     ptrs = [t.data_ptr() for t in (x, cb, *out)]
     stream = kernels.stream_ptr(x)
     good = (p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster, p.smem_bytes,
-            p.pass_rows)
+            p.pass_rows, p.chunk)
     assert fn(*ptrs, 1, 64, 64, 512, *good, stream) == 0   # one group
-    for bad in [(p.tile_rows, 4, 1, 1, p.smem_bytes, p.pass_rows),      # 4 of 8 slices
-                (p.tile_rows, 9, 1, 1, p.smem_bytes, p.pass_rows),      # cluster > 8
-                (48, p.cluster, 1, 1, p.smem_bytes, p.pass_rows),       # no such tile
-                (p.tile_rows, p.cluster, 1, 0, p.smem_bytes, p.pass_rows),  # no tiles
-                (p.tile_rows, p.cluster, 1, 2, p.smem_bytes, p.pass_rows),  # too little memory
-                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes - 4, p.pass_rows),
-                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, 0)]:
+    for bad in [(p.tile_rows, 4, 1, 1, p.smem_bytes, p.pass_rows, 64),      # 4 of 8 slices
+                (p.tile_rows, 9, 1, 1, p.smem_bytes, p.pass_rows, 64),      # cluster > 8
+                (48, p.cluster, 1, 1, p.smem_bytes, p.pass_rows, 64),       # no such tile
+                (p.tile_rows, p.cluster, 1, 0, p.smem_bytes, p.pass_rows, 64),  # no tiles
+                (p.tile_rows, p.cluster, 1, 2, p.smem_bytes, p.pass_rows, 64),  # too little
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes - 4, p.pass_rows, 64),
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, 0, 64),
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, p.pass_rows, 32)]:  # D unchunked
         assert fn(*ptrs, 1, 64, 64, 512, *bad, stream) != 0
     assert fn(*ptrs, 0, 64, 64, 512, *good, stream) != 0       # no group
     torch.cuda.synchronize()
@@ -402,8 +405,8 @@ def test_k2_ties_go_to_the_lowest_index(gen):
 def test_k2_refuses_what_it_does_not_take(gen, bad):
     x = torch.randn(8, 16, device="cuda")
     cb = torch.randn(32, 16, device="cuda")
-    if bad == "D":
-        x, cb = torch.randn(8, 513, device="cuda"), torch.randn(32, 513, device="cuda")
+    if bad == "D":   # every D of at least 1 is taken (chunked past 512)
+        x, cb = torch.randn(8, 0, device="cuda"), torch.randn(32, 0, device="cuda")
     elif bad == "dtype":
         x = x.double()
     elif bad == "device":
@@ -798,15 +801,17 @@ def test_fk_on_the_card_matches_numpy(gen):
         assert np.abs(pos[i, t] - fk_numpy(chain, qn[i, t])[0]).max() <= 1e-5
 
 
-@pytest.mark.parametrize("M", [1, 10, 17, 4096])
-def test_int8_matmul_on_the_card_equals_the_cpu(gen, M):
-    """torch._int_mm with padded rows gives the CPU's exact product, so the
-    float32 forward is bit for bit the CPU's; the bf16 forward too."""
+@pytest.mark.parametrize("M,K,N", [(1, 256, 512), (10, 256, 512), (17, 256, 512),
+                                   (4096, 256, 512), (7, 100, 196), (300, 100, 196)])
+def test_int8_matmul_on_the_card_equals_the_cpu(gen, M, K, N):
+    """torch._int_mm with padded rows (and K, N padded to multiples of 8:
+    100 x 196) gives the CPU's exact product, so the float32 forward is bit
+    for bit the CPU's; the bf16 forward too."""
     from bridgerl_tpu_torch.ops import int8
 
-    x = torch.randn(M, 256, device="cuda", generator=gen)
+    x = torch.randn(M, K, device="cuda", generator=gen)
     x[0, 0] = 50.0
-    w = torch.randn(512, 256, device="cuda", generator=gen) * 0.1
+    w = torch.randn(N, K, device="cuda", generator=gen) * 0.1
     for dt in (torch.float32, torch.bfloat16):
         got = int8.int8_matmul(x.to(dt), w.to(dt))
         want = int8.int8_matmul(x.to(dt).cpu(), w.to(dt).cpu())
@@ -1298,3 +1303,72 @@ def test_k1_backward_entry_points_refuse_each_others_plans(gen, S):
     torch.cuda.synchronize()
     own = attention.LONG_ENTRY[torch.float32] if plan.blocks_kv else "packed_attention_bwd"
     assert {n: s == 0 for n, s in status.items()} == {n: n == own for n in status}
+
+
+@pytest.mark.parametrize("N,D,K", [(512, 640, 512), (4096, 640, 512), (512, 1024, 512),
+                                   (4096, 1024, 512), (100, 513, 70), (300, 2048, 600),
+                                   (50, 1001, 65)])
+def test_k2_past_512_columns_matches_plain(gen, N, D, K):
+    """D past 512: the nearest-code kernel scores in column chunks of at most
+    512 (odd widths take the plain loads), under the rule of every K2 case;
+    two calls equal bit for bit."""
+    x = torch.randn(N, D, device="cuda", generator=gen)
+    cb = torch.randn(K, D, device="cuda", generator=gen)
+    first = _k2_case(x, cb)
+    assert all(torch.equal(a, b) for a, b in zip(first, codebook.nearest_codes(x, cb)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("BH,S,W,Dh,causal", [(40, 20, 10, 8, False), (40, 20, 10, 24, False),
+                                              (40, 20, 10, 96, False), (8, 64, 64, 48, False),
+                                              (128, 96, 96, 96, True), (8, 64, 64, 160, False),
+                                              (40, 20, 10, 256, False), (6, 96, 96, 256, True),
+                                              (2, 32, 32, 512, False)])
+def test_k1_at_any_head_dim_matches_plain(gen, BH, S, W, Dh, causal, rate, dtype):
+    """Head dims off the instantiated ones (padded: 8, 24, 48), Dh 96 (the
+    d384L6 prior's) natively, and past 128 in chunks (160, 256, 512): forward
+    and backward against the plain version at the true Dh (f32 1e-4, bf16 one
+    ulp), two backward launches bit for bit, and the counters of the path."""
+    q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    bias = (torch.triu(torch.full((S, S), -1e9, device="cuda"), 1) if causal
+            else attention_bias(S // W, W, "cuda"))
+    seed, scale = _seed(gen), Dh ** -0.5
+    kernels.reset_counters()
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, W, causal)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W, causal)
+    again = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W, causal)
+    torch.cuda.synchronize()
+    assert attention.COUNTER["fwd", dtype].count == 1 and attention.COUNTER["bwd", dtype].count == 2
+    if Dh > attention.CHUNK_DIM:   # the chunked backward: two kernels a launch
+        assert attention.LONG_COUNTER["bwd", dtype].count == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W, causal)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate, W,
+                                                    causal)
+    for a, b in zip([out, *got], [ref, *want]):
+        assert a.shape == (BH, S, Dh) and a.dtype == dtype
+        if dtype == torch.float32:
+            assert (a - b).abs().max().item() <= 1e-4
+        else:
+            assert bf16_ulps(a, b, 1e-6) <= 1.0
+
+
+def test_k1_wide_entry_points_refuse_other_plans(gen):
+    """The chunked kernels' entry points take only head dims past 128 in
+    multiples of 128, at their own plan."""
+    BH, S, Dh = 4, 64, 256
+    q = torch.randn(BH, S, Dh, device="cuda", generator=gen)
+    out = torch.empty_like(q)
+    bias = torch.zeros(S, S, device="cuda")
+    plan = attention.k1_plan(BH, S, S, Dh, torch.float32, "fwd")
+    fn = kernels.entry(attention.WIDE_ENTRY["fwd", torch.float32])
+    call = lambda dh, blocks, smem: fn(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), out.data_ptr(), BH, S, S,
+        dh, 0.1, 0, BH, 0, 1.0, 0, 0, 1, blocks, smem, kernels.stream_ptr(q))
+    assert call(Dh, plan.blocks, plan.smem_bytes) == 0
+    for bad in [(128, plan.blocks, plan.smem_bytes), (200, plan.blocks, plan.smem_bytes),
+                (Dh, plan.blocks - 1, plan.smem_bytes), (Dh, plan.blocks, plan.smem_bytes - 16)]:
+        assert call(*bad) != 0
+    torch.cuda.synchronize()

@@ -10,8 +10,10 @@ forward, by the dq kernel and by the dk / dv kernel, down to the warps of
 the two-kernel backward's blocks; a tile that is skipped lies wholly above
 the diagonal; no block asks for more than 232,448 bytes of shared memory;
 and every shape the launchers took before the tensor-core path (the window
-tiles, or the row kernels it replaced) is still taken. The block-to-work
-mapping below is the kernels' own index arithmetic.
+tiles, or the row kernels it replaced) is still taken. Every head dim from 1
+to 512 is planned at the width ``head_width`` gives, past 128 in chunks whose
+blocks own every output column once. The block-to-work mapping below is the
+kernels' own index arithmetic.
 """
 
 import numpy as np
@@ -196,7 +198,7 @@ def test_plan_covers_every_pair_once_at_the_card_shapes(BH, S, W, Dh, direction,
 
 
 @settings(max_examples=150, deadline=None)
-@given(W=st.integers(1, 300), P=st.integers(1, 4), Dh=st.sampled_from([16, 32, 64, 128]),
+@given(W=st.integers(1, 300), P=st.integers(1, 4), Dh=st.sampled_from(attention.SUPPORTED_HEAD_DIMS),
        bf16=st.booleans(), bwd=st.booleans(), causal=st.booleans())
 def test_plan_sweep(W, P, Dh, bf16, bwd, causal):
     _check_plan(3, P * W, W, Dh, BF16 if bf16 else torch.float32, "bwd" if bwd else "fwd",
@@ -204,7 +206,7 @@ def test_plan_sweep(W, P, Dh, bf16, bwd, causal):
 
 
 @settings(max_examples=150, deadline=None)
-@given(W=st.integers(33, 256), BH=st.integers(1, 600), Dh=st.sampled_from([16, 32, 64, 128]),
+@given(W=st.integers(33, 256), BH=st.integers(1, 600), Dh=st.sampled_from(attention.SUPPORTED_HEAD_DIMS),
        bf16=st.booleans(), causal=st.booleans())
 def test_backward_sweep_past_the_window_tiles(W, BH, Dh, bf16, causal):
     """The backward from W 33 to 256 at every head dim, over grids small and
@@ -230,7 +232,7 @@ def test_chip_shapes_past_the_window_resident_kernel_take_the_row_kernels(BH, S,
 
 
 @settings(max_examples=150, deadline=None)
-@given(W=st.integers(1, 2000), Dh=st.sampled_from([16, 32, 64, 128]), bwd=st.booleans())
+@given(W=st.integers(1, 2000), Dh=st.sampled_from(attention.SUPPORTED_HEAD_DIMS), bwd=st.booleans())
 def test_every_shape_taken_before_is_still_taken(W, Dh, bwd):
     """The row kernels took windows up to the shared memory of one block
     (W 219 at Dh 128 forward, 1417 at Dh 16); the tensor-core path takes
@@ -278,7 +280,7 @@ def test_causal_skips_the_tiles_above_the_diagonal():
     assert (resident.rows, resident.blocks, resident.blocks_kv) == (128, 128, 0)
 
 
-@pytest.mark.parametrize("bad", [dict(Dh=48), dict(W=7), dict(S=65536, W=65536),
+@pytest.mark.parametrize("bad", [dict(Dh=0), dict(W=7), dict(S=65536, W=65536),
                                  dict(dtype=torch.float16), dict(direction="up")])
 def test_plan_refuses_what_the_kernels_do_not_take(bad):
     args = dict(BH=4, S=64, W=64, Dh=64, dtype=torch.float32, direction="fwd") | bad
@@ -298,7 +300,7 @@ def test_mma_plan_is_the_plan_from_the_crossover_on(direction):
             plan = k1_plan(4, 2 * W, W, Dh, BF16, direction, True)
             assert (plan == mma) == (W >= MIN_MMA_WINDOW)
     with pytest.raises(ValueError):
-        attention.mma_plan(4, 64, 64, 48)
+        attention.mma_plan(4, 64, 64, 0)
 
 
 def test_phase_tool_finds_what_it_rewrites_in_the_sources():
@@ -314,3 +316,76 @@ def test_phase_tool_finds_what_it_rewrites_in_the_sources():
         assert 'extern "C" int k1_phases(' in text
     mma = (kernels.CSRC / "k1_mma.cuh").read_text()
     assert mma.count(k1_phases.MIN_WINDOW.format(MIN_MMA_WINDOW)) == 1
+
+
+HEAD_DIM_WINDOWS = (5, 10, 32, 64, 96, 128, 160, 256)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("W", HEAD_DIM_WINDOWS)
+def test_every_head_dim_is_planned_within_the_budget(W, direction):
+    """k1_plan and mma_plan take every Dh from 1 to 512, in both dtypes,
+    causal or not: up to 128 the plan of the instantiated width the rule
+    gives (the next of SUPPORTED_HEAD_DIMS), past it the chunked kernels'
+    plan at the next multiple of CHUNK_DIM; every launch within the shared
+    memory of one block."""
+    BH, S = 3, 2 * W
+    for Dh in range(1, 513):
+        width = attention.head_width(Dh)
+        assert width >= Dh and (width in attention.SUPPORTED_HEAD_DIMS if Dh <= 128
+                                else width % attention.CHUNK_DIM == 0
+                                and width - Dh < attention.CHUNK_DIM)
+        if Dh <= 128:
+            assert width == min(d for d in attention.SUPPORTED_HEAD_DIMS if d >= Dh)
+        for dtype in attention.DTYPES:
+            for causal in (False, True):
+                plan = k1_plan(BH, S, W, Dh, dtype, direction, causal)
+                mma = attention.mma_plan(BH, S, W, Dh, dtype, direction, causal)
+                assert max(plan.smem_bytes, plan.smem_kv, mma.smem_bytes, mma.smem_kv) \
+                    <= SMEM_LIMIT
+                assert plan.chunks == mma.chunks == max(1, width // attention.CHUNK_DIM)
+                if Dh <= 128:
+                    assert plan == k1_plan(BH, S, W, width, dtype, direction, causal)
+                else:
+                    assert plan == mma and plan.path == "mma"
+
+
+def _check_wide(plan, Dh):
+    """The chunked kernels' blocks: block b is (window, row tile, column
+    chunk) = (b // chunks // row_tiles, b // chunks % row_tiles, b % chunks),
+    and the dk / dv kernel's the same over key tiles; each (window, row,
+    output column) is owned once, and every pair once as in the tensor-core
+    plan's coverage."""
+    nc, W = plan.chunks, plan.W
+    assert nc == attention.head_width(Dh) // attention.CHUNK_DIM > 1 and plan.rows == MMA_ROWS
+    assert plan.blocks == plan.windows * plan.row_tiles * nc
+    owned = np.zeros((plan.windows, W, nc * attention.CHUNK_DIM), np.int64)
+    kernels = [plan.blocks] + ([plan.blocks_kv] if plan.direction == "bwd" else [])
+    for blocks in kernels:
+        owned[:] = 0
+        for b in range(blocks):
+            oc, rest = b % nc, b // nc
+            n, t = rest // plan.row_tiles, rest % plan.row_tiles
+            cols = slice(oc * attention.CHUNK_DIM, (oc + 1) * attention.CHUNK_DIM)
+            owned[n, t * MMA_ROWS:min((t + 1) * MMA_ROWS, W), cols] += 1
+        assert (owned == 1).all()
+    _check_mma_coverage(plan._replace(blocks=plan.blocks // nc, blocks_kv=plan.blocks_kv // nc,
+                                      chunks=1), plan.causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("BH,S,W,Dh", [(4, 10, 10, 160), (4, 20, 10, 256), (8, 64, 64, 160),
+                                       (3, 96, 96, 512), (2, 256, 256, 256),
+                                       (24, 160, 160, 200), (1, 40, 40, 1000)])
+def test_wide_plans_own_every_output_column_once(BH, S, W, Dh, causal):
+    for dtype in attention.DTYPES:
+        for direction in ("fwd", "bwd"):
+            plan = k1_plan(BH, S, W, Dh, dtype, direction, causal)
+            row = attention.mma_row_bytes(attention.CHUNK_DIM, dtype)
+            if direction == "fwd":
+                assert plan.smem_bytes == 2 * (MMA_ROWS + MMA_COLS) * row and not plan.blocks_kv
+            else:
+                assert plan.smem_bytes == 2 * (2 * MMA_ROWS + 2 * MMA_COLS) * row
+                assert plan.smem_kv == plan.smem_bytes + 2 * 3 * MMA_COLS * 4
+                assert attention.backward_scratch(plan) == 3 * plan.windows * W + 4
+            _check_wide(plan, Dh)

@@ -4,7 +4,8 @@ The kernels of ``csrc/vq_assign.cu`` run only on the card, but the plan
 that sizes their launches is Python, so what it promises is checked here:
 the nearest-code grid scores every (row, code) pair exactly once, the
 statistics grid owns every (code, column) exactly once, a cluster has at
-most 8 blocks, and a block asks for at most 232,448 bytes of shared memory.
+most 8 blocks, a block asks for at most 232,448 bytes of shared memory, and
+past 512 columns the nearest-code blocks take D in chunks of at most 512.
 The block-to-work mapping below is the kernels' own index arithmetic.
 
 The kernel's dw equals ``assignment_stats`` on the CPU bit for bit because
@@ -28,7 +29,10 @@ CARD_SHAPES = [(1, 64, 512), (33, 7, 5), (4096, 64, 512), (1000, 512, 100),
                (6554, 64, 512), (1000, 64, 65), (1000, 64, 513), (1000, 64, 1024),
                (1000, 64, 4096), (300, 512, 4096), (4097, 64, 512), (70, 16, 100),
                (40001, 64, 512), (20000, 33, 64), (40000, 7, 5), (20000, 128, 256),
-               (64, 64, 512), (49, 64, 512)]
+               (64, 64, 512), (49, 64, 512),
+               # past 512 columns: chunked (the card tests and chip_smoke.py)
+               (512, 640, 512), (4096, 640, 512), (512, 1024, 512), (4096, 1024, 512),
+               (100, 513, 70), (50, 2048, 600)]
 
 
 def _check_plan(N, D, K):
@@ -36,8 +40,15 @@ def _check_plan(N, D, K):
     assert 1 <= p.cluster <= 8 and p.cluster <= p.slices
     assert 1 <= p.tiles_per_cluster <= vq_kernel.MAX_TILES
     assert p.tiles_per_cluster == 1 or p.slices_per_block == 1  # several tiles keep one slice
-    assert (vq_kernel.nearest_smem(p.tile_rows, D, p.tiles_per_cluster) <= p.smem_bytes
+    assert (vq_kernel.nearest_smem(p.tile_rows, p.chunk, p.tiles_per_cluster) <= p.smem_bytes
             <= 232_448 == SMEM_LIMIT)
+    # the columns a block stages at once: all of D up to 512, else at most 512 in
+    # multiples of 8, as few chunks as 512 allows, one tile a cluster
+    chunks = -(-D // p.chunk)
+    assert p.chunk == D if D <= vq_kernel.MAX_CHUNK else (
+        p.chunk <= vq_kernel.MAX_CHUNK and p.chunk % 8 == 0
+        and chunks == -(-D // vq_kernel.MAX_CHUNK) and p.tiles_per_cluster == 1)
+    assert (chunks - 1) * p.chunk < D
     assert p.pass_rows % 32 == 0 and 32 <= p.pass_rows <= vq_kernel.MAX_PASS_ROWS
     assert vq_kernel.stats_smem(p.pass_rows) <= SMEM_LIMIT
     assert p.pass_rows >= min(N, vq_kernel.MAX_PASS_ROWS)  # no pass is wasted
@@ -79,7 +90,7 @@ def test_plan_covers_every_pair_once_at_the_card_shapes(N, D, K):
 
 
 @settings(max_examples=300, deadline=None)
-@given(N=st.integers(1, 50_000), D=st.integers(1, 512), K=st.integers(1, 8192))
+@given(N=st.integers(1, 50_000), D=st.integers(1, 2048), K=st.integers(1, 8192))
 def test_plan_covers_every_pair_once(N, D, K):
     _check_plan(N, D, K)
 
@@ -109,7 +120,7 @@ def test_plan_shared_memory_at_the_flagship_shape():
     assert vq_kernel.stats_smem(512) == 4 * 8 * (16 + 2048)
 
 
-@pytest.mark.parametrize("N,D,K", [(0, 64, 512), (10, 0, 5), (10, 513, 5), (10, 64, 0)])
+@pytest.mark.parametrize("N,D,K", [(0, 64, 512), (10, 0, 5), (10, -1, 5), (10, 64, 0)])
 def test_plan_refuses_shapes_the_kernels_do_not_take(N, D, K):
     with pytest.raises(ValueError):
         k2_plan(N, D, K)
@@ -128,3 +139,14 @@ def test_assignment_stats_adds_each_codes_rows_in_row_order(N, K):
             want[k] = np.cumsum(rows, axis=0, dtype=np.float32)[-1]
     assert np.array_equal(dw.numpy(), want)
     assert np.array_equal(counts.numpy(), np.bincount(idx, minlength=K).astype(np.float32))
+
+
+@pytest.mark.parametrize("N,K", [(512, 512), (4096, 512), (33, 5), (1000, 4096)])
+def test_every_width_up_to_2048_is_planned(N, K):
+    """k2_plan takes every D from 1 to 2048 within the shared memory of one
+    block: the nearest-code kernel stages the columns in chunks past 512."""
+    for D in range(1, 2049):
+        p = k2_plan(N, D, K)
+        assert p.smem_bytes <= SMEM_LIMIT and vq_kernel.stats_smem(p.pass_rows) <= SMEM_LIMIT
+        assert p.chunk == vq_kernel.k2_chunk(D) and (p.chunk == D) == (D <= 512)
+        assert p.stat_grid[1] == -(-D // STAT_COLS)
