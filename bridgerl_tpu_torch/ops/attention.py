@@ -48,21 +48,26 @@ shorter than ``MIN_MMA_WINDOW`` take the window tiles (several whole
 windows a block, float32 cores), longer ones the tensor-core path (tiles of
 64 rows a block against streamed tiles of 32, online softmax; the backward
 one window-resident kernel up to W 64, and 128 at Dh <= 64, else two kernels
-with a scratch array between them). The C entry points
+with a scratch array between them); head dims past 128 take the wide
+kernels at every W (:func:`wide_plan`). The C entry points
 recompute the plan and refuse any other. Each entry point counts its
 launches, the tensor-core path's on a second counter (``MMA_COUNTER``). The
 backward's two-kernel path has a C entry point of its own
 (``LONG_ENTRY``, ``csrc/packed_attention_bwd[_bf16]_long.cu``), whose
-launches count on the backward's counters and on ``LONG_COUNTER``.
+launches count on the backward's counters and on ``LONG_COUNTER``; the wide
+kernels' (``WIDE_ENTRY``, ``csrc/packed_attention_wide[_bf16].cu``) on the
+entry's counter and on ``WIDE_COUNTER``.
 
 Head dims: the kernels are instantiated at ``SUPPORTED_HEAD_DIMS`` (16, 32,
 64, 96, 128). Any other Dh up to 128 runs at the next of them, q, k, v (and
 dout) zero-padded and out, dq, dk and dv sliced back (:func:`padded_fwd`,
-:func:`padded_bwd`); past 128 the head dim is padded to a multiple of
-``CHUNK_DIM`` and runs through the chunked kernels of ``csrc/k1_wide.cuh``.
-Zero columns add nothing to q k^T or to dout v^T, the scale is the caller's
-(1 / sqrt of the true Dh), and the keep bits are keyed on (seed, row, i * S
-+ j) alone, so the padded call computes the unpadded function.
+:func:`padded_bwd`). Past 128 a multiple of ``WIDE_ALIGN`` (8) runs as it
+is through the wide kernels of ``csrc/k1_wide.cuh`` (their staging
+zero-fills the columns up to the next multiple of 16, and their stores skip
+them), any other Dh padded to the next multiple of 8. Zero columns add
+nothing to q k^T or to dout v^T, the scale is the caller's (1 / sqrt of the
+true Dh), and the keep bits are keyed on (seed, row, i * S + j) alone, so
+the padded call computes the unpadded function.
 
 The forward op's registered autograd formula calls the backward op, which
 recomputes the probabilities and the dropout mask, as the TPU kernel's
@@ -95,7 +100,19 @@ from . import kernels
 
 # the head dims the kernels are instantiated at; others: head_width
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128)
-CHUNK_DIM = 128               # csrc/k1_wide.cuh kChunk
+WIDE_ALIGN = 8                # past 128 the wide kernels take any Dh of a multiple of 8
+WIDE_STAGE_ALIGN = 16         # ... staged at a multiple of 16 columns (zero-filled)
+GROUP_COLS = 256              # csrc/k1_wide.cuh kGroupCols: the most columns a block owns
+MULTI_WINDOW = 32             # kMultiWindow: at W <= 32 a wide block holds 64 // W windows
+EXCHANGE_STRIDE = 40          # kXS: a row of the wide kernels' float32 exchange tiles
+SLAB_WIDTHS = (256, 128, 64)  # the wide kernels' contraction slabs, where whole rows do not fit
+SPLIT_BELOW = 132             # kSplitBelow (the H100's SMs): small wide grids split columns
+KEEP_TILES = 32               # kKeepTiles: the wide dq kernel keeps sweep 1's keep bits
+                              # for this many key tiles, a byte a thread each
+WIDE_THREADS = 256            # kThreads: a wide block's 8 warps
+WIDE_WINDOW = 64              # kWinMax: at W <= 64 the wide backward is one kernel
+WINDOW_STRIDE = 68            # kWS: a row of that kernel's float32 (64, 64) tiles
+WINDOW_SMEM = 115712          # kWinSmem: its shared memory for two blocks an SM
 SMEM_LIMIT = 232448           # bytes of shared memory one H100 block may use
 TILE_ROWS = 20                # csrc/k1_tiles.cuh kTileRows: G = 20 // W windows a block
 MIN_MMA_WINDOW = 32           # csrc/k1_mma.cuh kMinWindow: W* of the tensor-core path
@@ -119,10 +136,12 @@ MMA_COUNTER = {key: kernels.LaunchCounter(name + "_mma") for key, name in ENTRY.
 # each dtype's through a C entry point (and library) of the same name
 LONG_ENTRY = {dtype: ENTRY["bwd", dtype] + "_long" for dtype in DTYPES}
 LONG_COUNTER = {("bwd", dtype): kernels.LaunchCounter(name) for dtype, name in LONG_ENTRY.items()}
-# head dims past CHUNK_DIM: each kernel's chunked form, a C entry point (and a library a
-# dtype) of its own; its launches count on the counters of the path it stands in for (the
-# forward's on MMA_COUNTER, the backward's two kernels also on LONG_COUNTER)
+# head dims past 128: the wide kernels (csrc/k1_wide.cuh), a C entry point (and a library a
+# dtype) of their own; their launches count on the entry's counter and on WIDE_COUNTER
 WIDE_ENTRY = {key: name + "_wide" for key, name in ENTRY.items()}
+WIDE_COUNTER = {key: kernels.LaunchCounter(name) for key, name in WIDE_ENTRY.items()}
+# the plan's path as the C entry points take it
+PATH_CODE = {"tiles": 0, "mma": 1, "wide": 2}
 
 Seed = Union[int, torch.Tensor]
 # one generator, or one per seed of a stacked multi-seed step
@@ -321,10 +340,11 @@ class K1Plan(NamedTuple):
     ``causal`` the tiles that :meth:`key_tiles` and :meth:`query_tiles` leave
     out, all wholly above the diagonal, do not run.
 
-    ``chunks`` > 1: a head dim past CHUNK_DIM, padded to ``chunks`` x
-    CHUNK_DIM (:func:`wide_plan`). Every block owns one CHUNK_DIM-wide column
-    chunk of its outputs (the grid is the unchunked one times ``chunks``) and
-    streams the contractions over the head dim chunk by chunk."""
+    ``wide``: a head dim past 128 (:func:`wide_plan`): blocks of 64 rows,
+    ``windows_per_block`` whole windows at W <= MULTI_WINDOW, else row tiles
+    of a window, times ``groups`` output column groups; the backward one
+    kernel up to W 64 (``cols`` 64: every key of the block at once), past
+    it the dq kernel and the dk / dv kernel over the same blocks."""
     path: str
     direction: str
     W: int
@@ -337,12 +357,13 @@ class K1Plan(NamedTuple):
     smem_bytes: int
     blocks_kv: int
     smem_kv: int
-    chunks: int = 1
+    groups: int = 1
 
     @property
     def row_tiles(self) -> int:
-        """Tiles of ``rows`` rows a window (mma)."""
-        return _cdiv(self.W, self.rows)
+        """Tiles of ``rows`` rows a window (mma; wide: of a block's windows)."""
+        return _cdiv(self.W * self.windows_per_block if self.path == "wide" else self.W,
+                     self.rows)
 
     def key_tiles(self, query_tile: int) -> range:
         """The key tiles (of ``cols``) that query tile ``query_tile`` reads in
@@ -406,11 +427,11 @@ def backward_scratch(plan: "K1Plan") -> int:
     """Floats of scratch the two-kernel backward needs: the p_drop and ds
     planes of every window (the row-buffered dq kernel, ``rows`` 32), or the
     rows' max, 1 / normaliser and D and 4 floats more, which the dk / dv
-    kernel's last copies may read (the two-sweep dq kernel); 0 for one
-    kernel."""
+    kernel's last copies may read (the two-sweep dq kernel, and the wide
+    kernels'); 0 for one kernel."""
     if not plan.blocks_kv:
         return 0
-    if plan.rows < MMA_ROWS:
+    if plan.rows < MMA_ROWS and plan.path != "wide":
         return 2 * plan.windows * plan.W * plane_stride(plan.W)
     return 3 * plan.windows * plan.W + 4
 
@@ -428,11 +449,11 @@ def backward_rows(windows: int, W: int, Dh: int, dtype: torch.dtype) -> int:
 def head_width(Dh: int) -> int:
     """The head dim the kernels run a head dim of ``Dh`` at: the least of
     SUPPORTED_HEAD_DIMS at or above it up to 128, past 128 the least
-    multiple of CHUNK_DIM at or above it."""
+    multiple of WIDE_ALIGN at or above it (Dh itself at 160, 256, 512)."""
     if Dh < 1:
         raise ValueError(f"head dim {Dh} is not positive")
-    if Dh > CHUNK_DIM:
-        return _cdiv(Dh, CHUNK_DIM) * CHUNK_DIM
+    if Dh > SUPPORTED_HEAD_DIMS[-1]:
+        return _cdiv(Dh, WIDE_ALIGN) * WIDE_ALIGN
     return next(d for d in SUPPORTED_HEAD_DIMS if d >= Dh)
 
 
@@ -440,12 +461,12 @@ def k1_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32
             direction: str = "fwd", causal: bool = False) -> K1Plan:
     """The launch of K1 at (BH, S, Dh), window W, at the head dim
     :func:`head_width` gives: the window tiles below MIN_MMA_WINDOW, the
-    tensor-core path (:func:`mma_plan`) from it on, and past CHUNK_DIM the
-    chunked kernels at every W (:func:`wide_plan`). Raises on what the
-    kernels do not take."""
+    tensor-core path (:func:`mma_plan`) from it on, and past 128 the wide
+    kernels at every W (:func:`wide_plan`). Raises on what the kernels do
+    not take."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
     Dh = head_width(Dh)
-    if W >= MIN_MMA_WINDOW or Dh > CHUNK_DIM:
+    if W >= MIN_MMA_WINDOW or Dh > SUPPORTED_HEAD_DIMS[-1]:
         return mma_plan(BH, S, W, Dh, dtype, direction, causal)
     per = tile_bytes_per_window(W, Dh, direction)
     G = min(max(1, TILE_ROWS // W), SMEM_LIMIT // per, max(windows, 1))
@@ -460,7 +481,7 @@ def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float3
     below, in a build of its own)."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
     Dh = head_width(Dh)
-    if Dh > CHUNK_DIM:
+    if Dh > SUPPORTED_HEAD_DIMS[-1]:
         return wide_plan(windows, W, Dh, dtype, direction, causal)
     row = mma_row_bytes(Dh, dtype)
     if direction == "fwd":
@@ -482,25 +503,149 @@ def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float3
                   (2 * MMA_ROWS + 4 * MMA_COLS) * row + 2 * 3 * MMA_COLS * 4)
 
 
+class WideLayout(NamedTuple):
+    """One wide kernel's shared memory (csrc/k1_wide.cuh kw::layout):
+    ``Dp`` staged columns (Dh rounded up to 16, zero-filled past Dh),
+    ``groups`` output column groups of ``group_cols`` (two warps' halves),
+    contraction slabs of ``slab`` columns (``slabs`` of them), the block's
+    own rows staged once (``resident``) or with each slab, ``merged`` (one
+    slab, one group: the products read the slab's tiles), ``stage`` bytes a
+    ring stage, ``stages`` of them (3 where they fit, else 2), ``smem`` bytes
+    in all."""
+    Dp: int
+    groups: int
+    group_cols: int
+    slab: int
+    slabs: int
+    resident: bool
+    merged: bool
+    stage: int
+    stages: int
+    smem: int
+
+
+def _third_stage(L: WideLayout) -> WideLayout:
+    """k1_wide.cuh third_stage: a third ring stage where it fits."""
+    if L.smem + L.stage <= SMEM_LIMIT:
+        return L._replace(stages=3, smem=L.smem + L.stage)
+    return L
+
+
+def _group_cols(Dp: int, groups: int) -> int:
+    return _cdiv(_cdiv(Dp, groups), WIDE_STAGE_ALIGN) * WIDE_STAGE_ALIGN
+
+
+def wide_groups(Dh: int, row_blocks: int) -> int:
+    """The wide kernels' output column groups (k1_wide.cuh groups_of): as
+    few as GROUP_COLS columns a group allows, doubled while twice
+    ``row_blocks`` times the groups stay within SPLIT_BELOW blocks (one an
+    SM) and a group holds more than 64 columns."""
+    Dp = _cdiv(Dh, WIDE_STAGE_ALIGN) * WIDE_STAGE_ALIGN
+    groups = _cdiv(Dp, GROUP_COLS)
+    while 2 * row_blocks * groups <= SPLIT_BELOW and _group_cols(Dp, groups) > 64:
+        groups *= 2
+    return groups
+
+
+def wide_layout(Dh: int, dtype: torch.dtype, kernel: str,
+                groups: Optional[int] = None) -> WideLayout:
+    """``kernel`` fwd, dq or dkv at head dim ``Dh`` past 128 (a multiple of
+    8) and ``groups`` output column groups (default as few as GROUP_COLS
+    allows): the block's own rows (64 of q; of q and dout; of k and v), a
+    two-stage ring of streamed tiles (32 rows of k; of k and v; of q and
+    dout) and the float32 exchange tiles and statistics. The first that
+    fits SMEM_LIMIT of: whole rows and one column group (merged; the
+    forward's stage also holds v's tile), the own rows resident with slabs
+    of 256, 128 or 64 columns, every row streamed in slabs; a product
+    stage holds one group's columns of one tensor (v; k; dout, then q)."""
+    E = dtype.itemsize
+    row = lambda w: w * E + 16   # noqa: E731  a staged row, padded by 16 bytes
+    Dp = _cdiv(Dh, WIDE_STAGE_ALIGN) * WIDE_STAGE_ALIGN
+    groups = groups or _cdiv(Dp, GROUP_COLS)
+    CW = _group_cols(Dp, groups)
+    A = MMA_ROWS * (1 if kernel == "fwd" else 2)
+    B = MMA_COLS * (1 if kernel == "fwd" else 2)
+    fixed = ((2 if kernel == "dkv" else 1) * MMA_ROWS * EXCHANGE_STRIDE * 4
+             + 4 * {"fwd": 2 * MMA_ROWS, "dq": 6 * MMA_ROWS, "dkv": 9 * MMA_COLS}[kernel]
+             + (KEEP_TILES * WIDE_THREADS if kernel == "dq" else 0))
+    prod = MMA_COLS * row(CW)
+    if groups == 1:
+        stage = (2 * MMA_COLS if kernel == "fwd" else B) * row(Dp)
+        smem = A * row(Dp) + 2 * stage + fixed
+        if smem <= SMEM_LIMIT:
+            return _third_stage(WideLayout(Dp, groups, CW, Dp, 1, True, True, stage, 2, smem))
+    for resident in (True, False):
+        for SW in SLAB_WIDTHS:
+            if SW >= Dp:
+                continue
+            stage = max((B + (0 if resident else A)) * row(SW), prod)
+            smem = (A * row(Dp) if resident else 0) + 2 * stage + fixed
+            if smem <= SMEM_LIMIT:
+                return _third_stage(WideLayout(Dp, groups, CW, SW, _cdiv(Dp, SW), resident,
+                                               False, stage, 2, smem))
+    raise ValueError(f"head dim {Dh}: no wide {kernel} layout fits {SMEM_LIMIT} bytes")
+
+
+def wide_window_layout(Dh: int, dtype: torch.dtype, groups: int) -> WideLayout:
+    """The one-kernel wide backward (W <= WIDE_WINDOW; k1_wide.cuh
+    win_layout): a ring whose stage holds a slab of the block's 64 rows of q,
+    dout, k and v or 32 rows of one tensor's group columns, two float32
+    (64, 64) tiles and a keep byte an element; the widest slab of 256 down
+    to 16 columns with which two stages fit two blocks an SM (WINDOW_SMEM),
+    else one block an SM."""
+    E = dtype.itemsize
+    row = lambda w: w * E + 16   # noqa: E731
+    Dp = _cdiv(Dh, WIDE_STAGE_ALIGN) * WIDE_STAGE_ALIGN
+    CW = _group_cols(Dp, groups)
+    fixed = 2 * MMA_ROWS * WINDOW_STRIDE * 4 + MMA_ROWS * MMA_ROWS
+    for limit in (WINDOW_SMEM, SMEM_LIMIT):
+        for SW in (256, 128, 64, 32, 16):
+            if SW > Dp and SW > 16:
+                continue
+            stage = max(4 * MMA_ROWS * row(SW), MMA_COLS * row(CW))
+            if 2 * stage + fixed <= limit:
+                return WideLayout(Dp, groups, CW, SW, _cdiv(Dp, SW), False, False, stage, 2,
+                                  2 * stage + fixed)
+    raise ValueError(f"head dim {Dh}: no one-kernel wide backward layout fits")
+
+
 def wide_plan(windows: int, W: int, Dh: int, dtype: torch.dtype, direction: str,
               causal: bool) -> K1Plan:
-    """The chunked kernels' launch (csrc/k1_wide.cuh) at a head dim ``Dh``
-    past CHUNK_DIM, a multiple of it: block (window, row tile of 64, column
-    chunk) at every W. Each stage of the double-buffered ring holds one
-    CHUNK_DIM-wide column chunk of what a step contracts: the forward's q
-    rows and a key tile (or a value tile); the backward's q and dout rows
-    with a (K, V) tile in the two-sweep dq kernel, its k and v rows with a
-    (q, dout) tile in the dk / dv kernel, which also stages two stages of
-    the rows' three statistics."""
-    chunks = Dh // CHUNK_DIM
-    row = mma_row_bytes(CHUNK_DIM, dtype)
-    blocks = windows * _cdiv(W, MMA_ROWS) * chunks
+    """The wide kernels' launch (csrc/k1_wide.cuh) at a head dim ``Dh`` past
+    128, a multiple of WIDE_ALIGN, at every W: blocks of 64 rows and 8
+    warps, each warp 16 rows and half the block's output columns. At W <=
+    MULTI_WINDOW a block holds ``windows_per_block`` = 64 // W whole windows
+    (6 at W 10, 12 at W 5), else a 64-row tile of one window. A block owns
+    every output column of its rows up to GROUP_COLS (256) of them, and
+    computes each (row tile, key tile)'s logits once. Past 256 columns (Dh
+    512: 2 groups) each block owns one group of at most 256 columns and the
+    groups' blocks each compute the logits again, since 8 warps hold at most
+    128 columns each in registers. So it is, too, on grids so small that
+    twice their blocks still fit the card's SMs (SPLIT_BELOW): the groups
+    double while a group keeps more than 64 columns (:func:`wide_groups`;
+    the (8, 64, 64) Dh 512 case runs 64 blocks of 64 columns; the Dh-256
+    prior's backbone (64, 96, 96), 128 blocks, is not split). Under causal
+    with several row tiles a window, grids past SPLIT_BELOW blocks go
+    tile-major, the tiles with the most work first. The forward is one
+    kernel. The backward at W <= WIDE_WINDOW, where a block holds whole
+    windows, is one kernel too (``blocks_kv`` 0; :func:`wide_window_layout`),
+    past it the two-sweep dq kernel and the dk / dv kernel over the same
+    blocks, with the rows' statistics between them (:func:`backward_scratch`);
+    each of those kernels' shared memory is :func:`wide_layout`'s."""
+    G = MMA_ROWS // W if W <= MULTI_WINDOW else 1
+    tiles = 1 if G > 1 else _cdiv(W, MMA_ROWS)
+    row_blocks = _cdiv(windows, G) * tiles
+    groups = wide_groups(Dh, row_blocks)
+    first = wide_layout(Dh, dtype, "fwd" if direction == "fwd" else "dq", groups)
+    blocks = row_blocks * groups
     if direction == "fwd":
-        return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks,
-                      2 * (MMA_ROWS + MMA_COLS) * row, 0, 0, chunks)
-    smem = 2 * (2 * MMA_ROWS + 2 * MMA_COLS) * row
-    return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1, blocks, smem,
-                  blocks, smem + 2 * 3 * MMA_COLS * 4, chunks)
+        return K1Plan("wide", direction, W, causal, windows, MMA_ROWS, MMA_COLS, G, blocks,
+                      first.smem, 0, 0, first.groups)
+    if W <= WIDE_WINDOW:
+        return K1Plan("wide", direction, W, causal, windows, MMA_ROWS, MMA_ROWS, G, blocks,
+                      wide_window_layout(Dh, dtype, groups).smem, 0, 0, groups)
+    return K1Plan("wide", direction, W, causal, windows, MMA_ROWS, MMA_COLS, G, blocks,
+                  first.smem, blocks, wide_layout(Dh, dtype, "dkv", groups).smem, first.groups)
 
 
 def _windows_of(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype, direction: str) -> int:
@@ -555,6 +700,9 @@ def _seed_args(seed, dropout_rate: float, BH: int) -> Tuple[int, int]:
 
 def _count(direction: str, plan: K1Plan, dtype) -> None:
     COUNTER[direction, dtype].add()
+    if plan.path == "wide":
+        WIDE_COUNTER[direction, dtype].add()
+        return
     if plan.path == "mma":
         MMA_COUNTER[direction, dtype].add()
     if plan.blocks_kv:
@@ -599,19 +747,19 @@ def padded_bwd(fn, q, k, v, bias, dout, *args):
 
 def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
     """The forward's launch at an instantiated head dim (or a multiple of
-    CHUNK_DIM past it): :func:`padded_fwd` brings any other to one."""
+    WIDE_ALIGN past 128): :func:`padded_fwd` brings any other to one."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "fwd", causal)
     out = torch.empty_like(q)
     if BH == 0:
         return out
-    name = (WIDE_ENTRY if plan.chunks > 1 else ENTRY)["fwd", q.dtype]
+    name = (WIDE_ENTRY if plan.path == "wide" else ENTRY)["fwd", q.dtype]
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
-                int(dropout_rate > 0.0), int(causal), int(plan.path == "mma"), plan.blocks,
+                int(dropout_rate > 0.0), int(causal), PATH_CODE[plan.path], plan.blocks,
                 plan.smem_bytes, kernels.stream_ptr(q))
     kernels.check(name, status)
     _count("fwd", plan, q.dtype)
@@ -620,7 +768,7 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
 
 def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=False):
     """The backward's launch at an instantiated head dim (or a multiple of
-    CHUNK_DIM past it): :func:`padded_bwd` brings any other to one."""
+    WIDE_ALIGN past 128): :func:`padded_bwd` brings any other to one."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "bwd", causal, extra=(("dout", dout),))
@@ -630,7 +778,7 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=F
     # what the two-kernel backward's first kernel hands its second
     scratch = backward_scratch(plan)
     stats = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
-    name = (WIDE_ENTRY["bwd", q.dtype] if plan.chunks > 1
+    name = (WIDE_ENTRY["bwd", q.dtype] if plan.path == "wide"
             else LONG_ENTRY[q.dtype] if plan.blocks_kv else ENTRY["bwd", q.dtype])
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -638,7 +786,7 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=F
                 0 if stats is None else stats.data_ptr(),
                 BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
-                int(dropout_rate > 0.0), int(causal), int(plan.path == "mma"), plan.blocks,
+                int(dropout_rate > 0.0), int(causal), PATH_CODE[plan.path], plan.blocks,
                 plan.smem_bytes, plan.blocks_kv, plan.smem_kv, kernels.stream_ptr(q))
     kernels.check(name, status)
     _count("bwd", plan, q.dtype)

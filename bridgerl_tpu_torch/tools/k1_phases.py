@@ -4,6 +4,7 @@ path overtakes the window tiles.
     python -m bridgerl_tpu_torch.tools.k1_phases                     # float32, one H100
     python -m bridgerl_tpu_torch.tools.k1_phases --dtype bfloat16    # the bf16 kernels
     python -m bridgerl_tpu_torch.tools.k1_phases --crossover         # both paths, W 16-64
+    python -m bridgerl_tpu_torch.tools.k1_phases --wide [--dtype bfloat16]   # Dh past 128 only
 
 Builds copies of K1's sources (the kernels of ``csrc/k1_fwd.cuh`` and
 ``csrc/k1_bwd.cuh``) into a temporary directory with timestamps (``%globaltimer``) taken by thread
@@ -24,7 +25,13 @@ the planes written) and products (ds k), and the keys kernel after it
 (``keys``: wait, fragments of the planes, products, stores); the window-resident backward (W <= 64, and <= 128 at
 Dh <= 64): stage, rows (s and dp, softmax, draws, ds), dq (its product,
 p_drop into shared memory) and keys (dv and dk by key columns, and the
-stores). ``--crossover`` builds the sources as shipped and, in a
+stores). The wide kernels of head dims past 128 (``csrc/k1_wide.cuh``, its
+``K1_PHASE`` marks; ``--wide`` times only them): staging (copies in flight
+and the waits at the ring's barriers), logits (q k^T, dout v^T over the
+head dim), softmax (bias, masks, draws, the row statistics and the exchange
+tiles) and products (p v, ds k, p^T dout, ds^T q, and the stores), a line
+each for the forward, the one-kernel backward (``wide_window``) or the dq
+and dk / dv kernels. ``--crossover`` builds the sources as shipped and, in a
 copy whose ``kMinWindow`` is 1, with every window on the tensor-core path
 (launched with ``ops/attention.py::mma_plan``), and times both paths' forward
 and backward (CUDA events, the median of 30 after warm-up) at CROSSOVER_W
@@ -59,7 +66,13 @@ SHAPES = ((256, 80, 64, 8, 0.1, False), (2048, 80, 64, 8, 0.0, False),
           # W 200, causal S 160, the prior at 256 positions and at d_model 128 (Dh 32)
           (24, 160, 128, 1, 0.1, False), (48, 200, 64, 1, 0.1, False),
           (32, 160, 64, 1, 0.1, True), (128, 256, 64, 1, 0.1, True),
-          (128, 128, 32, 1, 0.1, True))
+          (128, 128, 32, 1, 0.1, True),
+          # head dims past 128 (the wide kernels of csrc/k1_wide.cuh): W 10 at Dh 256, W 64
+          # at Dh 160, the full grid at Dh 256 causal, Dh 512 on a small grid, and the Dh-256
+          # prior's backbone and slot-AR depth stack
+          (256, 80, 256, 8, 0.1, False), (256, 64, 160, 1, 0.1, False),
+          (128, 256, 256, 1, 0.1, True), (8, 64, 512, 1, 0.1, False),
+          (64, 96, 256, 1, 0.1, True), (6144, 5, 256, 1, 0.1, True))
 CROSSOVER_W = (16, 20, 24, 28, 32, 40, 48, 64)
 CROSSOVER_POSITIONS = 65536
 MAX_BLOCKS = 1 << 16
@@ -68,6 +81,7 @@ MMA_PHASES = ("wait", "logits", "products", "stores")
 WINDOW_PHASES = ("stage", "rows", "dq", "keys")   # the window-resident backward
 ROWS_PHASES = ("wait", "logits", "rows", "products")   # the row-buffered dq kernel
 KEYS_PHASES = ("wait", "fragments", "products", "stores")   # the keys kernel after it
+WIDE_PHASES = ("staging", "logits", "softmax", "products")   # the wide kernels
 KERNELS = (("k1_fwd.cuh", "k1_fwd_tiles", "fwd"), ("k1_bwd.cuh", "k1_bwd_tiles", "bwd"))
 MIN_WINDOW = "constexpr int kMinWindow = {};"   # k1_mma.cuh's W*, which the copy rewrites
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -114,6 +128,13 @@ extern "C" int k1_phases(unsigned long long* out) {
                                    sizeof(unsigned long long) * 2 * 5 * 65536);
 }
 """
+# the wide kernels' libraries (csrc/k1_wide.cuh) hold only the tensor-core marks
+_WIDE_DUMP = r"""
+extern "C" int k1_phases(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_k1_phases,
+                                   sizeof(unsigned long long) * 2 * 5 * 65536);
+}
+"""
 
 
 def instrument(src: str, kernel: str) -> str:
@@ -155,10 +176,14 @@ def build(workdir: str, dtype=torch.float32, mma_everywhere: bool = False):
         _rewrite(f"{workdir}/k1_mma.cuh", lambda text: text.replace(
             MIN_WINDOW.format(attention.MIN_MMA_WINDOW), MIN_WINDOW.format(1)))
     names = [attention.ENTRY["fwd", dtype], attention.ENTRY["bwd", dtype],
-             attention.LONG_ENTRY[dtype]]
+             attention.LONG_ENTRY[dtype], attention.WIDE_ENTRY["fwd", dtype],
+             attention.WIDE_ENTRY["bwd", dtype]]
+    for dtype_ in attention.DTYPES:
+        with open(f"{workdir}/{kernels.SIGNATURES[attention.WIDE_ENTRY['fwd', dtype_]][0]}.cu",
+                  "a") as f:
+            f.write(_WIDE_DUMP)
     procs = []
-    for fn in names:
-        lib = kernels.SIGNATURES[fn][0]
+    for lib in dict.fromkeys(kernels.SIGNATURES[fn][0] for fn in names):
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-include", f"{workdir}/k1_phase_marks.h",
                "-o", f"{workdir}/lib{lib}.so", f"{workdir}/{lib}.cu"]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -173,6 +198,8 @@ def build(workdir: str, dtype=torch.float32, mma_everywhere: bool = False):
         entry = getattr(so, fn)
         entry.argtypes, entry.restype = kernels.SIGNATURES[fn][1], ctypes.c_int
         for dump in ("k1_marks", "k1_phases"):
+            if not hasattr(so, dump):   # the wide kernels' library: k1_phases alone
+                continue
             getattr(so, dump).argtypes = [ctypes.c_void_p]
             getattr(so, dump).restype = ctypes.c_int
         out[fn] = (entry, so)
@@ -184,6 +211,7 @@ class Call:
 
     def __init__(self, g, dtype, BH, S, Dh, P, rate, causal, mma_everywhere=False):
         W = S // P
+        Dh = attention.head_width(Dh)   # the width the kernels take it at
         self.q, self.k, self.v, self.do = (
             torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype) for _ in range(4))
         self.bias = causal_bias(S, "cuda") if causal else attention_bias(P, W, "cuda")
@@ -201,14 +229,17 @@ class Call:
                                  device="cuda")
 
     def entry_name(self, direction) -> str:
-        """The C entry point of the launch: the backward's two kernels have their own."""
+        """The C entry point of the launch: the backward's two kernels and the
+        wide kernels (head dims past 128) have their own."""
+        if self.plans[direction].path == "wide":
+            return attention.WIDE_ENTRY[direction, self.dtype]
         if direction == "bwd" and self.plans["bwd"].blocks_kv:
             return attention.LONG_ENTRY[self.dtype]
         return attention.ENTRY[direction, self.dtype]
 
     def __call__(self, direction, entry) -> int:
         plan = self.plans[direction]
-        mma = int(plan.path == "mma")
+        mma = attention.PATH_CODE[plan.path]
         t = lambda *ts: [x.data_ptr() for x in ts]   # noqa: E731
         if direction == "fwd":
             return entry(*t(self.q, self.k, self.v, self.bias, self.out), *self.dims,
@@ -235,12 +266,14 @@ def _median_ms(fn, iters: int = 30) -> float:
     return statistics.median(times)
 
 
-def phases(dtype) -> None:
+def phases(dtype, wide_only: bool = False) -> None:
     libs = build(tempfile.mkdtemp(prefix="k1_phases_"), dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(32 << 20, device="cuda")
     card = torch.cuda.get_device_name(0)
     for BH, S, Dh, P, rate, causal in SHAPES:
+        if wide_only and Dh <= 128:
+            continue
         call = Call(g, dtype, BH, S, Dh, P, rate, causal)
         for direction in ("fwd", "bwd"):
             entry, so = libs[call.entry_name(direction)]
@@ -267,8 +300,9 @@ def phases(dtype) -> None:
 
 def _spans(so, plan):
     """(part, blocks, (5, blocks) times) of each kernel the launch ran: the
-    tile kernel's marks, or each tensor-core kernel's start-relative phase
-    sums (row 0 the start, rows 1-4 cumulative)."""
+    tile kernel's marks, or each tensor-core or wide kernel's start-relative
+    phase sums (row 0 the start, rows 1-4 cumulative; the wide kernels'
+    parts ``wide_fwd``, ``wide_window``, or ``wide_dq`` and ``wide_dkv``)."""
     if plan.path == "tiles":
         marks = np.zeros(5 * MAX_BLOCKS, np.uint64)
         if so.k1_marks(marks.ctypes.data):
@@ -279,7 +313,11 @@ def _spans(so, plan):
     if so.k1_phases(raw.ctypes.data):
         raise RuntimeError("k1_phases: CUDA error")
     raw = raw.reshape(2, 5, MAX_BLOCKS).astype(np.int64)
-    if plan.direction == "fwd":
+    if plan.path == "wide":   # the forward; the one-kernel backward (W <= 64); dq, dk / dv
+        parts = ([("wide_fwd", plan.blocks, raw[0])] if plan.direction == "fwd" else
+                 [("wide_window", plan.blocks, raw[0])] if not plan.blocks_kv else
+                 [("wide_dq", plan.blocks, raw[0]), ("wide_dkv", plan.blocks_kv, raw[1])])
+    elif plan.direction == "fwd":
         parts = [("fwd", plan.blocks, raw[0])]
     elif plan.blocks_kv:
         rows = plan.rows < attention.MMA_ROWS   # the row-buffered dq kernel, then keys
@@ -309,7 +347,8 @@ def _span_fields(t, path) -> dict:
 
 
 def _phase_medians(t, path, part) -> dict:
-    names = (TILE_PHASES if path == "tiles" else WINDOW_PHASES if part == "window"
+    names = (TILE_PHASES if path == "tiles" else WIDE_PHASES if part.startswith("wide")
+             else WINDOW_PHASES if part == "window"
              else ROWS_PHASES if part == "dq_rows" else KEYS_PHASES if part == "keys"
              else MMA_PHASES)
     return {"phase_us_p50": {name: float(np.median(t[i + 1] - t[i])) / 1e3
@@ -345,13 +384,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     ap.add_argument("--crossover", action="store_true")
+    ap.add_argument("--wide", action="store_true", help="only the head dims past 128")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_phases: needs a card")
     if args.crossover:
         crossover()
     else:
-        phases(DTYPES[args.dtype])
+        phases(DTYPES[args.dtype], args.wide)
     return 0
 
 

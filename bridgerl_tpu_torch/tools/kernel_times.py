@@ -28,11 +28,15 @@ from ..models.layers import attention_bias, causal_bias
 from ..ops import attention, kernels, vq_kernel
 
 # (B*H, S, W, Dh, causal): the towers' W 10 (packing 8) and W 64, the prior at 128 and 256
-# positions and at d_model 128, the backward's two-kernel shapes, the slot-AR depth stack
+# positions and at d_model 128, the backward's two-kernel shapes, the slot-AR depth stack;
+# past Dh 128 (csrc/k1_wide.cuh): W 10 at Dh 256, W 64 at Dh 160, the full grid at Dh 256
+# causal, Dh 512 on a small grid, and the Dh-256 prior's backbone and depth stack
 K1_SHAPES = ((256, 80, 10, 64, False), (2048, 80, 10, 64, False), (1024, 64, 64, 64, False),
              (128, 128, 128, 64, True), (128, 128, 128, 32, True), (24, 160, 160, 128, False),
              (48, 200, 200, 64, False), (32, 160, 160, 64, True), (128, 256, 256, 64, True),
-             (16384, 5, 5, 64, True))
+             (16384, 5, 5, 64, True),
+             (256, 80, 10, 256, False), (256, 64, 64, 160, False), (128, 256, 256, 256, True),
+             (8, 64, 64, 512, False), (64, 96, 96, 256, True), (6144, 5, 5, 256, True))
 # (N, D, K): serving, training, validation, the zoo's K 1024, the studies' teacher, and two
 # other widths
 K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),

@@ -198,11 +198,14 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    48 on the window-resident kernel at W 64), at 96 (W 10; the d384L6
    prior's backbone (128, 96, 96) and depth stack (12288, 5, 96), causal;
    the full grid (128, 256, 96) causal, whose backward takes the two-sweep
-   kernels) and past 128 in chunks (256 at W 10, 160 at W 64, the full grid
-   (128, 256, 256) causal, 512 at (8, 64, 64)), under the rules of phase 2,
-   two launches bit for bit, with the true Dh's bound and SDPA;
-   ``k1_head_dim_masks``: both kernels' keep bits at Dh 24, 96, 160 and 512
-   equal to the plain Philox mask, in both dtypes.
+   kernels) and past 128 on the wide kernels (256 at W 10 and W 5, 160 at
+   W 64, the full grid (128, 256, 256) causal, 512 at (8, 64, 64), the
+   Dh-256 prior's backbone (64, 96, 96) and depth stack (6144, 5, 5),
+   causal), under the rules of phase 2, two launches bit for bit, with the
+   true Dh's bound and SDPA;
+   ``k1_head_dim_masks``: both kernels' keep bits at Dh 24, 96, 160, 512
+   and 256 (W 5: 12 windows a block) equal to the plain Philox mask, in both
+   dtypes.
 16. ``prior``: 256 synthetic takes of 645 frames through the flagship (seed
    0) give (256, 128, 5) code grids on the card (K1, K2); on 32 takes the
    CPU's grids are equal but where K2's near-tie rule explains an RVQ flip
@@ -226,6 +229,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    the same two rules; one greedy ``sample_grids`` call (4 samples, 8
    positions) on the f32 prior, every token the argmax of the CPU's
    teacher-forced logits but where its two best lie within 1e-4.
+    ``prior_dh256`` (after ``prior_wide``): the capacity sweep's next arm,
+   ``exp_prior_scaling.py --d_model 512 --n_heads 2`` with its defaults (4
+   layers, ff_dim 1024, slot-AR with 2 depth layers, dropout 0.1, max_len
+   96, batch 32): Dh 256, so every K1 launch of its training is the wide
+   kernels' ((64, 96, 96) and (6144, 5, 5), causal); the same checks as
+   ``prior_wide`` on other takes of the same shape.
 17. ``generate``: 4 motions of 32 positions from the f32 prior, unguided,
    guided (8 candidates, guide_dyn 0.2) and prompted (8 positions of a
    take): every token the CPU's draw from the card's prefix with the same
@@ -318,10 +327,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
 25. The ``kernels`` line (every kernel, float32 and bf16 rows, K1's split
    into the window tiles, under the entry point's name, and the tensor-core
    path, under ``<entry>_mma``, the backward's two-kernel launches apart
-   under ``<entry>_long``, each with its own cases; with its
+   under ``<entry>_long``, head dims past 128 under ``<entry>_wide``, each
+   with its own cases; with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk, int8, prior, prior_long, prior_wide, generate, generator_artifact,
+   fk, int8, prior, prior_long, prior_wide, prior_dh256, generate,
+   generator_artifact,
    latent, torch_import,
    demo_stream, data_parallel (the ranks' launches; cli includes
    cli_multiseed) and research (the studies' child, summed over its
@@ -330,7 +341,8 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    check an answer sums the launches of its own calls; the float32
    tensor-core rows must show launches on the zoo, recipe, prior and
    research paths, the two-kernel rows on prior_long, K1's forward and
-   backward of each dtype and K2 on prior_wide), then, last,
+   backward of each dtype and K2 on prior_wide, the wide rows of each
+   dtype and K2 on prior_dh256), then, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
@@ -595,23 +607,35 @@ PRIOR_WIDE = dict(d_model=384, n_heads=4, n_layers=6, ff_dim=768, dropout=0.1, s
 PRIOR_WIDE_TAKES, PRIOR_WIDE_FRAMES, PRIOR_WIDE_POSITIONS = 256, 485, 96
 PRIOR_WIDE_EPOCHS, PRIOR_WIDE_CPU_TAKES = 2, 8
 PRIOR_WIDE_SAMPLES, PRIOR_WIDE_SAMPLED = 4, 8   # greedy sample_grids: samples, positions
+# the capacity sweep's next arm at 2 heads (scripts/exp_prior_scaling.py --d_model 512
+# --n_heads 2 with its defaults: 4 layers, ff_dim 2 d_model, slot-AR with 2 depth layers,
+# dropout 0.1, max_len 96, batch 32): Dh 256, on the wide kernels, its K1 at (64, 96, 96)
+# causal (the backbone) and (6144, 5, 5) causal (the depth stack); the same takes' shape as
+# prior_wide's, other takes
+PRIOR_DH256 = dict(d_model=512, n_heads=2, n_layers=4, ff_dim=1024, dropout=0.1, slot_ar=True,
+                   depth_layers=2)
 # K1 at the head dims the instantiated ones do not cover (B*H, S, W, Dh, causal, what): padded
-# (Dh 8, 24, 48), the d384L6 prior's 96 natively, and past 128 in chunks (160, 256, 512)
+# (Dh 8, 24, 48), the d384L6 prior's 96 natively, and past 128 on the wide kernels (160, 256,
+# 512; Dh 256 at W 5 and 10 with 12 and 6 windows a block, and the Dh-256 prior's shapes)
 K1_HEAD_DIMS = ((256, 80, 10, 8, False, "tiles, padded to 16"),
                 (256, 80, 10, 24, False, "tiles, padded to 32"),
                 (256, 80, 10, 96, False, "tiles"),
-                (256, 80, 10, 256, False, "chunked, 2 chunks"),
+                (256, 80, 10, 256, False, "wide, 6 windows a block"),
                 (128, 96, 96, 96, True, "d384L6 backbone: tensor cores; row-buffered backward"),
                 (12288, 5, 5, 96, True, "d384L6 depth stack: tiles"),
                 (256, 64, 64, 48, False, "window-resident, padded to 64"),
-                (256, 64, 64, 160, False, "chunked, padded to 256"),
+                (256, 64, 64, 160, False, "wide, 160 columns staged as they are"),
                 (128, 256, 256, 96, True, "full grid: two-sweep backward"),
-                (128, 256, 256, 256, True, "full grid: chunked two-sweep backward"),
-                (8, 64, 64, 512, False, "chunked, 4 chunks, small grid"))
+                (128, 256, 256, 256, True, "full grid: wide two-sweep backward"),
+                (8, 64, 64, 512, False, "wide, 8 column groups of 64, small grid"),
+                (64, 96, 96, 256, True, "Dh-256 prior backbone: wide"),
+                (6144, 5, 5, 256, True, "Dh-256 prior depth stack: wide, 12 windows a block"),
+                (512, 40, 5, 256, False, "wide, W 5, 12 windows a block"))
 # the keep masks at head dims off the instantiated ones (B*H, S, W, Dh, causal): v = I
 # reads p_drop, so Dh >= S
 K1_HEAD_DIM_MASKS = ((64, 20, 10, 24, False), (128, 96, 96, 96, True),
-                     (64, 64, 64, 160, False), (8, 64, 64, 512, False))
+                     (64, 64, 64, 160, False), (8, 64, 64, 512, False),
+                     (64, 20, 5, 256, False))
 # K2 past 512 columns (N, D, K): the nearest-code kernel's column chunks
 K2_WIDE = ((512, 640, 512), (4096, 640, 512), (512, 1024, 512), (4096, 1024, 512))
 INT8_ODD = (37, 100, 196)     # the int8 product at K and N off multiples of 8: M, K, N
@@ -795,7 +819,7 @@ def k1_bound(dtype, elements: int, flops: int, window: int, mma=None):
     """K1's bound for its dtype: bytes at the element's size, FLOPs at the
     rate of the units the kernel uses: the bf16 tensor cores (bfloat16), the
     float32 cores (float32 window tiles) or, for float32 long windows (and
-    ``mma``: the chunked kernels of head dims past 128 at any W), the tf32
+    ``mma``: the wide kernels of head dims past 128 at any W), the tf32
     tensor cores doing three products for each (3xTF32)."""
     if dtype == BF16:
         return bound(2 * elements, flops, BF16_FLOPS_PER_S)
@@ -884,6 +908,7 @@ def _kernel_row(name: str, source: str, replaces: str, cases: list) -> dict:
 
 
 ROW_KEYS = ("name", "route", "source", "replaces", "kernel_ms", "cases")
+WIDE_SOURCE = "bridgerl_tpu_torch/csrc/k1_wide.cuh"   # K1 past Dh 128, both directions
 
 
 def k1_case_kernel(name: str, case: dict) -> str:
@@ -891,14 +916,15 @@ def k1_case_kernel(name: str, case: dict) -> str:
     belongs to: the window tiles (W < MIN_MMA_WINDOW) under the entry's
     name; the tensor-core path under ``<entry>_mma`` and, for the backward's
     two-kernel launches (its plan has a dk / dv kernel), ``<entry>_long``.
-    A head dim past 128 takes the chunked kernels at every W: the forward's
-    row is ``_mma``, the backward's (two kernels) ``_long``."""
+    A head dim past 128 takes the wide kernels at every W: ``<entry>_wide``."""
     BH, S, Dh = case["shape"]
     direction = "bwd" if "bwd" in name else "fwd"
     plan = attention.k1_plan(BH, S, case["window"], Dh, BF16 if "bf16" in name else torch.float32,
                              direction, case.get("bias") == "causal")
     if plan.path == "tiles":
         return name
+    if plan.path == "wide":
+        return name + "_wide"
     return name + ("_long" if plan.blocks_kv else "_mma")
 
 
@@ -916,19 +942,22 @@ def split_k1_rows(table: list) -> list:
         names = [row["name"], row["name"] + "_mma"]
         if "bwd" in row["name"]:
             names.append(row["name"] + "_long")
+        names.append(row["name"] + "_wide")
         for name in names:
             part = [c for c in cases if k1_case_kernel(row["name"], c) == name]
-            out.append(_kernel_row(name, row["source"], row["replaces"], part))
+            source = WIDE_SOURCE if name.endswith("_wide") else row["source"]
+            out.append(_kernel_row(name, source, row["replaces"], part))
     return out
 
 
 def row_launches(row: dict, launched: dict) -> int:
     """A kernel row's launches in one path's counts: an entry point's window
-    tiles are its launches less its tensor-core ones, and the backward's
-    window-resident kernel its tensor-core launches less its two-kernel ones."""
+    tiles are its launches less its tensor-core and wide ones, and the
+    backward's window-resident kernel its tensor-core launches less its
+    two-kernel ones."""
     name = row["name"]
     if name in attention.ENTRY.values():
-        return launched[name] - launched[name + "_mma"]
+        return launched[name] - launched[name + "_mma"] - launched[name + "_wide"]
     if name.endswith("_mma") and name[:-4] + "_long" in launched:
         return launched[name] - launched[name[:-4] + "_long"]
     return launched[name]
@@ -2969,7 +2998,7 @@ def _head_dim_bias(S: int, W: int, causal: bool) -> torch.Tensor:
 
 def _head_dim_case(g, dtype, direction: str, BH, S, W, Dh, causal, what: str) -> dict:
     """K1 (``direction`` fwd or bwd) at a head dim off the instantiated ones
-    (padded), at 96, or past 128 (chunked), dropout 0.1, against the plain
+    (padded), at 96, or past 128 (wide), dropout 0.1, against the plain
     version at the true Dh under the rules of phase 2, two launches bit for
     bit; its bound counts the true Dh's work (windows, or the lower
     triangle), at the units of the path it takes; SDPA the library form."""
@@ -2988,7 +3017,7 @@ def _head_dim_case(g, dtype, direction: str, BH, S, W, Dh, causal, what: str) ->
         plain = lambda: [attention.packed_attention_reference(q, k, v, bias, scale, seed, rate,
                                                               W, causal)]
         library = lib(q, k, v)
-        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * pairs * Dh, W, plan.path == "mma")
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * pairs * Dh, W, plan.path != "tiles")
     else:
         run = lambda: list(attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W,
                                                    causal))
@@ -2998,7 +3027,7 @@ def _head_dim_case(g, dtype, direction: str, BH, S, W, Dh, causal, what: str) ->
         outs = [f() for f in lib(qg, kg, vg)]
         library = [lambda o=o: torch.autograd.grad(o, (qg, kg, vg), do.view(o.shape),
                                                    retain_graph=True) for o in outs]
-        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * pairs * Dh, W, plan.path == "mma")
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * pairs * Dh, W, plan.path != "tiles")
     name = attention.ENTRY[direction, dtype]
     got, again = run(), run()
     torch.cuda.synchronize()
@@ -3007,7 +3036,8 @@ def _head_dim_case(g, dtype, direction: str, BH, S, W, Dh, causal, what: str) ->
     lib_ms = [time_ms(f) for f in library]
     case = {"shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "window": W,
             "bias": "causal" if causal else "window", "dropout": rate, "what": what,
-            "head_width": attention.head_width(Dh), "chunks": plan.chunks,
+            "head_width": attention.head_width(Dh), "groups": plan.groups,
+            "windows_per_block": plan.windows_per_block,
             "kernel_path": k1_case_kernel(name, {"shape": [BH, S, Dh], "window": W,
                                                  "bias": "causal" if causal else "window"}),
             "repeat_equal": True,
@@ -3337,17 +3367,34 @@ def _greedy_rule(cpu_prior, grid: torch.Tensor) -> dict:
 
 def prior_wide_path(smi: str, vq, exp) -> dict:
     """The prior-capacity arm d384L6 (PRIOR_WIDE: 4 heads of Dh 96, K1 at
-    that head dim natively) on the flagship's codes (``vq``, seed 0):
-    PRIOR_WIDE_TAKES synthetic takes give (256, 96, 5) grids on the card (K1,
-    K2), held to the CPU's on PRIOR_WIDE_CPU_TAKES takes under the prior
-    phase's rule; the prior trains PRIOR_WIDE_EPOCHS timed epochs in f32 and
-    bf16 (windows/s, tokens/s), each launching both K1 entry points of its
-    dtype; one step at dropout 0 is held to the CPU under ``step_agree`` and
+    that head dim natively) on the flagship's codes (``vq``, seed 0): as
+    :func:`_prior_arm`, each epoch launching both K1 entry points of its
+    dtype."""
+    return _prior_arm(smi, vq, exp, "prior_wide", PRIOR_WIDE, SEED + 13, wide=False)
+
+
+def prior_dh256_path(smi: str, vq, exp) -> dict:
+    """The capacity sweep's d512 2-head arm (PRIOR_DH256: Dh 256) on the
+    flagship's codes: as :func:`_prior_arm`, every K1 launch of its training
+    on the wide kernels, forward and backward, in both dtypes."""
+    return _prior_arm(smi, vq, exp, "prior_dh256", PRIOR_DH256, SEED + 14, wide=True)
+
+
+def _prior_arm(smi: str, vq, exp, phase: str, config: dict, take_seed: int,
+               wide: bool) -> dict:
+    """A prior-capacity arm (``config`` over the extracted code space) on
+    the flagship's codes (``vq``, seed 0): PRIOR_WIDE_TAKES synthetic takes
+    of PRIOR_WIDE_FRAMES frames (seeded ``take_seed``) give (256, 96, 5)
+    grids on the card (K1, K2), held to the CPU's on PRIOR_WIDE_CPU_TAKES
+    takes under the prior phase's rule; the prior trains PRIOR_WIDE_EPOCHS
+    timed epochs in f32 and bf16 (windows/s, tokens/s), each launching K1's
+    forward and backward (with ``wide``, every launch the wide kernels');
+    one step at dropout 0 is held to the CPU under ``step_agree`` and
     ``step_agree_bf16``; one greedy ``sample_grids`` call on the f32 prior
     (PRIOR_WIDE_SAMPLES x PRIOR_WIDE_SAMPLED positions) under
     :func:`_greedy_rule`. The launches of its own calls."""
     t_phase = time.perf_counter()
-    takes = _prior_takes(PRIOR_WIDE_TAKES, PRIOR_WIDE_FRAMES, SEED + 13)
+    takes = _prior_takes(PRIOR_WIDE_TAKES, PRIOR_WIDE_FRAMES, take_seed)
     own = []
     before = launches()
     t0 = time.perf_counter()
@@ -3356,18 +3403,19 @@ def prior_wide_path(smi: str, vq, exp) -> dict:
     extract_s = time.perf_counter() - t0
     own.append(_delta(before))
     require(grids.shape == (PRIOR_WIDE_TAKES, PRIOR_WIDE_POSITIONS, 5) and mask.all(),
-            f"prior_wide grids {grids.shape}, {mask.sum()} positions")
+            f"{phase} grids {grids.shape}, {mask.sum()} positions")
     n = PRIOR_WIDE_CPU_TAKES
     cpu_vq = init_model(exp.model, SEED, device="cpu")
     cpu = extract_code_grids(cpu_vq, exp, takes[:n], ZERO29, ONE29, PRIOR_STRIDE,
                              max_len=PRIOR_WIDE_POSITIONS)
-    full = dataclasses.replace(pcfg, **PRIOR_WIDE)
-    require(full.d_model // full.n_heads == 96 and full.max_len == PRIOR_WIDE_POSITIONS,
-            f"prior_wide config {full}")
-    line = {"phase": "prior_wide", "card": smi, "config": PRIOR_WIDE, "takes": PRIOR_WIDE_TAKES,
-            "grids": list(grids.shape), "extract_windows": int(mask.sum()),
-            "extract_s": extract_s, "extract_windows_per_s": float(mask.sum()) / extract_s,
-            "cpu_checked_takes": n,
+    full = dataclasses.replace(pcfg, **config)
+    head_dim = full.d_model // full.n_heads
+    require(head_dim == (256 if wide else 96) and full.max_len == PRIOR_WIDE_POSITIONS,
+            f"{phase} config {full}")
+    line = {"phase": phase, "card": smi, "config": config, "head_dim": head_dim,
+            "takes": PRIOR_WIDE_TAKES, "grids": list(grids.shape),
+            "extract_windows": int(mask.sum()), "extract_s": extract_s,
+            "extract_windows_per_s": float(mask.sum()) / extract_s, "cpu_checked_takes": n,
             "codes_vs_cpu": _code_flips(cpu_vq, exp, takes[:n], grids[:n], cpu[0], cpu[1])}
     prior32 = None
     for dtype in DTYPES:
@@ -3377,9 +3425,13 @@ def prior_wide_path(smi: str, vq, exp) -> dict:
         delta = _delta(before)
         own.append(delta)
         require(all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
-                f"prior_wide {DTYPE_NAME[dtype]} losses {hist}")
-        require(all(delta[attention.ENTRY[d, dtype]] > 0 for d in ("fwd", "bwd")),
-                f"prior_wide {DTYPE_NAME[dtype]}: K1 forward and backward must launch: {delta}")
+                f"{phase} {DTYPE_NAME[dtype]} losses {hist}")
+        for d in ("fwd", "bwd"):
+            name = attention.ENTRY[d, dtype]
+            wide_name = attention.WIDE_ENTRY[d, dtype]
+            require(delta[name] > 0 and (not wide or delta[wide_name] == delta[name]),
+                    f"{phase} {DTYPE_NAME[dtype]}: K1 {d} must launch"
+                    f"{', every launch on the wide kernels' if wide else ''}: {delta}")
         rate = PRIOR_WIDE_EPOCHS * positions / seconds
         line[DTYPE_NAME[dtype]] = {
             "epochs": PRIOR_WIDE_EPOCHS, "train_s": seconds, "windows_per_s": rate,
@@ -3388,10 +3440,10 @@ def prior_wide_path(smi: str, vq, exp) -> dict:
             prior32 = prior
     g, m = grids[:32], mask[:32]
     cpu32 = _prior_step(full, torch.float32, "cpu", g, m)
-    line["step_agree"] = _agree_rule("prior_wide step_agree",
+    line["step_agree"] = _agree_rule(f"{phase} step_agree",
                                      _prior_step(full, torch.float32, "cuda", g, m), cpu32)
     line["step_agree_bf16"] = _bf16_step_rule(
-        "prior_wide step_agree_bf16", cpu32, _prior_step(full, BF16, "cuda", g, m),
+        f"{phase} step_agree_bf16", cpu32, _prior_step(full, BF16, "cuda", g, m),
         _prior_step(full, BF16, "cpu", g, m))
     before = launches()
     with torch.inference_mode():
@@ -3403,8 +3455,8 @@ def prior_wide_path(smi: str, vq, exp) -> dict:
                       **_greedy_rule(copy.deepcopy(prior32).cpu(), sampled.cpu())}
     line["launches"] = add_launches(*own)
     require(line["launches"][vq_kernel.launch_counter.name] > 0,
-            f"prior_wide: K2 was not launched: {line['launches']}")
-    line["prior_wide_path_s"] = time.perf_counter() - t_phase
+            f"{phase}: K2 was not launched: {line['launches']}")
+    line[f"{phase}_path_s"] = time.perf_counter() - t_phase
     emit(line)
     return line
 
@@ -4781,6 +4833,7 @@ def main(argv) -> int:
     generator = generator_artifact_path(smi, prior32, vq, vq_exp)
     prior_long = prior_long_path(smi, vq, vq_exp)
     prior_wide = prior_wide_path(smi, vq, vq_exp)
+    prior_dh256 = prior_dh256_path(smi, vq, vq_exp)
     del prior32, vq
     latent = latent_path(smi)
     imported, import_dir = torch_import_path(smi)
@@ -4812,7 +4865,7 @@ def main(argv) -> int:
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "prior_long": prior_long,
-             "prior_wide": prior_wide, "generate": generate,
+             "prior_wide": prior_wide, "prior_dh256": prior_dh256, "generate": generate,
              "generator_artifact": generator, "latent": latent, "torch_import": imported,
              "demo_stream": demo, "data_parallel": dp, "research": research}
     for row in table:
@@ -4829,11 +4882,14 @@ def main(argv) -> int:
         name = attention.LONG_COUNTER["bwd", dtype].name
         by_path = next(r["launches_by_path"] for r in table if r["name"] == name)
         require(by_path["prior_long"] > 0, f"{name}: no launch on prior_long: {by_path}")
-    # prior_wide (Dh 96): K1's forward and backward of each dtype, and K2
+    # prior_wide (Dh 96) and prior_dh256 (Dh 256): K1's forward and backward of each dtype,
+    # on prior_dh256 the wide kernels', and K2
     for name in [*attention.ENTRY.values(), "vq_assign"]:
-        launched = sum(r["launches_by_path"]["prior_wide"] for r in table
-                       if r["name"] in (name, name + "_mma", name + "_long"))
-        require(launched > 0, f"{name}: no launch on prior_wide")
+        for path in ("prior_wide", "prior_dh256"):
+            rows = ((name + "_wide",) if path == "prior_dh256" and name != "vq_assign"
+                    else (name, name + "_mma", name + "_long", name + "_wide"))
+            launched = sum(r["launches_by_path"][path] for r in table if r["name"] in rows)
+            require(launched > 0, f"{name}: no launch on {path} ({rows})")
     emit({"phase": "total", "card": smi, "chip_smoke_s": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

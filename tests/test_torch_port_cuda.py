@@ -8,7 +8,7 @@ machine with one (which needs no JAX), run
 ``--noconftest`` skips tests/conftest.py, which configures JAX for the rest
 of the suite. Shapes go beyond chip_smoke.py's: every head dim K1 takes, odd
 sequence lengths and general biases, forward and backward, with dropout 0
-and 0.1, at head dims padded (8, 24, 48), native (96) and chunked (160,
+and 0.1, at head dims padded (8, 24, 48), native (96) and wide (160,
 256, 512); K2 at odd N, D and K, D up to 2048 (in column chunks past 512),
 K over several slices of a cluster rank and ragged last slices, N off the
 row tile, exact ties (also across the slices of one cluster), repeat calls,
@@ -149,7 +149,7 @@ def test_k1_refuses_what_it_does_not_take(gen, bad):
     q = torch.randn(4, S, Dh, device="cuda", generator=gen)
     bias = torch.zeros(S, S, device="cuda")
     args = {"q": q, "k": q, "v": q, "bias": bias}
-    if bad == "bias_device":   # any head dim is taken (padded or chunked): not this
+    if bad == "bias_device":   # any head dim is taken (padded or wide): not this
         args["bias"] = bias.cpu()
     elif bad == "dtype":
         args["k"] = q.double()
@@ -1324,11 +1324,23 @@ def test_k2_past_512_columns_matches_plain(gen, N, D, K):
                                               (40, 20, 10, 96, False), (8, 64, 64, 48, False),
                                               (128, 96, 96, 96, True), (8, 64, 64, 160, False),
                                               (40, 20, 10, 256, False), (6, 96, 96, 256, True),
-                                              (2, 32, 32, 512, False)])
+                                              (2, 32, 32, 512, False),
+                                              # wide: windows a block at W 5 and 10 (the last
+                                              # block partial), Dh 160 unpadded at W 10, a
+                                              # column group past 256 and Dh 512 on a grid of
+                                              # 512 blocks, Dh 136 staged at 144, causal W 5
+                                              (7, 30, 5, 256, True), (13, 40, 10, 160, False),
+                                              (3, 160, 160, 384, True), (128, 64, 64, 512, False),
+                                              (5, 72, 72, 136, False), (12, 20, 5, 200, False),
+                                              # full grids past W 64: whole rows, one column
+                                              # group (merged in bf16 at 256, in both dtypes
+                                              # at 160), the tiles with most work first
+                                              (72, 96, 96, 256, True), (72, 96, 96, 160, True)])
 def test_k1_at_any_head_dim_matches_plain(gen, BH, S, W, Dh, causal, rate, dtype):
     """Head dims off the instantiated ones (padded: 8, 24, 48), Dh 96 (the
-    d384L6 prior's) natively, and past 128 in chunks (160, 256, 512): forward
-    and backward against the plain version at the true Dh (f32 1e-4, bf16 one
+    d384L6 prior's) natively, and past 128 on the wide kernels (136, 160,
+    200, 256, 384, 512; several windows a block at W <= 32): forward and
+    backward against the plain version at the true Dh (f32 1e-4, bf16 one
     ulp), two backward launches bit for bit, and the counters of the path."""
     q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
@@ -1341,8 +1353,10 @@ def test_k1_at_any_head_dim_matches_plain(gen, BH, S, W, Dh, causal, rate, dtype
     again = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W, causal)
     torch.cuda.synchronize()
     assert attention.COUNTER["fwd", dtype].count == 1 and attention.COUNTER["bwd", dtype].count == 2
-    if Dh > attention.CHUNK_DIM:   # the chunked backward: two kernels a launch
-        assert attention.LONG_COUNTER["bwd", dtype].count == 2
+    if Dh > 128:   # the wide kernels: their own counters, no other path's
+        assert attention.WIDE_COUNTER["fwd", dtype].count == 1
+        assert attention.WIDE_COUNTER["bwd", dtype].count == 2
+        assert attention.MMA_COUNTER["bwd", dtype].count == 0
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W, causal)
     want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate, W,
@@ -1356,19 +1370,20 @@ def test_k1_at_any_head_dim_matches_plain(gen, BH, S, W, Dh, causal, rate, dtype
 
 
 def test_k1_wide_entry_points_refuse_other_plans(gen):
-    """The chunked kernels' entry points take only head dims past 128 in
-    multiples of 128, at their own plan."""
+    """The wide kernels' entry points take only head dims past 128 in
+    multiples of 8, at their own plan and path."""
     BH, S, Dh = 4, 64, 256
     q = torch.randn(BH, S, Dh, device="cuda", generator=gen)
     out = torch.empty_like(q)
     bias = torch.zeros(S, S, device="cuda")
     plan = attention.k1_plan(BH, S, S, Dh, torch.float32, "fwd")
     fn = kernels.entry(attention.WIDE_ENTRY["fwd", torch.float32])
-    call = lambda dh, blocks, smem: fn(
+    call = lambda dh, blocks, smem, path=attention.PATH_CODE["wide"]: fn(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), out.data_ptr(), BH, S, S,
-        dh, 0.1, 0, BH, 0, 1.0, 0, 0, 1, blocks, smem, kernels.stream_ptr(q))
+        dh, 0.1, 0, BH, 0, 1.0, 0, 0, path, blocks, smem, kernels.stream_ptr(q))
     assert call(Dh, plan.blocks, plan.smem_bytes) == 0
-    for bad in [(128, plan.blocks, plan.smem_bytes), (200, plan.blocks, plan.smem_bytes),
-                (Dh, plan.blocks - 1, plan.smem_bytes), (Dh, plan.blocks, plan.smem_bytes - 16)]:
+    for bad in [(128, plan.blocks, plan.smem_bytes), (196, plan.blocks, plan.smem_bytes),
+                (Dh, plan.blocks - 1, plan.smem_bytes), (Dh, plan.blocks, plan.smem_bytes - 16),
+                (Dh, plan.blocks, plan.smem_bytes, attention.PATH_CODE["mma"])]:
         assert call(*bad) != 0
     torch.cuda.synchronize()

@@ -11,9 +11,10 @@ the two-kernel backward's blocks; a tile that is skipped lies wholly above
 the diagonal; no block asks for more than 232,448 bytes of shared memory;
 and every shape the launchers took before the tensor-core path (the window
 tiles, or the row kernels it replaced) is still taken. Every head dim from 1
-to 512 is planned at the width ``head_width`` gives, past 128 in chunks whose
-blocks own every output column once. The block-to-work mapping below is the
-kernels' own index arithmetic.
+to 512 is planned at the width ``head_width`` gives, past 128 on the wide
+kernels, whose blocks (several whole windows at W <= 32) own every output
+column once and compute every pair once. The block-to-work mapping below is
+the kernels' own index arithmetic.
 """
 
 import numpy as np
@@ -326,15 +327,15 @@ HEAD_DIM_WINDOWS = (5, 10, 32, 64, 96, 128, 160, 256)
 def test_every_head_dim_is_planned_within_the_budget(W, direction):
     """k1_plan and mma_plan take every Dh from 1 to 512, in both dtypes,
     causal or not: up to 128 the plan of the instantiated width the rule
-    gives (the next of SUPPORTED_HEAD_DIMS), past it the chunked kernels'
-    plan at the next multiple of CHUNK_DIM; every launch within the shared
-    memory of one block."""
+    gives (the next of SUPPORTED_HEAD_DIMS), past it the wide kernels' plan
+    at the next multiple of 8 (Dh itself where it is one); every launch
+    within the shared memory of one block."""
     BH, S = 3, 2 * W
     for Dh in range(1, 513):
         width = attention.head_width(Dh)
         assert width >= Dh and (width in attention.SUPPORTED_HEAD_DIMS if Dh <= 128
-                                else width % attention.CHUNK_DIM == 0
-                                and width - Dh < attention.CHUNK_DIM)
+                                else width % attention.WIDE_ALIGN == 0
+                                and width - Dh < attention.WIDE_ALIGN)
         if Dh <= 128:
             assert width == min(d for d in attention.SUPPORTED_HEAD_DIMS if d >= Dh)
         for dtype in attention.DTYPES:
@@ -343,49 +344,178 @@ def test_every_head_dim_is_planned_within_the_budget(W, direction):
                 mma = attention.mma_plan(BH, S, W, Dh, dtype, direction, causal)
                 assert max(plan.smem_bytes, plan.smem_kv, mma.smem_bytes, mma.smem_kv) \
                     <= SMEM_LIMIT
-                assert plan.chunks == mma.chunks == max(1, width // attention.CHUNK_DIM)
                 if Dh <= 128:
+                    assert plan.groups == mma.groups == 1
                     assert plan == k1_plan(BH, S, W, width, dtype, direction, causal)
                 else:
-                    assert plan == mma and plan.path == "mma"
+                    assert plan == mma and plan.path == "wide"
+                    assert plan.groups == attention.wide_groups(width, plan.blocks // plan.groups)
+
+
+WIDE_WARPS = 8    # csrc/k1_wide.cuh kWarps: four row groups of 16 by two column halves
+
+
+def _reach(r0, n, Wb, W, causal, keys):
+    """k1_wide.cuh's reach: the partners (a query's keys; a key's queries)
+    that rows r0 .. r0 + n - 1 of a super-window of Wb rows reach."""
+    if r0 >= Wb:
+        return 0, 0
+    rl = min(r0 + n - 1, Wb - 1)
+    lo = r0 if keys and causal else r0 // W * W
+    hi = rl + 1 if not keys and causal else min((rl // W + 1) * W, Wb)
+    return lo, hi
+
+
+def _tiles_in(lo, hi, p0, n):
+    """k1_wide.cuh's tiles_in: the 8-wide tiles of the n from p0 that [lo, hi) reaches."""
+    if hi <= p0 or lo >= p0 + 8 * n:
+        return 0, 0
+    return max(0, lo - p0) // 8, min(n, (hi - p0 + 7) // 8)
 
 
 def _check_wide(plan, Dh):
-    """The chunked kernels' blocks: block b is (window, row tile, column
-    chunk) = (b // chunks // row_tiles, b // chunks % row_tiles, b % chunks),
-    and the dk / dv kernel's the same over key tiles; each (window, row,
-    output column) is owned once, and every pair once as in the tensor-core
-    plan's coverage."""
-    nc, W = plan.chunks, plan.W
-    assert nc == attention.head_width(Dh) // attention.CHUNK_DIM > 1 and plan.rows == MMA_ROWS
-    assert plan.blocks == plan.windows * plan.row_tiles * nc
-    owned = np.zeros((plan.windows, W, nc * attention.CHUNK_DIM), np.int64)
-    kernels = [plan.blocks] + ([plan.blocks_kv] if plan.direction == "bwd" else [])
-    for blocks in kernels:
+    """The wide kernels' blocks: block b is ((super-window, row tile), column
+    group) = ((b // groups // tiles, b // groups % tiles), b % groups) (under
+    causal with several tiles a window, on grids past one block an SM,
+    tile-major, the tiles with the most work first: the last row tiles, the
+    dk / dv kernel's first), a
+    super-window G = 64 // W whole windows at W <= 32 (else one window, in
+    row tiles of 64); warp (rg, ch) owns rows 16 rg .. 16 rg + 15 of the tile
+    and the half ch of the group's columns. Each (window, row, output column)
+    is owned once, by the dq kernel and by the dk / dv kernel (keys) as by the
+    forward, and by the one-kernel backward at W <= 64 (as queries and as
+    keys); each group's warps compute every (query, key) pair of the window
+    (on and below the diagonal under causal) once: warp (rg, ch) takes the
+    8-wide tiles its rows reach of the half ch of each streamed tile, and its
+    products read the tiles that hold every partner its rows have (the
+    one-kernel backward's dk and dv every query its keys have)."""
+    W, G, groups, R, C = plan.W, plan.windows_per_block, plan.groups, MMA_ROWS, MMA_COLS
+    Dp = -(-Dh // 16) * 16
+    CW = attention._group_cols(Dp, groups)
+    HW = CW // 2
+    one = plan.direction == "bwd" and W <= attention.WIDE_WINDOW   # the one-kernel backward
+    assert plan.path == "wide" and (plan.rows, plan.cols) == (R, R if one else C)
+    assert G == (R // W if W <= attention.MULTI_WINDOW else 1)
+    tiles = 1 if G > 1 else -(-W // R)
+    assert plan.blocks == -(-plan.windows // G) * tiles * groups
+    assert groups * CW >= Dh and CW % 16 == 0 and (CW <= attention.GROUP_COLS)
+    lower = np.tril(np.ones((W, W), bool)) if plan.causal else np.ones((W, W), bool)
+    owned = np.zeros((plan.windows, W, Dh), np.int64)
+    pairs = np.zeros((groups, plan.windows, W, W), np.int64)   # (query, key) a group
+    kernels = ["fwd"] if plan.direction == "fwd" else ["win"] if one else ["dq", "dkv"]
+    assert plan.blocks_kv == (0 if plan.direction == "fwd" or one else plan.blocks)
+    assert tiles == 1 or not one
+    for kernel in kernels:
+        keys = kernel == "dkv"
         owned[:] = 0
-        for b in range(blocks):
-            oc, rest = b % nc, b // nc
-            n, t = rest // plan.row_tiles, rest % plan.row_tiles
-            cols = slice(oc * attention.CHUNK_DIM, (oc + 1) * attention.CHUNK_DIM)
-            owned[n, t * MMA_ROWS:min((t + 1) * MMA_ROWS, W), cols] += 1
-        assert (owned == 1).all()
-    _check_mma_coverage(plan._replace(blocks=plan.blocks // nc, blocks_kv=plan.blocks_kv // nc,
-                                      chunks=1), plan.causal)
+        pairs[:] = 0
+        for b in range(plan.blocks):
+            cg, rest = b % groups, b // groups
+            if plan.causal and tiles > 1 and plan.blocks > attention.SPLIT_BELOW:
+                # tile-major, the tiles with the most work first
+                nsw = -(-plan.windows // G)
+                tq = rest // nsw
+                n0, i0 = rest % nsw * G, (tq if keys else tiles - 1 - tq) * R
+            else:
+                n0, i0 = rest // tiles * G, rest % tiles * R
+            Wb = min(G, plan.windows - n0) * W
+            blo, bhi = _reach(i0, R, Wb, W, plan.causal, keys)
+            streamed = range(blo // C if keys else 0, -(-bhi // C))
+            for w in range(WIDE_WARPS):
+                rg, ch = w % 4, w // 4
+                r = np.arange(i0 + 16 * rg, i0 + 16 * rg + 16)
+                r = r[r < Wb]
+                oc0 = cg * CW + ch * HW
+                cols = slice(oc0, min(oc0 + 8 * (max(0, min(HW, Dp - oc0)) // 8), Dh))
+                owned[n0 + r // W, r % W, cols] += 1
+                wlo, whi = _reach(i0 + 16 * rg, 16, Wb, W, plan.causal, keys)
+                if kernel == "win":   # dk, dv: the queries its keys have, in two halves
+                    klo, khi = _reach(16 * rg, 16, Wb, W, plan.causal, True)
+                    need = np.zeros(R, bool)
+                    for hb in range(2):
+                        pb, pe = _tiles_in(klo, khi, hb * C, 4)
+                        need[hb * C + 8 * pb:hb * C + 8 * pe] = True
+                    for key in r:
+                        i = np.arange(Wb)
+                        ok = (i // W == key // W) & (i >= key if plan.causal else True)
+                        assert need[i[ok]].all()
+                for t in streamed:
+                    xb, xe = _tiles_in(wlo, whi, t * C + 16 * ch, 2)
+                    pb, pe = _tiles_in(wlo, whi, t * C, 4)
+                    p = np.arange(t * C + 16 * ch + 8 * xb, t * C + 16 * ch + 8 * xe)
+                    rr, pp = np.meshgrid(r, p, indexing="ij")
+                    q_, k_ = (pp, rr) if keys else (rr, pp)
+                    ok = (pp < Wb) & (rr // W == pp // W)
+                    if plan.causal:
+                        ok &= k_ <= q_
+                    assert ((pp[ok] >= t * C + 8 * pb) & (pp[ok] < t * C + 8 * pe)).all()
+                    np.add.at(pairs, (cg, n0 + rr[ok] // W, q_[ok] % W, k_[ok] % W), 1)
+        assert (owned == 1).all(), kernel
+        assert (pairs[:, :, lower] == 1).all() and pairs.max() <= 1, kernel
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("BH,S,W,Dh", [(4, 10, 10, 160), (4, 20, 10, 256), (8, 64, 64, 160),
                                        (3, 96, 96, 512), (2, 256, 256, 256),
-                                       (24, 160, 160, 200), (1, 40, 40, 1000)])
+                                       (24, 160, 160, 200), (1, 40, 40, 1000),
+                                       (40, 256, 256, 160)])
 def test_wide_plans_own_every_output_column_once(BH, S, W, Dh, causal):
-    for dtype in attention.DTYPES:
-        for direction in ("fwd", "bwd"):
-            plan = k1_plan(BH, S, W, Dh, dtype, direction, causal)
-            row = attention.mma_row_bytes(attention.CHUNK_DIM, dtype)
-            if direction == "fwd":
-                assert plan.smem_bytes == 2 * (MMA_ROWS + MMA_COLS) * row and not plan.blocks_kv
-            else:
-                assert plan.smem_bytes == 2 * (2 * MMA_ROWS + 2 * MMA_COLS) * row
-                assert plan.smem_kv == plan.smem_bytes + 2 * 3 * MMA_COLS * 4
+    """Each (window, row, output column) owned once and each pair computed
+    once a column group (:func:`_check_wide`), both directions; each
+    kernel's shared memory its layout's, within the budget, in both dtypes;
+    the backward one kernel up to W 64, else two with the rows' statistics
+    between them."""
+    for direction in ("fwd", "bwd"):
+        plans = [k1_plan(BH, S, W, Dh, dtype, direction, causal) for dtype in attention.DTYPES]
+        for dtype, plan in zip(attention.DTYPES, plans):
+            assert plan._replace(smem_bytes=0, smem_kv=0) == plans[0]._replace(smem_bytes=0,
+                                                                               smem_kv=0)
+            if direction == "bwd" and W <= attention.WIDE_WINDOW:
+                assert plan.smem_bytes == attention.wide_window_layout(
+                    Dh, dtype, plan.groups).smem <= SMEM_LIMIT
+                assert plan.smem_kv == plan.blocks_kv == attention.backward_scratch(plan) == 0
+                continue
+            first = attention.wide_layout(Dh, dtype, "fwd" if direction == "fwd" else "dq",
+                                          plan.groups)
+            assert plan.smem_bytes == first.smem <= SMEM_LIMIT
+            if direction == "bwd":
+                assert plan.smem_kv == attention.wide_layout(Dh, dtype, "dkv",
+                                                             plan.groups).smem <= SMEM_LIMIT
                 assert attention.backward_scratch(plan) == 3 * plan.windows * W + 4
-            _check_wide(plan, Dh)
+        _check_wide(plans[0], Dh)
+
+
+@pytest.mark.parametrize("W", [1, 5, 10, 16, 21, 32])
+def test_wide_blocks_hold_whole_windows_at_short_w(W):
+    """At W <= 32 a wide block holds 64 // W whole windows (6 at W 10, 12 at
+    W 5), the last block the windows left; every pair and column once."""
+    for BH, causal in ((7, False), (5, True)):
+        plan = k1_plan(BH, 4 * W, W, 256, BF16, "bwd", causal)
+        assert plan.windows_per_block == MMA_ROWS // W and plan.row_tiles == 1
+        _check_wide(plan, 256)
+
+
+def test_wide_layouts_fit_from_dh_160_to_1024():
+    """Every kernel's layout (the one-kernel backward's too) within the 227
+    KB of one block, from Dh 160 to 1024 in steps of 8 and at each column
+    group count a grid may take, in both dtypes: whole rows merged where they fit (Dh 160 and 256 but the
+    float32 backward at 256, whose own rows stay resident with 128-column
+    slabs), streamed slabs where even the own rows do not (float32 Dh 512
+    in the backward)."""
+    for Dh in range(160, 1025, 8):
+        Dp = -(-Dh // 16) * 16
+        least = -(-Dp // attention.GROUP_COLS)
+        for dtype in attention.DTYPES:
+            for groups in sorted({least, attention.wide_groups(Dh, 1)}):
+                for kernel in ("fwd", "dq", "dkv"):
+                    L = attention.wide_layout(Dh, dtype, kernel, groups)
+                    assert L.smem <= SMEM_LIMIT and L.Dp == Dp and L.groups == groups
+                    assert L.slabs == -(-Dp // L.slab) and L.merged == (L.slabs == 1
+                                                                         and groups == 1)
+                L = attention.wide_window_layout(Dh, dtype, groups)
+                assert L.smem <= SMEM_LIMIT and L.slabs == -(-Dp // L.slab)
+    f32 = lambda Dh, k: attention.wide_layout(Dh, torch.float32, k)   # noqa: E731
+    assert f32(160, "dkv").merged and f32(256, "fwd").merged
+    assert not f32(256, "dq").merged and f32(256, "dq").resident and f32(256, "dq").slab == 128
+    assert not f32(512, "dq").resident
+    assert attention.wide_layout(256, BF16, "dkv").merged
