@@ -18,7 +18,8 @@
 // (packed_attention_bwd_bf16); bias is (S, S) float32 in both, read only
 // inside the diagonal (W, W) blocks. Everything inside is float32, and dq,
 // dk and dv are rounded to bfloat16 once, as they are stored. W divides S.
-// Dh is one of 16, 32, 64, 96, 128 (others: as the forward). Element (i, j)
+// Dh is any of 1 to 128, staged at 16, 32, 64, 96 or 128 (as the forward:
+// the ragged form below the width). Element (i, j)
 // of row r keeps the forward's Philox counter i * S + j, i and j positions
 // in the packed row, and the forward's seed groups (group_rows rows a seed,
 // philox.cuh). causal states that the bias is the causal bias, as in the
@@ -96,14 +97,14 @@ namespace {
 
 using k1::TileDims;
 
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 __global__ void __launch_bounds__(k1::kTileThreads)
 k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
              const Elem* __restrict__ v, const float* __restrict__ bias,
              const Elem* __restrict__ dout, Elem* __restrict__ dq,
              Elem* __restrict__ dk, Elem* __restrict__ dv, int S, int W, int G,
              int nwin, float scale, const int* __restrict__ seed_ptr, int group_rows,
-             unsigned thresh, float inv_keep, int dropout) {
+             unsigned thresh, float inv_keep, int dropout, k1::Head hd) {
   extern __shared__ float4 smem4[];
   constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
   const int PS = W + 1;
@@ -118,11 +119,12 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
   float* gs = ps + G * W * PS;                   // G * W * PS: dp, then ds
   float* kf = gs + G * W * PS;                   // G * W * PS: keep factors
 
-  const size_t gbase = (size_t)n0 * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;            // the rows' stride in device memory
+  const size_t gbase = (size_t)n0 * W * ld;
   {
     float* const dst[4] = {qs, ks, vs, os};
     const Elem* const src[4] = {q + gbase, k + gbase, v + gbase, dout + gbase};
-    k1::stage_tiles<DH>(dst, src, rows);
+    k1::stage_tiles<DH, 4, RAGGED>(dst, src, rows, hd);
   }
 
   // While the copies are in flight: every element's bias and keep factor,
@@ -226,9 +228,9 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
       x0 = k1::axpy4(g0[j], kj, x0);
       x1 = k1::axpy4(g1[j], kj, x1);
     }
-    Elem* out = dq + gbase + (size_t)r0 * DH + 4 * c;
-    k1::store4(out, x0);
-    if (a0 + 1 < W) k1::store4(out + DH, x1);
+    Elem* out = dq + gbase + (size_t)r0 * ld + 4 * c;
+    k1::put4<RAGGED>(out, 4 * c, x0, hd.Dh);
+    if (a0 + 1 < W) k1::put4<RAGGED>(out + ld, 4 * c, x1, hd.Dh);
   }
   for (int e = threadIdx.x; e < g * T * D4; e += blockDim.x) {
     const int pair = e / D4, c = e - pair * D4;
@@ -248,12 +250,12 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
       v0 = k1::axpy4(pc[i * PS + b0], oi, v0);
       v1 = k1::axpy4(pc[i * PS + b1], oi, v1);
     }
-    const size_t at = gbase + (size_t)(top + a0) * DH + 4 * c;
-    k1::store4(dk + at, k0);
-    k1::store4(dv + at, v0);
+    const size_t at = gbase + (size_t)(top + a0) * ld + 4 * c;
+    k1::put4<RAGGED>(dk + at, 4 * c, k0, hd.Dh);
+    k1::put4<RAGGED>(dv + at, 4 * c, v0, hd.Dh);
     if (a0 + 1 < W) {
-      k1::store4(dk + at + DH, k1v);
-      k1::store4(dv + at + DH, v1);
+      k1::put4<RAGGED>(dk + at + ld, 4 * c, k1v, hd.Dh);
+      k1::put4<RAGGED>(dv + at + ld, 4 * c, v1, hd.Dh);
     }
   }
 }
@@ -277,14 +279,14 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // sum runs in a fixed order, so dq, dk and dv are the same on every launch.
 // Under causal, the dq kernel skips the key tiles past its last query and the
 // dk / dv kernel the query tiles before its first key.
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 __global__ void __launch_bounds__(k1::kMmaThreads)
 k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
               const Elem* __restrict__ v, const float* __restrict__ bias,
               const Elem* __restrict__ dout, Elem* __restrict__ dq, float* __restrict__ stats,
               int S, int W, int qtiles, size_t positions, float scale,
               const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
-              float inv_keep, int dropout, int causal) {
+              float inv_keep, int dropout, int causal, k1::Head hd) {
   using namespace k1;
   constexpr int LS = MmaTile<Elem, DH>::LS, NT = kCols / 8;
   extern __shared__ float4 smem4[];
@@ -295,7 +297,8 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int i0 = qt * kRows;
-  const size_t base = (size_t)n * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
+  const size_t base = (size_t)n * W * ld;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ra = i0 + warp * 16 + (lane >> 2);
   const int nk = key_tiles(W, qt, causal);
@@ -307,10 +310,10 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
 
-  stage_mma<Elem, DH>(qs, q + base + (size_t)i0 * DH, kRows, W - i0, q);
-  stage_mma<Elem, DH>(os, dout + base + (size_t)i0 * DH, kRows, W - i0, dout);
-  stage_mma<Elem, DH>(kvs, k + base, kCols, W, k);
-  stage_mma<Elem, DH>(kvs + kCols * LS, v + base, kCols, W, v);
+  stage_mma<Elem, DH, RAGGED>(qs, q + base + (size_t)i0 * ld, kRows, W - i0, q, hd);
+  stage_mma<Elem, DH, RAGGED>(os, dout + base + (size_t)i0 * ld, kRows, W - i0, dout, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs, k + base, kCols, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v + base, kCols, W, v, hd);
   cp_async_commit();
 
   float dqa[DH / 8][4] = {};
@@ -321,8 +324,9 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (it + 1 < 2 * nk) {
       Elem* nxt = kvs + ((it + 1) & 1) * 2 * kCols * LS;
       const int j1 = (it + 1 < nk ? it + 1 : it + 1 - nk) * kCols;
-      stage_mma<Elem, DH>(nxt, k + base + (size_t)j1 * DH, kCols, W - j1, k);
-      stage_mma<Elem, DH>(nxt + kCols * LS, v + base + (size_t)j1 * DH, kCols, W - j1, v);
+      stage_mma<Elem, DH, RAGGED>(nxt, k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
+      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v + base + (size_t)j1 * ld, kCols, W - j1,
+                                  v, hd);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -394,7 +398,7 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     }
     __syncthreads();
   }
-  store_rows<Elem, DH>(dq + base, dqa, ra, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dq + base, dqa, ra, W, 1.f, 1.f, lane, hd);
   if (t == 0) {
     const size_t at = (size_t)row * S + w0;
 #pragma unroll
@@ -411,14 +415,14 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
   K1_PHASE_END(0);
 }
 
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 __global__ void __launch_bounds__(k1::kMmaThreads)
 k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                const Elem* __restrict__ v, const float* __restrict__ bias,
                const Elem* __restrict__ dout, Elem* __restrict__ dk, Elem* __restrict__ dv,
                const float* __restrict__ stats, int S, int W, int ktiles, size_t positions,
                float scale, const int* __restrict__ seed_ptr, int group_rows,
-               unsigned thresh, float inv_keep, int dropout, int causal) {
+               unsigned thresh, float inv_keep, int dropout, int causal, k1::Head hd) {
   using namespace k1;
   constexpr int LS = MmaTile<Elem, DH>::LS, RB = kRows, NT = kCols / 8, NO = DH / 8;
   extern __shared__ float4 smem4[];
@@ -430,7 +434,8 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / ktiles, kt = blockIdx.x - n * ktiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int j0 = kt * RB;
-  const size_t base = (size_t)n * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
+  const size_t base = (size_t)n * W * ld;
   const size_t at = (size_t)row * S + w0;       // the window's first position in stats
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ja = j0 + warp * 16 + (lane >> 2);  // the thread's keys: ja and ja + 8
@@ -446,8 +451,9 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
   auto stage_queries = [&](int qi, int buf) {
     Elem* dst = qos + buf * 2 * kCols * LS;
     const int i1 = qi * kCols;
-    stage_mma<Elem, DH>(dst, q + base + (size_t)i1 * DH, kCols, W - i1, q);
-    stage_mma<Elem, DH>(dst + kCols * LS, dout + base + (size_t)i1 * DH, kCols, W - i1, dout);
+    stage_mma<Elem, DH, RAGGED>(dst, q + base + (size_t)i1 * ld, kCols, W - i1, q, hd);
+    stage_mma<Elem, DH, RAGGED>(dst + kCols * LS, dout + base + (size_t)i1 * ld, kCols,
+                                W - i1, dout, hd);
     for (int e = threadIdx.x; e < 3 * kCols; e += kMmaThreads) {
       const int a = e / kCols, i = e - a * kCols;
       const bool ok = i1 + i < W;
@@ -455,8 +461,8 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                       ok ? stats + a * positions + at + i1 + i : stats, ok);
     }
   };
-  stage_mma<Elem, DH>(ks, k + base + (size_t)j0 * DH, RB, W - j0, k);
-  stage_mma<Elem, DH>(vs, v + base + (size_t)j0 * DH, RB, W - j0, v);
+  stage_mma<Elem, DH, RAGGED>(ks, k + base + (size_t)j0 * ld, RB, W - j0, k, hd);
+  stage_mma<Elem, DH, RAGGED>(vs, v + base + (size_t)j0 * ld, RB, W - j0, v, hd);
   // launched as the dq kernel's dependent: its keys are staged while the dq
   // kernel ends, and nothing of the statistics is read before it has
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -506,8 +512,8 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(2);
     __syncthreads();
   }
-  store_rows<Elem, DH>(dv + base, dva, ja, W, 1.f, 1.f, lane);
-  store_rows<Elem, DH>(dk + base, dka, ja, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dv + base, dva, ja, W, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dk + base, dka, ja, W, 1.f, 1.f, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(1);
 }
@@ -531,14 +537,14 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // once. With the keys kernel's two products: five products and one Philox
 // draw an element, as the window-resident kernel, where the two-sweep kernel
 // and the dk / dv kernel take nine and three.
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 __global__ void __launch_bounds__(k1::kMmaThreads)
 k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
                 const Elem* __restrict__ v, const float* __restrict__ bias,
                 const Elem* __restrict__ dout, Elem* __restrict__ dq, float* __restrict__ pd,
                 int S, int W, int qtiles, size_t plane, float scale,
                 const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
-                float inv_keep, int dropout, int causal) {
+                float inv_keep, int dropout, int causal, k1::Head hd) {
   using namespace k1;
   constexpr int LS = MmaTile<Elem, DH>::LS, RB = kRows / 2, RG = RB / 16, KP = kMmaWarps / RG;
   constexpr int NTW = kCols / 8 / KP, NO = DH / 8, NOW = NO / KP, TPR = kMmaThreads / RB;
@@ -557,7 +563,8 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int i0 = qt * RB;
-  const size_t base = (size_t)n * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
+  const size_t base = (size_t)n * W * ld;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int rg = warp % RG, part = warp / RG, c0 = part * 8 * NTW;
   const int lr = rg * 16 + (lane >> 2);   // the thread's rows in the block: lr and lr + 8
@@ -571,10 +578,10 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
 
-  stage_mma<Elem, DH>(qs, q + base + (size_t)i0 * DH, RB, W - i0, q);
-  stage_mma<Elem, DH>(os, dout + base + (size_t)i0 * DH, RB, W - i0, dout);
-  stage_mma<Elem, DH>(kvs, k + base, kCols, W, k);
-  stage_mma<Elem, DH>(kvs + kCols * LS, v + base, kCols, W, v);
+  stage_mma<Elem, DH, RAGGED>(qs, q + base + (size_t)i0 * ld, RB, W - i0, q, hd);
+  stage_mma<Elem, DH, RAGGED>(os, dout + base + (size_t)i0 * ld, RB, W - i0, dout, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs, k + base, kCols, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v + base, kCols, W, v, hd);
   cp_async_commit();
   // under causal, the warp's column tiles that reach its last row
   const int last = i0 + rg * 16 + 15;
@@ -582,10 +589,11 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
     Elem* nxt = kvs + ((kt + 1) & 1) * 2 * kCols * LS;
     if (kt + 1 < nk) {
       const int j1 = (kt + 1) * kCols;
-      stage_mma<Elem, DH>(nxt, k + base + (size_t)j1 * DH, kCols, W - j1, k);
-      stage_mma<Elem, DH>(nxt + kCols * LS, v + base + (size_t)j1 * DH, kCols, W - j1, v);
+      stage_mma<Elem, DH, RAGGED>(nxt, k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
+      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v + base + (size_t)j1 * ld, kCols, W - j1,
+                                  v, hd);
     } else {
-      stage_mma<Elem, DH>(nxt, k + base, kCols, W, k);   // the dq products' first K tile
+      stage_mma<Elem, DH, RAGGED>(nxt, k + base, kCols, W, k, hd);   // the dq products' 1st K tile
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -681,8 +689,8 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
       const int j1 = (kt + 1) * kCols;
-      stage_mma<Elem, DH>(kvs + ((nk + kt + 1) & 1) * 2 * kCols * LS,
-                          k + base + (size_t)j1 * DH, kCols, W - j1, k);
+      stage_mma<Elem, DH, RAGGED>(kvs + ((nk + kt + 1) & 1) * 2 * kCols * LS,
+                                  k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -704,7 +712,7 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(3);
     __syncthreads();
   }
-  store_rows<Elem, DH, NOW>(dq + base + c8, acc, ra, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH, NOW, RAGGED>(dq + base + c8, acc, ra, W, 1.f, 1.f, lane, hd, c8);
   K1_PHASE_END(0);
 }
 
@@ -716,11 +724,11 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // from the staged tiles by columns, adds p_drop^T dout to dv and ds^T q to
 // dk, and the two parts' sums are added in part order; each output is
 // stored once. No logits, softmax or draws: two products an element.
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 __global__ void __launch_bounds__(k1::kMmaThreads)
 k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
                 Elem* __restrict__ dk, Elem* __restrict__ dv, const float* __restrict__ pd,
-                int W, int ktiles, size_t plane, int causal) {
+                int W, int ktiles, size_t plane, int causal, k1::Head hd) {
   using namespace k1;
   constexpr int RB = kRows / 2, RG = RB / 16, KP = kMmaWarps / RG, NTW = kCols / 8 / KP;
   constexpr int LS = MmaTile<Elem, DH>::LS, NO = DH / 8, PS = RB + 4;
@@ -731,7 +739,8 @@ k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
                                                                   // kCols queries x PS
   const int n = blockIdx.x / ktiles, kt = blockIdx.x - n * ktiles;
   const int j0 = kt * RB, WP = bwd_plane_stride(W);
-  const size_t base = (size_t)n * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
+  const size_t base = (size_t)n * W * ld;
   const float* pdw = pd + (size_t)n * W * WP;   // the window's p_drop plane; ds at + plane
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rg = warp % RG, part = warp / RG, c0 = part * 8 * NTW;
@@ -742,8 +751,9 @@ k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
   auto stage_rows = [&](int qi, int buf) {
     Elem* dst = qos + buf * 2 * kCols * LS;
     const int i1 = qi * kCols;
-    stage_mma<Elem, DH>(dst, q + base + (size_t)i1 * DH, kCols, W - i1, q);
-    stage_mma<Elem, DH>(dst + kCols * LS, dout + base + (size_t)i1 * DH, kCols, W - i1, dout);
+    stage_mma<Elem, DH, RAGGED>(dst, q + base + (size_t)i1 * ld, kCols, W - i1, q, hd);
+    stage_mma<Elem, DH, RAGGED>(dst + kCols * LS, dout + base + (size_t)i1 * ld, kCols,
+                                W - i1, dout, hd);
   };
   auto stage_planes = [&](int qi, int buf) {   // rows i1 .. i1 + 31, keys j0 .. j0 + RB - 1
     const int i1 = qi * kCols;
@@ -814,8 +824,8 @@ k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
       dva[c][e] += red[(c * 4 + e) * 32];
       dka[c][e] += red[((NO + c) * 4 + e) * 32];
     }
-  store_rows<Elem, DH>(dv + base, dva, ja, W, 1.f, 1.f, lane);
-  store_rows<Elem, DH>(dk + base, dka, ja, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dv + base, dva, ja, W, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dk + base, dka, ja, W, 1.f, 1.f, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(1);
 }
@@ -833,14 +843,14 @@ k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
 // goes through the same tile for dk = ds^T q. Under causal the 8-wide
 // column tiles wholly above the diagonal are neither computed nor read, and
 // no bias above the diagonal is read.
-template <typename Elem, int DH, int NW>
+template <typename Elem, int DH, int NW, bool RAGGED>
 __global__ void __launch_bounds__(32 * NW)
 k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
                   const Elem* __restrict__ v, const float* __restrict__ bias,
                   const Elem* __restrict__ dout, Elem* __restrict__ dq, Elem* __restrict__ dk,
                   Elem* __restrict__ dv, int S, int W, float scale,
                   const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
-                  float inv_keep, int dropout, int causal) {
+                  float inv_keep, int dropout, int causal, k1::Head hd) {
   using namespace k1;
   constexpr int R = 16 * NW, LS = MmaTile<Elem, DH>::LS, NT = R / 8, PS = R + 4;
   extern __shared__ float4 smem4[];
@@ -851,7 +861,8 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
   float* pt = reinterpret_cast<float*>(os + R * LS);   // R x PS: p_drop, then ds
 
   const int n = blockIdx.x, nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
-  const size_t base = (size_t)n * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
+  const size_t base = (size_t)n * W * ld;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ra = warp * 16 + (lane >> 2);   // the thread's rows (queries, then keys)
   // under causal: the column tiles that reach the warp's last query, and the
@@ -864,10 +875,10 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
     seed = (unsigned)__ldg(seed_ptr + grp);
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
-  stage_mma<Elem, DH>(qs, q + base, R, W, q);
-  stage_mma<Elem, DH>(ks, k + base, R, W, k);
-  stage_mma<Elem, DH>(vs, v + base, R, W, v);
-  stage_mma<Elem, DH>(os, dout + base, R, W, dout);
+  stage_mma<Elem, DH, RAGGED>(qs, q + base, R, W, q, hd);
+  stage_mma<Elem, DH, RAGGED>(ks, k + base, R, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(vs, v + base, R, W, v, hd);
+  stage_mma<Elem, DH, RAGGED>(os, dout + base, R, W, dout, hd);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -934,7 +945,7 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
   K1_PHASE(1);
   float acc[DH / 8][4] = {};
   gemm_pv<NT, DH>(acc, dp, ks, lane, 0, c_end);
-  store_rows<Elem, DH>(dq + base, acc, ra, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dq + base, acc, ra, W, 1.f, 1.f, lane, hd);
 
   // the warp's rows of a (R, R) register tile into the shared tile, and the
   // warp's keys' columns of it back as a register tile (element (key r,
@@ -967,7 +978,7 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   gemm_pv<NT, DH>(acc, s, os, lane, c_begin, NT);
-  store_rows<Elem, DH>(dv + base, acc, ra, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dv + base, acc, ra, W, 1.f, 1.f, lane, hd);
   __syncthreads();
   put(dp);
   __syncthreads();
@@ -977,21 +988,21 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   gemm_pv<NT, DH>(acc, dp, qs, lane, c_begin, NT);
-  store_rows<Elem, DH>(dk + base, acc, ra, W, 1.f, 1.f, lane);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dk + base, acc, ra, W, 1.f, 1.f, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
 
-template <typename Elem, int DH, int NW>
+template <typename Elem, int DH, int NW, bool RAGGED>
 int launch_window(const Elem* q, const Elem* k, const Elem* v, const float* bias,
                   const Elem* dout, Elem* dq, Elem* dk, Elem* dv, int S, int W, float scale,
                   const int* seed, int group_rows, unsigned thresh, float inv_keep, int dropout,
-                  int causal, int blocks, int smem, cudaStream_t stream) {
-  const cudaError_t e = k1::allow_smem(k1_bwd_mma_window<Elem, DH, NW>, smem);
+                  int causal, int blocks, int smem, k1::Head hd, cudaStream_t stream) {
+  const cudaError_t e = k1::allow_smem(k1_bwd_mma_window<Elem, DH, NW, RAGGED>, smem);
   if (e != cudaSuccess) return (int)e;
-  k1_bwd_mma_window<Elem, DH, NW><<<blocks, 32 * NW, smem, stream>>>(
+  k1_bwd_mma_window<Elem, DH, NW, RAGGED><<<blocks, 32 * NW, smem, stream>>>(
       q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed, group_rows, thresh, inv_keep,
-      dropout, causal);
+      dropout, causal, hd);
   return (int)cudaGetLastError();
 }
 
@@ -1000,13 +1011,14 @@ int launch_window(const Elem* q, const Elem* k, const Elem* v, const float* bias
 // kernel, or dq) and of the dk / dv kernel (0 on the one-kernel paths). The
 // caller's plan must equal them. The one-kernel paths (launch_one) and the
 // two-kernel path (launch_two) are entry points of their own libraries, so
-// that nvcc builds them in parallel: each refuses the other's plans.
-template <typename Elem, int DH>
+// that nvcc builds them in parallel: each refuses the other's plans. DH is
+// the staged width, hd the true head dim (RAGGED where they differ).
+template <typename Elem, int DH, bool RAGGED>
 int launch_one(const Elem* q, const Elem* k, const Elem* v, const float* bias,
                const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S,
                int W, float scale, const int* seed, int group_rows, unsigned thresh,
                float inv_keep, int dropout, int causal, int path, int blocks, int smem_bytes,
-               int blocks_kv, int smem_kv, cudaStream_t stream) {
+               int blocks_kv, int smem_kv, k1::Head hd, cudaStream_t stream) {
   const int nwin = BH * (S / W);
   if (W < k1::kMinWindow) {
     constexpr int QS = TileDims<DH>::QS;
@@ -1016,11 +1028,11 @@ int launch_one(const Elem* q, const Elem* k, const Elem* v, const float* bias,
     if (G < 1 || path != 0 || blocks != (nwin + G - 1) / G ||
         (size_t)smem_bytes != G * per_window || blocks_kv != 0 || smem_kv != 0)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = k1::allow_smem(k1_bwd_tiles<Elem, DH>, smem_bytes);
+    const cudaError_t e = k1::allow_smem(k1_bwd_tiles<Elem, DH, RAGGED>, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    k1_bwd_tiles<Elem, DH><<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
+    k1_bwd_tiles<Elem, DH, RAGGED><<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
         q, k, v, bias, dout, dq, dk, dv, S, W, G, nwin, scale, seed, group_rows, thresh,
-        inv_keep, dropout);
+        inv_keep, dropout, hd);
     return (int)cudaGetLastError();
   }
   const int R = k1::bwd_window_rows<DH>(W);   // window-resident rows, or 0: two kernels
@@ -1029,13 +1041,13 @@ int launch_one(const Elem* q, const Elem* k, const Elem* v, const float* bias,
     return (int)cudaErrorInvalidValue;
   if constexpr (DH <= 64) {
     if (R == 2 * k1::kRows)
-      return launch_window<Elem, DH, 8>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
-                                        group_rows, thresh, inv_keep, dropout, causal, blocks,
-                                        smem, stream);
+      return launch_window<Elem, DH, 8, RAGGED>(q, k, v, bias, dout, dq, dk, dv, S, W, scale,
+                                                seed, group_rows, thresh, inv_keep, dropout,
+                                                causal, blocks, smem, hd, stream);
   }
-  return launch_window<Elem, DH, 4>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
-                                    group_rows, thresh, inv_keep, dropout, causal, blocks, smem,
-                                    stream);
+  return launch_window<Elem, DH, 4, RAGGED>(q, k, v, bias, dout, dq, dk, dv, S, W, scale, seed,
+                                            group_rows, thresh, inv_keep, dropout, causal,
+                                            blocks, smem, hd, stream);
 }
 
 // A second kernel launched as the first's programmatic dependent: it stages
@@ -1064,12 +1076,12 @@ cudaError_t launch_dependent(Kernel kernel, int blocks, int smem, cudaStream_t s
 // or, on a full card or where no row buffer fits, the two-sweep dq kernel
 // and the dk / dv kernel in blocks of kRows, through the rows' statistics in
 // `scratch` (3 * BH * S floats, and 4).
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 int launch_two(const Elem* q, const Elem* k, const Elem* v, const float* bias,
                const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* scratch, int BH, int S,
                int W, float scale, const int* seed, int group_rows, unsigned thresh,
                float inv_keep, int dropout, int causal, int path, int blocks, int smem_bytes,
-               int blocks_kv, int smem_kv, cudaStream_t stream) {
+               int blocks_kv, int smem_kv, k1::Head hd, cudaStream_t stream) {
   const int nwin = BH * (S / W);
   if (W < k1::kMinWindow || k1::bwd_window_rows<DH>(W) || path != 1 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -1083,27 +1095,27 @@ int launch_two(const Elem* q, const Elem* k, const Elem* v, const float* bias,
   cudaError_t e;
   if (RB) {
     const size_t plane = (size_t)nwin * W * k1::bwd_plane_stride(W);
-    e = k1::allow_smem(k1_bwd_mma_rows<Elem, DH>, smem_bytes);
+    e = k1::allow_smem(k1_bwd_mma_rows<Elem, DH, RAGGED>, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    k1_bwd_mma_rows<Elem, DH><<<blocks, k1::kMmaThreads, smem_bytes, stream>>>(
+    k1_bwd_mma_rows<Elem, DH, RAGGED><<<blocks, k1::kMmaThreads, smem_bytes, stream>>>(
         q, k, v, bias, dout, dq, scratch, S, W, tiles, plane, scale, seed, group_rows, thresh,
-        inv_keep, dropout, causal);
+        inv_keep, dropout, causal, hd);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    e = launch_dependent(k1_bwd_mma_keys<Elem, DH>, blocks_kv, smem2, stream, q, dout, dk, dv,
-                         (const float*)scratch, W, tiles, plane, causal);
+    e = launch_dependent(k1_bwd_mma_keys<Elem, DH, RAGGED>, blocks_kv, smem2, stream, q, dout,
+                         dk, dv, (const float*)scratch, W, tiles, plane, causal, hd);
   } else {
     const size_t positions = (size_t)BH * S;
-    e = k1::allow_smem(k1_bwd_mma_dq<Elem, DH>, smem_bytes);
+    e = k1::allow_smem(k1_bwd_mma_dq<Elem, DH, RAGGED>, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    k1_bwd_mma_dq<Elem, DH><<<blocks, k1::kMmaThreads, smem_bytes, stream>>>(
+    k1_bwd_mma_dq<Elem, DH, RAGGED><<<blocks, k1::kMmaThreads, smem_bytes, stream>>>(
         q, k, v, bias, dout, dq, scratch, S, W, tiles, positions, scale, seed, group_rows,
-        thresh, inv_keep, dropout, causal);
+        thresh, inv_keep, dropout, causal, hd);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    e = launch_dependent(k1_bwd_mma_dkv<Elem, DH>, blocks_kv, smem2, stream, q, k, v, bias,
-                         dout, dk, dv, (const float*)scratch, S, W, tiles, positions, scale,
-                         seed, group_rows, thresh, inv_keep, dropout, causal);
+    e = launch_dependent(k1_bwd_mma_dkv<Elem, DH, RAGGED>, blocks_kv, smem2, stream, q, k, v,
+                         bias, dout, dk, dv, (const float*)scratch, S, W, tiles, positions,
+                         scale, seed, group_rows, thresh, inv_keep, dropout, causal, hd);
   }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1111,44 +1123,50 @@ int launch_two(const Elem* q, const Elem* k, const Elem* v, const float* bias,
 
 // kTwo: the two-kernel library's launcher (launch_two), else launch_one; only
 // the one a library names is instantiated there.
-template <bool kTwo, typename Elem, int DH>
+template <bool kTwo, typename Elem, int DH, bool RAGGED>
 int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout,
            Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, float scale,
            const int* seed, int group_rows, unsigned thresh, float inv_keep, int dropout,
            int causal, int path, int blocks, int smem_bytes, int blocks_kv, int smem_kv,
-           cudaStream_t stream) {
+           k1::Head hd, cudaStream_t stream) {
   if constexpr (kTwo)
-    return launch_two<Elem, DH>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,
-                                group_rows, thresh, inv_keep, dropout, causal, path, blocks,
-                                smem_bytes, blocks_kv, smem_kv, stream);
+    return launch_two<Elem, DH, RAGGED>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W,
+                                        scale, seed, group_rows, thresh, inv_keep, dropout,
+                                        causal, path, blocks, smem_bytes, blocks_kv, smem_kv,
+                                        hd, stream);
   else
-    return launch_one<Elem, DH>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,
-                                group_rows, thresh, inv_keep, dropout, causal, path, blocks,
-                                smem_bytes, blocks_kv, smem_kv, stream);
+    return launch_one<Elem, DH, RAGGED>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W,
+                                        scale, seed, group_rows, thresh, inv_keep, dropout,
+                                        causal, path, blocks, smem_bytes, blocks_kv, smem_kv,
+                                        hd, stream);
 }
 
+// Switches on the staged width (as k1_fwd.cuh's dispatch) and on whether Dh
+// is it; `copy` must be k1::copy_bytes.
 template <bool kTwo, typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout,
              Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, int Dh,
              float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
              int dropout, int causal, int path, int blocks, int smem_bytes, int blocks_kv,
-             int smem_kv, void* stream) {
+             int smem_kv, int copy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (W < 1 || S % W != 0 || S > k1::kMaxRow) return (int)cudaErrorInvalidValue;
   if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
-#define K1_BWD(DH_)                                                                         \
-  launch<kTwo, Elem, DH_>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, seed,    \
-                          group_rows, thresh, inv_keep, dropout, causal, path, blocks,      \
-                          smem_bytes, blocks_kv, smem_kv, st)
-  switch (Dh) {
-    case 16: return K1_BWD(16);
-    case 32: return K1_BWD(32);
-    case 64: return K1_BWD(64);
-    case 96: return K1_BWD(96);
-    case 128: return K1_BWD(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (Dh < 1 || copy != k1::copy_bytes(Dh, (int)sizeof(Elem))) return (int)cudaErrorInvalidValue;
+  const k1::Head hd{Dh, copy};
+#define K1_BWD(DH_, RAGGED_)                                                                \
+  launch<kTwo, Elem, DH_, RAGGED_>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, \
+                                   seed, group_rows, thresh, inv_keep, dropout, causal,     \
+                                   path, blocks, smem_bytes, blocks_kv, smem_kv, hd, st)
+#define K1_WIDTH(DH_) (Dh == DH_ ? K1_BWD(DH_, false) : K1_BWD(DH_, true))
+  if (Dh <= 16) return K1_WIDTH(16);
+  if (Dh <= 32) return K1_WIDTH(32);
+  if (Dh <= 64) return K1_WIDTH(64);
+  if (Dh <= 96) return K1_WIDTH(96);
+  if (Dh <= 128) return K1_WIDTH(128);
+  return (int)cudaErrorInvalidValue;
+#undef K1_WIDTH
 #undef K1_BWD
 }
 

@@ -12,9 +12,11 @@
 // softmax, dropout and the sums of p v are float32 in both dtypes, and out is
 // rounded to bfloat16 once, as it is stored. W divides S; query i attends to
 // the keys j of its own window (i / W == j / W) with bias[i * S + j] added,
-// and nothing else of bias is read. Dh is one of 16, 32, 64, 96, 128 (a
-// template argument; ops/attention.py pads any other Dh up to 128 to the
-// next of them, and runs Dh past 128 through k1_wide.cuh). With dropout on,
+// and nothing else of bias is read. Dh is any of 1 to 128: the kernels are
+// instantiated at the staged widths 16, 32, 64, 96, 128 (a template
+// argument), and a Dh below the width runs their ragged form (k1_tiles.cuh:
+// rows of Dh, tiles zero-filled past it, stores of the columns below it);
+// Dh past 128 runs through k1_wide.cuh. With dropout on,
 // element (i, j) of row r (positions in the packed row) is kept when Philox
 // word attn_keep_bits(seed, r, i * S + j) < thresh (philox.cuh) and is then
 // scaled by inv_keep; the softmax's normaliser sums the probabilities before
@@ -79,13 +81,13 @@ namespace {
 
 using k1::TileDims;
 
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 __global__ void __launch_bounds__(k1::kTileThreads)
 k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
              const Elem* __restrict__ v, const float* __restrict__ bias,
              Elem* __restrict__ out, int S, int W, int G, int nwin, float scale,
              const int* __restrict__ seed_ptr, int group_rows, unsigned thresh, float inv_keep,
-             int dropout) {
+             int dropout, k1::Head hd) {
   extern __shared__ float4 smem4[];
   constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
   const int PS = W + 1;
@@ -99,11 +101,12 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
   float* kf = ps + G * W * PS;                   // G * W * PS: keep factors
   float* il = kf + G * W * PS;                   // G * W: 1 / softmax normaliser
 
-  const size_t gbase = (size_t)n0 * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;            // the rows' stride in device memory
+  const size_t gbase = (size_t)n0 * W * ld;
   {
     float* const dst[3] = {qs, ks, vs};
     const Elem* const src[3] = {q + gbase, k + gbase, v + gbase};
-    k1::stage_tiles<DH>(dst, src, rows);
+    k1::stage_tiles<DH, 3, RAGGED>(dst, src, rows, hd);
   }
 
   // While the copies are in flight: every element's bias and keep factor,
@@ -185,12 +188,13 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
       a0 = k1::axpy4(p0[j], vj, a0);
       a1 = k1::axpy4(p1[j], vj, a1);
     }
-    Elem* o = out + gbase + (size_t)r0 * DH + 4 * c;
+    Elem* o = out + gbase + (size_t)r0 * ld + 4 * c;
     const float s0 = il[r0];
-    k1::store4(o, make_float4(a0.x * s0, a0.y * s0, a0.z * s0, a0.w * s0));
+    k1::put4<RAGGED>(o, 4 * c, make_float4(a0.x * s0, a0.y * s0, a0.z * s0, a0.w * s0), hd.Dh);
     if (i0 + 1 < W) {
       const float s1 = il[r1];
-      k1::store4(o + DH, make_float4(a1.x * s1, a1.y * s1, a1.z * s1, a1.w * s1));
+      k1::put4<RAGGED>(o + ld, 4 * c, make_float4(a1.x * s1, a1.y * s1, a1.z * s1, a1.w * s1),
+                       hd.Dh);
     }
   }
 }
@@ -209,13 +213,13 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // Under causal the key tiles past the block's last query are skipped, and
 // the first tile always holds key 0, so every row's max is finite from the
 // first tile on.
-template <typename Elem, int DH>
+template <typename Elem, int DH, bool RAGGED>
 __global__ void __launch_bounds__(k1::kMmaThreads)
 k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
            const Elem* __restrict__ v, const float* __restrict__ bias,
            Elem* __restrict__ out, int S, int W, int qtiles, float scale,
            const int* __restrict__ seed_ptr, int group_rows, unsigned thresh, float inv_keep,
-           int dropout, int causal) {
+           int dropout, int causal, k1::Head hd) {
   using namespace k1;
   constexpr int LS = MmaTile<Elem, DH>::LS, NT = kCols / 8;
   extern __shared__ float4 smem4[];
@@ -225,7 +229,8 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int i0 = qt * kRows;
-  const size_t base = (size_t)n * W * DH;
+  const int ld = RAGGED ? hd.Dh : DH;           // the rows' stride in device memory
+  const size_t base = (size_t)n * W * ld;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ra = i0 + warp * 16 + (lane >> 2);  // the thread's rows: ra and ra + 8
   const int nk = key_tiles(W, qt, causal);
@@ -237,9 +242,9 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
 
-  stage_mma<Elem, DH>(qs, q + base + (size_t)i0 * DH, kRows, W - i0, q);
-  stage_mma<Elem, DH>(kvs, k + base, kCols, W, k);
-  stage_mma<Elem, DH>(kvs + kCols * LS, v + base, kCols, W, v);
+  stage_mma<Elem, DH, RAGGED>(qs, q + base + (size_t)i0 * ld, kRows, W - i0, q, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs, k + base, kCols, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v + base, kCols, W, v, hd);
   cp_async_commit();
 
   float o[DH / 8][4] = {};
@@ -248,8 +253,9 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (kt + 1 < nk) {
       Elem* nxt = kvs + ((kt + 1) & 1) * 2 * kCols * LS;
       const int j1 = (kt + 1) * kCols;
-      stage_mma<Elem, DH>(nxt, k + base + (size_t)j1 * DH, kCols, W - j1, k);
-      stage_mma<Elem, DH>(nxt + kCols * LS, v + base + (size_t)j1 * DH, kCols, W - j1, v);
+      stage_mma<Elem, DH, RAGGED>(nxt, k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
+      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v + base + (size_t)j1 * ld, kCols, W - j1,
+                                  v, hd);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -306,18 +312,19 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
     __syncthreads();
   }
   const float la = quad_sum(l[0]), lb = quad_sum(l[1]);
-  store_rows<Elem, DH>(out + base, o, ra, W, 1.f / la, 1.f / lb, lane);
+  store_rows<Elem, DH, DH / 8, RAGGED>(out + base, o, ra, W, 1.f / la, 1.f / lb, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
 
 // The launch plan's numbers: path 0 (window tiles) or 1 (long windows),
-// blocks and shared memory. The caller's plan must equal them.
-template <typename Elem, int DH>
+// blocks and shared memory. The caller's plan must equal them. DH is the
+// staged width, hd the true head dim (RAGGED where they differ).
+template <typename Elem, int DH, bool RAGGED>
 int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
            Elem* out, int BH, int S, int W, float scale, const int* seed, int group_rows,
            unsigned thresh, float inv_keep, int dropout, int causal, int path, int blocks,
-           int smem_bytes, cudaStream_t stream) {
+           int smem_bytes, k1::Head hd, cudaStream_t stream) {
   const int nwin = BH * (S / W);
   if (W < k1::kMinWindow) {
     constexpr int QS = TileDims<DH>::QS;
@@ -327,44 +334,51 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
     if (G < 1 || path != 0 || blocks != (nwin + G - 1) / G ||
         (size_t)smem_bytes != G * per_window)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = k1::allow_smem(k1_fwd_tiles<Elem, DH>, smem_bytes);
+    const cudaError_t e = k1::allow_smem(k1_fwd_tiles<Elem, DH, RAGGED>, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    k1_fwd_tiles<Elem, DH><<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
-        q, k, v, bias, out, S, W, G, nwin, scale, seed, group_rows, thresh, inv_keep, dropout);
+    k1_fwd_tiles<Elem, DH, RAGGED><<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
+        q, k, v, bias, out, S, W, G, nwin, scale, seed, group_rows, thresh, inv_keep, dropout,
+        hd);
     return (int)cudaGetLastError();
   }
   const int qtiles = (W + k1::kRows - 1) / k1::kRows;
   constexpr int smem = k1::fwd_mma_smem<Elem, DH>();
   if (path != 1 || (long long)blocks != (long long)nwin * qtiles || smem_bytes != smem)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = k1::allow_smem(k1_fwd_mma<Elem, DH>, smem);
+  const cudaError_t e = k1::allow_smem(k1_fwd_mma<Elem, DH, RAGGED>, smem);
   if (e != cudaSuccess) return (int)e;
-  k1_fwd_mma<Elem, DH><<<blocks, k1::kMmaThreads, smem, stream>>>(
+  k1_fwd_mma<Elem, DH, RAGGED><<<blocks, k1::kMmaThreads, smem, stream>>>(
       q, k, v, bias, out, S, W, qtiles, scale, seed, group_rows, thresh, inv_keep, dropout,
-      causal);
+      causal, hd);
   return (int)cudaGetLastError();
 }
 
+// Switches on the staged width (ops/attention.py::head_width: the least of 16, 32, 64, 96
+// and 128 at or above Dh) and on whether Dh is it; `copy` must be k1::copy_bytes.
 template <typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
              int BH, int S, int W, int Dh, float scale, const int* seed, int group_rows,
              unsigned thresh, float inv_keep, int dropout, int causal, int path, int blocks,
-             int smem_bytes, void* stream) {
+             int smem_bytes, int copy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (W < 1 || S % W != 0 || S > k1::kMaxRow) return (int)cudaErrorInvalidValue;
   if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
-#define K1_FWD(DH_)                                                                    \
-  launch<Elem, DH_>(q, k, v, bias, out, BH, S, W, scale, seed, group_rows, thresh,    \
-                    inv_keep, dropout, causal, path, blocks, smem_bytes, st)
-  switch (Dh) {
-    case 16: return K1_FWD(16);
-    case 32: return K1_FWD(32);
-    case 64: return K1_FWD(64);
-    case 96: return K1_FWD(96);
-    case 128: return K1_FWD(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (Dh < 1 || copy != k1::copy_bytes(Dh, (int)sizeof(Elem))) return (int)cudaErrorInvalidValue;
+  const k1::Head hd{Dh, copy};
+#define K1_FWD(DH_)                                                                       \
+  (Dh == DH_ ? launch<Elem, DH_, false>(q, k, v, bias, out, BH, S, W, scale, seed,       \
+                                        group_rows, thresh, inv_keep, dropout, causal,   \
+                                        path, blocks, smem_bytes, hd, st)                \
+             : launch<Elem, DH_, true>(q, k, v, bias, out, BH, S, W, scale, seed,        \
+                                       group_rows, thresh, inv_keep, dropout, causal, path, \
+                                       blocks, smem_bytes, hd, st))
+  if (Dh <= 16) return K1_FWD(16);
+  if (Dh <= 32) return K1_FWD(32);
+  if (Dh <= 64) return K1_FWD(64);
+  if (Dh <= 96) return K1_FWD(96);
+  if (Dh <= 128) return K1_FWD(128);
+  return (int)cudaErrorInvalidValue;
 #undef K1_FWD
 }
 

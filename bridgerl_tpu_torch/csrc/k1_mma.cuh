@@ -169,19 +169,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Issue the copies of `rows` rows of DH elements at `src`, row stride `ld`
-// elements (DH: contiguous rows; a head dim's column chunk in k1_wide.cuh),
-// into the padded tile `dst`; rows at or past `valid` are zero-filled
-// (nothing is read for them: `safe` is any valid address).
-template <typename Elem, int DH>
+// Issue the copies of `rows` rows of DH elements at `src` (row stride DH; ragged: Dh, the
+// columns from Dh zero-filled) into the padded tile `dst`; rows at or past `valid` are
+// zero-filled (nothing is read for them: `safe` is any valid address).
+template <typename Elem, int DH, bool RAGGED = false>
 __device__ __forceinline__ void stage_mma(Elem* dst, const Elem* src, int rows, int valid,
-                                          const Elem* safe, int ld = DH) {
+                                          const Elem* safe, Head h = Head{DH, 16}) {
   constexpr int LS = MmaTile<Elem, DH>::LS, CH = MmaTile<Elem, DH>::CH;
   constexpr int E = 16 / (int)sizeof(Elem);
-  for (int e = threadIdx.x; e < rows * CH; e += kMmaThreads) {
-    const int r = e / CH, c = e - r * CH;
-    const bool ok = r < valid;
-    cp_async16_zfill(dst + r * LS + c * E, ok ? src + (size_t)r * ld + c * E : safe, ok);
+  if constexpr (RAGGED) {
+    stage_ragged(dst, LS, src, rows, valid, 0, DH, h, safe);
+  } else {
+    for (int e = threadIdx.x; e < rows * CH; e += kMmaThreads) {
+      const int r = e / CH, c = e - r * CH;
+      const bool ok = r < valid;
+      cp_async16_zfill(dst + r * LS + c * E, ok ? src + (size_t)r * DH + c * E : safe, ok);
+    }
   }
 }
 
@@ -440,18 +443,42 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<unsigned*>(dst) = round_bf16x2(a, b);
 }
 
-// Store the warp's (16, 8 NO) accumulator (NO tiles of 8 columns, all of DH's
-// by default): rows r0 + g and r0 + g + 8 of the window (those below W) at
-// `dst`, row stride `ld` (DH by default), each value times the row's factor.
-template <typename Elem, int DH, int NO = DH / 8>
+// Two outputs of a ragged row (columns c and c + 1 of a row of Dh): the pair's store where
+// Dh is even (then c + 1 < Dh, and the pair is aligned), else each below Dh alone.
+template <typename Elem>
+__device__ __forceinline__ void store2_ragged(Elem* dst, float a, float b, int c, int Dh) {
+  if (c >= Dh) return;
+  if (!(Dh & 1)) {
+    store2(dst, a, b);
+    return;
+  }
+  dst[0] = from_float<Elem>(a);
+  if (c + 1 < Dh) dst[1] = from_float<Elem>(b);
+}
+
+// Store the warp's (16, 8 NO) accumulator (NO tiles of 8 columns, all of DH's by
+// default): rows r0 + g and r0 + g + 8 of the window (those below W) at `dst`, row stride
+// DH, each value times the row's factor. Ragged: row stride Dh, and only the columns below
+// Dh, `dst` being column c0 of its row.
+template <typename Elem, int DH, int NO = DH / 8, bool RAGGED = false>
 __device__ __forceinline__ void store_rows(Elem* dst, const float (&acc)[NO][4], int ra,
-                                           int W, float fa, float fb, int lane, int ld = DH) {
+                                           int W, float fa, float fb, int lane,
+                                           Head h = Head{DH, 16}, int c0 = 0) {
   const int t = lane & 3;
+  const int ld = RAGGED ? h.Dh : DH;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + 2 * t;
-    if (ra < W) store2(dst + (size_t)ra * ld + c, acc[n][0] * fa, acc[n][1] * fa);
-    if (ra + 8 < W) store2(dst + (size_t)(ra + 8) * ld + c, acc[n][2] * fb, acc[n][3] * fb);
+    if constexpr (RAGGED) {
+      if (ra < W)
+        store2_ragged(dst + (size_t)ra * ld + c, acc[n][0] * fa, acc[n][1] * fa, c0 + c, h.Dh);
+      if (ra + 8 < W)
+        store2_ragged(dst + (size_t)(ra + 8) * ld + c, acc[n][2] * fb, acc[n][3] * fb, c0 + c,
+                      h.Dh);
+    } else {
+      if (ra < W) store2(dst + (size_t)ra * ld + c, acc[n][0] * fa, acc[n][1] * fa);
+      if (ra + 8 < W) store2(dst + (size_t)(ra + 8) * ld + c, acc[n][2] * fb, acc[n][3] * fb);
+    }
   }
 }
 

@@ -45,6 +45,79 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Head dims off the staged width. A kernel instantiated at DH runs any Dh <= DH: its
+// ragged form (template argument RAGGED, which the launchers pick where Dh != DH or the
+// rows' copies cannot be 16 bytes) reads and writes rows of Dh elements (the row stride in
+// device memory) and stages them into tiles of DH columns, the columns from Dh on
+// zero-filled, which adds nothing to q k^T, dout v^T or any product over the head dim;
+// its stores write the columns below Dh only. Nothing else sees Dh: at Dh == DH the
+// native form runs, whose code is the one instantiated at that width alone.
+//
+// The bytes of each staging copy (ops/attention.py::copy_bytes): row r of a 16-byte
+// aligned tensor starts at byte r * Dh * E, so a copy of b bytes is aligned in every row
+// where b divides Dh * E: 16 where it can, else 8 or 4 (cp.async), else 2 (bf16 at an odd
+// Dh: plain 2-byte loads). The launchers pick it once a launch and refuse a plan that
+// names another.
+__host__ __device__ constexpr int copy_bytes(int Dh, int E) {
+  return (Dh * E) % 16 == 0 ? 16 : (Dh * E) % 8 == 0 ? 8 : (Dh * E) % 4 == 0 ? 4 : 2;
+}
+
+// A launch's true head dim: its rows' stride and column bound, and the copies' bytes.
+struct Head {
+  int Dh, copy;
+};
+
+// One copy of N bytes into shared memory, zero-filled where !ok (nothing is read then):
+// cp.async for 16 (bypassing L1), 8 and 4; a plain load for 2 (bf16 only).
+template <int N, typename Elem>
+__device__ __forceinline__ void copy_zfill(Elem* smem, const Elem* gmem, bool ok) {
+  if constexpr (N == 2) {
+    static_assert(sizeof(Elem) == 2, "2-byte copies are bf16 elements");
+    *reinterpret_cast<unsigned short*>(smem) =
+        ok ? __ldg(reinterpret_cast<const unsigned short*>(gmem)) : (unsigned short)0;
+  } else {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    if constexpr (N == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                   "r"(ok ? 16 : 0));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+                   "n"(N), "r"(ok ? N : 0));
+  }
+}
+
+// Stage `rows` rows of `cols` columns (a multiple of 16 / E) from column c0 of `src` (row
+// stride Dh) into `dst` (row stride ls elements) in copies of N bytes; rows at or past
+// `valid` and columns at or past Dh are zero-filled, reading nothing (`safe` is any valid
+// address). N divides Dh * E, so a copy lies wholly below Dh or wholly past it.
+template <int N, typename Elem>
+__device__ __forceinline__ void stage_chunks(Elem* dst, int ls, const Elem* src, int rows,
+                                             int valid, int c0, int cols, int Dh,
+                                             const Elem* safe) {
+  constexpr int V = N / (int)sizeof(Elem);   // elements a copy
+  const int n = cols / V;
+  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
+    const int r = e / n, c = (e - r * n) * V, col = c0 + c;
+    const bool ok = r < valid && col < Dh;
+    copy_zfill<N>(dst + r * ls + c, ok ? src + (size_t)r * Dh + col : safe, ok);
+  }
+}
+
+// stage_chunks at the launch's copy size (one uniform switch a call).
+template <typename Elem>
+__device__ __forceinline__ void stage_ragged(Elem* dst, int ls, const Elem* src, int rows,
+                                             int valid, int c0, int cols, Head h,
+                                             const Elem* safe) {
+  switch (h.copy) {
+    case 16: stage_chunks<16>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe); break;
+    case 8: stage_chunks<8>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe); break;
+    case 4: stage_chunks<4>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe); break;
+    default:
+      if constexpr (sizeof(Elem) == 2)
+        stage_chunks<2>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe);
+  }
+}
+
 // Issue the copies of `rows` rows of DH floats, contiguous at `src`, into
 // the padded tile `dst`.
 template <int DH>
@@ -69,12 +142,80 @@ __device__ __forceinline__ unsigned round_bf16x2(float lo, float hi) {
 }
 
 // The tiles of NT tensors (q, k, v and, in the backward, dout): float32
-// rows go by cp.async as above, one tensor after another.
-template <int DH, int NT>
+// rows go by cp.async as above, one tensor after another (ragged: rows of Dh
+// floats in copies of h.copy bytes, the columns from Dh zero-filled).
+template <int DH, int NT, bool RAGGED = false>
 __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
-                                            const float* const (&src)[NT], int rows) {
+                                            const float* const (&src)[NT], int rows,
+                                            Head h = Head{DH, 16}) {
 #pragma unroll
-  for (int t = 0; t < NT; ++t) stage_rows<DH>(dst[t], src[t], rows);
+  for (int t = 0; t < NT; ++t) {
+    if constexpr (RAGGED)
+      stage_ragged(dst[t], TileDims<DH>::QS, src[t], rows, rows, 0, DH, h, src[t]);
+    else
+      stage_rows<DH>(dst[t], src[t], rows);
+  }
+}
+
+// N bytes of bfloat16 values as one load, and their widening into float32
+// tile columns (16: two float4; 8: a float4; 4: a float2; 2: a float).
+template <int N>
+struct Bits;
+template <>
+struct Bits<16> { using T = uint4; };
+template <>
+struct Bits<8> { using T = uint2; };
+template <>
+struct Bits<4> { using T = unsigned; };
+template <>
+struct Bits<2> { using T = unsigned short; };
+
+template <int N>
+__device__ __forceinline__ void widen_store(float* dst, typename Bits<N>::T u) {
+  if constexpr (N == 16) {
+    const float2 a = widen_bf16x2(u.x), b = widen_bf16x2(u.y), c = widen_bf16x2(u.z),
+                 d = widen_bf16x2(u.w);
+    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+  } else if constexpr (N == 8) {
+    const float2 a = widen_bf16x2(u.x), b = widen_bf16x2(u.y);
+    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  } else if constexpr (N == 4) {
+    *reinterpret_cast<float2*>(dst) = widen_bf16x2(u);
+  } else {
+    *dst = __uint_as_float((unsigned)u << 16);
+  }
+}
+
+// Ragged bfloat16 rows (Dh values each): loads of N bytes through the
+// read-only path, two chunks of every tensor in flight before any store, as
+// below; the columns from Dh are zero, read from nowhere.
+template <int DH, int NT, int N>
+__device__ __forceinline__ void stage_widen(float* const (&dst)[NT],
+                                            const __nv_bfloat16* const (&src)[NT], int rows,
+                                            int Dh) {
+  using T = typename Bits<N>::T;
+  constexpr int QS = TileDims<DH>::QS, V = N / 2, NC = DH / V;   // values a load, loads a row
+  const int n = rows * NC;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 2 * blockDim.x) {
+    T u[2][NT];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = e0 + h * blockDim.x, r = e / NC, c = (e - r * NC) * V;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        u[h][t] = e < n && c < Dh ? __ldg(reinterpret_cast<const T*>(src[t] + (size_t)r * Dh + c))
+                                  : T{};
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = e0 + h * blockDim.x, r = e / NC, c = (e - r * NC) * V;
+      if (e < n) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) widen_store<N>(dst[t] + r * QS + c, u[h][t]);
+      }
+    }
+  }
 }
 
 // bfloat16 rows are read with plain loads through the read-only path, 8
@@ -83,10 +224,20 @@ __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
 // one 16-byte column of a padded row, as a cp.async would put it. A thread
 // issues the loads of two columns of every tensor before it widens and
 // stores any, so the block's loads are in flight together; they are
-// complete when this returns.
-template <int DH, int NT>
+// complete when this returns. Ragged: stage_widen at the launch's copy size.
+template <int DH, int NT, bool RAGGED = false>
 __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
-                                            const __nv_bfloat16* const (&src)[NT], int rows) {
+                                            const __nv_bfloat16* const (&src)[NT], int rows,
+                                            Head h = Head{DH, 16}) {
+  if constexpr (RAGGED) {
+    switch (h.copy) {
+      case 16: stage_widen<DH, NT, 16>(dst, src, rows, h.Dh); break;
+      case 8: stage_widen<DH, NT, 8>(dst, src, rows, h.Dh); break;
+      case 4: stage_widen<DH, NT, 4>(dst, src, rows, h.Dh); break;
+      default: stage_widen<DH, NT, 2>(dst, src, rows, h.Dh);
+    }
+    return;
+  }
   constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
   const int n = rows * D4;
   for (int e0 = threadIdx.x; e0 < n; e0 += 2 * blockDim.x) {
@@ -133,6 +284,24 @@ __device__ __forceinline__ void store4(float* dst, float4 v) {
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
   *reinterpret_cast<uint2*>(dst) = make_uint2(round_bf16x2(v.x, v.y), round_bf16x2(v.z, v.w));
+}
+
+// Four consecutive outputs at `dst`, columns col .. col + 3 of their row: store4;
+// ragged, only the columns below Dh, store4 where Dh is a multiple of 4 (and so
+// the four are aligned), else each alone.
+template <bool RAGGED, typename Elem>
+__device__ __forceinline__ void put4(Elem* dst, int col, float4 v, int Dh) {
+  if constexpr (RAGGED) {
+    if (col >= Dh) return;
+    if (Dh & 3) {
+      const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < Dh) dst[e] = from_float<Elem>(x[e]);
+      return;
+    }
+  }
+  store4(dst, v);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {

@@ -8,8 +8,10 @@
 // blocks over the full Dh, attention.py:120-126).
 //
 // Shapes and contract as k1_fwd.cuh and k1_bwd.cuh: q, k, v, dout and the
-// outputs (BH, S, Dh), contiguous, Dh past 128 and a multiple of 8
-// (ops/attention.py pads any other Dh past 128 to the next multiple of 8);
+// outputs (BH, S, Dh), contiguous, any Dh past 128 (rows whose 16-byte
+// copies would not be aligned, a Dh off a multiple of 4 in float32 or of 8
+// in bf16, take the kernels' RAGGED forms: narrower copies, k1_tiles.cuh's
+// copy_bytes, and at an odd Dh stores one element at a time);
 // any W dividing S up to kMaxRow; the same Philox counters (seed, row,
 // i * S + j) and seed groups, causal skips and float32 arithmetic as the
 // long-window path (k1_mma.cuh: 3xTF32 in float32, a float32 operand in
@@ -47,9 +49,10 @@
 // runs only the 8-key column tiles its rows reach, and an element outside
 // its window or above a causal diagonal is -inf by its index, reading no
 // bias. Columns past Dh (Dh 160 stages 160; Dh 136 stages 144) are
-// zero-filled by cp.async with a source size of 0, as rows past W are, and
-// never stored. The backward at W <= 64, where a block holds whole
-// windows, is one kernel (k1_bwd_wide_win): the logits and dout v^T once, a
+// zero-filled by cp.async with a source size of 0 (plain zeros at bf16's
+// 2-byte copies), as rows past W are, and never stored. The backward at W
+// <= 64, where a block holds whole windows, is one kernel
+// (k1_bwd_wide_win): the logits and dout v^T once, a
 // softmax over (64, 64) tiles in shared memory, then dq, dk and dv, so two
 // products over the head dim and three over the outputs' columns a pair.
 // Past W 64 it is the two-sweep dq kernel (its first sweep each half's
@@ -324,11 +327,17 @@ __device__ __forceinline__ unsigned keep_mask(const Row (&R)[2], int p0, int pst
 
 // Issue the copies of `rows` rows of `w` columns (a multiple of 16) from column c0 of
 // `src` (row stride Dh) into `dst` (row stride ls); rows at or past `valid` and columns
-// at or past Dh are zero-filled, reading nothing (`safe` is any valid address).
-template <typename Elem>
+// at or past Dh are zero-filled, reading nothing (`safe` is any valid address). 16-byte
+// copies; RAGGED (a Dh whose rows are not 16-byte aligned: k1_tiles.cuh's copy_bytes):
+// copies of `copy` bytes.
+template <bool RAGGED, typename Elem>
 __device__ __forceinline__ void stage_cols(Elem* dst, int ls, const Elem* src, int rows,
                                            int valid, int c0, int w, int Dh,
-                                           const Elem* safe) {
+                                           const Elem* safe, int copy) {
+  if constexpr (RAGGED) {
+    k1::stage_ragged(dst, ls, src, rows, valid, c0, w, k1::Head{Dh, copy}, safe);
+    return;
+  }
   constexpr int E = 16 / (int)sizeof(Elem);
   const int n = w / E;
   for (int e = threadIdx.x; e < rows * n; e += kThreads) {
@@ -611,8 +620,9 @@ __device__ __forceinline__ void put_half(float* X, const float (&v)[2][4], int l
 }
 
 // Store the warp's (16, 8 nact) accumulator at columns c0 + 8n of rows ra and ra + 8 (those
-// below Wb; columns below Dh), row stride Dh, each value times its row's factor.
-template <typename Elem, int NO>
+// below Wb; columns below Dh), row stride Dh, each value times its row's factor: in pairs
+// (RAGGED at an odd Dh, whose pairs are not aligned: k1_mma.cuh's store2_ragged).
+template <typename Elem, int NO, bool RAGGED = false>
 __device__ __forceinline__ void store_cols(Elem* dst, const float (&acc)[NO][4], int ra,
                                            int Wb, float fa, float fb, int lane, int Dh,
                                            int c0, int nact) {
@@ -621,9 +631,17 @@ __device__ __forceinline__ void store_cols(Elem* dst, const float (&acc)[NO][4],
   for (int n = 0; n < NO; ++n) {
     const int c = c0 + n * 8 + 2 * t;
     if (n >= nact || c >= Dh) continue;
-    if (ra < Wb) k1::store2(dst + (size_t)ra * Dh + c, acc[n][0] * fa, acc[n][1] * fa);
-    if (ra + 8 < Wb)
-      k1::store2(dst + (size_t)(ra + 8) * Dh + c, acc[n][2] * fb, acc[n][3] * fb);
+    if constexpr (RAGGED) {
+      if (ra < Wb)
+        k1::store2_ragged(dst + (size_t)ra * Dh + c, acc[n][0] * fa, acc[n][1] * fa, c, Dh);
+      if (ra + 8 < Wb)
+        k1::store2_ragged(dst + (size_t)(ra + 8) * Dh + c, acc[n][2] * fb, acc[n][3] * fb, c,
+                          Dh);
+    } else {
+      if (ra < Wb) k1::store2(dst + (size_t)ra * Dh + c, acc[n][0] * fa, acc[n][1] * fa);
+      if (ra + 8 < Wb)
+        k1::store2(dst + (size_t)(ra + 8) * Dh + c, acc[n][2] * fb, acc[n][3] * fb);
+    }
   }
 }
 
@@ -650,13 +668,13 @@ __device__ __forceinline__ void zero2(float (&a)[2][4]) {
 // p_drop in the exchange tile; then (in the same step if merged, else in step (kt, nslab),
 // which stages v's group) each warp adds p_drop v to its output columns. out = acc / l, l
 // the two halves' sums.
-template <typename Elem>
+template <typename Elem, bool RAGGED>
 __global__ void __launch_bounds__(kw::kThreads)
 k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
             const Elem* __restrict__ v, const float* __restrict__ bias,
             Elem* __restrict__ out, int S, int W, int Dh, int nwin, int G, int tiles,
             kw::Layout L, float scale, const int* __restrict__ seed_ptr, int group_rows,
-            unsigned thresh, float inv_keep, int dropout, int causal) {
+            unsigned thresh, float inv_keep, int dropout, int causal, int copy) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -689,18 +707,19 @@ k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (c < L.nslab) {
       const int c0 = c * L.SW, w = min(L.SW, L.Dp - c0);
       if (!L.res) {
-        stage_cols(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, Dh, q);
+        stage_cols<RAGGED>(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, Dh, q, copy);
         d += kRows * lsS;
       }
-      stage_cols(d, lsS, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, k);
+      stage_cols<RAGGED>(d, lsS, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, k, copy);
       if (L.merged)
-        stage_cols(d + kCols * lsS, lsS, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, 0, L.Dp, Dh,
-                   v);
+        stage_cols<RAGGED>(d + kCols * lsS, lsS, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, 0, L.Dp,
+                           Dh, v, copy);
     } else {
-      stage_cols(d, lsC, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, B.cg * L.CW, L.CW, Dh, v);
+      stage_cols<RAGGED>(d, lsC, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, B.cg * L.CW, L.CW, Dh, v,
+                         copy);
     }
   };
-  if (L.res) stage_cols(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, q);
+  if (L.res) stage_cols<RAGGED>(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, q, copy);
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
     if (i < steps) stage(i);
     k1::cp_async_commit();
@@ -795,7 +814,7 @@ k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
   }
   __syncthreads();
   const float la = red[lr] + red[kRows + lr], lb = red[lr + 8] + red[kRows + lr + 8];
-  store_cols<Elem, kHalfTiles>(out + base, o, ra, B.Wb, 1.f / la, 1.f / lb, lane, Dh, oc0,
+  store_cols<Elem, kHalfTiles, RAGGED>(out + base, o, ra, B.Wb, 1.f / la, 1.f / lb, lane, Dh, oc0,
                                nact);
   K1_PHASE(3);
   K1_PHASE_END(0);
@@ -809,14 +828,15 @@ k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // Sweep 2 recomputes s and dp, puts ds = p (dp - D) scale in the exchange tile and (in
 // the same step if merged, else in step (kt, nslab), which stages k's group) adds ds k to
 // the warp's dq columns.
-template <typename Elem>
+template <typename Elem, bool RAGGED>
 __global__ void __launch_bounds__(kw::kThreads)
 k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
                const Elem* __restrict__ v, const float* __restrict__ bias,
                const Elem* __restrict__ dout, Elem* __restrict__ dq, float* __restrict__ stats,
                int S, int W, int Dh, int nwin, int G, int tiles, kw::Layout L,
                size_t positions, float scale, const int* __restrict__ seed_ptr,
-               int group_rows, unsigned thresh, float inv_keep, int dropout, int causal) {
+               int group_rows, unsigned thresh, float inv_keep, int dropout, int causal,
+               int copy) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -865,19 +885,21 @@ k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (c < L.nslab) {
       const int c0 = c * L.SW, w = min(L.SW, L.Dp - c0);
       if (!L.res) {
-        stage_cols(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, Dh, q);
-        stage_cols(d + kRows * lsS, lsS, ob, kRows, B.Wb - B.i0, c0, w, Dh, dout);
+        stage_cols<RAGGED>(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, Dh, q, copy);
+        stage_cols<RAGGED>(d + kRows * lsS, lsS, ob, kRows, B.Wb - B.i0, c0, w, Dh, dout, copy);
         d += 2 * kRows * lsS;
       }
-      stage_cols(d, lsS, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, k);
-      stage_cols(d + kCols * lsS, lsS, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, v);
+      stage_cols<RAGGED>(d, lsS, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, k, copy);
+      stage_cols<RAGGED>(d + kCols * lsS, lsS, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, v,
+                         copy);
     } else {
-      stage_cols(d, lsC, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, B.cg * L.CW, L.CW, Dh, k);
+      stage_cols<RAGGED>(d, lsC, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, B.cg * L.CW, L.CW, Dh, k,
+                         copy);
     }
   };
   if (L.res) {
-    stage_cols(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, q);
-    stage_cols(ores, lsD, ob, kRows, B.Wb - B.i0, 0, L.Dp, Dh, dout);
+    stage_cols<RAGGED>(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, q, copy);
+    stage_cols<RAGGED>(ores, lsD, ob, kRows, B.Wb - B.i0, 0, L.Dp, Dh, dout, copy);
   }
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
     if (i < steps) stage(i);
@@ -1019,7 +1041,7 @@ k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(3);
     __syncthreads();
   }
-  store_cols<Elem, kHalfTiles>(dq + base, dqa, ra, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
+  store_cols<Elem, kHalfTiles, RAGGED>(dq + base, dqa, ra, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
@@ -1031,7 +1053,7 @@ k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // into the two exchange tiles; then each warp adds p_drop^T dout to its dv columns and
 // ds^T q to its dk columns (in the same step if merged, else in steps (qi, nslab) and
 // (qi, nslab + 1), which stage dout's and q's group).
-template <typename Elem>
+template <typename Elem, bool RAGGED>
 __global__ void __launch_bounds__(kw::kThreads)
 k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                 const Elem* __restrict__ v, const float* __restrict__ bias,
@@ -1039,7 +1061,7 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                 const float* __restrict__ stats, int S, int W, int Dh, int nwin, int G,
                 int tiles, kw::Layout L, size_t positions, float scale,
                 const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
-                float inv_keep, int dropout, int causal) {
+                float inv_keep, int dropout, int causal, int copy) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -1079,13 +1101,13 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (c < L.nslab) {
       const int c0 = c * L.SW, w = min(L.SW, L.Dp - c0);
       if (!L.res) {
-        stage_cols(d, lsS, kb, kRows, B.Wb - B.i0, c0, w, Dh, k);
-        stage_cols(d + kRows * lsS, lsS, vb, kRows, B.Wb - B.i0, c0, w, Dh, v);
+        stage_cols<RAGGED>(d, lsS, kb, kRows, B.Wb - B.i0, c0, w, Dh, k, copy);
+        stage_cols<RAGGED>(d + kRows * lsS, lsS, vb, kRows, B.Wb - B.i0, c0, w, Dh, v, copy);
         d += 2 * kRows * lsS;
       }
-      stage_cols(d, lsS, qb + (size_t)i1 * Dh, kCols, B.Wb - i1, c0, w, Dh, q);
-      stage_cols(d + kCols * lsS, lsS, ob + (size_t)i1 * Dh, kCols, B.Wb - i1, c0, w, Dh,
-                 dout);
+      stage_cols<RAGGED>(d, lsS, qb + (size_t)i1 * Dh, kCols, B.Wb - i1, c0, w, Dh, q, copy);
+      stage_cols<RAGGED>(d + kCols * lsS, lsS, ob + (size_t)i1 * Dh, kCols, B.Wb - i1, c0, w, Dh,
+                         dout, copy);
       if (c == 0) {
         float* sd = sts + (qi % 3) * 3 * kCols;
         for (int e = threadIdx.x; e < 3 * kCols; e += kThreads) {
@@ -1097,15 +1119,15 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
       }
     } else {
       const Elem* src = c == L.nslab ? ob : qb;   // dout's group for dv, then q's for dk
-      stage_cols(d, lsC, src + (size_t)i1 * Dh, kCols, B.Wb - i1, B.cg * L.CW, L.CW, Dh,
-                 src);
+      stage_cols<RAGGED>(d, lsC, src + (size_t)i1 * Dh, kCols, B.Wb - i1, B.cg * L.CW, L.CW, Dh,
+                         src, copy);
     }
   };
   // launched as the dq kernel's dependent: nothing it wrote is read before it has ended
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (L.res) {
-    stage_cols(kres, lsD, kb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, k);
-    stage_cols(vres, lsD, vb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, v);
+    stage_cols<RAGGED>(kres, lsD, kb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, k, copy);
+    stage_cols<RAGGED>(vres, lsD, vb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, v, copy);
   }
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
     if (i < steps) stage(i);
@@ -1196,8 +1218,8 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(3);
     __syncthreads();
   }
-  store_cols<Elem, kHalfTiles>(dv + base, dva, ja, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
-  store_cols<Elem, kHalfTiles>(dk + base, dka, ja, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
+  store_cols<Elem, kHalfTiles, RAGGED>(dv + base, dva, ja, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
+  store_cols<Elem, kHalfTiles, RAGGED>(dk + base, dka, ja, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
   K1_PHASE(3);
   K1_PHASE_END(1);
 }
@@ -1214,14 +1236,14 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // dv = p_drop^T dout, each over the 64 keys (queries) in two halves, stored after its
 // second. Two products over the whole head dim and three over the group's columns a pair,
 // one launch, nothing between kernels in device memory.
-template <typename Elem>
+template <typename Elem, bool RAGGED>
 __global__ void __launch_bounds__(kw::kThreads, sizeof(Elem) == 4 ? 2 : 1)
 k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
                 const Elem* __restrict__ v, const float* __restrict__ bias,
                 const Elem* __restrict__ dout, Elem* __restrict__ dq, Elem* __restrict__ dk,
                 Elem* __restrict__ dv, int S, int W, int Dh, int nwin, int G, kw::Layout L,
                 float scale, const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
-                float inv_keep, int dropout, int causal) {
+                float inv_keep, int dropout, int causal, int copy) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -1254,11 +1276,11 @@ k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
       const int c0 = it * L.SW, w = min(L.SW, L.Dp - c0);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
-        stage_cols(d + a * kRows * lsS, lsS, src[a], kRows, B.Wb, c0, w, Dh, q);
+        stage_cols<RAGGED>(d + a * kRows * lsS, lsS, src[a], kRows, B.Wb, c0, w, Dh, q, copy);
     } else {
       const int p = (it - L.nslab) >> 1, hb = (it - L.nslab) & 1;
       const Elem* b = (p == 0 ? k : p == 1 ? q : dout) + base + (size_t)hb * kCols * Dh;
-      stage_cols(d, lsC, b, kCols, B.Wb - hb * kCols, B.cg * L.CW, L.CW, Dh, q);
+      stage_cols<RAGGED>(d, lsC, b, kCols, B.Wb - hb * kCols, B.cg * L.CW, L.CW, Dh, q, copy);
     }
   };
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
@@ -1369,7 +1391,7 @@ k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(3);
     if (hb == 1) {
       Elem* out = (p == 0 ? dq : p == 1 ? dk : dv) + base;
-      store_cols<Elem, kHalfTiles>(out, acc, lr, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
+      store_cols<Elem, kHalfTiles, RAGGED>(out, acc, lr, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
 #pragma unroll
       for (int n = 0; n < kHalfTiles; ++n)
 #pragma unroll
@@ -1381,54 +1403,69 @@ k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
 }
 
 // The launch plan's numbers (ops/attention.py::wide_plan); the caller's must equal them.
+// `copy` must be k1::copy_bytes: under 16 the RAGGED forms run.
 inline bool wide_shape(int BH, int S, int W, int Dh, int group_rows, int dropout,
-                       const int* seed) {
+                       const int* seed, int copy, int E) {
   return !(dropout && seed == nullptr) && W >= 1 && S % W == 0 && S <= k1::kMaxRow &&
-         group_rows >= 1 && BH % group_rows == 0 && Dh > 128 && Dh % 8 == 0;
+         group_rows >= 1 && BH % group_rows == 0 && Dh > 128 && copy == k1::copy_bytes(Dh, E);
 }
 
 constexpr int kWidePath = 2;   // ops/attention.py PATH_CODE["wide"]
+
+template <typename Elem, bool RAGGED>
+int launch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
+                    int S, int W, int Dh, long long nwin, const kw::Grid& g, const kw::Layout& L,
+                    float scale, const int* seed, int group_rows, unsigned thresh,
+                    float inv_keep, int dropout, int causal, int blocks, int copy,
+                    cudaStream_t st) {
+  const cudaError_t e = k1::allow_smem(k1_fwd_wide<Elem, RAGGED>, L.smem);
+  if (e != cudaSuccess) return (int)e;
+  k1_fwd_wide<Elem, RAGGED><<<blocks, kw::kThreads, L.smem, st>>>(
+      q, k, v, bias, out, S, W, Dh, (int)nwin, g.G, g.tiles, L, scale, seed, group_rows, thresh,
+      inv_keep, dropout, causal, copy);
+  return (int)cudaGetLastError();
+}
 
 template <typename Elem>
 int dispatch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
                       int BH, int S, int W, int Dh, float scale, const int* seed, int group_rows,
                       unsigned thresh, float inv_keep, int dropout, int causal, int path,
-                      int blocks, int smem_bytes, void* stream) {
-  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed)) return (int)cudaErrorInvalidValue;
+                      int blocks, int smem_bytes, int copy, void* stream) {
+  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed, copy, (int)sizeof(Elem)))
+    return (int)cudaErrorInvalidValue;
   const long long nwin = (long long)BH * (S / W);
   const kw::Grid g = kw::grid_of(nwin, W, Dh);
   const kw::Layout L = kw::layout(Dh, (int)sizeof(Elem), kw::kFwd, g.groups);
   if (path != kWidePath || L.smem == 0 || g.blocks != (long long)blocks ||
       smem_bytes != L.smem)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = k1::allow_smem(k1_fwd_wide<Elem>, L.smem);
-  if (e != cudaSuccess) return (int)e;
-  k1_fwd_wide<Elem><<<blocks, kw::kThreads, L.smem, (cudaStream_t)stream>>>(
-      q, k, v, bias, out, S, W, Dh, (int)nwin, g.G, g.tiles, L, scale, seed, group_rows, thresh,
-      inv_keep, dropout, causal);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return copy == 16
+             ? launch_wide_fwd<Elem, false>(q, k, v, bias, out, S, W, Dh, nwin, g, L, scale, seed,
+                                            group_rows, thresh, inv_keep, dropout, causal,
+                                            blocks, copy, st)
+             : launch_wide_fwd<Elem, true>(q, k, v, bias, out, S, W, Dh, nwin, g, L, scale, seed,
+                                           group_rows, thresh, inv_keep, dropout, causal, blocks,
+                                           copy, st);
 }
 
-template <typename Elem>
-int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bias,
-                      const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH,
-                      int S, int W, int Dh, float scale, const int* seed, int group_rows,
-                      unsigned thresh, float inv_keep, int dropout, int causal, int path,
-                      int blocks, int smem_bytes, int blocks_kv, int smem_kv, void* stream) {
-  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed)) return (int)cudaErrorInvalidValue;
-  const long long nwin = (long long)BH * (S / W);
-  const kw::Grid g = kw::grid_of(nwin, W, Dh);
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename Elem, bool RAGGED>
+int launch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+                    const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH,
+                    int S, int W, int Dh, long long nwin, const kw::Grid& g, float scale,
+                    const int* seed, int group_rows, unsigned thresh, float inv_keep,
+                    int dropout, int causal, int path, int blocks, int smem_bytes,
+                    int blocks_kv, int smem_kv, int copy, cudaStream_t st) {
   if (W <= kw::kWinMax) {   // one kernel
     const kw::Layout L = kw::win_layout(Dh, (int)sizeof(Elem), g.groups);
     if (path != kWidePath || L.smem == 0 || g.blocks != (long long)blocks || blocks_kv != 0 ||
         smem_kv != 0 || smem_bytes != L.smem)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = k1::allow_smem(k1_bwd_wide_win<Elem>, L.smem);
+    const cudaError_t e = k1::allow_smem(k1_bwd_wide_win<Elem, RAGGED>, L.smem);
     if (e != cudaSuccess) return (int)e;
-    k1_bwd_wide_win<Elem><<<blocks, kw::kThreads, L.smem, st>>>(
+    k1_bwd_wide_win<Elem, RAGGED><<<blocks, kw::kThreads, L.smem, st>>>(
         q, k, v, bias, dout, dq, dk, dv, S, W, Dh, (int)nwin, g.G, L, scale, seed, group_rows,
-        thresh, inv_keep, dropout, causal);
+        thresh, inv_keep, dropout, causal, copy);
     return (int)cudaGetLastError();
   }
   if (stats == nullptr) return (int)cudaErrorInvalidValue;
@@ -1438,14 +1475,14 @@ int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* 
       blocks_kv != blocks || smem_bytes != L.smem || smem_kv != L2.smem)
     return (int)cudaErrorInvalidValue;
   const size_t positions = (size_t)BH * S;
-  cudaError_t e = k1::allow_smem(k1_bwd_wide_dq<Elem>, L.smem);
+  cudaError_t e = k1::allow_smem(k1_bwd_wide_dq<Elem, RAGGED>, L.smem);
   if (e != cudaSuccess) return (int)e;
-  k1_bwd_wide_dq<Elem><<<blocks, kw::kThreads, L.smem, st>>>(
+  k1_bwd_wide_dq<Elem, RAGGED><<<blocks, kw::kThreads, L.smem, st>>>(
       q, k, v, bias, dout, dq, stats, S, W, Dh, (int)nwin, g.G, g.tiles, L, positions, scale,
-      seed, group_rows, thresh, inv_keep, dropout, causal);
+      seed, group_rows, thresh, inv_keep, dropout, causal, copy);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = k1::allow_smem(k1_bwd_wide_dkv<Elem>, L2.smem);
+  e = k1::allow_smem(k1_bwd_wide_dkv<Elem, RAGGED>, L2.smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute dep[1];
   dep[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -1457,11 +1494,34 @@ int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* 
   cfg.stream = st;
   cfg.attrs = dep;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, k1_bwd_wide_dkv<Elem>, q, k, v, bias, dout, dk, dv,
+  e = cudaLaunchKernelEx(&cfg, k1_bwd_wide_dkv<Elem, RAGGED>, q, k, v, bias, dout, dk, dv,
                          (const float*)stats, S, W, Dh, (int)nwin, g.G, g.tiles, L2, positions,
-                         scale, seed, group_rows, thresh, inv_keep, dropout, causal);
+                         scale, seed, group_rows, thresh, inv_keep, dropout, causal, copy);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename Elem>
+int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bias,
+                      const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH,
+                      int S, int W, int Dh, float scale, const int* seed, int group_rows,
+                      unsigned thresh, float inv_keep, int dropout, int causal, int path,
+                      int blocks, int smem_bytes, int blocks_kv, int smem_kv, int copy,
+                      void* stream) {
+  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed, copy, (int)sizeof(Elem)))
+    return (int)cudaErrorInvalidValue;
+  const long long nwin = (long long)BH * (S / W);
+  const kw::Grid g = kw::grid_of(nwin, W, Dh);
+  cudaStream_t st = (cudaStream_t)stream;
+  return copy == 16
+             ? launch_wide_bwd<Elem, false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh,
+                                            nwin, g, scale, seed, group_rows, thresh, inv_keep,
+                                            dropout, causal, path, blocks, smem_bytes, blocks_kv,
+                                            smem_kv, copy, st)
+             : launch_wide_bwd<Elem, true>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh,
+                                           nwin, g, scale, seed, group_rows, thresh, inv_keep,
+                                           dropout, causal, path, blocks, smem_bytes, blocks_kv,
+                                           smem_kv, copy, st);
 }
 
 }  // namespace

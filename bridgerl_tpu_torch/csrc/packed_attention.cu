@@ -10,7 +10,8 @@ extern "C" int packed_attention_fwd(const float* q, const float* k, const float*
                                     const float* bias, float* out, int BH, int S, int W,
                                     int Dh, float scale, const int* seed, int group_rows,
                                     unsigned thresh, float inv_keep, int dropout, int causal,
-                                    int path, int blocks, int smem_bytes, void* stream) {
+                                    int path, int blocks, int smem_bytes, int copy,
+                                    void* stream) {
   return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows, thresh,
-                  inv_keep, dropout, causal, path, blocks, smem_bytes, stream);
+                  inv_keep, dropout, causal, path, blocks, smem_bytes, copy, stream);
 }

@@ -12,7 +12,7 @@ extern "C" int packed_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bflo
                                          float scale, const int* seed, int group_rows,
                                          unsigned thresh, float inv_keep, int dropout,
                                          int causal, int path, int blocks, int smem_bytes,
-                                         void* stream) {
+                                         int copy, void* stream) {
   return dispatch(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows, thresh,
-                  inv_keep, dropout, causal, path, blocks, smem_bytes, stream);
+                  inv_keep, dropout, causal, path, blocks, smem_bytes, copy, stream);
 }

@@ -58,16 +58,19 @@ launches count on the backward's counters and on ``LONG_COUNTER``; the wide
 kernels' (``WIDE_ENTRY``, ``csrc/packed_attention_wide[_bf16].cu``) on the
 entry's counter and on ``WIDE_COUNTER``.
 
-Head dims: the kernels are instantiated at ``SUPPORTED_HEAD_DIMS`` (16, 32,
-64, 96, 128). Any other Dh up to 128 runs at the next of them, q, k, v (and
-dout) zero-padded and out, dq, dk and dv sliced back (:func:`padded_fwd`,
-:func:`padded_bwd`). Past 128 a multiple of ``WIDE_ALIGN`` (8) runs as it
-is through the wide kernels of ``csrc/k1_wide.cuh`` (their staging
-zero-fills the columns up to the next multiple of 16, and their stores skip
-them), any other Dh padded to the next multiple of 8. Zero columns add
-nothing to q k^T or to dout v^T, the scale is the caller's (1 / sqrt of the
-true Dh), and the keep bits are keyed on (seed, row, i * S + j) alone, so
-the padded call computes the unpadded function.
+Head dims: every Dh runs as it is, with no copy of q, k, v, dout or the
+outputs. The kernels up to 128 are instantiated at the widths
+``SUPPORTED_HEAD_DIMS`` (16, 32, 64, 96, 128); a launch stages its rows at
+the least of them at or above Dh (:func:`head_width`), and at any other Dh
+the kernels' ragged form reads and writes rows of Dh elements, zero-fills
+the staged columns from Dh on as it copies (reading nothing for them) and
+stores the columns below Dh alone. Past 128 the wide kernels of
+``csrc/k1_wide.cuh`` take any Dh the same way (staged at Dh rounded up to
+16). Each staging copy is :func:`copy_bytes` wide: 16 bytes where every row
+starts on 16 bytes, else 8 or 4, else (bfloat16 at an odd Dh) plain 2-byte
+loads; the plan carries it and the C entry points refuse any other. Zero
+columns add nothing to q k^T or to dout v^T, the scale is the caller's (1 /
+sqrt of Dh), and the keep bits are keyed on (seed, row, i * S + j) alone.
 
 The forward op's registered autograd formula calls the backward op, which
 recomputes the probabilities and the dropout mask, as the TPU kernel's
@@ -98,10 +101,10 @@ import torch
 
 from . import kernels
 
-# the head dims the kernels are instantiated at; others: head_width
+# the widths the kernels up to 128 are instantiated at (head_width)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128)
-WIDE_ALIGN = 8                # past 128 the wide kernels take any Dh of a multiple of 8
-WIDE_STAGE_ALIGN = 16         # ... staged at a multiple of 16 columns (zero-filled)
+WIDE_STAGE_ALIGN = 16         # past 128 the wide kernels stage a multiple of 16 columns
+COPY_SIZES = (16, 8, 4, 2)    # bytes of a staging copy (copy_bytes), widest first
 GROUP_COLS = 256              # csrc/k1_wide.cuh kGroupCols: the most columns a block owns
 MULTI_WINDOW = 32             # kMultiWindow: at W <= 32 a wide block holds 64 // W windows
 EXCHANGE_STRIDE = 40          # kXS: a row of the wide kernels' float32 exchange tiles
@@ -344,7 +347,12 @@ class K1Plan(NamedTuple):
     ``windows_per_block`` whole windows at W <= MULTI_WINDOW, else row tiles
     of a window, times ``groups`` output column groups; the backward one
     kernel up to W 64 (``cols`` 64: every key of the block at once), past
-    it the dq kernel and the dk / dv kernel over the same blocks."""
+    it the dq kernel and the dk / dv kernel over the same blocks.
+
+    ``Dh`` is the true head dim, ``width`` the one the kernels are planned
+    and staged at (:func:`head_width`), ``copy_bytes`` each staging copy's
+    bytes (:func:`copy_bytes`); ``ragged`` says that the kernels' ragged form
+    runs."""
     path: str
     direction: str
     W: int
@@ -358,6 +366,15 @@ class K1Plan(NamedTuple):
     blocks_kv: int
     smem_kv: int
     groups: int = 1
+    Dh: int = 0
+    width: int = 0
+    copy_bytes: int = 16
+
+    @property
+    def ragged(self) -> bool:
+        """The kernels' ragged form: rows of Dh staged at a wider ``width``, or
+        copies narrower than 16 bytes (csrc/k1_tiles.cuh)."""
+        return self.Dh != self.width or self.copy_bytes < 16
 
     @property
     def row_tiles(self) -> int:
@@ -447,31 +464,43 @@ def backward_rows(windows: int, W: int, Dh: int, dtype: torch.dtype) -> int:
 
 
 def head_width(Dh: int) -> int:
-    """The head dim the kernels run a head dim of ``Dh`` at: the least of
-    SUPPORTED_HEAD_DIMS at or above it up to 128, past 128 the least
-    multiple of WIDE_ALIGN at or above it (Dh itself at 160, 256, 512)."""
+    """The width the kernels stage a head dim of ``Dh`` at and are planned
+    at: the least of SUPPORTED_HEAD_DIMS at or above it up to 128, past 128
+    Dh itself (the wide kernels' tiles round it up to 16 columns)."""
     if Dh < 1:
         raise ValueError(f"head dim {Dh} is not positive")
     if Dh > SUPPORTED_HEAD_DIMS[-1]:
-        return _cdiv(Dh, WIDE_ALIGN) * WIDE_ALIGN
+        return Dh
     return next(d for d in SUPPORTED_HEAD_DIMS if d >= Dh)
+
+
+def copy_bytes(Dh: int, dtype: torch.dtype) -> int:
+    """The bytes of each copy that stages rows of ``Dh`` elements
+    (csrc/k1_tiles.cuh copy_bytes): row r of a 16-byte aligned tensor starts
+    at byte r * Dh * E, so the widest of COPY_SIZES that divides Dh * E (2:
+    bfloat16 at an odd Dh, plain loads)."""
+    return next(b for b in COPY_SIZES if Dh * dtype.itemsize % b == 0)
+
+
+def _at_head_dim(plan: K1Plan, Dh: int, dtype: torch.dtype) -> K1Plan:
+    return plan._replace(Dh=Dh, width=head_width(Dh), copy_bytes=copy_bytes(Dh, dtype))
 
 
 def k1_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
             direction: str = "fwd", causal: bool = False) -> K1Plan:
-    """The launch of K1 at (BH, S, Dh), window W, at the head dim
+    """The launch of K1 at (BH, S, Dh), window W, planned at the width
     :func:`head_width` gives: the window tiles below MIN_MMA_WINDOW, the
     tensor-core path (:func:`mma_plan`) from it on, and past 128 the wide
     kernels at every W (:func:`wide_plan`). Raises on what the kernels do
     not take."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
-    Dh = head_width(Dh)
-    if W >= MIN_MMA_WINDOW or Dh > SUPPORTED_HEAD_DIMS[-1]:
+    width = head_width(Dh)
+    if W >= MIN_MMA_WINDOW or width > SUPPORTED_HEAD_DIMS[-1]:
         return mma_plan(BH, S, W, Dh, dtype, direction, causal)
-    per = tile_bytes_per_window(W, Dh, direction)
+    per = tile_bytes_per_window(W, width, direction)
     G = min(max(1, TILE_ROWS // W), SMEM_LIMIT // per, max(windows, 1))
-    return K1Plan("tiles", direction, W, causal, windows, G * W, 0, G, _cdiv(windows, G),
-                  G * per, 0, 0)
+    return _at_head_dim(K1Plan("tiles", direction, W, causal, windows, G * W, 0, G,
+                               _cdiv(windows, G), G * per, 0, 0), Dh, dtype)
 
 
 def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
@@ -480,18 +509,24 @@ def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float3
     MIN_MMA_WINDOW on (``tools/k1_phases.py --crossover`` also times it
     below, in a build of its own)."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
-    Dh = head_width(Dh)
-    if Dh > SUPPORTED_HEAD_DIMS[-1]:
-        return wide_plan(windows, W, Dh, dtype, direction, causal)
-    row = mma_row_bytes(Dh, dtype)
+    return _at_head_dim(_mma_plan_at(windows, W, head_width(Dh), dtype, direction, causal),
+                        Dh, dtype)
+
+
+def _mma_plan_at(windows: int, W: int, width: int, dtype: torch.dtype, direction: str,
+                 causal: bool) -> K1Plan:
+    """:func:`mma_plan` at the staged ``width``."""
+    if width > SUPPORTED_HEAD_DIMS[-1]:
+        return wide_plan(windows, W, width, dtype, direction, causal)
+    row = mma_row_bytes(width, dtype)
     if direction == "fwd":
         return K1Plan("mma", direction, W, causal, windows, MMA_ROWS, MMA_COLS, 1,
                       windows * _cdiv(W, MMA_ROWS), (MMA_ROWS + 4 * MMA_COLS) * row, 0, 0)
-    R = window_rows(W, Dh)
+    R = window_rows(W, width)
     if R:   # one window-resident kernel: a block of R rows holds the whole window
         return K1Plan("mma", direction, W, causal, windows, R, R, 1, windows,
                       4 * R * row + R * (R + 4) * 4, 0, 0)
-    RB = backward_rows(windows, W, Dh, dtype)
+    RB = backward_rows(windows, W, width, dtype)
     blocks = windows * _cdiv(W, RB or MMA_ROWS)
     if RB:   # the row-buffered dq kernel and the keys kernel
         return K1Plan("mma", direction, W, causal, windows, RB, MMA_COLS, 1, blocks,
@@ -549,8 +584,8 @@ def wide_groups(Dh: int, row_blocks: int) -> int:
 
 def wide_layout(Dh: int, dtype: torch.dtype, kernel: str,
                 groups: Optional[int] = None) -> WideLayout:
-    """``kernel`` fwd, dq or dkv at head dim ``Dh`` past 128 (a multiple of
-    8) and ``groups`` output column groups (default as few as GROUP_COLS
+    """``kernel`` fwd, dq or dkv at head dim ``Dh`` past 128 and ``groups``
+    output column groups (default as few as GROUP_COLS
     allows): the block's own rows (64 of q; of q and dout; of k and v), a
     two-stage ring of streamed tiles (32 rows of k; of k and v; of q and
     dout) and the float32 exchange tiles and statistics. The first that
@@ -612,7 +647,7 @@ def wide_window_layout(Dh: int, dtype: torch.dtype, groups: int) -> WideLayout:
 def wide_plan(windows: int, W: int, Dh: int, dtype: torch.dtype, direction: str,
               causal: bool) -> K1Plan:
     """The wide kernels' launch (csrc/k1_wide.cuh) at a head dim ``Dh`` past
-    128, a multiple of WIDE_ALIGN, at every W: blocks of 64 rows and 8
+    128, at every W: blocks of 64 rows and 8
     warps, each warp 16 rows and half the block's output columns. At W <=
     MULTI_WINDOW a block holds ``windows_per_block`` = 64 // W whole windows
     (6 at W 10, 12 at W 5), else a 64-row tile of one window. A block owns
@@ -672,8 +707,6 @@ def _check(q, k, v, bias, seed, W, direction, causal=False, extra=()) -> K1Plan:
         raise ValueError(f"bias must be ({S}, {S}), got {tuple(bias.shape)}")
     if q.dtype not in DTYPES:
         raise ValueError(f"q is {q.dtype}; the kernels take {DTYPES}")
-    if head_width(Dh) != Dh:
-        raise ValueError(f"head dim {Dh}: the launch takes {head_width(Dh)} (padded_fwd)")
     for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
                            ("bias", bias, torch.float32),
                            *((n, t, q.dtype) for n, t in extra)):
@@ -715,39 +748,9 @@ def _same_shapes(q, *named) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, q {tuple(q.shape)}")
 
 
-def _pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
-    """``t`` (..., Dh) with zero columns up to ``width``."""
-    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
-
-
-def _cut_heads(t: torch.Tensor, Dh: int) -> torch.Tensor:
-    return t if t.shape[-1] == Dh else t[..., :Dh].contiguous()
-
-
-def padded_fwd(fn, q, k, v, *args):
-    """``fn(q, k, v, *args)`` (a K1 forward: the launcher or the plain
-    version) at the head dim :func:`head_width` gives: q, k and v padded
-    with zero columns, out sliced back to Dh."""
-    _same_shapes(q, ("k", k), ("v", v))
-    Dh = q.shape[-1]
-    width = head_width(Dh)
-    return _cut_heads(fn(*(_pad_heads(t, width) for t in (q, k, v)), *args), Dh)
-
-
-def padded_bwd(fn, q, k, v, bias, dout, *args):
-    """``fn(q, k, v, bias, dout, *args)`` (a K1 backward) at the head dim
-    :func:`head_width` gives: q, k, v and dout padded with zero columns; dq,
-    dk and dv sliced back to Dh."""
-    _same_shapes(q, ("k", k), ("v", v), ("dout", dout))
-    Dh = q.shape[-1]
-    width = head_width(Dh)
-    q, k, v, dout = (_pad_heads(t, width) for t in (q, k, v, dout))
-    return tuple(_cut_heads(t, Dh) for t in fn(q, k, v, bias, dout, *args))
-
-
 def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
-    """The forward's launch at an instantiated head dim (or a multiple of
-    WIDE_ALIGN past 128): :func:`padded_fwd` brings any other to one."""
+    """The forward's launch, at any head dim (the plan's staged width and
+    copies)."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "fwd", causal)
@@ -760,15 +763,14 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
                 out.data_ptr(), BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), int(causal), PATH_CODE[plan.path], plan.blocks,
-                plan.smem_bytes, kernels.stream_ptr(q))
+                plan.smem_bytes, plan.copy_bytes, kernels.stream_ptr(q))
     kernels.check(name, status)
     _count("fwd", plan, q.dtype)
     return out
 
 
 def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=False):
-    """The backward's launch at an instantiated head dim (or a multiple of
-    WIDE_ALIGN past 128): :func:`padded_bwd` brings any other to one."""
+    """The backward's launch, at any head dim (as :func:`_launch_fwd`)."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "bwd", causal, extra=(("dout", dout),))
@@ -787,7 +789,8 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=F
                 BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), int(causal), PATH_CODE[plan.path], plan.blocks,
-                plan.smem_bytes, plan.blocks_kv, plan.smem_kv, kernels.stream_ptr(q))
+                plan.smem_bytes, plan.blocks_kv, plan.smem_kv, plan.copy_bytes,
+                kernels.stream_ptr(q))
     kernels.check(name, status)
     _count("bwd", plan, q.dtype)
     return dq, dk, dv
@@ -829,14 +832,13 @@ bwd_op = torch.library.custom_op("bridgerl::packed_attention_bwd", _bwd_cpu, mut
 @fwd_op.register_kernel("cuda")
 def _fwd_cuda(q, k, v, bias, seed, scale, dropout_rate, window, causal=False):
     q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
-    return padded_fwd(_launch_fwd, q, k, v, bias, scale, seed, dropout_rate, window, causal)
+    return _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal)
 
 
 @bwd_op.register_kernel("cuda")
 def _bwd_cuda(q, k, v, bias, dout, seed, scale, dropout_rate, window, causal=False):
     q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
-    return padded_bwd(_launch_bwd, q, k, v, bias, dout, scale, seed, dropout_rate, window,
-                      causal)
+    return _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal)
 
 
 @fwd_op.register_fake

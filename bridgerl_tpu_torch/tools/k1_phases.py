@@ -211,7 +211,6 @@ class Call:
 
     def __init__(self, g, dtype, BH, S, Dh, P, rate, causal, mma_everywhere=False):
         W = S // P
-        Dh = attention.head_width(Dh)   # the width the kernels take it at
         self.q, self.k, self.v, self.do = (
             torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype) for _ in range(4))
         self.bias = causal_bias(S, "cuda") if causal else attention_bias(P, W, "cuda")
@@ -244,10 +243,11 @@ class Call:
         if direction == "fwd":
             return entry(*t(self.q, self.k, self.v, self.bias, self.out), *self.dims,
                          *self.head, *self.tail, mma, plan.blocks, plan.smem_bytes,
-                         kernels.stream_ptr(self.q))
+                         plan.copy_bytes, kernels.stream_ptr(self.q))
         return entry(*t(self.q, self.k, self.v, self.bias, self.do, self.dq, self.dk, self.dv,
                         self.stats), *self.dims, *self.head, *self.tail, mma, plan.blocks,
-                     plan.smem_bytes, plan.blocks_kv, plan.smem_kv, kernels.stream_ptr(self.q))
+                     plan.smem_bytes, plan.blocks_kv, plan.smem_kv, plan.copy_bytes,
+                     kernels.stream_ptr(self.q))
 
 
 def _median_ms(fn, iters: int = 30) -> float:

@@ -30,13 +30,22 @@ from ..ops import attention, kernels, vq_kernel
 # (B*H, S, W, Dh, causal): the towers' W 10 (packing 8) and W 64, the prior at 128 and 256
 # positions and at d_model 128, the backward's two-kernel shapes, the slot-AR depth stack;
 # past Dh 128 (csrc/k1_wide.cuh): W 10 at Dh 256, W 64 at Dh 160, the full grid at Dh 256
-# causal, Dh 512 on a small grid, and the Dh-256 prior's backbone and depth stack
+# causal, Dh 512 on a small grid, and the Dh-256 prior's backbone and depth stack; head dims
+# off the instantiated widths beside the native rows at the same shape (Dh 8 and 24 beside
+# 16 and 32 at W 10, 48 beside 64 at W 64), the Dh-48 and d384L6 priors' backbones, and
+# rows staged in narrower copies (Dh 50 and 12; 100 on the row-buffered backward; 130 and
+# 300 on the wide kernels)
 K1_SHAPES = ((256, 80, 10, 64, False), (2048, 80, 10, 64, False), (1024, 64, 64, 64, False),
              (128, 128, 128, 64, True), (128, 128, 128, 32, True), (24, 160, 160, 128, False),
              (48, 200, 200, 64, False), (32, 160, 160, 64, True), (128, 256, 256, 64, True),
              (16384, 5, 5, 64, True),
              (256, 80, 10, 256, False), (256, 64, 64, 160, False), (128, 256, 256, 256, True),
-             (8, 64, 64, 512, False), (64, 96, 96, 256, True), (6144, 5, 5, 256, True))
+             (8, 64, 64, 512, False), (64, 96, 96, 256, True), (6144, 5, 5, 256, True),
+             (256, 80, 10, 8, False), (256, 80, 10, 16, False), (256, 80, 10, 24, False),
+             (256, 80, 10, 32, False), (256, 64, 64, 48, False), (256, 64, 64, 64, False),
+             (128, 96, 96, 48, True), (12288, 5, 5, 48, True), (128, 96, 96, 96, True),
+             (256, 80, 10, 50, False), (256, 64, 64, 12, False), (24, 160, 160, 100, False),
+             (64, 96, 96, 130, True), (256, 64, 64, 300, False))
 # (N, D, K): serving, training, validation, the zoo's K 1024, the studies' teacher, and two
 # other widths
 K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),
@@ -80,6 +89,7 @@ def main(argv) -> int:
                                                   causal)
             print(json.dumps({"tree": tag, "kernel": "k1", "dtype": str(dtype)[6:],
                               "shape": [BH, S, W, Dh], "causal": causal,
+                              "head_width": attention.head_width(Dh),
                               "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd)}), flush=True)
     for N, D, K in K2_SHAPES:
         x = torch.randn(N, D, device="cuda", generator=g)

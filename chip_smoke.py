@@ -193,19 +193,25 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    as the library yardstick; ``k1_causal_mask``: both kernels' keep bits at
    (128, 128, 128) equal to the plain Philox mask on and below the
    diagonal, in both dtypes. ``k1_head_dims``: K1 forward and backward, f32
-   and bf16, dropout 0.1, at head dims the instantiated ones (16, 32, 64,
-   96, 128) do not cover, padded (Dh 8 and 24 on the window tiles at W 10,
-   48 on the window-resident kernel at W 64), at 96 (W 10; the d384L6
-   prior's backbone (128, 96, 96) and depth stack (12288, 5, 96), causal;
-   the full grid (128, 256, 96) causal, whose backward takes the two-sweep
-   kernels) and past 128 on the wide kernels (256 at W 10 and W 5, 160 at
-   W 64, the full grid (128, 256, 256) causal, 512 at (8, 64, 64), the
-   Dh-256 prior's backbone (64, 96, 96) and depth stack (6144, 5, 5),
-   causal), under the rules of phase 2, two launches bit for bit, with the
-   true Dh's bound and SDPA;
-   ``k1_head_dim_masks``: both kernels' keep bits at Dh 24, 96, 160, 512
-   and 256 (W 5: 12 windows a block) equal to the plain Philox mask, in both
-   dtypes.
+   and bf16, dropout 0.1, at head dims off the instantiated widths (16, 32,
+   64, 96, 128), each staged as it is at the next width (the kernels'
+   ragged form: Dh 8 and 24 on the window tiles at W 10, beside the native
+   rows of their widths, 16 and 32, 48 on the
+   window-resident kernel at W 64 and at the Dh-48 prior's backbone (128,
+   96, 96) and depth stack (12288, 5, 5), causal; rows whose copies are
+   narrower than 16 bytes: Dh 50 on the tiles, 12 on the tensor-core
+   forward and window-resident backward, 100 on the row-buffered backward, 1
+   on the full grid's two-sweep backward), at 96 (W 10; the d384L6 prior's
+   backbone (128, 96, 96) and depth stack (12288, 5, 96), causal; the full
+   grid (128, 256, 96) causal, whose backward takes the two-sweep kernels)
+   and past 128 on the wide kernels (256 at W 10 and W 5, 160 at W 64, the
+   full grid (128, 256, 256) causal, 512 at (8, 64, 64), the Dh-256 prior's
+   backbone (64, 96, 96) and depth stack (6144, 5, 5), causal; 130 and 300
+   in narrower copies), under the rules of phase 2, two launches bit for
+   bit, with the true Dh's bound and SDPA; ``k1_head_dim_masks``: both
+   kernels' keep bits at Dh 24, 96, 160, 512, 256 (W 5: 12 windows a block)
+   and staged in the ragged form at 21 (odd), 48, 100 and 130, equal to the
+   plain Philox mask, in both dtypes.
 16. ``prior``: 256 synthetic takes of 645 frames through the flagship (seed
    0) give (256, 128, 5) code grids on the card (K1, K2); on 32 takes the
    CPU's grids are equal but where K2's near-tie rule explains an RVQ flip
@@ -235,6 +241,14 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    96, batch 32): Dh 256, so every K1 launch of its training is the wide
    kernels' ((64, 96, 96) and (6144, 5, 5), causal); the same checks as
    ``prior_wide`` on other takes of the same shape.
+    ``prior_dh48`` (after ``prior_dh256``): the capacity sweep's arm below
+   the default width, ``exp_prior_scaling.py --d_model 192`` with its
+   defaults (4 heads: Dh 48; 4 layers, ff_dim 384, slot-AR with 2 depth
+   layers, dropout 0.1, max_len 96, batch 32): every K1 launch of its
+   training in the kernels' ragged form, staged at 64 ((128, 96, 96) on the
+   tensor-core forward and the window-resident backward, (12288, 5, 5) on
+   the window tiles, causal); the same checks as ``prior_wide`` on other
+   takes of the same shape.
 17. ``generate``: 4 motions of 32 positions from the f32 prior, unguided,
    guided (8 candidates, guide_dyn 0.2) and prompted (8 positions of a
    take): every token the CPU's draw from the card's prefix with the same
@@ -331,7 +345,7 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    with its own cases; with its
    launches on each path: serve, train, zoo and cli in each dtype that runs
    them, artifact in each dtype, decode_http, stream, recipe, multiseed,
-   fk, int8, prior, prior_long, prior_wide, prior_dh256, generate,
+   fk, int8, prior, prior_long, prior_wide, prior_dh256, prior_dh48, generate,
    generator_artifact,
    latent, torch_import,
    demo_stream, data_parallel (the ranks' launches; cli includes
@@ -342,7 +356,9 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    tensor-core rows must show launches on the zoo, recipe, prior and
    research paths, the two-kernel rows on prior_long, K1's forward and
    backward of each dtype and K2 on prior_wide, the wide rows of each
-   dtype and K2 on prior_dh256), then, last,
+   dtype and K2 on prior_dh256, the window-tile and tensor-core rows of
+   K1's forward and backward in each dtype and K2 on prior_dh48), then,
+   last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result when CUDA is unavailable.
@@ -614,28 +630,56 @@ PRIOR_WIDE_SAMPLES, PRIOR_WIDE_SAMPLED = 4, 8   # greedy sample_grids: samples, 
 # prior_wide's, other takes
 PRIOR_DH256 = dict(d_model=512, n_heads=2, n_layers=4, ff_dim=1024, dropout=0.1, slot_ar=True,
                    depth_layers=2)
-# K1 at the head dims the instantiated ones do not cover (B*H, S, W, Dh, causal, what): padded
-# (Dh 8, 24, 48), the d384L6 prior's 96 natively, and past 128 on the wide kernels (160, 256,
-# 512; Dh 256 at W 5 and 10 with 12 and 6 windows a block, and the Dh-256 prior's shapes)
-K1_HEAD_DIMS = ((256, 80, 10, 8, False, "tiles, padded to 16"),
-                (256, 80, 10, 24, False, "tiles, padded to 32"),
+# the capacity sweep's arm below the default width (scripts/exp_prior_scaling.py --d_model 192
+# with its defaults: 4 heads, so Dh 48; 4 layers, ff_dim 2 d_model, slot-AR with 2 depth
+# layers, dropout 0.1, max_len 96, batch 32): K1 staged at 64 in the kernels' ragged form, at
+# (128, 96, 96) causal (the backbone: tensor cores, the window-resident backward) and
+# (12288, 5, 5) causal (the depth stack: window tiles); the same takes' shape as prior_wide's
+PRIOR_DH48 = dict(d_model=192, n_heads=4, n_layers=4, ff_dim=384, dropout=0.1, slot_ar=True,
+                  depth_layers=2)
+# K1 at the head dims the instantiated widths do not cover (B*H, S, W, Dh, causal, what),
+# beside the native rows of their widths at W 10 (16, 32),
+# staged at the next width in the kernels' ragged form (Dh 8, 24, 48; the Dh-48 prior's
+# shapes; rows in copies narrower than 16 bytes: 50, 12, 100, 1), the d384L6 prior's 96
+# natively, and past 128 on the wide kernels (160, 256, 512; Dh 256 at W 5 and 10 with 12 and
+# 6 windows a block, and the Dh-256 prior's shapes; 130 and 300 in narrower copies). The
+# copies' bytes (f32 · bf16) follow attention.copy_bytes
+K1_HEAD_DIMS = ((256, 80, 10, 8, False, "tiles, staged at 16"),
+                (256, 80, 10, 16, False, "tiles, native at Dh 8's width"),
+                (256, 80, 10, 24, False, "tiles, staged at 32"),
+                (256, 80, 10, 32, False, "tiles, native at Dh 24's width"),
                 (256, 80, 10, 96, False, "tiles"),
                 (256, 80, 10, 256, False, "wide, 6 windows a block"),
                 (128, 96, 96, 96, True, "d384L6 backbone: tensor cores; row-buffered backward"),
                 (12288, 5, 5, 96, True, "d384L6 depth stack: tiles"),
-                (256, 64, 64, 48, False, "window-resident, padded to 64"),
+                (256, 64, 64, 48, False, "window-resident, staged at 64"),
                 (256, 64, 64, 160, False, "wide, 160 columns staged as they are"),
                 (128, 256, 256, 96, True, "full grid: two-sweep backward"),
                 (128, 256, 256, 256, True, "full grid: wide two-sweep backward"),
                 (8, 64, 64, 512, False, "wide, 8 column groups of 64, small grid"),
                 (64, 96, 96, 256, True, "Dh-256 prior backbone: wide"),
                 (6144, 5, 5, 256, True, "Dh-256 prior depth stack: wide, 12 windows a block"),
-                (512, 40, 5, 256, False, "wide, W 5, 12 windows a block"))
+                (512, 40, 5, 256, False, "wide, W 5, 12 windows a block"),
+                (128, 96, 96, 48, True, "Dh-48 prior backbone: tensor cores; window-resident "
+                 "backward, staged at 64"),
+                (12288, 5, 5, 48, True, "Dh-48 prior depth stack: tiles, staged at 64"),
+                (256, 80, 10, 50, False, "tiles, staged at 64, copies of 8 · 4 bytes"),
+                (256, 64, 64, 12, False, "tensor cores; window-resident backward, staged at 16, "
+                 "copies of 16 · 8 bytes"),
+                (24, 160, 160, 100, False, "row-buffered backward, staged at 128, copies of "
+                 "16 · 8 bytes"),
+                (128, 256, 256, 1, True, "full grid: two-sweep backward, staged at 16, copies "
+                 "of 4 bytes · plain loads"),
+                (64, 96, 96, 130, True, "wide, staged at 144, copies of 8 · 4 bytes"),
+                (256, 64, 64, 300, False, "wide, staged at 304, copies of 16 · 8 bytes"))
 # the keep masks at head dims off the instantiated ones (B*H, S, W, Dh, causal): v = I
-# reads p_drop, so Dh >= S
+# reads p_drop, so Dh >= S; ragged at 21 (odd: copies of 4 bytes · plain loads), 48, 100
+# (row-buffered) and 130 (wide)
 K1_HEAD_DIM_MASKS = ((64, 20, 10, 24, False), (128, 96, 96, 96, True),
                      (64, 64, 64, 160, False), (8, 64, 64, 512, False),
-                     (64, 20, 5, 256, False))
+                     (64, 20, 5, 256, False), (64, 20, 10, 21, False),
+                     (16, 40, 40, 48, False), (8, 100, 100, 100, False),
+                     (8, 64, 64, 130, False))
 # K2 past 512 columns (N, D, K): the nearest-code kernel's column chunks
 K2_WIDE = ((512, 640, 512), (4096, 640, 512), (512, 1024, 512), (4096, 1024, 512))
 INT8_ODD = (37, 100, 196)     # the int8 product at K and N off multiples of 8: M, K, N
@@ -2997,8 +3041,9 @@ def _head_dim_bias(S: int, W: int, causal: bool) -> torch.Tensor:
 
 
 def _head_dim_case(g, dtype, direction: str, BH, S, W, Dh, causal, what: str) -> dict:
-    """K1 (``direction`` fwd or bwd) at a head dim off the instantiated ones
-    (padded), at 96, or past 128 (wide), dropout 0.1, against the plain
+    """K1 (``direction`` fwd or bwd) at a head dim off the instantiated
+    widths (the kernels' ragged form), at 96, or past 128 (wide), dropout
+    0.1, against the plain
     version at the true Dh under the rules of phase 2, two launches bit for
     bit; its bound counts the true Dh's work (windows, or the lower
     triangle), at the units of the path it takes; SDPA the library form."""
@@ -3036,7 +3081,8 @@ def _head_dim_case(g, dtype, direction: str, BH, S, W, Dh, causal, what: str) ->
     lib_ms = [time_ms(f) for f in library]
     case = {"shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "window": W,
             "bias": "causal" if causal else "window", "dropout": rate, "what": what,
-            "head_width": attention.head_width(Dh), "groups": plan.groups,
+            "head_width": plan.width, "copy_bytes": plan.copy_bytes, "ragged": plan.ragged,
+            "groups": plan.groups,
             "windows_per_block": plan.windows_per_block,
             "kernel_path": k1_case_kernel(name, {"shape": [BH, S, Dh], "window": W,
                                                  "bias": "causal" if causal else "window"}),
@@ -3370,25 +3416,34 @@ def prior_wide_path(smi: str, vq, exp) -> dict:
     that head dim natively) on the flagship's codes (``vq``, seed 0): as
     :func:`_prior_arm`, each epoch launching both K1 entry points of its
     dtype."""
-    return _prior_arm(smi, vq, exp, "prior_wide", PRIOR_WIDE, SEED + 13, wide=False)
+    return _prior_arm(smi, vq, exp, "prior_wide", PRIOR_WIDE, SEED + 13, head_dim=96)
 
 
 def prior_dh256_path(smi: str, vq, exp) -> dict:
     """The capacity sweep's d512 2-head arm (PRIOR_DH256: Dh 256) on the
     flagship's codes: as :func:`_prior_arm`, every K1 launch of its training
     on the wide kernels, forward and backward, in both dtypes."""
-    return _prior_arm(smi, vq, exp, "prior_dh256", PRIOR_DH256, SEED + 14, wide=True)
+    return _prior_arm(smi, vq, exp, "prior_dh256", PRIOR_DH256, SEED + 14, head_dim=256)
+
+
+def prior_dh48_path(smi: str, vq, exp) -> dict:
+    """The capacity sweep's d192 arm (PRIOR_DH48: 4 heads of Dh 48) on the
+    flagship's codes: as :func:`_prior_arm`, every K1 launch of its training
+    staged at 64 in the kernels' ragged form (window tiles and tensor
+    cores), forward and backward, in both dtypes."""
+    return _prior_arm(smi, vq, exp, "prior_dh48", PRIOR_DH48, SEED + 15, head_dim=48)
 
 
 def _prior_arm(smi: str, vq, exp, phase: str, config: dict, take_seed: int,
-               wide: bool) -> dict:
+               head_dim: int) -> dict:
     """A prior-capacity arm (``config`` over the extracted code space) on
     the flagship's codes (``vq``, seed 0): PRIOR_WIDE_TAKES synthetic takes
     of PRIOR_WIDE_FRAMES frames (seeded ``take_seed``) give (256, 96, 5)
     grids on the card (K1, K2), held to the CPU's on PRIOR_WIDE_CPU_TAKES
     takes under the prior phase's rule; the prior trains PRIOR_WIDE_EPOCHS
     timed epochs in f32 and bf16 (windows/s, tokens/s), each launching K1's
-    forward and backward (with ``wide``, every launch the wide kernels');
+    forward and backward at the arm's ``head_dim`` (past 128 every launch the
+    wide kernels');
     one step at dropout 0 is held to the CPU under ``step_agree`` and
     ``step_agree_bf16``; one greedy ``sample_grids`` call on the f32 prior
     (PRIOR_WIDE_SAMPLES x PRIOR_WIDE_SAMPLED positions) under
@@ -3409,8 +3464,8 @@ def _prior_arm(smi: str, vq, exp, phase: str, config: dict, take_seed: int,
     cpu = extract_code_grids(cpu_vq, exp, takes[:n], ZERO29, ONE29, PRIOR_STRIDE,
                              max_len=PRIOR_WIDE_POSITIONS)
     full = dataclasses.replace(pcfg, **config)
-    head_dim = full.d_model // full.n_heads
-    require(head_dim == (256 if wide else 96) and full.max_len == PRIOR_WIDE_POSITIONS,
+    wide = head_dim > attention.SUPPORTED_HEAD_DIMS[-1]
+    require(full.d_model // full.n_heads == head_dim and full.max_len == PRIOR_WIDE_POSITIONS,
             f"{phase} config {full}")
     line = {"phase": phase, "card": smi, "config": config, "head_dim": head_dim,
             "takes": PRIOR_WIDE_TAKES, "grids": list(grids.shape),
@@ -4834,6 +4889,7 @@ def main(argv) -> int:
     prior_long = prior_long_path(smi, vq, vq_exp)
     prior_wide = prior_wide_path(smi, vq, vq_exp)
     prior_dh256 = prior_dh256_path(smi, vq, vq_exp)
+    prior_dh48 = prior_dh48_path(smi, vq, vq_exp)
     del prior32, vq
     latent = latent_path(smi)
     imported, import_dir = torch_import_path(smi)
@@ -4865,7 +4921,8 @@ def main(argv) -> int:
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "prior_long": prior_long,
-             "prior_wide": prior_wide, "prior_dh256": prior_dh256, "generate": generate,
+             "prior_wide": prior_wide, "prior_dh256": prior_dh256, "prior_dh48": prior_dh48,
+             "generate": generate,
              "generator_artifact": generator, "latent": latent, "torch_import": imported,
              "demo_stream": demo, "data_parallel": dp, "research": research}
     for row in table:
@@ -4890,6 +4947,12 @@ def main(argv) -> int:
                     else (name, name + "_mma", name + "_long", name + "_wide"))
             launched = sum(r["launches_by_path"][path] for r in table if r["name"] in rows)
             require(launched > 0, f"{name}: no launch on {path} ({rows})")
+    # prior_dh48 (Dh 48, the ragged form): K1's window tiles (the depth stack) and tensor
+    # cores (the backbone: the forward, the window-resident backward) in each dtype, and K2
+    for name in [*(n + part for n in attention.ENTRY.values() for part in ("", "_mma")),
+                 "vq_assign"]:
+        by_path = next(r["launches_by_path"] for r in table if r["name"] == name)
+        require(by_path["prior_dh48"] > 0, f"{name}: no launch on prior_dh48: {by_path}")
     emit({"phase": "total", "card": smi, "chip_smoke_s": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ machine with one (which needs no JAX), run
 ``--noconftest`` skips tests/conftest.py, which configures JAX for the rest
 of the suite. Shapes go beyond chip_smoke.py's: every head dim K1 takes, odd
 sequence lengths and general biases, forward and backward, with dropout 0
-and 0.1, at head dims padded (8, 24, 48), native (96) and wide (160,
-256, 512); K2 at odd N, D and K, D up to 2048 (in column chunks past 512),
+and 0.1, at every head dim (8, 24, 48, 1, 12, 50, 100 staged in the
+kernels' ragged form, 96 native, 130, 136, 160, 256, 300, 301, 512 on the
+wide kernels); K2 at odd N, D and K, D up to 2048 (in column chunks past 512),
 K over several slices of a cluster rank and ragged last slices, N off the
 row tile, exact ties (also across the slices of one cluster), repeat calls,
 and the shapes and launch plans it refuses; the model zoo's shapes (K2 at K
@@ -149,7 +150,7 @@ def test_k1_refuses_what_it_does_not_take(gen, bad):
     q = torch.randn(4, S, Dh, device="cuda", generator=gen)
     bias = torch.zeros(S, S, device="cuda")
     args = {"q": q, "k": q, "v": q, "bias": bias}
-    if bad == "bias_device":   # any head dim is taken (padded or wide): not this
+    if bad == "bias_device":   # any head dim is taken (staged as it is): not this
         args["bias"] = bias.cpu()
     elif bad == "dtype":
         args["k"] = q.double()
@@ -1271,12 +1272,12 @@ def test_k1_refuses_a_plan_that_is_not_the_launchers(gen):
     bias = torch.zeros(64, 64, device="cuda")
     plan = attention.k1_plan(8, 64, 64, 64, torch.float32, "fwd")
     fn = kernels.entry("packed_attention_fwd")
-    call = lambda path, blocks, smem: fn(
+    call = lambda path, blocks, smem, copy=16: fn(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), out.data_ptr(), 8, 64, 64,
-        64, 0.125, 0, 8, 0, 1.0, 0, 0, path, blocks, smem, kernels.stream_ptr(q))
+        64, 0.125, 0, 8, 0, 1.0, 0, 0, path, blocks, smem, copy, kernels.stream_ptr(q))
     assert call(1, plan.blocks, plan.smem_bytes) == 0
     for bad in [(0, plan.blocks, plan.smem_bytes), (1, plan.blocks - 1, plan.smem_bytes),
-                (1, plan.blocks, plan.smem_bytes - 16)]:
+                (1, plan.blocks, plan.smem_bytes - 16), (1, plan.blocks, plan.smem_bytes, 8)]:
         assert call(*bad) != 0
     torch.cuda.synchronize()
 
@@ -1299,7 +1300,7 @@ def test_k1_backward_entry_points_refuse_each_others_plans(gen, S):
             q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), BH, S, S, Dh,
             Dh ** -0.5, 0, BH, 0, 1.0, 0, 0, 1, plan.blocks, plan.smem_bytes, plan.blocks_kv,
-            plan.smem_kv, kernels.stream_ptr(q))
+            plan.smem_kv, plan.copy_bytes, kernels.stream_ptr(q))
     torch.cuda.synchronize()
     own = attention.LONG_ENTRY[torch.float32] if plan.blocks_kv else "packed_attention_bwd"
     assert {n: s == 0 for n, s in status.items()} == {n: n == own for n in status}
@@ -1316,6 +1317,17 @@ def test_k2_past_512_columns_matches_plain(gen, N, D, K):
     cb = torch.randn(K, D, device="cuda", generator=gen)
     first = _k2_case(x, cb)
     assert all(torch.equal(a, b) for a, b in zip(first, codebook.nearest_codes(x, cb)))
+
+
+# Head dims off the instantiated widths, staged in the kernels' ragged form on every path:
+# the window tiles (W 10), the tensor-core forward and window-resident backward (W 64, and
+# W 96 at 128 rows), the row-buffered backward (24 windows of 160), the two-sweep backward
+# (the full grid of 128 windows of 256, causal). Copies (f32 · bf16): Dh 1 of 4 bytes ·
+# plain 2-byte loads, 12 of 16 · 8, 50 of 8 · 4, 100 of 16 · 8; 8, 24, 48 of 16 bytes.
+RAGGED_SHAPES = [(40, 20, 10, Dh, False) for Dh in (1, 12, 50, 100)] + \
+    [(8, 64, 64, Dh, False) for Dh in (1, 12, 50, 100)] + \
+    [(24, 160, 160, Dh, False) for Dh in (1, 12, 50, 100)] + \
+    [(128, 256, 256, Dh, True) for Dh in (1, 12, 50, 100)] + [(32, 96, 96, 12, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1335,13 +1347,25 @@ def test_k2_past_512_columns_matches_plain(gen, N, D, K):
                                               # full grids past W 64: whole rows, one column
                                               # group (merged in bf16 at 256, in both dtypes
                                               # at 160), the tiles with most work first
-                                              (72, 96, 96, 256, True), (72, 96, 96, 160, True)])
+                                              (72, 96, 96, 256, True), (72, 96, 96, 160, True),
+                                              # wide in narrower copies (f32 · bf16): Dh 130 of
+                                              # 8 · 4 bytes, 300 of 16 · 8, 301 of 4 · plain
+                                              # loads (odd: stores one element at a time), at W
+                                              # 10 (windows a block), 64 (one kernel) and past
+                                              (40, 20, 10, 130, False), (8, 64, 64, 130, False),
+                                              (12, 160, 160, 130, True), (40, 20, 5, 300, False),
+                                              (8, 64, 64, 300, False), (3, 160, 160, 300, True),
+                                              (8, 64, 64, 301, False), (40, 20, 10, 301, False),
+                                              *RAGGED_SHAPES])
 def test_k1_at_any_head_dim_matches_plain(gen, BH, S, W, Dh, causal, rate, dtype):
-    """Head dims off the instantiated ones (padded: 8, 24, 48), Dh 96 (the
-    d384L6 prior's) natively, and past 128 on the wide kernels (136, 160,
-    200, 256, 384, 512; several windows a block at W <= 32): forward and
-    backward against the plain version at the true Dh (f32 1e-4, bf16 one
-    ulp), two backward launches bit for bit, and the counters of the path."""
+    """Every head dim as it is: off the instantiated widths (8, 24, 48; 1,
+    12, 50, 100 on every path) in the kernels' ragged form, staged at the next
+    width, Dh 96 (the d384L6 prior's) natively, and past 128 on the wide
+    kernels (130, 136, 160, 200, 256, 300, 301, 384, 512; several windows a
+    block at W <= 32): forward and backward against the plain version at the
+    true Dh (f32 1e-4, bf16 one ulp), every element of every row (a store
+    past Dh would land in the next row), two backward launches bit for bit,
+    and the counters of the path."""
     q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
     bias = (torch.triu(torch.full((S, S), -1e9, device="cuda"), 1) if causal
@@ -1357,6 +1381,10 @@ def test_k1_at_any_head_dim_matches_plain(gen, BH, S, W, Dh, causal, rate, dtype
         assert attention.WIDE_COUNTER["fwd", dtype].count == 1
         assert attention.WIDE_COUNTER["bwd", dtype].count == 2
         assert attention.MMA_COUNTER["bwd", dtype].count == 0
+    else:
+        plan = attention.k1_plan(BH, S, W, Dh, dtype, "bwd", causal)
+        assert attention.MMA_COUNTER["bwd", dtype].count == (2 if plan.path == "mma" else 0)
+        assert attention.LONG_COUNTER["bwd", dtype].count == (2 if plan.blocks_kv else 0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W, causal)
     want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate, W,
@@ -1370,20 +1398,21 @@ def test_k1_at_any_head_dim_matches_plain(gen, BH, S, W, Dh, causal, rate, dtype
 
 
 def test_k1_wide_entry_points_refuse_other_plans(gen):
-    """The wide kernels' entry points take only head dims past 128 in
-    multiples of 8, at their own plan and path."""
+    """The wide kernels' entry points take only head dims past 128, at their
+    own plan, copy size and path."""
     BH, S, Dh = 4, 64, 256
     q = torch.randn(BH, S, Dh, device="cuda", generator=gen)
     out = torch.empty_like(q)
     bias = torch.zeros(S, S, device="cuda")
     plan = attention.k1_plan(BH, S, S, Dh, torch.float32, "fwd")
     fn = kernels.entry(attention.WIDE_ENTRY["fwd", torch.float32])
-    call = lambda dh, blocks, smem, path=attention.PATH_CODE["wide"]: fn(
+    call = lambda dh, blocks, smem, path=attention.PATH_CODE["wide"], copy=16: fn(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), out.data_ptr(), BH, S, S,
-        dh, 0.1, 0, BH, 0, 1.0, 0, 0, path, blocks, smem, kernels.stream_ptr(q))
+        dh, 0.1, 0, BH, 0, 1.0, 0, 0, path, blocks, smem, copy, kernels.stream_ptr(q))
     assert call(Dh, plan.blocks, plan.smem_bytes) == 0
     for bad in [(128, plan.blocks, plan.smem_bytes), (196, plan.blocks, plan.smem_bytes),
                 (Dh, plan.blocks - 1, plan.smem_bytes), (Dh, plan.blocks, plan.smem_bytes - 16),
-                (Dh, plan.blocks, plan.smem_bytes, attention.PATH_CODE["mma"])]:
+                (Dh, plan.blocks, plan.smem_bytes, attention.PATH_CODE["mma"]),
+                (Dh, plan.blocks, plan.smem_bytes, attention.PATH_CODE["wide"], 8)]:
         assert call(*bad) != 0
     torch.cuda.synchronize()

@@ -1,23 +1,29 @@
 """Every shape the JAX package computes, on the CPU: K1 at any head dim,
 K2 past D 512, the int8 product at any width.
 
-- K1's head-dim rule (``attention.head_width``): the instantiated dims run
-  as they are, any other Dh up to 128 at the next instantiated one, past 128
-  at the next multiple of 8 on the wide kernels (Dh 160, 256, 512 as they
-  are), in column groups of at most 256; the pad / slice wrappers
-  (``padded_fwd``, ``padded_bwd``) around the plain versions equal the
-  unpadded plain versions within 1e-6 (f32; zero columns add nothing to a
-  dot product, only the summation's length changes), forward and the
-  gradients of q, k and v, at dropout 0 and 0.1 with the same keep masks;
-- K1 at Dh 24, 96 and 160 (the plain version, through the op) against the
-  JAX package's fused attention (the Pallas kernel in interpret mode, whole
-  Dh) and its vjp: 2e-6 forward, 1e-5 gradients, as
+- K1's head-dim rule (``attention.head_width``): every Dh runs as it is,
+  staged up to 128 at the next instantiated width, past 128 at Dh itself on
+  the wide kernels, in column groups of at most 256; autograd through the op
+  at Dh 8, 24, 48 and 96 against the plain backward at the same Dh, at
+  dropout 0 and 0.1; ``_check`` refusing tensors of other shapes;
+- a mirror of the kernels' staging and stores (csrc/k1_tiles.cuh's
+  ``stage_chunks`` and ``stage_widen``, k1_mma.cuh's ``stage_mma`` and
+  ``store_rows``, k1_wide.cuh's ``stage_cols`` and ``store_cols``), for every
+  Dh from 1 to 512 on each path, in both dtypes: the copies cover the
+  columns below Dh once, zero-fill the rest of the staged width reading
+  nothing, are aligned for their size, and the stores write the columns
+  below Dh alone, once; the plan's copy size is the C launchers' rule;
+- K1 at Dh 8, 24, 48, 80, 96 and 160 (the plain version, through the op)
+  against the JAX package's fused attention (the Pallas kernel in interpret
+  mode, whole Dh) and its vjp: 2e-6 forward, 1e-5 gradients, as
   ``test_torch_port_window_attention.py`` holds Dh 16;
-- the token prior at Dh 96 (d_model 96, one head, one layer, slot-AR with
-  one depth layer), Dh 160 (d_model 160, one head) and Dh 256 (d_model 256,
-  one head, one layer, slot-AR with one depth layer: the Dh of the
-  capacity sweep's d512 2-head arm) against the JAX prior within 1e-5, as
-  ``test_torch_port_prior.py`` holds its tiny priors;
+- the token prior at Dh 48 (d_model 48, one head, one layer, slot-AR with
+  one depth layer: the Dh of the capacity sweep's d192 arm), Dh 96 (d_model
+  96, one head, one layer, slot-AR with one depth layer), Dh 160 (d_model
+  160, one head) and Dh 256 (d_model 256, one head, one layer, slot-AR with
+  one depth layer: the Dh of the capacity sweep's d512 2-head arm) against
+  the JAX prior within 1e-5, as ``test_torch_port_prior.py`` holds its tiny
+  priors;
 - the plain ``nearest_codes`` at D 1024 against the JAX package's
   ``nearest_codes_auto`` (which sends D past 512 to XLA): indices and
   counts equal, dw within 1e-5;
@@ -26,6 +32,7 @@ K2 past D 512, the int8 product at any width.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -38,11 +45,11 @@ from bridgerl_tpu.ops import int8 as jax_int8
 from bridgerl_tpu.ops.pallas import vq_kernel as jax_vq_kernel
 from bridgerl_tpu.ops.pallas.attention import fused_attention_fn
 from bridgerl_tpu_torch.models.layers import Int8Dense
-from bridgerl_tpu_torch.ops import attention, codebook
+from bridgerl_tpu_torch.ops import attention, codebook, kernels
 
 from test_torch_port_prior import TINY, jax_prior, port_prior
 
-PAD_ATOL = 1e-6
+GRAD_ATOL = 1e-6
 PRIOR_ATOL = 1e-5
 
 
@@ -64,71 +71,202 @@ def _qkvd(BH, S, Dh, seed=0):
 @pytest.mark.parametrize("Dh,width,groups", [(1, 16, 1), (8, 16, 1), (16, 16, 1), (17, 32, 1),
                                              (24, 32, 1), (48, 64, 1), (65, 96, 1),
                                              (96, 96, 1), (97, 128, 1), (128, 128, 1),
-                                             (129, 136, 1), (160, 160, 1), (256, 256, 1),
-                                             (300, 304, 2), (512, 512, 2), (1000, 1000, 4)])
+                                             (129, 129, 1), (160, 160, 1), (256, 256, 1),
+                                             (300, 300, 2), (512, 512, 2), (1000, 1000, 4)])
 def test_head_width_rule(Dh, width, groups):
-    """The width a head dim runs at, and past 128 the wide kernels' column
-    groups on a full grid (512 windows); a grid of 2 blocks splits its
-    columns further, to groups of at most 64 columns."""
+    """The width a head dim is staged and planned at, and past 128 the wide
+    kernels' column groups on a full grid (512 windows); a grid of 2 blocks
+    splits its columns further, to groups of at most 64 columns."""
     assert attention.head_width(Dh) == width
-    assert attention.k1_plan(512, 64, 64, Dh, torch.float32, "bwd").groups == groups
+    plan = attention.k1_plan(512, 64, 64, Dh, torch.float32, "bwd")
+    assert plan.groups == groups and (plan.Dh, plan.width) == (Dh, width)
     small = attention.k1_plan(2, 64, 64, Dh, torch.float32, "bwd")
     if Dh > 128:
         assert small.path == "wide" and small.groups >= groups
         assert attention._group_cols(-(-width // 16) * 16, small.groups) <= 64
     else:
         assert small.groups == 1
-    assert 96 in attention.SUPPORTED_HEAD_DIMS and attention.WIDE_ALIGN == 8
+    assert 96 in attention.SUPPORTED_HEAD_DIMS and not hasattr(attention, "padded_fwd")
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("Dh", [8, 24, 48, 96])
 @pytest.mark.parametrize("causal", [False, True])
-def test_padding_equals_the_unpadded_plain_version(Dh, rate, causal):
-    """The pad / slice wrappers around the plain versions against the plain
-    versions at the true Dh: forward, the backward's dq, dk and dv, and
-    autograd through the op, with windows of 10 (causal: whole rows)."""
+def test_autograd_through_the_op_at_any_head_dim(Dh, rate, causal):
+    """Autograd through the op (the plain version on the CPU) at the true Dh
+    against the plain backward, with windows of 10 (causal: whole rows)."""
     BH, S = 6, 20
     W = S if causal else 10
     q, k, v, do = _qkvd(BH, S, Dh, seed=Dh)
     bias = torch.zeros(S, S) if not causal else torch.triu(torch.full((S, S), -1e9), 1)
     scale, seed = Dh ** -0.5, torch.tensor([1234], dtype=torch.int32)
-    args = (bias, scale, seed, rate, W, causal)
-    want = attention.packed_attention_reference(q, k, v, *args)
-    got = attention.padded_fwd(attention.packed_attention_reference, q, k, v, *args)
-    assert got.shape == want.shape and got.is_contiguous()
-    torch.testing.assert_close(got, want, atol=PAD_ATOL, rtol=0)
-    bargs = (scale, seed, rate, W, causal)
-    want_b = attention.packed_attention_bwd_reference(q, k, v, bias, do, *bargs)
-    got_b = attention.padded_bwd(attention.packed_attention_bwd_reference, q, k, v, bias, do,
-                                 *bargs)
-    for a, b in zip(got_b, want_b):
-        assert a.shape == (BH, S, Dh)
-        torch.testing.assert_close(a, b, atol=PAD_ATOL, rtol=0)
-    # the keep mask of the padded call is the unpadded one: with v = I the
-    # forward returns p_drop, whose zeros are the dropped elements
-    if rate:
-        eye = torch.eye(S, Dh).expand(BH, S, Dh).contiguous() if Dh >= S else None
-        if eye is not None:
-            a = attention.padded_fwd(attention.packed_attention_reference, q, k, eye, *args)
-            b = attention.packed_attention_reference(q, k, eye, *args)
-            assert torch.equal(a[:, :, :S] > 0, b[:, :, :S] > 0)
-    # autograd through the op (the plain version on the CPU) at the true Dh
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate, W,
+                                                    causal)
     tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
     out = attention.attention_fwd(tq, tk, tv, bias, scale, seed, rate, W, causal)
+    torch.testing.assert_close(out.detach(), attention.packed_attention_reference(
+        q, k, v, bias, scale, seed, rate, W, causal), atol=0, rtol=0)
     grads = torch.autograd.grad(out, (tq, tk, tv), do)
-    for a, b in zip(grads, want_b):
-        torch.testing.assert_close(a, b, atol=PAD_ATOL, rtol=0)
+    for a, b in zip(grads, want):
+        assert a.shape == (BH, S, Dh)
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
 
 
-def test_padding_refuses_mismatched_shapes():
+def test_check_refuses_mismatched_shapes():
     q, k, v, do = _qkvd(2, 10, 24)
+    bias = torch.zeros(10, 10)
     with pytest.raises(ValueError, match="shape"):
-        attention.padded_fwd(attention.packed_attention_reference, q, k[..., :20], v,
-                             torch.zeros(10, 10), 0.2)
+        attention._check(q, k[..., :20], v, bias, None, 10, "fwd")
     with pytest.raises(ValueError, match="shape"):
-        attention.padded_bwd(attention.packed_attention_bwd_reference, q, k, v,
-                             torch.zeros(10, 10), do[:1], 0.2)
+        attention._check(q, k, v, bias, None, 10, "bwd", extra=(("dout", do[:1]),))
+
+
+# ---- a mirror of the kernels' staging and stores at any head dim
+
+# a plan's path, by the shape that takes it (B*H, S = P W, W, direction), up to Dh 128; the
+# wide kernels past it
+STAGING_PATHS = {"tiles": (8, 20, 10, "bwd"), "tensor cores": (8, 64, 64, "fwd"),
+                 "window-resident": (8, 64, 64, "bwd"), "row-buffered": (8, 160, 160, "bwd"),
+                 "two-sweep": (128, 256, 256, "bwd"), "wide": (8, 64, 64, "bwd")}
+ROWS = (0, 1, 7)   # rows of the tensor the mirror stages and stores (an odd row: any misalignment)
+
+
+def _c_copy_rule():
+    """csrc/k1_tiles.cuh's copy_bytes as Python: the launchers' rule."""
+    src = (kernels.CSRC / "k1_tiles.cuh").read_text()
+    body = re.search(r"constexpr int copy_bytes\(int Dh, int E\) \{\s*return (.*?);", src, re.S)
+    *pairs, last = re.split(r"\s+\?\s+|\s+:\s+", body.group(1))   # cond, value, ..., value
+    expr = " else ".join(f"{v} if {c}" for c, v in zip(pairs[::2], pairs[1::2])) + f" else {last}"
+    return lambda Dh, E: eval(expr, {"Dh": Dh, "E": E})   # noqa: S307
+
+
+def _check_staging(chunks, Dh, cols, E, copy, dst_unit):
+    """Each row's copies (arrays of src column or -1, dst column; V elements
+    each): the columns below Dh read once, each into its own column; [Dh,
+    cols) zero-filled, nothing read; every copy aligned for its bytes at a
+    16-byte base, in device memory (row r at byte r * Dh * E) and in the
+    tile (rows of a multiple of 16 bytes, ``dst_unit`` bytes an element)."""
+    V = copy // E
+    for r, (src, dst) in chunks.items():
+        filled = np.zeros(cols, np.int64)
+        np.add.at(filled, (dst[:, None] + np.arange(V)).ravel(), 1)
+        assert not ((dst * dst_unit) % (copy * dst_unit // E)).any()
+        reads = src >= 0
+        assert (dst[~reads] >= Dh).all() and (src[reads] == dst[reads]).all()
+        assert (src[reads] + V <= Dh).all() and not (((r * Dh + src[reads]) * E) % copy).any()
+        read = np.zeros(Dh, np.int64)
+        np.add.at(read, (src[reads][:, None] + np.arange(V)).ravel(), 1)
+        assert (read == 1).all() and (filled == 1).all()
+
+
+def _check_stores(stores, Dh, E):
+    """Each row's stores (column, elements): the columns below Dh once,
+    nothing at or past Dh (the next row's), each store aligned for its
+    bytes at a 16-byte base."""
+    for r, row in stores.items():
+        seen = np.zeros(Dh + 16, np.int64)
+        for col, n in row:
+            seen[col:col + n] += 1
+            assert ((r * Dh + col) * E) % (n * E) == 0
+        assert (seen[:Dh] == 1).all() and not seen[Dh:].any()
+
+
+def _chunks(Dh, spans, E, copy):
+    """stage_chunks' copies of one row over the column spans (c0, cols):
+    (src column or -1 where zero-filled, dst column) arrays."""
+    dst = np.concatenate([np.arange(c0, c0 + w, copy // E) for c0, w in spans])
+    return np.where(dst < Dh, dst, -1), dst
+
+
+def _pairs(Dh, cols, ragged):
+    """store_rows / store_cols: column pairs 8n + 2t below ``cols``; ragged,
+    those below Dh, whole where Dh is even, else one element at a time."""
+    out = []
+    for c in range(0, cols, 2):
+        if not ragged:
+            out.append((c, 2))
+        elif c < Dh:
+            out += [(c, 2)] if Dh % 2 == 0 else [(c, 1)] + ([(c + 1, 1)] if c + 1 < Dh else [])
+    return out
+
+
+def _quads(Dh, cols, ragged):
+    """The window tiles' put4: columns 4c .. 4c + 3; ragged, those below
+    Dh, whole where Dh is a multiple of 4, else one at a time."""
+    out = []
+    for c in range(0, cols, 4):
+        if not ragged:
+            out.append((c, 4))
+        elif c < Dh:
+            out += [(c, 4)] if Dh % 4 == 0 else [(c + e, 1) for e in range(4) if c + e < Dh]
+    return out
+
+
+@pytest.mark.parametrize("dtype", attention.DTYPES)
+@pytest.mark.parametrize("path", list(STAGING_PATHS))
+def test_kernels_stage_and_store_the_true_head_dim(path, dtype):
+    """For every Dh its path takes (1 to 128; the wide kernels 129 to 512):
+    the plan's path and copy size (the C launchers' rule), and a mirror of
+    the kernels' staging and stores at that size (module docstring)."""
+    BH, S, W, direction = STAGING_PATHS[path]
+    E, rule = dtype.itemsize, _c_copy_rule()
+    for Dh in range(129, 513) if path == "wide" else range(1, 129):
+        plan = attention.k1_plan(BH, S, W, Dh, dtype, direction)
+        width = plan.width
+        assert plan.copy_bytes == rule(Dh, E) == attention.copy_bytes(Dh, dtype)
+        assert ((Dh * E) % plan.copy_bytes == 0
+                and all((Dh * E) % b for b in attention.COPY_SIZES if b > plan.copy_bytes))
+        one = plan.path == "mma" and not plan.blocks_kv
+        kind = {"tiles": plan.path == "tiles", "tensor cores": one,
+                "window-resident": one and plan.rows == plan.cols,
+                "row-buffered": plan.path == "mma" and plan.rows == 32 and plan.blocks_kv,
+                "two-sweep": plan.path == "mma" and plan.rows == 64 and plan.blocks_kv > 0,
+                "wide": plan.path == "wide"}[path]
+        assert kind, (path, Dh, plan)
+        copy = plan.copy_bytes
+        if path == "wide":
+            # k1_wide.cuh: contraction slabs, group columns and whole rows of Dp columns,
+            # 16-byte copies but where Dh's rows are not 16-byte aligned
+            L = (attention.wide_window_layout(Dh, dtype, plan.groups) if plan.blocks_kv == 0
+                 else attention.wide_layout(Dh, dtype, "dq", plan.groups))
+            assert plan.ragged == (copy < 16) and L.Dp == -(-Dh // 16) * 16
+            slabs = [(c0, min(L.slab, L.Dp - c0)) for c0 in range(0, L.Dp, L.slab)]
+            # each group's columns once (the last group's past Dp staged for no product)
+            groups = [(cg * L.group_cols, min(L.group_cols, L.Dp - cg * L.group_cols))
+                      for cg in range(plan.groups) if cg * L.group_cols < L.Dp]
+            for spans in (slabs, groups, [(0, L.Dp)]):
+                chunks = {r: _chunks(Dh, spans, E, copy) for r in ROWS}
+                _check_staging(chunks, Dh, L.Dp, E, copy, E)
+            # store_cols: warp half ch of group cg owns nact tiles of 8 from oc0
+            HW, stores = L.group_cols // 2, {}
+            for r in ROWS:
+                row = []
+                for cg in range(plan.groups):
+                    for ch in range(2):
+                        oc0 = cg * L.group_cols + ch * HW
+                        nact = max(0, min(HW, L.Dp - oc0)) // 8
+                        row += [(oc0 + c, n) for c, n in _pairs(Dh, 8 * nact, plan.ragged)
+                                if oc0 + c < Dh]
+                stores[r] = row
+            _check_stores(stores, Dh, E)
+            continue
+        assert plan.ragged == (Dh != width) and width in attention.SUPPORTED_HEAD_DIMS
+        if not plan.ragged:   # the native loops: whole rows in 16-byte copies
+            assert copy == 16
+        if path == "tiles":   # float32 tiles in both dtypes (bf16 widened as staged)
+            chunks = {r: _chunks(Dh, [(0, width)], E, copy) for r in ROWS}
+            _check_staging(chunks, Dh, width, E, copy, 4)
+            _check_stores({r: _quads(Dh, width, plan.ragged) for r in ROWS}, Dh, E)
+            continue
+        chunks = {r: _chunks(Dh, [(0, width)], E, copy) for r in ROWS}
+        _check_staging(chunks, Dh, width, E, copy, E)
+        # store_rows: the row-buffered dq kernel's two parts each store NOW tiles from c8
+        parts = 2 if path == "row-buffered" else 1
+        now = width // 8 // parts
+        stores = {r: [(part * now * 8 + c, n) for part in range(parts)
+                      for c, n in _pairs(Dh - part * now * 8, 8 * now, plan.ragged)]
+                  for r in ROWS}
+        _check_stores(stores, Dh, E)
 
 
 def _fold(a):
@@ -141,7 +279,7 @@ def _unfold(t, B, H):
     return t.reshape(B, H, S, Dh).permute(0, 2, 1, 3).numpy()
 
 
-@pytest.mark.parametrize("Dh", [24, 96, 160])
+@pytest.mark.parametrize("Dh", [8, 24, 48, 80, 96, 160])
 def test_k1_at_odd_head_dims_matches_jax_fused_attention(Dh):
     B, H, S = 2, 1, 10
     rng = np.random.default_rng(Dh)
@@ -156,9 +294,11 @@ def test_k1_at_odd_head_dims_matches_jax_fused_attention(Dh):
         np.testing.assert_allclose(_unfold(g, B, H), np.asarray(w), atol=1e-5)
 
 
-# the d384L6 prior's head dim (96), two past 128 (160; 256, the d512 2-head arm's), at one
-# head and a small depth
-WIDE_PRIORS = {"dh96": dict(d_model=96, n_heads=1, n_layers=1, ff_dim=64, slot_ar=True,
+# the d192 arm's head dim (48: 4 heads), the d384L6 prior's (96), two past 128 (160; 256,
+# the d512 2-head arm's), at one head and a small depth
+WIDE_PRIORS = {"dh48": dict(d_model=48, n_heads=1, n_layers=1, ff_dim=64, slot_ar=True,
+                            depth_layers=1),
+               "dh96": dict(d_model=96, n_heads=1, n_layers=1, ff_dim=64, slot_ar=True,
                             depth_layers=1),
                "dh160": dict(d_model=160, n_heads=1, n_layers=1, ff_dim=64),
                "dh256": dict(d_model=256, n_heads=1, n_layers=1, ff_dim=64, slot_ar=True,

@@ -326,16 +326,15 @@ HEAD_DIM_WINDOWS = (5, 10, 32, 64, 96, 128, 160, 256)
 @pytest.mark.parametrize("W", HEAD_DIM_WINDOWS)
 def test_every_head_dim_is_planned_within_the_budget(W, direction):
     """k1_plan and mma_plan take every Dh from 1 to 512, in both dtypes,
-    causal or not: up to 128 the plan of the instantiated width the rule
-    gives (the next of SUPPORTED_HEAD_DIMS), past it the wide kernels' plan
-    at the next multiple of 8 (Dh itself where it is one); every launch
-    within the shared memory of one block."""
+    causal or not, as it is: up to 128 the plan of the instantiated width the
+    rule gives (the next of SUPPORTED_HEAD_DIMS), its rows staged in copies
+    of the plan's size, past it the wide kernels' plan at Dh itself; every
+    launch within the shared memory of one block."""
     BH, S = 3, 2 * W
     for Dh in range(1, 513):
         width = attention.head_width(Dh)
         assert width >= Dh and (width in attention.SUPPORTED_HEAD_DIMS if Dh <= 128
-                                else width % attention.WIDE_ALIGN == 0
-                                and width - Dh < attention.WIDE_ALIGN)
+                                else width == Dh)
         if Dh <= 128:
             assert width == min(d for d in attention.SUPPORTED_HEAD_DIMS if d >= Dh)
         for dtype in attention.DTYPES:
@@ -344,12 +343,17 @@ def test_every_head_dim_is_planned_within_the_budget(W, direction):
                 mma = attention.mma_plan(BH, S, W, Dh, dtype, direction, causal)
                 assert max(plan.smem_bytes, plan.smem_kv, mma.smem_bytes, mma.smem_kv) \
                     <= SMEM_LIMIT
+                assert (plan.Dh, plan.width) == (Dh, width)
+                assert plan.copy_bytes == attention.copy_bytes(Dh, dtype)
                 if Dh <= 128:
                     assert plan.groups == mma.groups == 1
-                    assert plan == k1_plan(BH, S, W, width, dtype, direction, causal)
+                    native = k1_plan(BH, S, W, width, dtype, direction, causal)
+                    assert plan._replace(Dh=width, copy_bytes=16) == native
+                    assert plan.ragged == (Dh != width) and not native.ragged
                 else:
                     assert plan == mma and plan.path == "wide"
                     assert plan.groups == attention.wide_groups(width, plan.blocks // plan.groups)
+                    assert plan.ragged == (plan.copy_bytes < 16)
 
 
 WIDE_WARPS = 8    # csrc/k1_wide.cuh kWarps: four row groups of 16 by two column halves
