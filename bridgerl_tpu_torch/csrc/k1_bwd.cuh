@@ -1141,9 +1141,9 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const
                                         hd, stream);
 }
 
-// Switches on the staged width (as k1_fwd.cuh's dispatch) and on whether Dh
-// is it; `copy` must be k1::copy_bytes.
-template <bool kTwo, typename Elem>
+// Switches on the staged width (as k1_fwd.cuh's dispatch); `copy` must be
+// k1::copy_bytes. A library holds one form, native or (kRagged) ragged, as k1_fwd.cuh's.
+template <bool kTwo, bool kRagged, typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout,
              Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, int Dh,
              float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
@@ -1159,7 +1159,8 @@ int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, con
   launch<kTwo, Elem, DH_, RAGGED_>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, \
                                    seed, group_rows, thresh, inv_keep, dropout, causal,     \
                                    path, blocks, smem_bytes, blocks_kv, smem_kv, hd, st)
-#define K1_WIDTH(DH_) (Dh == DH_ ? K1_BWD(DH_, false) : K1_BWD(DH_, true))
+#define K1_WIDTH(DH_) \
+  ((Dh == DH_) == kRagged ? (int)cudaErrorInvalidValue : K1_BWD(DH_, kRagged))
   if (Dh <= 16) return K1_WIDTH(16);
   if (Dh <= 32) return K1_WIDTH(32);
   if (Dh <= 64) return K1_WIDTH(64);

@@ -15,7 +15,8 @@
 // and nothing else of bias is read. Dh is any of 1 to 128: the kernels are
 // instantiated at the staged widths 16, 32, 64, 96, 128 (a template
 // argument), and a Dh below the width runs their ragged form (k1_tiles.cuh:
-// rows of Dh, tiles zero-filled past it, stores of the columns below it);
+// rows of Dh, tiles zero-filled past it, stores of the columns below it; the
+// form's entry points are libraries of their own, packed_attention*_ragged.cu);
 // Dh past 128 runs through k1_wide.cuh. With dropout on,
 // element (i, j) of row r (positions in the packed row) is kept when Philox
 // word attn_keep_bits(seed, r, i * S + j) < thresh (philox.cuh) and is then
@@ -354,8 +355,10 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
 }
 
 // Switches on the staged width (ops/attention.py::head_width: the least of 16, 32, 64, 96
-// and 128 at or above Dh) and on whether Dh is it; `copy` must be k1::copy_bytes.
-template <typename Elem>
+// and 128 at or above Dh); `copy` must be k1::copy_bytes. A library holds one form: the
+// native one (Dh the width) or, kRagged, the ragged one (Dh below it), and refuses the
+// other's head dims (the forms build in parallel, as libraries of their own).
+template <bool kRagged, typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
              int BH, int S, int W, int Dh, float scale, const int* seed, int group_rows,
              unsigned thresh, float inv_keep, int dropout, int causal, int path, int blocks,
@@ -367,12 +370,11 @@ int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Ele
   if (Dh < 1 || copy != k1::copy_bytes(Dh, (int)sizeof(Elem))) return (int)cudaErrorInvalidValue;
   const k1::Head hd{Dh, copy};
 #define K1_FWD(DH_)                                                                       \
-  (Dh == DH_ ? launch<Elem, DH_, false>(q, k, v, bias, out, BH, S, W, scale, seed,       \
-                                        group_rows, thresh, inv_keep, dropout, causal,   \
-                                        path, blocks, smem_bytes, hd, st)                \
-             : launch<Elem, DH_, true>(q, k, v, bias, out, BH, S, W, scale, seed,        \
-                                       group_rows, thresh, inv_keep, dropout, causal, path, \
-                                       blocks, smem_bytes, hd, st))
+  ((Dh == DH_) == kRagged ? (int)cudaErrorInvalidValue                                    \
+                          : launch<Elem, DH_, kRagged>(q, k, v, bias, out, BH, S, W, scale, \
+                                                       seed, group_rows, thresh, inv_keep,  \
+                                                       dropout, causal, path, blocks,       \
+                                                       smem_bytes, hd, st))
   if (Dh <= 16) return K1_FWD(16);
   if (Dh <= 32) return K1_FWD(32);
   if (Dh <= 64) return K1_FWD(64);

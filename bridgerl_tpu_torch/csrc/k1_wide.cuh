@@ -1426,7 +1426,8 @@ int launch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* bi
   return (int)cudaGetLastError();
 }
 
-template <typename Elem>
+// A library holds one form, as k1_fwd.cuh's: kRagged takes copies under 16 bytes.
+template <bool kRagged, typename Elem>
 int dispatch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
                       int BH, int S, int W, int Dh, float scale, const int* seed, int group_rows,
                       unsigned thresh, float inv_keep, int dropout, int causal, int path,
@@ -1439,14 +1440,10 @@ int dispatch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* 
   if (path != kWidePath || L.smem == 0 || g.blocks != (long long)blocks ||
       smem_bytes != L.smem)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return copy == 16
-             ? launch_wide_fwd<Elem, false>(q, k, v, bias, out, S, W, Dh, nwin, g, L, scale, seed,
-                                            group_rows, thresh, inv_keep, dropout, causal,
-                                            blocks, copy, st)
-             : launch_wide_fwd<Elem, true>(q, k, v, bias, out, S, W, Dh, nwin, g, L, scale, seed,
-                                           group_rows, thresh, inv_keep, dropout, causal, blocks,
-                                           copy, st);
+  if ((copy < 16) != kRagged) return (int)cudaErrorInvalidValue;
+  return launch_wide_fwd<Elem, kRagged>(q, k, v, bias, out, S, W, Dh, nwin, g, L, scale, seed,
+                                        group_rows, thresh, inv_keep, dropout, causal, blocks,
+                                        copy, (cudaStream_t)stream);
 }
 
 template <typename Elem, bool RAGGED>
@@ -1501,7 +1498,7 @@ int launch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bi
   return (int)cudaGetLastError();
 }
 
-template <typename Elem>
+template <bool kRagged, typename Elem>
 int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bias,
                       const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH,
                       int S, int W, int Dh, float scale, const int* seed, int group_rows,
@@ -1512,16 +1509,11 @@ int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* 
     return (int)cudaErrorInvalidValue;
   const long long nwin = (long long)BH * (S / W);
   const kw::Grid g = kw::grid_of(nwin, W, Dh);
-  cudaStream_t st = (cudaStream_t)stream;
-  return copy == 16
-             ? launch_wide_bwd<Elem, false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh,
-                                            nwin, g, scale, seed, group_rows, thresh, inv_keep,
-                                            dropout, causal, path, blocks, smem_bytes, blocks_kv,
-                                            smem_kv, copy, st)
-             : launch_wide_bwd<Elem, true>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh,
-                                           nwin, g, scale, seed, group_rows, thresh, inv_keep,
-                                           dropout, causal, path, blocks, smem_bytes, blocks_kv,
-                                           smem_kv, copy, st);
+  if ((copy < 16) != kRagged) return (int)cudaErrorInvalidValue;
+  return launch_wide_bwd<Elem, kRagged>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh,
+                                        nwin, g, scale, seed, group_rows, thresh, inv_keep,
+                                        dropout, causal, path, blocks, smem_bytes, blocks_kv,
+                                        smem_kv, copy, (cudaStream_t)stream);
 }
 
 }  // namespace

@@ -1,0 +1,20 @@
+// K1 forward, bfloat16, the kernels' ragged form (head dims below the width they
+// are staged at): the C entry point packed_attention_fwd_bf16_ragged. The kernels,
+// their launcher and the notes on their design are in k1_fwd.cuh;
+// packed_attention_bf16.cu is the native form's entry point. A library of its own, so
+// that nvcc builds the two forms in parallel.
+//
+// Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_fwd
+// (attention.py:143, pallas_call at :149), for bfloat16 inputs.
+#include "k1_fwd.cuh"
+
+extern "C" int packed_attention_fwd_bf16_ragged(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                                const __nv_bfloat16* v, const float* bias,
+                                                __nv_bfloat16* out, int BH, int S, int W,
+                                                int Dh, float scale, const int* seed,
+                                                int group_rows, unsigned thresh, float inv_keep,
+                                                int dropout, int causal, int path, int blocks,
+                                                int smem_bytes, int copy, void* stream) {
+  return dispatch<true>(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows, thresh,
+                        inv_keep, dropout, causal, path, blocks, smem_bytes, copy, stream);
+}

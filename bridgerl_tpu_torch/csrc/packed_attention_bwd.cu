@@ -15,7 +15,7 @@ extern "C" int packed_attention_bwd(const float* q, const float* k, const float*
                                     unsigned thresh, float inv_keep, int dropout, int causal,
                                     int path, int blocks, int smem_bytes, int blocks_kv,
                                     int smem_kv, int copy, void* stream) {
-  return dispatch<false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale, seed,
-                         group_rows, thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
-                         blocks_kv, smem_kv, copy, stream);
+  return dispatch<false, false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale,
+                                seed, group_rows, thresh, inv_keep, dropout, causal, path,
+                                blocks, smem_bytes, blocks_kv, smem_kv, copy, stream);
 }

@@ -18,7 +18,7 @@ extern "C" int packed_attention_bwd_long(const float* q, const float* k,
                                          float inv_keep, int dropout, int causal, int path,
                                          int blocks, int smem_bytes, int blocks_kv,
                                          int smem_kv, int copy, void* stream) {
-  return dispatch<true>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale, seed,
-                        group_rows, thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
-                        blocks_kv, smem_kv, copy, stream);
+  return dispatch<true, false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale,
+                               seed, group_rows, thresh, inv_keep, dropout, causal, path,
+                               blocks, smem_bytes, blocks_kv, smem_kv, copy, stream);
 }

@@ -14,8 +14,9 @@ extern "C" int packed_attention_fwd_wide(const float* q, const float* k, const f
                                          unsigned thresh, float inv_keep, int dropout, int causal,
                                          int path, int blocks, int smem_bytes, int copy,
                                          void* stream) {
-  return dispatch_wide_fwd(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows, thresh,
-                           inv_keep, dropout, causal, path, blocks, smem_bytes, copy, stream);
+  return dispatch_wide_fwd<false>(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows,
+                                  thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
+                                  copy, stream);
 }
 
 extern "C" int packed_attention_bwd_wide(const float* q, const float* k, const float* v,
@@ -25,7 +26,7 @@ extern "C" int packed_attention_bwd_wide(const float* q, const float* k, const f
                                          unsigned thresh, float inv_keep, int dropout, int causal,
                                          int path, int blocks, int smem_bytes, int blocks_kv,
                                          int smem_kv, int copy, void* stream) {
-  return dispatch_wide_bwd(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale, seed,
-                           group_rows, thresh, inv_keep, dropout, causal, path, blocks,
-                           smem_bytes, blocks_kv, smem_kv, copy, stream);
+  return dispatch_wide_bwd<false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale,
+                                  seed, group_rows, thresh, inv_keep, dropout, causal, path,
+                                  blocks, smem_bytes, blocks_kv, smem_kv, copy, stream);
 }

@@ -15,8 +15,9 @@ extern "C" int packed_attention_fwd_bf16_wide(const __nv_bfloat16* q, const __nv
                                               unsigned thresh, float inv_keep, int dropout,
                                               int causal, int path, int blocks, int smem_bytes,
                                               int copy, void* stream) {
-  return dispatch_wide_fwd(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows, thresh,
-                           inv_keep, dropout, causal, path, blocks, smem_bytes, copy, stream);
+  return dispatch_wide_fwd<false>(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows,
+                                  thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
+                                  copy, stream);
 }
 
 extern "C" int packed_attention_bwd_bf16_wide(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -28,7 +29,7 @@ extern "C" int packed_attention_bwd_bf16_wide(const __nv_bfloat16* q, const __nv
                                               float inv_keep, int dropout, int causal, int path,
                                               int blocks, int smem_bytes, int blocks_kv,
                                               int smem_kv, int copy, void* stream) {
-  return dispatch_wide_bwd(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale, seed,
-                           group_rows, thresh, inv_keep, dropout, causal, path, blocks,
-                           smem_bytes, blocks_kv, smem_kv, copy, stream);
+  return dispatch_wide_bwd<false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale,
+                                  seed, group_rows, thresh, inv_keep, dropout, causal, path,
+                                  blocks, smem_bytes, blocks_kv, smem_kv, copy, stream);
 }

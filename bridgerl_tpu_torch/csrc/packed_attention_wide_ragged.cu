@@ -1,0 +1,35 @@
+// K1 at head dims past 128, float32, the kernels' ragged form (rows staged in copies
+// under 16 bytes): the C entry points packed_attention_fwd_wide_ragged and
+// packed_attention_bwd_wide_ragged. The kernels, their launchers and the notes on
+// their design are in k1_wide.cuh; packed_attention_wide.cu holds the native form.
+// A library of its own, so that nvcc builds the two forms in parallel.
+//
+// Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_fwd
+// (attention.py:143, pallas_call at :149) and _packed_attention_bwd (:164,
+// pallas_call at :171), for float32 inputs whose head dim is past 128.
+#include "k1_wide.cuh"
+
+extern "C" int packed_attention_fwd_wide_ragged(const float* q, const float* k, const float* v,
+                                                const float* bias, float* out, int BH, int S,
+                                                int W, int Dh, float scale, const int* seed,
+                                                int group_rows, unsigned thresh, float inv_keep,
+                                                int dropout, int causal, int path, int blocks,
+                                                int smem_bytes, int copy, void* stream) {
+  return dispatch_wide_fwd<true>(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows,
+                                 thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
+                                 copy, stream);
+}
+
+extern "C" int packed_attention_bwd_wide_ragged(const float* q, const float* k, const float* v,
+                                                const float* bias, const float* dout, float* dq,
+                                                float* dk, float* dv, float* stats, int BH,
+                                                int S, int W, int Dh, float scale,
+                                                const int* seed, int group_rows,
+                                                unsigned thresh, float inv_keep, int dropout,
+                                                int causal, int path, int blocks,
+                                                int smem_bytes, int blocks_kv, int smem_kv,
+                                                int copy, void* stream) {
+  return dispatch_wide_bwd<true>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale,
+                                 seed, group_rows, thresh, inv_keep, dropout, causal, path,
+                                 blocks, smem_bytes, blocks_kv, smem_kv, copy, stream);
+}

@@ -13,8 +13,9 @@
 // on every run.
 //
 // Shapes: x (N, D), codebook (K, D), float32, contiguous; any N >= 1, any
-// K >= 1, any D >= 1 (the nearest-code kernel takes D past 512 in chunks of
-// at most 512 columns: design, 1). Groups: x (G, N, D) and codebook (G, K, D) give
+// K >= 1, any D >= 1 (past 512 columns the nearest codes come from the
+// tensor-core kernels of k2_wide.cuh, which stream D; the statistics kernel
+// is this file's at every D). Groups: x (G, N, D) and codebook (G, K, D) give
 // idx (G, N), counts (G, K) and dw (G, K, D), each group searched against
 // its own codebook and summed on its own, bit for bit what G launches of
 // one group give (the seeds of a stacked multi-seed step, which jax.vmap
@@ -26,9 +27,10 @@
 // pass) comes from the caller (ops/vq_kernel.py::k2_plan) and is checked
 // here.
 //
-// What bounds it on an H100: operations, 2 N K D over the 67 TFLOP/s of the
-// float32 cores. At training's (N 512, D 64, K 512) that is 33.5 MFLOP,
-// 0.5 us, less than the cost of a launch itself; at serving's N = 4096 it
+// What bounds it on an H100 up to 512 columns: operations, 2 N K D over the
+// 67 TFLOP/s of the float32 cores (past 512, k2_wide.cuh's tf32 tensor cores).
+// At training's (N 512, D 64, K 512) that is 33.5 MFLOP, 0.5 us, less than the
+// cost of a launch itself; at serving's N = 4096 it
 // is 4.0 us. The bytes (x and the codebook read once, idx, counts and dw
 // written once) take 0.1-0.4 us at 3.35 TB/s. So the design spreads the
 // scoring over every SM and keeps each block's serial chain short; what is
@@ -57,17 +59,14 @@
 //    (dist, idx) and pushes it into the shared memory of the rank that owns
 //    the row through distributed shared memory; after one cluster barrier
 //    each owner takes the minimum over the ranks and writes idx. Ties
-//    therefore go to the lowest index, however the codes are split. Past
-//    D = 512 a tile's rows and a slice's codes no longer fit one block's
-//    shared memory: the plan then splits D into chunks of at most 512
-//    columns (`chunk`) and a cluster takes one tile; for each slice the
-//    block stages the tile's and the slice's columns chunk by chunk, and
-//    both the norms and the scores keep adding over the chunks in column
-//    order, so each is one fixed sum. D = 64,
+//    therefore go to the lowest index, however the codes are split. D = 64,
 //    the flagship, is a template argument, so the score loop unrolls; other
-//    D run the same kernel with a runtime D. The tensor cores are not used:
-//    TF32 flips nearest codes, and at N = 4096 the float32 scoring already
-//    runs near the float32 cores' rate (PERF.md).
+//    D up to 512 run the same kernel with a runtime D. This kernel scores on
+//    the float32 cores: at the flagship's D 64 it reaches 4% (N 512) to 18%
+//    (N 6554) of their bound, at most a third of a microsecond of work, the
+//    rest the two launches' fixed cost (PERF.md §6). Past 512 columns a
+//    tile's rows and a slice's codes no longer fit a block: k2_wide.cuh's
+//    kernel streams D through the tf32 tensor cores (3xTF32) instead.
 // 2. vq_assign_stats: a block of 8 warps owns 8 codes, a warp one code and
 //    64 columns (two per lane). The block reads idx once (16-byte loads) and
 //    sets one bit per row of its codes in a bitmap per code in shared
@@ -87,6 +86,7 @@
 #include <stdint.h>
 
 #include "k1_tiles.cuh"
+#include "k2_wide.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -103,7 +103,7 @@ constexpr int kStatCols = 64;     // columns per statistics warp, two per lane
 constexpr int kWindow = 32;       // rows a statistics lane loads at a time
 constexpr int kListRows = 2048;   // rows a statistics warp lists before adding them
 constexpr int kMaxPassRows = 32768;
-constexpr int kMaxChunk = 512;    // columns of x and the codes staged at once
+constexpr int kMaxNarrow = 512;   // widest D of vq_assign_nearest; past it k2_wide.cuh
 
 // Padded row stride in floats: D rounded up to 8, plus 4. Row r's 16-byte
 // column c then falls in bank group (r * S / 4 + c) mod 8 with S / 4 odd.
@@ -131,21 +131,20 @@ inline size_t stats_smem(int pass_rows) {
   return sizeof(int) * (size_t)kStatWarps * (pass_rows / 32 + kListRows);
 }
 
-// Copy `valid` rows of D floats at src, row stride ld (ld = D: contiguous;
-// a column chunk of wider rows), into n rows of stride S at dst; the rest of
-// the n rows, and the columns up to the next multiple of 4, are zero. vec
-// (D and ld multiples of 4, 16-byte aligned sources): cp.async, completed
-// by the caller's wait; otherwise plain loads and stores.
+// Copy `valid` rows of D floats at src (contiguous) into n rows of stride S
+// at dst; the rest of the n rows, and the columns up to the next multiple of
+// 4, are zero. vec (D a multiple of 4, 16-byte aligned sources): cp.async,
+// completed by the caller's wait; otherwise plain loads and stores.
 template <int DK>
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int valid,
-                                      int n, int D, int S, bool vec, int ld) {
+                                      int n, int D, int S, bool vec) {
   const int D4 = DK ? DK / 4 : (D + 3) / 4;
   if (vec) {
     for (int e = threadIdx.x; e < n * D4; e += blockDim.x) {
       const int r = e / D4, c = e - r * D4;
       float* d = dst + r * S + 4 * c;
       if (r < valid)
-        k1::cp_async16(d, src + (size_t)r * ld + 4 * c);
+        k1::cp_async16(d, src + (size_t)r * D + 4 * c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -153,7 +152,7 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
     const int W = 4 * D4;
     for (int e = threadIdx.x; e < n * W; e += blockDim.x) {
       const int r = e / W, c = e - r * W;
-      dst[r * S + c] = (r < valid && c < D) ? __ldg(src + (size_t)r * ld + c) : 0.f;
+      dst[r * S + c] = (r < valid && c < D) ? __ldg(src + (size_t)r * D + c) : 0.f;
     }
   }
 }
@@ -229,8 +228,7 @@ __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
 template <int TR, int DK>
 __global__ void __launch_bounds__(kThreads, 2)
 vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
-                  int* __restrict__ idx, int N, int D, int K, int spb, int tiles, int chunk,
-                  bool vec) {
+                  int* __restrict__ idx, int N, int D, int K, int spb, int tiles, bool vec) {
   constexpr int RPT = TR / kRowGroups;    // a thread's rows: g, g + 8, g + 16, ...
   constexpr int TPC = kThreads / kCodes;  // threads per code norm
   // the statistics kernel may be scheduled now: it waits for this grid's end
@@ -242,10 +240,8 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
   x += (size_t)blockIdx.y * N * D;   // this block's group
   cb += (size_t)blockIdx.y * K * D;
   idx += (size_t)blockIdx.y * N;
-  const int S = row_stride(DK ? DK : chunk);
-  // column chunks: more than one only past 512 (never for the flagship's D = 64, DK)
-  const int nch = DK ? 1 : (D + chunk - 1) / chunk;
-  const int XB = xbuf_floats(TR, DK ? DK : chunk);
+  const int S = row_stride(DK ? DK : D);
+  const int XB = xbuf_floats(TR, DK ? DK : D);
   float* xbuf = reinterpret_cast<float*>(smem4);     // x-tile buffers: tile t in t & 1
   float* cs = xbuf + (tiles > 1 ? 2 : 1) * XB;        // the code slice
   float* cn = cs + kCodes * S;                        // its squared norms
@@ -259,15 +255,12 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
   const int ntiles = min(tiles, (N + TR - 1) / TR - tile0);
   const int slices = (K + kCodes - 1) / kCodes;
   const int rg = threadIdx.x / kCodeGroups, cgi = threadIdx.x % kCodeGroups;
-  // one slice and one chunk: the codes are staged once for every tile
-  const bool keep_codes = spb == 1 && nch == 1;
+  const bool keep_codes = spb == 1;   // one slice: the codes are staged once for every tile
 
-  // the first x tile and, with one slice, the codes: one copy group (chunked,
-  // each (slice, chunk) stages its own columns of both below)
-  if (nch == 1)
-    stage<DK>(xbuf, x + (size_t)tile0 * TR * D, min(TR, N - tile0 * TR), TR, D, S, vec, D);
+  // the first x tile and, with one slice, the codes: one copy group
+  stage<DK>(xbuf, x + (size_t)tile0 * TR * D, min(TR, N - tile0 * TR), TR, D, S, vec);
   if (keep_codes) stage<DK>(cs, cb + (size_t)rank * kCodes * D, min(kCodes, K - rank * kCodes),
-                            kCodes, D, S, vec, D);
+                            kCodes, D, S, vec);
   cp_async_commit();
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 
@@ -277,7 +270,7 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
     float* xs = xbuf + (t & 1) * XB;
     if (t + 1 < ntiles)  // the next tile streams in while this one is scored
       stage<DK>(xbuf + ((t + 1) & 1) * XB, x + (size_t)(row0 + TR) * D,
-                min(TR, N - row0 - TR), TR, D, S, vec, D);
+                min(TR, N - row0 - TR), TR, D, S, vec);
     cp_async_commit();
 
     float best[RPT];
@@ -300,44 +293,34 @@ vq_assign_nearest(const float* __restrict__ x, const float* __restrict__ cb,
         for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
       const float* xr = xs + rg * S;
       const float* cr = cs + cgi * S;
-      for (int ch = 0; ch < nch; ++ch) {   // column chunks, in order
-        const int c0 = ch * chunk, wc = min(chunk, D - c0);
-        if (nch > 1) {   // then tiles == 1: nothing else is in flight
-          __syncthreads();   // the previous chunk has been read
-          stage<DK>(xs, x + (size_t)row0 * D + c0, rows, TR, wc, S, vec, D);
-          stage<DK>(cs, cb + (size_t)k0 * D + c0, min(kCodes, K - k0), kCodes, wc, S, vec, D);
-          cp_async_commit();
-        } else if (!keep_codes) {  // then tiles == 1: nothing else is in flight
-          if (j > 0) __syncthreads();  // the previous slice has been read
-          stage<DK>(cs, cb + (size_t)k0 * D, min(kCodes, K - k0), kCodes, D, S, vec, D);
-          cp_async_commit();
+      if (!keep_codes) {  // then tiles == 1: nothing else is in flight
+        if (j > 0) __syncthreads();  // the previous slice has been read
+        stage<DK>(cs, cb + (size_t)k0 * D, min(kCodes, K - k0), kCodes, D, S, vec);
+        cp_async_commit();
+      }
+      if (keep_codes)
+        cp_async_wait<1>();  // all but the next tile's copies
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      const int D4 = DK ? DK / 4 : (D + 3) / 4;
+      if (norms) {  // the slice's squared norms; padding codes get inf
+        const float* e = cs + c * S;
+        for (int d4 = p; d4 < D4; d4 += TPC) {
+          const float4 v = *reinterpret_cast<const float4*>(e + 4 * d4);
+          sum = k1::dot4(v, v, sum);
         }
-        if (keep_codes)
-          cp_async_wait<1>();  // all but the next tile's copies
-        else
-          cp_async_wait<0>();
-        __syncthreads();
-        const int D4 = DK ? DK / 4 : (wc + 3) / 4;
-        if (norms) {
-          const float* e = cs + c * S;
-          for (int d4 = p; d4 < D4; d4 += TPC) {
-            const float4 v = *reinterpret_cast<const float4*>(e + 4 * d4);
-            sum = k1::dot4(v, v, sum);
-          }
-          if (ch == nch - 1) {  // the slice's squared norms; padding codes get inf
 #pragma unroll
-            for (int off = TPC / 2; off > 0; off >>= 1)
-              sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            if (p == 0) cn[c] = (k0 + c < K) ? sum : INFINITY;
-          }
-        }
-        if constexpr (DK > 0) {
+        for (int off = TPC / 2; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (p == 0) cn[c] = (k0 + c < K) ? sum : INFINITY;
+      }
+      if constexpr (DK > 0) {
 #pragma unroll
-          for (int d4 = 0; d4 < DK / 4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
-        } else {
+        for (int d4 = 0; d4 < DK / 4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
+      } else {
 #pragma unroll 2
-          for (int d4 = 0; d4 < D4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
-        }
+        for (int d4 = 0; d4 < D4; ++d4) score_tile<RPT>(acc, xr, cr, S, d4);
       }
       __syncthreads();  // the norms are in, and the tile has been read
 #pragma unroll
@@ -491,63 +474,63 @@ vq_assign_stats(const float* __restrict__ x, const int* __restrict__ idx,
 
 template <int TR, int DK>
 cudaError_t launch_nearest(const cudaLaunchConfig_t& cfg, const float* x, const float* cb,
-                           int* idx, int N, int D, int K, int spb, int tiles, int chunk,
-                           bool vec) {
+                           int* idx, int N, int D, int K, int spb, int tiles, bool vec) {
   const cudaError_t e = k1::allow_smem(vq_assign_nearest<TR, DK>, cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
   return cudaLaunchKernelEx(&cfg, vq_assign_nearest<TR, DK>, x, cb, idx, N, D, K, spb, tiles,
-                            chunk, vec);
+                            vec);
 }
 
 }  // namespace
 
 // The plan's numbers are checked against what the kernels need; a plan that
-// does not cover every (row, code) pair, or that does not fit, is refused.
+// does not cover every (row, code) pair, that does not fit, or that was made
+// for the other nearest-code kernel (`wide`: D past 512) is refused.
 extern "C" int vq_assign(const float* x, const float* cb, int* idx, float* counts,
                          float* dw, int groups, int N, int D, int K, int tile_rows,
                          int cluster, int slices_per_block, int tiles_per_cluster,
-                         int smem_bytes, int pass_rows, int chunk, void* stream) {
-  if (groups < 1 || groups > 65535 || N < 1 || K < 1 || D < 1)
-    return (int)cudaErrorInvalidValue;
-  // columns a chunk: all of D up to 512, past it at most 512 (ops/vq_kernel.py::k2_chunk),
-  // and a cluster of one tile
-  const int nch = chunk >= 1 ? (D + chunk - 1) / chunk : 0;
-  if (chunk < 1 || chunk > kMaxChunk || (D <= kMaxChunk && chunk != D) ||
-      (nch > 1 && (chunk % 8 != 0 || tiles_per_cluster != 1)))
+                         int smem_bytes, int pass_rows, int wide, void* stream) {
+  if (groups < 1 || groups > 65535 || N < 1 || K < 1 || D < 1 || wide != (D > kMaxNarrow))
     return (int)cudaErrorInvalidValue;
   const int slices = (K + kCodes - 1) / kCodes;
+  const size_t need = wide ? k2w::wide_smem(tile_rows, tiles_per_cluster)
+                           : nearest_smem(tile_rows, D, tiles_per_cluster);
   if ((tile_rows != 32 && tile_rows != 64) || cluster < 1 || cluster > kMaxCluster ||
       cluster > slices || (long long)cluster * slices_per_block < slices ||
       tiles_per_cluster < 1 || (slices_per_block > 1 && tiles_per_cluster > 1) ||
-      smem_bytes < (long long)nearest_smem(tile_rows, chunk, tiles_per_cluster) ||
-      smem_bytes > k1::kSmemLimit || pass_rows < 32 || pass_rows % 32 != 0 ||
-      pass_rows > kMaxPassRows || (long long)stats_smem(pass_rows) > k1::kSmemLimit)
+      smem_bytes < (long long)need || smem_bytes > k1::kSmemLimit || pass_rows < 32 ||
+      pass_rows % 32 != 0 || pass_rows > kMaxPassRows ||
+      (long long)stats_smem(pass_rows) > k1::kSmemLimit)
     return (int)cudaErrorInvalidValue;
   const bool vec = D % 4 == 0 && ((uintptr_t)x | (uintptr_t)cb) % 16 == 0;
   if ((uintptr_t)idx % 16 != 0) return (int)cudaErrorInvalidValue;
 
-  const int row_tiles = (N + tile_rows - 1) / tile_rows;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * ((row_tiles + tiles_per_cluster - 1) / tiles_per_cluster),
-                     groups);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   const int spb = slices_per_block, T = tiles_per_cluster;
   cudaError_t e;
-  if (tile_rows == 64)
-    e = (D == 64 && vec) ? launch_nearest<64, 64>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec)
-                         : launch_nearest<64, 0>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec);
-  else
-    e = (D == 64 && vec) ? launch_nearest<32, 64>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec)
-                         : launch_nearest<32, 0>(cfg, x, cb, idx, N, D, K, spb, T, chunk, vec);
+  if (wide) {   // the norms go through counts, which the statistics kernel then writes
+    e = k2w::launch_wide(x, cb, counts, idx, groups, N, D, K, tile_rows, cluster, spb, T,
+                         smem_bytes, (cudaStream_t)stream);
+  } else {
+    const int row_tiles = (N + tile_rows - 1) / tile_rows;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster * ((row_tiles + T - 1) / T), groups);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (tile_rows == 64)
+      e = (D == 64 && vec) ? launch_nearest<64, 64>(cfg, x, cb, idx, N, D, K, spb, T, vec)
+                           : launch_nearest<64, 0>(cfg, x, cb, idx, N, D, K, spb, T, vec);
+    else
+      e = (D == 64 && vec) ? launch_nearest<32, 64>(cfg, x, cb, idx, N, D, K, spb, T, vec)
+                           : launch_nearest<32, 0>(cfg, x, cb, idx, N, D, K, spb, T, vec);
+  }
   if (e != cudaSuccess) return (int)e;
 
   const size_t smem = stats_smem(pass_rows);

@@ -56,7 +56,10 @@ backward's two-kernel path has a C entry point of its own
 (``LONG_ENTRY``, ``csrc/packed_attention_bwd[_bf16]_long.cu``), whose
 launches count on the backward's counters and on ``LONG_COUNTER``; the wide
 kernels' (``WIDE_ENTRY``, ``csrc/packed_attention_wide[_bf16].cu``) on the
-entry's counter and on ``WIDE_COUNTER``.
+entry's counter and on ``WIDE_COUNTER``. Each entry point's ragged form
+(below) is a library of its own, ``<entry>_ragged`` (``csrc/*_ragged.cu``),
+so that nvcc builds the two forms in parallel; its launches count as the
+entry point's.
 
 Head dims: every Dh runs as it is, with no copy of q, k, v, dout or the
 outputs. The kernels up to 128 are instantiated at the widths
@@ -748,6 +751,13 @@ def _same_shapes(q, *named) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, q {tuple(q.shape)}")
 
 
+def _form(plan: K1Plan) -> str:
+    """The entry point's suffix for the plan's form: each entry point's ragged
+    form is a library of its own (``<entry>_ragged``), built beside the native
+    one; a launch counts on the entry point's counters either way."""
+    return "_ragged" if plan.ragged else ""
+
+
 def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
     """The forward's launch, at any head dim (the plan's staged width and
     copies)."""
@@ -757,7 +767,7 @@ def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
     out = torch.empty_like(q)
     if BH == 0:
         return out
-    name = (WIDE_ENTRY if plan.path == "wide" else ENTRY)["fwd", q.dtype]
+    name = (WIDE_ENTRY if plan.path == "wide" else ENTRY)["fwd", q.dtype] + _form(plan)
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
@@ -781,7 +791,7 @@ def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=F
     scratch = backward_scratch(plan)
     stats = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
     name = (WIDE_ENTRY["bwd", q.dtype] if plan.path == "wide"
-            else LONG_ENTRY[q.dtype] if plan.blocks_kv else ENTRY["bwd", q.dtype])
+            else LONG_ENTRY[q.dtype] if plan.blocks_kv else ENTRY["bwd", q.dtype]) + _form(plan)
     fn = kernels.entry(name)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

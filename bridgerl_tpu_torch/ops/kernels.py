@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``. The build runs
-at first use, one ``nvcc`` per source, all started together, into
+at first use, one ``nvcc`` per source, as many at once as the host has
+cores, the slowest sources first (``SLOW_FIRST``), into
 ``bridgerl_tpu_torch/_build/`` (listed in ``.gitignore``). A library's file
 name carries a hash of its source, so an edited kernel is rebuilt. The
 build holds a file lock on ``_build/``, so processes that start together
@@ -17,6 +18,7 @@ here falls back to a kernel's plain version.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import fcntl
 import hashlib
@@ -56,10 +58,32 @@ SIGNATURES = {
     "packed_attention_bwd_wide": ("packed_attention_wide", _K1_BWD),
     "packed_attention_fwd_bf16_wide": ("packed_attention_wide_bf16", _K1_FWD),
     "packed_attention_bwd_bf16_wide": ("packed_attention_wide_bf16", _K1_BWD),
+    # each K1 entry point's ragged form (head dims off the staged width, or copies under
+    # 16 bytes: ops/attention.py K1Plan.ragged), a library of its own for a parallel build
+    **{name + "_ragged": (lib + "_ragged", sig)
+       for name, lib, sig in (("packed_attention_fwd", "packed_attention", _K1_FWD),
+                              ("packed_attention_fwd_bf16", "packed_attention_bf16", _K1_FWD),
+                              ("packed_attention_bwd", "packed_attention_bwd", _K1_BWD),
+                              ("packed_attention_bwd_bf16", "packed_attention_bwd_bf16", _K1_BWD),
+                              ("packed_attention_bwd_long", "packed_attention_bwd_long", _K1_BWD),
+                              ("packed_attention_bwd_bf16_long", "packed_attention_bwd_bf16_long",
+                               _K1_BWD),
+                              ("packed_attention_fwd_wide", "packed_attention_wide", _K1_FWD),
+                              ("packed_attention_bwd_wide", "packed_attention_wide", _K1_BWD),
+                              ("packed_attention_fwd_bf16_wide", "packed_attention_wide_bf16",
+                               _K1_FWD),
+                              ("packed_attention_bwd_bf16_wide", "packed_attention_wide_bf16",
+                               _K1_BWD))},
     # x, codebook, idx, counts, dw, groups, N, D, K, then ops/vq_kernel.py's K2Plan:
-    # tile_rows, cluster, slices_per_block, tiles_per_cluster, smem_bytes, pass_rows, chunk
+    # tile_rows, cluster, slices_per_block, tiles_per_cluster, smem_bytes, pass_rows, wide
     "vq_assign": ("vq_assign", [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P]),
 }
+
+# The sources nvcc takes longest on (each with its ``_ragged`` form), started first: with
+# every source started at once the 17 builds shared an 8-core host and the longest ended
+# last, 101 s in all against its own 65 s of CPU (PERF.md §6)
+SLOW_FIRST = ("packed_attention_bwd", "packed_attention_bwd_long", "packed_attention_bwd_bf16",
+              "packed_attention_wide", "packed_attention_bwd_bf16_long")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -114,26 +138,29 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             return _build_and_load()
 
 
+def _build_order(src: Path) -> int:
+    name = src.stem.removesuffix("_ragged")
+    return SLOW_FIRST.index(name) if name in SLOW_FIRST else len(SLOW_FIRST)
+
+
+def _compile(src: Path) -> str:
+    """nvcc of one source into its library; nvcc's output where it fails."""
+    out = _lib_path(src)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if r.returncode != 0:
+        return f"nvcc failed on {src.name}:\n{r.stdout}"
+    os.replace(tmp, out)
+    return ""
+
+
 def _build_and_load() -> Dict[str, ctypes.CDLL]:
     """Under the build lock: compile what is missing, then load."""
     sources = sorted(CSRC.glob("*.cu"))
-    jobs = []
-    for src in sources:
-        out = _lib_path(src)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, tmp, out, proc))
-    errors = []
-    for src, tmp, out, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed on {src.name}:\n{log}")
-        else:
-            os.replace(tmp, out)
+    jobs = sorted((src for src in sources if not _lib_path(src).exists()), key=_build_order)
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(os.sched_getaffinity(0)))) as pool:
+        errors = [e for e in pool.map(_compile, jobs) if e]
     if errors:
         raise RuntimeError("\n".join(errors))
     libs = {src.stem: ctypes.CDLL(str(_lib_path(src))) for src in sources}

@@ -8,10 +8,12 @@ The counterpart of ``bridgerl_tpu/ops/pallas/vq_kernel.py``
 into row tiles and code slices with the slices of a tile in one
 thread-block cluster; the other adds each code's rows in increasing row
 order and writes every output once, so the outputs need no zeroing and dw
-is the same on every run. :func:`k2_plan` sizes both launches from
-(N, D, K): any N, K and D of at least 1; past MAX_CHUNK columns the
-nearest-code kernel takes D in chunks (:func:`k2_chunk`). Shapes the kernels
-do not take raise: there is no silent fallback to the plain version.
+is the same on every run. Past MAX_NARROW columns the nearest codes come
+from ``csrc/k2_wide.cuh`` (the codes' norms, then a kernel that streams D
+through the tf32 tensor cores, 3xTF32), counted on ``vq_assign_wide`` as
+well. :func:`k2_plan` sizes the launches from (N, D, K): any N, K and D of
+at least 1. Shapes the kernels do not take raise: there is no silent
+fallback to the plain version.
 
 Groups: x (G, N, D) and codebook (G, K, D) give idx (G, N), counts (G, K)
 and dw (G, K, D) from one launch of each kernel, group g equal bit for bit
@@ -27,7 +29,7 @@ import torch
 
 from . import kernels
 
-MAX_CHUNK = 512          # columns of x and the codes a nearest-code block stages at once
+MAX_NARROW = 512         # widest D of csrc/vq_assign.cu's nearest-code kernel
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448      # bytes of shared memory one block may use
 CODES_PER_SLICE = 64
@@ -38,8 +40,10 @@ BLOCKS_PER_SM = 2         # the nearest-code blocks a cluster's tiles aim for
 MAX_PASS_ROWS = 32_768   # rows of idx the statistics kernel takes in one pass
 STAT_CODES, STAT_COLS = 8, 64   # codes (one warp each) and columns of a statistics block
 LIST_ROWS = 2048         # rows a statistics warp lists before adding them
+WIDE_STAGES, WIDE_COLS = 4, 32   # k2_wide.cuh's ring: stages of 32 columns (128 bytes a row)
 
 launch_counter = kernels.LaunchCounter("vq_assign")
+wide_counter = kernels.LaunchCounter("vq_assign_wide")   # the launches past MAX_NARROW
 
 
 class K2Plan(NamedTuple):
@@ -54,9 +58,9 @@ class K2Plan(NamedTuple):
     warps; block (i, j), warp w, owns code i * STAT_CODES + w and columns
     j * STAT_COLS + lane and j * STAT_COLS + 32 + lane, and reads idx in
     passes of ``pass_rows`` rows (a bitmap of that many bits per code in
-    shared memory). Past MAX_CHUNK columns the nearest-code blocks take D
-    in chunks of ``chunk`` columns (one tile a cluster); else ``chunk`` is
-    D."""
+    shared memory). ``wide`` (D past MAX_NARROW): the nearest codes are
+    ``csrc/k2_wide.cuh``'s, blocks of 160 threads streaming D through a
+    ring of WIDE_STAGES stages (``wide_smem``)."""
     tile_rows: int
     row_tiles: int
     slices: int
@@ -67,7 +71,7 @@ class K2Plan(NamedTuple):
     smem_bytes: int
     pass_rows: int
     stat_grid: Tuple[int, int]
-    chunk: int
+    wide: bool
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -92,43 +96,48 @@ def stats_smem(pass_rows: int) -> int:
     return 4 * STAT_CODES * (pass_rows // 32 + LIST_ROWS)
 
 
-def k2_chunk(D: int) -> int:
-    """The columns a nearest-code block stages at once: all of D up to
-    MAX_CHUNK; past it D split evenly into the fewest chunks of at most
-    MAX_CHUNK, rounded up to a multiple of 8 (the last chunk may be
-    narrower). Each score and norm adds its chunks in column order."""
-    if D <= MAX_CHUNK:
-        return D
-    return _cdiv(_cdiv(D, _cdiv(D, MAX_CHUNK)), 8) * 8
+def wide_smem(tile_rows: int, tiles: int = 1) -> int:
+    """Shared memory of k2_wide.cuh's nearest-code kernel: 1024 bytes of
+    alignment slack, WIDE_STAGES stages of (tile_rows + 64) rows of 128
+    bytes, a full and an empty barrier a stage, the two code halves'
+    winners per row, and a (best, idx) per row of the cluster's tiles from
+    each of up to 8 ranks."""
+    return (1024 + WIDE_STAGES * (tile_rows + CODES_PER_SLICE) * 4 * WIDE_COLS
+            + 16 * WIDE_STAGES + 16 * tile_rows + 8 * MAX_CLUSTER * tiles * tile_rows)
 
 
 def k2_plan(N: int, D: int, K: int) -> K2Plan:
     """64-row tiles when they still give a block per SM and fit in shared
     memory, else 32; one cluster of up to 8 blocks splits a tile's codes.
-    With one slice per block and one column chunk (D up to MAX_CHUNK), a
-    cluster takes several tiles (at most 16), so that about two blocks run
-    on each SM and each loads its codes once."""
+    Up to MAX_NARROW columns, with one slice per block, a cluster takes
+    several tiles (at most 16), so that about BLOCKS_PER_SM blocks run on
+    each SM and each loads its codes once. Past it a cluster takes one tile:
+    the codes stream through the ring for every tile anyway, and two tiles
+    a cluster ran slower on the card (PERF.md §6)."""
     if N < 1 or K < 1 or D < 1:
         raise ValueError(f"K2 takes N >= 1, K >= 1 and D >= 1, got N={N}, D={D}, K={K}")
-    chunk = k2_chunk(D)
+    wide = D > MAX_NARROW
+
+    def smem(t: int, tiles: int = 1) -> int:
+        return wide_smem(t, tiles) if wide else nearest_smem(t, D, tiles)
+
     slices = _cdiv(K, CODES_PER_SLICE)
     cluster = min(MAX_CLUSTER, slices)
     tile_rows = next(t for t in TILE_ROWS
                      if t == TILE_ROWS[-1] or (_cdiv(N, t) * cluster >= SMS
-                                               and nearest_smem(t, chunk) <= SMEM_LIMIT))
+                                               and smem(t) <= SMEM_LIMIT))
     row_tiles = _cdiv(N, tile_rows)
     slices_per_block = _cdiv(slices, cluster)
     tiles = 1
-    if slices_per_block == 1 and chunk == D:
+    if slices_per_block == 1 and not wide:
         tiles = min(MAX_TILES, _cdiv(row_tiles, max(1, BLOCKS_PER_SM * SMS // cluster)))
-        while tiles > 1 and nearest_smem(tile_rows, chunk, tiles) > SMEM_LIMIT:
+        while tiles > 1 and smem(tile_rows, tiles) > SMEM_LIMIT:
             tiles -= 1
     return K2Plan(tile_rows=tile_rows, row_tiles=row_tiles, slices=slices, cluster=cluster,
                   slices_per_block=slices_per_block, tiles_per_cluster=tiles,
-                  clusters=_cdiv(row_tiles, tiles),
-                  smem_bytes=nearest_smem(tile_rows, chunk, tiles),
+                  clusters=_cdiv(row_tiles, tiles), smem_bytes=smem(tile_rows, tiles),
                   pass_rows=min(_cdiv(N, 32) * 32, MAX_PASS_ROWS),
-                  stat_grid=(_cdiv(K, STAT_CODES), _cdiv(D, STAT_COLS)), chunk=chunk)
+                  stat_grid=(_cdiv(K, STAT_CODES), _cdiv(D, STAT_COLS)), wide=wide)
 
 
 def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor
@@ -163,7 +172,9 @@ def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor
     status = fn(flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(),
                 counts.data_ptr(), dw.data_ptr(), G, N, D, K, plan.tile_rows, plan.cluster,
                 plan.slices_per_block, plan.tiles_per_cluster, plan.smem_bytes, plan.pass_rows,
-                plan.chunk, kernels.stream_ptr(flat))
+                int(plan.wide), kernels.stream_ptr(flat))
     kernels.check("vq_assign", status)
     launch_counter.add()
+    if plan.wide:
+        wide_counter.add()
     return idx, counts, dw

@@ -1,14 +1,17 @@
 """Warm device times of K1 and K2 at fixed shapes, on the card, in the tree it
 runs from: the way to compare two versions of the kernels in one call.
 
-    python -m bridgerl_tpu_torch.tools.kernel_times TAG [--build]   # one H100
+    python -m bridgerl_tpu_torch.tools.kernel_times TAG [--build] [--k2]   # one H100
 
 prints one JSON line per case (``tree`` = TAG): K1's forward and backward
 (float32 and bf16, dropout 0.1) at the token prior's, the towers' and the
-two-kernel backward's shapes, and K2 at the flagship's and the zoo's. Each
-time is the median of 50 CUDA-event timings after 5 warm-up calls, with a
-~5 ms spin queued before each so that the events bracket the device work
-(``chip_smoke.py::time_ms``'s method). ``--build`` only builds the kernels.
+two-kernel backward's shapes, and K2 at the flagship's and the zoo's and
+past 512 columns (``K2_WIDE``, chip_smoke.py's as well; with its plain version's
+time and a cold time, L2 emptied before each call). Each time is the median
+of 50 CUDA-event timings after 5 warm-up calls, with a ~5 ms spin queued
+before each so that the events bracket the device work
+(``chip_smoke.py::time_ms``'s method). ``--build`` only builds the kernels;
+``--k2`` times K2 alone.
 
 To compare a parent commit with a change, unpack the parent into a
 directory that ``.gitignore`` lists (``git archive``), build both trees
@@ -25,7 +28,7 @@ import sys
 import torch
 
 from ..models.layers import attention_bias, causal_bias
-from ..ops import attention, kernels, vq_kernel
+from ..ops import attention, codebook, kernels, vq_kernel
 
 # (B*H, S, W, Dh, causal): the towers' W 10 (packing 8) and W 64, the prior at 128 and 256
 # positions and at d_model 128, the backward's two-kernel shapes, the slot-AR depth stack;
@@ -50,15 +53,21 @@ K1_SHAPES = ((256, 80, 10, 64, False), (2048, 80, 10, 64, False), (1024, 64, 64,
 # other widths
 K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),
              (16384, 64, 1024), (16384, 64, 512), (1000, 512, 100), (5000, 128, 1024))
+# past 512 columns (chip_smoke.py's too): hidden_dim 640 and 1024 at training's and serving's N
+K2_WIDE = ((512, 640, 512), (4096, 640, 512), (512, 1024, 512), (4096, 1024, 512))
 LEAD_CYCLES = 10_000_000
+L2_FLUSH_FLOATS = 32 << 20   # 128 MB written before each cold call: over twice the L2
 
 
-def time_ms(fn, warmup: int = 5, iters: int = 50) -> float:
+def time_ms(fn, warmup: int = 5, iters: int = 50, cold: bool = False) -> float:
+    flush = torch.empty(L2_FLUSH_FLOATS, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if cold:
+            flush.fill_(1.0)
         torch.cuda._sleep(LEAD_CYCLES)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -78,7 +87,7 @@ def main(argv) -> int:
     tag = argv[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in attention.DTYPES:
+    for dtype in () if "--k2" in argv else attention.DTYPES:
         for BH, S, W, Dh, causal in K1_SHAPES:
             q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
                            for _ in range(4))
@@ -91,12 +100,15 @@ def main(argv) -> int:
                               "shape": [BH, S, W, Dh], "causal": causal,
                               "head_width": attention.head_width(Dh),
                               "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd)}), flush=True)
-    for N, D, K in K2_SHAPES:
+    for N, D, K in K2_SHAPES + K2_WIDE:
         x = torch.randn(N, D, device="cuda", generator=g)
         cb = torch.randn(K, D, device="cuda", generator=g)
-        print(json.dumps({"tree": tag, "kernel": "k2", "shape": [N, D, K],
-                          "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb))}),
-              flush=True)
+        row = {"tree": tag, "kernel": "k2", "shape": [N, D, K],
+               "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb))}
+        if D > 512:
+            row.update(ms_cold=time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
+                       plain_ms=time_ms(lambda: codebook.nearest_codes_plain(x, cb)))
+        print(json.dumps(row), flush=True)
     return 0
 
 

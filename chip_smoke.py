@@ -49,8 +49,10 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    at N = 4096 (serving), 512 (training), 6554 (validation) and 16384 (the
    K4 teacher's 4096 windows x 4 tokens) with K = 512, and at K = 1024 with
    N = 4096 and 16384 (the zoo's standard, ema and rvq at the CLI's batch),
-   and past 512 columns (D 640 and 1024 at N 512 and 4096, K 512: the
-   nearest-code kernel's column chunks; no profile):
+   and past 512 columns (D 640 and 1024 at N 512 and 4096, and D 2048 at N
+   4096, K 512, and a stacked two-seed step at (N 512, D 640): the
+   tensor-core kernel of csrc/k2_wide.cuh, the ``vq_assign_wide`` row, its
+   bound three tf32 products a product at 495 TFLOP/s; no profile):
    its counts and dw must equal ``assignment_stats`` on the CPU for its own
    indices bit for bit, a second call must repeat the first bit for bit,
    and in a child process one profile of all its shapes (``k2_device_ops``;
@@ -98,7 +100,14 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    step: the card's loss and every gradient no farther than twice the CPU
    bf16 step's (the loss may always be one bf16 rounding, 2**-8, off).
    ``train_agree_wide``: the transformer + ema at hidden_dim 640 (K2 at D
-   640 in training), one f32 step under train_agree's rule.
+   640 in training), one f32 step under train_agree's rule. ``train_wide``:
+   the flagship at hidden_dim 1024 (every K2 call of its residual VQ at D
+   1024 on the tensor-core kernel), teacher training through the Trainer
+   as ``train`` (batch 16384 in 32 microbatches of 512, dropout 0.1), f32
+   and bf16, one warm-up and one timed epoch of 16,384 training windows;
+   windows/s and launches (``vq_assign_wide`` above 0 in both dtypes), one
+   f32 step under train_agree's rule and one bf16 step under
+   train_agree_bf16's.
 6. The model zoo: every arch x method at full width (the JAX package's
    defaults; window 64, the CLI's) served through ServingApp on 64 windows
    (``retarget``, ``robot_recon``, and ``motion_codes`` where the method
@@ -355,7 +364,8 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    check an answer sums the launches of its own calls; the float32
    tensor-core rows must show launches on the zoo, recipe, prior and
    research paths, the two-kernel rows on prior_long, K1's forward and
-   backward of each dtype and K2 on prior_wide, the wide rows of each
+   backward of each dtype and K2 on prior_wide, vq_assign_wide on
+   train_wide, the wide rows of each
    dtype and K2 on prior_dh256, the window-tile and tensor-core rows of
    K1's forward and backward in each dtype and K2 on prior_dh48), then,
    last,
@@ -440,6 +450,7 @@ from bridgerl_tpu_torch.train.checkpoint import (
     save_checkpoint,
     to_reference_state_dict,
 )
+from bridgerl_tpu_torch.tools.kernel_times import K2_WIDE
 from bridgerl_tpu_torch.train.codebook_seed import JITTER
 from bridgerl_tpu_torch.train.prior import (
     PriorTrainConfig,
@@ -680,10 +691,17 @@ K1_HEAD_DIM_MASKS = ((64, 20, 10, 24, False), (128, 96, 96, 96, True),
                      (64, 20, 5, 256, False), (64, 20, 10, 21, False),
                      (16, 40, 40, 48, False), (8, 100, 100, 100, False),
                      (8, 64, 64, 130, False))
-# K2 past 512 columns (N, D, K): the nearest-code kernel's column chunks
-K2_WIDE = ((512, 640, 512), (4096, 640, 512), (512, 1024, 512), (4096, 1024, 512))
+# K2 past 512 columns (N, D, K), csrc/k2_wide.cuh: K2_WIDE (tools/kernel_times.py's) at
+# hidden_dim 640 and 1024, training's and serving's N; also D 2048, and the grouped case
+# (G, N, D, K) of a two-seed step
+K2_WIDE_MORE = ((4096, 2048, 512),)
+K2_WIDE_GROUPED = ((2, 512, 640, 512),)
+K2_WIDE_MAIN = [512, 1024, 512]   # train_wide's residual VQ: the wide row's main case
 INT8_ODD = (37, 100, 196)     # the int8 product at K and N off multiples of 8: M, K, N
 AGREE_WIDE_HIDDEN = 640       # train_agree_wide: K2 at D 640 in training (transformer + ema)
+# train_wide: the flagship at hidden_dim 1024; one warm-up and one timed epoch of TRAIN_BATCH
+# training windows (the dataset holds the validation split besides)
+TRAIN_WIDE_HIDDEN, TRAIN_WIDE_EPOCHS = 1024, 2
 ZERO29, ONE29 = np.zeros(29, np.float32), np.ones(29, np.float32)   # raw in, raw out
 # sampling: motions a call, positions, guided candidates and dynamics weight (the
 # README's recommended policy), prompt positions, the seed
@@ -843,6 +861,20 @@ def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k2_bound(N: int, D: int, K: int, G: int = 1):
+    """K2's bound: x and the codebook read once, idx, counts and dw written
+    once; the products 2 N K D at the float32 cores' rate up to 512 columns,
+    past it three tf32 products a product at the tensor cores' rate
+    (csrc/k2_wide.cuh, as k1_bound counts K1's float32 tensor-core rows); the
+    norms (2 K D) and dw's adds (N D) at the float32 cores' rate."""
+    nbytes = 4 * G * (N * D + K * D + N + K + K * D)
+    other = G * (2 * K * D + N * D)
+    if D <= vq_kernel.MAX_NARROW:
+        return bound(nbytes, G * 2 * N * K * D + other)
+    seconds = G * 3 * 2 * N * K * D / TF32_FLOPS_PER_S + other / FP32_FLOPS_PER_S
+    return bound(nbytes, seconds * FP32_FLOPS_PER_S)
+
+
 def bf16_ulp(x) -> float:
     """The bfloat16 spacing at |x|: 2**-7 of the power of two at or below it."""
     return 2.0 ** (math.floor(math.log2(max(abs(float(x)), 2.0 ** -126))) - 7)
@@ -996,12 +1028,14 @@ def split_k1_rows(table: list) -> list:
 
 def row_launches(row: dict, launched: dict) -> int:
     """A kernel row's launches in one path's counts: an entry point's window
-    tiles are its launches less its tensor-core and wide ones, and the
+    tiles are its launches less its tensor-core and wide ones, the
     backward's window-resident kernel its tensor-core launches less its
-    two-kernel ones."""
+    two-kernel ones, and K2's row its launches less those past 512 columns."""
     name = row["name"]
     if name in attention.ENTRY.values():
         return launched[name] - launched[name + "_mma"] - launched[name + "_wide"]
+    if name == vq_kernel.launch_counter.name:   # K2's launches up to 512 columns
+        return launched[name] - launched[vq_kernel.wide_counter.name]
     if name.endswith("_mma") and name[:-4] + "_long" in launched:
         return launched[name] - launched[name[:-4] + "_long"]
     return launched[name]
@@ -1276,8 +1310,7 @@ def _k2_grouped_case(g, G, N, D, K) -> dict:
     again = vq_kernel.nearest_codes_cuda(x, cb)
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"K2 {G} groups: a second call differs from the first")
-    b_ms, b_by = bound(4 * G * (N * D + K * D + N + K + K * D),
-                       G * (2 * N * K * D + 2 * K * D + N * D))
+    b_ms, b_by = k2_bound(N, D, K, G)
     return {"shape": [N, D, K], "groups": G, "dw_equal_cpu_row_order": True,
             "equal_to_single_group_calls": True, "repeat_equal": True,
             "max_abs_err": err, "idx_mismatch_near_ties": near_ties,
@@ -1288,54 +1321,62 @@ def _k2_grouped_case(g, G, N, D, K) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def check_k2(g: torch.Generator, smi: str) -> dict:
-    """K2 at the training, serving and validation shapes: indices against
-    the plain version outside near ties; counts and dw bit for bit against
-    ``assignment_stats`` on the CPU for the kernel's own indices (both add
-    each code's rows in row order), and a second call bit for bit equal to
-    the first; two device operations a call (the two kernels, no fills)."""
+def _k2_shape_case(g, N, D, K, extra: dict) -> dict:
+    """K2 at one (N, D, K) under its rule (see check_k2), timed."""
+    x = torch.randn(N, D, device="cuda", generator=g)
+    cb = torch.randn(K, D, device="cuda", generator=g)
+    idx, counts, dw = vq_kernel.nearest_codes_cuda(x, cb)
+    torch.cuda.synchronize()
+    near_ties, mismatch = _k2_plain_mismatch(x, cb, idx)
+    require(mismatch == 0, f"K2 {N, D, K}: {mismatch} rows disagree")
+    require(counts.sum().item() == N, f"K2: counts sum {counts.sum().item()} != {N}")
+    own_counts, own_dw = codebook.assignment_stats(x.cpu(), idx.cpu(), K)
+    require(torch.equal(counts.cpu(), own_counts), "K2: counts differ from its own indices")
+    err = (dw.cpu() - own_dw).abs().max().item()
+    require(torch.equal(dw.cpu(), own_dw),
+            f"K2 {N, D, K}: dw differs from the CPU's row-order sums by up to {err}")
+    again = vq_kernel.nearest_codes_cuda(x, cb)
+    require(all(torch.equal(a, b) for a, b in zip((idx, counts, dw), again)),
+            f"K2 {N, D, K}: a second call differs from the first")
+    b_ms, b_by = k2_bound(N, D, K)
+    return {
+        "shape": [N, D, K], "max_abs_err": err, "dw_equal_cpu_row_order": True,
+        "repeat_equal": True, "idx_mismatch_near_ties": near_ties,
+        "plan": vq_kernel.k2_plan(N, D, K)._asdict(),
+        "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb)),
+        "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
+        "plain_ms": time_ms(lambda: codebook.nearest_codes_plain(x, cb)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **extra}
+
+
+def check_k2(g: torch.Generator, smi: str) -> list:
+    """K2 at the training, serving and validation shapes and past 512
+    columns: indices against the plain version outside near ties; counts and
+    dw bit for bit against ``assignment_stats`` on the CPU for the kernel's
+    own indices (both add each code's rows in row order), and a second call
+    bit for bit equal to the first; two device operations a call (the two
+    kernels, no fills) up to 512 columns. Two rows: ``vq_assign`` (D up to
+    512) and ``vq_assign_wide`` (csrc/k2_wide.cuh; its main case train_wide's
+    (512, 1024, 512))."""
     device_ops = k2_device_ops(smi)
     floor = {"launch_floor_ms": time_ms(lambda: torch.cuda._sleep(0)),
              "launch_floor_two_ms": time_ms(lambda: (torch.cuda._sleep(0),
                                                      torch.cuda._sleep(0)))}
-    cases = []
-    for N, D, K in K2_SHAPES + K2_WIDE:
-        x = torch.randn(N, D, device="cuda", generator=g)
-        cb = torch.randn(K, D, device="cuda", generator=g)
-        idx, counts, dw = vq_kernel.nearest_codes_cuda(x, cb)
-        torch.cuda.synchronize()
-        near_ties, mismatch = _k2_plain_mismatch(x, cb, idx)
-        require(mismatch == 0, f"K2: {mismatch} rows disagree")
-        require(counts.sum().item() == N, f"K2: counts sum {counts.sum().item()} != {N}")
-        own_counts, own_dw = codebook.assignment_stats(x.cpu(), idx.cpu(), K)
-        require(torch.equal(counts.cpu(), own_counts), "K2: counts differ from its own indices")
-        err = (dw.cpu() - own_dw).abs().max().item()
-        require(torch.equal(dw.cpu(), own_dw),
-                f"K2 {N, D, K}: dw differs from the CPU's row-order sums by up to {err}")
-        again = vq_kernel.nearest_codes_cuda(x, cb)
-        require(all(torch.equal(a, b) for a, b in zip((idx, counts, dw), again)),
-                f"K2 {N, D, K}: a second call differs from the first")
-        b_ms, b_by = bound(4 * (N * D + K * D + N + K + K * D),
-                           2 * N * K * D + 2 * K * D + N * D)
-        plan = vq_kernel.k2_plan(N, D, K)
-        case = {
-            "shape": [N, D, K], "max_abs_err": err, "dw_equal_cpu_row_order": True,
-            "repeat_equal": True, "idx_mismatch_near_ties": near_ties,
-            "plan": plan._asdict(),
-            "ms": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb)),
-            "ms_cold": time_ms(lambda: vq_kernel.nearest_codes_cuda(x, cb), cold=True),
-            "plain_ms": time_ms(lambda: codebook.nearest_codes_plain(x, cb)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            **device_ops.get(f"k2 {N} {D} {K}", {}), **floor,   # past 512 columns: no profile
-        }
-        emit({"phase": "kernel", "name": "vq_assign", **case})
-        cases.append(case)
-    for G, N, D, K in K2_GROUPED:
+    narrow, wide = [], []
+    for N, D, K in K2_SHAPES + K2_WIDE + K2_WIDE_MORE:
+        case = _k2_shape_case(g, N, D, K, {**device_ops.get(f"k2 {N} {D} {K}", {}), **floor})
+        emit({"phase": "kernel", "name": "vq_assign" if D <= vq_kernel.MAX_NARROW
+              else "vq_assign_wide", **case})
+        (narrow if D <= vq_kernel.MAX_NARROW else wide).append(case)
+    for G, N, D, K in K2_GROUPED + K2_WIDE_GROUPED:
         case = _k2_grouped_case(g, G, N, D, K)
-        emit({"phase": "kernel", "name": "vq_assign", **case})
-        cases.append(case)
-    return _kernel_row("vq_assign", "bridgerl_tpu_torch/csrc/vq_assign.cu",
-                       "bridgerl_tpu/ops/pallas/vq_kernel.py:106", cases)
+        emit({"phase": "kernel", "name": "vq_assign" if D <= vq_kernel.MAX_NARROW
+              else "vq_assign_wide", **case})
+        (narrow if D <= vq_kernel.MAX_NARROW else wide).append(case)
+    wide.sort(key=lambda c: c["shape"] != K2_WIDE_MAIN or "groups" in c)   # the main case first
+    replaces = "bridgerl_tpu/ops/pallas/vq_kernel.py:106"
+    return [_kernel_row("vq_assign", "bridgerl_tpu_torch/csrc/vq_assign.cu", replaces, narrow),
+            _kernel_row("vq_assign_wide", "bridgerl_tpu_torch/csrc/k2_wide.cuh", replaces, wide)]
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1659,6 +1700,8 @@ def _expected_train_launches(trainer: Trainer, n: int, epochs: int) -> dict:
     want = {name: 0 for name in kernels.COUNTERS}
     want.update({name: epochs * (micro * m + val_batches * v)
                  for name, m, v in zip(names, PER_MICROBATCH[mode], PER_VAL_BATCH[mode])})
+    if exp.model.hidden_dim > vq_kernel.MAX_NARROW:   # every K2 call past 512 columns
+        want[vq_kernel.wide_counter.name] = want[vq_kernel.launch_counter.name]
     return want
 
 
@@ -1736,16 +1779,31 @@ def _step_grads(exp, dev: str, robot: torch.Tensor, human: torch.Tensor,
              if p.grad is not None})
 
 
-def _agree_step(dev: str, dtype, method: str = "hybrid", **over) -> tuple:
-    """The loss and every parameter's gradient of one optimizer batch of
-    AGREE_BATCH at dropout 0 from one seed, on ``dev`` in ``dtype``."""
-    exp = make_experiment("transformer", method, window=10, attn_packing=8, dropout=0.0,
-                          batch_size=AGREE_BATCH, accum_chunks=1,
-                          compute_dtype=DTYPE_NAME[dtype], **over)
+def _agree_exp(dtype, method: str = "hybrid", **over):
+    return make_experiment("transformer", method, window=10, attn_packing=8, dropout=0.0,
+                           batch_size=AGREE_BATCH, accum_chunks=1,
+                           compute_dtype=DTYPE_NAME[dtype], **over)
+
+
+def _agree_batch() -> tuple:
     rng = np.random.default_rng(SEED + 2)
-    robot, human = (torch.from_numpy(rng.normal(size=(AGREE_BATCH, 10, d)).astype(np.float32))
-                    for d in (29, 126))
-    return _step_grads(exp, dev, robot, human)
+    return tuple(torch.from_numpy(rng.normal(size=(AGREE_BATCH, 10, d)).astype(np.float32))
+                 for d in (29, 126))
+
+
+def _agree_step(dev: str, dtype, method: str = "hybrid", rows=None, **over) -> tuple:
+    """The loss and every parameter's gradient of one optimizer batch of
+    AGREE_BATCH at dropout 0 from one seed, on ``dev`` in ``dtype`` (only the
+    windows ``rows`` of the batch, when given)."""
+    robot, human = _agree_batch()
+    return _step_grads(_agree_exp(dtype, method, **over), dev, robot, human, rows)
+
+
+def _agree_codes(dev: str, dtype, **over) -> dict:
+    """The code streams of each window of the agreement batch through the
+    teacher's branch of the seeded model on ``dev`` in ``dtype``."""
+    model = init_model(_agree_exp(dtype, **over).model, SEED, device=dev)
+    return _window_codes(model, "robot", _agree_batch()[0].numpy())
 
 
 def _agree_rule(what: str, got: tuple, want: tuple) -> dict:
@@ -1790,17 +1848,76 @@ def train_agree_bf16(cpu32: tuple) -> dict:
 
 def train_agree_wide() -> dict:
     """train_agree's rule for the transformer + ema at hidden_dim
-    AGREE_WIDE_HIDDEN in float32: K2 at D 640 (two column chunks) in
+    AGREE_WIDE_HIDDEN in float32: K2 at D 640 (csrc/k2_wide.cuh) in
     training, card against the CPU."""
     over = dict(method="ema", hidden_dim=AGREE_WIDE_HIDDEN)
     before = launches()
     card = _agree_step("cuda", torch.float32, **over)
-    k2 = _delta(before)[vq_kernel.launch_counter.name]
-    require(k2 > 0, "train_agree_wide: K2 was not launched")
+    k2 = _delta(before)[vq_kernel.wide_counter.name]
+    require(k2 > 0, "train_agree_wide: K2 past 512 columns was not launched")
     res = {"phase": "train_agree_wide", "batch": AGREE_BATCH, "method": "ema",
-           "hidden_dim": AGREE_WIDE_HIDDEN, "k2_launches": k2,
-           "k2_chunk": vq_kernel.k2_chunk(AGREE_WIDE_HIDDEN),
+           "hidden_dim": AGREE_WIDE_HIDDEN, "k2_wide_launches": k2,
            **_agree_rule("train_agree_wide", card, _agree_step("cpu", torch.float32, **over))}
+    emit(res)
+    return res
+
+
+def train_wide(smi: str) -> dict:
+    """The flagship at hidden_dim TRAIN_WIDE_HIDDEN, the teacher trained
+    through the Trainer as train_path trains it (batch TRAIN_BATCH in
+    TRAIN_ACCUM microbatches, dropout 0.1), in float32 and bf16: one warm-up
+    epoch and one timed epoch of TRAIN_BATCH training windows; every K2 call
+    of its residual VQ runs past 512 columns (vq_assign_wide). Then one
+    float32 step at dropout 0 under train_agree's rule and one bf16 step
+    under train_agree_bf16's, card against the CPU. The launches are the
+    Trainer runs'."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_wide_")
+    over = dict(hidden_dim=TRAIN_WIDE_HIDDEN)
+    n = TRAIN_BATCH
+    while int((1.0 - _train_exp(workdir).train.val_fraction) * n) < TRAIN_BATCH:
+        n += 1
+    rates, total = {}, {}
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+        ds = PairedDataset(torch.randn(n, 10, 29, device="cuda", generator=g),
+                           torch.randn(n, 10, 126, device="cuda", generator=g))
+        for dtype in DTYPES:
+            exp = _train_exp(workdir, epochs=TRAIN_WIDE_EPOCHS, compute_dtype=DTYPE_NAME[dtype],
+                             **over)
+            res = _run_stage(exp, ds, TRAIN_WIDE_EPOCHS)
+            wide = res["launches"][vq_kernel.wide_counter.name]
+            require(wide > 0, f"train_wide {DTYPE_NAME[dtype]}: K2 past 512 columns never ran")
+            emit({"phase": "train_wide", "card": smi, "hidden_dim": TRAIN_WIDE_HIDDEN,
+                  "windows": n, **res})
+            rates[DTYPE_NAME[dtype]] = res["windows_per_s"]
+            total = add_launches(total, res["launches"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    train_wide_agree()
+    return {"launches": total, "windows_per_s": rates}
+
+
+def train_wide_agree() -> dict:
+    """train_wide's steps against the CPU: one float32 step under
+    train_agree's rule, and one bf16 step under train_agree_bf16's on the
+    windows of the batch whose codes (FSQ and residual VQ) the card's bf16,
+    the CPU's bf16 and the CPU's float32 forwards all share, as the bf16
+    serving rule compares values (_codes_rule, _check_bf16_values): at a
+    latent of 1024 a bf16 latent near an FSQ level's boundary rounds to
+    another level on the card than on the CPU, and such a flip moves the FSQ
+    projections' gradients by more than rounding does (PERF.md §6)."""
+    over = dict(hidden_dim=TRAIN_WIDE_HIDDEN)
+    cpu32 = _agree_step("cpu", torch.float32, **over)
+    f32 = _agree_rule("train_wide", _agree_step("cuda", torch.float32, **over), cpu32)
+    codes, rows = _codes_rule("train_wide_bf16", _agree_codes("cuda", BF16, **over),
+                              _agree_codes("cpu", BF16, **over),
+                              _agree_codes("cpu", torch.float32, **over))
+    rows = torch.from_numpy(np.flatnonzero(rows))
+    bf16 = _bf16_step_rule("train_wide_bf16", _agree_step("cpu", torch.float32, rows=rows, **over),
+                           _agree_step("cuda", BF16, rows=rows, **over),
+                           _agree_step("cpu", BF16, rows=rows, **over))
+    res = {"phase": "train_wide_agree", "batch": AGREE_BATCH, "hidden_dim": TRAIN_WIDE_HIDDEN,
+           **f32, "bf16": {**codes, "rows_compared": len(rows), **bf16}}
     emit(res)
     return res
 
@@ -4817,7 +4934,7 @@ def main(argv) -> int:
     print(smi, flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    table = [check_k1(g), check_k1_bwd(g), check_k2(g, smi), check_k1(g, BF16),
+    table = [check_k1(g), check_k1_bwd(g), *check_k2(g, smi), check_k1(g, BF16),
              check_k1_bwd(g, BF16)]
     for dtype in DTYPES:
         check_k1_mask(g, dtype)
@@ -4847,6 +4964,10 @@ def main(argv) -> int:
     _, cpu32 = train_agree()
     train_agree_bf16(cpu32)
     train_agree_wide()
+    t0 = time.perf_counter()
+    wide = train_wide(smi)
+    emit({"phase": "train_wide_summary", "card": smi, **wide,
+          "train_wide_s": time.perf_counter() - t0})
 
     zoo = zoo_path()
     emit({"phase": "zoo_summary", "card": smi, **zoo})
@@ -4917,7 +5038,8 @@ def main(argv) -> int:
             emit({"phase": "profile", "card": smi, **train_breakdown(dtype)})
 
     paths = {"serve": serve[torch.float32], "serve_bf16": serve[BF16],
-             "train": train[torch.float32], "train_bf16": train[BF16], "zoo": zoo, "cli": cli,
+             "train": train[torch.float32], "train_bf16": train[BF16], "train_wide": wide,
+             "zoo": zoo, "cli": cli,
              "artifact": artifact[torch.float32], "artifact_bf16": artifact[BF16],
              "decode_http": http, "stream": stream, "recipe": recipe, "multiseed": multiseed,
              "fk": fk, "int8": int8, "prior": prior, "prior_long": prior_long,
@@ -4947,6 +5069,9 @@ def main(argv) -> int:
                     else (name, name + "_mma", name + "_long", name + "_wide"))
             launched = sum(r["launches_by_path"][path] for r in table if r["name"] in rows)
             require(launched > 0, f"{name}: no launch on {path} ({rows})")
+    wide_row = next(r for r in table if r["name"] == vq_kernel.wide_counter.name)
+    require(wide_row["launches_by_path"]["train_wide"] > 0,
+            f"vq_assign_wide: no launch on train_wide: {wide_row['launches_by_path']}")
     # prior_dh48 (Dh 48, the ragged form): K1's window tiles (the depth stack) and tensor
     # cores (the backbone: the forward, the window-resident backward) in each dtype, and K2
     for name in [*(n + part for n in attention.ENTRY.values() for part in ("", "_mma")),

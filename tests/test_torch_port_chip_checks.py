@@ -1,8 +1,11 @@
 """Rules of ``chip_smoke.py`` that decide a check on the card, run here on
 synthetic inputs: the float32 serving rule on weights trained on the card
 (``trained_f32_rule``: values on the windows whose codes agree, every other
-window an RVQ near tie or one of the few FSQ flips allowed) and the K2
-profile's status (``k2_profile_status``: whole, short, or failed at once).
+window an RVQ near tie or one of the few FSQ flips allowed), the K2
+profile's status (``k2_profile_status``: whole, short, or failed at once),
+K2's bound (``k2_bound``: past 512 columns three tf32 products a product on
+the tensor cores) and the split of K2's launches between its two rows
+(``row_launches``).
 """
 
 import numpy as np
@@ -117,3 +120,29 @@ def test_k2_profile_status(names, calls, status):
 def test_k2_profile_fails_at_once_on_another_record_or_too_many(names):
     with pytest.raises(AssertionError):
         chip_smoke.k2_profile_status(names, 3)
+
+
+@pytest.mark.parametrize("N,D,K,G", [(512, 64, 512, 1), (4096, 64, 1024, 1), (2048, 64, 512, 4),
+                                     (512, 1024, 512, 1), (4096, 640, 512, 1),
+                                     (512, 640, 512, 2)])
+def test_k2_bound(N, D, K, G):
+    """Bytes: x and the codebook read once, idx, counts and dw written once.
+    Operations up to 512 columns at the float32 cores' 67 TFLOP/s; past it
+    the products as three tf32 products at 495 TFLOP/s, the norms and dw's
+    adds at 67."""
+    ms, by = chip_smoke.k2_bound(N, D, K, G)
+    t_bytes = 4 * G * (N * D + 2 * K * D + N + K) / 3.35e12
+    if D <= 512:
+        t_ops = G * (2 * N * K * D + 2 * K * D + N * D) / 67e12
+    else:
+        t_ops = G * (6 * N * K * D / 495e12 + (2 * K * D + N * D) / 67e12)
+    assert ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations") == "operations"
+
+
+def test_k2_rows_split_the_launches():
+    """K2's row counts the launches up to 512 columns (its counter less the
+    wide one); vq_assign_wide's row those past it."""
+    launched = {"vq_assign": 10, "vq_assign_wide": 4}
+    assert chip_smoke.row_launches({"name": "vq_assign"}, launched) == 6
+    assert chip_smoke.row_launches({"name": "vq_assign_wide"}, launched) == 4

@@ -10,7 +10,7 @@ of the suite. Shapes go beyond chip_smoke.py's: every head dim K1 takes, odd
 sequence lengths and general biases, forward and backward, with dropout 0
 and 0.1, at every head dim (8, 24, 48, 1, 12, 50, 100 staged in the
 kernels' ragged form, 96 native, 130, 136, 160, 256, 300, 301, 512 on the
-wide kernels); K2 at odd N, D and K, D up to 2048 (in column chunks past 512),
+wide kernels); K2 at odd N, D and K, D up to 4096 (the tensor-core kernel past 512),
 K over several slices of a cluster rank and ragged last slices, N off the
 row tile, exact ties (also across the slices of one cluster), repeat calls,
 and the shapes and launch plans it refuses; the model zoo's shapes (K2 at K
@@ -378,16 +378,16 @@ def test_k2_refuses_a_plan_that_does_not_cover_the_codes(gen):
     ptrs = [t.data_ptr() for t in (x, cb, *out)]
     stream = kernels.stream_ptr(x)
     good = (p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster, p.smem_bytes,
-            p.pass_rows, p.chunk)
+            p.pass_rows, int(p.wide))
     assert fn(*ptrs, 1, 64, 64, 512, *good, stream) == 0   # one group
-    for bad in [(p.tile_rows, 4, 1, 1, p.smem_bytes, p.pass_rows, 64),      # 4 of 8 slices
-                (p.tile_rows, 9, 1, 1, p.smem_bytes, p.pass_rows, 64),      # cluster > 8
-                (48, p.cluster, 1, 1, p.smem_bytes, p.pass_rows, 64),       # no such tile
-                (p.tile_rows, p.cluster, 1, 0, p.smem_bytes, p.pass_rows, 64),  # no tiles
-                (p.tile_rows, p.cluster, 1, 2, p.smem_bytes, p.pass_rows, 64),  # too little
-                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes - 4, p.pass_rows, 64),
-                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, 0, 64),
-                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, p.pass_rows, 32)]:  # D unchunked
+    for bad in [(p.tile_rows, 4, 1, 1, p.smem_bytes, p.pass_rows, 0),      # 4 of 8 slices
+                (p.tile_rows, 9, 1, 1, p.smem_bytes, p.pass_rows, 0),      # cluster > 8
+                (48, p.cluster, 1, 1, p.smem_bytes, p.pass_rows, 0),       # no such tile
+                (p.tile_rows, p.cluster, 1, 0, p.smem_bytes, p.pass_rows, 0),  # no tiles
+                (p.tile_rows, p.cluster, 1, 2, p.smem_bytes, p.pass_rows, 0),  # too little
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes - 4, p.pass_rows, 0),
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, 0, 0),
+                (p.tile_rows, p.cluster, 1, 1, p.smem_bytes, p.pass_rows, 1)]:  # the wide path's
         assert fn(*ptrs, 1, 64, 64, 512, *bad, stream) != 0
     assert fn(*ptrs, 0, 64, 64, 512, *good, stream) != 0       # no group
     torch.cuda.synchronize()
@@ -406,7 +406,7 @@ def test_k2_ties_go_to_the_lowest_index(gen):
 def test_k2_refuses_what_it_does_not_take(gen, bad):
     x = torch.randn(8, 16, device="cuda")
     cb = torch.randn(32, 16, device="cuda")
-    if bad == "D":   # every D of at least 1 is taken (chunked past 512)
+    if bad == "D":   # every D of at least 1 is taken (the tensor-core kernel past 512)
         x, cb = torch.randn(8, 0, device="cuda"), torch.randn(32, 0, device="cuda")
     elif bad == "dtype":
         x = x.double()
@@ -770,11 +770,14 @@ def test_k1_one_seed_group_is_todays_launch(gen):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("G,N,D,K", [(4, 2048, 64, 512), (3, 1001, 64, 300), (2, 77, 20, 70)])
+@pytest.mark.parametrize("G,N,D,K", [(4, 2048, 64, 512), (3, 1001, 64, 300), (2, 77, 20, 70),
+                                     (2, 512, 640, 512), (3, 100, 513, 70)])
 def test_k2_groups_equal_separate_launches(gen, G, N, D, K):
     """K2 over a group axis (one launch, N off a multiple of 4 included):
     bit for bit the G calls of one group, dw bit-equal to the CPU's
-    assignment_stats of each group."""
+    assignment_stats of each group. (2, 512, 640, 512) is a stacked
+    two-seed step at a wide latent (TMA: each group its own box of the
+    tensor maps); D 513 takes the cp.async staging."""
     x = torch.randn(G, N, D, device="cuda", generator=gen)
     cb = torch.randn(G, K, D, device="cuda", generator=gen)
     before = vq_kernel.launch_counter.count
@@ -1306,17 +1309,65 @@ def test_k1_backward_entry_points_refuse_each_others_plans(gen, S):
     assert {n: s == 0 for n, s in status.items()} == {n: n == own for n in status}
 
 
-@pytest.mark.parametrize("N,D,K", [(512, 640, 512), (4096, 640, 512), (512, 1024, 512),
-                                   (4096, 1024, 512), (100, 513, 70), (300, 2048, 600),
-                                   (50, 1001, 65)])
-def test_k2_past_512_columns_matches_plain(gen, N, D, K):
-    """D past 512: the nearest-code kernel scores in column chunks of at most
-    512 (odd widths take the plain loads), under the rule of every K2 case;
-    two calls equal bit for bit."""
+@pytest.mark.parametrize("N,D,K,scale", [
+    (512, 640, 512, 1.0), (4096, 640, 512, 1.0), (512, 1024, 512, 1.0), (4096, 1024, 512, 1.0),
+    (100, 513, 70, 1.0), (300, 2048, 600, 1.0), (50, 1001, 65, 1.0),
+    (64, 513, 512, 1.0), (64, 520, 512, 1.0), (64, 4096, 512, 1.0),   # ragged, a step of 8, wide
+    (1, 1024, 512, 1.0), (100, 1024, 1, 1.0), (100, 640, 70, 1.0),    # N 1, K 1, K 70
+    (4096, 1024, 512, 0.25), (512, 640, 512, 3.0)])   # codes scaled: rows crowd onto few codes
+def test_k2_past_512_columns_matches_plain(gen, N, D, K, scale):
+    """D past 512: the tensor-core kernel of csrc/k2_wide.cuh (TMA where D is
+    a multiple of 4, cp.async staging at 513, 1001), under the rule of every
+    K2 case; two calls equal bit for bit; counted on vq_assign_wide too."""
     x = torch.randn(N, D, device="cuda", generator=gen)
-    cb = torch.randn(K, D, device="cuda", generator=gen)
+    cb = torch.randn(K, D, device="cuda", generator=gen) * scale
+    wide = vq_kernel.wide_counter.count
     first = _k2_case(x, cb)
+    assert vq_kernel.wide_counter.count == wide + 1
     assert all(torch.equal(a, b) for a, b in zip(first, codebook.nearest_codes(x, cb)))
+
+
+@pytest.mark.parametrize("N,D", [(300, 640), (1000, 1024), (100, 513)])
+def test_k2_wide_kernel_takes_several_tiles_a_cluster(gen, N, D):
+    """The wide kernel's clusters can take 2 or 3 row tiles each (its plan
+    takes one): bit for bit the outputs of the plan's launch."""
+    x = torch.randn(N, D, device="cuda", generator=gen)
+    cb = torch.randn(512, D, device="cuda", generator=gen)
+    want = vq_kernel.nearest_codes_cuda(x, cb)
+    fn = kernels.entry("vq_assign")
+    p = vq_kernel.k2_plan(N, D, 512)
+    assert p.wide and p.tiles_per_cluster == 1
+    for tiles in (2, 3):
+        out = [torch.empty_like(t) for t in want]
+        status = fn(x.data_ptr(), cb.data_ptr(), *[t.data_ptr() for t in out], 1, N, D, 512,
+                    p.tile_rows, p.cluster, p.slices_per_block, tiles,
+                    vq_kernel.wide_smem(p.tile_rows, tiles), p.pass_rows, 1,
+                    kernels.stream_ptr(x))
+        torch.cuda.synchronize()
+        assert status == 0 and all(torch.equal(a, b) for a, b in zip(out, want)), tiles
+
+
+def test_k2_refuses_a_plan_for_the_other_kernel(gen):
+    """A plan made for D up to 512 is refused past it, and a wide plan at D
+    512 or below; the right plans launch. Only the wrapper's launches count
+    on vq_assign_wide."""
+    fn = kernels.entry("vq_assign")
+    for D, other in ((640, 512), (512, 640)):
+        x = torch.randn(64, D, device="cuda", generator=gen)
+        cb = torch.randn(512, D, device="cuda", generator=gen)
+        out = [torch.empty(64, dtype=torch.int32, device="cuda"),
+               torch.empty(512, device="cuda"), torch.empty(512, D, device="cuda")]
+        args = [t.data_ptr() for t in (x, cb, *out)] + [1, 64, D, 512]
+        stream = kernels.stream_ptr(x)
+        for plan, ok in ((vq_kernel.k2_plan(64, D, 512), True),
+                         (vq_kernel.k2_plan(64, other, 512), False)):
+            fields = (plan.tile_rows, plan.cluster, plan.slices_per_block,
+                      plan.tiles_per_cluster, plan.smem_bytes, plan.pass_rows, int(plan.wide))
+            assert (fn(*args, *fields, stream) == 0) == ok, (D, plan)
+        before = vq_kernel.wide_counter.count
+        codebook.nearest_codes(x, cb)
+        assert vq_kernel.wide_counter.count == before + (D > 512)
+    torch.cuda.synchronize()
 
 
 # Head dims off the instantiated widths, staged in the kernels' ragged form on every path:

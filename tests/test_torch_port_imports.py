@@ -173,6 +173,17 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     assert kernels._lib_path(tmp_path / "a.cu") != first
 
 
+def test_build_starts_the_slowest_sources_first():
+    """nvcc takes longest on K1's backward libraries: they start first, each
+    form beside the other; every name in SLOW_FIRST is a source, and every
+    ragged form's library has its native one."""
+    order = [s.stem for s in sorted(kernels.CSRC.glob("*.cu"), key=kernels._build_order)]
+    assert set(order[:2]) == {"packed_attention_bwd", "packed_attention_bwd_ragged"}
+    assert all(name in order for name in kernels.SLOW_FIRST)
+    assert all(name.removesuffix("_ragged") in order for name in order)
+    assert sum(name.endswith("_ragged") for name in order) == 8
+
+
 def test_counters_reset():
     for c in kernels.COUNTERS.values():
         c.add()
@@ -189,4 +200,5 @@ def test_counters_reset():
                                         "packed_attention_fwd_bf16_mma",
                                         "packed_attention_fwd_bf16_wide",
                                         "packed_attention_fwd_mma",
-                                        "packed_attention_fwd_wide", "vq_assign"]
+                                        "packed_attention_fwd_wide", "vq_assign",
+                                        "vq_assign_wide"]

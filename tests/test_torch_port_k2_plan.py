@@ -1,11 +1,14 @@
 """K2's launch plan (``ops/vq_kernel.py::k2_plan``), on the CPU.
 
-The kernels of ``csrc/vq_assign.cu`` run only on the card, but the plan
-that sizes their launches is Python, so what it promises is checked here:
-the nearest-code grid scores every (row, code) pair exactly once, the
-statistics grid owns every (code, column) exactly once, a cluster has at
-most 8 blocks, a block asks for at most 232,448 bytes of shared memory, and
-past 512 columns the nearest-code blocks take D in chunks of at most 512.
+The kernels of ``csrc/vq_assign.cu`` and ``csrc/k2_wide.cuh`` run only on
+the card, but the plan that sizes their launches is Python, so what it
+promises is checked here: the nearest-code grid scores every (row, code)
+pair exactly once, the statistics grid owns every (code, column) exactly
+once, a cluster has at most 8 blocks, a block asks for at most 232,448 bytes
+of shared memory; past 512 columns (the tensor-core kernel) every block of a
+cluster walks the same (tile, slice, column step) sequence, which covers each
+once, and the cluster's ranks issue each 8-row piece of the x tile once; up
+to 512 the plans are the ones the kernel had before the wide kernel came.
 The block-to-work mapping below is the kernels' own index arithmetic.
 
 The kernel's dw equals ``assignment_stats`` on the CPU bit for bit because
@@ -30,9 +33,41 @@ CARD_SHAPES = [(1, 64, 512), (33, 7, 5), (4096, 64, 512), (1000, 512, 100),
                (1000, 64, 4096), (300, 512, 4096), (4097, 64, 512), (70, 16, 100),
                (40001, 64, 512), (20000, 33, 64), (40000, 7, 5), (20000, 128, 256),
                (64, 64, 512), (49, 64, 512),
-               # past 512 columns: chunked (the card tests and chip_smoke.py)
+               # past 512 columns: the tensor-core kernel (the card tests and chip_smoke.py)
                (512, 640, 512), (4096, 640, 512), (512, 1024, 512), (4096, 1024, 512),
-               (100, 513, 70), (50, 2048, 600)]
+               (100, 513, 70), (50, 2048, 600), (4096, 2048, 512), (64, 513, 512),
+               (64, 520, 512), (64, 4096, 512), (1, 1024, 512), (100, 1024, 1),
+               (100, 640, 70), (300, 2048, 600), (50, 1001, 65)]
+
+# (tile_rows, cluster, slices_per_block, tiles_per_cluster, clusters, smem_bytes, pass_rows,
+# stat_grid) of the plans up to 512 columns before the wide kernel came: unchanged
+NARROW_PLANS = {
+    (1, 64, 512): (32, 8, 1, 1, 1, 28416, 32, (64, 1)),
+    (33, 7, 5): (32, 1, 1, 1, 2, 9728, 64, (1, 1)),
+    (4096, 64, 512): (64, 8, 1, 2, 32, 60672, 4096, (64, 1)),
+    (1000, 512, 100): (32, 2, 1, 1, 32, 200448, 1024, (13, 8)),
+    (5000, 128, 1024): (64, 8, 2, 1, 79, 71936, 5024, (128, 2)),
+    (31, 64, 1): (32, 1, 1, 1, 1, 28416, 32, (1, 1)),
+    (257, 33, 65): (32, 2, 1, 1, 9, 19200, 288, (9, 1)),
+    (512, 64, 512): (32, 8, 1, 1, 16, 28416, 512, (64, 1)),
+    (6554, 64, 512): (64, 8, 1, 4, 26, 68864, 6560, (64, 1)),
+    (1000, 64, 65): (32, 2, 1, 1, 32, 28416, 1024, (9, 1)),
+    (1000, 64, 513): (32, 8, 2, 1, 32, 28416, 1024, (65, 1)),
+    (1000, 64, 1024): (32, 8, 2, 1, 32, 28416, 1024, (128, 1)),
+    (1000, 64, 4096): (32, 8, 8, 1, 32, 28416, 1024, (512, 1)),
+    (300, 512, 4096): (32, 8, 8, 1, 10, 200448, 320, (512, 8)),
+    (4097, 64, 512): (64, 8, 1, 2, 33, 60672, 4128, (64, 1)),
+    (70, 16, 100): (32, 2, 1, 1, 3, 11776, 96, (13, 1)),
+    (40001, 64, 512): (64, 8, 1, 16, 40, 118016, 32768, (64, 1)),
+    (20000, 33, 64): (64, 1, 1, 2, 157, 42240, 20000, (8, 1)),
+    (40000, 7, 5): (64, 1, 1, 3, 209, 33024, 32768, (1, 1)),
+    (20000, 128, 256): (64, 4, 1, 5, 63, 122112, 20000, (32, 2)),
+    (64, 64, 512): (32, 8, 1, 1, 2, 28416, 64, (64, 1)),
+    (49, 64, 512): (32, 8, 1, 1, 2, 28416, 64, (64, 1)),
+    (16384, 64, 1024): (64, 8, 2, 1, 256, 39168, 16384, (128, 1)),
+    (16384, 64, 512): (64, 8, 1, 8, 32, 85248, 16384, (64, 1)),
+    (2048, 64, 512): (64, 8, 1, 1, 32, 39168, 2048, (64, 1)),
+}
 
 
 def _check_plan(N, D, K):
@@ -40,15 +75,10 @@ def _check_plan(N, D, K):
     assert 1 <= p.cluster <= 8 and p.cluster <= p.slices
     assert 1 <= p.tiles_per_cluster <= vq_kernel.MAX_TILES
     assert p.tiles_per_cluster == 1 or p.slices_per_block == 1  # several tiles keep one slice
-    assert (vq_kernel.nearest_smem(p.tile_rows, p.chunk, p.tiles_per_cluster) <= p.smem_bytes
-            <= 232_448 == SMEM_LIMIT)
-    # the columns a block stages at once: all of D up to 512, else at most 512 in
-    # multiples of 8, as few chunks as 512 allows, one tile a cluster
-    chunks = -(-D // p.chunk)
-    assert p.chunk == D if D <= vq_kernel.MAX_CHUNK else (
-        p.chunk <= vq_kernel.MAX_CHUNK and p.chunk % 8 == 0
-        and chunks == -(-D // vq_kernel.MAX_CHUNK) and p.tiles_per_cluster == 1)
-    assert (chunks - 1) * p.chunk < D
+    assert p.wide == (D > vq_kernel.MAX_NARROW)
+    need = (vq_kernel.wide_smem(p.tile_rows, p.tiles_per_cluster) if p.wide
+            else vq_kernel.nearest_smem(p.tile_rows, D, p.tiles_per_cluster))
+    assert need <= p.smem_bytes <= 232_448 == SMEM_LIMIT
     assert p.pass_rows % 32 == 0 and 32 <= p.pass_rows <= vq_kernel.MAX_PASS_ROWS
     assert vq_kernel.stats_smem(p.pass_rows) <= SMEM_LIMIT
     assert p.pass_rows >= min(N, vq_kernel.MAX_PASS_ROWS)  # no pass is wasted
@@ -81,7 +111,31 @@ def _check_plan(N, D, K):
         for j in range(gj):
             owned[i * STAT_CODES:(i + 1) * STAT_CODES, j * STAT_COLS:(j + 1) * STAT_COLS] += 1
     assert (owned == 1).all() and (gi - 1) * STAT_CODES < K and (gj - 1) * STAT_COLS < D
+    if p.wide:
+        _check_wide_walk(p, N, D)
     return p
+
+
+def _check_wide_walk(p, N, D):
+    """k2_wide.cuh's index arithmetic: iteration it of a cluster's producer and
+    consumers is (tile it // (spb * steps), slice it // steps % spb, column step
+    it % steps); over the cluster's total (ntiles * spb * steps, the same in
+    every block) that covers each triple once. Column steps of 32 cover D,
+    the last one holding the ragged end. Rank r issues the tile's 8-row pieces
+    r, r + C, ...: each piece once, by one rank."""
+    steps = -(-D // vq_kernel.WIDE_COLS)
+    assert (steps - 1) * vq_kernel.WIDE_COLS < D <= steps * vq_kernel.WIDE_COLS
+    for q in {0, p.clusters - 1}:
+        ntiles = min(p.tiles_per_cluster, p.row_tiles - q * p.tiles_per_cluster)
+        it = np.arange(ntiles * p.slices_per_block * steps)
+        st, rest = it % steps, it // steps
+        j, t = rest % p.slices_per_block, rest // p.slices_per_block
+        triples = t * p.slices_per_block * steps + j * steps + st
+        assert np.array_equal(np.sort(triples), it) and t.max() == ntiles - 1
+    pieces = np.zeros(p.tile_rows // 8, np.int64)
+    for rank in range(p.cluster):
+        pieces[rank::p.cluster] += 1
+    assert (pieces == 1).all()
 
 
 @pytest.mark.parametrize("N,D,K", CARD_SHAPES)
@@ -93,6 +147,22 @@ def test_plan_covers_every_pair_once_at_the_card_shapes(N, D, K):
 @given(N=st.integers(1, 50_000), D=st.integers(1, 2048), K=st.integers(1, 8192))
 def test_plan_covers_every_pair_once(N, D, K):
     _check_plan(N, D, K)
+
+
+@settings(max_examples=200, deadline=None)
+@given(N=st.integers(1, 20_000), D=st.integers(513, 4096), K=st.integers(1, 2048))
+def test_wide_plan_covers_every_pair_and_column_step_once(N, D, K):
+    """Past 512 columns: every (row, code) pair and every column step once,
+    within one block's shared memory."""
+    _check_plan(N, D, K)
+
+
+@pytest.mark.parametrize("N,D,K", sorted(NARROW_PLANS))
+def test_narrow_plans_are_unchanged(N, D, K):
+    p = k2_plan(N, D, K)
+    assert not p.wide
+    assert (p.tile_rows, p.cluster, p.slices_per_block, p.tiles_per_cluster, p.clusters,
+            p.smem_bytes, p.pass_rows, p.stat_grid) == NARROW_PLANS[N, D, K]
 
 
 @pytest.mark.parametrize("N,D,K,tile_rows,cluster,blocks,per_block,tiles", [
@@ -144,9 +214,12 @@ def test_assignment_stats_adds_each_codes_rows_in_row_order(N, K):
 @pytest.mark.parametrize("N,K", [(512, 512), (4096, 512), (33, 5), (1000, 4096)])
 def test_every_width_up_to_2048_is_planned(N, K):
     """k2_plan takes every D from 1 to 2048 within the shared memory of one
-    block: the nearest-code kernel stages the columns in chunks past 512."""
+    block: past 512 the tensor-core kernel, whose shared memory does not
+    grow with D (it streams the columns)."""
     for D in range(1, 2049):
         p = k2_plan(N, D, K)
         assert p.smem_bytes <= SMEM_LIMIT and vq_kernel.stats_smem(p.pass_rows) <= SMEM_LIMIT
-        assert p.chunk == vq_kernel.k2_chunk(D) and (p.chunk == D) == (D <= 512)
+        assert p.wide == (D > 512)
+        assert not p.wide or p.smem_bytes == vq_kernel.wide_smem(p.tile_rows,
+                                                                  p.tiles_per_cluster)
         assert p.stat_grid[1] == -(-D // STAT_COLS)
