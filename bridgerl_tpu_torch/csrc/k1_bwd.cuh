@@ -37,20 +37,22 @@
 // to dq and dk. A window therefore owns every output of its rows and keys:
 // dk_j and dv_j sum over the window's W query rows only.
 //
-// Two paths, picked by W (ops/attention.py::k1_plan; the launcher refuses
-// any other plan):
+// The paths, picked by W and the dtype (ops/attention.py::k1_plan; the
+// launcher refuses any other plan):
 //
-// Window tiles, W < kMinWindow (32). What bounds them: at the training shape
-// (256, 80, 64), W = 10, the function moves 7 * 4 * BH * S * Dh = 36.7 MB
-// (11 us at 3.35 TB/s) and needs about 10 * BH * S * W * Dh = 131 MFLOP (2 us
-// on the float32 cores): 3.6 FLOP a byte, bound by bytes, in bfloat16 too.
+// Window tiles, W < kMinWindow (32), float32. What bounds them: at the
+// training shape (256, 80, 64), W = 10, the function moves 7 * 4 * BH * S *
+// Dh = 36.7 MB (11 us at 3.35 TB/s) and needs about 10 * BH * S * W * Dh =
+// 131 MFLOP (2 us on the float32 cores): 3.6 FLOP a byte, bound by bytes.
 // One pass per window: a block of 128 threads takes G = 20 / W consecutive
 // windows, copies q, k, v and dout with 16-byte cp.async into padded float32
-// rows (bf16 widened as staged); one thread per element fetches bias_ij and
-// the keep factor while the copies fly; then the logits and do . v in 2 x 2
-// tiles a thread, the softmax, D_i and ds a row a thread, and dq, dk, dv for
-// two rows at one 16-byte column a thread, on the float32 cores. No atomics;
-// the phases' chain, not the bytes, sets the time (PERF.md).
+// rows; one thread per element fetches bias_ij and the keep factor while the
+// copies fly; then the logits and do . v in 2 x 2 tiles a thread, the
+// softmax, D_i and ds a row a thread, and dq, dk, dv for two rows at one
+// 16-byte column a thread, on the float32 cores. No atomics; the phases'
+// chain, not the bytes, sets the time (PERF.md). bfloat16 at W < kMinWindow
+// takes the multi-window backward of k1_multi.cuh instead (one kernel, on
+// the tensor cores).
 //
 // Long windows, W >= 32 (k1_mma.cuh): about 0.36 W FLOP a byte in float32
 // (23 at W 64), so the float32 cores would set the pace; the products run
@@ -80,8 +82,8 @@
 // first's programmatic dependent, staging what it can while the first ends.
 //
 // The entry points are packed_attention_bwd.cu (float32) and
-// packed_attention_bwd_bf16.cu (window tiles and the window-resident
-// kernel), and packed_attention_bwd_long.cu and _bf16_long.cu (the two
+// packed_attention_bwd_bf16.cu (the multi-window kernel of k1_multi.cuh and
+// the window-resident kernel), and packed_attention_bwd_long.cu and _bf16_long.cu (the two
 // kernels): four libraries that ops/kernels.py builds in parallel, each
 // instantiating only its own dtype's and path's kernels.
 #pragma once
@@ -89,7 +91,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "k1_mma.cuh"
+#include "k1_multi.cuh"
 #include "k1_tiles.cuh"
 #include "philox.cuh"
 
@@ -1006,9 +1011,10 @@ int launch_window(const Elem* q, const Elem* k, const Elem* v, const float* bias
   return (int)cudaGetLastError();
 }
 
-// The launch plan's numbers: path 0 (window tiles) or 1 (long windows), the
-// blocks and shared memory of the first kernel (tiles, the window-resident
-// kernel, or dq) and of the dk / dv kernel (0 on the one-kernel paths). The
+// The launch plan's numbers: path 0 (window tiles, float32), 3 (the multi-window
+// backward, bfloat16; k1_multi.cuh) or 1 (long windows), the blocks and shared memory
+// of the first kernel (tiles, multi-window, the window-resident kernel, or dq) and of
+// the dk / dv kernel (0 on the one-kernel paths). The
 // caller's plan must equal them. The one-kernel paths (launch_one) and the
 // two-kernel path (launch_two) are entry points of their own libraries, so
 // that nvcc builds them in parallel: each refuses the other's plans. DH is
@@ -1020,7 +1026,13 @@ int launch_one(const Elem* q, const Elem* k, const Elem* v, const float* bias,
                float inv_keep, int dropout, int causal, int path, int blocks, int smem_bytes,
                int blocks_kv, int smem_kv, k1::Head hd, cudaStream_t stream) {
   const int nwin = BH * (S / W);
-  if (W < k1::kMinWindow) {
+  if constexpr (std::is_same_v<Elem, __nv_bfloat16>) {
+    if (W < k1::kMinWindow)
+      return k1::launch_multi_bwd<DH, RAGGED>(q, k, v, bias, dout, dq, dk, dv, BH, S, W, scale,
+                                              seed, group_rows, thresh, inv_keep, dropout,
+                                              causal, path, blocks, smem_bytes, blocks_kv,
+                                              smem_kv, hd, stream);
+  } else if (W < k1::kMinWindow) {
     constexpr int QS = TileDims<DH>::QS;
     const size_t per_window =
         sizeof(float) * ((size_t)4 * W * QS + 3 * (size_t)W * (W + 1));

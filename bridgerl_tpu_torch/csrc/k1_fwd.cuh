@@ -40,21 +40,23 @@
 // blocks add exactly nothing to the softmax sums or to p v. Computing the
 // W x W blocks alone does 1/P of the full row's work (P = S / W windows).
 //
-// Two paths, picked by W (the launch plan is ops/attention.py::k1_plan; the
-// launcher recomputes it and refuses any other):
+// The paths, picked by W and the dtype (the launch plan is
+// ops/attention.py::k1_plan; the launcher recomputes it and refuses any other):
 //
-// Window tiles, W < kMinWindow (32; k1_tiles.cuh). What bounds them: at the
-// training shape (256, 80, 64), W = 10, the function needs 4 * BH * S * W *
-// Dh = 52 MFLOP (0.8 us on the 67 TFLOP/s float32 cores) and moves 4 * 4 *
-// BH * S * Dh bytes = 21 MB (6.3 us at 3.35 TB/s): 2.5 FLOP a byte, bound by
-// bytes, in bfloat16 too (3.1 us). A block of 128 threads takes G = 20 / W
+// Window tiles, W < kMinWindow (32; k1_tiles.cuh), float32. What bounds
+// them: at the training shape (256, 80, 64), W = 10, the function needs 4 *
+// BH * S * W * Dh = 52 MFLOP (0.8 us on the 67 TFLOP/s float32 cores) and
+// moves 4 * 4 * BH * S * Dh bytes = 21 MB (6.3 us at 3.35 TB/s): 2.5 FLOP a
+// byte, bound by bytes. A block of 128 threads takes G = 20 / W
 // consecutive windows (2 at W = 10), one contiguous span of device memory,
-// copies q, k and v with 16-byte cp.async into padded float32 rows (bf16
-// rows loaded 8 bytes a thread and widened); one thread per element fetches
-// bias_ij and the keep factor while the copies fly; then logits in 2 x 2
-// tiles a thread, the f32 softmax a row a thread, and out = (p v) / l for two
-// rows at one 16-byte column a thread, on the float32 cores. The chain of
-// phases, not the bytes, sets their time (PERF.md).
+// copies q, k and v with 16-byte cp.async into padded float32 rows; one
+// thread per element fetches bias_ij and the keep factor while the copies
+// fly; then logits in 2 x 2 tiles a thread, the f32 softmax a row a thread,
+// and out = (p v) / l for two rows at one 16-byte column a thread, on the
+// float32 cores. The chain of phases, not the bytes, sets their time
+// (PERF.md). bfloat16 at W < kMinWindow takes the multi-window kernels of
+// k1_multi.cuh instead: several whole windows a block, a warp a strip of 16
+// query rows on the tensor cores.
 //
 // Long windows, W >= 32 (k1_mma.cuh): the work grows with W, W / 4 FLOP a
 // byte in float32 (16 at W 64, 32 at W 128) and W / 2 in bf16, past the
@@ -74,7 +76,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "k1_mma.cuh"
+#include "k1_multi.cuh"
 #include "k1_tiles.cuh"
 #include "philox.cuh"
 
@@ -318,16 +323,22 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
   K1_PHASE_END(0);
 }
 
-// The launch plan's numbers: path 0 (window tiles) or 1 (long windows),
-// blocks and shared memory. The caller's plan must equal them. DH is the
-// staged width, hd the true head dim (RAGGED where they differ).
+// The launch plan's numbers: path 0 (window tiles, float32), 3 (the multi-window
+// kernels, bfloat16; k1_multi.cuh) or 1 (long windows), blocks and shared memory. The
+// caller's plan must equal them. DH is the staged width, hd the true head dim (RAGGED
+// where they differ).
 template <typename Elem, int DH, bool RAGGED>
 int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
            Elem* out, int BH, int S, int W, float scale, const int* seed, int group_rows,
            unsigned thresh, float inv_keep, int dropout, int causal, int path, int blocks,
            int smem_bytes, k1::Head hd, cudaStream_t stream) {
   const int nwin = BH * (S / W);
-  if (W < k1::kMinWindow) {
+  if constexpr (std::is_same_v<Elem, __nv_bfloat16>) {
+    if (W < k1::kMinWindow)
+      return k1::launch_multi_fwd<DH, RAGGED>(q, k, v, bias, out, BH, S, W, scale, seed,
+                                              group_rows, thresh, inv_keep, dropout, causal,
+                                              path, blocks, smem_bytes, hd, stream);
+  } else if (W < k1::kMinWindow) {
     constexpr int QS = TileDims<DH>::QS;
     const size_t per_window =
         sizeof(float) * ((size_t)3 * W * QS + 2 * (size_t)W * (W + 1) + W);

@@ -12,13 +12,11 @@
 // so eight threads reading eight consecutive rows at one column hit eight
 // different bank groups.
 //
-// K1's tensors in device memory are float32 or bfloat16 (the template
-// argument Elem of both kernels; the bias is always float32). The tiles in
-// shared memory are float32 either way: a bfloat16 row is read 8 bytes
-// (4 values) a thread and widened as it is staged, which is exact, so
-// everything after the staging is the float32 code. Outputs are rounded to
-// Elem as they are stored, to nearest even, as torch's .to(bfloat16) and
-// XLA's convert round.
+// The window tiles are K1's float32 kernels at W < kMinWindow (the bias is
+// float32 in every dtype); bfloat16 at those windows runs the multi-window
+// kernels of k1_multi.cuh, which stage their rows as they are. The other
+// paths' bfloat16 outputs are rounded as they are stored, to nearest even, as
+// torch's .to(bfloat16) and XLA's convert round (round_bf16x2, from_float).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,19 +128,13 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
   }
 }
 
-// Two bfloat16 values packed low-first in a 32-bit word, widened exactly:
-// a bfloat16 is the high half of the float32 with the same value.
-__device__ __forceinline__ float2 widen_bf16x2(unsigned u) {
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
 __device__ __forceinline__ unsigned round_bf16x2(float lo, float hi) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
 // The tiles of NT tensors (q, k, v and, in the backward, dout): float32
-// rows go by cp.async as above, one tensor after another (ragged: rows of Dh
+// rows by cp.async as above, one tensor after another (ragged: rows of Dh
 // floats in copies of h.copy bytes, the columns from Dh zero-filled).
 template <int DH, int NT, bool RAGGED = false>
 __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
@@ -157,117 +149,7 @@ __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
   }
 }
 
-// N bytes of bfloat16 values as one load, and their widening into float32
-// tile columns (16: two float4; 8: a float4; 4: a float2; 2: a float).
-template <int N>
-struct Bits;
-template <>
-struct Bits<16> { using T = uint4; };
-template <>
-struct Bits<8> { using T = uint2; };
-template <>
-struct Bits<4> { using T = unsigned; };
-template <>
-struct Bits<2> { using T = unsigned short; };
-
-template <int N>
-__device__ __forceinline__ void widen_store(float* dst, typename Bits<N>::T u) {
-  if constexpr (N == 16) {
-    const float2 a = widen_bf16x2(u.x), b = widen_bf16x2(u.y), c = widen_bf16x2(u.z),
-                 d = widen_bf16x2(u.w);
-    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-  } else if constexpr (N == 8) {
-    const float2 a = widen_bf16x2(u.x), b = widen_bf16x2(u.y);
-    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  } else if constexpr (N == 4) {
-    *reinterpret_cast<float2*>(dst) = widen_bf16x2(u);
-  } else {
-    *dst = __uint_as_float((unsigned)u << 16);
-  }
-}
-
-// Ragged bfloat16 rows (Dh values each): loads of N bytes through the
-// read-only path, two chunks of every tensor in flight before any store, as
-// below; the columns from Dh are zero, read from nowhere.
-template <int DH, int NT, int N>
-__device__ __forceinline__ void stage_widen(float* const (&dst)[NT],
-                                            const __nv_bfloat16* const (&src)[NT], int rows,
-                                            int Dh) {
-  using T = typename Bits<N>::T;
-  constexpr int QS = TileDims<DH>::QS, V = N / 2, NC = DH / V;   // values a load, loads a row
-  const int n = rows * NC;
-  for (int e0 = threadIdx.x; e0 < n; e0 += 2 * blockDim.x) {
-    T u[2][NT];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = e0 + h * blockDim.x, r = e / NC, c = (e - r * NC) * V;
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-        u[h][t] = e < n && c < Dh ? __ldg(reinterpret_cast<const T*>(src[t] + (size_t)r * Dh + c))
-                                  : T{};
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = e0 + h * blockDim.x, r = e / NC, c = (e - r * NC) * V;
-      if (e < n) {
-#pragma unroll
-        for (int t = 0; t < NT; ++t) widen_store<N>(dst[t] + r * QS + c, u[h][t]);
-      }
-    }
-  }
-}
-
-// bfloat16 rows are read with plain loads through the read-only path, 8
-// bytes (4 values) a thread, neighbouring threads on neighbouring
-// addresses, and widened into the same float32 tiles: each float4 goes to
-// one 16-byte column of a padded row, as a cp.async would put it. A thread
-// issues the loads of two columns of every tensor before it widens and
-// stores any, so the block's loads are in flight together; they are
-// complete when this returns. Ragged: stage_widen at the launch's copy size.
-template <int DH, int NT, bool RAGGED = false>
-__device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
-                                            const __nv_bfloat16* const (&src)[NT], int rows,
-                                            Head h = Head{DH, 16}) {
-  if constexpr (RAGGED) {
-    switch (h.copy) {
-      case 16: stage_widen<DH, NT, 16>(dst, src, rows, h.Dh); break;
-      case 8: stage_widen<DH, NT, 8>(dst, src, rows, h.Dh); break;
-      case 4: stage_widen<DH, NT, 4>(dst, src, rows, h.Dh); break;
-      default: stage_widen<DH, NT, 2>(dst, src, rows, h.Dh);
-    }
-    return;
-  }
-  constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
-  const int n = rows * D4;
-  for (int e0 = threadIdx.x; e0 < n; e0 += 2 * blockDim.x) {
-    uint2 u[2][NT];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = e0 + h * blockDim.x;
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-        if (e < n) u[h][t] = __ldg(reinterpret_cast<const uint2*>(src[t]) + e);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = e0 + h * blockDim.x;
-      if (e < n) {
-        const int r = e / D4, c = e - r * D4;
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const float2 a = widen_bf16x2(u[h][t].x), b = widen_bf16x2(u[h][t].y);
-          *reinterpret_cast<float4*>(dst[t] + r * QS + 4 * c) =
-              make_float4(a.x, a.y, b.x, b.y);
-        }
-      }
-    }
-  }
-}
-
-// One element of device memory, widened to float32 or rounded from it.
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+// One output element, rounded from float32 to its type.
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -277,13 +159,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Four consecutive outputs from a float4: one 16-byte store of float32, or
-// one 8-byte store of bfloat16.
+// Four consecutive float32 outputs from a float4: one 16-byte store.
 __device__ __forceinline__ void store4(float* dst, float4 v) {
   *reinterpret_cast<float4*>(dst) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
-  *reinterpret_cast<uint2*>(dst) = make_uint2(round_bf16x2(v.x, v.y), round_bf16x2(v.z, v.w));
 }
 
 // Four consecutive outputs at `dst`, columns col .. col + 3 of their row: store4;

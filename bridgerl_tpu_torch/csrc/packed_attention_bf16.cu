@@ -1,6 +1,7 @@
 // K1 forward, bfloat16: the C entry point packed_attention_fwd_bf16. The
-// kernels, their launcher and the notes on their design are in k1_fwd.cuh;
-// the float32 entry point is packed_attention.cu.
+// launcher and the notes on the design are in k1_fwd.cuh, the kernels of
+// windows under 32 in k1_multi.cuh; the float32 entry point is
+// packed_attention.cu.
 //
 // Replaces: bridgerl_tpu/ops/pallas/attention.py, _packed_attention_fwd
 // (attention.py:143, pallas_call at :149), for bfloat16 inputs.

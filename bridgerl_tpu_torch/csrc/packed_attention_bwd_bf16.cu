@@ -1,5 +1,6 @@
 // K1 backward, bfloat16: the C entry point packed_attention_bwd_bf16, the
-// one-kernel paths (window tiles, the window-resident kernel). The kernels,
+// one-kernel paths (the multi-window kernel of k1_multi.cuh, the
+// window-resident kernel). The kernels,
 // their launcher and the notes on their design are in k1_bwd.cuh; the
 // two-kernel path is packed_attention_bwd_bf16_long.cu, the other dtype's
 // entry point packed_attention_bwd.cu.

@@ -44,14 +44,17 @@ float32, and out, dq, dk and dv are rounded to q's dtype once, at the end
 point, and each counts its launches on its own counter.
 
 Each launch follows :func:`k1_plan`, which mirrors the C launchers: windows
-shorter than ``MIN_MMA_WINDOW`` take the window tiles (several whole
-windows a block, float32 cores), longer ones the tensor-core path (tiles of
+shorter than ``MIN_MMA_WINDOW`` take the window tiles in float32 (several
+whole windows a block, float32 cores) and, in bfloat16, the multi-window
+tensor-core kernels (:func:`multi_plan`: several whole windows a block, a
+warp a strip of 16 query rows), longer ones the tensor-core path (tiles of
 64 rows a block against streamed tiles of 32, online softmax; the backward
 one window-resident kernel up to W 64, and 128 at Dh <= 64, else two kernels
 with a scratch array between them); head dims past 128 take the wide
 kernels at every W (:func:`wide_plan`). The C entry points
 recompute the plan and refuse any other. Each entry point counts its
-launches, the tensor-core path's on a second counter (``MMA_COUNTER``). The
+launches, the tensor-core path's on a second counter (``MMA_COUNTER``), the
+bfloat16 multi-window kernels' on ``MULTI_COUNTER``. The
 backward's two-kernel path has a C entry point of its own
 (``LONG_ENTRY``, ``csrc/packed_attention_bwd[_bf16]_long.cu``), whose
 launches count on the backward's counters and on ``LONG_COUNTER``; the wide
@@ -122,6 +125,9 @@ WINDOW_SMEM = 115712          # kWinSmem: its shared memory for two blocks an SM
 SMEM_LIMIT = 232448           # bytes of shared memory one H100 block may use
 TILE_ROWS = 20                # csrc/k1_tiles.cuh kTileRows: G = 20 // W windows a block
 MIN_MMA_WINDOW = 32           # csrc/k1_mma.cuh kMinWindow: W* of the tensor-core path
+MULTI_ROWS = 64               # csrc/k1_multi.cuh kMultiRows: a bf16 multi-window block's
+                              # rows at most, 4 strips of 16
+MULTI_STAGED = MULTI_ROWS + 16   # kMultiStaged: rows it stages (a chunk reads 15 past)
 MMA_ROWS, MMA_COLS = 64, 32   # kRows (a block's rows, 16 a warp) and kCols (a streamed tile)
 MAX_ROW = 65535               # kMaxRow: the Philox counter i * S + j has 32 bits
 FULL_GRID = 264               # kFullGrid: two-kernel backward blocks of MMA_ROWS rows
@@ -146,8 +152,11 @@ LONG_COUNTER = {("bwd", dtype): kernels.LaunchCounter(name) for dtype, name in L
 # dtype) of their own; their launches count on the entry's counter and on WIDE_COUNTER
 WIDE_ENTRY = {key: name + "_wide" for key, name in ENTRY.items()}
 WIDE_COUNTER = {key: kernels.LaunchCounter(name) for key, name in WIDE_ENTRY.items()}
+# the launches among the bfloat16 ones that took the multi-window kernels (W < MIN_MMA_WINDOW)
+MULTI_COUNTER = {key: kernels.LaunchCounter(name + "_multi") for key, name in ENTRY.items()
+                 if key[1] == torch.bfloat16}
 # the plan's path as the C entry points take it
-PATH_CODE = {"tiles": 0, "mma": 1, "wide": 2}
+PATH_CODE = {"tiles": 0, "mma": 1, "wide": 2, "multi": 3}
 
 Seed = Union[int, torch.Tensor]
 # one generator, or one per seed of a stacked multi-seed step
@@ -346,6 +355,13 @@ class K1Plan(NamedTuple):
     ``causal`` the tiles that :meth:`key_tiles` and :meth:`query_tiles` leave
     out, all wholly above the diagonal, do not run.
 
+    ``multi``: bfloat16 below MIN_MMA_WINDOW (:func:`multi_plan`): blocks
+    of 128 threads take ``windows_per_block`` (G) whole windows each
+    (``rows`` = G * W), a warp the rows of one strip (:meth:`strip_rows`)
+    against ``cols`` = 8 * :func:`multi_key_tiles` keys in chunks of
+    :func:`multi_chunk` (:meth:`strip_chunks`); the backward is one
+    kernel.
+
     ``wide``: a head dim past 128 (:func:`wide_plan`): blocks of 64 rows,
     ``windows_per_block`` whole windows at W <= MULTI_WINDOW, else row tiles
     of a window, times ``groups`` output column groups; the backward one
@@ -393,6 +409,34 @@ class K1Plan(NamedTuple):
             n = min(n, (query_tile * self.rows + self.rows - 1) // self.cols + 1)
         return range(n)
 
+    def strip_rows(self, strip: int, windows: int) -> range:
+        """The block rows of warp ``strip``'s query rows (multi; keys in the
+        backward's second half) in a block of ``windows`` windows
+        (k1_multi.cuh's multi_strip): up to W 16 the rows of its
+        min(4, 16 // W) whole windows, past it one 16-row part of a
+        window."""
+        W = self.W
+        if W <= 16:
+            m = multi_per_strip(W)
+            first = strip * m
+            return range(first * W, max(first, min(windows, first + m)) * W)
+        cw = _cdiv(W, 16)
+        win, part = divmod(strip, cw)
+        start = win * W + 16 * part
+        return range(start, start + (max(0, min(16, W - 16 * part)) if win < windows else 0))
+
+    def strip_chunks(self, strip: int) -> list:
+        """The block row of each chunk's first key that warp ``strip``
+        computes against (and, in the backward, of its queries): up to W 16
+        chunk c is the strip's window c, past it keys 16c .. of its window.
+        The strip's key at place p is row chunks[p // C] + p % C, C =
+        :func:`multi_chunk`."""
+        W = self.W
+        chunks = self.cols // multi_chunk(W)
+        if W <= 16:
+            return [(strip * multi_per_strip(W) + c) * W for c in range(chunks)]
+        return [strip // _cdiv(W, 16) * W + 16 * c for c in range(chunks)]
+
     def query_tiles(self, key_tile: int) -> range:
         """The query tiles (of ``cols``) that key tile ``key_tile`` reads in
         the dk / dv kernel: from k1_mma.cuh's first_query_tile on."""
@@ -406,6 +450,53 @@ def tile_bytes_per_window(W: int, Dh: int, direction: str) -> int:
     if direction == "fwd":
         return 4 * (3 * W * (Dh + 4) + 2 * W * (W + 1) + W)
     return 4 * (4 * W * (Dh + 4) + 3 * W * (W + 1))
+
+
+def multi_per_strip(W: int) -> int:
+    """k1_multi.cuh's multi_per_strip: whole windows a warp's strip of 16
+    rows holds up to W 16 (at most 4); past it a window takes several
+    strips."""
+    return 1 if W > 16 else min(4, 16 // W)
+
+
+def multi_chunk(W: int) -> int:
+    """k1_multi.cuh's multi_chunk: the keys of a chunk, 8 up to W 8 (their
+    products m16n8k8), else 16. A window's keys start a chunk of their own."""
+    return 8 if W <= 8 else 16
+
+
+def multi_key_tiles(W: int) -> int:
+    """k1_multi.cuh's multi_key_tiles: the 8-key tiles a strip computes
+    against: a chunk a window up to W 16 (2 at W 6-8, 3 at W 5, 4 at W 1-4
+    in 8-key chunks; 2 at W 9-16), and past 16 the window's two 16-key
+    chunks (4)."""
+    if W <= 8:
+        return multi_per_strip(W)
+    return 2 * (_cdiv(W, 16) if W > 16 else multi_per_strip(W))
+
+
+def multi_windows(W: int) -> int:
+    """k1_multi.cuh's multi_windows: whole windows a block of 4 strips (4 at
+    W 10, 12 at W 5, 2 at W 17-32)."""
+    return 4 // _cdiv(W, 16) if W > 16 else 4 * multi_per_strip(W)
+
+
+def multi_smem(Dh: int, direction: str, W: int) -> int:
+    """The multi-window kernels' shared memory: MULTI_STAGED padded bf16 rows
+    of q, k and v (and dout), in the backward one float32 (MULTI_ROWS,
+    :func:`multi_tile_stride`) tile that holds p_drop, then ds, and the
+    rows' bias inside their windows, a float32 (MULTI_ROWS, W) tile."""
+    rows = MULTI_STAGED * mma_row_bytes(head_width(Dh), torch.bfloat16)
+    bias = MULTI_ROWS * W * 4
+    if direction == "fwd":
+        return 3 * rows + bias
+    return 4 * rows + MULTI_ROWS * multi_tile_stride(W) * 4 + bias
+
+
+def multi_tile_stride(W: int) -> int:
+    """k1_multi.cuh's multi_tile_stride: a row of the backward's shared tile,
+    a window's chunks and 4 floats."""
+    return (8 if W <= 8 else 16 * _cdiv(W, 16)) + 4
 
 
 def mma_row_bytes(Dh: int, dtype: torch.dtype) -> int:
@@ -492,18 +583,36 @@ def _at_head_dim(plan: K1Plan, Dh: int, dtype: torch.dtype) -> K1Plan:
 def k1_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
             direction: str = "fwd", causal: bool = False) -> K1Plan:
     """The launch of K1 at (BH, S, Dh), window W, planned at the width
-    :func:`head_width` gives: the window tiles below MIN_MMA_WINDOW, the
-    tensor-core path (:func:`mma_plan`) from it on, and past 128 the wide
-    kernels at every W (:func:`wide_plan`). Raises on what the kernels do
-    not take."""
+    :func:`head_width` gives: below MIN_MMA_WINDOW the window tiles in
+    float32 and the multi-window kernels in bfloat16 (:func:`multi_plan`),
+    the tensor-core path (:func:`mma_plan`) from it on, and past 128 the
+    wide kernels at every W (:func:`wide_plan`). Raises on what the kernels
+    do not take."""
     windows = _windows_of(BH, S, W, Dh, dtype, direction)
     width = head_width(Dh)
     if W >= MIN_MMA_WINDOW or width > SUPPORTED_HEAD_DIMS[-1]:
         return mma_plan(BH, S, W, Dh, dtype, direction, causal)
+    if dtype == torch.bfloat16:
+        return multi_plan(BH, S, W, Dh, direction, causal)
     per = tile_bytes_per_window(W, width, direction)
     G = min(max(1, TILE_ROWS // W), SMEM_LIMIT // per, max(windows, 1))
     return _at_head_dim(K1Plan("tiles", direction, W, causal, windows, G * W, 0, G,
                                _cdiv(windows, G), G * per, 0, 0), Dh, dtype)
+
+
+def multi_plan(BH: int, S: int, W: int, Dh: int, direction: str = "fwd",
+               causal: bool = False) -> K1Plan:
+    """The bfloat16 multi-window kernels' launch (csrc/k1_multi.cuh), below
+    MIN_MMA_WINDOW: G = :func:`multi_windows` whole windows a block (at most
+    the launch's), ``cols`` = 8 :func:`multi_key_tiles` keys a strip,
+    :func:`multi_smem` bytes."""
+    windows = _windows_of(BH, S, W, Dh, torch.bfloat16, direction)
+    if W >= MIN_MMA_WINDOW:
+        raise ValueError(f"window {W}: the multi-window kernels take W < {MIN_MMA_WINDOW}")
+    G = min(multi_windows(W), max(windows, 1))
+    return _at_head_dim(K1Plan("multi", direction, W, causal, windows, G * W,
+                               8 * multi_key_tiles(W), G, _cdiv(windows, G),
+                               multi_smem(Dh, direction, W), 0, 0), Dh, torch.bfloat16)
 
 
 def mma_plan(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype = torch.float32,
@@ -739,6 +848,8 @@ def _count(direction: str, plan: K1Plan, dtype) -> None:
     if plan.path == "wide":
         WIDE_COUNTER[direction, dtype].add()
         return
+    if plan.path == "multi":
+        MULTI_COUNTER[direction, dtype].add()
     if plan.path == "mma":
         MMA_COUNTER[direction, dtype].add()
     if plan.blocks_kv:

@@ -3,7 +3,7 @@ path overtakes the window tiles.
 
     python -m bridgerl_tpu_torch.tools.k1_phases                     # float32, one H100
     python -m bridgerl_tpu_torch.tools.k1_phases --dtype bfloat16    # the bf16 kernels
-    python -m bridgerl_tpu_torch.tools.k1_phases --crossover         # both paths, W 16-64
+    python -m bridgerl_tpu_torch.tools.k1_phases --crossover [--dtype bfloat16]   # W 16-64
     python -m bridgerl_tpu_torch.tools.k1_phases --wide [--dtype bfloat16]   # Dh past 128 only
 
 Builds copies of K1's sources (the kernels of ``csrc/k1_fwd.cuh`` and
@@ -18,7 +18,14 @@ products and stores. Tensor-core path (the ``K1_PHASE`` marks of
 ``csrc/k1_mma.cuh``, summed over a block's tiles): wait (staging and
 waiting for a tile), logits (the products q k^T and dout v^T, bias, masks,
 softmax and draws), products (from registers: p v, ds k, p^T dout, ds^T q)
-and stores; the two-kernel backward's kernels (dq, then dk / dv) each on
+and stores; the bf16 multi-window kernels (W < 32, ``csrc/k1_multi.cuh``, the
+same marks; parts ``multi_fwd`` and ``multi_bwd``): stage (the rows' windows,
+seeds and keep bits, drawn while the copies fly, and the wait for q, k and
+the bias), logits (forward: q k^T, bias, masks, softmax and the wait for v;
+backward ``rows``: s, the softmax, the wait for v and dout, dp, D and ds), products
+(forward: p_drop v; backward ``dq``: ds k, its stores and p_drop into the
+shared tile) and stores (backward ``keys``: dv and dk by key columns, and
+their stores); the two-kernel backward's kernels (dq, then dk / dv) each on
 its own line, the row-buffered dq kernel (``dq_rows``) with wait, logits
 (s, dp and the draws into the row buffers), rows (max, normaliser, D, ds,
 the planes written) and products (ds k), and the keys kernel after it
@@ -35,9 +42,10 @@ and dk / dv kernels. ``--crossover`` builds the sources as shipped and, in a
 copy whose ``kMinWindow`` is 1, with every window on the tensor-core path
 (launched with ``ops/attention.py::mma_plan``), and times both paths' forward
 and backward (CUDA events, the median of 30 after warm-up) at CROSSOVER_W
-windows of one row each, 65,536 positions a call: the W at which the
-tensor-core path wins is the kernels' ``kMinWindow``. The port's own build is
-not touched.
+windows of one row each, 65,536 positions a call, in both dtypes or the one
+``--dtype`` names (below W 32 the shipped bf16 path is the multi-window
+kernels): the W at which the tensor-core path wins is the kernels'
+``kMinWindow``. The port's own build is not touched.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from ..ops import attention, kernels
 
 # (B*H, S, Dh, packing, dropout, causal)
 SHAPES = ((256, 80, 64, 8, 0.1, False), (2048, 80, 64, 8, 0.0, False),
+          (16384, 5, 64, 1, 0.1, True),   # the slot-AR depth stack (W 5)
           (1024, 64, 64, 1, 0.1, False), (1024, 64, 64, 1, 0.0, False),
           (128, 128, 64, 1, 0.1, True),
           # past the window-resident backward at Dh 64 and W <= 128: W 160 at Dh 128,
@@ -82,6 +91,8 @@ WINDOW_PHASES = ("stage", "rows", "dq", "keys")   # the window-resident backward
 ROWS_PHASES = ("wait", "logits", "rows", "products")   # the row-buffered dq kernel
 KEYS_PHASES = ("wait", "fragments", "products", "stores")   # the keys kernel after it
 WIDE_PHASES = ("staging", "logits", "softmax", "products")   # the wide kernels
+MULTI_PHASES = {"multi_fwd": ("stage", "logits", "products", "stores"),   # bf16 below W 32
+                "multi_bwd": ("stage", "rows", "dq", "keys")}
 KERNELS = (("k1_fwd.cuh", "k1_fwd_tiles", "fwd"), ("k1_bwd.cuh", "k1_bwd_tiles", "bwd"))
 MIN_WINDOW = "constexpr int kMinWindow = {};"   # k1_mma.cuh's W*, which the copy rewrites
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -317,6 +328,8 @@ def _spans(so, plan):
         parts = ([("wide_fwd", plan.blocks, raw[0])] if plan.direction == "fwd" else
                  [("wide_window", plan.blocks, raw[0])] if not plan.blocks_kv else
                  [("wide_dq", plan.blocks, raw[0]), ("wide_dkv", plan.blocks_kv, raw[1])])
+    elif plan.path == "multi":
+        parts = [(f"multi_{plan.direction}", plan.blocks, raw[0])]
     elif plan.direction == "fwd":
         parts = [("fwd", plan.blocks, raw[0])]
     elif plan.blocks_kv:
@@ -347,7 +360,8 @@ def _span_fields(t, path) -> dict:
 
 
 def _phase_medians(t, path, part) -> dict:
-    names = (TILE_PHASES if path == "tiles" else WIDE_PHASES if part.startswith("wide")
+    names = (TILE_PHASES if path == "tiles" else MULTI_PHASES[part] if path == "multi"
+             else WIDE_PHASES if part.startswith("wide")
              else WINDOW_PHASES if part == "window"
              else ROWS_PHASES if part == "dq_rows" else KEYS_PHASES if part == "keys"
              else MMA_PHASES)
@@ -355,18 +369,18 @@ def _phase_medians(t, path, part) -> dict:
                              for i, name in enumerate(names)}}
 
 
-def crossover() -> None:
-    """Both paths' times at CROSSOVER_W, in both dtypes, dropout 0.1."""
+def crossover(dtypes) -> None:
+    """Both paths' times at CROSSOVER_W, dropout 0.1, in each of ``dtypes``."""
     work = tempfile.mkdtemp(prefix="k1_crossover_")
     builds = {}
-    for dtype in DTYPES.values():
+    for dtype in dtypes:
         for mma in (False, True):
             d = f"{work}/{str(dtype)[6:]}_{int(mma)}"
             os.makedirs(d)
             builds[dtype, mma] = build(d, dtype, mma)
     g = torch.Generator(device="cuda").manual_seed(0)
     card = torch.cuda.get_device_name(0)
-    for dtype in DTYPES.values():
+    for dtype in dtypes:
         for W in CROSSOVER_W:
             line = {"crossover": W, "dtype": str(dtype)[6:], "card": card,
                     "shape": [CROSSOVER_POSITIONS // W, W, 64], "dropout": 0.1}
@@ -382,16 +396,17 @@ def crossover() -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
+                    help="default float32 (--crossover: both)")
     ap.add_argument("--crossover", action="store_true")
     ap.add_argument("--wide", action="store_true", help="only the head dims past 128")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_phases: needs a card")
     if args.crossover:
-        crossover()
+        crossover([DTYPES[args.dtype]] if args.dtype else list(DTYPES.values()))
     else:
-        phases(DTYPES[args.dtype], args.wide)
+        phases(DTYPES[args.dtype or "float32"], args.wide)
     return 0
 
 

@@ -5,7 +5,9 @@ runs from: the way to compare two versions of the kernels in one call.
 
 prints one JSON line per case (``tree`` = TAG): K1's forward and backward
 (float32 and bf16, dropout 0.1) at the token prior's, the towers' and the
-two-kernel backward's shapes, and K2 at the flagship's and the zoo's and
+two-kernel backward's shapes, the window tiles' (bf16: the multi-window
+kernels') serving, artifact, latent and seed-group shapes, and K2 at the
+flagship's and the zoo's and
 past 512 columns (``K2_WIDE``, chip_smoke.py's as well; with its plain version's
 time and a cold time, L2 emptied before each call). Each time is the median
 of 50 CUDA-event timings after 5 warm-up calls, with a ~5 ms spin queued
@@ -48,7 +50,13 @@ K1_SHAPES = ((256, 80, 10, 64, False), (2048, 80, 10, 64, False), (1024, 64, 64,
              (256, 80, 10, 32, False), (256, 64, 64, 48, False), (256, 64, 64, 64, False),
              (128, 96, 96, 48, True), (12288, 5, 5, 48, True), (128, 96, 96, 96, True),
              (256, 80, 10, 50, False), (256, 64, 64, 12, False), (24, 160, 160, 100, False),
-             (64, 96, 96, 130, True), (256, 64, 64, 300, False))
+             (64, 96, 96, 130, True), (256, 64, 64, 300, False),
+             # below W 32 (bf16: the multi-window kernels): serving's 256 windows, the
+             # artifact's 16384, the latent batches, the d384L6 prior's depth stack
+             (256, 10, 10, 64, False), (16384, 10, 10, 64, False),
+             (128, 80, 10, 64, False), (176, 10, 10, 64, False), (12288, 5, 5, 96, True))
+# (B*H, S, W, Dh, seed groups): the stacked multi-seed step's K1 (4 seeds x 1024 rows)
+K1_GROUPED = ((4096, 80, 10, 64, 4),)
 # (N, D, K): serving, training, validation, the zoo's K 1024, the studies' teacher, and two
 # other widths
 K2_SHAPES = ((4096, 64, 512), (512, 64, 512), (6554, 64, 512), (4096, 64, 1024),
@@ -88,16 +96,19 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype in () if "--k2" in argv else attention.DTYPES:
-        for BH, S, W, Dh, causal in K1_SHAPES:
+        for BH, S, W, Dh, causal, groups in [*((*c, 1) for c in K1_SHAPES),
+                                             *((*c[:4], False, c[4]) for c in K1_GROUPED)]:
             q, k, v, do = (torch.randn(BH, S, Dh, device="cuda", generator=g).to(dtype)
                            for _ in range(4))
             bias = causal_bias(S, "cuda") if causal else attention_bias(S // W, W, "cuda")
-            seed, scale = attention.draw_seed(g, "cuda"), Dh ** -0.5
+            seed = (attention.draw_seed(g, "cuda") if groups == 1 else torch.randint(
+                0, attention.SEED_HIGH, (groups,), device="cuda", generator=g, dtype=torch.int32))
+            scale = Dh ** -0.5
             fwd = lambda: attention.attention_fwd(q, k, v, bias, scale, seed, 0.1, W, causal)
             bwd = lambda: attention.attention_bwd(q, k, v, bias, do, scale, seed, 0.1, W,
                                                   causal)
             print(json.dumps({"tree": tag, "kernel": "k1", "dtype": str(dtype)[6:],
-                              "shape": [BH, S, W, Dh], "causal": causal,
+                              "shape": [BH, S, W, Dh], "causal": causal, "seed_groups": groups,
                               "head_width": attention.head_width(Dh),
                               "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd)}), flush=True)
     for N, D, K in K2_SHAPES + K2_WIDE:

@@ -191,7 +191,8 @@ script exits non-zero. Each runs in float32 and then in bfloat16
 15. ``k1_causal`` (with the kernel checks of phase 2): K1 forward and
    backward under the token prior's causal bias over whole rows, f32 and
    bf16, at (128, 128, 64) (training: the tensor-core path), (16384, 5, 64) (the
-   slot-AR depth stack: window tiles), dropout 0.1 and 0, (16, 32, 64)
+   slot-AR depth stack: the float32 window tiles, the bf16 multi-window
+   kernels), dropout 0.1 and 0, (16, 32, 64)
    (sampling) and (128, 96, 64) (the studies' prior at max_len 96), dropout
    0.1 and 0, (32, 160, 64) (the backward's two-kernel path), (128, 256,
    64) (the prior at 256 positions: two kernels) at dropout 0.1 and 0, and
@@ -204,11 +205,12 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    diagonal, in both dtypes. ``k1_head_dims``: K1 forward and backward, f32
    and bf16, dropout 0.1, at head dims off the instantiated widths (16, 32,
    64, 96, 128), each staged as it is at the next width (the kernels'
-   ragged form: Dh 8 and 24 on the window tiles at W 10, beside the native
+   ragged form: Dh 8 and 24 at W 10 (window tiles in float32, multi-window
+   kernels in bf16), beside the native
    rows of their widths, 16 and 32, 48 on the
    window-resident kernel at W 64 and at the Dh-48 prior's backbone (128,
    96, 96) and depth stack (12288, 5, 5), causal; rows whose copies are
-   narrower than 16 bytes: Dh 50 on the tiles, 12 on the tensor-core
+   narrower than 16 bytes: Dh 50 at W 10, 12 on the tensor-core
    forward and window-resident backward, 100 on the row-buffered backward, 1
    on the full grid's two-sweep backward), at 96 (W 10; the d384L6 prior's
    backbone (128, 96, 96) and depth stack (12288, 5, 96), causal; the full
@@ -256,7 +258,8 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    layers, dropout 0.1, max_len 96, batch 32): every K1 launch of its
    training in the kernels' ragged form, staged at 64 ((128, 96, 96) on the
    tensor-core forward and the window-resident backward, (12288, 5, 5) on
-   the window tiles, causal); the same checks as ``prior_wide`` on other
+   the window tiles in float32 and the multi-window kernels in bf16,
+   causal); the same checks as ``prior_wide`` on other
    takes of the same shape.
 17. ``generate``: 4 motions of 32 positions from the f32 prior, unguided,
    guided (8 candidates, guide_dyn 0.2) and prompted (8 positions of a
@@ -348,7 +351,9 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    positions' slots and exp_prior_ar's ceiling within 1e-3 of the CPU's;
    bf16 under the bf16 code rule); each entry's seconds and launches.
 25. The ``kernels`` line (every kernel, float32 and bf16 rows, K1's split
-   into the window tiles, under the entry point's name, and the tensor-core
+   into the float32 window tiles, under the entry point's name, the bf16
+   multi-window kernels (W < 32, csrc/k1_multi.cuh) under ``<entry>_multi``,
+   and the tensor-core
    path, under ``<entry>_mma``, the backward's two-kernel launches apart
    under ``<entry>_long``, head dims past 128 under ``<entry>_wide``, each
    with its own cases; with its
@@ -366,8 +371,11 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    research paths, the two-kernel rows on prior_long, K1's forward and
    backward of each dtype and K2 on prior_wide, vq_assign_wide on
    train_wide, the wide rows of each
-   dtype and K2 on prior_dh256, the window-tile and tensor-core rows of
-   K1's forward and backward in each dtype and K2 on prior_dh48), then,
+   dtype and K2 on prior_dh256, the window-tile (float32), multi-window
+   (bf16) and tensor-core rows of K1's forward and backward in each dtype
+   and K2 on prior_dh48; the bf16 multi-window rows on train, serve and
+   artifact in bf16, multiseed, int8, prior_wide and prior_dh48, and no bf16
+   K1 launch left to a window-tile row), then,
    last,
    ``{"ok": true, "device": {...}}``.
 
@@ -605,6 +613,10 @@ RECIPE_AE_CKPT = (f"checkpoints/Exp_transformer_W{RECIPE_WINDOW}_ae_teacher_seed
 RECIPE_HYBRID = f"Exp_transformer_W{RECIPE_WINDOW}_hybrid_teacher_seed_{RECIPE_SEED}"
 # the paths whose K1 must show launches of the tensor-core kernels (W >= 32)
 MMA_PATHS = ("zoo", "recipe", "prior", "research")
+# the paths on which the bf16 multi-window kernels (K1 below W 32) must launch, by direction
+MULTI_PATHS = {"fwd": ("train_bf16", "serve_bf16", "artifact_bf16", "multiseed", "int8",
+                       "prior_wide", "prior_dh48"),
+               "bwd": ("train_bf16", "multiseed", "int8", "prior_wide", "prior_dh48")}
 # the token prior: K1 under the causal bias at the prior's shapes (B*H, S, Dh, dropout):
 # training (batch 32 x 4 heads, 128 positions), the slot-AR depth stack (32 x 128 rows of
 # 5 slots x 4 heads), sampling (4 samples x 4 heads, 32 positions) and the studies'
@@ -645,7 +657,8 @@ PRIOR_DH256 = dict(d_model=512, n_heads=2, n_layers=4, ff_dim=1024, dropout=0.1,
 # with its defaults: 4 heads, so Dh 48; 4 layers, ff_dim 2 d_model, slot-AR with 2 depth
 # layers, dropout 0.1, max_len 96, batch 32): K1 staged at 64 in the kernels' ragged form, at
 # (128, 96, 96) causal (the backbone: tensor cores, the window-resident backward) and
-# (12288, 5, 5) causal (the depth stack: window tiles); the same takes' shape as prior_wide's
+# (12288, 5, 5) causal (the depth stack: window tiles, multi-window kernels in bf16); the same
+# takes' shape as prior_wide's
 PRIOR_DH48 = dict(d_model=192, n_heads=4, n_layers=4, ff_dim=384, dropout=0.1, slot_ar=True,
                   depth_layers=2)
 # K1 at the head dims the instantiated widths do not cover (B*H, S, W, Dh, causal, what),
@@ -655,14 +668,14 @@ PRIOR_DH48 = dict(d_model=192, n_heads=4, n_layers=4, ff_dim=384, dropout=0.1, s
 # natively, and past 128 on the wide kernels (160, 256, 512; Dh 256 at W 5 and 10 with 12 and
 # 6 windows a block, and the Dh-256 prior's shapes; 130 and 300 in narrower copies). The
 # copies' bytes (f32 · bf16) follow attention.copy_bytes
-K1_HEAD_DIMS = ((256, 80, 10, 8, False, "tiles, staged at 16"),
-                (256, 80, 10, 16, False, "tiles, native at Dh 8's width"),
-                (256, 80, 10, 24, False, "tiles, staged at 32"),
-                (256, 80, 10, 32, False, "tiles, native at Dh 24's width"),
-                (256, 80, 10, 96, False, "tiles"),
+K1_HEAD_DIMS = ((256, 80, 10, 8, False, "tiles · multi, staged at 16"),
+                (256, 80, 10, 16, False, "tiles · multi, native at Dh 8's width"),
+                (256, 80, 10, 24, False, "tiles · multi, staged at 32"),
+                (256, 80, 10, 32, False, "tiles · multi, native at Dh 24's width"),
+                (256, 80, 10, 96, False, "tiles · multi"),
                 (256, 80, 10, 256, False, "wide, 6 windows a block"),
                 (128, 96, 96, 96, True, "d384L6 backbone: tensor cores; row-buffered backward"),
-                (12288, 5, 5, 96, True, "d384L6 depth stack: tiles"),
+                (12288, 5, 5, 96, True, "d384L6 depth stack: tiles · multi"),
                 (256, 64, 64, 48, False, "window-resident, staged at 64"),
                 (256, 64, 64, 160, False, "wide, 160 columns staged as they are"),
                 (128, 256, 256, 96, True, "full grid: two-sweep backward"),
@@ -673,8 +686,8 @@ K1_HEAD_DIMS = ((256, 80, 10, 8, False, "tiles, staged at 16"),
                 (512, 40, 5, 256, False, "wide, W 5, 12 windows a block"),
                 (128, 96, 96, 48, True, "Dh-48 prior backbone: tensor cores; window-resident "
                  "backward, staged at 64"),
-                (12288, 5, 5, 48, True, "Dh-48 prior depth stack: tiles, staged at 64"),
-                (256, 80, 10, 50, False, "tiles, staged at 64, copies of 8 · 4 bytes"),
+                (12288, 5, 5, 48, True, "Dh-48 prior depth stack: tiles · multi, staged at 64"),
+                (256, 80, 10, 50, False, "tiles · multi, staged at 64, copies of 8 · 4 bytes"),
                 (256, 64, 64, 12, False, "tensor cores; window-resident backward, staged at 16, "
                  "copies of 16 · 8 bytes"),
                 (24, 160, 160, 100, False, "row-buffered backward, staged at 128, copies of "
@@ -906,10 +919,22 @@ def k1_bound(dtype, elements: int, flops: int, window: int, mma=None):
 
 def k1_want(want: dict, window: int) -> dict:
     """``want`` with each K1 entry point's tensor-core counter: the entry's
-    launches where ``window`` takes that path (W >= MIN_MMA_WINDOW), else 0."""
+    launches where ``window`` takes that path (W >= MIN_MMA_WINDOW), else 0;
+    and the bf16 multi-window counters (:func:`multi_want`)."""
     for name in attention.ENTRY.values():
         long = window >= attention.MIN_MMA_WINDOW
         want[name + "_mma"] = want.get(name, 0) if long else 0
+    return multi_want(want)
+
+
+def multi_want(want: dict) -> dict:
+    """``want`` with each bf16 K1 entry point's multi-window counter: its
+    launches below MIN_MMA_WINDOW at Dh <= 128, which are the ones on neither
+    its tensor-core nor its wide counter."""
+    for counter in attention.MULTI_COUNTER.values():
+        entry = counter.name.removesuffix("_multi")
+        want[counter.name] = (want.get(entry, 0) - want.get(entry + "_mma", 0)
+                              - want.get(entry + "_wide", 0))
     return want
 
 
@@ -985,29 +1010,33 @@ def _kernel_row(name: str, source: str, replaces: str, cases: list) -> dict:
 
 ROW_KEYS = ("name", "route", "source", "replaces", "kernel_ms", "cases")
 WIDE_SOURCE = "bridgerl_tpu_torch/csrc/k1_wide.cuh"   # K1 past Dh 128, both directions
+MULTI_SOURCE = "bridgerl_tpu_torch/csrc/k1_multi.cuh"   # bf16 K1 below W 32, both directions
 
 
 def k1_case_kernel(name: str, case: dict) -> str:
     """The row of the ``kernels`` line that a K1 case of entry point ``name``
-    belongs to: the window tiles (W < MIN_MMA_WINDOW) under the entry's
-    name; the tensor-core path under ``<entry>_mma`` and, for the backward's
-    two-kernel launches (its plan has a dk / dv kernel), ``<entry>_long``.
-    A head dim past 128 takes the wide kernels at every W: ``<entry>_wide``."""
+    belongs to: the float32 window tiles (W < MIN_MMA_WINDOW) under the
+    entry's name, the bf16 multi-window kernels there under
+    ``<entry>_multi``; the tensor-core path under ``<entry>_mma`` and, for
+    the backward's two-kernel launches (its plan has a dk / dv kernel),
+    ``<entry>_long``. A head dim past 128 takes the wide kernels at every W:
+    ``<entry>_wide``."""
     BH, S, Dh = case["shape"]
     direction = "bwd" if "bwd" in name else "fwd"
     plan = attention.k1_plan(BH, S, case["window"], Dh, BF16 if "bf16" in name else torch.float32,
                              direction, case.get("bias") == "causal")
     if plan.path == "tiles":
         return name
-    if plan.path == "wide":
-        return name + "_wide"
+    if plan.path in ("wide", "multi"):
+        return f"{name}_{plan.path}"
     return name + ("_long" if plan.blocks_kv else "_mma")
 
 
 def split_k1_rows(table: list) -> list:
     """Each K1 entry point's row split by the kernels it launched
     (:func:`k1_case_kernel`), each with its own cases, the first its main
-    one. K2's row is kept."""
+    one: a bf16 entry point has no window-tile row, its multi-window row in
+    its place. K2's row is kept."""
     out = []
     for row in table:
         if row["name"] not in attention.ENTRY.values():
@@ -1015,25 +1044,29 @@ def split_k1_rows(table: list) -> list:
             continue
         main = {k: v for k, v in row.items() if k not in ROW_KEYS}
         cases = [main, *row["cases"]]
-        names = [row["name"], row["name"] + "_mma"]
+        bf16 = row["name"] + "_multi" in kernels.COUNTERS
+        names = [row["name"] + ("_multi" if bf16 else ""), row["name"] + "_mma"]
         if "bwd" in row["name"]:
             names.append(row["name"] + "_long")
         names.append(row["name"] + "_wide")
         for name in names:
             part = [c for c in cases if k1_case_kernel(row["name"], c) == name]
-            source = WIDE_SOURCE if name.endswith("_wide") else row["source"]
+            source = (WIDE_SOURCE if name.endswith("_wide") else
+                      MULTI_SOURCE if name.endswith("_multi") else row["source"])
             out.append(_kernel_row(name, source, row["replaces"], part))
     return out
 
 
 def row_launches(row: dict, launched: dict) -> int:
     """A kernel row's launches in one path's counts: an entry point's window
-    tiles are its launches less its tensor-core and wide ones, the
+    tiles are its launches less its tensor-core, wide and multi-window ones
+    (none for bf16, whose short windows are all multi-window launches), the
     backward's window-resident kernel its tensor-core launches less its
     two-kernel ones, and K2's row its launches less those past 512 columns."""
     name = row["name"]
     if name in attention.ENTRY.values():
-        return launched[name] - launched[name + "_mma"] - launched[name + "_wide"]
+        return (launched[name] - launched[name + "_mma"] - launched[name + "_wide"]
+                - launched.get(name + "_multi", 0))
     if name == vq_kernel.launch_counter.name:   # K2's launches up to 512 columns
         return launched[name] - launched[vq_kernel.wide_counter.name]
     if name.endswith("_mma") and name[:-4] + "_long" in launched:
@@ -1702,7 +1735,7 @@ def _expected_train_launches(trainer: Trainer, n: int, epochs: int) -> dict:
                  for name, m, v in zip(names, PER_MICROBATCH[mode], PER_VAL_BATCH[mode])})
     if exp.model.hidden_dim > vq_kernel.MAX_NARROW:   # every K2 call past 512 columns
         want[vq_kernel.wide_counter.name] = want[vq_kernel.launch_counter.name]
-    return want
+    return multi_want(want)
 
 
 def _run_stage(exp, ds: PairedDataset, epochs: int) -> dict:
@@ -2241,6 +2274,7 @@ def _calls(name: str, before: dict, dtype, k1: int, k2: int) -> dict:
     want = {k: 0 for k in now}
     want[attention.ENTRY["fwd", dtype]] = k1
     want["vq_assign"] = k2
+    multi_want(want)
     require(delta == want, f"{name}: launches {delta}, want {want}")
     return delta
 
@@ -2482,6 +2516,7 @@ def stream_path(smi: str, art, dtype=torch.float32) -> dict:
     counts = launches()
     want_counts = {k: 0 for k in counts}
     want_counts.update({attention.ENTRY["fwd", dtype]: k1 * windows, "vq_assign": k2 * windows})
+    multi_want(want_counts)
     require(counts == want_counts, f"stream: launches {counts}, want {want_counts}")
     require(set(late) == {W + 1}, f"stream: frames came out {sorted(set(late))} frames later")
     offline = reconstruct_long_sequence(art.fns["retarget"], seq, W, STREAM_STEP,
@@ -2814,6 +2849,7 @@ def multiseed_path(smi: str) -> dict:
     one_seed.update({name: epochs * (micro * m + val * v)
                      for name, m, v in zip(names, PER_MICROBATCH["teacher"],
                                            PER_VAL_BATCH["teacher"])})
+    multi_want(one_seed)
     require(counts == one_seed, f"multiseed: launches {counts}, one seed's run {one_seed}")
     n_seq = len(MS_SEQ_SEEDS)
     require({k: v * n_seq for k, v in counts.items()} == seq_counts,
@@ -3546,8 +3582,9 @@ def prior_dh256_path(smi: str, vq, exp) -> dict:
 def prior_dh48_path(smi: str, vq, exp) -> dict:
     """The capacity sweep's d192 arm (PRIOR_DH48: 4 heads of Dh 48) on the
     flagship's codes: as :func:`_prior_arm`, every K1 launch of its training
-    staged at 64 in the kernels' ragged form (window tiles and tensor
-    cores), forward and backward, in both dtypes."""
+    staged at 64 in the kernels' ragged form (window tiles in float32,
+    multi-window kernels in bf16, and tensor cores), forward and backward,
+    in both dtypes."""
     return _prior_arm(smi, vq, exp, "prior_dh48", PRIOR_DH48, SEED + 15, head_dim=48)
 
 
@@ -5066,18 +5103,29 @@ def main(argv) -> int:
     for name in [*attention.ENTRY.values(), "vq_assign"]:
         for path in ("prior_wide", "prior_dh256"):
             rows = ((name + "_wide",) if path == "prior_dh256" and name != "vq_assign"
-                    else (name, name + "_mma", name + "_long", name + "_wide"))
+                    else (name, name + "_multi", name + "_mma", name + "_long", name + "_wide"))
             launched = sum(r["launches_by_path"][path] for r in table if r["name"] in rows)
             require(launched > 0, f"{name}: no launch on {path} ({rows})")
     wide_row = next(r for r in table if r["name"] == vq_kernel.wide_counter.name)
     require(wide_row["launches_by_path"]["train_wide"] > 0,
             f"vq_assign_wide: no launch on train_wide: {wide_row['launches_by_path']}")
-    # prior_dh48 (Dh 48, the ragged form): K1's window tiles (the depth stack) and tensor
-    # cores (the backbone: the forward, the window-resident backward) in each dtype, and K2
-    for name in [*(n + part for n in attention.ENTRY.values() for part in ("", "_mma")),
+    # prior_dh48 (Dh 48, the ragged form): K1's window tiles in float32 and multi-window
+    # kernels in bf16 (the depth stack) and tensor cores (the backbone: the forward, the
+    # window-resident backward) in each dtype, and K2
+    short = lambda n: n + ("_multi" if n + "_multi" in kernels.COUNTERS else "")  # noqa: E731
+    for name in [*(part for n in attention.ENTRY.values() for part in (short(n), n + "_mma")),
                  "vq_assign"]:
         by_path = next(r["launches_by_path"] for r in table if r["name"] == name)
         require(by_path["prior_dh48"] > 0, f"{name}: no launch on prior_dh48: {by_path}")
+    # the bf16 multi-window kernels on every path that runs bf16 K1 below W 32, and no bf16
+    # launch left to a window-tile row (bf16 has none)
+    for (direction, dtype), counter in attention.MULTI_COUNTER.items():
+        by_path = next(r["launches_by_path"] for r in table if r["name"] == counter.name)
+        require(all(by_path[p] > 0 for p in MULTI_PATHS[direction]),
+                f"{counter.name}: no launch on one of {MULTI_PATHS[direction]}: {by_path}")
+        entry = {"name": attention.ENTRY[direction, dtype]}
+        tiles = {p: row_launches(entry, r["launches"]) for p, r in paths.items()}
+        require(not any(tiles.values()), f"{entry['name']}: window-tile launches {tiles}")
     emit({"phase": "total", "card": smi, "chip_smoke_s": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ synthetic inputs: the float32 serving rule on weights trained on the card
 window an RVQ near tie or one of the few FSQ flips allowed), the K2
 profile's status (``k2_profile_status``: whole, short, or failed at once),
 K2's bound (``k2_bound``: past 512 columns three tf32 products a product on
-the tensor cores) and the split of K2's launches between its two rows
-(``row_launches``).
+the tensor cores), the split of K2's launches between its two rows
+(``row_launches``), and K1's bf16 multi-window rows: the counts a path must
+show on them (``multi_want``), the row a case belongs to (``k1_case_kernel``)
+and the rows a bf16 entry point splits into (``split_k1_rows``).
 """
 
 import numpy as np
@@ -146,3 +148,45 @@ def test_k2_rows_split_the_launches():
     launched = {"vq_assign": 10, "vq_assign_wide": 4}
     assert chip_smoke.row_launches({"name": "vq_assign"}, launched) == 6
     assert chip_smoke.row_launches({"name": "vq_assign_wide"}, launched) == 4
+
+
+def test_multi_window_counts_follow_the_bf16_entry_points():
+    """multi_want: a bf16 entry point's launches on neither its tensor-core
+    nor its wide counter are multi-window launches; float32 has none."""
+    want = {"packed_attention_fwd_bf16": 10, "packed_attention_fwd_bf16_mma": 3,
+            "packed_attention_fwd_bf16_wide": 2, "packed_attention_bwd_bf16": 4,
+            "packed_attention_fwd": 7}
+    chip_smoke.multi_want(want)
+    assert want["packed_attention_fwd_bf16_multi"] == 5
+    assert want["packed_attention_bwd_bf16_multi"] == 4
+    assert "packed_attention_fwd_multi" not in want
+    W10 = chip_smoke.k1_want({"packed_attention_fwd_bf16": 8}, 10)
+    W64 = chip_smoke.k1_want({"packed_attention_fwd_bf16": 8}, 64)
+    assert W10["packed_attention_fwd_bf16_multi"] == 8
+    assert W64["packed_attention_fwd_bf16_multi"] == 0
+
+
+@pytest.mark.parametrize("name", ["packed_attention_fwd_bf16", "packed_attention_bwd_bf16"])
+def test_bf16_short_window_cases_go_to_the_multi_window_rows(name):
+    """A bf16 case below W 32 (Dh <= 128) belongs to ``<entry>_multi``, with the
+    multi-window source; the float32 one to the entry's window-tile row; the
+    bf16 entry keeps no window-tile row, and its launches all land on the
+    other rows."""
+    case = {"shape": [256, 80, 64], "window": 10, "ms": 0.01}
+    assert chip_smoke.k1_case_kernel(name, case) == name + "_multi"
+    f32 = name.replace("_bf16", "")
+    assert chip_smoke.k1_case_kernel(f32, case) == f32
+    long = {"shape": [64, 64, 64], "window": 64, "ms": 0.01}
+    assert chip_smoke.k1_case_kernel(name, long) == name + "_mma"
+    wide = {"shape": [64, 80, 256], "window": 10, "ms": 0.01}
+    assert chip_smoke.k1_case_kernel(name, wide) == name + "_wide"
+    cases = [case, long, wide]
+    if "bwd" in name:   # a two-kernel backward
+        cases.append({"shape": [24, 160, 128], "window": 160, "ms": 0.01})
+    row = chip_smoke._kernel_row(name, "bridgerl_tpu_torch/csrc/k1_fwd.cuh", "here", cases)
+    rows = {r["name"]: r for r in chip_smoke.split_k1_rows([row])}
+    assert name not in rows and rows[name + "_multi"]["source"] == chip_smoke.MULTI_SOURCE
+    launched = {name: 9, name + "_mma": 2, name + "_wide": 0, name + "_multi": 7}
+    assert chip_smoke.row_launches({"name": name}, launched) == 0
+    assert chip_smoke.row_launches(rows[name + "_multi"], launched) == 7
+

@@ -458,6 +458,8 @@ def _bf16_pair(gen, BH, S, Dh, bias, window, rate, causal=False):
     names = ["packed_attention_fwd_bf16", "packed_attention_bwd_bf16"]
     if (window or S) >= attention.MIN_MMA_WINDOW:
         names += [n + "_mma" for n in names]
+    elif Dh <= 128:   # the multi-window kernels
+        names += [n + "_multi" for n in names]
     if attention.k1_plan(BH, S, window or S, Dh, BF16, "bwd", causal).blocks_kv:
         names.append("packed_attention_bwd_bf16_long")
     assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == dict.fromkeys(
@@ -560,6 +562,7 @@ def test_small_bf16_train_step_on_the_card_matches_the_cpu(gen):
         if dev == "cuda":
             assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
                 "packed_attention_fwd_bf16": 8, "packed_attention_bwd_bf16": 8,
+                "packed_attention_fwd_bf16_multi": 8, "packed_attention_bwd_bf16_multi": 8,
                 "vq_assign": 8}
             assert all(g.dtype == torch.float32 for g in res[dev, dtype][1].values())
     (lg, gg), (lc, gc), (l32, g32) = (res["cuda", "bfloat16"], res["cpu", "bfloat16"],
@@ -622,8 +625,10 @@ def test_k1_takes_views_as_an_exported_graph_gives_them(gen, dtype):
     out = attention.attention_fwd(q, k, v, bias, scale, seed, 0.1, W)
     got = attention.attention_bwd(q, k, v, bias, do, scale, seed, 0.1, W)
     torch.cuda.synchronize()
+    multi = ({f"{attention.ENTRY[d, dtype]}_multi": 1 for d in ("fwd", "bwd")}
+             if dtype == BF16 else {})
     assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
-        attention.ENTRY["fwd", dtype]: 1, attention.ENTRY["bwd", dtype]: 1}
+        attention.ENTRY["fwd", dtype]: 1, attention.ENTRY["bwd", dtype]: 1, **multi}
     ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, 0.1, W)
     want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, 0.1, W)
     for a, b in zip([out, *got], [ref, *want]):
@@ -1467,3 +1472,151 @@ def test_k1_wide_entry_points_refuse_other_plans(gen):
                 (Dh, plan.blocks, plan.smem_bytes, attention.PATH_CODE["wide"], 8)]:
         assert call(*bad) != 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- bf16 multi-window kernels
+#
+# bf16 at W < 32 (csrc/k1_multi.cuh): several whole windows a block, a warp a strip of
+# 16 query rows on the tensor cores. W 1 (64 windows a block), 5 (the slot-AR depth
+# stacks), 10 (the flagship), 16 (strips on window boundaries), 24 and 31 (two windows a
+# block, a strip across both); Dh native (16, 64, 96, 128) and ragged (8, 24, 48; 50 in
+# copies of 4 bytes, 21 in plain 2-byte loads).
+
+MULTI_W = (1, 5, 10, 16, 24, 31)
+MULTI_DH = (8, 16, 21, 24, 48, 50, 64, 96, 128)
+
+
+def _multi_run(gen, BH, S, W, Dh, rate, causal=False, seed=None, bias=None):
+    """Forward and two backward launches of the bf16 multi-window kernels:
+    one bf16 ulp from the plain version, the backward bit-equal over two
+    launches, every launch counted on the entry's and the multi counter."""
+    from bridgerl_tpu_torch.models.layers import causal_bias
+
+    q, k, v, do = (_bf16(gen, BH, S, Dh) for _ in range(4))
+    if bias is None:
+        bias = causal_bias(S, "cuda") if causal else attention_bias(S // W, W, "cuda")
+    seed, scale = _seed(gen) if seed is None else seed, Dh ** -0.5
+    assert attention.k1_plan(BH, S, W, Dh, BF16, "bwd", causal).path == "multi"
+    kernels.reset_counters()
+    out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, W, causal)
+    got = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W, causal)
+    again = attention.attention_bwd(q, k, v, bias, do, scale, seed, rate, W, causal)
+    torch.cuda.synchronize()
+    assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
+        "packed_attention_fwd_bf16": 1, "packed_attention_fwd_bf16_multi": 1,
+        "packed_attention_bwd_bf16": 2, "packed_attention_bwd_bf16_multi": 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W, causal)
+    want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate, W,
+                                                    causal)
+    for a, b in zip([out, *got], [ref, *want]):
+        assert a.shape == (BH, S, Dh) and a.dtype == BF16
+        assert bf16_ulps(a, b, BF16_ATOL) <= 1.0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh", MULTI_DH)
+@pytest.mark.parametrize("W", MULTI_W)
+def test_k1_multi_window_kernels_match_plain(gen, W, Dh, rate):
+    """Every window length and head dim the kernels take, over a grid whose
+    last block holds fewer windows than the others."""
+    _multi_run(gen, 13, 5 * W, W, Dh, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("W,P", [(5, 1), (5, 3), (10, 2), (31, 2)])
+def test_k1_multi_window_kernels_under_the_causal_bias(gen, W, P, rate):
+    """causal: the slot-AR depth stacks' S = W = 5, and several causal windows
+    a row (the diagonal blocks of the causal bias)."""
+    _multi_run(gen, 24, P * W, W, 64, rate, causal=True)
+
+
+@pytest.mark.parametrize("Dh", [16, 64])
+def test_k1_multi_window_kernels_at_the_longest_rows(gen, Dh):
+    """S = 65,535 (the largest Philox counter i * S + j): W 5, 15 and 17
+    divide it; windows of rows far into the packed row."""
+    S = attention.MAX_ROW
+    bias = torch.zeros(S, S, device="cuda")
+    for W in (5, 15, 17):
+        _multi_run(gen, 2, S, W, Dh, 0.1, bias=bias)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_k1_multi_window_kernels_with_seed_groups(gen, rate):
+    """4 seed groups in one launch (the stacked multi-seed step): bit for bit
+    the launches of one group each, and one ulp from the plain version."""
+    G, BH, S, W, Dh = 4, 4 * 24, 80, 10, 64
+    q, k, v, do = (_bf16(gen, BH, S, Dh) for _ in range(4))
+    bias = attention_bias(S // W, W, "cuda")
+    seeds = torch.randint(0, attention.SEED_HIGH, (G,), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    _multi_run(gen, BH, S, W, Dh, rate, seed=seeds)
+    out = attention.attention_fwd(q, k, v, bias, 0.125, seeds, rate, W)
+    grads = attention.attention_bwd(q, k, v, bias, do, 0.125, seeds, rate, W)
+    n = BH // G
+    for i in range(G):
+        r, one = slice(i * n, (i + 1) * n), seeds[i:i + 1]
+        assert torch.equal(out[r], attention.attention_fwd(q[r], k[r], v[r], bias, 0.125, one,
+                                                           rate, W))
+        for a, b in zip(grads, attention.attention_bwd(q[r], k[r], v[r], bias, do[r], 0.125,
+                                                       one, rate, W)):
+            assert torch.equal(a[r], b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("W", [1, 5, 10, 16, 31])
+def test_k1_multi_window_keep_masks_equal_plain_philox(gen, W, causal):
+    """v = I and dout = I (Dh >= S) read both kernels' keep bits: inside the
+    windows (on and below each diagonal under causal) exactly the plain
+    Philox mask, the masks the float32 window tiles draw."""
+    from bridgerl_tpu_torch.models.layers import causal_bias
+
+    BH, S, Dh = 40, 2 * W, 64
+    q, k = (_bf16(gen, BH, S, Dh) for _ in range(2))
+    eye = torch.eye(W, Dh, device="cuda", dtype=BF16).repeat(S // W, 1).expand(
+        BH, S, Dh).contiguous()
+    bias = causal_bias(S, "cuda") if causal else attention_bias(S // W, W, "cuda")
+    seed = _seed(gen)
+    fwd = attention.attention_fwd(q, k, eye, bias, 0.125, seed, 0.3, W, causal)
+    dv = attention.attention_bwd(q, k, eye, bias, eye, 0.125, seed, 0.3, W, causal)[2]
+    want = attention.window_dropout_mask(seed, BH, S, W, 0.3, "cuda")
+    if causal:
+        want &= torch.ones(W, W, device="cuda").tril().bool()
+    got_fwd = fwd[:, :, :W].reshape(BH, S // W, W, W) > 0
+    got_bwd = dv[:, :, :W].reshape(BH, S // W, W, W).transpose(2, 3) > 0
+    assert torch.equal(got_fwd, want) and torch.equal(got_bwd, want)
+    f32 = attention.attention_fwd(q.float(), k.float(), eye.float(), bias, 0.125, seed, 0.3, W,
+                                  causal)
+    assert torch.equal(f32[:, :, :W].reshape(BH, S // W, W, W) > 0, want)
+
+
+def test_k1_multi_window_entry_points_refuse_other_plans(gen):
+    """The bf16 entry points take only the multi-window plan at W < 32: not
+    the float32 tiles' (path 0), nor other blocks or shared memory."""
+    BH, S, W, Dh = 8, 80, 10, 64
+    q = _bf16(gen, BH, S, Dh)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    bias = torch.zeros(S, S, device="cuda")
+    fwd, bwd = (attention.multi_plan(BH, S, W, Dh, d) for d in ("fwd", "bwd"))
+    tiles = attention.k1_plan(BH, S, W, Dh, torch.float32, "fwd")
+    f = kernels.entry("packed_attention_fwd_bf16")
+    b = kernels.entry("packed_attention_bwd_bf16")
+    call_f = lambda path, blocks, smem: f(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), dq.data_ptr(), BH, S, W, Dh,
+        0.125, 0, BH, 0, 1.0, 0, 0, path, blocks, smem, 16, kernels.stream_ptr(q))
+    call_b = lambda path, blocks, smem, blocks_kv=0: b(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), 0, BH, S, W, Dh, 0.125, 0, BH, 0, 1.0, 0, 0, path,
+        blocks, smem, blocks_kv, 0, 16, kernels.stream_ptr(q))
+    code = attention.PATH_CODE["multi"]
+    assert call_f(code, fwd.blocks, fwd.smem_bytes) == 0
+    assert call_b(code, bwd.blocks, bwd.smem_bytes) == 0
+    for bad in [(0, tiles.blocks, tiles.smem_bytes), (code, fwd.blocks + 1, fwd.smem_bytes),
+                (code, fwd.blocks, fwd.smem_bytes + 16), (attention.PATH_CODE["mma"],
+                                                          fwd.blocks, fwd.smem_bytes)]:
+        assert call_f(*bad) != 0
+    for bad in [(0, bwd.blocks, bwd.smem_bytes), (code, bwd.blocks, fwd.smem_bytes),
+                (code, bwd.blocks, bwd.smem_bytes, bwd.blocks)]:
+        assert call_b(*bad) != 0
+    torch.cuda.synchronize()
+

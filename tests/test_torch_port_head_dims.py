@@ -7,8 +7,9 @@ K2 past D 512, the int8 product at any width.
   at Dh 8, 24, 48 and 96 against the plain backward at the same Dh, at
   dropout 0 and 0.1; ``_check`` refusing tensors of other shapes;
 - a mirror of the kernels' staging and stores (csrc/k1_tiles.cuh's
-  ``stage_chunks`` and ``stage_widen``, k1_mma.cuh's ``stage_mma`` and
-  ``store_rows``, k1_wide.cuh's ``stage_cols`` and ``store_cols``), for every
+  ``stage_chunks``, k1_mma.cuh's ``stage_mma`` and ``store_rows``, which the
+  bf16 multi-window kernels use too, k1_wide.cuh's ``stage_cols`` and
+  ``store_cols``), for every
   Dh from 1 to 512 on each path, in both dtypes: the copies cover the
   columns below Dh once, zero-fill the rest of the staged width reading
   nothing, are aligned for their size, and the stores write the columns
@@ -217,7 +218,9 @@ def test_kernels_stage_and_store_the_true_head_dim(path, dtype):
         assert ((Dh * E) % plan.copy_bytes == 0
                 and all((Dh * E) % b for b in attention.COPY_SIZES if b > plan.copy_bytes))
         one = plan.path == "mma" and not plan.blocks_kv
-        kind = {"tiles": plan.path == "tiles", "tensor cores": one,
+        # below W 32 float32 takes the window tiles, bf16 the multi-window kernels
+        tiles = plan.path == ("tiles" if dtype == torch.float32 else "multi")
+        kind = {"tiles": tiles, "tensor cores": one,
                 "window-resident": one and plan.rows == plan.cols,
                 "row-buffered": plan.path == "mma" and plan.rows == 32 and plan.blocks_kv,
                 "two-sweep": plan.path == "mma" and plan.rows == 64 and plan.blocks_kv > 0,
@@ -253,7 +256,7 @@ def test_kernels_stage_and_store_the_true_head_dim(path, dtype):
         assert plan.ragged == (Dh != width) and width in attention.SUPPORTED_HEAD_DIMS
         if not plan.ragged:   # the native loops: whole rows in 16-byte copies
             assert copy == 16
-        if path == "tiles":   # float32 tiles in both dtypes (bf16 widened as staged)
+        if plan.path == "tiles":   # float32 tiles; bf16's multi-window kernels as stage_mma
             chunks = {r: _chunks(Dh, [(0, width)], E, copy) for r in ROWS}
             _check_staging(chunks, Dh, width, E, copy, 4)
             _check_stores({r: _quads(Dh, width, plan.ragged) for r in ROWS}, Dh, E)

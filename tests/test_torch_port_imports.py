@@ -192,12 +192,14 @@ def test_counters_reset():
     assert sorted(kernels.COUNTERS) == ["packed_attention_bwd", "packed_attention_bwd_bf16",
                                         "packed_attention_bwd_bf16_long",
                                         "packed_attention_bwd_bf16_mma",
+                                        "packed_attention_bwd_bf16_multi",
                                         "packed_attention_bwd_bf16_wide",
                                         "packed_attention_bwd_long",
                                         "packed_attention_bwd_mma",
                                         "packed_attention_bwd_wide", "packed_attention_fwd",
                                         "packed_attention_fwd_bf16",
                                         "packed_attention_fwd_bf16_mma",
+                                        "packed_attention_fwd_bf16_multi",
                                         "packed_attention_fwd_bf16_wide",
                                         "packed_attention_fwd_mma",
                                         "packed_attention_fwd_wide", "vq_assign",

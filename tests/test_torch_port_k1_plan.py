@@ -17,13 +17,15 @@ column once and compute every pair once. The block-to-work mapping below is
 the kernels' own index arithmetic.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from bridgerl_tpu_torch.ops import attention
+from bridgerl_tpu_torch.ops import attention, kernels
 from bridgerl_tpu_torch.ops.attention import (MIN_MMA_WINDOW, MMA_COLS, MMA_ROWS, SMEM_LIMIT,
                                               k1_plan)
 
@@ -136,10 +138,81 @@ def _check_warps(plan, causal, lower):
                                                               (part + 1) * NO // KP)) == list(range(NO))
 
 
+def _check_multi(plan, Dh):
+    """The bf16 multi-window plan (csrc/k1_multi.cuh): blocks of G whole
+    windows (``multi_windows``; the last the windows left), each window in
+    one block; 4 strips a block, each of whole windows (up to W 16) or of
+    one 16-row part of a window, against ``cols`` keys in 16-key chunks, a
+    window's keys from the start of its own chunk; each (query, key) pair
+    of a window (on and below the diagonal under causal) computed once by
+    the query strips and once by the key strips over the same chunks, every
+    row read within the staged rows, and key j of a window at the same place
+    in its chunks wherever the window lies in its block; the shared memory
+    within the budget."""
+    W, R = plan.W, attention.MULTI_ROWS
+    G = min(attention.multi_windows(W), max(plan.windows, 1))
+    assert plan.path == "multi" and plan.windows_per_block == G and plan.rows == G * W <= R
+    assert plan.blocks == -(-plan.windows // G) and plan.blocks_kv == plan.smem_kv == 0
+    assert attention.backward_scratch(plan) == 0
+    row = attention.mma_row_bytes(attention.head_width(Dh), BF16)
+    staged = attention.MULTI_STAGED
+    tile = (8 if W <= 8 else 16 * -(-W // 16)) + 4   # a window's chunks and 4
+    smem = 3 * staged * row if plan.direction == "fwd" else 4 * staged * row + R * tile * 4
+    assert plan.smem_bytes == smem + R * W * 4 <= SMEM_LIMIT   # and the (R, W) bias tile
+    KT = plan.cols // 8
+    C = attention.multi_chunk(W)
+    assert KT in (2, 3, 4) and KT == attention.multi_key_tiles(W) and plan.cols % C == 0
+    lower = np.tril(np.ones((W, W), bool)) if plan.causal else np.ones((W, W), bool)
+    covered = np.zeros(plan.windows, np.int64)
+    for b in range(plan.blocks):
+        covered[b * G:(b + 1) * G] += 1
+    assert (covered == 1).all()
+    # a full block and the last one (the others are the first's)
+    for g in {G, plan.windows - (plan.blocks - 1) * G}:
+        rows = g * W
+        pairs = np.zeros((rows, rows), np.int64)
+        for lw in range(g):
+            win = slice(lw * W, (lw + 1) * W)
+            pairs[win, win] = lower
+        by_rows, by_keys = np.zeros_like(pairs), np.zeros_like(pairs)
+        seen = np.zeros(rows, np.int64)
+        for strip in range(4):
+            own = plan.strip_rows(strip, g)
+            chunks = plan.strip_chunks(strip)
+            assert len(chunks) == plan.cols // C and len(own) <= 16 and (
+                not own or own.stop <= rows)
+            seen[own.start:own.stop] += 1
+            # the rows a block stages, as if it were full: every chunk's and strip's rows
+            # within them (a strip past the last block's windows computes, never stores)
+            need = (attention.multi_windows(W) - 1) * W + 16 * -(-W // 16)
+            assert need <= staged and all(0 <= c and c + C <= need for c in chunks)
+            if not own:
+                continue
+            assert own.start % W == 0 or W > 16   # strips start on windows
+            assert own.start + 16 <= need
+            # the strip's key at place p is row chunks[p // C] + p % C; a window's keys
+            # start its chunk: place p holds key j = p % C of the window at chunks[p // C]
+            # up to W 16, key j = p of the window at chunks[0] past it
+            for p in range(plan.cols):
+                start, j = (chunks[p // C], p % C) if W <= 16 else (chunks[0], p)
+                assert chunks[p // C] + p % C == start + j and start % W == 0
+                if j >= W or start >= rows:
+                    continue
+                k = start + j   # key k at its own place: the strip's rows of its window
+                for r in own:
+                    if r // W == start // W:
+                        by_rows[r, k] += pairs[r, k]
+                        by_keys[k, r] += pairs[k, r]   # the key strip: the same places
+        assert (seen == 1).all() and (by_rows == pairs).all() and (by_keys == pairs).all()
+
+
 def _check_plan(BH, S, W, Dh, dtype, direction, causal):
     plan = k1_plan(BH, S, W, Dh, dtype, direction, causal)
     assert plan.W == W and plan.direction == direction and plan.windows == BH * (S // W)
     assert 0 < plan.smem_bytes <= SMEM_LIMIT and plan.smem_kv <= SMEM_LIMIT
+    if W < MIN_MMA_WINDOW and dtype == BF16:
+        _check_multi(plan, Dh)
+        return plan
     if W < MIN_MMA_WINDOW:
         G = plan.windows_per_block
         assert plan.path == "tiles" and plan.rows == G * W and plan.blocks_kv == 0
@@ -523,3 +596,78 @@ def test_wide_layouts_fit_from_dh_160_to_1024():
     assert not f32(256, "dq").merged and f32(256, "dq").resident and f32(256, "dq").slab == 128
     assert not f32(512, "dq").resident
     assert attention.wide_layout(256, BF16, "dkv").merged
+
+
+@settings(max_examples=200, deadline=None)
+@given(W=st.integers(1, MIN_MMA_WINDOW - 1), Dh=st.integers(1, 128), BH=st.integers(1, 400),
+       P=st.integers(1, 4000), causal=st.booleans(), bwd=st.booleans())
+def test_multi_window_plan_sweep(W, Dh, BH, P, causal, bwd):
+    """bf16 below W 32 at every head dim up to 128, rows up to S = 65,535:
+    the multi-window kernels, every window and pair once, within the budget;
+    float32 at the same shape keeps the window tiles."""
+    S = min(P, attention.MAX_ROW // W) * W
+    direction = "bwd" if bwd else "fwd"
+    plan = _check_plan(BH, S, W, Dh, BF16, direction, causal)
+    assert plan.path == "multi" and plan.copy_bytes == attention.copy_bytes(Dh, BF16)
+    assert plan.ragged == (Dh != attention.head_width(Dh) or plan.copy_bytes < 16)
+    assert k1_plan(BH, S, W, Dh, torch.float32, direction, causal).path == "tiles"
+
+
+@pytest.mark.parametrize("W", range(1, MIN_MMA_WINDOW))
+def test_multi_window_strips_hold_whole_windows(W):
+    """Up to W 16 a strip holds min(4, 16 // W) whole windows (one at W 9-16,
+    its 16 rows used 10 of at W 10), each in a chunk of its own (8 keys up to
+    W 8, 16 past it); past 16 a window takes two strips and two 16-key
+    chunks; a block 4 strips."""
+    m = attention.multi_per_strip(W)
+    assert W > 16 and m == 1 or m * W <= 16 and m == min(4, 16 // W)
+    assert attention.multi_chunk(W) == (8 if W <= 8 else 16)
+    assert attention.multi_key_tiles(W) == (4 if W > 16 else m if W <= 8 else 2)
+    assert attention.multi_windows(W) == (2 if W > 16 else 4 * m)
+    assert attention.multi_windows(W) * W <= attention.MULTI_ROWS
+
+
+def test_bf16_short_windows_plan_the_multi_window_kernels():
+    """bf16 below W 32 and up to Dh 128 takes the multi-window kernels; float32
+    keeps the window tiles as they were planned; from W 32, and past Dh 128,
+    bf16's plans are the tensor-core and wide ones, as before."""
+    for W, Dh in ((10, 64), (5, 96), (1, 16), (31, 128), (10, 48), (5, 21)):
+        plan = k1_plan(256, 8 * W, W, Dh, BF16, "bwd", causal=W == 5)
+        G = {10: 4, 5: 12, 1: 16, 31: 2}[W]
+        assert plan.path == "multi" and plan.blocks == -(-plan.windows // G)
+        f32 = k1_plan(256, 8 * W, W, Dh, torch.float32, "bwd")
+        G = min(max(1, attention.TILE_ROWS // W), plan.windows)
+        width = attention.head_width(Dh)
+        assert f32.path == "tiles" and f32.windows_per_block == G
+        assert f32.smem_bytes == G * attention.tile_bytes_per_window(W, width, "bwd")
+    assert k1_plan(64, 64, 32, 64, BF16).path == k1_plan(64, 64, 64, 64, BF16).path == "mma"
+    assert k1_plan(64, 80, 10, 256, BF16).path == "wide"
+    # the flagship: 4 windows (40 rows) a block, a window and 16 keys a strip, 512 blocks
+    # at training's (256, 80, 64)
+    flag = k1_plan(256, 80, 10, 64, BF16, "fwd")
+    assert (flag.windows_per_block, flag.rows, flag.cols, flag.blocks) == (4, 40, 16, 512)
+    assert [list(flag.strip_rows(s, 4)) for s in (0, 3)] == [list(range(10)),
+                                                              list(range(30, 40))]
+    assert [flag.strip_chunks(s) for s in range(4)] == [[0], [10], [20], [30]]
+    # the slot-AR depth stack: 3 windows of 5 a strip, each in an 8-key chunk of its own
+    depth = k1_plan(16384, 5, 5, 64, BF16, "bwd", causal=True)
+    assert (depth.windows_per_block, depth.cols, depth.strip_chunks(1)) == (12, 24,
+                                                                            [15, 20, 25])
+    # W 24: a window's two halves in two strips, both against its 32 keys
+    half = k1_plan(8, 48, 24, 64, BF16, "fwd")
+    assert [half.strip_rows(s, 2) for s in range(4)] == [range(0, 16), range(16, 24),
+                                                         range(24, 40), range(40, 48)]
+    assert [half.strip_chunks(s) for s in range(4)] == [[0, 16], [0, 16], [24, 40], [24, 40]]
+
+
+def test_multi_window_constants_are_the_kernels():
+    """MULTI_ROWS, MULTI_STAGED and PATH_CODE["multi"] as csrc/k1_multi.cuh
+    has them."""
+    src = (kernels.CSRC / "k1_multi.cuh").read_text()
+    warps = int(re.search(r"constexpr int kMultiWarps = (\d+);", src).group(1))
+    assert attention.MULTI_ROWS == 16 * warps
+    assert "constexpr int kMultiStaged = kMultiRows + 16;" in src
+    assert attention.MULTI_STAGED == attention.MULTI_ROWS + 16
+    assert re.search(r"return path == (\d+) &&", src).group(1) == str(
+        attention.PATH_CODE["multi"])
+
