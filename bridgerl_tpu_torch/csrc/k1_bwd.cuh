@@ -13,8 +13,10 @@
 //   dv = p_drop^T do,  dp = keep * (do v^T) / keep_prob,
 //   ds = p * (dp - rowsum(dp * p)) * scale,  dq = ds k,  dk = ds^T q.
 //
-// Shapes: q, k, v, dout, dq, dk, dv are (BH, S, Dh), contiguous, 16-byte
-// aligned, all float32 (entry point packed_attention_bwd) or all bfloat16
+// Shapes: q, k, v, dout, dq, dk, dv are (BH, S, Dh) rows wherever their layout
+// puts them (k1_tiles.cuh's Head; the fused form writes dq, dk and dv into the
+// column blocks of one (B, S, 3d) buffer), all float32 (entry point
+// packed_attention_bwd) or all bfloat16
 // (packed_attention_bwd_bf16); bias is (S, S) float32 in both, read only
 // inside the diagonal (W, W) blocks. Everything inside is float32, and dq,
 // dk and dv are rounded to bfloat16 once, as they are stored. W divides S.
@@ -102,7 +104,7 @@ namespace {
 
 using k1::TileDims;
 
-template <typename Elem, int DH, bool RAGGED>
+template <typename Elem, int DH, bool RAGGED, bool SPAN>
 __global__ void __launch_bounds__(k1::kTileThreads)
 k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
              const Elem* __restrict__ v, const float* __restrict__ bias,
@@ -124,13 +126,13 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
   float* gs = ps + G * W * PS;                   // G * W * PS: dp, then ds
   float* kf = gs + G * W * PS;                   // G * W * PS: keep factors
 
-  const int ld = RAGGED ? hd.Dh : DH;            // the rows' stride in device memory
-  const size_t gbase = (size_t)n0 * W * ld;
-  {
-    float* const dst[4] = {qs, ks, vs, os};
-    const Elem* const src[4] = {q + gbase, k + gbase, v + gbase, dout + gbase};
-    k1::stage_tiles<DH, 4, RAGGED>(dst, src, rows, hd);
-  }
+  // the block's rows (Divided where they cross from one row n to the next: SPAN)
+  const auto rin = k1::block_rows<SPAN>(hd, k1::kIn, (unsigned)n0 * W);
+  k1::stage_tile<DH, RAGGED>(qs, q, rin, rows, hd);
+  k1::stage_tile<DH, RAGGED>(ks, k, rin, rows, hd);
+  k1::stage_tile<DH, RAGGED>(vs, v, rin, rows, hd);
+  k1::stage_tile<DH, RAGGED>(os, dout, k1::block_rows<SPAN>(hd, k1::kOut, (unsigned)n0 * W),
+                             rows, hd);
 
   // While the copies are in flight: every element's bias and keep factor,
   // one thread per element, so that neither sits in the logits' chain.
@@ -219,6 +221,7 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
   // Rows a0 and a0 + 1 of a window at one 16-byte column, so that each
   // operand row read from shared memory feeds two outputs:
   //   dq_a = sum_j ds_aj k_j,  then  dk_a = sum_i ds_ia q_i, dv_a = sum_i p_drop_ia do_i.
+  const auto rgrad = k1::block_rows<SPAN>(hd, k1::kGrad, (unsigned)n0 * W);
   for (int e = threadIdx.x; e < g * T * D4; e += blockDim.x) {
     const int pair = e / D4, c = e - pair * D4;
     const int lw = pair / T, a0 = 2 * (pair - lw * T);
@@ -233,9 +236,9 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
       x0 = k1::axpy4(g0[j], kj, x0);
       x1 = k1::axpy4(g1[j], kj, x1);
     }
-    Elem* out = dq + gbase + (size_t)r0 * ld + 4 * c;
-    k1::put4<RAGGED>(out, 4 * c, x0, hd.Dh);
-    if (a0 + 1 < W) k1::put4<RAGGED>(out + ld, 4 * c, x1, hd.Dh);
+    Elem* out = dq + rgrad(r0) + 4 * c;
+    k1::put4<RAGGED>(out, 4 * c, x0, hd);
+    if (a0 + 1 < W) k1::put4<RAGGED>(out + hd.grad.pos, 4 * c, x1, hd);   // same window
   }
   for (int e = threadIdx.x; e < g * T * D4; e += blockDim.x) {
     const int pair = e / D4, c = e - pair * D4;
@@ -255,12 +258,12 @@ k1_bwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
       v0 = k1::axpy4(pc[i * PS + b0], oi, v0);
       v1 = k1::axpy4(pc[i * PS + b1], oi, v1);
     }
-    const size_t at = gbase + (size_t)(top + a0) * ld + 4 * c;
-    k1::put4<RAGGED>(dk + at, 4 * c, k0, hd.Dh);
-    k1::put4<RAGGED>(dv + at, 4 * c, v0, hd.Dh);
-    if (a0 + 1 < W) {
-      k1::put4<RAGGED>(dk + at + ld, 4 * c, k1v, hd.Dh);
-      k1::put4<RAGGED>(dv + at + ld, 4 * c, v1, hd.Dh);
+    const size_t at = rgrad(top + a0) + 4 * c;
+    k1::put4<RAGGED>(dk + at, 4 * c, k0, hd);
+    k1::put4<RAGGED>(dv + at, 4 * c, v0, hd);
+    if (a0 + 1 < W) {   // the next position of the same window
+      k1::put4<RAGGED>(dk + at + hd.grad.pos, 4 * c, k1v, hd);
+      k1::put4<RAGGED>(dv + at + hd.grad.pos, 4 * c, v1, hd);
     }
   }
 }
@@ -302,8 +305,7 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int i0 = qt * kRows;
-  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
-  const size_t base = (size_t)n * W * ld;
+  const Strided rin = window_rows(hd, kIn, n, W), rout = window_rows(hd, kOut, n, W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ra = i0 + warp * 16 + (lane >> 2);
   const int nk = key_tiles(W, qt, causal);
@@ -315,10 +317,10 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
 
-  stage_mma<Elem, DH, RAGGED>(qs, q + base + (size_t)i0 * ld, kRows, W - i0, q, hd);
-  stage_mma<Elem, DH, RAGGED>(os, dout + base + (size_t)i0 * ld, kRows, W - i0, dout, hd);
-  stage_mma<Elem, DH, RAGGED>(kvs, k + base, kCols, W, k, hd);
-  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v + base, kCols, W, v, hd);
+  stage_mma<Elem, DH, RAGGED>(qs, q, rin.from(i0), kRows, W - i0, q, hd);
+  stage_mma<Elem, DH, RAGGED>(os, dout, rout.from(i0), kRows, W - i0, dout, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs, k, rin, kCols, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v, rin, kCols, W, v, hd);
   cp_async_commit();
 
   float dqa[DH / 8][4] = {};
@@ -329,8 +331,8 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (it + 1 < 2 * nk) {
       Elem* nxt = kvs + ((it + 1) & 1) * 2 * kCols * LS;
       const int j1 = (it + 1 < nk ? it + 1 : it + 1 - nk) * kCols;
-      stage_mma<Elem, DH, RAGGED>(nxt, k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
-      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v + base + (size_t)j1 * ld, kCols, W - j1,
+      stage_mma<Elem, DH, RAGGED>(nxt, k, rin.from(j1), kCols, W - j1, k, hd);
+      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v, rin.from(j1), kCols, W - j1,
                                   v, hd);
     }
     cp_async_commit();
@@ -403,7 +405,8 @@ k1_bwd_mma_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     }
     __syncthreads();
   }
-  store_rows<Elem, DH, DH / 8, RAGGED>(dq + base, dqa, ra, W, 1.f, 1.f, lane, hd);
+  const Strided rgrad = window_rows(hd, kGrad, n, W);   // built where used
+  store_rows<Elem, DH, DH / 8, RAGGED>(dq, rgrad, dqa, ra, W, 1.f, 1.f, lane, hd);
   if (t == 0) {
     const size_t at = (size_t)row * S + w0;
 #pragma unroll
@@ -439,8 +442,7 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / ktiles, kt = blockIdx.x - n * ktiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int j0 = kt * RB;
-  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
-  const size_t base = (size_t)n * W * ld;
+  const Strided rin = window_rows(hd, kIn, n, W), rout = window_rows(hd, kOut, n, W);
   const size_t at = (size_t)row * S + w0;       // the window's first position in stats
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ja = j0 + warp * 16 + (lane >> 2);  // the thread's keys: ja and ja + 8
@@ -456,8 +458,8 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
   auto stage_queries = [&](int qi, int buf) {
     Elem* dst = qos + buf * 2 * kCols * LS;
     const int i1 = qi * kCols;
-    stage_mma<Elem, DH, RAGGED>(dst, q + base + (size_t)i1 * ld, kCols, W - i1, q, hd);
-    stage_mma<Elem, DH, RAGGED>(dst + kCols * LS, dout + base + (size_t)i1 * ld, kCols,
+    stage_mma<Elem, DH, RAGGED>(dst, q, rin.from(i1), kCols, W - i1, q, hd);
+    stage_mma<Elem, DH, RAGGED>(dst + kCols * LS, dout, rout.from(i1), kCols,
                                 W - i1, dout, hd);
     for (int e = threadIdx.x; e < 3 * kCols; e += kMmaThreads) {
       const int a = e / kCols, i = e - a * kCols;
@@ -466,8 +468,8 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                       ok ? stats + a * positions + at + i1 + i : stats, ok);
     }
   };
-  stage_mma<Elem, DH, RAGGED>(ks, k + base + (size_t)j0 * ld, RB, W - j0, k, hd);
-  stage_mma<Elem, DH, RAGGED>(vs, v + base + (size_t)j0 * ld, RB, W - j0, v, hd);
+  stage_mma<Elem, DH, RAGGED>(ks, k, rin.from(j0), RB, W - j0, k, hd);
+  stage_mma<Elem, DH, RAGGED>(vs, v, rin.from(j0), RB, W - j0, v, hd);
   // launched as the dq kernel's dependent: its keys are staged while the dq
   // kernel ends, and nothing of the statistics is read before it has
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -517,8 +519,9 @@ k1_bwd_mma_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(2);
     __syncthreads();
   }
-  store_rows<Elem, DH, DH / 8, RAGGED>(dv + base, dva, ja, W, 1.f, 1.f, lane, hd);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dk + base, dka, ja, W, 1.f, 1.f, lane, hd);
+  const Strided rgrad = window_rows(hd, kGrad, n, W);   // built where used
+  store_rows<Elem, DH, DH / 8, RAGGED>(dv, rgrad, dva, ja, W, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dk, rgrad, dka, ja, W, 1.f, 1.f, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(1);
 }
@@ -568,8 +571,7 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int i0 = qt * RB;
-  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
-  const size_t base = (size_t)n * W * ld;
+  const Strided rin = window_rows(hd, kIn, n, W), rout = window_rows(hd, kOut, n, W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int rg = warp % RG, part = warp / RG, c0 = part * 8 * NTW;
   const int lr = rg * 16 + (lane >> 2);   // the thread's rows in the block: lr and lr + 8
@@ -583,10 +585,10 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
 
-  stage_mma<Elem, DH, RAGGED>(qs, q + base + (size_t)i0 * ld, RB, W - i0, q, hd);
-  stage_mma<Elem, DH, RAGGED>(os, dout + base + (size_t)i0 * ld, RB, W - i0, dout, hd);
-  stage_mma<Elem, DH, RAGGED>(kvs, k + base, kCols, W, k, hd);
-  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v + base, kCols, W, v, hd);
+  stage_mma<Elem, DH, RAGGED>(qs, q, rin.from(i0), RB, W - i0, q, hd);
+  stage_mma<Elem, DH, RAGGED>(os, dout, rout.from(i0), RB, W - i0, dout, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs, k, rin, kCols, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v, rin, kCols, W, v, hd);
   cp_async_commit();
   // under causal, the warp's column tiles that reach its last row
   const int last = i0 + rg * 16 + 15;
@@ -594,11 +596,11 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
     Elem* nxt = kvs + ((kt + 1) & 1) * 2 * kCols * LS;
     if (kt + 1 < nk) {
       const int j1 = (kt + 1) * kCols;
-      stage_mma<Elem, DH, RAGGED>(nxt, k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
-      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v + base + (size_t)j1 * ld, kCols, W - j1,
+      stage_mma<Elem, DH, RAGGED>(nxt, k, rin.from(j1), kCols, W - j1, k, hd);
+      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v, rin.from(j1), kCols, W - j1,
                                   v, hd);
     } else {
-      stage_mma<Elem, DH, RAGGED>(nxt, k + base, kCols, W, k, hd);   // the dq products' 1st K tile
+      stage_mma<Elem, DH, RAGGED>(nxt, k, rin, kCols, W, k, hd);   // the dq products' 1st K tile
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -695,7 +697,7 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (kt + 1 < nk) {
       const int j1 = (kt + 1) * kCols;
       stage_mma<Elem, DH, RAGGED>(kvs + ((nk + kt + 1) & 1) * 2 * kCols * LS,
-                                  k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
+                                  k, rin.from(j1), kCols, W - j1, k, hd);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -717,7 +719,8 @@ k1_bwd_mma_rows(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(3);
     __syncthreads();
   }
-  store_rows<Elem, DH, NOW, RAGGED>(dq + base + c8, acc, ra, W, 1.f, 1.f, lane, hd, c8);
+  const Strided rgrad = window_rows(hd, kGrad, n, W);   // built where used
+  store_rows<Elem, DH, NOW, RAGGED>(dq + c8, rgrad, acc, ra, W, 1.f, 1.f, lane, hd, c8);
   K1_PHASE_END(0);
 }
 
@@ -744,8 +747,7 @@ k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
                                                                   // kCols queries x PS
   const int n = blockIdx.x / ktiles, kt = blockIdx.x - n * ktiles;
   const int j0 = kt * RB, WP = bwd_plane_stride(W);
-  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
-  const size_t base = (size_t)n * W * ld;
+  const Strided rin = window_rows(hd, kIn, n, W), rout = window_rows(hd, kOut, n, W);
   const float* pdw = pd + (size_t)n * W * WP;   // the window's p_drop plane; ds at + plane
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rg = warp % RG, part = warp / RG, c0 = part * 8 * NTW;
@@ -756,8 +758,8 @@ k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
   auto stage_rows = [&](int qi, int buf) {
     Elem* dst = qos + buf * 2 * kCols * LS;
     const int i1 = qi * kCols;
-    stage_mma<Elem, DH, RAGGED>(dst, q + base + (size_t)i1 * ld, kCols, W - i1, q, hd);
-    stage_mma<Elem, DH, RAGGED>(dst + kCols * LS, dout + base + (size_t)i1 * ld, kCols,
+    stage_mma<Elem, DH, RAGGED>(dst, q, rin.from(i1), kCols, W - i1, q, hd);
+    stage_mma<Elem, DH, RAGGED>(dst + kCols * LS, dout, rout.from(i1), kCols,
                                 W - i1, dout, hd);
   };
   auto stage_planes = [&](int qi, int buf) {   // rows i1 .. i1 + 31, keys j0 .. j0 + RB - 1
@@ -829,8 +831,9 @@ k1_bwd_mma_keys(const Elem* __restrict__ q, const Elem* __restrict__ dout,
       dva[c][e] += red[(c * 4 + e) * 32];
       dka[c][e] += red[((NO + c) * 4 + e) * 32];
     }
-  store_rows<Elem, DH, DH / 8, RAGGED>(dv + base, dva, ja, W, 1.f, 1.f, lane, hd);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dk + base, dka, ja, W, 1.f, 1.f, lane, hd);
+  const Strided rgrad = window_rows(hd, kGrad, n, W);   // built where used
+  store_rows<Elem, DH, DH / 8, RAGGED>(dv, rgrad, dva, ja, W, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dk, rgrad, dka, ja, W, 1.f, 1.f, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(1);
 }
@@ -866,8 +869,7 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
   float* pt = reinterpret_cast<float*>(os + R * LS);   // R x PS: p_drop, then ds
 
   const int n = blockIdx.x, nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
-  const int ld = RAGGED ? hd.Dh : DH;   // the rows' stride in device memory
-  const size_t base = (size_t)n * W * ld;
+  const Strided rin = window_rows(hd, kIn, n, W), rout = window_rows(hd, kOut, n, W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ra = warp * 16 + (lane >> 2);   // the thread's rows (queries, then keys)
   // under causal: the column tiles that reach the warp's last query, and the
@@ -880,10 +882,10 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
     seed = (unsigned)__ldg(seed_ptr + grp);
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
-  stage_mma<Elem, DH, RAGGED>(qs, q + base, R, W, q, hd);
-  stage_mma<Elem, DH, RAGGED>(ks, k + base, R, W, k, hd);
-  stage_mma<Elem, DH, RAGGED>(vs, v + base, R, W, v, hd);
-  stage_mma<Elem, DH, RAGGED>(os, dout + base, R, W, dout, hd);
+  stage_mma<Elem, DH, RAGGED>(qs, q, rin, R, W, q, hd);
+  stage_mma<Elem, DH, RAGGED>(ks, k, rin, R, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(vs, v, rin, R, W, v, hd);
+  stage_mma<Elem, DH, RAGGED>(os, dout, rout, R, W, dout, hd);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -950,7 +952,8 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
   K1_PHASE(1);
   float acc[DH / 8][4] = {};
   gemm_pv<NT, DH>(acc, dp, ks, lane, 0, c_end);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dq + base, acc, ra, W, 1.f, 1.f, lane, hd);
+  const Strided rgrad = window_rows(hd, kGrad, n, W);   // built where used
+  store_rows<Elem, DH, DH / 8, RAGGED>(dq, rgrad, acc, ra, W, 1.f, 1.f, lane, hd);
 
   // the warp's rows of a (R, R) register tile into the shared tile, and the
   // warp's keys' columns of it back as a register tile (element (key r,
@@ -983,7 +986,7 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   gemm_pv<NT, DH>(acc, s, os, lane, c_begin, NT);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dv + base, acc, ra, W, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dv, rgrad, acc, ra, W, 1.f, 1.f, lane, hd);
   __syncthreads();
   put(dp);
   __syncthreads();
@@ -993,7 +996,7 @@ k1_bwd_mma_window(const Elem* __restrict__ q, const Elem* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   gemm_pv<NT, DH>(acc, dp, qs, lane, c_begin, NT);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dk + base, acc, ra, W, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dk, rgrad, acc, ra, W, 1.f, 1.f, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
@@ -1040,9 +1043,11 @@ int launch_one(const Elem* q, const Elem* k, const Elem* v, const float* bias,
     if (G < 1 || path != 0 || blocks != (nwin + G - 1) / G ||
         (size_t)smem_bytes != G * per_window || blocks_kv != 0 || smem_kv != 0)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = k1::allow_smem(k1_bwd_tiles<Elem, DH, RAGGED>, smem_bytes);
+    const auto kernel = k1::spans_rows(hd, G * W) ? k1_bwd_tiles<Elem, DH, RAGGED, true>
+                                                  : k1_bwd_tiles<Elem, DH, RAGGED, false>;
+    const cudaError_t e = k1::allow_smem(kernel, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    k1_bwd_tiles<Elem, DH, RAGGED><<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
+    kernel<<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
         q, k, v, bias, dout, dq, dk, dv, S, W, G, nwin, scale, seed, group_rows, thresh,
         inv_keep, dropout, hd);
     return (int)cudaGetLastError();
@@ -1153,26 +1158,30 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const
                                         hd, stream);
 }
 
-// Switches on the staged width (as k1_fwd.cuh's dispatch); `copy` must be
-// k1::copy_bytes. A library holds one form, native or (kRagged) ragged, as k1_fwd.cuh's.
+// Switches on the staged width (as k1_fwd.cuh's dispatch); the rows' layout and `copy` as
+// k1_tiles.cuh's launch_head. A library holds one form, native or (kRagged) ragged, as
+// k1_fwd.cuh's.
 template <bool kTwo, bool kRagged, typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, const Elem* dout,
-             Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, int Dh,
-             float scale, const int* seed, int group_rows, unsigned thresh, float inv_keep,
-             int dropout, int causal, int path, int blocks, int smem_bytes, int blocks_kv,
-             int smem_kv, int copy, void* stream) {
+             Elem* dq, Elem* dk, Elem* dv, float* stats, int BH, int S, int W, int Dh, int H,
+             long long in_pos, long long in_batch, long long out_pos, long long out_batch,
+             long long grad_pos, long long grad_batch, float scale, const int* seed,
+             int group_rows, unsigned thresh, float inv_keep, int dropout, int causal, int path,
+             int blocks, int smem_bytes, int blocks_kv, int smem_kv, int copy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (W < 1 || S % W != 0 || S > k1::kMaxRow) return (int)cudaErrorInvalidValue;
   if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
-  if (Dh < 1 || copy != k1::copy_bytes(Dh, (int)sizeof(Elem))) return (int)cudaErrorInvalidValue;
-  const k1::Head hd{Dh, copy};
+  k1::Head hd;
+  if (!k1::launch_head(BH, S, Dh, copy, (int)sizeof(Elem), H, in_pos, in_batch, out_pos,
+                       out_batch, grad_pos, grad_batch, {q, k, v, dout, dq, dk, dv}, hd))
+    return (int)cudaErrorInvalidValue;
 #define K1_BWD(DH_, RAGGED_)                                                                \
   launch<kTwo, Elem, DH_, RAGGED_>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, scale, \
                                    seed, group_rows, thresh, inv_keep, dropout, causal,     \
                                    path, blocks, smem_bytes, blocks_kv, smem_kv, hd, st)
 #define K1_WIDTH(DH_) \
-  ((Dh == DH_) == kRagged ? (int)cudaErrorInvalidValue : K1_BWD(DH_, kRagged))
+  ((Dh == DH_ && copy == 16) == kRagged ? (int)cudaErrorInvalidValue : K1_BWD(DH_, kRagged))
   if (Dh <= 16) return K1_WIDTH(16);
   if (Dh <= 32) return K1_WIDTH(32);
   if (Dh <= 64) return K1_WIDTH(64);

@@ -6,7 +6,9 @@
 // (attention.py:143, pallas_call at :149, kernel body _attn_kernel at :51).
 // The backward is csrc/k1_bwd.cuh.
 //
-// Shapes: q, k, v, out are (BH, S, Dh), contiguous, 16-byte aligned, all
+// Shapes: q, k, v, out are (BH, S, Dh) rows wherever their layout puts them (k1_tiles.cuh's
+// Head: contiguous (BH, S, Dh) tensors, or the fused projection's (B, S, 3d) buffer and a
+// (B, S, d) out, rows b * H + h), all
 // float32 (entry point packed_attention_fwd) or all bfloat16
 // (packed_attention_fwd_bf16); bias is (S, S) float32 in both. The logits,
 // softmax, dropout and the sums of p v are float32 in both dtypes, and out is
@@ -48,8 +50,10 @@
 // BH * S * W * Dh = 52 MFLOP (0.8 us on the 67 TFLOP/s float32 cores) and
 // moves 4 * 4 * BH * S * Dh bytes = 21 MB (6.3 us at 3.35 TB/s): 2.5 FLOP a
 // byte, bound by bytes. A block of 128 threads takes G = 20 / W
-// consecutive windows (2 at W = 10), one contiguous span of device memory,
-// copies q, k and v with 16-byte cp.async into padded float32 rows; one
+// consecutive windows (2 at W = 10), their rows from the first's address or,
+// where they cross from one (b, h) to the next, each from its own
+// (k1_tiles.cuh's Strided and Divided), and copies q, k and v with 16-byte
+// cp.async into padded float32 rows; one
 // thread per element fetches bias_ij and the keep factor while the copies
 // fly; then logits in 2 x 2 tiles a thread, the f32 softmax a row a thread,
 // and out = (p v) / l for two rows at one 16-byte column a thread, on the
@@ -87,7 +91,7 @@ namespace {
 
 using k1::TileDims;
 
-template <typename Elem, int DH, bool RAGGED>
+template <typename Elem, int DH, bool RAGGED, bool SPAN>
 __global__ void __launch_bounds__(k1::kTileThreads)
 k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
              const Elem* __restrict__ v, const float* __restrict__ bias,
@@ -107,13 +111,11 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
   float* kf = ps + G * W * PS;                   // G * W * PS: keep factors
   float* il = kf + G * W * PS;                   // G * W: 1 / softmax normaliser
 
-  const int ld = RAGGED ? hd.Dh : DH;            // the rows' stride in device memory
-  const size_t gbase = (size_t)n0 * W * ld;
-  {
-    float* const dst[3] = {qs, ks, vs};
-    const Elem* const src[3] = {q + gbase, k + gbase, v + gbase};
-    k1::stage_tiles<DH, 3, RAGGED>(dst, src, rows, hd);
-  }
+  // the block's rows (Divided where they cross from one row n to the next: SPAN)
+  const auto rin = k1::block_rows<SPAN>(hd, k1::kIn, (unsigned)n0 * W);
+  k1::stage_tile<DH, RAGGED>(qs, q, rin, rows, hd);
+  k1::stage_tile<DH, RAGGED>(ks, k, rin, rows, hd);
+  k1::stage_tile<DH, RAGGED>(vs, v, rin, rows, hd);
 
   // While the copies are in flight: every element's bias and keep factor,
   // one thread per element, so that neither sits in the logits' chain.
@@ -180,6 +182,7 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
   // out rows i0 and i0 + 1 of a window at one 16-byte column: each v_j
   // read from shared memory feeds both rows
+  const auto rout = k1::block_rows<SPAN>(hd, k1::kOut, (unsigned)n0 * W);
   for (int e = threadIdx.x; e < g * T * D4; e += blockDim.x) {
     const int pair = e / D4, c = e - pair * D4;
     const int lw = pair / T, i0 = 2 * (pair - lw * T);
@@ -194,13 +197,13 @@ k1_fwd_tiles(const Elem* __restrict__ q, const Elem* __restrict__ k,
       a0 = k1::axpy4(p0[j], vj, a0);
       a1 = k1::axpy4(p1[j], vj, a1);
     }
-    Elem* o = out + gbase + (size_t)r0 * ld + 4 * c;
+    Elem* o = out + rout(r0) + 4 * c;
     const float s0 = il[r0];
-    k1::put4<RAGGED>(o, 4 * c, make_float4(a0.x * s0, a0.y * s0, a0.z * s0, a0.w * s0), hd.Dh);
-    if (i0 + 1 < W) {
+    k1::put4<RAGGED>(o, 4 * c, make_float4(a0.x * s0, a0.y * s0, a0.z * s0, a0.w * s0), hd);
+    if (i0 + 1 < W) {   // the next position of the same window
       const float s1 = il[r1];
-      k1::put4<RAGGED>(o + ld, 4 * c, make_float4(a1.x * s1, a1.y * s1, a1.z * s1, a1.w * s1),
-                       hd.Dh);
+      k1::put4<RAGGED>(o + hd.out.pos, 4 * c,
+                       make_float4(a1.x * s1, a1.y * s1, a1.z * s1, a1.w * s1), hd);
     }
   }
 }
@@ -235,8 +238,7 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int n = blockIdx.x / qtiles, qt = blockIdx.x - n * qtiles;
   const int nwr = S / W, row = n / nwr, w0 = (n - row * nwr) * W;
   const int i0 = qt * kRows;
-  const int ld = RAGGED ? hd.Dh : DH;           // the rows' stride in device memory
-  const size_t base = (size_t)n * W * ld;
+  const Strided rin = window_rows(hd, kIn, n, W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int ra = i0 + warp * 16 + (lane >> 2);  // the thread's rows: ra and ra + 8
   const int nk = key_tiles(W, qt, causal);
@@ -248,9 +250,9 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
     prow = (unsigned)row - grp * (unsigned)group_rows;
   }
 
-  stage_mma<Elem, DH, RAGGED>(qs, q + base + (size_t)i0 * ld, kRows, W - i0, q, hd);
-  stage_mma<Elem, DH, RAGGED>(kvs, k + base, kCols, W, k, hd);
-  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v + base, kCols, W, v, hd);
+  stage_mma<Elem, DH, RAGGED>(qs, q, rin.from(i0), kRows, W - i0, q, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs, k, rin, kCols, W, k, hd);
+  stage_mma<Elem, DH, RAGGED>(kvs + kCols * LS, v, rin, kCols, W, v, hd);
   cp_async_commit();
 
   float o[DH / 8][4] = {};
@@ -259,9 +261,8 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (kt + 1 < nk) {
       Elem* nxt = kvs + ((kt + 1) & 1) * 2 * kCols * LS;
       const int j1 = (kt + 1) * kCols;
-      stage_mma<Elem, DH, RAGGED>(nxt, k + base + (size_t)j1 * ld, kCols, W - j1, k, hd);
-      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v + base + (size_t)j1 * ld, kCols, W - j1,
-                                  v, hd);
+      stage_mma<Elem, DH, RAGGED>(nxt, k, rin.from(j1), kCols, W - j1, k, hd);
+      stage_mma<Elem, DH, RAGGED>(nxt + kCols * LS, v, rin.from(j1), kCols, W - j1, v, hd);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -318,7 +319,8 @@ k1_fwd_mma(const Elem* __restrict__ q, const Elem* __restrict__ k,
     __syncthreads();
   }
   const float la = quad_sum(l[0]), lb = quad_sum(l[1]);
-  store_rows<Elem, DH, DH / 8, RAGGED>(out + base, o, ra, W, 1.f / la, 1.f / lb, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(out, window_rows(hd, kOut, n, W), o, ra, W, 1.f / la,
+                                       1.f / lb, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
@@ -346,9 +348,11 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
     if (G < 1 || path != 0 || blocks != (nwin + G - 1) / G ||
         (size_t)smem_bytes != G * per_window)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = k1::allow_smem(k1_fwd_tiles<Elem, DH, RAGGED>, smem_bytes);
+    const auto kernel = k1::spans_rows(hd, G * W) ? k1_fwd_tiles<Elem, DH, RAGGED, true>
+                                                  : k1_fwd_tiles<Elem, DH, RAGGED, false>;
+    const cudaError_t e = k1::allow_smem(kernel, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    k1_fwd_tiles<Elem, DH, RAGGED><<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
+    kernel<<<blocks, k1::kTileThreads, smem_bytes, stream>>>(
         q, k, v, bias, out, S, W, G, nwin, scale, seed, group_rows, thresh, inv_keep, dropout,
         hd);
     return (int)cudaGetLastError();
@@ -366,22 +370,25 @@ int launch(const Elem* q, const Elem* k, const Elem* v, const float* bias,
 }
 
 // Switches on the staged width (ops/attention.py::head_width: the least of 16, 32, 64, 96
-// and 128 at or above Dh); `copy` must be k1::copy_bytes. A library holds one form: the
-// native one (Dh the width) or, kRagged, the ragged one (Dh below it), and refuses the
-// other's head dims (the forms build in parallel, as libraries of their own).
+// and 128 at or above Dh); `copy` must be k1::layout_copy. A library holds one form: the
+// native one (Dh the width, copies of 16 bytes) or, kRagged, the ragged one, and refuses
+// the other's launches (the forms build in parallel, as libraries of their own).
 template <bool kRagged, typename Elem>
 int dispatch(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
-             int BH, int S, int W, int Dh, float scale, const int* seed, int group_rows,
-             unsigned thresh, float inv_keep, int dropout, int causal, int path, int blocks,
-             int smem_bytes, int copy, void* stream) {
+             int BH, int S, int W, int Dh, int H, long long in_pos, long long in_batch,
+             long long out_pos, long long out_batch, float scale, const int* seed,
+             int group_rows, unsigned thresh, float inv_keep, int dropout, int causal,
+             int path, int blocks, int smem_bytes, int copy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (W < 1 || S % W != 0 || S > k1::kMaxRow) return (int)cudaErrorInvalidValue;
   if (group_rows < 1 || BH % group_rows != 0) return (int)cudaErrorInvalidValue;
-  if (Dh < 1 || copy != k1::copy_bytes(Dh, (int)sizeof(Elem))) return (int)cudaErrorInvalidValue;
-  const k1::Head hd{Dh, copy};
+  k1::Head hd;
+  if (!k1::launch_head(BH, S, Dh, copy, (int)sizeof(Elem), H, in_pos, in_batch, out_pos,
+                       out_batch, 0, 0, {q, k, v, out}, hd))
+    return (int)cudaErrorInvalidValue;
 #define K1_FWD(DH_)                                                                       \
-  ((Dh == DH_) == kRagged ? (int)cudaErrorInvalidValue                                    \
+  ((Dh == DH_ && copy == 16) == kRagged ? (int)cudaErrorInvalidValue                      \
                           : launch<Elem, DH_, kRagged>(q, k, v, bias, out, BH, S, W, scale, \
                                                        seed, group_rows, thresh, inv_keep,  \
                                                        dropout, causal, path, blocks,       \

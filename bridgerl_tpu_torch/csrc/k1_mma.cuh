@@ -169,21 +169,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Issue the copies of `rows` rows of DH elements at `src` (row stride DH; ragged: Dh, the
-// columns from Dh zero-filled) into the padded tile `dst`; rows at or past `valid` are
-// zero-filled (nothing is read for them: `safe` is any valid address).
-template <typename Elem, int DH, bool RAGGED = false>
-__device__ __forceinline__ void stage_mma(Elem* dst, const Elem* src, int rows, int valid,
-                                          const Elem* safe, Head h = Head{DH, 16}) {
+// Issue the copies of `rows` rows of DH elements, row r at src + ro(r) (ragged: rows of
+// Dh, the columns from Dh zero-filled), into the padded tile `dst`; rows at or past
+// `valid` are zero-filled (nothing is read for them: `safe` is any valid address).
+template <typename Elem, int DH, bool RAGGED, typename RO>
+__device__ __forceinline__ void stage_mma(Elem* dst, const Elem* src, RO ro, int rows,
+                                          int valid, const Elem* safe, const Head& h) {
   constexpr int LS = MmaTile<Elem, DH>::LS, CH = MmaTile<Elem, DH>::CH;
   constexpr int E = 16 / (int)sizeof(Elem);
   if constexpr (RAGGED) {
-    stage_ragged(dst, LS, src, rows, valid, 0, DH, h, safe);
+    stage_ragged(dst, LS, src, ro, rows, valid, 0, DH, h, safe);
   } else {
     for (int e = threadIdx.x; e < rows * CH; e += kMmaThreads) {
       const int r = e / CH, c = e - r * CH;
       const bool ok = r < valid;
-      cp_async16_zfill(dst + r * LS + c * E, ok ? src + (size_t)r * DH + c * E : safe, ok);
+      cp_async16_zfill(dst + r * LS + c * E, ok ? src + ro(r) + c * E : safe, ok);
     }
   }
 }
@@ -444,11 +444,13 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
 }
 
 // Two outputs of a ragged row (columns c and c + 1 of a row of Dh): the pair's store where
-// Dh is even (then c + 1 < Dh, and the pair is aligned), else each below Dh alone.
+// every row starts on the pair's bytes (`pair`: the launch's copy is at least 2 E bytes;
+// then c + 1 < Dh, and the pair is aligned), else each below Dh alone.
 template <typename Elem>
-__device__ __forceinline__ void store2_ragged(Elem* dst, float a, float b, int c, int Dh) {
+__device__ __forceinline__ void store2_ragged(Elem* dst, float a, float b, int c, int Dh,
+                                              bool pair) {
   if (c >= Dh) return;
-  if (!(Dh & 1)) {
+  if (pair) {
     store2(dst, a, b);
     return;
   }
@@ -457,27 +459,26 @@ __device__ __forceinline__ void store2_ragged(Elem* dst, float a, float b, int c
 }
 
 // Store the warp's (16, 8 NO) accumulator (NO tiles of 8 columns, all of DH's by
-// default): rows r0 + g and r0 + g + 8 of the window (those below W) at `dst`, row stride
-// DH, each value times the row's factor. Ragged: row stride Dh, and only the columns below
-// Dh, `dst` being column c0 of its row.
-template <typename Elem, int DH, int NO = DH / 8, bool RAGGED = false>
-__device__ __forceinline__ void store_rows(Elem* dst, const float (&acc)[NO][4], int ra,
-                                           int W, float fa, float fb, int lane,
-                                           Head h = Head{DH, 16}, int c0 = 0) {
+// default): rows ra and ra + 8 (those below W) at dst + ro(row), each value times the
+// row's factor. Ragged: only the columns below Dh, `dst` being column c0 of its row.
+template <typename Elem, int DH, int NO, bool RAGGED, typename RO>
+__device__ __forceinline__ void store_rows(Elem* dst, RO ro, const float (&acc)[NO][4],
+                                           int ra, int W, float fa, float fb, int lane,
+                                           const Head& h, int c0 = 0) {
   const int t = lane & 3;
-  const int ld = RAGGED ? h.Dh : DH;
+  const bool pair = h.copy >= 2 * (int)sizeof(Elem);
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + 2 * t;
     if constexpr (RAGGED) {
       if (ra < W)
-        store2_ragged(dst + (size_t)ra * ld + c, acc[n][0] * fa, acc[n][1] * fa, c0 + c, h.Dh);
+        store2_ragged(dst + ro(ra) + c, acc[n][0] * fa, acc[n][1] * fa, c0 + c, h.Dh, pair);
       if (ra + 8 < W)
-        store2_ragged(dst + (size_t)(ra + 8) * ld + c, acc[n][2] * fb, acc[n][3] * fb, c0 + c,
-                      h.Dh);
+        store2_ragged(dst + ro(ra + 8) + c, acc[n][2] * fb, acc[n][3] * fb, c0 + c, h.Dh,
+                      pair);
     } else {
-      if (ra < W) store2(dst + (size_t)ra * ld + c, acc[n][0] * fa, acc[n][1] * fa);
-      if (ra + 8 < W) store2(dst + (size_t)(ra + 8) * ld + c, acc[n][2] * fb, acc[n][3] * fb);
+      if (ra < W) store2(dst + ro(ra) + c, acc[n][0] * fa, acc[n][1] * fa);
+      if (ra + 8 < W) store2(dst + ro(ra + 8) + c, acc[n][2] * fb, acc[n][3] * fb);
     }
   }
 }

@@ -21,7 +21,8 @@
 // busy, and v (and dout) land while the logits are computed.
 //
 // A block takes G = multi_windows(W) consecutive whole windows (fewer in the
-// last block), one contiguous span of device memory (k1_tiles.cuh), and
+// last block), addressed through k1_tiles.cuh's Strided (Divided where a block crosses
+// from one row n to the next), and
 // stages the rows its strips read (multi_staged: a full block's windows' and
 // up to 15 more; those past its own windows zero-filled, reading nothing) of
 // q, k, v (and dout) with 16-byte
@@ -347,7 +348,7 @@ __device__ __forceinline__ void multi_softmax(float (&s)[KT][4], unsigned inside
 
 // Forward: out = dropout(softmax(q k^T * scale + bias)) v, a block G whole windows; KT
 // 8-key tiles a strip in chunks of CW keys.
-template <int DH, int KT, int CW, bool RAGGED>
+template <int DH, int KT, int CW, bool RAGGED, bool SPAN>
 __global__ void __launch_bounds__(kMultiThreads)
 k1_fwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
@@ -363,16 +364,16 @@ k1_fwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   float* bt = reinterpret_cast<float*>(vs + RS * LS);   // rows x W: the windows' bias
 
   const int n0 = blockIdx.x * G, g = min(G, nwin - n0), rows = g * W;
-  const int ld = RAGGED ? hd.Dh : DH;          // the rows' stride in device memory
-  const size_t base = (size_t)n0 * W * ld;
+  // the block's rows (Divided where they cross from one row n to the next: SPAN)
+  const auto rin = block_rows<SPAN>(hd, kIn, (unsigned)n0 * W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   K1_PHASE_BEGIN();
   const int staged = multi_staged(W);   // the rows the strips read, in a full block
-  stage_mma<Elem, DH, RAGGED>(qs, q + base, staged, rows, q, hd);
-  stage_mma<Elem, DH, RAGGED>(ks, k + base, staged, rows, k, hd);
+  stage_mma<Elem, DH, RAGGED>(qs, q, rin, staged, rows, q, hd);
+  stage_mma<Elem, DH, RAGGED>(ks, k, rin, staged, rows, k, hd);
   stage_bias(bt, bias, rows, W, S, n0);
   cp_async_commit();
-  stage_mma<Elem, DH, RAGGED>(vs, v + base, staged, rows, v, hd);
+  stage_mma<Elem, DH, RAGGED>(vs, v, rin, staged, rows, v, hd);
   cp_async_commit();
   const MultiStrip<KC> st = multi_strip<KC>(warp, W, g);
   const MultiRows m = multi_rows(st, lane, W, S, n0, seed_ptr, group_rows, dropout);
@@ -401,14 +402,14 @@ k1_fwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   float o[DH / 8][4] = {};
   multi_pv<KT, CW, DH>(o, s, vs, st, lane);
   K1_PHASE(2);
-  store_rows<Elem, DH, DH / 8, RAGGED>(out + base + (size_t)st.row0 * ld, o, lane >> 2,
-                                       st.nrows, il[0], il[1], lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(out, block_rows<SPAN>(hd, kOut, n0 * W).from(st.row0), o,
+                                       lane >> 2, st.nrows, il[0], il[1], lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
 
 // Backward: dq, dk and dv of a block's G whole windows in one pass (file comment).
-template <int DH, int KT, int CW, bool RAGGED>
+template <int DH, int KT, int CW, bool RAGGED, bool SPAN>
 __global__ void __launch_bounds__(kMultiThreads)
 k1_bwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
@@ -428,17 +429,17 @@ k1_bwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   float* bt = pt + kMultiRows * PS;                     // rows x W: the windows' bias
 
   const int n0 = blockIdx.x * G, g = min(G, nwin - n0), rows = g * W;
-  const int ld = RAGGED ? hd.Dh : DH;
-  const size_t base = (size_t)n0 * W * ld;
+  const auto rin = block_rows<SPAN>(hd, kIn, (unsigned)n0 * W);
+  const auto rout = block_rows<SPAN>(hd, kOut, (unsigned)n0 * W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   K1_PHASE_BEGIN();
   const int staged = multi_staged(W);   // the rows the strips read, in a full block
-  stage_mma<Elem, DH, RAGGED>(qs, q + base, staged, rows, q, hd);
-  stage_mma<Elem, DH, RAGGED>(ks, k + base, staged, rows, k, hd);
+  stage_mma<Elem, DH, RAGGED>(qs, q, rin, staged, rows, q, hd);
+  stage_mma<Elem, DH, RAGGED>(ks, k, rin, staged, rows, k, hd);
   stage_bias(bt, bias, rows, W, S, n0);
   cp_async_commit();
-  stage_mma<Elem, DH, RAGGED>(vs, v + base, staged, rows, v, hd);
-  stage_mma<Elem, DH, RAGGED>(os, dout + base, staged, rows, dout, hd);
+  stage_mma<Elem, DH, RAGGED>(vs, v, rin, staged, rows, v, hd);
+  stage_mma<Elem, DH, RAGGED>(os, dout, rout, staged, rows, dout, hd);
   cp_async_commit();
   const MultiStrip<KC> st = multi_strip<KC>(warp, W, g);
   const MultiRows m = multi_rows(st, lane, W, S, n0, seed_ptr, group_rows, dropout);
@@ -484,8 +485,8 @@ k1_bwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   K1_PHASE(1);
   float acc[DH / 8][4] = {};
   multi_pv<KT, CW, DH>(acc, dp, ks, st, lane);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dq + base + (size_t)st.row0 * ld, acc, lane >> 2,
-                                       st.nrows, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dq, block_rows<SPAN>(hd, kGrad, n0 * W).from(st.row0),
+                                       acc, lane >> 2, st.nrows, 1.f, 1.f, lane, hd);
 
   // The strip's register tile into the shared tile, at (query's block row, key's place in
   // its window), the elements inside the windows only; and back by columns: element
@@ -520,8 +521,8 @@ k1_bwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   multi_pv<KT, CW, DH>(acc, s, os, st, lane);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dv + base + (size_t)st.row0 * ld, acc, lane >> 2,
-                                       st.nrows, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dv, block_rows<SPAN>(hd, kGrad, n0 * W).from(st.row0),
+                                       acc, lane >> 2, st.nrows, 1.f, 1.f, lane, hd);
   __syncthreads();
   put(dp);
   __syncthreads();
@@ -531,8 +532,8 @@ k1_bwd_multi(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   multi_pv<KT, CW, DH>(acc, dp, qs, st, lane);
-  store_rows<Elem, DH, DH / 8, RAGGED>(dk + base + (size_t)st.row0 * ld, acc, lane >> 2,
-                                       st.nrows, 1.f, 1.f, lane, hd);
+  store_rows<Elem, DH, DH / 8, RAGGED>(dk, block_rows<SPAN>(hd, kGrad, n0 * W).from(st.row0),
+                                       acc, lane >> 2, st.nrows, 1.f, 1.f, lane, hd);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
@@ -551,11 +552,11 @@ inline bool multi_plan_ok(int W, int nwin, int path, int blocks, int smem_bytes,
 // chunks; W 9-16, 17-31 in 16-key chunks.
 #define K1_MULTI_SWITCH(KERNEL, ...)                                                        \
   switch (W <= 8 ? multi_key_tiles(W) : 16 + multi_key_tiles(W)) {                          \
-    case 2: return launch_multi_kernel(KERNEL<DH, 2, 8, RAGGED>, __VA_ARGS__);              \
-    case 3: return launch_multi_kernel(KERNEL<DH, 3, 8, RAGGED>, __VA_ARGS__);              \
-    case 4: return launch_multi_kernel(KERNEL<DH, 4, 8, RAGGED>, __VA_ARGS__);              \
-    case 18: return launch_multi_kernel(KERNEL<DH, 2, 16, RAGGED>, __VA_ARGS__);            \
-    case 20: return launch_multi_kernel(KERNEL<DH, 4, 16, RAGGED>, __VA_ARGS__);            \
+    case 2: return launch_multi_kernel(KERNEL<DH, 2, 8, RAGGED, SPAN>, __VA_ARGS__);        \
+    case 3: return launch_multi_kernel(KERNEL<DH, 3, 8, RAGGED, SPAN>, __VA_ARGS__);        \
+    case 4: return launch_multi_kernel(KERNEL<DH, 4, 8, RAGGED, SPAN>, __VA_ARGS__);        \
+    case 18: return launch_multi_kernel(KERNEL<DH, 2, 16, RAGGED, SPAN>, __VA_ARGS__);      \
+    case 20: return launch_multi_kernel(KERNEL<DH, 4, 16, RAGGED, SPAN>, __VA_ARGS__);      \
     default: return (int)cudaErrorInvalidValue;                                            \
   }
 
@@ -577,6 +578,12 @@ int launch_multi_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
   int G = 0;
   if (!multi_plan_ok(W, nwin, path, blocks, smem_bytes, multi_fwd_smem<DH>(W), G))
     return (int)cudaErrorInvalidValue;
+  if (spans_rows(hd, G * W)) {
+    constexpr bool SPAN = true;
+    K1_MULTI_SWITCH(k1_fwd_multi, blocks, smem_bytes, stream, q, k, v, bias, out, S, W, G, nwin,
+                    scale, seed, group_rows, thresh, inv_keep, dropout, causal, hd)
+  }
+  constexpr bool SPAN = false;
   K1_MULTI_SWITCH(k1_fwd_multi, blocks, smem_bytes, stream, q, k, v, bias, out, S, W, G, nwin,
                   scale, seed, group_rows, thresh, inv_keep, dropout, causal, hd)
 }
@@ -593,6 +600,12 @@ int launch_multi_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
   if (!multi_plan_ok(W, nwin, path, blocks, smem_bytes, multi_bwd_smem<DH>(W), G) ||
       blocks_kv != 0 || smem_kv != 0)
     return (int)cudaErrorInvalidValue;
+  if (spans_rows(hd, G * W)) {
+    constexpr bool SPAN = true;
+    K1_MULTI_SWITCH(k1_bwd_multi, blocks, smem_bytes, stream, q, k, v, bias, dout, dq, dk, dv,
+                    S, W, G, nwin, scale, seed, group_rows, thresh, inv_keep, dropout, causal, hd)
+  }
+  constexpr bool SPAN = false;
   K1_MULTI_SWITCH(k1_bwd_multi, blocks, smem_bytes, stream, q, k, v, bias, dout, dq, dk, dv, S,
                   W, G, nwin, scale, seed, group_rows, thresh, inv_keep, dropout, causal, hd)
 }

@@ -3,14 +3,18 @@
 // 16-byte asynchronous copies from device memory into shared memory. K2
 // (vq_assign.cu) uses the budget, the copies and dot4 too.
 //
-// A window of W positions is W * Dh contiguous floats of a (BH, S, Dh)
-// tensor, and window n = row * (S / W) + w starts at float n * W * Dh, so a
-// block's G consecutive windows are one contiguous span. The block copies it
-// with cp.async.cg (16 bytes a thread, neighbouring threads on neighbouring
-// addresses, bypassing L1) into rows padded to Dh + 4 floats: row r's
-// 16-byte column c then falls in bank group (r * (Dh / 4 + 1) + c) mod 8,
-// so eight threads reading eight consecutive rows at one column hit eight
-// different bank groups.
+// Where the rows lie (Head, Rows): row n = b * H + h of the (BH, S, Dh) problem keeps
+// position s at element b * batch + h * Dh + s * pos of its tensor. The (BH, S, Dh)
+// tensors of the 3-D entry points are H = 1, pos = Dh, batch = S * Dh; the fused
+// projection's (B, S, 3d) buffer is pos = 3d, batch = S * 3d, with k and v at d and 2d
+// (ops/attention.py::attention_qkv). A block of the window tiles takes G consecutive
+// windows, whose rows may cross from one (b, h) to the next; where they do it takes each
+// row's address from its flat position n * S + s (Divided: the divisions by S and H are a
+// multiply, an add and a shift, Div), else from its first row (Strided). It copies with
+// cp.async.cg (16 bytes a thread, neighbouring threads on neighbouring addresses,
+// bypassing L1) into rows padded to Dh + 4 floats: row r's 16-byte column c then falls in
+// bank group (r * (Dh / 4 + 1) + c) mod 8, so eight threads reading eight consecutive
+// rows at one column hit eight different bank groups.
 //
 // The window tiles are K1's float32 kernels at W < kMinWindow (the bias is
 // float32 in every dtype); bfloat16 at those windows runs the multi-window
@@ -21,6 +25,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <initializer_list>
 
 namespace k1 {
 
@@ -45,25 +52,150 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Head dims off the staged width. A kernel instantiated at DH runs any Dh <= DH: its
 // ragged form (template argument RAGGED, which the launchers pick where Dh != DH or the
-// rows' copies cannot be 16 bytes) reads and writes rows of Dh elements (the row stride in
-// device memory) and stages them into tiles of DH columns, the columns from Dh on
-// zero-filled, which adds nothing to q k^T, dout v^T or any product over the head dim;
-// its stores write the columns below Dh only. Nothing else sees Dh: at Dh == DH the
-// native form runs, whose code is the one instantiated at that width alone.
+// rows' copies cannot be 16 bytes) reads and writes rows of Dh elements and stages them
+// into tiles of DH columns, the columns from Dh on zero-filled, which adds nothing to
+// q k^T, dout v^T or any product over the head dim; its stores write the columns below Dh
+// only (past them lies the next head). Nothing else sees Dh: at Dh == DH the native form
+// runs, whose code is the one instantiated at that width alone.
 //
-// The bytes of each staging copy (ops/attention.py::copy_bytes): row r of a 16-byte
-// aligned tensor starts at byte r * Dh * E, so a copy of b bytes is aligned in every row
-// where b divides Dh * E: 16 where it can, else 8 or 4 (cp.async), else 2 (bf16 at an odd
-// Dh: plain 2-byte loads). The launchers pick it once a launch and refuse a plan that
-// names another.
+// The bytes of each staging copy (ops/attention.py::copy_bytes): the widest of 16, 8, 4
+// and 2 that divides Dh * E, every stride and every tensor's address, in bytes
+// (layout_copy), so that every row starts on it: 16 where it can, else 8 or 4 (cp.async),
+// else 2 (bf16 at an odd Dh or offset: plain 2-byte loads). The launchers compute it once
+// a launch and refuse a plan that names another. copy_bytes is the rule of contiguous
+// (BH, S, Dh) rows on 16-byte addresses.
 __host__ __device__ constexpr int copy_bytes(int Dh, int E) {
   return (Dh * E) % 16 == 0 ? 16 : (Dh * E) % 8 == 0 ? 8 : (Dh * E) % 4 == 0 ? 4 : 2;
 }
+__host__ __device__ constexpr int widest_copy(unsigned long long bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+}
 
-// A launch's true head dim: its rows' stride and column bound, and the copies' bytes.
+// x / d for 0 <= x < 2^31 by a multiply-high, an add and a shift, branch-free, the
+// divisor's constants made on the host (Granlund and Montgomery: with l = ceil(log2 d) and
+// m = 2^32 (2^l - d) / d + 1, x / d = (umulhi(x, m) + x) >> l; d = 1 is m 1, l 0): a row's
+// address costs no division.
+struct Div {
+  unsigned d, mul, shr;
+  static Div of(unsigned d) {
+    unsigned l = 0;
+    while ((1ull << l) < d) ++l;   // ceil(log2 d)
+    return Div{d, (unsigned)((((1ull << l) - d) << 32) / d + 1), l};
+  }
+  __device__ __forceinline__ unsigned operator()(unsigned x) const {
+    return (__umulhi(x, mul) + x) >> shr;
+  }
+};
+
+// One tensor's rows (q, k and v share theirs; dq, dk and dv theirs): elements from a
+// position to the next and from a batch row to the next.
+struct Rows {
+  long long pos, batch;
+};
+
+// A launch's true head dim, its copies' bytes and where its rows lie: S positions a row,
+// H heads a batch row; q, k, v (in), out or dout (out), dq, dk, dv (grad).
 struct Head {
   int Dh, copy;
+  Div S, H;
+  Rows in, out, grad;
 };
+
+inline Head make_head(int Dh, int copy, int S, int H, Rows in, Rows out, Rows grad) {
+  return Head{Dh, copy, Div::of((unsigned)S), Div::of((unsigned)H), in, out, grad};
+}
+
+// layout_copy over the launch's strides and its tensors' addresses (unused Rows are 0).
+inline int layout_copy(const Head& h, int E, std::initializer_list<const void*> ptrs) {
+  unsigned long long g = (unsigned long long)h.Dh * E;
+  for (const Rows& L : {h.in, h.out, h.grad})
+    g |= (unsigned long long)(L.pos | L.batch) * E;
+  for (const void* p : ptrs) g |= (unsigned long long)(uintptr_t)p;
+  return widest_copy(g);
+}
+
+// A launch's Head from its entry point's arguments: H heads a batch row (H divides BH),
+// q, k and v at in_pos / in_batch, out or dout at out_pos / out_batch, dq, dk and dv at
+// grad_pos / grad_batch (0 in the forward); BH * S below 2^31 (Div). False where the
+// kernels cannot address the rows (no positions: S < 1, Div has no divisor 0), or `copy`
+// is not layout_copy of them.
+inline bool launch_head(int BH, int S, int Dh, int copy, int E, int H, long long in_pos,
+                        long long in_batch, long long out_pos, long long out_batch,
+                        long long grad_pos, long long grad_batch,
+                        std::initializer_list<const void*> ptrs, Head& hd) {
+  if (S < 1 || Dh < 1 || H < 1 || BH % H != 0 || (long long)BH * S >= (1LL << 31))
+    return false;
+  for (long long x : {in_pos, out_pos, grad_pos})   // a position's stride is an int
+    if (x < 0 || x >= (1LL << 31)) return false;
+  if (in_batch < 0 || out_batch < 0 || grad_batch < 0) return false;
+  hd = make_head(Dh, copy, S, H, Rows{in_pos, in_batch}, Rows{out_pos, out_batch},
+                 Rows{grad_pos, grad_batch});
+  return copy == layout_copy(hd, E, ptrs);
+}
+
+// The element offsets of a block's rows, row r at ro(r). Strided: the rows of one window,
+// or of a block whose rows are one run (all in one row n, or contiguous (BH, S, Dh)
+// rows), `ld` apart from the first: the contiguous rows' code before the layout. Divided:
+// the flat positions P0 + r of the (BH * S) rows, across rows n, each row's (n, s)
+// divided out of its position. The kernels whose blocks hold several windows (the window
+// tiles, the multi-window kernels, and the wide forward and one-kernel backward at W <=
+// 32) take a template argument SPAN, which the launchers set where some block's rows cross
+// from one row n to the next (spans_rows); the others' blocks hold one window. Both forms
+// are built where they are used, from the kernel's Head parameter.
+struct Strided {
+  size_t base;
+  int ld;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return base + (unsigned long long)(unsigned)r * (unsigned)ld;
+  }
+  __device__ __forceinline__ Strided from(int r) const { return Strided{(*this)(r), ld}; }
+};
+// The element of flat position P = n * S + s under L (row n = b * H + h).
+__device__ __forceinline__ size_t flat_at(Div S, Div H, int Dh, Rows L, unsigned P) {
+  const unsigned n = S(P), b = H(n);
+  return (unsigned long long)b * (unsigned long long)L.batch + (n - b * H.d) * (unsigned)Dh +
+         (unsigned long long)(P - n * S.d) * (unsigned)L.pos;
+}
+struct Divided {
+  Div S, H;
+  int Dh;
+  Rows L;
+  unsigned P0;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return flat_at(S, H, Dh, L, P0 + (unsigned)r);
+  }
+  __device__ __forceinline__ Divided from(int r) const {
+    return Divided{S, H, Dh, L, P0 + (unsigned)r};
+  }
+};
+enum Which { kIn, kOut, kGrad };   // q, k, v; out or dout; dq, dk, dv
+__device__ __forceinline__ Rows rows_of(const Head& h, Which w) {
+  return w == kIn ? h.in : w == kOut ? h.out : h.grad;
+}
+// A block's rows from flat position P0 under one of the Head's Rows.
+template <bool SPAN>
+__device__ __forceinline__ auto block_rows(const Head& h, Which w, unsigned P0) {
+  const Rows L = rows_of(h, w);
+  if constexpr (SPAN)
+    return Divided{h.S, h.H, h.Dh, L, P0};
+  else
+    return Strided{flat_at(h.S, h.H, h.Dh, L, P0), (int)L.pos};
+}
+// The rows of window n (flat position n * W on): one run.
+__device__ __forceinline__ Strided window_rows(const Head& h, Which w, int n, int W) {
+  return block_rows<false>(h, w, (unsigned)n * (unsigned)W);
+}
+// Whether a launch whose blocks take `per_block` consecutive positions each (a block's G
+// windows) has a block whose rows cross from one row n to the next: not where every
+// tensor's rows are contiguous (BH, S, Dh) rows (or unused, 0), nor where per_block
+// divides S (a block then lies in one row).
+inline bool spans_rows(const Head& h, int per_block) {
+  const unsigned S = h.S.d;
+  bool flat = h.H.d == 1;
+  for (const Rows& L : {h.in, h.out, h.grad})
+    flat = flat && L.batch == (long long)S * L.pos;
+  return !flat && S % (unsigned)per_block != 0;
+}
 
 // One copy of N bytes into shared memory, zero-filled where !ok (nothing is read then):
 // cp.async for 16 (bypassing L1), 8 and 4; a plain load for 2 (bf16 only).
@@ -84,47 +216,47 @@ __device__ __forceinline__ void copy_zfill(Elem* smem, const Elem* gmem, bool ok
   }
 }
 
-// Stage `rows` rows of `cols` columns (a multiple of 16 / E) from column c0 of `src` (row
-// stride Dh) into `dst` (row stride ls elements) in copies of N bytes; rows at or past
-// `valid` and columns at or past Dh are zero-filled, reading nothing (`safe` is any valid
-// address). N divides Dh * E, so a copy lies wholly below Dh or wholly past it.
-template <int N, typename Elem>
-__device__ __forceinline__ void stage_chunks(Elem* dst, int ls, const Elem* src, int rows,
-                                             int valid, int c0, int cols, int Dh,
+// Stage `rows` rows of `cols` columns (a multiple of 16 / E) from column c0 of the rows
+// of `src` at ro(r) into `dst` (row stride ls elements) in copies of N bytes; rows at or
+// past `valid` and columns at or past Dh are zero-filled, reading nothing (`safe` is any
+// valid address). N divides Dh * E, so a copy lies wholly below Dh or wholly past it.
+template <int N, typename Elem, typename RO>
+__device__ __forceinline__ void stage_chunks(Elem* dst, int ls, const Elem* src, RO ro,
+                                             int rows, int valid, int c0, int cols, int Dh,
                                              const Elem* safe) {
   constexpr int V = N / (int)sizeof(Elem);   // elements a copy
   const int n = cols / V;
   for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
     const int r = e / n, c = (e - r * n) * V, col = c0 + c;
     const bool ok = r < valid && col < Dh;
-    copy_zfill<N>(dst + r * ls + c, ok ? src + (size_t)r * Dh + col : safe, ok);
+    copy_zfill<N>(dst + r * ls + c, ok ? src + ro(r) + col : safe, ok);
   }
 }
 
 // stage_chunks at the launch's copy size (one uniform switch a call).
-template <typename Elem>
-__device__ __forceinline__ void stage_ragged(Elem* dst, int ls, const Elem* src, int rows,
-                                             int valid, int c0, int cols, Head h,
-                                             const Elem* safe) {
+template <typename Elem, typename RO>
+__device__ __forceinline__ void stage_ragged(Elem* dst, int ls, const Elem* src, RO ro,
+                                             int rows, int valid, int c0, int cols,
+                                             const Head& h, const Elem* safe) {
   switch (h.copy) {
-    case 16: stage_chunks<16>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe); break;
-    case 8: stage_chunks<8>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe); break;
-    case 4: stage_chunks<4>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe); break;
+    case 16: stage_chunks<16>(dst, ls, src, ro, rows, valid, c0, cols, h.Dh, safe); break;
+    case 8: stage_chunks<8>(dst, ls, src, ro, rows, valid, c0, cols, h.Dh, safe); break;
+    case 4: stage_chunks<4>(dst, ls, src, ro, rows, valid, c0, cols, h.Dh, safe); break;
     default:
       if constexpr (sizeof(Elem) == 2)
-        stage_chunks<2>(dst, ls, src, rows, valid, c0, cols, h.Dh, safe);
+        stage_chunks<2>(dst, ls, src, ro, rows, valid, c0, cols, h.Dh, safe);
   }
 }
 
-// Issue the copies of `rows` rows of DH floats, contiguous at `src`, into
-// the padded tile `dst`.
-template <int DH>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+// Issue the copies of `rows` rows of DH floats, row r at src + ro(r), into the padded
+// tile `dst`.
+template <int DH, typename RO>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, RO ro,
                                            int rows) {
   constexpr int QS = TileDims<DH>::QS, D4 = TileDims<DH>::D4;
   for (int e = threadIdx.x; e < rows * D4; e += blockDim.x) {
     const int r = e / D4, c = e - r * D4;
-    cp_async16(dst + r * QS + 4 * c, src + 4 * (size_t)e);
+    cp_async16(dst + r * QS + 4 * c, src + ro(r) + 4 * c);
   }
 }
 
@@ -133,20 +265,16 @@ __device__ __forceinline__ unsigned round_bf16x2(float lo, float hi) {
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
-// The tiles of NT tensors (q, k, v and, in the backward, dout): float32
-// rows by cp.async as above, one tensor after another (ragged: rows of Dh
-// floats in copies of h.copy bytes, the columns from Dh zero-filled).
-template <int DH, int NT, bool RAGGED = false>
-__device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
-                                            const float* const (&src)[NT], int rows,
-                                            Head h = Head{DH, 16}) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if constexpr (RAGGED)
-      stage_ragged(dst[t], TileDims<DH>::QS, src[t], rows, rows, 0, DH, h, src[t]);
-    else
-      stage_rows<DH>(dst[t], src[t], rows);
-  }
+// One tensor's tile (q, k, v and, in the backward, dout): float32 rows by cp.async as
+// above (ragged: rows of Dh floats in copies of h.copy bytes, the columns from Dh
+// zero-filled).
+template <int DH, bool RAGGED, typename RO>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, RO ro, int rows,
+                                           const Head& h) {
+  if constexpr (RAGGED)
+    stage_ragged(dst, TileDims<DH>::QS, src, ro, rows, rows, 0, DH, h, src);
+  else
+    stage_rows<DH>(dst, src, ro, rows);
 }
 
 // One output element, rounded from float32 to its type.
@@ -165,17 +293,17 @@ __device__ __forceinline__ void store4(float* dst, float4 v) {
 }
 
 // Four consecutive outputs at `dst`, columns col .. col + 3 of their row: store4;
-// ragged, only the columns below Dh, store4 where Dh is a multiple of 4 (and so
-// the four are aligned), else each alone.
+// ragged, only the columns below Dh, store4 where every row starts on 16 bytes (copy 16:
+// the four are then aligned), else each alone.
 template <bool RAGGED, typename Elem>
-__device__ __forceinline__ void put4(Elem* dst, int col, float4 v, int Dh) {
+__device__ __forceinline__ void put4(Elem* dst, int col, float4 v, const Head& h) {
   if constexpr (RAGGED) {
-    if (col >= Dh) return;
-    if (Dh & 3) {
+    if (col >= h.Dh) return;
+    if (h.copy < 16) {
       const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (col + e < Dh) dst[e] = from_float<Elem>(x[e]);
+        if (col + e < h.Dh) dst[e] = from_float<Elem>(x[e]);
       return;
     }
   }

@@ -8,9 +8,10 @@
 // blocks over the full Dh, attention.py:120-126).
 //
 // Shapes and contract as k1_fwd.cuh and k1_bwd.cuh: q, k, v, dout and the
-// outputs (BH, S, Dh), contiguous, any Dh past 128 (rows whose 16-byte
-// copies would not be aligned, a Dh off a multiple of 4 in float32 or of 8
-// in bf16, take the kernels' RAGGED forms: narrower copies, k1_tiles.cuh's
+// outputs (BH, S, Dh) rows wherever their layout puts them (k1_tiles.cuh's
+// Head), any Dh past 128 (rows whose 16-byte copies would not be aligned, a
+// Dh off a multiple of 4 in float32 or of 8 in bf16, or strides and offsets
+// off 16 bytes, take the kernels' RAGGED forms: narrower copies, k1_tiles.cuh's
 // copy_bytes, and at an odd Dh stores one element at a time);
 // any W dividing S up to kMaxRow; the same Philox counters (seed, row,
 // i * S + j) and seed groups, causal skips and float32 arithmetic as the
@@ -44,8 +45,10 @@
 // under causal, grids past one block an SM run the tiles with the most work
 // first (block_of). bf16 operands reach mma.sync through ldmatrix (.trans
 // for the value side). At W <= 32 a
-// block holds floor(64 / W) whole windows (their rows are contiguous in
-// memory: a "super-window"); a row's keys are its own window's: each warp
+// block holds floor(64 / W) whole windows (consecutive positions of the
+// (BH * S) rows, a "super-window", each row's address from its flat
+// position: k1_tiles.cuh's Strided, or Divided where it crosses rows); a row's keys
+// are its own window's: each warp
 // runs only the 8-key column tiles its rows reach, and an element outside
 // its window or above a causal diagonal is -inf by its index, reading no
 // bias. Columns past Dh (Dh 160 stages 160; Dh 136 stages 144) are
@@ -67,6 +70,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "k1_mma.cuh"
 #include "philox.cuh"
@@ -325,25 +330,33 @@ __device__ __forceinline__ unsigned keep_mask(const Row (&R)[2], int p0, int pst
   return m;
 }
 
+// One tensor's rows: row r at p + ro(r) (the super-window's rows: k1_tiles.cuh's Strided,
+// or Divided where a super-window crosses from one row n to the next).
+template <typename Elem, typename RO>
+struct Src {
+  const Elem* p;
+  RO ro;
+  __device__ __forceinline__ Src from(int r) const { return Src{p, ro.from(r)}; }
+};
+
 // Issue the copies of `rows` rows of `w` columns (a multiple of 16) from column c0 of
-// `src` (row stride Dh) into `dst` (row stride ls); rows at or past `valid` and columns
-// at or past Dh are zero-filled, reading nothing (`safe` is any valid address). 16-byte
-// copies; RAGGED (a Dh whose rows are not 16-byte aligned: k1_tiles.cuh's copy_bytes):
-// copies of `copy` bytes.
-template <bool RAGGED, typename Elem>
-__device__ __forceinline__ void stage_cols(Elem* dst, int ls, const Elem* src, int rows,
-                                           int valid, int c0, int w, int Dh,
-                                           const Elem* safe, int copy) {
+// `src` into `dst` (row stride ls); rows at or past `valid` and columns at or past Dh
+// are zero-filled, reading nothing. 16-byte copies; RAGGED (rows not all 16-byte
+// aligned: k1_tiles.cuh's layout_copy): copies of hd.copy bytes.
+template <bool RAGGED, typename Elem, typename RO>
+__device__ __forceinline__ void stage_cols(Elem* dst, int ls, const Src<Elem, RO>& src, int rows,
+                                           int valid, int c0, int w, const k1::Head& hd) {
+  const RO& ro = src.ro;
   if constexpr (RAGGED) {
-    k1::stage_ragged(dst, ls, src, rows, valid, c0, w, k1::Head{Dh, copy}, safe);
-    return;
-  }
-  constexpr int E = 16 / (int)sizeof(Elem);
-  const int n = w / E;
-  for (int e = threadIdx.x; e < rows * n; e += kThreads) {
-    const int r = e / n, c = e - r * n, col = c0 + c * E;
-    const bool ok = r < valid && col < Dh;
-    k1::cp_async16_zfill(dst + r * ls + c * E, ok ? src + (size_t)r * Dh + col : safe, ok);
+    k1::stage_ragged(dst, ls, src.p, ro, rows, valid, c0, w, hd, src.p);
+  } else {
+    constexpr int E = 16 / (int)sizeof(Elem);
+    const int n = w / E;
+    for (int e = threadIdx.x; e < rows * n; e += kThreads) {
+      const int r = e / n, c = e - r * n, col = c0 + c * E;
+      const bool ok = r < valid && col < hd.Dh;
+      k1::cp_async16_zfill(dst + r * ls + c * E, ok ? src.p + ro(r) + col : src.p, ok);
+    }
   }
 }
 
@@ -620,27 +633,26 @@ __device__ __forceinline__ void put_half(float* X, const float (&v)[2][4], int l
 }
 
 // Store the warp's (16, 8 nact) accumulator at columns c0 + 8n of rows ra and ra + 8 (those
-// below Wb; columns below Dh), row stride Dh, each value times its row's factor: in pairs
-// (RAGGED at an odd Dh, whose pairs are not aligned: k1_mma.cuh's store2_ragged).
-template <typename Elem, int NO, bool RAGGED = false>
-__device__ __forceinline__ void store_cols(Elem* dst, const float (&acc)[NO][4], int ra,
-                                           int Wb, float fa, float fb, int lane, int Dh,
-                                           int c0, int nact) {
-  const int t = lane & 3;
+// below Wb; columns below Dh), row r at dst + ro(r), each value times its row's factor: in
+// pairs (RAGGED where the pairs are not all aligned: k1_mma.cuh's store2_ragged).
+template <typename Elem, int NO, bool RAGGED, typename RO>
+__device__ __forceinline__ void store_cols(Elem* dst, const RO& ro, const float (&acc)[NO][4],
+                                           int ra, int Wb, float fa, float fb, int lane,
+                                           const k1::Head& hd, int c0, int nact) {
+  const int t = lane & 3, Dh = hd.Dh;
+  const bool pair = hd.copy >= 2 * (int)sizeof(Elem);
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = c0 + n * 8 + 2 * t;
     if (n >= nact || c >= Dh) continue;
     if constexpr (RAGGED) {
       if (ra < Wb)
-        k1::store2_ragged(dst + (size_t)ra * Dh + c, acc[n][0] * fa, acc[n][1] * fa, c, Dh);
+        k1::store2_ragged(dst + ro(ra) + c, acc[n][0] * fa, acc[n][1] * fa, c, Dh, pair);
       if (ra + 8 < Wb)
-        k1::store2_ragged(dst + (size_t)(ra + 8) * Dh + c, acc[n][2] * fb, acc[n][3] * fb, c,
-                          Dh);
+        k1::store2_ragged(dst + ro(ra + 8) + c, acc[n][2] * fb, acc[n][3] * fb, c, Dh, pair);
     } else {
-      if (ra < Wb) k1::store2(dst + (size_t)ra * Dh + c, acc[n][0] * fa, acc[n][1] * fa);
-      if (ra + 8 < Wb)
-        k1::store2(dst + (size_t)(ra + 8) * Dh + c, acc[n][2] * fb, acc[n][3] * fb);
+      if (ra < Wb) k1::store2(dst + ro(ra) + c, acc[n][0] * fa, acc[n][1] * fa);
+      if (ra + 8 < Wb) k1::store2(dst + ro(ra + 8) + c, acc[n][2] * fb, acc[n][3] * fb);
     }
   }
 }
@@ -668,13 +680,13 @@ __device__ __forceinline__ void zero2(float (&a)[2][4]) {
 // p_drop in the exchange tile; then (in the same step if merged, else in step (kt, nslab),
 // which stages v's group) each warp adds p_drop v to its output columns. out = acc / l, l
 // the two halves' sums.
-template <typename Elem, bool RAGGED>
+template <typename Elem, bool RAGGED, bool SPAN>
 __global__ void __launch_bounds__(kw::kThreads)
 k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
             const Elem* __restrict__ v, const float* __restrict__ bias,
             Elem* __restrict__ out, int S, int W, int Dh, int nwin, int G, int tiles,
             kw::Layout L, float scale, const int* __restrict__ seed_ptr, int group_rows,
-            unsigned thresh, float inv_keep, int dropout, int causal, int copy) {
+            unsigned thresh, float inv_keep, int dropout, int causal, k1::Head hd) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -688,8 +700,9 @@ k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const Block B = block_of(nwin, W, G, tiles, L.groups, causal);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int rg = warp & 3, ch = warp >> 2, lr = rg * 16 + (lane >> 2), ra = B.i0 + lr;
-  const size_t base = (size_t)B.gbase * Dh;
-  const Elem *qb = q + base + (size_t)B.i0 * Dh, *kb = k + base, *vb = v + base;
+  const auto rin = k1::block_rows<SPAN>(hd, k1::kIn, (unsigned)B.gbase);   // the block's rows
+  using RO = std::decay_t<decltype(rin)>;
+  const Src<Elem, RO> qb{q, rin.from(B.i0)}, kb{k, rin}, vb{v, rin};
   K1_PHASE_BEGIN();
   const Row R[2] = {
       row_of(ra, B.Wb, W, B.gbase, S, causal, false, seed_ptr, group_rows, dropout),
@@ -707,19 +720,17 @@ k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (c < L.nslab) {
       const int c0 = c * L.SW, w = min(L.SW, L.Dp - c0);
       if (!L.res) {
-        stage_cols<RAGGED>(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, Dh, q, copy);
+        stage_cols<RAGGED>(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, hd);
         d += kRows * lsS;
       }
-      stage_cols<RAGGED>(d, lsS, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, k, copy);
+      stage_cols<RAGGED>(d, lsS, kb.from(j1), kCols, B.Wb - j1, c0, w, hd);
       if (L.merged)
-        stage_cols<RAGGED>(d + kCols * lsS, lsS, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, 0, L.Dp,
-                           Dh, v, copy);
+        stage_cols<RAGGED>(d + kCols * lsS, lsS, vb.from(j1), kCols, B.Wb - j1, 0, L.Dp, hd);
     } else {
-      stage_cols<RAGGED>(d, lsC, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, B.cg * L.CW, L.CW, Dh, v,
-                         copy);
+      stage_cols<RAGGED>(d, lsC, vb.from(j1), kCols, B.Wb - j1, B.cg * L.CW, L.CW, hd);
     }
   };
-  if (L.res) stage_cols<RAGGED>(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, q, copy);
+  if (L.res) stage_cols<RAGGED>(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, hd);
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
     if (i < steps) stage(i);
     k1::cp_async_commit();
@@ -814,8 +825,8 @@ k1_fwd_wide(const Elem* __restrict__ q, const Elem* __restrict__ k,
   }
   __syncthreads();
   const float la = red[lr] + red[kRows + lr], lb = red[lr + 8] + red[kRows + lr + 8];
-  store_cols<Elem, kHalfTiles, RAGGED>(out + base, o, ra, B.Wb, 1.f / la, 1.f / lb, lane, Dh, oc0,
-                               nact);
+  store_cols<Elem, kHalfTiles, RAGGED>(out, k1::block_rows<SPAN>(hd, k1::kOut, (unsigned)B.gbase),
+                                       o, ra, B.Wb, 1.f / la, 1.f / lb, lane, hd, oc0, nact);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
@@ -836,7 +847,7 @@ k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
                int S, int W, int Dh, int nwin, int G, int tiles, kw::Layout L,
                size_t positions, float scale, const int* __restrict__ seed_ptr,
                int group_rows, unsigned thresh, float inv_keep, int dropout, int causal,
-               int copy) {
+               k1::Head hd) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -852,9 +863,11 @@ k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const Block B = block_of(nwin, W, G, tiles, L.groups, causal);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int rg = warp & 3, ch = warp >> 2, lr = rg * 16 + (lane >> 2), ra = B.i0 + lr;
-  const size_t base = (size_t)B.gbase * Dh;
-  const Elem *qb = q + base + (size_t)B.i0 * Dh, *ob = dout + base + (size_t)B.i0 * Dh;
-  const Elem *kb = k + base, *vb = v + base;
+  // the block's rows: past kWinMax a block holds one window's tile, one run
+  const k1::Strided rin = k1::block_rows<false>(hd, k1::kIn, (unsigned)B.gbase);
+  using RO = k1::Strided;
+  const k1::Strided rout = k1::block_rows<false>(hd, k1::kOut, (unsigned)B.gbase);
+  const Src<Elem, RO> qb{q, rin.from(B.i0)}, ob{dout, rout.from(B.i0)}, kb{k, rin}, vb{v, rin};
   K1_PHASE_BEGIN();
   const Row R[2] = {
       row_of(ra, B.Wb, W, B.gbase, S, causal, false, seed_ptr, group_rows, dropout),
@@ -885,21 +898,19 @@ k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (c < L.nslab) {
       const int c0 = c * L.SW, w = min(L.SW, L.Dp - c0);
       if (!L.res) {
-        stage_cols<RAGGED>(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, Dh, q, copy);
-        stage_cols<RAGGED>(d + kRows * lsS, lsS, ob, kRows, B.Wb - B.i0, c0, w, Dh, dout, copy);
+        stage_cols<RAGGED>(d, lsS, qb, kRows, B.Wb - B.i0, c0, w, hd);
+        stage_cols<RAGGED>(d + kRows * lsS, lsS, ob, kRows, B.Wb - B.i0, c0, w, hd);
         d += 2 * kRows * lsS;
       }
-      stage_cols<RAGGED>(d, lsS, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, k, copy);
-      stage_cols<RAGGED>(d + kCols * lsS, lsS, vb + (size_t)j1 * Dh, kCols, B.Wb - j1, c0, w, Dh, v,
-                         copy);
+      stage_cols<RAGGED>(d, lsS, kb.from(j1), kCols, B.Wb - j1, c0, w, hd);
+      stage_cols<RAGGED>(d + kCols * lsS, lsS, vb.from(j1), kCols, B.Wb - j1, c0, w, hd);
     } else {
-      stage_cols<RAGGED>(d, lsC, kb + (size_t)j1 * Dh, kCols, B.Wb - j1, B.cg * L.CW, L.CW, Dh, k,
-                         copy);
+      stage_cols<RAGGED>(d, lsC, kb.from(j1), kCols, B.Wb - j1, B.cg * L.CW, L.CW, hd);
     }
   };
   if (L.res) {
-    stage_cols<RAGGED>(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, q, copy);
-    stage_cols<RAGGED>(ores, lsD, ob, kRows, B.Wb - B.i0, 0, L.Dp, Dh, dout, copy);
+    stage_cols<RAGGED>(qres, lsD, qb, kRows, B.Wb - B.i0, 0, L.Dp, hd);
+    stage_cols<RAGGED>(ores, lsD, ob, kRows, B.Wb - B.i0, 0, L.Dp, hd);
   }
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
     if (i < steps) stage(i);
@@ -1041,7 +1052,8 @@ k1_bwd_wide_dq(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(3);
     __syncthreads();
   }
-  store_cols<Elem, kHalfTiles, RAGGED>(dq + base, dqa, ra, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
+  const k1::Strided rgrad = k1::block_rows<false>(hd, k1::kGrad, (unsigned)B.gbase);
+  store_cols<Elem, kHalfTiles, RAGGED>(dq, rgrad, dqa, ra, B.Wb, 1.f, 1.f, lane, hd, oc0, nact);
   K1_PHASE(3);
   K1_PHASE_END(0);
 }
@@ -1061,7 +1073,7 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
                 const float* __restrict__ stats, int S, int W, int Dh, int nwin, int G,
                 int tiles, kw::Layout L, size_t positions, float scale,
                 const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
-                float inv_keep, int dropout, int causal, int copy) {
+                float inv_keep, int dropout, int causal, k1::Head hd) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -1079,9 +1091,11 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const Block B = block_of(nwin, W, G, tiles, L.groups, causal, false);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int rg = warp & 3, ch = warp >> 2, lr = rg * 16 + (lane >> 2), ja = B.i0 + lr;
-  const size_t base = (size_t)B.gbase * Dh;
-  const Elem *kb = k + base + (size_t)B.i0 * Dh, *vb = v + base + (size_t)B.i0 * Dh;
-  const Elem *qb = q + base, *ob = dout + base;
+  // the block's rows: past kWinMax a block holds one window's tile, one run
+  const k1::Strided rin = k1::block_rows<false>(hd, k1::kIn, (unsigned)B.gbase);
+  using RO = k1::Strided;
+  const k1::Strided rout = k1::block_rows<false>(hd, k1::kOut, (unsigned)B.gbase);
+  const Src<Elem, RO> kb{k, rin.from(B.i0)}, vb{v, rin.from(B.i0)}, qb{q, rin}, ob{dout, rout};
   K1_PHASE_BEGIN();
   const Row R[2] = {
       row_of(ja, B.Wb, W, B.gbase, S, causal, true, seed_ptr, group_rows, dropout),
@@ -1101,13 +1115,12 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (c < L.nslab) {
       const int c0 = c * L.SW, w = min(L.SW, L.Dp - c0);
       if (!L.res) {
-        stage_cols<RAGGED>(d, lsS, kb, kRows, B.Wb - B.i0, c0, w, Dh, k, copy);
-        stage_cols<RAGGED>(d + kRows * lsS, lsS, vb, kRows, B.Wb - B.i0, c0, w, Dh, v, copy);
+        stage_cols<RAGGED>(d, lsS, kb, kRows, B.Wb - B.i0, c0, w, hd);
+        stage_cols<RAGGED>(d + kRows * lsS, lsS, vb, kRows, B.Wb - B.i0, c0, w, hd);
         d += 2 * kRows * lsS;
       }
-      stage_cols<RAGGED>(d, lsS, qb + (size_t)i1 * Dh, kCols, B.Wb - i1, c0, w, Dh, q, copy);
-      stage_cols<RAGGED>(d + kCols * lsS, lsS, ob + (size_t)i1 * Dh, kCols, B.Wb - i1, c0, w, Dh,
-                         dout, copy);
+      stage_cols<RAGGED>(d, lsS, qb.from(i1), kCols, B.Wb - i1, c0, w, hd);
+      stage_cols<RAGGED>(d + kCols * lsS, lsS, ob.from(i1), kCols, B.Wb - i1, c0, w, hd);
       if (c == 0) {
         float* sd = sts + (qi % 3) * 3 * kCols;
         for (int e = threadIdx.x; e < 3 * kCols; e += kThreads) {
@@ -1118,16 +1131,15 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
         }
       }
     } else {
-      const Elem* src = c == L.nslab ? ob : qb;   // dout's group for dv, then q's for dk
-      stage_cols<RAGGED>(d, lsC, src + (size_t)i1 * Dh, kCols, B.Wb - i1, B.cg * L.CW, L.CW, Dh,
-                         src, copy);
+      const Src<Elem, RO> src = c == L.nslab ? ob : qb;   // dout's group for dv, then q's for dk
+      stage_cols<RAGGED>(d, lsC, src.from(i1), kCols, B.Wb - i1, B.cg * L.CW, L.CW, hd);
     }
   };
   // launched as the dq kernel's dependent: nothing it wrote is read before it has ended
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (L.res) {
-    stage_cols<RAGGED>(kres, lsD, kb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, k, copy);
-    stage_cols<RAGGED>(vres, lsD, vb, kRows, B.Wb - B.i0, 0, L.Dp, Dh, v, copy);
+    stage_cols<RAGGED>(kres, lsD, kb, kRows, B.Wb - B.i0, 0, L.Dp, hd);
+    stage_cols<RAGGED>(vres, lsD, vb, kRows, B.Wb - B.i0, 0, L.Dp, hd);
   }
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
     if (i < steps) stage(i);
@@ -1218,8 +1230,9 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
     K1_PHASE(3);
     __syncthreads();
   }
-  store_cols<Elem, kHalfTiles, RAGGED>(dv + base, dva, ja, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
-  store_cols<Elem, kHalfTiles, RAGGED>(dk + base, dka, ja, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
+  const k1::Strided rgrad = k1::block_rows<false>(hd, k1::kGrad, (unsigned)B.gbase);
+  store_cols<Elem, kHalfTiles, RAGGED>(dv, rgrad, dva, ja, B.Wb, 1.f, 1.f, lane, hd, oc0, nact);
+  store_cols<Elem, kHalfTiles, RAGGED>(dk, rgrad, dka, ja, B.Wb, 1.f, 1.f, lane, hd, oc0, nact);
   K1_PHASE(3);
   K1_PHASE_END(1);
 }
@@ -1236,14 +1249,14 @@ k1_bwd_wide_dkv(const Elem* __restrict__ q, const Elem* __restrict__ k,
 // dv = p_drop^T dout, each over the 64 keys (queries) in two halves, stored after its
 // second. Two products over the whole head dim and three over the group's columns a pair,
 // one launch, nothing between kernels in device memory.
-template <typename Elem, bool RAGGED>
+template <typename Elem, bool RAGGED, bool SPAN>
 __global__ void __launch_bounds__(kw::kThreads, sizeof(Elem) == 4 ? 2 : 1)
 k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
                 const Elem* __restrict__ v, const float* __restrict__ bias,
                 const Elem* __restrict__ dout, Elem* __restrict__ dq, Elem* __restrict__ dk,
                 Elem* __restrict__ dv, int S, int W, int Dh, int nwin, int G, kw::Layout L,
                 float scale, const int* __restrict__ seed_ptr, int group_rows, unsigned thresh,
-                float inv_keep, int dropout, int causal, int copy) {
+                float inv_keep, int dropout, int causal, k1::Head hd) {
   using namespace kw;
   constexpr int E = (int)sizeof(Elem);
   extern __shared__ float4 smem4[];
@@ -1256,8 +1269,10 @@ k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const Block B = block_of(nwin, W, G, 1, L.groups);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int rg = warp & 3, ch = warp >> 2, lr = rg * 16 + (lane >> 2);
-  const size_t base = (size_t)B.gbase * Dh;
-  const Elem* src[4] = {q + base, dout + base, k + base, v + base};
+  const auto rin = k1::block_rows<SPAN>(hd, k1::kIn, (unsigned)B.gbase);   // the block's rows
+  using RO = std::decay_t<decltype(rin)>;
+  const auto rout = k1::block_rows<SPAN>(hd, k1::kOut, (unsigned)B.gbase);
+  const Src<Elem, RO> src[4] = {{q, rin}, {dout, rout}, {k, rin}, {v, rin}};
   K1_PHASE_BEGIN();
   const Row R[2] = {
       row_of(lr, B.Wb, W, B.gbase, S, causal, false, seed_ptr, group_rows, dropout),
@@ -1276,11 +1291,11 @@ k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
       const int c0 = it * L.SW, w = min(L.SW, L.Dp - c0);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
-        stage_cols<RAGGED>(d + a * kRows * lsS, lsS, src[a], kRows, B.Wb, c0, w, Dh, q, copy);
+        stage_cols<RAGGED>(d + a * kRows * lsS, lsS, src[a], kRows, B.Wb, c0, w, hd);
     } else {
       const int p = (it - L.nslab) >> 1, hb = (it - L.nslab) & 1;
-      const Elem* b = (p == 0 ? k : p == 1 ? q : dout) + base + (size_t)hb * kCols * Dh;
-      stage_cols<RAGGED>(d, lsC, b, kCols, B.Wb - hb * kCols, B.cg * L.CW, L.CW, Dh, q, copy);
+      const Src<Elem, RO> b = src[p == 0 ? 2 : p == 1 ? 0 : 1].from(hb * kCols);
+      stage_cols<RAGGED>(d, lsC, b, kCols, B.Wb - hb * kCols, B.cg * L.CW, L.CW, hd);
     }
   };
   for (int i = 0; i < L.ns - 1; ++i) {   // the ring's first stages, a commit group each
@@ -1390,8 +1405,10 @@ k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
     mma_pv<kHalfTiles>(acc, pf, st + ch * HW, lsC, lane, nact, pb, pe);
     K1_PHASE(3);
     if (hb == 1) {
-      Elem* out = (p == 0 ? dq : p == 1 ? dk : dv) + base;
-      store_cols<Elem, kHalfTiles, RAGGED>(out, acc, lr, B.Wb, 1.f, 1.f, lane, Dh, oc0, nact);
+      Elem* out = p == 0 ? dq : p == 1 ? dk : dv;
+      store_cols<Elem, kHalfTiles, RAGGED>(out,
+                                           k1::block_rows<SPAN>(hd, k1::kGrad, (unsigned)B.gbase),
+                                           acc, lr, B.Wb, 1.f, 1.f, lane, hd, oc0, nact);
 #pragma unroll
       for (int n = 0; n < kHalfTiles; ++n)
 #pragma unroll
@@ -1403,11 +1420,11 @@ k1_bwd_wide_win(const Elem* __restrict__ q, const Elem* __restrict__ k,
 }
 
 // The launch plan's numbers (ops/attention.py::wide_plan); the caller's must equal them.
-// `copy` must be k1::copy_bytes: under 16 the RAGGED forms run.
+// The rows' layout and `copy` as k1_tiles.cuh's launch_head: under 16 the RAGGED forms run.
 inline bool wide_shape(int BH, int S, int W, int Dh, int group_rows, int dropout,
-                       const int* seed, int copy, int E) {
+                       const int* seed) {
   return !(dropout && seed == nullptr) && W >= 1 && S % W == 0 && S <= k1::kMaxRow &&
-         group_rows >= 1 && BH % group_rows == 0 && Dh > 128 && copy == k1::copy_bytes(Dh, E);
+         group_rows >= 1 && BH % group_rows == 0 && Dh > 128;
 }
 
 constexpr int kWidePath = 2;   // ops/attention.py PATH_CODE["wide"]
@@ -1416,23 +1433,29 @@ template <typename Elem, bool RAGGED>
 int launch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
                     int S, int W, int Dh, long long nwin, const kw::Grid& g, const kw::Layout& L,
                     float scale, const int* seed, int group_rows, unsigned thresh,
-                    float inv_keep, int dropout, int causal, int blocks, int copy,
-                    cudaStream_t st) {
-  const cudaError_t e = k1::allow_smem(k1_fwd_wide<Elem, RAGGED>, L.smem);
+                    float inv_keep, int dropout, int causal, int blocks,
+                    const k1::Head& hd, cudaStream_t st) {
+  const auto kernel = k1::spans_rows(hd, g.G * W) ? k1_fwd_wide<Elem, RAGGED, true>
+                                                   : k1_fwd_wide<Elem, RAGGED, false>;
+  const cudaError_t e = k1::allow_smem(kernel, L.smem);
   if (e != cudaSuccess) return (int)e;
-  k1_fwd_wide<Elem, RAGGED><<<blocks, kw::kThreads, L.smem, st>>>(
+  kernel<<<blocks, kw::kThreads, L.smem, st>>>(
       q, k, v, bias, out, S, W, Dh, (int)nwin, g.G, g.tiles, L, scale, seed, group_rows, thresh,
-      inv_keep, dropout, causal, copy);
+      inv_keep, dropout, causal, hd);
   return (int)cudaGetLastError();
 }
 
 // A library holds one form, as k1_fwd.cuh's: kRagged takes copies under 16 bytes.
 template <bool kRagged, typename Elem>
 int dispatch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* bias, Elem* out,
-                      int BH, int S, int W, int Dh, float scale, const int* seed, int group_rows,
-                      unsigned thresh, float inv_keep, int dropout, int causal, int path,
-                      int blocks, int smem_bytes, int copy, void* stream) {
-  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed, copy, (int)sizeof(Elem)))
+                      int BH, int S, int W, int Dh, int H, long long in_pos, long long in_batch,
+                      long long out_pos, long long out_batch, float scale, const int* seed,
+                      int group_rows, unsigned thresh, float inv_keep, int dropout, int causal,
+                      int path, int blocks, int smem_bytes, int copy, void* stream) {
+  k1::Head hd;
+  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed) ||
+      !k1::launch_head(BH, S, Dh, copy, (int)sizeof(Elem), H, in_pos, in_batch, out_pos,
+                       out_batch, 0, 0, {q, k, v, out}, hd))
     return (int)cudaErrorInvalidValue;
   const long long nwin = (long long)BH * (S / W);
   const kw::Grid g = kw::grid_of(nwin, W, Dh);
@@ -1443,7 +1466,7 @@ int dispatch_wide_fwd(const Elem* q, const Elem* k, const Elem* v, const float* 
   if ((copy < 16) != kRagged) return (int)cudaErrorInvalidValue;
   return launch_wide_fwd<Elem, kRagged>(q, k, v, bias, out, S, W, Dh, nwin, g, L, scale, seed,
                                         group_rows, thresh, inv_keep, dropout, causal, blocks,
-                                        copy, (cudaStream_t)stream);
+                                        hd, (cudaStream_t)stream);
 }
 
 template <typename Elem, bool RAGGED>
@@ -1452,17 +1475,19 @@ int launch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bi
                     int S, int W, int Dh, long long nwin, const kw::Grid& g, float scale,
                     const int* seed, int group_rows, unsigned thresh, float inv_keep,
                     int dropout, int causal, int path, int blocks, int smem_bytes,
-                    int blocks_kv, int smem_kv, int copy, cudaStream_t st) {
+                    int blocks_kv, int smem_kv, const k1::Head& hd, cudaStream_t st) {
   if (W <= kw::kWinMax) {   // one kernel
     const kw::Layout L = kw::win_layout(Dh, (int)sizeof(Elem), g.groups);
     if (path != kWidePath || L.smem == 0 || g.blocks != (long long)blocks || blocks_kv != 0 ||
         smem_kv != 0 || smem_bytes != L.smem)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = k1::allow_smem(k1_bwd_wide_win<Elem, RAGGED>, L.smem);
+    const auto kernel = k1::spans_rows(hd, g.G * W) ? k1_bwd_wide_win<Elem, RAGGED, true>
+                                                     : k1_bwd_wide_win<Elem, RAGGED, false>;
+    const cudaError_t e = k1::allow_smem(kernel, L.smem);
     if (e != cudaSuccess) return (int)e;
-    k1_bwd_wide_win<Elem, RAGGED><<<blocks, kw::kThreads, L.smem, st>>>(
+    kernel<<<blocks, kw::kThreads, L.smem, st>>>(
         q, k, v, bias, dout, dq, dk, dv, S, W, Dh, (int)nwin, g.G, L, scale, seed, group_rows,
-        thresh, inv_keep, dropout, causal, copy);
+        thresh, inv_keep, dropout, causal, hd);
     return (int)cudaGetLastError();
   }
   if (stats == nullptr) return (int)cudaErrorInvalidValue;
@@ -1476,7 +1501,7 @@ int launch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bi
   if (e != cudaSuccess) return (int)e;
   k1_bwd_wide_dq<Elem, RAGGED><<<blocks, kw::kThreads, L.smem, st>>>(
       q, k, v, bias, dout, dq, stats, S, W, Dh, (int)nwin, g.G, g.tiles, L, positions, scale,
-      seed, group_rows, thresh, inv_keep, dropout, causal, copy);
+      seed, group_rows, thresh, inv_keep, dropout, causal, hd);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   e = k1::allow_smem(k1_bwd_wide_dkv<Elem, RAGGED>, L2.smem);
@@ -1493,7 +1518,7 @@ int launch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bi
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, k1_bwd_wide_dkv<Elem, RAGGED>, q, k, v, bias, dout, dk, dv,
                          (const float*)stats, S, W, Dh, (int)nwin, g.G, g.tiles, L2, positions,
-                         scale, seed, group_rows, thresh, inv_keep, dropout, causal, copy);
+                         scale, seed, group_rows, thresh, inv_keep, dropout, causal, hd);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1501,11 +1526,16 @@ int launch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bi
 template <bool kRagged, typename Elem>
 int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* bias,
                       const Elem* dout, Elem* dq, Elem* dk, Elem* dv, float* stats, int BH,
-                      int S, int W, int Dh, float scale, const int* seed, int group_rows,
+                      int S, int W, int Dh, int H, long long in_pos, long long in_batch,
+                      long long out_pos, long long out_batch, long long grad_pos,
+                      long long grad_batch, float scale, const int* seed, int group_rows,
                       unsigned thresh, float inv_keep, int dropout, int causal, int path,
                       int blocks, int smem_bytes, int blocks_kv, int smem_kv, int copy,
                       void* stream) {
-  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed, copy, (int)sizeof(Elem)))
+  k1::Head hd;
+  if (!wide_shape(BH, S, W, Dh, group_rows, dropout, seed) ||
+      !k1::launch_head(BH, S, Dh, copy, (int)sizeof(Elem), H, in_pos, in_batch, out_pos,
+                       out_batch, grad_pos, grad_batch, {q, k, v, dout, dq, dk, dv}, hd))
     return (int)cudaErrorInvalidValue;
   const long long nwin = (long long)BH * (S / W);
   const kw::Grid g = kw::grid_of(nwin, W, Dh);
@@ -1513,7 +1543,7 @@ int dispatch_wide_bwd(const Elem* q, const Elem* k, const Elem* v, const float* 
   return launch_wide_bwd<Elem, kRagged>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh,
                                         nwin, g, scale, seed, group_rows, thresh, inv_keep,
                                         dropout, causal, path, blocks, smem_bytes, blocks_kv,
-                                        smem_kv, copy, (cudaStream_t)stream);
+                                        smem_kv, hd, (cudaStream_t)stream);
 }
 
 }  // namespace

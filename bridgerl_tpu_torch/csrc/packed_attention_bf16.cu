@@ -9,11 +9,13 @@
 
 extern "C" int packed_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                          const __nv_bfloat16* v, const float* bias,
-                                         __nv_bfloat16* out, int BH, int S, int W, int Dh,
-                                         float scale, const int* seed, int group_rows,
-                                         unsigned thresh, float inv_keep, int dropout,
-                                         int causal, int path, int blocks, int smem_bytes,
-                                         int copy, void* stream) {
-  return dispatch<false>(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows, thresh,
-                         inv_keep, dropout, causal, path, blocks, smem_bytes, copy, stream);
+                                         __nv_bfloat16* out, int BH, int S, int W, int Dh, int H,
+                                         long long in_pos, long long in_batch, long long out_pos,
+                                         long long out_batch, float scale, const int* seed,
+                                         int group_rows, unsigned thresh, float inv_keep,
+                                         int dropout, int causal, int path, int blocks,
+                                         int smem_bytes, int copy, void* stream) {
+  return dispatch<false>(q, k, v, bias, out, BH, S, W, Dh, H, in_pos, in_batch, out_pos, out_batch,
+                         scale, seed, group_rows, thresh, inv_keep, dropout, causal, path, blocks,
+                         smem_bytes, copy, stream);
 }

@@ -11,25 +11,30 @@
 extern "C" int packed_attention_fwd_bf16_wide(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                               const __nv_bfloat16* v, const float* bias,
                                               __nv_bfloat16* out, int BH, int S, int W, int Dh,
-                                              float scale, const int* seed, int group_rows,
-                                              unsigned thresh, float inv_keep, int dropout,
-                                              int causal, int path, int blocks, int smem_bytes,
-                                              int copy, void* stream) {
-  return dispatch_wide_fwd<false>(q, k, v, bias, out, BH, S, W, Dh, scale, seed, group_rows,
-                                  thresh, inv_keep, dropout, causal, path, blocks, smem_bytes,
-                                  copy, stream);
+                                              int H, long long in_pos, long long in_batch,
+                                              long long out_pos, long long out_batch, float scale,
+                                              const int* seed, int group_rows, unsigned thresh,
+                                              float inv_keep, int dropout, int causal, int path,
+                                              int blocks, int smem_bytes, int copy, void* stream) {
+  return dispatch_wide_fwd<false>(q, k, v, bias, out, BH, S, W, Dh, H, in_pos, in_batch, out_pos,
+                                  out_batch, scale, seed, group_rows, thresh, inv_keep, dropout,
+                                  causal, path, blocks, smem_bytes, copy, stream);
 }
 
 extern "C" int packed_attention_bwd_bf16_wide(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                               const __nv_bfloat16* v, const float* bias,
                                               const __nv_bfloat16* dout, __nv_bfloat16* dq,
                                               __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats,
-                                              int BH, int S, int W, int Dh, float scale,
-                                              const int* seed, int group_rows, unsigned thresh,
-                                              float inv_keep, int dropout, int causal, int path,
-                                              int blocks, int smem_bytes, int blocks_kv,
-                                              int smem_kv, int copy, void* stream) {
-  return dispatch_wide_bwd<false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, scale,
-                                  seed, group_rows, thresh, inv_keep, dropout, causal, path,
-                                  blocks, smem_bytes, blocks_kv, smem_kv, copy, stream);
+                                              int BH, int S, int W, int Dh, int H, long long in_pos,
+                                              long long in_batch, long long out_pos,
+                                              long long out_batch, long long grad_pos,
+                                              long long grad_batch, float scale, const int* seed,
+                                              int group_rows, unsigned thresh, float inv_keep,
+                                              int dropout, int causal, int path, int blocks,
+                                              int smem_bytes, int blocks_kv, int smem_kv, int copy,
+                                              void* stream) {
+  return dispatch_wide_bwd<false>(q, k, v, bias, dout, dq, dk, dv, stats, BH, S, W, Dh, H, in_pos,
+                                  in_batch, out_pos, out_batch, grad_pos, grad_batch, scale, seed,
+                                  group_rows, thresh, inv_keep, dropout, causal, path, blocks,
+                                  smem_bytes, blocks_kv, smem_kv, copy, stream);
 }

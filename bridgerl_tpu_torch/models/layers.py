@@ -10,7 +10,9 @@ entry and once at exit. Submodules carry the reference's state-dict names
 ``norm1``; ``model.{i}``, ``model.res_{i}``, ``net.{j}``, ...), and
 convolution weights are stored in torch's layouts, so a reference ``.pth``
 loads as it is. Attention goes through
-``ops/attention.py::packed_attention`` (the K1 kernels on CUDA tensors); the
+``ops/attention.py::packed_attention_qkv`` (the K1 kernels on CUDA tensors,
+reading q, k and v in the projection's output and writing the heads in
+``out_proj``'s layout); the
 convolutions are plain ``F.conv1d`` / ``F.conv_transpose1d``, as the JAX
 package leaves them to XLA.
 
@@ -64,7 +66,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import parallel
-from ..ops.attention import packed_attention
+from ..ops.attention import packed_attention_qkv
 from ..ops.int8 import int8_matmul
 from ..ops.linear import linear, seed_count
 
@@ -222,17 +224,14 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
                 generator=None, window: Optional[int] = None,
                 causal: bool = False) -> torch.Tensor:
-        B, S, d = x.shape
-        H = self.n_heads
-        Dh = d // H
         dt = self.compute_dtype
         qkv = linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
                      seed_count(self))
-        q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2).reshape(B * H, S, Dh)
-                   .contiguous() for t in qkv.chunk(3, dim=-1))
-        o = packed_attention(q, k, v, bias, 1.0 / math.sqrt(Dh), dropout_rate, generator,
-                             window=window, causal=causal)
-        o = o.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, d)
+        # K1 reads q, k and v where the projection wrote them and writes the heads
+        # where out_proj reads them: no fold or unfold around it
+        o = packed_attention_qkv(qkv, self.n_heads, bias,
+                                 1.0 / math.sqrt(x.shape[-1] // self.n_heads), dropout_rate,
+                                 generator, window=window, causal=causal)
         return self.out_proj(o)
 
 

@@ -82,6 +82,18 @@ The forward op's registered autograd formula calls the backward op, which
 recomputes the probabilities and the dropout mask, as the TPU kernel's
 custom VJP does.
 
+The fused layout: :func:`attention_qkv` takes the projection's output, a (B, S, 3d)
+tensor holding q, k and v in that order (d = H Dh, heads major within each), as it is,
+and returns out as (B, S, d), the layout ``out_proj`` reads; its backward returns
+d(qkv) as one (B, S, 3d) tensor, dq, dk and dv each written by the kernels into its own
+column block. Row n = b * H + h of the (B*H, S, Dh) problem is head h of batch row b
+(the layout :func:`fold_heads` copies out), so the keep bits and the seed groups are
+those of the 3-D op on the folded copies, and every output is bit for bit the same. The
+kernels address each row through a layout (csrc/k1_tiles.cuh's Head: a position's and a
+batch row's strides, :class:`RowLayout`); the 3-D op's contiguous rows are its case H =
+1. Its ops are ``bridgerl::packed_attention_qkv_fwd`` / ``_bwd``; launches count on the
+entry point's counters and on ``QKV_COUNTER``.
+
 Dropout is counter-based, so the backward regenerates the forward's mask
 from the seed alone. The generator is Philox4x32-10 (Salmon et al., SC'11),
 written once in CUDA and once here: key (seed, 0), counter
@@ -155,8 +167,11 @@ WIDE_COUNTER = {key: kernels.LaunchCounter(name) for key, name in WIDE_ENTRY.ite
 # the launches among the bfloat16 ones that took the multi-window kernels (W < MIN_MMA_WINDOW)
 MULTI_COUNTER = {key: kernels.LaunchCounter(name + "_multi") for key, name in ENTRY.items()
                  if key[1] == torch.bfloat16}
+# the launches among those that took the fused layout (attention_qkv)
+QKV_COUNTER = {key: kernels.LaunchCounter(name + "_qkv") for key, name in ENTRY.items()}
 # the plan's path as the C entry points take it
 PATH_CODE = {"tiles": 0, "mma": 1, "wide": 2, "multi": 3}
+MAX_POSITIONS = 2 ** 31       # B*H*S, and a position's stride: the kernels' row addresses
 
 Seed = Union[int, torch.Tensor]
 # one generator, or one per seed of a stacked multi-seed step
@@ -568,12 +583,21 @@ def head_width(Dh: int) -> int:
     return next(d for d in SUPPORTED_HEAD_DIMS if d >= Dh)
 
 
-def copy_bytes(Dh: int, dtype: torch.dtype) -> int:
+def copy_bytes(Dh: int, dtype: torch.dtype, strides: Sequence[int] = (),
+               addresses: Sequence[int] = ()) -> int:
     """The bytes of each copy that stages rows of ``Dh`` elements
-    (csrc/k1_tiles.cuh copy_bytes): row r of a 16-byte aligned tensor starts
-    at byte r * Dh * E, so the widest of COPY_SIZES that divides Dh * E (2:
-    bfloat16 at an odd Dh, plain loads)."""
-    return next(b for b in COPY_SIZES if Dh * dtype.itemsize % b == 0)
+    (csrc/k1_tiles.cuh layout_copy): the widest of COPY_SIZES that divides
+    Dh * E, every stride (in elements) times E and every tensor's address,
+    so that every row starts on it (2: bfloat16 at an odd Dh or offset,
+    plain loads). Contiguous (BH, S, Dh) rows on 16-byte addresses (the 3-D
+    op) take the widest that divides Dh * E."""
+    E = dtype.itemsize
+    g = Dh * E
+    for x in strides:
+        g |= x * E
+    for a in addresses:
+        g |= a
+    return next(b for b in COPY_SIZES if g % b == 0)
 
 
 def _at_head_dim(plan: K1Plan, Dh: int, dtype: torch.dtype) -> K1Plan:
@@ -808,6 +832,69 @@ def _windows_of(BH: int, S: int, W: int, Dh: int, dtype: torch.dtype, direction:
     return BH * (S // W)
 
 
+class RowLayout(NamedTuple):
+    """Where a launch's rows lie (csrc/k1_tiles.cuh's Head): row n = b * H + h
+    of the (B*H, S, Dh) problem keeps position s at element b * batch + h * Dh
+    + s * pos of its tensor; q, k and v share ``in_pos`` / ``in_batch``, out
+    (dout in the backward) ``out_*``, dq, dk and dv ``grad_*``. The C entry
+    points take these after Dh (the forward the first five)."""
+    H: int
+    in_pos: int
+    in_batch: int
+    out_pos: int
+    out_batch: int
+    grad_pos: int = 0
+    grad_batch: int = 0
+
+    @staticmethod
+    def contiguous(S: int, Dh: int) -> "RowLayout":
+        """The 3-D op's (BH, S, Dh) rows: H = 1, a position Dh apart."""
+        return RowLayout(1, Dh, S * Dh, Dh, S * Dh, Dh, S * Dh)
+
+    def args(self, direction: str) -> tuple:
+        return tuple(self) if direction == "bwd" else tuple(self)[:5]
+
+    def strides(self, direction: str) -> tuple:
+        return self.args(direction)[1:]
+
+
+def qkv_layout(qkv: torch.Tensor, heads: int, out: torch.Tensor,
+               grad: Optional[torch.Tensor] = None) -> RowLayout:
+    """The fused launch's rows: q, k and v in the (B, S, 3d) ``qkv`` (k and v d
+    and 2d columns on), out (dout) in the (B, S, d) ``out``, dq, dk and dv in
+    the (B, S, 3d) ``grad``."""
+    g = (grad.stride(1), grad.stride(0)) if grad is not None else (0, 0)
+    return RowLayout(heads, qkv.stride(1), qkv.stride(0), out.stride(1), out.stride(0), *g)
+
+
+def row_offset(layout: RowLayout, Dh: int, n: int, s: int, which: str = "in") -> int:
+    """The element of position s of row n under ``layout`` (``which`` in, out
+    or grad), as csrc/k1_tiles.cuh's flat_at computes it."""
+    pos, batch = getattr(layout, which + "_pos"), getattr(layout, which + "_batch")
+    b, h = divmod(n, layout.H)
+    return b * batch + h * Dh + s * pos
+
+
+def fold_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, H Dh) -> the (B*H, S, Dh) rows, row b * H + h head h of batch row
+    b (a copy where H > 1)."""
+    B, S, d = x.shape
+    return x.reshape(B, S, heads, d // heads).transpose(1, 2).reshape(B * heads, S, d // heads)
+
+
+def unfold_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """:func:`fold_heads` undone: (B*H, S, Dh) -> (B, S, H Dh)."""
+    BH, S, Dh = x.shape
+    return x.reshape(BH // heads, heads, S, Dh).transpose(1, 2).reshape(BH // heads, S,
+                                                                          heads * Dh)
+
+
+def split_qkv(qkv: torch.Tensor, heads: int) -> Tuple[torch.Tensor, ...]:
+    """The (B*H, S, Dh) rows of q, k and v in a (B, S, 3d) projection output
+    (:func:`fold_heads` of each third)."""
+    return tuple(fold_heads(t, heads) for t in qkv.chunk(3, dim=-1))
+
+
 def _check(q, k, v, bias, seed, W, direction, causal=False, extra=()) -> K1Plan:
     """Refuse what the kernels cannot take, and return the launch plan. Any
     (S, S) float32 bias is taken: the block-diagonal window mask, zeros and
@@ -815,6 +902,8 @@ def _check(q, k, v, bias, seed, W, direction, causal=False, extra=()) -> K1Plan:
     (W, W) blocks."""
     BH, S, Dh = q.shape
     _same_shapes(q, ("k", k), ("v", v), *extra)
+    if BH * S >= MAX_POSITIONS:
+        raise ValueError(f"{BH} rows of {S} positions: K1 addresses fewer than {MAX_POSITIONS}")
     if bias.shape != (S, S):
         raise ValueError(f"bias must be ({S}, {S}), got {tuple(bias.shape)}")
     if q.dtype not in DTYPES:
@@ -843,8 +932,10 @@ def _seed_args(seed, dropout_rate: float, BH: int) -> Tuple[int, int]:
     return seed.data_ptr(), BH // seed.numel()
 
 
-def _count(direction: str, plan: K1Plan, dtype) -> None:
+def _count(direction: str, plan: K1Plan, dtype, fused: bool = False) -> None:
     COUNTER[direction, dtype].add()
+    if fused:
+        QKV_COUNTER[direction, dtype].add()
     if plan.path == "wide":
         WIDE_COUNTER[direction, dtype].add()
         return
@@ -870,51 +961,135 @@ def _form(plan: K1Plan) -> str:
 
 
 def _launch_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal=False):
-    """The forward's launch, at any head dim (the plan's staged width and
-    copies)."""
+    """The forward's launch on contiguous (BH, S, Dh) rows, at any head dim
+    (the plan's staged width and copies)."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "fwd", causal)
     out = torch.empty_like(q)
-    if BH == 0:
-        return out
+    _fwd_call(plan, (q, k, v, out), bias, BH, S, Dh, RowLayout.contiguous(S, Dh), scale, seed,
+              dropout_rate, causal)
+    return out
+
+
+def _fwd_call(plan: K1Plan, ptrs, bias, BH, S, Dh, layout: RowLayout, scale, seed,
+              dropout_rate, causal, fused: bool = False) -> None:
+    """The forward's C call: q, k, v and out (tensors or, in the fused form, the
+    tensor that holds them and their addresses) at ``layout``. An empty problem
+    (no rows or no positions) launches nothing: its output is empty."""
+    if BH == 0 or S == 0:
+        return
+    q = ptrs[0]
+    addr = [t if isinstance(t, int) else t.data_ptr() for t in ptrs[1:]]
+    plan = plan._replace(copy_bytes=copy_bytes(Dh, q.dtype, layout.strides("fwd"),
+                                               (q.data_ptr(), *addr)))
     name = (WIDE_ENTRY if plan.path == "wide" else ENTRY)["fwd", q.dtype] + _form(plan)
     fn = kernels.entry(name)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
+    status = fn(q.data_ptr(), *addr[:2], bias.data_ptr(), addr[2], BH, S, plan.W, Dh,
+                *layout.args("fwd"), float(scale), *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), int(causal), PATH_CODE[plan.path], plan.blocks,
                 plan.smem_bytes, plan.copy_bytes, kernels.stream_ptr(q))
     kernels.check(name, status)
-    _count("fwd", plan, q.dtype)
-    return out
+    _count("fwd", plan, q.dtype, fused)
 
 
 def _launch_bwd(q, k, v, bias, dout, scale, seed, dropout_rate, window, causal=False):
-    """The backward's launch, at any head dim (as :func:`_launch_fwd`)."""
+    """The backward's launch on contiguous rows, at any head dim (as
+    :func:`_launch_fwd`)."""
     BH, S, Dh = q.shape
     W = resolve_window(S, window)
     plan = _check(q, k, v, bias, seed, W, "bwd", causal, extra=(("dout", dout),))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    if BH == 0:
-        return dq, dk, dv
+    _bwd_call(plan, (q, k, v, dout, dq, dk, dv), bias, BH, S, Dh,
+              RowLayout.contiguous(S, Dh), scale, seed, dropout_rate, causal)
+    return dq, dk, dv
+
+
+def _bwd_call(plan: K1Plan, ptrs, bias, BH, S, Dh, layout: RowLayout, scale, seed,
+              dropout_rate, causal, fused: bool = False) -> None:
+    """The backward's C call: q, k, v, dout, dq, dk and dv (tensors or addresses,
+    as :func:`_fwd_call`) at ``layout``; an empty problem launches nothing."""
+    if BH == 0 or S == 0:
+        return
+    q = ptrs[0]
+    addr = [t if isinstance(t, int) else t.data_ptr() for t in ptrs[1:]]
+    plan = plan._replace(copy_bytes=copy_bytes(Dh, q.dtype, layout.strides("bwd"),
+                                               (q.data_ptr(), *addr)))
     # what the two-kernel backward's first kernel hands its second
     scratch = backward_scratch(plan)
     stats = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
     name = (WIDE_ENTRY["bwd", q.dtype] if plan.path == "wide"
             else LONG_ENTRY[q.dtype] if plan.blocks_kv else ENTRY["bwd", q.dtype]) + _form(plan)
     fn = kernels.entry(name)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+    status = fn(q.data_ptr(), *addr[:2], bias.data_ptr(), *addr[2:],
                 0 if stats is None else stats.data_ptr(),
-                BH, S, W, Dh, float(scale), *_seed_args(seed, dropout_rate, BH),
+                BH, S, plan.W, Dh, *layout.args("bwd"), float(scale),
+                *_seed_args(seed, dropout_rate, BH),
                 keep_threshold(dropout_rate), _inv_keep(dropout_rate),
                 int(dropout_rate > 0.0), int(causal), PATH_CODE[plan.path], plan.blocks,
                 plan.smem_bytes, plan.blocks_kv, plan.smem_kv, plan.copy_bytes,
                 kernels.stream_ptr(q))
     kernels.check(name, status)
-    _count("bwd", plan, q.dtype)
-    return dq, dk, dv
+    _count("bwd", plan, q.dtype, fused)
+
+
+def _check_qkv(qkv, heads: int, bias, seed, window, direction, causal, dout=None) -> tuple:
+    """Refuse what the fused launch cannot take; return (plan, B, S, d, Dh).
+    Any strides whose last is 1 are taken: the kernels address them."""
+    if qkv.dim() != 3 or heads < 1 or qkv.shape[2] % (3 * heads):
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, S, 3 d) with d a multiple of "
+                         f"{heads} heads")
+    B, S, d3 = qkv.shape
+    d = d3 // 3
+    Dh, BH = d // heads, B * heads
+    if qkv.dtype not in DTYPES:
+        raise ValueError(f"qkv is {qkv.dtype}; the kernels take {DTYPES}")
+    if bias.shape != (S, S) or bias.dtype != torch.float32 or bias.device != qkv.device:
+        raise ValueError(f"bias must be a ({S}, {S}) float32 tensor on {qkv.device}")
+    if BH * S >= MAX_POSITIONS:
+        raise ValueError(f"{BH} rows of {S} positions: K1 addresses fewer than {MAX_POSITIONS}")
+    for name, t, shape in (("qkv", qkv, (B, S, 3 * d)), ("dout", dout, (B, S, d))):
+        if t is None:
+            continue
+        if t.shape != shape or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name} must be a {shape} {qkv.dtype} tensor on {qkv.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dimension must be contiguous")
+        if t.stride(1) >= MAX_POSITIONS:
+            raise ValueError(f"{name}'s positions lie {t.stride(1)} elements apart: K1 takes "
+                             f"fewer than {MAX_POSITIONS}")
+    if seed is not None and (seed.device != qkv.device or seed.dtype != torch.int32
+                             or seed.numel() < 1 or BH % seed.numel()):
+        raise ValueError(f"seed must be int32 on {qkv.device}, one value per equal group "
+                         f"of the {BH} rows")
+    return k1_plan(BH, S, resolve_window(S, window), Dh, qkv.dtype, direction, causal), B, S, d, Dh
+
+
+def _launch_qkv_fwd(qkv, heads, bias, scale, seed, dropout_rate, window, causal=False):
+    """The forward of the fused layout: q, k, v read where the projection
+    wrote them, out written as (B, S, d)."""
+    plan, B, S, d, Dh = _check_qkv(qkv, heads, bias, seed, window, "fwd", causal)
+    out = torch.empty(B, S, d, dtype=qkv.dtype, device=qkv.device)
+    E, base = qkv.dtype.itemsize, qkv.data_ptr()
+    layout = qkv_layout(qkv, heads, out)
+    _fwd_call(plan, (qkv, base + d * E, base + 2 * d * E, out), bias, B * heads, S, Dh, layout,
+              scale, seed, dropout_rate, causal, fused=True)
+    return out
+
+
+def _launch_qkv_bwd(qkv, heads, bias, dout, scale, seed, dropout_rate, window, causal=False):
+    """The backward of the fused layout: d(qkv) as one (B, S, 3d) tensor, dq,
+    dk and dv each written into its own column block (every element is
+    written)."""
+    plan, B, S, d, Dh = _check_qkv(qkv, heads, bias, seed, window, "bwd", causal, dout)
+    grad = torch.empty(B, S, 3 * d, dtype=qkv.dtype, device=qkv.device)
+    E, base, gbase = qkv.dtype.itemsize, qkv.data_ptr(), grad.data_ptr()
+    layout = qkv_layout(qkv, heads, dout, grad)
+    _bwd_call(plan, (qkv, base + d * E, base + 2 * d * E, dout, grad, gbase + d * E,
+                     gbase + 2 * d * E), bias, B * heads, S, Dh, layout, scale, seed,
+              dropout_rate, causal, fused=True)
+    return grad
 
 
 # ---------------------------------------------------------------- custom ops
@@ -1030,6 +1205,121 @@ def attention_bwd(q, k, v, bias, dout, scale: float, seed: Optional[torch.Tensor
                 resolve_window(q.shape[1], window), bool(causal))
 
 
+# ---------------------------------------------------------------- the fused layout
+#
+# The same kernels on the projection's (B, S, 3d) output as it is (module docstring). The
+# plain versions fold, call the 3-D plain versions and unfold; the CUDA implementations copy
+# only an input whose last dimension is not contiguous (an input conversion: the model's
+# tensors never take it).
+
+_QKV_FWD_SCHEMA = ("(Tensor qkv, int heads, Tensor bias, Tensor? seed, float scale, "
+                   "float dropout_rate, int window, bool causal=False) -> Tensor")
+_QKV_BWD_SCHEMA = ("(Tensor qkv, int heads, Tensor bias, Tensor dout, Tensor? seed, "
+                   "float scale, float dropout_rate, int window, bool causal=False) -> Tensor")
+
+
+def _qkv_fwd_cpu(qkv, heads, bias, seed, scale, dropout_rate, window, causal=False):
+    q, k, v = split_qkv(qkv, heads)
+    return unfold_heads(packed_attention_reference(q, k, v, bias, scale, seed, dropout_rate,
+                                                   window, causal), heads)
+
+
+def _qkv_bwd_cpu(qkv, heads, bias, dout, seed, scale, dropout_rate, window, causal=False):
+    q, k, v = split_qkv(qkv, heads)
+    grads = packed_attention_bwd_reference(q, k, v, bias, fold_heads(dout, heads), scale, seed,
+                                           dropout_rate, window, causal)
+    return torch.cat([unfold_heads(t, heads) for t in grads], dim=-1)
+
+
+qkv_fwd_op = torch.library.custom_op("bridgerl::packed_attention_qkv_fwd", _qkv_fwd_cpu,
+                                     mutates_args=(), device_types="cpu",
+                                     schema=_QKV_FWD_SCHEMA)
+qkv_bwd_op = torch.library.custom_op("bridgerl::packed_attention_qkv_bwd", _qkv_bwd_cpu,
+                                     mutates_args=(), device_types="cpu",
+                                     schema=_QKV_BWD_SCHEMA)
+
+
+def _addressable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is where the kernels can address its rows (its last
+    dimension contiguous), else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+@qkv_fwd_op.register_kernel("cuda")
+def _qkv_fwd_cuda(qkv, heads, bias, seed, scale, dropout_rate, window, causal=False):
+    return _launch_qkv_fwd(_addressable(qkv), heads, bias.contiguous(), scale, seed,
+                           dropout_rate, window, causal)
+
+
+@qkv_bwd_op.register_kernel("cuda")
+def _qkv_bwd_cuda(qkv, heads, bias, dout, seed, scale, dropout_rate, window, causal=False):
+    return _launch_qkv_bwd(_addressable(qkv), heads, bias.contiguous(), _addressable(dout),
+                           scale, seed, dropout_rate, window, causal)
+
+
+@qkv_fwd_op.register_fake
+def _qkv_fwd_fake(qkv, heads, bias, seed, scale, dropout_rate, window, causal=False):
+    B, S, d3 = qkv.shape
+    return qkv.new_empty(B, S, d3 // 3)
+
+
+@qkv_bwd_op.register_fake
+def _qkv_bwd_fake(qkv, heads, bias, dout, seed, scale, dropout_rate, window, causal=False):
+    return torch.empty_like(qkv, memory_format=torch.contiguous_format)
+
+
+def _qkv_setup(ctx, inputs, output):
+    qkv, heads, bias, seed, scale, dropout_rate, window, *causal = inputs
+    ctx.save_for_backward(qkv, bias, seed)
+    ctx.heads, ctx.scale, ctx.dropout_rate, ctx.window = heads, scale, dropout_rate, window
+    ctx.causal = bool(causal and causal[0])
+
+
+def _qkv_bwd(qkv, heads, bias, dout, seed, scale, dropout_rate, window, causal):
+    if kernels.eager_cuda(qkv):
+        return _qkv_bwd_cuda(qkv, heads, bias, dout, seed, scale, dropout_rate, window, causal)
+    return qkv_bwd_op(qkv, heads, bias, dout, seed, scale, dropout_rate, window, causal)
+
+
+def _qkv_backward(ctx, dout):
+    """d(qkv) in one tensor; nothing else gets a gradient (as :func:`_fwd_backward`)."""
+    qkv, bias, seed = ctx.saved_tensors
+    grad = _qkv_bwd(qkv, ctx.heads, bias, dout, seed, ctx.scale, ctx.dropout_rate, ctx.window,
+                    ctx.causal)
+    return grad, None, None, None, None, None, None, None
+
+
+qkv_fwd_op.register_autograd(_qkv_backward, setup_context=_qkv_setup)
+
+
+class _EagerQKV(torch.autograd.Function):
+    """The fused op's CUDA implementation and autograd formula, called without
+    the op's dispatch (``kernels.eager_cuda``)."""
+    forward = staticmethod(_qkv_fwd_cuda)
+    setup_context = staticmethod(_qkv_setup)
+    backward = staticmethod(_qkv_backward)
+
+
+def attention_qkv(qkv: torch.Tensor, heads: int, bias: torch.Tensor, scale: float,
+                  seed: Optional[torch.Tensor], dropout_rate: float = 0.0,
+                  window: Optional[int] = None, causal: bool = False) -> torch.Tensor:
+    """K1's forward on the projection's (B, S, 3d) output as it is, out as
+    (B, S, d); differentiable in qkv, whose gradient comes back as one (B, S,
+    3d) tensor. Rows, seed and arguments as :func:`attention_fwd` on the
+    :func:`split_qkv` copies, and bit for bit its result."""
+    args = (qkv, int(heads), bias, seed, float(scale), float(dropout_rate),
+            resolve_window(qkv.shape[1], window), bool(causal))
+    return _EagerQKV.apply(*args) if kernels.eager_cuda(qkv) else qkv_fwd_op(*args)
+
+
+def attention_qkv_bwd(qkv, heads: int, bias, dout, scale: float, seed: Optional[torch.Tensor],
+                      dropout_rate: float = 0.0, window: Optional[int] = None,
+                      causal: bool = False) -> torch.Tensor:
+    """The fused layout's backward: d(qkv), (B, S, 3d), for dout (B, S, d)."""
+    return _qkv_bwd(qkv, int(heads), bias, dout, seed, float(scale), float(dropout_rate),
+                    resolve_window(qkv.shape[1], window), bool(causal))
+
+
 def draw_seed(generator: Optional[Generators], device) -> torch.Tensor:
     """One seed in [0, 2**31 - 1) from ``generator``, kept on ``device`` so
     that drawing it does not wait for the card; given one generator per seed
@@ -1059,3 +1349,14 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     seed = draw_seed(generator, q.device) if dropout_rate > 0.0 else None
     return attention_fwd(q, k, v, bias, scale, seed, dropout_rate, window, causal)
+
+
+def packed_attention_qkv(qkv: torch.Tensor, heads: int, bias: torch.Tensor, scale: float,
+                         dropout_rate: float = 0.0, generator: Optional[Generators] = None,
+                         window: Optional[int] = None, causal: bool = False) -> torch.Tensor:
+    """:func:`packed_attention` on the projection's (B, S, 3d) output: q, k and
+    v are its thirds, each ``heads`` heads of d / heads columns; out is (B, S,
+    d) (:func:`attention_qkv`). The seed is drawn as :func:`packed_attention`
+    draws it."""
+    seed = draw_seed(generator, qkv.device) if dropout_rate > 0.0 else None
+    return attention_qkv(qkv, heads, bias, scale, seed, dropout_rate, window, causal)

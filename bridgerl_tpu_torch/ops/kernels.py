@@ -37,13 +37,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # C signatures: name -> (library, argtypes); every entry returns int
-P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# K1: ..., scale, seed pointer, rows per seed group, keep threshold, 1 / keep, dropout,
-# causal, then ops/attention.py's K1Plan: path (0 tiles, 1 mma, 2 wide), blocks, shared
-# memory (the backward: also the dk / dv kernel's blocks and shared memory; its ninth
-# pointer is the statistics scratch), the staging copies' bytes, stream
-_K1_FWD = [P, P, P, P, P, I, I, I, I, F, P, I, U, F, I, I, I, I, I, I, P]
-_K1_BWD = [P, P, P, P, P, P, P, P, P, I, I, I, I, F, P, I, U, F, I, I, I, I, I, I, I, I, P]
+P, I, U, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
+# K1: pointers, BH, S, W, Dh, the rows' layout (ops/attention.py's RowLayout: H, then the
+# strides of q, k, v and of out; the backward's dout and dq, dk, dv), scale, seed pointer,
+# rows per seed group, keep threshold, 1 / keep, dropout, causal, then K1Plan: path (0
+# tiles, 1 mma, 2 wide, 3 multi), blocks, shared memory (the backward: also the dk / dv
+# kernel's blocks and shared memory; its ninth pointer is the statistics scratch), the
+# staging copies' bytes, stream
+_K1_FWD = [P, P, P, P, P, I, I, I, I, I, L, L, L, L, F, P, I, U, F, I, I, I, I, I, I, P]
+_K1_BWD = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, F, P, I, U, F, I, I,
+           I, I, I, I, I, I, P]
 SIGNATURES = {
     # K1: float32 and bfloat16 q, k, v (dout) and outputs, a library each; the bias is float32
     "packed_attention_fwd": ("packed_attention", _K1_FWD),

@@ -4,7 +4,9 @@ on the card.
     python -m bridgerl_tpu_torch.tools.dispatch_cost     # from the repository root, one H100
 
 A trace (the serving artifact) reaches K1 and K2 through the custom ops
-``bridgerl::packed_attention_fwd`` / ``_bwd`` and ``bridgerl::nearest_codes``:
+``bridgerl::packed_attention_qkv_fwd`` / ``_bwd`` (the models' attention on the
+projection's layout; the 3-D ``bridgerl::packed_attention_fwd`` / ``_bwd``
+below dispatch alike) and ``bridgerl::nearest_codes``:
 the dispatcher and autograd's ``setup_context`` run on the host before each
 launch. The eager path (the live model, the trainer) calls the ops' CUDA
 implementations without that dispatch (``ops/kernels.py::eager_cuda``). This

@@ -229,6 +229,7 @@ class Call:
         self.out, self.dq, self.dk, self.dv = (torch.empty_like(self.q) for _ in range(4))
         self.stats = None   # the backward's scratch, sized by its plan below
         self.dims = (BH, S, W, Dh)
+        self.layout = attention.RowLayout.contiguous(S, Dh)   # the 3-D op's rows
         self.head = (Dh ** -0.5, self.seed.data_ptr() if rate > 0 else 0, BH)   # one group
         self.tail = (attention.keep_threshold(rate), attention._inv_keep(rate), int(rate > 0),
                      int(causal))
@@ -253,12 +254,12 @@ class Call:
         t = lambda *ts: [x.data_ptr() for x in ts]   # noqa: E731
         if direction == "fwd":
             return entry(*t(self.q, self.k, self.v, self.bias, self.out), *self.dims,
-                         *self.head, *self.tail, mma, plan.blocks, plan.smem_bytes,
-                         plan.copy_bytes, kernels.stream_ptr(self.q))
+                         *self.layout.args("fwd"), *self.head, *self.tail, mma, plan.blocks,
+                         plan.smem_bytes, plan.copy_bytes, kernels.stream_ptr(self.q))
         return entry(*t(self.q, self.k, self.v, self.bias, self.do, self.dq, self.dk, self.dv,
-                        self.stats), *self.dims, *self.head, *self.tail, mma, plan.blocks,
-                     plan.smem_bytes, plan.blocks_kv, plan.smem_kv, plan.copy_bytes,
-                     kernels.stream_ptr(self.q))
+                        self.stats), *self.dims, *self.layout.args("bwd"), *self.head,
+                     *self.tail, mma, plan.blocks, plan.smem_bytes, plan.blocks_kv,
+                     plan.smem_kv, plan.copy_bytes, kernels.stream_ptr(self.q))
 
 
 def _median_ms(fn, iters: int = 30) -> float:

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py             # from the repository root, on a machine with a card
     python3 chip_smoke.py --profile   # adds device-time breakdowns of retarget at b=4096
-                                      # (live and through the artifact) and of one teacher
-                                      # optimizer step, in each dtype, after every timed phase
+                                      # (live and through the artifact), in each dtype,
+                                      # after every timed phase
 
 Phases, each printed as one JSON line; any failed check raises and the
 script exits non-zero. Each runs in float32 and then in bfloat16
@@ -375,9 +375,26 @@ script exits non-zero. Each runs in float32 and then in bfloat16
    (bf16) and tensor-core rows of K1's forward and backward in each dtype
    and K2 on prior_dh48; the bf16 multi-window rows on train, serve and
    artifact in bf16, multiseed, int8, prior_wide and prior_dh48, and no bf16
-   K1 launch left to a window-tile row), then,
+   K1 launch left to a window-tile row; the fused layout's rows,
+   ``<entry>_qkv`` (``check_k1_qkv``: K1 on the projection's (B, S, 3d)
+   output at the training shape, the artifact's unpacked (S = W = 10) and
+   the slot-AR depth stack's, against its plain version, bit for bit
+   the 3-D launch on the folded copies, timed beside it, ``ms_3d``, with
+   SDPA on the strided (B, H, S, Dh) views as the yardstick), whose
+   launches must equal each path's entry-point launches: every model
+   launch of K1 takes the fused layout), then,
    last,
    ``{"ok": true, "device": {...}}``.
+
+Every K1 case of ``check_k1``, ``check_k1_bwd``, ``check_k1_mask`` and the
+seed-group cases is also launched through the fused layout (q, k and v side
+by side in one (B, S, 3 H Dh) buffer of 4 heads) and must equal its 3-D
+launch bit for bit (``fused_equal``). After the timed phases, ``attention_ops``
+(f32 and bf16) lists the device operations of one profiled ``SelfAttention``
+forward and backward at (64, 80, 256) and fails on any copy of q, k, v, out
+or their gradients or any ``cat``; ``profile`` lines then break down one
+teacher optimizer step in each dtype (``train_breakdown``: device ms,
+launches and idle share).
 
 It exits non-zero and prints no result when CUDA is unavailable.
 """
@@ -431,7 +448,7 @@ from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.export.streaming import StreamingRetargeter, window_starts
 from bridgerl_tpu_torch.export.torch_import import import_torch_checkpoint, load_pth
 from bridgerl_tpu_torch.models import init_model
-from bridgerl_tpu_torch.models.layers import attention_bias, causal_bias
+from bridgerl_tpu_torch.models.layers import SelfAttention, attention_bias, causal_bias
 from bridgerl_tpu_torch.models.stacked import stack_models
 from bridgerl_tpu_torch.models.token_prior import (
     filter_logits,
@@ -930,11 +947,20 @@ def k1_want(want: dict, window: int) -> dict:
 def multi_want(want: dict) -> dict:
     """``want`` with each bf16 K1 entry point's multi-window counter: its
     launches below MIN_MMA_WINDOW at Dh <= 128, which are the ones on neither
-    its tensor-core nor its wide counter."""
+    its tensor-core nor its wide counter; and the fused-layout counters
+    (:func:`qkv_want`)."""
     for counter in attention.MULTI_COUNTER.values():
         entry = counter.name.removesuffix("_multi")
         want[counter.name] = (want.get(entry, 0) - want.get(entry + "_mma", 0)
                               - want.get(entry + "_wide", 0))
+    return qkv_want(want)
+
+
+def qkv_want(want: dict) -> dict:
+    """``want`` with each K1 entry point's fused-layout counter: every launch
+    of a model is one (SelfAttention hands K1 the projection's output)."""
+    for key, counter in attention.QKV_COUNTER.items():
+        want[counter.name] = want.get(attention.ENTRY[key], 0)
     return want
 
 
@@ -985,6 +1011,33 @@ def _sdpa_forms(q, k, v, bias, scale, rate, W):
     mask = bias.to(q.dtype)
     return (lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, dropout_p=rate),
             lambda: sdpa(qw, kw, vw, scale=scale, dropout_p=rate))
+
+
+K1_FUSED_HEADS = 4   # heads of the fused layout each K1 case is also launched in
+
+
+def _fused_qkv(q, k, v, H: int = K1_FUSED_HEADS):
+    """q, k and v side by side in one (B, S, 3 H Dh) buffer, row b * H + h head
+    h of batch row b: the projection's output that SelfAttention hands K1."""
+    return torch.cat([attention.unfold_heads(t, H) for t in (q, k, v)], dim=-1)
+
+
+def fused_equal(name: str, q, k, v, bias, args: tuple, outs, do=None) -> bool:
+    """The case launched through the fused layout (attention_qkv: q, k and v
+    read in place, out written as (B, S, d); with ``do``, d(qkv) as one
+    (B, S, 3d) tensor): bit for bit the 3-D launch's ``outs``."""
+    H = K1_FUSED_HEADS
+    qkv = _fused_qkv(q, k, v, H)
+    if do is None:
+        got = attention.attention_qkv(qkv, H, bias, *args)
+        want = attention.unfold_heads(outs[0], H)
+    else:
+        got = attention.attention_qkv_bwd(qkv, H, bias, attention.unfold_heads(do, H), *args)
+        want = torch.cat([attention.unfold_heads(t, H) for t in outs], dim=-1)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"{name}: the fused layout's launch differs from the "
+            f"3-D launch in {int((got != want).sum())} elements")
+    return True
 
 
 def _agreement(name: str, got, want, dtype) -> dict:
@@ -1102,6 +1155,8 @@ def _k1_grouped_case(g, dtype, direction: str, BH, S, Dh, P, rate) -> dict:
                                                                       seeds, rate, W))
         b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh, W)
     got = run(q, k, v, do, seeds)
+    fused = fused_equal(f"K1-{direction} {BH, S, Dh} {G} groups", q, k, v, bias,
+                        (scale, seeds, rate, W), got, None if direction == "fwd" else do)
     n = BH // G
     for i in range(G):
         r = slice(i * n, (i + 1) * n)
@@ -1119,6 +1174,7 @@ def _k1_grouped_case(g, dtype, direction: str, BH, S, Dh, P, rate) -> dict:
                    for o, d in zip(outs, (do, do.view(-1, W, Dh)))]
     case = {"shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
             "dropout": rate, "seed_groups": G, "equal_to_single_group_launches": True,
+            "fused_equal": fused,
             **_agreement(f"{name} {BH, S, Dh} {G} groups dropout {rate}", got, plain(), dtype),
             "bound_ms": b_ms, "bound_by": b_by,
             **_timings(lambda: run(q, k, v, do, seeds), plain, *library)}
@@ -1135,13 +1191,14 @@ def check_k1(g: torch.Generator, dtype=torch.float32) -> dict:
         W = S // P
         q, k, v, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P, dtype)
         out = attention.attention_fwd(q, k, v, bias, scale, seed, rate, W)
-        torch.cuda.synchronize()
+        fused = fused_equal(f"{name} {BH, S, Dh} dropout {rate}", q, k, v, bias,
+                            (scale, seed, rate, W), [out])
         ref = attention.packed_attention_reference(q, k, v, bias, scale, seed, rate, W)
         b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * BH * S * W * Dh, W)
         case = {
             "shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
-            "dropout": rate, **_agreement(f"{name} {BH, S, Dh} dropout {rate}", [out], [ref],
-                                          dtype),
+            "dropout": rate, "fused_equal": fused,
+            **_agreement(f"{name} {BH, S, Dh} dropout {rate}", [out], [ref], dtype),
             "bound_ms": b_ms, "bound_by": b_by,
             **_timings(lambda: attention.attention_fwd(q, k, v, bias, scale, seed, rate, W),
                        lambda: attention.packed_attention_reference(
@@ -1162,10 +1219,14 @@ def check_k1_mask(g: torch.Generator, dtype=torch.float32) -> dict:
     BH, S, Dh, P = 256, 80, 128, 8
     q, k, _, bias, scale, seed = _k1_inputs(g, BH, S, Dh, P, dtype)
     eye = torch.eye(S, Dh, device="cuda", dtype=dtype).expand(BH, S, Dh).contiguous()
-    fwd = attention.attention_fwd(q, k, eye, bias, scale, seed, DROPOUT, S // P)[:, :, :S] > 0
-    _, _, dv = attention.attention_bwd(q, k, eye, bias, eye, scale, seed, DROPOUT, S // P)
-    bwd = dv[:, :S, :S].transpose(1, 2) > 0
-    torch.cuda.synchronize()
+    args = (scale, seed, DROPOUT, S // P)
+    out = attention.attention_fwd(q, k, eye, bias, *args)
+    grads = attention.attention_bwd(q, k, eye, bias, eye, *args)
+    fwd = out[:, :, :S] > 0
+    bwd = grads[2][:, :S, :S].transpose(1, 2) > 0
+    what = f"K1 {DTYPE_NAME[dtype]} mask case"
+    fused_equal(what + " fwd", q, k, eye, bias, args, [out])
+    fused_equal(what + " bwd", q, k, eye, bias, args, grads, eye)
     inside = attention_bias(P, S // P, "cuda") == 0
     want = attention.attention_dropout_mask(seed, BH, S, DROPOUT, "cuda") & inside
     require(torch.equal(fwd, want), f"K1 fwd keep mask differs in {int((fwd != want).sum())}")
@@ -1178,7 +1239,7 @@ def check_k1_mask(g: torch.Generator, dtype=torch.float32) -> dict:
     out = {"phase": "kernel_mask", "dtype": DTYPE_NAME[dtype], "shape": [BH, S, Dh],
            "packing": P,
            "dropout": DROPOUT, "kept_share": share, "sigma": sigma, "elements": n,
-           "mask_equal_fwd": True, "mask_equal_bwd": True}
+           "mask_equal_fwd": True, "mask_equal_bwd": True, "fused_equal": True}
     emit(out)
     return out
 
@@ -1197,6 +1258,8 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
         torch.cuda.synchronize()
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"{name} {BH, S, Dh} dropout {rate}: a second launch differs")
+        fused = fused_equal(f"{name} {BH, S, Dh} dropout {rate}", q, k, v, bias,
+                            (scale, seed, rate, W), got, do)
         want = attention.packed_attention_bwd_reference(q, k, v, bias, do, scale, seed, rate,
                                                         W)
         b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * BH * S * W * Dh, W)
@@ -1205,7 +1268,7 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
         lib_do = (do, do.view(-1, W, Dh))
         case = {
             "shape": [BH, S, Dh], "dtype": DTYPE_NAME[dtype], "packing": P, "window": W,
-            "dropout": rate, "repeat_equal": True,
+            "dropout": rate, "repeat_equal": True, "fused_equal": fused,
             **_agreement(f"{name} {BH, S, Dh} dropout {rate}", got, want, dtype),
             "bound_ms": b_ms, "bound_by": b_by,
             **_timings(lambda: attention.attention_bwd(q, k, v, bias, do, scale, seed, rate,
@@ -1221,6 +1284,90 @@ def check_k1_bwd(g: torch.Generator, dtype=torch.float32) -> dict:
     cases += [_k1_grouped_case(g, dtype, "bwd", *shape) for shape in K1_GROUPED]
     return _kernel_row(name, "bridgerl_tpu_torch/csrc/k1_bwd.cuh",
                        "bridgerl_tpu/ops/pallas/attention.py:164", cases)
+
+
+# (B, H, S, Dh, P, rate, causal) of the fused layout's rows: the training microbatch (the
+# main case), the artifact's retarget at b = 4096 (unpacked, S = W = 10: the float32 tiles'
+# blocks of two windows cross from one row to the next, the SPAN form) and the slot-AR
+# depth stack (32 x 128 tokens, 5 slots, causal: blocks across rows in both dtypes)
+K1_QKV_SHAPES = ((64, 4, 80, 64, 8, DROPOUT, False), (4096, 4, 10, 64, 1, 0.0, False),
+                 (4096, 4, 5, 64, 1, DROPOUT, True))
+
+
+def _qkv_case(g, dtype, direction: str, B, H, S, Dh, P, rate, causal) -> dict:
+    """One fused-layout case (:func:`check_k1_qkv`): ``direction``'s launch on
+    a (B, S, 3 H Dh) buffer against its plain fused version, bit for bit the
+    3-D launch on the folded copies, timed beside it (``ms_3d``)."""
+    W, BH, sdpa = S // P, B * H, torch.nn.functional.scaled_dot_product_attention
+    qkv = torch.randn(B, S, 3 * H * Dh, device="cuda", generator=g).to(dtype)
+    do = torch.randn(B, S, H * Dh, device="cuda", generator=g).to(dtype)
+    bias = causal_bias(S, "cuda") if causal else attention_bias(P, W, "cuda")
+    scale, seed = Dh ** -0.5, attention.draw_seed(g, "cuda")
+    args = (scale, seed, rate, W, causal)
+    q, k, v = attention.split_qkv(qkv, H)
+    do3 = attention.fold_heads(do, H)
+    plan = attention.k1_plan(BH, S, W, Dh, dtype, direction, causal)
+    pairs = BH * (S * (S + 1) // 2 if causal else S * W)   # the (query, key) pairs computed
+    mask = bias.to(dtype)
+    win = lambda t: t.unflatten(2, (P, W))   # noqa: E731
+    # SDPA on the strided (B, H, S, Dh) views: full rows with the bias, and the windows
+    # without it (is_causal under causal)
+    forms = lambda views: (   # noqa: E731
+        lambda: sdpa(*views, attn_mask=mask, scale=scale, dropout_p=rate),
+        (lambda: sdpa(*views, is_causal=True, scale=scale, dropout_p=rate)) if causal else
+        (lambda: sdpa(*(win(t) for t in views), scale=scale, dropout_p=rate)))
+    if direction == "fwd":
+        run = lambda: attention.attention_qkv(qkv, H, bias, *args)   # noqa: E731
+        run3 = lambda: attention.attention_fwd(q, k, v, bias, *args)   # noqa: E731
+        plain = lambda: attention._qkv_fwd_cpu(qkv, H, bias, seed, scale, rate, W,  # noqa
+                                               causal)
+        library = forms(qkv.view(B, S, 3, H, Dh).permute(2, 0, 3, 1, 4))
+        b_ms, b_by = k1_bound(dtype, 4 * BH * S * Dh, 4 * pairs * Dh, W, plan.path != "tiles")
+        outs3 = [run3()]
+    else:
+        run = lambda: attention.attention_qkv_bwd(qkv, H, bias, do, *args)   # noqa: E731
+        run3 = lambda: attention.attention_bwd(q, k, v, bias, do3, *args)   # noqa: E731
+        plain = lambda: attention._qkv_bwd_cpu(qkv, H, bias, do, seed, scale, rate, W,  # noqa
+                                               causal)
+        leaf = qkv.clone().requires_grad_()
+        dov = do.view(B, S, H, Dh).transpose(1, 2)
+        outs = [f() for f in forms(leaf.view(B, S, 3, H, Dh).permute(2, 0, 3, 1, 4))]
+        library = [lambda o=o: torch.autograd.grad(o, leaf, dov if o.dim() == 4 else win(dov),
+                                                   retain_graph=True) for o in outs]
+        b_ms, b_by = k1_bound(dtype, 7 * BH * S * Dh, 10 * pairs * Dh, W, plan.path != "tiles")
+        outs3 = list(run3())
+    name = attention.QKV_COUNTER[direction, dtype].name
+    got = run()
+    fused = fused_equal(f"{name} {B, H, S, Dh}", q, k, v, bias, args, outs3,
+                        None if direction == "fwd" else do3)
+    require(torch.equal(got, run()), f"{name} {B, H, S, Dh}: a second launch differs")
+    case = {"shape": [B, S, 3 * H * Dh], "heads": H, "rows": [BH, S, Dh],
+            "dtype": DTYPE_NAME[dtype], "packing": P, "window": W, "causal": causal,
+            "dropout": rate, "path": plan.path, "fused_equal": fused, "repeat_equal": True,
+            **_agreement(f"{name} {B, H, S, Dh}", [got], [plain()], dtype),
+            "bound_ms": b_ms, "bound_by": b_by, **_timings(run, plain, *library),
+            "ms_3d": time_ms(run3)}
+    emit({"phase": "kernel", "name": name, **case})
+    return case
+
+
+def check_k1_qkv(g: torch.Generator, dtype=torch.float32) -> list:
+    """K1 in the fused layout (attention_qkv), a row a direction
+    (``<entry>_qkv``), at K1_QKV_SHAPES (the training shape its main case):
+    against the plain fused version (fold, plain, unfold) on the same inputs,
+    bit for bit the 3-D launch on the folded copies, timed beside it
+    (``ms_3d``); the library yardstick is SDPA on the strided (B, H, S, Dh)
+    views of the same buffer, full rows with the bias and (B, H, P, W, Dh)
+    windows without it (``is_causal`` under causal)."""
+    rows = []
+    for direction in ("fwd", "bwd"):
+        name = attention.QKV_COUNTER[direction, dtype].name
+        cases = [_qkv_case(g, dtype, direction, *shape) for shape in K1_QKV_SHAPES]
+        source = (MULTI_SOURCE if dtype == BF16 else
+                  f"bridgerl_tpu_torch/csrc/k1_{direction}.cuh")
+        rows.append(_kernel_row(name, source, "bridgerl_tpu/ops/pallas/attention.py:"
+                                + ("143" if direction == "fwd" else "164"), cases))
+    return rows
 
 
 def k2_profile_status(names: list, calls: int) -> str:
@@ -2017,6 +2164,66 @@ def train_breakdown(dtype=torch.float32, reps: int = 1) -> dict:
             "top": [{"kernel": name[:90], "ms_per_step": ms / reps,
                      "launches_per_step": n / reps, "share": ms / busy_ms}
                     for name, ms, n in _top(rows, 20)]}
+
+
+ATTN_OPS_SHAPE = (64, 80, 256, 4)   # (B, S, d, heads): the flagship's training microbatch
+# operations that copy their input into a new tensor on the card
+COPY_OPS = ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy", "aten::cat",
+            "aten::stack", "aten::index_select", "aten::gather")
+
+
+def attention_ops(dtype) -> dict:
+    """The operations of one SelfAttention forward and backward at
+    ATTN_OPS_SHAPE (packed windows of 10, dropout 0.1), from torch.profiler:
+    the device launches by name, and every copying operation with its input
+    sizes. None may copy q, k, v, out or their gradients (an input of B S d or
+    B S 3d elements), and there is no cat at all; the bf16 weight casts (the
+    (3d, d) and (d, d) weights and their biases, and their gradients back)
+    stay: they are the trainer's host work, not the attention's layout."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, d, H = ATTN_OPS_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    attn = SelfAttention(d, H, dtype).cuda()
+    torch.nn.init.xavier_uniform_(attn.in_proj_weight)
+    x = torch.randn(B, S, d, device="cuda", generator=g).to(dtype).requires_grad_()
+    dy = torch.randn(B, S, d, device="cuda", generator=g).to(dtype)
+    bias = attention_bias(8, 10, "cuda")
+
+    def once():
+        attn(x, bias, DROPOUT, g, window=10).backward(dy)
+
+    once()
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        once()
+        torch.cuda.synchronize()
+    counts = launches()
+    activations = {B * S * d, B * S * 3 * d}
+    copies, bad = [], []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or ev.name not in COPY_OPS:
+            continue
+        sizes = [math.prod(shape) for shape in ev.input_shapes if shape]
+        copies.append({"op": ev.name, "input_sizes": sizes})
+        if ev.name in ("aten::cat", "aten::stack") or activations & set(sizes):
+            bad.append(copies[-1])
+    device = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            device[ev.key[:90]] = device.get(ev.key[:90], 0) + ev.count
+    require(sum(device.values()) > 0, "attention_ops: the profiler saw no device operation")
+    require(not bad, f"attention_ops {DTYPE_NAME[dtype]}: copies of activations {bad}")
+    want = multi_want({**{k: 0 for k in kernels.COUNTERS}, attention.ENTRY["fwd", dtype]: 1,
+                       attention.ENTRY["bwd", dtype]: 1})
+    require(want == counts, f"attention_ops {DTYPE_NAME[dtype]}: launches {counts}, "
+            f"want {want}")
+    return {"dtype": DTYPE_NAME[dtype], "shape": [B, S, d], "heads": H,
+            "device_launches": sum(device.values()), "device_ops": device,
+            "copies": copies, "activation_copies": len(bad), "launches": counts}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -4101,8 +4308,8 @@ def latent_path(smi: str) -> dict:
             and err <= LATENT_ATOL, f"latent: card vs CPU {err}")
     batches = sum(math.ceil(len(x) / LATENT_BATCH) for x in
                   (x for r, h in by_action.values() for x in (r, h)))
-    want = {**{k: 0 for k in kernels.COUNTERS},
-            "packed_attention_fwd": batches * exp.model.n_tf_layers}
+    want = qkv_want({**{k: 0 for k in kernels.COUNTERS},
+                     "packed_attention_fwd": batches * exp.model.n_tf_layers})
     require(counts == want, f"latent: launches {counts}, want {want}")
     windows = sum(len(r) + len(h) for r, h in by_action.values())
     times = []
@@ -4200,7 +4407,8 @@ def torch_import_path(smi: str) -> tuple:
         require("check ok: recon (2, 10, 29), retargeted (2, 10, 29) on cuda" in stdout,
                 f"import_torch_ckpt {name}: {stdout[-2000:]}")
         counts = json.loads(stdout.strip().splitlines()[-1].split("LAUNCHES ", 1)[1])
-        want = {**{k: 0 for k in kernels.COUNTERS}, "packed_attention_fwd": 16, "vq_assign": 8}
+        want = qkv_want({**{k: 0 for k in kernels.COUNTERS}, "packed_attention_fwd": 16,
+                         "vq_assign": 8})
         require(counts == want, f"import_torch_ckpt {name} --check: launches {counts}, "
                 f"want {want} (both branches)")
         ck = load_checkpoint(out[name])
@@ -4260,8 +4468,8 @@ def demo_stream_path(smi: str, art) -> dict:
     counts = launches()
     windows = len(window_starts(DEMO_FRAMES, W, DEMO_STEP))
     k1, k2 = per_call(cfg)
-    want = {**{k: 0 for k in counts}, "packed_attention_fwd": k1 * windows,
-            "vq_assign": k2 * windows}
+    want = qkv_want({**{k: 0 for k in counts}, "packed_attention_fwd": k1 * windows,
+                     "vq_assign": k2 * windows})
     require(counts == want, f"demo_stream: launches {counts}, want {want}")
     require(np.cumsum(released).tolist() == [max(n - W, 0) for n in range(1, DEMO_FRAMES + 1)],
             "demo_stream: frames not released W + 1 frames after they went in")
@@ -4793,7 +5001,7 @@ def _dp_expected(case: str) -> dict:
              "vq_assign")
     want = {name: 0 for name in kernels.COUNTERS}
     want.update({name: steps * DP_ACCUM * m for name, m in zip(names, per)})
-    return want
+    return qkv_want(want)
 
 
 def _feeds_batchnorm(name: str) -> bool:
@@ -4972,7 +5180,7 @@ def main(argv) -> int:
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     table = [check_k1(g), check_k1_bwd(g), *check_k2(g, smi), check_k1(g, BF16),
-             check_k1_bwd(g, BF16)]
+             check_k1_bwd(g, BF16), *check_k1_qkv(g), *check_k1_qkv(g, BF16)]
     for dtype in DTYPES:
         check_k1_mask(g, dtype)
     check_k1_causal(g, table)
@@ -5064,6 +5272,10 @@ def main(argv) -> int:
     fk = fk_path(smi)
     multiseed_breakdown(smi)
     multiseed_agree()
+    for dtype in DTYPES:
+        emit({"phase": "attention_ops", "card": smi, **attention_ops(dtype)})
+    for dtype in DTYPES:
+        emit({"phase": "profile", "card": smi, **train_breakdown(dtype)})
     if "--profile" in argv:
         for dtype in DTYPES:
             emit({"phase": "profile", "card": smi, "dtype": DTYPE_NAME[dtype],
@@ -5071,8 +5283,6 @@ def main(argv) -> int:
             emit({"phase": "profile", "card": smi, "dtype": DTYPE_NAME[dtype],
                   "via": "artifact", **device_breakdown(ServingApp(served[dtype][0]),
                                                         requests[dtype][1])})
-        for dtype in DTYPES:
-            emit({"phase": "profile", "card": smi, **train_breakdown(dtype)})
 
     paths = {"serve": serve[torch.float32], "serve_bf16": serve[BF16],
              "train": train[torch.float32], "train_bf16": train[BF16], "train_wide": wide,
@@ -5089,6 +5299,18 @@ def main(argv) -> int:
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         require(row["launches"] > 0, f"{row['name']} was never launched on the main paths")
+    # every K1 launch of a model takes the fused layout: on each path each fused counter
+    # equals its entry point's, and paths that run a transformer have fused launches
+    for p, r in paths.items():
+        for key, counter in attention.QKV_COUNTER.items():
+            require(r["launches"][counter.name] == r["launches"][attention.ENTRY[key]],
+                    f"{p}: {counter.name} {r['launches'][counter.name]}, "
+                    f"{attention.ENTRY[key]} {r['launches'][attention.ENTRY[key]]}")
+    fused_paths = [p for p, r in paths.items()
+                   if any(r["launches"][c.name] for c in attention.QKV_COUNTER.values())]
+    require(len(fused_paths) == sum(any(r["launches"][n] for n in attention.ENTRY.values())
+                                    for r in paths.values()),
+            f"fused launches on {fused_paths} only")
     for direction in ("fwd", "bwd"):
         name = attention.ENTRY[direction, torch.float32] + "_mma"
         by_path = next(r["launches_by_path"] for r in table if r["name"] == name)

@@ -315,18 +315,20 @@ def test_programs_call_the_ports_kernels_unpacked(flagship):
     ep = serialize.export_program(serialize._unpacked_copy(flagship.model, torch.device("cpu")),
                                   "retarget", None, None, flagship.meta["functions"]["retarget"])
     calls = [n for n in ep.graph.nodes if n.op == "call_function"]
-    k1 = [n for n in calls if "packed_attention_fwd" in str(n.target)]
+    k1 = [n for n in calls if "packed_attention_qkv_fwd" in str(n.target)]
     k2 = [n for n in calls if "nearest_codes" in str(n.target)]
     assert len(k1) == 2 * cfg.n_tf_layers and len(k2) == 4
-    for n in k1:
-        q, seed, rate, window = n.args[0], n.args[4], n.args[6], n.args[7]
-        assert q.meta["val"].shape[1:] == (cfg.window_size, cfg.d_model // cfg.n_heads)
+    assert not any("packed_attention_fwd" in str(n.target) for n in calls)
+    for n in k1:   # K1 on the projection's output as it is
+        qkv, heads, seed, rate, window = n.args[0], n.args[1], n.args[3], n.args[5], n.args[6]
+        assert qkv.meta["val"].shape[1:] == (cfg.window_size, 3 * cfg.d_model)
+        assert heads == cfg.n_heads
         assert seed is None and rate == 0.0 and window == cfg.window_size
     ep = serialize.export_program(serialize._unpacked_copy(flagship.model, torch.device("cpu")),
                                   "decode_codes", None, None,
                                   flagship.meta["functions"]["decode_codes"])
     names = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
-    assert sum("packed_attention_fwd" in t for t in names) == cfg.n_tf_layers
+    assert sum("packed_attention_qkv_fwd" in t for t in names) == cfg.n_tf_layers
     assert not any("nearest_codes" in t for t in names)
 
 

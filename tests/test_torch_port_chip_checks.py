@@ -7,7 +7,9 @@ K2's bound (``k2_bound``: past 512 columns three tf32 products a product on
 the tensor cores), the split of K2's launches between its two rows
 (``row_launches``), and K1's bf16 multi-window rows: the counts a path must
 show on them (``multi_want``), the row a case belongs to (``k1_case_kernel``)
-and the rows a bf16 entry point splits into (``split_k1_rows``).
+and the rows a bf16 entry point splits into (``split_k1_rows``); the fused
+layout's counts (``qkv_want``), its rows (``check_k1_qkv``'s names) and the
+buffer each K1 case is also launched in (``_fused_qkv``).
 """
 
 import numpy as np
@@ -190,3 +192,57 @@ def test_bf16_short_window_cases_go_to_the_multi_window_rows(name):
     assert chip_smoke.row_launches({"name": name}, launched) == 0
     assert chip_smoke.row_launches(rows[name + "_multi"], launched) == 7
 
+
+@pytest.mark.parametrize("f32,bf16", [(7, 0), (0, 5), (3, 4)])
+def test_qkv_want_follows_the_entry_points(f32, bf16):
+    """Every model launch of K1 is a fused one: each entry point's fused
+    counter wants its launches; multi_want fills them too."""
+    want = chip_smoke.multi_want({"packed_attention_fwd": f32, "packed_attention_bwd": f32,
+                                  "packed_attention_fwd_bf16": bf16,
+                                  "packed_attention_bwd_bf16": 0})
+    assert want["packed_attention_fwd_qkv"] == want["packed_attention_bwd_qkv"] == f32
+    assert want["packed_attention_fwd_bf16_qkv"] == bf16
+    assert want["packed_attention_bwd_bf16_qkv"] == 0
+    assert chip_smoke.qkv_want({})["packed_attention_fwd_qkv"] == 0
+
+
+def test_fused_rows_count_their_own_launches():
+    """A fused row (check_k1_qkv's, named by QKV_COUNTER) counts the launches
+    on its own counter, and the split keeps it whole."""
+    from bridgerl_tpu_torch.ops import attention
+
+    names = [c.name for c in attention.QKV_COUNTER.values()]
+    assert names == [attention.ENTRY[k] + "_qkv" for k in attention.QKV_COUNTER]
+    launched = {"packed_attention_fwd_qkv": 9, "packed_attention_fwd": 11}
+    assert chip_smoke.row_launches({"name": "packed_attention_fwd_qkv"}, launched) == 9
+    row = {"name": "packed_attention_fwd_qkv", "cases": [], "ms": 1.0}
+    assert chip_smoke.split_k1_rows([row]) == [row]
+
+
+def test_fused_buffer_holds_the_folded_rows():
+    """_fused_qkv lays q, k and v side by side as the projection does: its
+    split gives them back."""
+    from bridgerl_tpu_torch.ops import attention
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(8, 10, 16, generator=g) for _ in range(3))
+    qkv = chip_smoke._fused_qkv(q, k, v)
+    assert qkv.shape == (2, 10, 3 * 64)
+    assert all(torch.equal(a, b) for a, b in zip(attention.split_qkv(qkv, 4), (q, k, v)))
+
+
+def test_fused_rows_time_the_blocks_that_cross_rows():
+    """check_k1_qkv's main case is the training microbatch, whose blocks lie in
+    one row; its other cases (the artifact's S = W = 10, the slot-AR depth
+    stack) have blocks that cross from one row to the next in both dtypes
+    and directions (csrc/k1_tiles.cuh's spans_rows: H > 1 and a block's
+    positions not dividing S), so the kernels' SPAN form is timed too."""
+    from bridgerl_tpu_torch.ops import attention
+
+    (B, H, S, Dh, P, rate, causal), *rest = chip_smoke.K1_QKV_SHAPES
+    assert (B * H, S, Dh, P, rate, causal) == (256, 80, 64, 8, chip_smoke.DROPOUT, False)
+    for dtype in attention.DTYPES:
+        for direction in ("fwd", "bwd"):
+            for B, H, S, Dh, P, rate, causal in rest:
+                plan = attention.k1_plan(B * H, S, S // P, Dh, dtype, direction, causal)
+                assert H > 1 and S % (plan.W * plan.windows_per_block) != 0

@@ -45,7 +45,7 @@ from bridgerl_tpu_torch import parallel
 from bridgerl_tpu_torch.config import make_experiment
 from bridgerl_tpu_torch.export.serving import build_serving_module
 from bridgerl_tpu_torch.models import init_model
-from bridgerl_tpu_torch.models.layers import attention_bias
+from bridgerl_tpu_torch.models.layers import attention_bias, causal_bias
 from bridgerl_tpu_torch.ops import attention, codebook, kernels, vq_kernel
 from bridgerl_tpu_torch.train.trainer import accumulate_grads, make_optimizer
 from chip_smoke import bf16_ulps
@@ -563,6 +563,7 @@ def test_small_bf16_train_step_on_the_card_matches_the_cpu(gen):
             assert {n: c.count for n, c in kernels.COUNTERS.items() if c.count} == {
                 "packed_attention_fwd_bf16": 8, "packed_attention_bwd_bf16": 8,
                 "packed_attention_fwd_bf16_multi": 8, "packed_attention_bwd_bf16_multi": 8,
+                "packed_attention_fwd_bf16_qkv": 8, "packed_attention_bwd_bf16_qkv": 8,
                 "vq_assign": 8}
             assert all(g.dtype == torch.float32 for g in res[dev, dtype][1].values())
     (lg, gg), (lc, gc), (l32, g32) = (res["cuda", "bfloat16"], res["cpu", "bfloat16"],
@@ -1282,7 +1283,8 @@ def test_k1_refuses_a_plan_that_is_not_the_launchers(gen):
     fn = kernels.entry("packed_attention_fwd")
     call = lambda path, blocks, smem, copy=16: fn(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), out.data_ptr(), 8, 64, 64,
-        64, 0.125, 0, 8, 0, 1.0, 0, 0, path, blocks, smem, copy, kernels.stream_ptr(q))
+        64, *attention.RowLayout.contiguous(64, 64).args("fwd"), 0.125, 0, 8, 0, 1.0, 0, 0,
+        path, blocks, smem, copy, kernels.stream_ptr(q))
     assert call(1, plan.blocks, plan.smem_bytes) == 0
     for bad in [(0, plan.blocks, plan.smem_bytes), (1, plan.blocks - 1, plan.smem_bytes),
                 (1, plan.blocks, plan.smem_bytes - 16), (1, plan.blocks, plan.smem_bytes, 8)]:
@@ -1307,8 +1309,9 @@ def test_k1_backward_entry_points_refuse_each_others_plans(gen, S):
         status[name] = kernels.entry(name)(
             q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), BH, S, S, Dh,
-            Dh ** -0.5, 0, BH, 0, 1.0, 0, 0, 1, plan.blocks, plan.smem_bytes, plan.blocks_kv,
-            plan.smem_kv, plan.copy_bytes, kernels.stream_ptr(q))
+            *attention.RowLayout.contiguous(S, Dh).args("bwd"), Dh ** -0.5, 0, BH, 0, 1.0,
+            0, 0, 1, plan.blocks, plan.smem_bytes, plan.blocks_kv, plan.smem_kv,
+            plan.copy_bytes, kernels.stream_ptr(q))
     torch.cuda.synchronize()
     own = attention.LONG_ENTRY[torch.float32] if plan.blocks_kv else "packed_attention_bwd"
     assert {n: s == 0 for n, s in status.items()} == {n: n == own for n in status}
@@ -1464,7 +1467,8 @@ def test_k1_wide_entry_points_refuse_other_plans(gen):
     fn = kernels.entry(attention.WIDE_ENTRY["fwd", torch.float32])
     call = lambda dh, blocks, smem, path=attention.PATH_CODE["wide"], copy=16: fn(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), out.data_ptr(), BH, S, S,
-        dh, 0.1, 0, BH, 0, 1.0, 0, 0, path, blocks, smem, copy, kernels.stream_ptr(q))
+        dh, *attention.RowLayout.contiguous(S, dh).args("fwd"), 0.1, 0, BH, 0, 1.0, 0, 0, path,
+        blocks, smem, copy, kernels.stream_ptr(q))
     assert call(Dh, plan.blocks, plan.smem_bytes) == 0
     for bad in [(128, plan.blocks, plan.smem_bytes), (196, plan.blocks, plan.smem_bytes),
                 (Dh, plan.blocks - 1, plan.smem_bytes), (Dh, plan.blocks, plan.smem_bytes - 16),
@@ -1601,13 +1605,15 @@ def test_k1_multi_window_entry_points_refuse_other_plans(gen):
     tiles = attention.k1_plan(BH, S, W, Dh, torch.float32, "fwd")
     f = kernels.entry("packed_attention_fwd_bf16")
     b = kernels.entry("packed_attention_bwd_bf16")
+    layout = attention.RowLayout.contiguous(S, Dh)
     call_f = lambda path, blocks, smem: f(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), dq.data_ptr(), BH, S, W, Dh,
-        0.125, 0, BH, 0, 1.0, 0, 0, path, blocks, smem, 16, kernels.stream_ptr(q))
+        *layout.args("fwd"), 0.125, 0, BH, 0, 1.0, 0, 0, path, blocks, smem, 16,
+        kernels.stream_ptr(q))
     call_b = lambda path, blocks, smem, blocks_kv=0: b(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), 0, BH, S, W, Dh, 0.125, 0, BH, 0, 1.0, 0, 0, path,
-        blocks, smem, blocks_kv, 0, 16, kernels.stream_ptr(q))
+        dk.data_ptr(), dv.data_ptr(), 0, BH, S, W, Dh, *layout.args("bwd"), 0.125, 0, BH, 0,
+        1.0, 0, 0, path, blocks, smem, blocks_kv, 0, 16, kernels.stream_ptr(q))
     code = attention.PATH_CODE["multi"]
     assert call_f(code, fwd.blocks, fwd.smem_bytes) == 0
     assert call_b(code, bwd.blocks, bwd.smem_bytes) == 0
@@ -1620,3 +1626,121 @@ def test_k1_multi_window_entry_points_refuse_other_plans(gen):
         assert call_b(*bad) != 0
     torch.cuda.synchronize()
 
+
+
+# ---------------------------------------------------------------- the fused layout
+#
+# attention_qkv: K1 reading q, k and v in the projection's (B, S, 3d) output and writing
+# out as (B, S, d), d(qkv) as one (B, S, 3d) tensor. Every path, both dtypes, dropout 0
+# and 0.1 (with two seed groups), causal: bit for bit the 3-D launch on the folded copies.
+
+QKV_CASES = {   # (B, H, S, Dh, window, causal)
+    "tiles-multi-W10": (16, 4, 80, 64, 10, False),
+    "tiles-multi-W5-Dh48": (4, 4, 20, 48, 5, False),
+    "mma-window-W64": (4, 4, 64, 64, 64, False),
+    "window-128-Dh32": (2, 2, 128, 32, 128, False),
+    "row-buffered-W160": (2, 2, 160, 64, 160, False),
+    "two-sweep-W256": (32, 4, 256, 64, 256, False),
+    "causal-S160": (4, 2, 160, 64, None, True),
+    "causal-S16": (8, 2, 16, 32, None, True),
+    "ragged-Dh50-H3": (4, 3, 20, 50, 10, False),
+    "wide-Dh160-W10": (2, 2, 40, 160, 10, False),
+    "wide-ragged-Dh130": (2, 2, 40, 130, 10, False),
+    "wide-pair-Dh256-W128": (2, 2, 128, 256, 128, False),
+}
+
+
+def _qkv_case(gen, case, dtype, rate, qkv=None):
+    B, H, S, Dh, window, causal = QKV_CASES[case]
+    W = window or S
+    if qkv is None:
+        qkv = torch.randn(B, S, 3 * H * Dh, device="cuda", generator=gen).to(dtype)
+    dout = torch.randn(B, S, H * Dh, device="cuda", generator=gen).to(dtype)
+    bias = causal_bias(S, "cuda") if causal else attention_bias(S // W, W, "cuda")
+    seed = torch.randint(0, attention.SEED_HIGH, (2 if rate else 1,), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    return qkv, dout, bias, seed, (Dh ** -0.5, seed, rate, W, causal), H
+
+
+def _qkv_equal_3d(qkv, dout, bias, args, H):
+    """The fused launch against the 3-D launch on the folded copies."""
+    q, k, v = attention.split_qkv(qkv, H)
+    out3 = attention.attention_fwd(q, k, v, bias, *args)
+    grads3 = attention.attention_bwd(q, k, v, bias, attention.fold_heads(dout, H), *args)
+    kernels.reset_counters()
+    out = attention.attention_qkv(qkv, H, bias, *args)
+    grad = attention.attention_qkv_bwd(qkv, H, bias, dout, *args)
+    again = attention.attention_qkv_bwd(qkv, H, bias, dout, *args)
+    torch.cuda.synchronize()
+    assert out.shape == (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)
+    assert torch.equal(out, attention.unfold_heads(out3, H))
+    assert torch.equal(grad, torch.cat([attention.unfold_heads(g, H) for g in grads3], -1))
+    assert torch.equal(again, grad)
+    dt = qkv.dtype
+    assert attention.QKV_COUNTER["fwd", dt].count == 1
+    assert attention.QKV_COUNTER["bwd", dt].count == 2
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", attention.DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(QKV_CASES))
+def test_k1_fused_layout_equals_the_3d_launch(gen, case, dtype, rate):
+    qkv, dout, bias, _, args, H = _qkv_case(gen, case, dtype, rate)
+    _qkv_equal_3d(qkv, dout, bias, args, H)
+
+
+@pytest.mark.parametrize("dtype", attention.DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["tiles-multi-W10", "mma-window-W64", "row-buffered-W160",
+                                  "wide-Dh160-W10", "wide-pair-Dh256-W128"])
+def test_k1_fused_layout_off_16_bytes_takes_narrower_copies(gen, case, dtype):
+    """q, k and v in a buffer that starts one element in, rows a padded
+    element apart: the launch stages in copies under 16 bytes (the kernels'
+    ragged form, at a native head dim too), bit-equal to the 3-D launch."""
+    B, H, S, Dh, _, _ = QKV_CASES[case]
+    d3 = 3 * H * Dh
+    buf = torch.randn(1 + B * S * (d3 + 1), device="cuda", generator=gen).to(dtype)
+    qkv = buf.as_strided((B, S, d3), (S * (d3 + 1), d3 + 1, 1), 1)
+    qkv, dout, bias, _, args, H = _qkv_case(gen, case, dtype, 0.1, qkv)
+    out = torch.empty(B, S, H * Dh, device="cuda", dtype=dtype)
+    layout = attention.qkv_layout(qkv, H, out)
+    E = dtype.itemsize
+    copy = attention.copy_bytes(Dh, dtype, layout.strides("fwd"),
+                                [qkv.data_ptr() + t * H * Dh * E for t in range(3)])
+    assert copy == E if dtype == torch.bfloat16 else copy == 4
+    _qkv_equal_3d(qkv, dout, bias, args, H)
+
+
+def test_k1_fused_op_copies_only_an_input_it_cannot_address(gen):
+    """A qkv whose last dimension is not contiguous is copied first (an input
+    conversion) and gives the same bits; the launch counts as fused."""
+    B, H, S, Dh = 2, 2, 20, 16
+    strided = torch.randn(B, S, 2, 3 * H * Dh, device="cuda", generator=gen)[:, :, 0, :]
+    odd = torch.randn(B, 3 * H * Dh, S, device="cuda", generator=gen).transpose(1, 2)
+    assert strided.stride(-1) == 1 and odd.stride(-1) == S   # addressed as it is; copied
+    bias = attention_bias(2, 10, "cuda")
+    for qkv in (strided, odd):
+        want = attention.attention_qkv(qkv.contiguous(), H, bias, 0.25, None, 0.0, 10)
+        got = attention.attention_qkv(qkv, H, bias, 0.25, None, 0.0, 10)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", attention.DTYPES, ids=["f32", "bf16"])
+def test_k1_empty_rows_launch_nothing(gen, dtype):
+    """Rows of no positions, fused (B, 0, 3d) and 3-D (BH, 0, Dh), forward and
+    backward: empty outputs of the plain version's shapes, and no launch."""
+    B, H, Dh = 2, 4, 16
+    qkv = torch.empty(B, 0, 3 * H * Dh, device="cuda", dtype=dtype)
+    dout = torch.empty(B, 0, H * Dh, device="cuda", dtype=dtype)
+    q = torch.empty(B * H, 0, Dh, device="cuda", dtype=dtype)
+    bias = torch.zeros(0, 0, device="cuda")
+    seed = attention.draw_seed(gen, "cuda")
+    args = (0.25, seed, 0.1, 5)
+    kernels.reset_counters()
+    out = attention.attention_qkv(qkv, H, bias, *args)
+    grad = attention.attention_qkv_bwd(qkv, H, bias, dout, *args)
+    out3 = attention.attention_fwd(q, q, q, bias, *args)
+    grads3 = attention.attention_bwd(q, q, q, bias, q, *args)
+    torch.cuda.synchronize()
+    assert out.shape == (B, 0, H * Dh) and grad.shape == (B, 0, 3 * H * Dh)
+    assert out3.shape == q.shape and all(g.shape == q.shape for g in grads3)
+    assert all(c.count == 0 for c in kernels.COUNTERS.values())

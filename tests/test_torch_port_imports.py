@@ -4,6 +4,7 @@ renders, plots and t-SNE import those, when they run); it asks for the card by d
 the CPU on its own; ``chip_smoke.py`` fails, printing nothing, where there is
 no card or no repository beside it."""
 
+import ctypes
 import os
 import re
 import shutil
@@ -16,6 +17,10 @@ import torch
 
 from bridgerl_tpu_torch.device import resolve_device
 from bridgerl_tpu_torch.ops import kernels
+
+# the C types of the entry points' scalar parameters
+C_TYPES = {"int": ctypes.c_int, "unsigned": ctypes.c_uint, "float": ctypes.c_float,
+           "long long": ctypes.c_longlong}
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
@@ -156,6 +161,11 @@ def test_kernel_sources_and_signatures_agree():
         assert f'extern "C" int {fn}(' in src
         params = src.split(f'extern "C" int {fn}(')[1].split(")")[0]
         assert len(params.split(",")) == len(argtypes), fn
+        # each parameter's C type is its ctypes type: pointers, int, unsigned, float and
+        # the K1 rows' layout strides (long long)
+        for param, ctype in zip(params.split(","), argtypes):
+            c = " ".join(param.split()[:-1]).replace("const ", "")
+            assert ctype == (ctypes.c_void_p if c.endswith("*") else C_TYPES[c]), (fn, param)
         assert "Replaces:" in src
         # the launcher may live in a header of csrc/ the source includes
         headers = "".join((kernels.CSRC / h).read_text()
@@ -193,14 +203,18 @@ def test_counters_reset():
                                         "packed_attention_bwd_bf16_long",
                                         "packed_attention_bwd_bf16_mma",
                                         "packed_attention_bwd_bf16_multi",
+                                        "packed_attention_bwd_bf16_qkv",
                                         "packed_attention_bwd_bf16_wide",
                                         "packed_attention_bwd_long",
                                         "packed_attention_bwd_mma",
+                                        "packed_attention_bwd_qkv",
                                         "packed_attention_bwd_wide", "packed_attention_fwd",
                                         "packed_attention_fwd_bf16",
                                         "packed_attention_fwd_bf16_mma",
                                         "packed_attention_fwd_bf16_multi",
+                                        "packed_attention_fwd_bf16_qkv",
                                         "packed_attention_fwd_bf16_wide",
                                         "packed_attention_fwd_mma",
+                                        "packed_attention_fwd_qkv",
                                         "packed_attention_fwd_wide", "vq_assign",
                                         "vq_assign_wide"]

@@ -163,16 +163,16 @@ def test_prior_stacks_pass_causal_and_the_towers_do_not(monkeypatch):
     from bridgerl_tpu_torch.models import layers
 
     calls = []
-    real = layers.packed_attention
+    real = layers.packed_attention_qkv
 
-    def spy(q, k, v, bias, scale, dropout_rate=0.0, generator=None, window=None,
+    def spy(qkv, heads, bias, scale, dropout_rate=0.0, generator=None, window=None,
             causal=False):
-        calls.append((q.shape[1], window, causal,
-                      torch.equal(bias, layers.causal_bias(q.shape[1]))))
-        return real(q, k, v, bias, scale, dropout_rate, generator, window=window,
+        calls.append((qkv.shape[1], window, causal,
+                      torch.equal(bias, layers.causal_bias(qkv.shape[1]))))
+        return real(qkv, heads, bias, scale, dropout_rate, generator, window=window,
                     causal=causal)
 
-    monkeypatch.setattr(layers, "packed_attention", spy)
+    monkeypatch.setattr(layers, "packed_attention_qkv", spy)
     pcfg, _, _, tm = pair("slot_ar")
     g, _ = grid_and_classes(pcfg, b=2)
     with torch.no_grad():

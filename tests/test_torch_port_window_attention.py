@@ -137,15 +137,15 @@ def test_transformer_stack_passes_its_window(monkeypatch, packing, batch):
     """Every attention call of the towers takes window = seq_len, whether
     the batch is packed into rows of P windows or not, and causal False."""
     calls = []
-    real = layers.packed_attention
+    real = layers.packed_attention_qkv
 
-    def spy(q, k, v, bias, scale, dropout_rate=0.0, generator=None, window=None,
+    def spy(qkv, heads, bias, scale, dropout_rate=0.0, generator=None, window=None,
             causal=False):
-        calls.append((q.shape[1], window, causal))
-        return real(q, k, v, bias, scale, dropout_rate, generator, window=window,
+        calls.append((qkv.shape[1], window, causal))
+        return real(qkv, heads, bias, scale, dropout_rate, generator, window=window,
                     causal=causal)
 
-    monkeypatch.setattr(layers, "packed_attention", spy)
+    monkeypatch.setattr(layers, "packed_attention_qkv", spy)
     stack = layers.TransformerStack(2, 16, 2, 32, seq_len=5, packing=packing, dropout=0.0)
     stack(torch.randn(batch, 5, 16, generator=torch.Generator().manual_seed(0)))
     rows = 5 * packing if batch % packing == 0 else 5
